@@ -1,0 +1,115 @@
+"""Build, load and count the hand-written Hopper kernels in ``csrc/``.
+
+All CUDA sources compile with nvcc into ONE shared library with a plain C
+interface (no PyTorch headers, so the build takes seconds), loaded with
+ctypes. The build happens at first use, never at import: hosts without a
+card import every module of the port and run the plain versions instead.
+
+The library lands in ``build/kernels/<hash>/`` at the root of the checkout
+(ignored by git); the hash covers the sources and the nvcc flags, so an edit
+to a source rebuilds it and an unchanged tree reuses it across processes.
+
+Counters: ``LAUNCHES[name]`` grows by one each time a wrapper launches its
+kernel; ``PLAIN_CALLS[name]`` each time the plain PyTorch version runs. A run
+that resets both and then reads them shows which path the work took.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+
+CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
+BUILD_ROOT = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "build", "kernels")
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
+]
+
+KERNELS = ("block_sparse_attn", "rope")
+LAUNCHES = {name: 0 for name in KERNELS}
+PLAIN_CALLS = {name: 0 for name in KERNELS}
+
+_LIB = None
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+_SIGNATURES = {
+    # q, k, v, o, meta, aux, BH, Sq, Skv, D, R, nQ, L, block_q,
+    # mask_kind, band_width, sink_size, q_scale, stream
+    "svt_block_sparse_attn": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                              _I, _I, _I, _F, _P],
+    # x, cos, sin, out, BH, S, D, stream
+    "svt_rope": [_P, _P, _P, _P, _I, _I, _I, _P],
+}
+
+
+def reset_counts() -> None:
+    for d in (LAUNCHES, PLAIN_CALLS):
+        for name in d:
+            d[name] = 0
+
+
+def _sources():
+    return sorted(
+        os.path.join(CSRC, f) for f in os.listdir(CSRC) if f.endswith((".cu", ".cuh"))
+    )
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    cand = os.path.join(CUDA_HOME, "bin", "nvcc") if CUDA_HOME else None
+    if cand and os.path.isfile(cand):
+        return cand
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the Hopper kernels need the CUDA toolkit (set CUDA_HOME)")
+    return found
+
+
+def build() -> str:
+    """Compile csrc/ into the shared library if its hash is new; return its
+    path. nvcc's -Xptxas -v report (registers, spills) lands beside it."""
+    srcs = _sources()
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for s in srcs:
+        with open(s, "rb") as f:
+            h.update(os.path.basename(s).encode() + f.read())
+    out_dir = os.path.join(BUILD_ROOT, h.hexdigest()[:16])
+    lib = os.path.join(out_dir, "libsvt_kernels.so")
+    if os.path.isfile(lib):
+        return lib
+    os.makedirs(out_dir, exist_ok=True)
+    tmp = f"{lib}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp, *[s for s in srcs if s.endswith(".cu")]]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
+    with open(os.path.join(out_dir, "ptxas.log"), "w") as f:
+        f.write(res.stderr)
+    os.replace(tmp, lib)  # atomic: concurrent processes never load a half-written file
+    return lib
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    global _LIB
+    if _LIB is None:
+        cdll = ctypes.CDLL(build())
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(cdll, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _LIB = cdll
+    return _LIB
+
+
+def check(err: int, name: str) -> None:
+    """Raise on a non-zero cudaError_t returned by a launch."""
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {err}")

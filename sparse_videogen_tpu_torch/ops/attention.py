@@ -1,0 +1,128 @@
+"""Block-sparse flash attention over chunked-CSR metadata (counterpart of
+sparse_videogen_tpu/ops/attention.py::block_sparse_attention_kv).
+
+One kernel serves dense and SVG1 attention: only the metadata
+(ops/metadata.py) and the MaskSpec differ. K and V arrive as separate
+(BH, Skv, D) tensors; the TPU's packed [K|V] layout and its scheduling knobs
+(nbuf, unroll, qsplit, fast_mask, mxu_lsum) have no counterpart here.
+
+`block_sparse_attention_kv` launches the Hopper kernel
+(csrc/block_sparse_attn.cu) for CUDA tensors and the plain version for CPU
+tensors; `block_sparse_attention_kv_plain` is the plain version itself, the
+kernel's oracle on the card.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from sparse_videogen_tpu_torch import _kernels
+from sparse_videogen_tpu_torch.ops.mask_spec import MaskSpec, apply_mask_spec
+from sparse_videogen_tpu_torch.ops.metadata import ENTRY_SCALE, N_CHEAP_SCALE, SUB
+
+NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
+LOG2E = 1.4426950408889634
+TQ = 64  # q rows per CTA of the kernel; divides every block_q it accepts
+_KERNEL_MASKS = {"none": 0, "band_sink": 1}
+
+
+def _check(q, k, v, meta, block_q, block_kv):
+    BH, Sq, D = q.shape
+    if k.shape != v.shape or k.shape[0] != BH or k.shape[2] != D:
+        raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")
+    Skv = k.shape[1]
+    if Sq % block_q or Skv % SUB or Skv < block_kv or block_kv % SUB or block_kv >= ENTRY_SCALE:
+        raise ValueError(f"Sq={Sq} block_q={block_q} Skv={Skv} block_kv={block_kv}")
+    if meta.dim() != 3 or meta.shape[1] != Sq // block_q or meta.shape[0] not in (1, BH):
+        raise ValueError(f"meta {tuple(meta.shape)} for BH={BH}, nQ={Sq // block_q}")
+
+
+def block_sparse_attention_kv_plain(q, k, v, meta, aux=None, *, block_q: int, block_kv: int,
+                                    mask_spec: MaskSpec = MaskSpec(), scale: float | None = None):
+    """Plain PyTorch version: a loop over q blocks that walks each metadata
+    row's chunks with the kernel's online softmax (no S x S matrix)."""
+    _check(q, k, v, meta, block_q, block_kv)
+    _kernels.PLAIN_CALLS["block_sparse_attn"] += 1
+    BH, Sq, D = q.shape
+    scale = 1.0 / math.sqrt(D) if scale is None else scale
+    meta_h = meta.cpu().numpy()
+    aux_h = None if aux is None else [int(a) for a in torch.as_tensor(aux).cpu()]
+    R = meta_h.shape[0]
+    q_s = (q.float() * (scale * LOG2E)).to(q.dtype).float()
+    out = torch.empty_like(q)
+    col = torch.arange(block_kv, device=q.device)
+    for r in range(R):
+        heads = slice(None) if R == 1 else slice(r, r + 1)
+        for i in range(Sq // block_q):
+            qb = q_s[heads, i * block_q:(i + 1) * block_q]
+            acc = torch.zeros_like(qb)
+            m = torch.full(qb.shape[:-1] + (1,), NEG_INF, device=q.device)
+            l = torch.zeros_like(m)
+            qpos = (i * block_q + torch.arange(block_q, device=q.device))[:, None]
+            e0 = int(meta_h[r, i, 0])
+            n, n_cheap = e0 % N_CHEAP_SCALE, e0 // N_CHEAP_SCALE
+            for c in range(n):
+                idx, win = int(meta_h[r, i, 1 + 2 * c]), int(meta_h[r, i, 2 + 2 * c])
+                lo, hi = win // ENTRY_SCALE, win % ENTRY_SCALE
+                kb = k[heads, idx * SUB: idx * SUB + block_kv].float()
+                vb = v[heads, idx * SUB: idx * SUB + block_kv]
+                s = qb @ kb.transpose(-1, -2)
+                allowed = ((col >= lo) & (col < hi))[None, :]
+                if c >= n_cheap:
+                    pred = apply_mask_spec(mask_spec, qpos, idx * SUB + col[None, :], aux_h)
+                    if pred is not None:
+                        allowed = allowed & pred
+                s = torch.where(allowed, s, NEG_INF)
+                m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+                alpha = torch.exp2(m - m_new)
+                m_safe = torch.where(m_new > 0.5 * NEG_INF, m_new, 0.0)
+                p = torch.exp2(s - m_safe)
+                l = l * alpha + p.sum(-1, keepdim=True)
+                acc = acc * alpha + p.to(v.dtype).float() @ vb.float()
+                m = m_new
+            out[heads, i * block_q:(i + 1) * block_q] = (acc / l.clamp_min(1e-20)).to(q.dtype)
+    return out
+
+
+def block_sparse_attention_kv(q, k, v, meta, aux=None, *, block_q: int = 512, block_kv: int = 512,
+                              mask_spec: MaskSpec = MaskSpec(), scale: float | None = None):
+    """q (BH, Sq, D) with Sq % block_q == 0; k, v (BH, Skv, D) with
+    Skv % 128 == 0; meta (R, Sq // block_q, 1 + 2*cap) int32, R in {1, BH};
+    aux (4,) int32 or None. Returns (BH, Sq, D) in q's dtype.
+
+    CUDA tensors launch the Hopper kernel (bf16, D in {64, 128}, mask kinds
+    none/band_sink) and raise on anything else; CPU tensors run the plain
+    version."""
+    if q.device.type == "cpu":
+        return block_sparse_attention_kv_plain(q, k, v, meta, aux, block_q=block_q, block_kv=block_kv,
+                                               mask_spec=mask_spec, scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    _check(q, k, v, meta, block_q, block_kv)
+    BH, Sq, D = q.shape
+    if mask_spec.kind not in _KERNEL_MASKS:
+        raise NotImplementedError(f"mask kind {mask_spec.kind!r} has no Hopper kernel yet (ROADMAP.md)")
+    if D not in (64, 128) or block_q % TQ:
+        raise ValueError(f"kernel takes D in (64, 128) and block_q % {TQ} == 0; got D={D}, block_q={block_q}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.dtype != torch.bfloat16 or not t.is_contiguous() or t.device != q.device:
+            raise ValueError(f"{name}: need contiguous bf16 on {q.device}, got {t.dtype} on {t.device}")
+    aux = torch.zeros(4, dtype=torch.int32, device=q.device) if aux is None else aux
+    for name, t in (("meta", meta), ("aux", aux)):
+        if t.dtype != torch.int32 or not t.is_contiguous() or t.device != q.device:
+            raise ValueError(f"{name}: need contiguous int32 on {q.device}, got {t.dtype} on {t.device}")
+    if aux.numel() < 4:
+        raise ValueError(f"aux needs 4 entries, got {aux.numel()}")
+    scale = 1.0 / math.sqrt(D) if scale is None else scale
+    out = torch.empty_like(q)
+    err = _kernels.lib().svt_block_sparse_attn(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), meta.data_ptr(), aux.data_ptr(),
+        BH, Sq, k.shape[1], D, meta.shape[0], meta.shape[1], meta.shape[2], block_q,
+        _KERNEL_MASKS[mask_spec.kind], mask_spec.band_width, mask_spec.sink_size,
+        scale * LOG2E, torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _kernels.check(err, "block_sparse_attn")
+    _kernels.LAUNCHES["block_sparse_attn"] += 1
+    return out

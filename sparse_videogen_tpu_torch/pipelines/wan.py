@@ -1,0 +1,115 @@
+"""Wan 2.1 T2V generation pipeline (counterpart of
+sparse_videogen_tpu/pipelines/wan.py): FlowUniPC, CFG batched as
+[cond, null], and the dense/SVG1 self-attention runtime.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from sparse_videogen_tpu_torch.config import SparseMode, SVGConfig, VideoLayout, WarmupSchedule
+from sparse_videogen_tpu_torch.models.wan.model import WanConfig, WanModel
+from sparse_videogen_tpu_torch.schedulers import FlowUniPC
+from sparse_videogen_tpu_torch.sparse.runtimes import DenseRuntime, SVG1Runtime
+from sparse_videogen_tpu_torch.sparse.svg1 import make_svg1_plan
+
+VAE_SPATIAL = 8
+VAE_TEMPORAL = 4
+# SVG1 tiles of the pipeline (the JAX pipeline's): q blocks of the sparse
+# path and KV chunks of both paths
+BLOCK_Q = 512
+BLOCK_KV = 1024
+
+
+def wan_layout(model_cfg: WanConfig, height: int, width: int, num_frames: int) -> VideoLayout:
+    """Token layout from pixel dims."""
+    pt, ph, pw = model_cfg.patch_size
+    nf = (1 + (num_frames - 1) // VAE_TEMPORAL) // pt
+    fs = (height // (VAE_SPATIAL * ph)) * (width // (VAE_SPATIAL * pw))
+    return VideoLayout(num_frames=nf, frame_size=fs)
+
+
+def make_wan_runtime(
+    layout: VideoLayout,
+    *,
+    device,
+    pattern: str = "SVG",
+    warmup: WarmupSchedule = WarmupSchedule(),
+    svg: SVGConfig = SVGConfig(),
+    mesh=None,
+):
+    if mesh is not None:
+        raise NotImplementedError("sequence/ring parallelism is not ported to the torch package yet (ROADMAP.md)")
+    mode = SparseMode(pattern)
+    if mode == SparseMode.SAP:
+        raise NotImplementedError("pattern SAP (SVG2) is not ported to the torch package yet (ROADMAP.md)")
+    plan = make_svg1_plan(layout, svg, warmup, block_q=BLOCK_Q, block_kv=BLOCK_KV)
+    return (DenseRuntime if mode == SparseMode.DENSE else SVG1Runtime)(plan, device=device)
+
+
+@dataclasses.dataclass
+class WanPipeline:
+    model: WanModel
+
+    def generate_latents(
+        self,
+        context,  # (1, text_len, text_dim) conditional text embedding
+        context_null,  # (1, text_len, text_dim) negative/unconditional
+        *,
+        height: int = 480,
+        width: int = 832,
+        num_frames: int = 81,
+        num_inference_steps: int = 50,
+        guidance_scale: float = 5.0,
+        flow_shift: float = 3.0,
+        sampler: str = "unipc",
+        pattern: str = "SVG",
+        first_layers_fp: float = 0.0,
+        first_times_fp: float = 0.0,
+        svg: SVGConfig = SVGConfig(),
+        seed: int = 0,
+        callback=None,
+    ):
+        """Run the denoise loop from noise drawn with torch.Generator(seed) on
+        the model's device; return the final f32 latents (1, C, F', H', W')."""
+        if sampler != "unipc":
+            raise NotImplementedError(f"sampler {sampler!r} is not ported to the torch package yet (ROADMAP.md)")
+        device = self.model.patch_embedding.weight.device
+        gen = torch.Generator(device=device).manual_seed(seed)
+        shape = (1, self.model.cfg.out_dim, 1 + (num_frames - 1) // VAE_TEMPORAL,
+                 height // VAE_SPATIAL, width // VAE_SPATIAL)
+        lat = torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
+        return self._denoise(
+            context, context_null, lat, height=height, width=width, num_frames=num_frames,
+            num_inference_steps=num_inference_steps, guidance_scale=guidance_scale, flow_shift=flow_shift,
+            pattern=pattern, first_layers_fp=first_layers_fp, first_times_fp=first_times_fp, svg=svg,
+            generator=gen, callback=callback,
+        )
+
+    def _denoise(self, context, context_null, lat, *, height, width, num_frames, num_inference_steps,
+                 guidance_scale, flow_shift, pattern, first_layers_fp, first_times_fp, svg,
+                 generator=None, profile_rows=None, callback=None):
+        """The loop behind generate_latents, from the given initial latents.
+        `profile_rows[step][layer]` hands the SVG1 profiler fixed rows instead
+        of drawing them from `generator` (tests hand in the JAX package's)."""
+        model = self.model
+        cfgm = model.cfg
+        device, dtype = model.patch_embedding.weight.device, model.patch_embedding.weight.dtype
+        layout = wan_layout(cfgm, height, width, num_frames)
+        sch = FlowUniPC(num_inference_steps, shift=flow_shift)
+        warmup = WarmupSchedule.from_fractions(first_layers_fp, first_times_fp, cfgm.num_layers, sch.timesteps)
+        runtime = make_wan_runtime(layout, device=device, pattern=pattern, warmup=warmup, svg=svg)
+        ctx_pair = torch.cat([context, context_null], dim=0).to(device)
+        lat = lat.to(device)
+        sstate = sch.init_state(lat)
+        for i in range(num_inference_steps):
+            t = torch.full((2,), float(sch.timesteps[i]), dtype=torch.float32, device=device)
+            v = model(torch.cat([lat, lat], dim=0).to(dtype), t, ctx_pair, attention=runtime, generator=generator,
+                      profile_rows=None if profile_rows is None else profile_rows[i])
+            v_cond, v_uncond = v[:1], v[1:2]
+            lat, sstate = sch.step(i, lat, v_uncond + guidance_scale * (v_cond - v_uncond), sstate)
+            if callback is not None:
+                callback(i, lat)
+        return lat

@@ -1,0 +1,3 @@
+"""Flow-matching samplers (host-side f64 coefficient tables + torch steps)."""
+
+from sparse_videogen_tpu_torch.schedulers.unipc import FlowUniPC  # noqa: F401

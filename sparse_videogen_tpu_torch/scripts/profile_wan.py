@@ -1,0 +1,171 @@
+"""Per-step time and per-kernel breakdown of full-size Wan 2.1 1.3B T2V on one GPU.
+
+    python -m sparse_videogen_tpu_torch.scripts.profile_wan [--runs SVG,dense,dense,SVG]
+
+Random bf16 weights from --seed and a random (1, 512, 4096) context (UMT5-XXL's
+shape), batched CFG, the CLI's sparsity and warm-up fractions. Two parts:
+
+  [time]    WanPipeline.generate_latents for --steps UniPC steps, once per
+            entry of --runs (alternate the patterns to see drift), after one
+            1-step warm-up generation per pattern; seconds per step from CUDA
+            events recorded by the step callback.
+  [profile] one CFG-batched forward per pattern (a denoising step without the
+            UniPC update, at the second timestep) under torch.profiler: device
+            time by category of kernel name, launches, and the device idle
+            share = 1 - (union of device-activity intervals) / (their span).
+
+--out writes the same numbers as JSON.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import time
+
+import torch
+
+# (category, substrings of the kernel name); first match wins, the rest is elementwise
+CATEGORIES = (
+    ("kernel A (bsa_kernel)", ("bsa_kernel",)),
+    ("kernel B (rope_kernel)", ("rope_kernel",)),
+    ("GEMM (cuBLAS)", ("nvjet", "gemm", "xmma", "cutlass")),
+    ("softmax", ("softmax",)),
+    ("reduce", ("reduce_kernel",)),
+    ("copy/memset/cat", ("copy", "Memcpy", "Memset", "CatArray")),
+)
+
+
+def category(name: str) -> str:
+    for cat, keys in CATEGORIES:
+        if any(k in name for k in keys):
+            return cat
+    return "elementwise"
+
+
+def breakdown(events):
+    """events: (name, start_ns, end_ns) of device activity -> per-category
+    {ms, launches}, total device ms, busy (union) ms, span ms."""
+    cats: dict[str, dict] = {}
+    for name, s, e in events:
+        c = cats.setdefault(category(name), {"ms": 0.0, "launches": 0})
+        c["ms"] += (e - s) / 1e6
+        c["launches"] += 1
+    busy, cur_s, cur_e = 0, None, None
+    for _, s, e in sorted(events, key=lambda x: x[1]):
+        if cur_e is None or s > cur_e:
+            busy += 0 if cur_e is None else cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    busy += 0 if cur_e is None else cur_e - cur_s
+    span = max(e for _, _, e in events) - min(s for _, s, _ in events)
+    return cats, sum(c["ms"] for c in cats.values()), busy / 1e6, span / 1e6
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--height", type=int, default=480)
+    ap.add_argument("--width", type=int, default=832)
+    ap.add_argument("--num_frames", type=int, default=81)
+    ap.add_argument("--steps", type=int, default=4)
+    ap.add_argument("--runs", default="SVG,dense,dense,SVG")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--out", default=None, help="write the results as JSON here")
+    args = ap.parse_args(argv)
+
+    from sparse_videogen_tpu_torch import _kernels
+    from sparse_videogen_tpu_torch.config import SVGConfig, WarmupSchedule
+    from sparse_videogen_tpu_torch.models.wan.model import WAN_1_3B, WanModel
+    from sparse_videogen_tpu_torch.pipelines import WanPipeline
+    from sparse_videogen_tpu_torch.pipelines.wan import make_wan_runtime, wan_layout
+    from sparse_videogen_tpu_torch.schedulers import FlowUniPC
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("profile_wan needs a CUDA device")
+    dev = torch.device("cuda", 0)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    print(f"[device] {smi}; torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    sparsity, first_layers_fp, first_times_fp, flow_shift, guidance = 0.25, 0.025, 0.075, 3.0, 5.0  # CLI defaults
+    svg = SVGConfig(sparsity=sparsity)
+
+    cfg = WAN_1_3B
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    model = WanModel(cfg, dtype=torch.bfloat16, device=dev).init_random(gen)
+    ctx = torch.randn(1, cfg.text_len, cfg.text_dim, generator=gen, device=dev).to(torch.bfloat16)
+    ctx_null = torch.randn(1, cfg.text_len, cfg.text_dim, generator=gen, device=dev).to(torch.bfloat16)
+    pipe = WanPipeline(model)
+    gen_kw = dict(height=args.height, width=args.width, num_frames=args.num_frames, guidance_scale=guidance,
+                  flow_shift=flow_shift, first_layers_fp=first_layers_fp, first_times_fp=first_times_fp, svg=svg,
+                  seed=args.seed)
+    runs = args.runs.split(",")
+    for pattern in dict.fromkeys(runs):
+        pipe.generate_latents(ctx, ctx_null, num_inference_steps=1, pattern=pattern, **gen_kw)
+    result = {"device": smi, "time": [], "profile": {}}
+
+    for pattern in runs:
+        events = []
+        start = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        t0 = time.perf_counter()
+
+        def on_step(i, lat):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            events.append(ev)
+
+        pipe.generate_latents(ctx, ctx_null, num_inference_steps=args.steps, pattern=pattern, callback=on_step,
+                              **gen_kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        steps = [start.elapsed_time(events[0]) / 1e3] + [
+            events[i - 1].elapsed_time(events[i]) / 1e3 for i in range(1, len(events))]
+        print(f"[time] {pattern}: per-step s {steps} wall {wall} s (the first step includes set-up)", flush=True)
+        result["time"].append({"pattern": pattern, "per_step_s": steps, "wall_s": wall})
+
+    lay = wan_layout(cfg, args.height, args.width, args.num_frames)
+    sch = FlowUniPC(args.steps, shift=flow_shift)
+    warmup = WarmupSchedule.from_fractions(first_layers_fp, first_times_fp, cfg.num_layers, sch.timesteps)
+    ctx_pair = torch.cat([ctx, ctx_null])
+    x = torch.randn(2, cfg.out_dim, lay.num_frames, args.height // 8, args.width // 8, generator=gen,
+                    device=dev).to(torch.bfloat16)
+    t = torch.full((2,), float(sch.timesteps[1]), device=dev)
+    for pattern in dict.fromkeys(runs):
+        rt = make_wan_runtime(lay, device=dev, pattern=pattern, warmup=warmup, svg=svg)
+        if pattern == "SVG" and rt.is_dense(0, float(t[0])):
+            raise AssertionError("the profiled SVG forward would run dense (warm-up)")
+        model(x, t, ctx_pair, attention=rt, generator=gen)
+        torch.cuda.synchronize()
+        _kernels.reset_counts()
+        prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                  torch.profiler.ProfilerActivity.CUDA])
+        t0 = time.perf_counter()
+        with prof:
+            model(x, t, ctx_pair, attention=rt, generator=gen)
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        dev_events = [(e.name(), e.start_ns(), e.end_ns()) for e in prof.profiler.kineto_results.events()
+                      if e.device_type() == torch.autograd.DeviceType.CUDA]
+        if not dev_events:
+            raise RuntimeError("torch.profiler recorded no device activity")
+        cats, total, busy, span = breakdown(dev_events)
+        idle = 1 - busy / span
+        print(f"[profile] {pattern} forward: host wall {wall} s (profiler on), {len(dev_events)} device events, "
+              f"device time {total} ms, busy (union) {busy} ms of span {span} ms -> idle share {idle}; "
+              f"launch counters {dict(_kernels.LAUNCHES)}", flush=True)
+        for cat, c in sorted(cats.items(), key=lambda kv: -kv[1]["ms"]):
+            print(f"[profile] {pattern} {cat}: {c['ms']} ms ({100 * c['ms'] / total:.1f}%), "
+                  f"{c['launches']} launches", flush=True)
+        result["profile"][pattern] = {"host_wall_s": wall, "device_ms": total, "busy_ms": busy, "span_ms": span,
+                                      "idle_share": idle, "categories": cats}
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(result, f, indent=1)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,56 @@
+"""Self-attention runtimes (counterpart of sparse_videogen_tpu/sparse/runtimes.py):
+dense and SVG1. The model calls one per block:
+
+    runtime(q, k, v, t, layer_idx, rows=None, generator=None) -> out
+
+q, k, v (B, H, S, D); t the step's timestep (0..1000); rows the profiler's
+sampled query rows (drawn from `generator` when None). The metadata and the
+mask scalars go to the device once, when the runtime is built. The JAX
+warm-up `lax.cond` is a Python `if`.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from sparse_videogen_tpu_torch.core.profiler import sample_rows
+from sparse_videogen_tpu_torch.ops import metadata as MD
+from sparse_videogen_tpu_torch.sparse.svg1 import SVG1Plan, dense_impl, svg1_sparse_impl, to_device_meta
+
+
+def _classified(meta, spec, plan: SVG1Plan, block_q):
+    """Cheap-first metadata (ops/metadata.classify_cheap_np); its aux must
+    equal the runtime's aux."""
+    return MD.classify_cheap_np(meta, spec, plan.default_aux(), block_q=block_q,
+                                block_kv=plan.block_kv, seq_q=plan.layout.seq_len)
+
+
+class DenseRuntime:
+    def __init__(self, plan: SVG1Plan, *, device):
+        self.plan = plan
+        self.dense_meta = to_device_meta(
+            _classified(plan.dense_meta(), plan.dense_mask_spec, plan, plan.dense_block_q), device)
+        self.aux = torch.as_tensor(plan.default_aux(), device=device)
+
+    def __call__(self, q, k, v, t, layer_idx, rows=None, generator=None):
+        return dense_impl(q, k, v, self.dense_meta, self.plan, self.aux)
+
+
+class SVG1Runtime(DenseRuntime):
+    def __init__(self, plan: SVG1Plan, *, device):
+        super().__init__(plan, device=device)
+        self.sparse_meta = to_device_meta(_classified(plan.sparse_meta(), plan.mask_spec, plan, plan.block_q), device)
+
+    def is_dense(self, layer_idx: int, t: float) -> bool:
+        w = self.plan.warmup
+        return layer_idx < w.first_layers or t > w.first_times
+
+    def __call__(self, q, k, v, t, layer_idx, rows=None, generator=None):
+        if self.is_dense(layer_idx, t):
+            return dense_impl(q, k, v, self.dense_meta, self.plan, self.aux)
+        if rows is None:
+            c = self.plan.cfg
+            rows = sample_rows(q.shape[2], num_sampled_rows=c.num_sampled_rows,
+                               sample_mse_max_row=c.sample_mse_max_row, generator=generator,
+                               device=q.device)
+        return svg1_sparse_impl(q, k, v, rows, self.sparse_meta, self.plan, self.aux)

@@ -1,0 +1,163 @@
+"""SVG1: online profiling -> placement -> static block-sparse attention
+(counterpart of sparse_videogen_tpu/sparse/svg1.py, placement path only).
+
+The plan is static per (layout, config): it builds the numpy metadata once;
+the runtimes (sparse/runtimes.py) copy it to the device.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from sparse_videogen_tpu_torch.config import SVGConfig, TextPosition, VideoLayout, WarmupSchedule
+from sparse_videogen_tpu_torch.core import masks as core_masks
+from sparse_videogen_tpu_torch.core.placement import place_heads
+from sparse_videogen_tpu_torch.core.profiler import best_mask_idx, sample_mse
+from sparse_videogen_tpu_torch.ops import metadata as MD
+from sparse_videogen_tpu_torch.ops.attention import block_sparse_attention_kv
+from sparse_videogen_tpu_torch.ops.mask_spec import MaskSpec
+
+
+@dataclasses.dataclass(frozen=True)
+class SVG1Plan:
+    layout: VideoLayout
+    cfg: SVGConfig
+    warmup: WarmupSchedule
+    multiplier: float
+    block_q: int
+    block_kv: int
+
+    def __post_init__(self):
+        object.__setattr__(self, "_cache", {})
+
+    @property
+    def seq_pad_q(self) -> int:
+        return -(-self.layout.seq_len // self.block_q) * self.block_q
+
+    @property
+    def seq_pad_kv(self) -> int:
+        s = -(-self.layout.seq_len // MD.SUB) * MD.SUB
+        return max(s, self.block_kv)
+
+    @property
+    def dense_block_q(self) -> int:
+        """block_q of the dense path (JAX's dense_exec[0]): up to 2048 for
+        unmasked dense attention over long sequences, else block_q."""
+        if self.seq_pad_kv >= 2048:
+            return min(2048, -(-self.layout.seq_len // 128) * 128)
+        return self.block_q
+
+    @property
+    def mask_spec(self) -> MaskSpec:
+        # reference band is |q-kv| <= w (ceil-rounded); the predicate is strict <
+        w = math.ceil(self.multiplier * self.layout.frame_size / 128) * 128
+        return MaskSpec(kind="band_sink", band_width=w + 1, sink_size=self.layout.frame_size)
+
+    @property
+    def dense_mask_spec(self) -> MaskSpec:
+        return MaskSpec()
+
+    def default_aux(self) -> np.ndarray:
+        """(4,) int32 mask scalars; band_sink reads only the global q/k
+        offsets aux[2:4], which are 0 for an unsharded sequence."""
+        return np.zeros((4,), np.int32)
+
+    def _build(self, key, fn):
+        if key not in self._cache:
+            self._cache[key] = fn()
+        return self._cache[key]
+
+    def sparse_meta(self) -> np.ndarray:
+        def build():
+            lay = self.layout
+            nsub = self.seq_pad_kv // MD.SUB
+            bm = core_masks.execution_mask_block(
+                lay, self.multiplier, block_q=self.block_q, block_kv=MD.SUB)
+            bm = np.pad(bm, ((0, self.seq_pad_q // self.block_q - bm.shape[0]), (0, nsub - bm.shape[1])))
+            counts = MD.kv_counts_for_seq(lay.seq_len, self.seq_pad_kv)
+            return MD.chunk_meta_np(bm[None], counts, block_kv=self.block_kv)
+
+        return self._build("sparse_meta", build)
+
+    def dense_meta(self) -> np.ndarray:
+        def build():
+            counts = MD.kv_counts_for_seq(self.layout.seq_len, self.seq_pad_kv)
+            nsub = self.seq_pad_kv // MD.SUB
+            nq = -(-self.layout.seq_len // self.dense_block_q)
+            bm = np.ones((1, nq, nsub), bool)
+            return MD.chunk_meta_np(bm, counts, block_kv=self.block_kv)
+
+        return self._build("dense_meta", build)
+
+    def profile_preds(self):
+        def build():
+            return tuple(core_masks.profile_mask_predicate(self.layout, name, self.cfg.profile_multiplier)
+                         for name in ("spatial", "temporal"))
+
+        return self._build("preds", build)
+
+
+def make_svg1_plan(
+    layout: VideoLayout,
+    cfg: SVGConfig = SVGConfig(),
+    warmup: WarmupSchedule = WarmupSchedule(),
+    *,
+    block_q: int | None = None,
+    block_kv: int = 1024,
+) -> SVG1Plan:
+    """The band+sink plan of a video-only (Wan) layout. block_q defaults to
+    1024 at S >= 8192, else 512; block_q and block_kv are clamped to the
+    128-padded sequence length."""
+    if layout.text_position != TextPosition.NONE or layout.context_length:
+        raise NotImplementedError(
+            "SVG1 with text tokens in the sequence (HunyuanVideo, Cog) is not ported to the torch package yet "
+            "(ROADMAP.md)")
+    s_pad = -(-layout.seq_len // 128) * 128
+    if block_q is None:
+        block_q = 1024 if layout.seq_len >= 8192 else 512
+    block_kv = min(block_kv, s_pad)
+    block_q = min(block_q, s_pad)
+    mul = core_masks.sparsity_to_width(cfg.sparsity, layout.context_length, layout.num_frames, layout.frame_size)
+    return SVG1Plan(layout, cfg, warmup, mul, block_q, block_kv)
+
+
+def _pad_seq(x, s_pad):
+    return F.pad(x, (0, 0, 0, s_pad - x.shape[2]))
+
+
+def _run_kernel(q, k, v, meta, plan: SVG1Plan, mask_spec, aux, *, block_q: int):
+    """(B, H, S, D) -> pad q to block_q and k/v to seq_pad_kv, flatten heads,
+    run the block-sparse attention, slice the padding off."""
+    B, H, S, D = q.shape
+    sq_pad = -(-S // block_q) * block_q
+    qf = _pad_seq(q, sq_pad).reshape(B * H, sq_pad, D).contiguous()
+    kf = _pad_seq(k, plan.seq_pad_kv).reshape(B * H, plan.seq_pad_kv, D).contiguous()
+    vf = _pad_seq(v, plan.seq_pad_kv).reshape(B * H, plan.seq_pad_kv, D).contiguous()
+    out = block_sparse_attention_kv(qf, kf, vf, meta, aux, block_q=block_q, block_kv=plan.block_kv,
+                                    mask_spec=mask_spec)
+    return out[:, :S].reshape(B, H, S, D)
+
+
+def svg1_sparse_impl(q, k, v, rows, meta, plan: SVG1Plan, aux=None):
+    """Profile the sampled `rows`, re-lay-out the temporal heads, run the
+    shared band+sink attention, restore the original order."""
+    mses = sample_mse(q, k, v, plan.profile_preds(), rows)
+    is_t = best_mask_idx(mses) == 1  # (B, H)
+    o = _run_kernel(place_heads(q, is_t, plan.layout), place_heads(k, is_t, plan.layout),
+                    place_heads(v, is_t, plan.layout), meta, plan, plan.mask_spec, aux,
+                    block_q=plan.block_q)
+    return place_heads(o, is_t, plan.layout, inverse=True)
+
+
+def dense_impl(q, k, v, meta, plan: SVG1Plan, aux=None):
+    """Dense attention through the same kernel (full metadata)."""
+    return _run_kernel(q, k, v, meta, plan, plan.dense_mask_spec, aux, block_q=plan.dense_block_q)
+
+
+def to_device_meta(meta: np.ndarray, device) -> torch.Tensor:
+    return torch.as_tensor(np.ascontiguousarray(meta, np.int32), device=device)

@@ -1,0 +1,108 @@
+"""The Hopper kernels of the torch port against their plain PyTorch versions.
+
+The `gpu`-marked tests need a CUDA device and skip without one; on the card
+they run with `python -m pytest tests/test_torch_kernels.py -m gpu
+--noconftest` (tests/conftest.py imports JAX, which the card's machine
+lacks; this file imports none). The CPU tests check the
+wrappers' dispatch and argument checks.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from sparse_videogen_tpu_torch import _kernels
+from sparse_videogen_tpu_torch.models.common.rope import wan_rope_cos_sin
+from sparse_videogen_tpu_torch.ops import metadata as MD
+from sparse_videogen_tpu_torch.ops.attention import block_sparse_attention_kv, block_sparse_attention_kv_plain
+from sparse_videogen_tpu_torch.ops.mask_spec import MaskSpec
+from sparse_videogen_tpu_torch.ops.rope import rope_apply, rope_plain
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the Hopper kernels run only on the card")
+    return torch.device("cuda")
+
+
+def test_cpu_tensor_runs_plain_and_bad_shapes_raise():
+    q = torch.zeros(1, 256, 64)
+    kv = torch.zeros(1, 256, 64)
+    meta = torch.as_tensor(MD.dense_meta(256, 256, block_q=128, block_kv=128))
+    _kernels.reset_counts()
+    block_sparse_attention_kv(q, kv, kv, meta, block_q=128, block_kv=128)
+    assert _kernels.PLAIN_CALLS["block_sparse_attn"] == 1 and _kernels.LAUNCHES["block_sparse_attn"] == 0
+    with pytest.raises(ValueError):  # Sq not a multiple of block_q
+        block_sparse_attention_kv(q[:, :200], kv, kv, meta, block_q=128, block_kv=128)
+    with pytest.raises(ValueError):  # metadata rows do not match the q blocks
+        block_sparse_attention_kv(q, kv, kv, meta[:, :1], block_q=128, block_kv=128)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("spec", [MaskSpec(), MaskSpec(kind="band_sink", band_width=300, sink_size=200)],
+                         ids=["none", "band_sink"])
+@pytest.mark.parametrize("D_", [64, 128])
+def test_attention_kernel_matches_plain(cuda, spec, D_):
+    """The Hopper kernel against the plain version on the card, bf16, with a
+    sequence tail, per-head metadata and an empty q block. Both accumulate in
+    f32 and round P to bf16 for PV; they rescale P at other points (64-token
+    sub-tiles vs whole chunks): atol 2e-2 on bf16 outputs of size ~1."""
+    rng = np.random.default_rng(11)
+    S, sq, skv, bq, bkv = 1000, 1024, 1024, 256, 512
+    mask = rng.random((2, sq // bq, skv // MD.SUB)) < 0.6
+    mask[1, 0] = False
+    meta = MD.chunk_meta_np(mask, np.repeat(MD.kv_counts_for_seq(S, skv), 2, axis=0), block_kv=bkv)
+    meta = MD.classify_cheap_np(meta, spec, np.zeros(4, np.int32), block_q=bq, block_kv=bkv, seq_q=S)
+    t = lambda a: torch.as_tensor(a, device=cuda)
+    q, k, v = (torch.randn(2, n, D_, device=cuda).to(torch.bfloat16) for n in (sq, skv, skv))
+    aux = t(np.asarray([0, 0, 3, 1], np.int32))
+    kw = dict(block_q=bq, block_kv=bkv, mask_spec=spec)
+    _kernels.reset_counts()
+    out = block_sparse_attention_kv(q, k, v, t(meta), aux, **kw)
+    assert _kernels.LAUNCHES["block_sparse_attn"] == 1 and _kernels.PLAIN_CALLS["block_sparse_attn"] == 0
+    ref = block_sparse_attention_kv_plain(q, k, v, t(meta), aux, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out[:, :S].float(), ref[:, :S].float(), atol=2e-2, rtol=0)
+    assert torch.all(out[1, :bq] == 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", [64, 128])
+def test_rope_kernel_matches_plain(cuda, D):
+    """Kernel and plain version evaluate the same f32 products and sums (no
+    FMA contraction) and round once to bf16: equal bit for bit."""
+    cos, sin = (torch.as_tensor(a, device=cuda) for a in wan_rope_cos_sin(5, 6, 7, D))
+    x = torch.randn(6, cos.shape[0], D, device=cuda).to(torch.bfloat16)
+    _kernels.reset_counts()
+    out = rope_apply(x, cos, sin)
+    assert _kernels.LAUNCHES["rope"] == 1
+    torch.testing.assert_close(out, rope_plain(x, cos, sin), atol=0, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pattern", ["dense", "SVG"])
+def test_small_wan_forward_kernels_vs_plain(cuda, pattern):
+    """A small bf16 Wan forward at batch 1 (head views that are not
+    contiguous on their own): kernels on the card against the plain versions
+    on the CPU, same weights, inputs and profiler rows. CPU and GPU matmuls
+    round bf16 at other places over 4 blocks: rel L2 error <= 3e-2."""
+    from sparse_videogen_tpu_torch.models.wan.model import WanConfig, WanModel
+    from sparse_videogen_tpu_torch.pipelines.wan import make_wan_runtime, wan_layout
+
+    cfg = WanConfig(dim=256, ffn_dim=512, num_heads=2, num_layers=4, freq_dim=64, text_dim=64, text_len=16)
+    gen = torch.Generator().manual_seed(0)
+    cpu = WanModel(cfg, dtype=torch.bfloat16).init_random(gen)
+    gpu = WanModel(cfg, dtype=torch.bfloat16, device=cuda)
+    gpu.load_state_dict(cpu.state_dict())
+    lay = wan_layout(cfg, 96, 128, 9)
+    x = torch.randn(1, 16, lay.num_frames, 12, 16, generator=gen).to(torch.bfloat16)
+    ctx = torch.randn(1, cfg.text_len, cfg.text_dim, generator=gen).to(torch.bfloat16)
+    t = torch.full((1,), 500.0)
+    rows = torch.randint(0, lay.seq_len, (cfg.num_layers, 64), generator=gen)
+    outs = []
+    for model, dev in ((gpu, cuda), (cpu, torch.device("cpu"))):
+        rt = make_wan_runtime(lay, device=dev, pattern=pattern)
+        outs.append(model(x.to(dev), t.to(dev), ctx.to(dev), attention=rt, profile_rows=rows).cpu())
+    assert ((outs[0] - outs[1]).norm() / outs[1].norm()).item() <= 3e-2
+
