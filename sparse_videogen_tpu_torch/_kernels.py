@@ -2,8 +2,9 @@
 
 All CUDA sources compile with nvcc into ONE shared library with a plain C
 interface (no PyTorch headers, so the build takes seconds), loaded with
-ctypes. The build happens at first use, never at import: hosts without a
-card import every module of the port and run the plain versions instead.
+ctypes: one nvcc per source, all started together, then one link. The
+build happens at first use, never at import: hosts without a card import
+every module of the port and run the plain versions instead.
 
 The library lands in ``build/kernels/<hash>/`` at the root of the checkout
 (ignored by git); the hash covers the sources and the nvcc flags, so an edit
@@ -26,10 +27,10 @@ CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_ROOT = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "build", "kernels")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo",
 ]
 
-KERNELS = ("block_sparse_attn", "rope")
+KERNELS = ("block_sparse_attn", "rope", "block_sparse_attn_runs", "kmeans")
 LAUNCHES = {name: 0 for name in KERNELS}
 PLAIN_CALLS = {name: 0 for name in KERNELS}
 
@@ -45,6 +46,16 @@ _SIGNATURES = {
                               _I, _I, _I, _F, _P],
     # x, cos, sin, out, BH, S, D, stream
     "svt_rope": [_P, _P, _P, _P, _I, _I, _I, _P],
+    # q, k, v, o, meta, aux, BH, Sq, Skv, D, R, nQ, L, block_q, block_kv,
+    # mask_kind, band_width, sink_size, q_scale, stream
+    "svt_block_sparse_attn_runs": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                                   _I, _I, _I, _F, _P],
+    # K, D -> dynamic shared memory bytes of the k-means slab kernel
+    "svt_kmeans_smem_bytes": [_I, _I],
+    # B, N -> number of token slabs
+    "svt_kmeans_num_slabs": [_I, _I],
+    # x, c, labels, part_sums, part_counts, sums, counts, B, N, K, D, n_slabs, stream
+    "svt_kmeans_assign_update": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 
@@ -74,7 +85,8 @@ def _nvcc() -> str:
 
 def build() -> str:
     """Compile csrc/ into the shared library if its hash is new; return its
-    path. nvcc's -Xptxas -v report (registers, spills) lands beside it."""
+    path. Each .cu compiles in its own nvcc process, all at once; nvcc's
+    -Xptxas -v reports (registers, spills) land in ptxas.log beside it."""
     srcs = _sources()
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for s in srcs:
@@ -85,13 +97,26 @@ def build() -> str:
     if os.path.isfile(lib):
         return lib
     os.makedirs(out_dir, exist_ok=True)
-    tmp = f"{lib}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp, *[s for s in srcs if s.endswith(".cu")]]
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    tag = f"{os.getpid()}.tmp"
+    nvcc = _nvcc()
+    cus = [s for s in srcs if s.endswith(".cu")]
+    objs = [os.path.join(out_dir, f"{os.path.basename(s)}.{tag}.o") for s in cus]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", o, s], stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True) for s, o in zip(cus, objs)]
+    logs = []
+    for s, p in zip(cus, procs):
+        out, err = p.communicate()
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {os.path.basename(s)} ({p.returncode}):\n{out}\n{err}")
+        logs.append(err)
+    tmp = f"{lib}.{tag}"
+    res = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs], capture_output=True, text=True)
     if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
+        raise RuntimeError(f"nvcc link failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
+    for o in objs:
+        os.remove(o)
     with open(os.path.join(out_dir, "ptxas.log"), "w") as f:
-        f.write(res.stderr)
+        f.write("".join(logs))
     os.replace(tmp, lib)  # atomic: concurrent processes never load a half-written file
     return lib
 

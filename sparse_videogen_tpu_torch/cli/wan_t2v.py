@@ -6,12 +6,13 @@ a host without a card fails.
 
 What runs today is the random-weight path that the JAX CLI takes without
 `--model_dir` (`--smoke`, or no checkpoint): a tiny Wan at a reduced size,
-denoised with dense or SVG1 attention, latents written to an `.npz`.
+denoised with dense, SVG1 or SAP (cluster mode) attention, latents written
+to an `.npz`; `--logging_file` takes SAP's density log.
 Checkpoints (`--model_dir`), the UMT5 text encoder and the VAE decode to a
 video are not ported yet (ROADMAP.md) and raise NotImplementedError.
 
 Usage:
-  python -m sparse_videogen_tpu_torch.cli.wan_t2v --smoke --pattern SVG \
+  python -m sparse_videogen_tpu_torch.cli.wan_t2v --smoke --pattern SAP \
       --device cuda --output_file out.npz
 """
 
@@ -48,6 +49,8 @@ def _unported(args) -> str | None:
         return "multi-device parallelism"
     if args.prompt_source != "prompt":
         return "--prompt_source (prompts need the UMT5 encoder)"
+    if args.sap_block_mode != "cluster":
+        return f"--sap_block_mode {args.sap_block_mode} (SAP tile mode)"
     return None
 
 
@@ -63,7 +66,7 @@ def main(argv=None):
 
     import torch
 
-    from sparse_videogen_tpu_torch.config import SVGConfig
+    from sparse_videogen_tpu_torch.config import SAPConfig, SVGConfig
     from sparse_videogen_tpu_torch.models.wan.model import WanConfig, WanModel
     from sparse_videogen_tpu_torch.pipelines import WanPipeline
 
@@ -83,6 +86,9 @@ def main(argv=None):
     args.height, args.width = min(args.height, 96), min(args.width, 128)
     args.num_frames = min(args.num_frames, 9)
     args.num_inference_steps = min(args.num_inference_steps, 4)
+    args.num_q_centroids = min(args.num_q_centroids, 8)
+    args.num_k_centroids = min(args.num_k_centroids, 12)
+    args.kmeans_iter_init = min(args.kmeans_iter_init, 8)
 
     lat = WanPipeline(model).generate_latents(
         ctx, ctx_null,
@@ -94,7 +100,12 @@ def main(argv=None):
         svg=SVGConfig(num_sampled_rows=args.num_sampled_rows,
                       sample_mse_max_row=args.sample_mse_max_row,
                       sparsity=args.sparsity),
+        sap=SAPConfig(num_q_centroids=args.num_q_centroids, num_k_centroids=args.num_k_centroids,
+                      top_p_kmeans=args.top_p_kmeans, min_kc_ratio=args.min_kc_ratio,
+                      kmeans_iter_init=args.kmeans_iter_init, kmeans_iter_step=args.kmeans_iter_step,
+                      zero_step_kmeans_init=args.zero_step_kmeans_init),
         seed=args.seed,
+        logging_file=args.logging_file,
     )
     np.savez(args.output_file, latents=lat.cpu().numpy())
     logger.info(f"saved latents {tuple(lat.shape)} -> {args.output_file}")

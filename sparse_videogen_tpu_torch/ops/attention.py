@@ -1,15 +1,18 @@
-"""Block-sparse flash attention over chunked-CSR metadata (counterpart of
-sparse_videogen_tpu/ops/attention.py::block_sparse_attention_kv).
+"""Block-sparse flash attention (counterpart of sparse_videogen_tpu/ops/attention.py).
 
-One kernel serves dense and SVG1 attention: only the metadata
-(ops/metadata.py) and the MaskSpec differ. K and V arrive as separate
-(BH, Skv, D) tensors; the TPU's packed [K|V] layout and its scheduling knobs
-(nbuf, unroll, qsplit, fast_mask, mxu_lsum) have no counterpart here.
+Two metadata formats, one kernel each, sharing one CTA body
+(csrc/flash_chunk.cuh):
+- chunked CSR (`block_sparse_attention_kv`, csrc/block_sparse_attn.cu):
+  dense and SVG1 attention; only the metadata and the MaskSpec differ;
+- run lists (`block_sparse_attention_runs`, csrc/runs_attn.cu): SAP's
+  attention over unpadded cluster-sorted K/V (ops/metadata.py run_meta).
+K and V arrive as separate (BH, Skv, D) tensors; the TPU's packed [K|V]
+layout and its scheduling knobs (nbuf, unroll, qsplit, pair, expand,
+fast_mask, mxu_lsum) have no counterpart here.
 
-`block_sparse_attention_kv` launches the Hopper kernel
-(csrc/block_sparse_attn.cu) for CUDA tensors and the plain version for CPU
-tensors; `block_sparse_attention_kv_plain` is the plain version itself, the
-kernel's oracle on the card.
+Each wrapper launches its Hopper kernel for CUDA tensors and its plain
+version for CPU tensors; the `*_plain` functions are the plain versions
+themselves, the kernels' oracles on the card.
 """
 
 from __future__ import annotations
@@ -20,7 +23,7 @@ import torch
 
 from sparse_videogen_tpu_torch import _kernels
 from sparse_videogen_tpu_torch.ops.mask_spec import MaskSpec, apply_mask_spec
-from sparse_videogen_tpu_torch.ops.metadata import ENTRY_SCALE, N_CHEAP_SCALE, SUB
+from sparse_videogen_tpu_torch.ops.metadata import ENTRY_SCALE, N_CHEAP_SCALE, SUB, _run_chunks
 
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 LOG2E = 1.4426950408889634
@@ -28,15 +31,49 @@ TQ = 64  # q rows per CTA of the kernel; divides every block_q it accepts
 _KERNEL_MASKS = {"none": 0, "band_sink": 1}
 
 
-def _check(q, k, v, meta, block_q, block_kv):
+def _check(q, k, v, meta, block_q, block_kv, *, packed_windows=True):
     BH, Sq, D = q.shape
     if k.shape != v.shape or k.shape[0] != BH or k.shape[2] != D:
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")
     Skv = k.shape[1]
-    if Sq % block_q or Skv % SUB or Skv < block_kv or block_kv % SUB or block_kv >= ENTRY_SCALE:
+    if (Sq % block_q or Skv % SUB or Skv < block_kv or block_kv % SUB
+            or (packed_windows and block_kv >= ENTRY_SCALE)):
         raise ValueError(f"Sq={Sq} block_q={block_q} Skv={Skv} block_kv={block_kv}")
     if meta.dim() != 3 or meta.shape[1] != Sq // block_q or meta.shape[0] not in (1, BH):
         raise ValueError(f"meta {tuple(meta.shape)} for BH={BH}, nQ={Sq // block_q}")
+
+
+def _check_kernel_args(q, k, v, meta, aux, mask_spec, block_q):
+    """What the Hopper kernels take; returns aux on the device."""
+    D = q.shape[2]
+    if mask_spec.kind not in _KERNEL_MASKS:
+        raise NotImplementedError(f"mask kind {mask_spec.kind!r} has no Hopper kernel yet (ROADMAP.md)")
+    if D not in (64, 128) or block_q % TQ:
+        raise ValueError(f"kernel takes D in (64, 128) and block_q % {TQ} == 0; got D={D}, block_q={block_q}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.dtype != torch.bfloat16 or not t.is_contiguous() or t.device != q.device:
+            raise ValueError(f"{name}: need contiguous bf16 on {q.device}, got {t.dtype} on {t.device}")
+    aux = torch.zeros(4, dtype=torch.int32, device=q.device) if aux is None else aux
+    for name, t in (("meta", meta), ("aux", aux)):
+        if t.dtype != torch.int32 or not t.is_contiguous() or t.device != q.device:
+            raise ValueError(f"{name}: need contiguous int32 on {q.device}, got {t.dtype} on {t.device}")
+    if aux.numel() < 4:
+        raise ValueError(f"aux needs 4 entries, got {aux.numel()}")
+    return aux
+
+
+def _online_softmax_step(state, s, vb):
+    """One chunk of the kernels' online softmax (exp2 domain, P rounded to
+    v's dtype for PV, the row sum from the f32 P); s holds NEG_INF where a
+    column is not live."""
+    acc, m, l = state
+    m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+    alpha = torch.exp2(m - m_new)
+    m_safe = torch.where(m_new > 0.5 * NEG_INF, m_new, 0.0)
+    p = torch.exp2(s - m_safe)
+    l = l * alpha + p.sum(-1, keepdim=True)
+    acc = acc * alpha + p.to(vb.dtype).float() @ vb.float()
+    return acc, m_new, l
 
 
 def block_sparse_attention_kv_plain(q, k, v, meta, aux=None, *, block_q: int, block_kv: int,
@@ -75,13 +112,7 @@ def block_sparse_attention_kv_plain(q, k, v, meta, aux=None, *, block_q: int, bl
                     if pred is not None:
                         allowed = allowed & pred
                 s = torch.where(allowed, s, NEG_INF)
-                m_new = torch.maximum(m, s.amax(-1, keepdim=True))
-                alpha = torch.exp2(m - m_new)
-                m_safe = torch.where(m_new > 0.5 * NEG_INF, m_new, 0.0)
-                p = torch.exp2(s - m_safe)
-                l = l * alpha + p.sum(-1, keepdim=True)
-                acc = acc * alpha + p.to(v.dtype).float() @ vb.float()
-                m = m_new
+                acc, m, l = _online_softmax_step((acc, m, l), s, vb)
             out[heads, i * block_q:(i + 1) * block_q] = (acc / l.clamp_min(1e-20)).to(q.dtype)
     return out
 
@@ -102,19 +133,7 @@ def block_sparse_attention_kv(q, k, v, meta, aux=None, *, block_q: int = 512, bl
         raise ValueError(f"unsupported device {q.device}")
     _check(q, k, v, meta, block_q, block_kv)
     BH, Sq, D = q.shape
-    if mask_spec.kind not in _KERNEL_MASKS:
-        raise NotImplementedError(f"mask kind {mask_spec.kind!r} has no Hopper kernel yet (ROADMAP.md)")
-    if D not in (64, 128) or block_q % TQ:
-        raise ValueError(f"kernel takes D in (64, 128) and block_q % {TQ} == 0; got D={D}, block_q={block_q}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.dtype != torch.bfloat16 or not t.is_contiguous() or t.device != q.device:
-            raise ValueError(f"{name}: need contiguous bf16 on {q.device}, got {t.dtype} on {t.device}")
-    aux = torch.zeros(4, dtype=torch.int32, device=q.device) if aux is None else aux
-    for name, t in (("meta", meta), ("aux", aux)):
-        if t.dtype != torch.int32 or not t.is_contiguous() or t.device != q.device:
-            raise ValueError(f"{name}: need contiguous int32 on {q.device}, got {t.dtype} on {t.device}")
-    if aux.numel() < 4:
-        raise ValueError(f"aux needs 4 entries, got {aux.numel()}")
+    aux = _check_kernel_args(q, k, v, meta, aux, mask_spec, block_q)
     scale = 1.0 / math.sqrt(D) if scale is None else scale
     out = torch.empty_like(q)
     err = _kernels.lib().svt_block_sparse_attn(
@@ -125,4 +144,90 @@ def block_sparse_attention_kv(q, k, v, meta, aux=None, *, block_q: int = 512, bl
     )
     _kernels.check(err, "block_sparse_attn")
     _kernels.LAUNCHES["block_sparse_attn"] += 1
+    return out
+
+
+def run_chunks(meta_row, block_kv: int):
+    """The chunks of one run-list metadata row, as (first token, last token
+    + 1) pairs, in the kernel's order: full chunks (all block_kv tokens live)
+    first, then edge chunks, each in walk order. Chunk k of run [a, b) covers
+    [max(a, base + k*block_kv), min(b, base + (k+1)*block_kv)), base =
+    floor128(a); the row's count n stops the walk (ops/metadata.py)."""
+    n = int(meta_row[0])
+    cap = (len(meta_row) - 1) // 2
+    full, edge = [], []
+    for e in range(cap):
+        if len(full) + len(edge) >= n:
+            break
+        a, b = int(meta_row[1 + 2 * e]), int(meta_row[2 + 2 * e])
+        base = (a // SUB) * SUB
+        for kc in range(_run_chunks(a, b, block_kv)):
+            if len(full) + len(edge) >= n:
+                break
+            s0 = base + kc * block_kv
+            lo, hi = max(a, s0), min(b, s0 + block_kv)
+            (full if (lo, hi) == (s0, s0 + block_kv) else edge).append((lo, hi))
+    return full + edge
+
+
+def block_sparse_attention_runs_plain(q, k, v, meta, aux=None, *, block_q: int, block_kv: int,
+                                      mask_spec: MaskSpec = MaskSpec(), scale: float | None = None):
+    """Plain PyTorch version of the run-list attention: a loop over q blocks
+    that walks each row's chunks (run_chunks) with the kernel's online
+    softmax; with a MaskSpec every chunk also applies its predicate."""
+    _check(q, k, v, meta, block_q, block_kv, packed_windows=False)
+    _kernels.PLAIN_CALLS["block_sparse_attn_runs"] += 1
+    BH, Sq, D = q.shape
+    scale = 1.0 / math.sqrt(D) if scale is None else scale
+    meta_h = meta.cpu().numpy()
+    aux_h = None if aux is None else [int(a) for a in torch.as_tensor(aux).cpu()]
+    R = meta_h.shape[0]
+    q_s = (q.float() * (scale * LOG2E)).to(q.dtype).float()
+    out = torch.empty_like(q)
+    for r in range(R):
+        heads = slice(None) if R == 1 else slice(r, r + 1)
+        for i in range(Sq // block_q):
+            qb = q_s[heads, i * block_q:(i + 1) * block_q]
+            state = (torch.zeros_like(qb), torch.full(qb.shape[:-1] + (1,), NEG_INF, device=q.device),
+                     torch.zeros(qb.shape[:-1] + (1,), device=q.device))
+            qpos = (i * block_q + torch.arange(block_q, device=q.device))[:, None]
+            for lo, hi in run_chunks(meta_h[r, i], block_kv):
+                s = qb @ k[heads, lo:hi].float().transpose(-1, -2)
+                pred = apply_mask_spec(mask_spec, qpos, torch.arange(lo, hi, device=q.device)[None, :], aux_h)
+                if pred is not None:
+                    s = torch.where(pred, s, NEG_INF)
+                state = _online_softmax_step(state, s, v[heads, lo:hi])
+            acc, _, l = state
+            out[heads, i * block_q:(i + 1) * block_q] = (acc / l.clamp_min(1e-20)).to(q.dtype)
+    return out
+
+
+def block_sparse_attention_runs(q, k, v, meta, aux=None, *, block_q: int, block_kv: int,
+                                mask_spec: MaskSpec = MaskSpec(), scale: float | None = None):
+    """q (BH, Sq, D) with Sq % block_q == 0; k, v (BH, Skv, D) with
+    Skv % 128 == 0 and Skv >= block_kv, block_kv % 128 == 0; meta (R,
+    Sq // block_q, 1 + 2*cap) int32 run lists, R in {1, BH}; aux (4,) int32
+    or None. Returns (BH, Sq, D) in q's dtype; a row with n == 0 is 0.
+
+    CUDA tensors launch the Hopper kernel (bf16, D in {64, 128}, mask kinds
+    none/band_sink) and raise on anything else; CPU tensors run the plain
+    version."""
+    if q.device.type == "cpu":
+        return block_sparse_attention_runs_plain(q, k, v, meta, aux, block_q=block_q, block_kv=block_kv,
+                                                 mask_spec=mask_spec, scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    _check(q, k, v, meta, block_q, block_kv, packed_windows=False)
+    BH, Sq, D = q.shape
+    aux = _check_kernel_args(q, k, v, meta, aux, mask_spec, block_q)
+    scale = 1.0 / math.sqrt(D) if scale is None else scale
+    out = torch.empty_like(q)
+    err = _kernels.lib().svt_block_sparse_attn_runs(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), meta.data_ptr(), aux.data_ptr(),
+        BH, Sq, k.shape[1], D, meta.shape[0], meta.shape[1], meta.shape[2], block_q, block_kv,
+        _KERNEL_MASKS[mask_spec.kind], mask_spec.band_width, mask_spec.sink_size,
+        scale * LOG2E, torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _kernels.check(err, "block_sparse_attn_runs")
+    _kernels.LAUNCHES["block_sparse_attn_runs"] += 1
     return out

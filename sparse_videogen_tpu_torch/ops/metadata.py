@@ -1,19 +1,29 @@
-"""Chunked CSR metadata for the block-sparse attention kernel (counterpart of
-the numpy functions in sparse_videogen_tpu/ops/metadata.py; bit-identical).
+"""Block-sparse attention metadata (counterpart of
+sparse_videogen_tpu/ops/metadata.py; bit-identical): chunked CSR for the
+dense/SVG1 kernel, run lists for SAP's.
 
-Per (row r, q-block i) the kernel reads an int32 vector
+Chunked CSR: per (row r, q-block i) the kernel reads an int32 vector
     meta[r, i, :] = [n_cheap * N_CHEAP_SCALE + n, idx_0, win_0, idx_1, win_1, ...]
 where chunk c starts at token idx_c * SUB, spans block_kv tokens, and its
 live columns are [lo, hi) with win = lo * ENTRY_SCALE + hi. Rows R are 1
 (mask shared across heads: dense, SVG1) or B*H.
 
-The metadata depends only on static shapes, so it is built once on the host
-in numpy and copied to the device by the runtime.
+The dense/SVG1 metadata depends only on static shapes, so it is built once
+on the host in numpy and copied to the device by the runtime.
+
+Run lists (SAP): per (row r, q-block i)
+    meta[r, i, :] = [n_chunks, a_0, b_0, a_1, b_1, ...]
+lists the maximal token runs [a, b) of the cluster-sorted, unpadded K/V that
+the row visits (adjacent selected clusters merge); n_chunks counts the
+block_kv-token chunks the kernel walks them in. They change every step, so
+`run_meta` builds them on the device with tensor ops; `run_meta_np` is the
+numpy oracle the tests hold it to.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from sparse_videogen_tpu_torch.ops.mask_spec import full_block_allowed
 
@@ -154,4 +164,100 @@ def decode_meta(meta, *, block_kv: int, seq_kv: int):
                 lo, hi = win // ENTRY_SCALE, win % ENTRY_SCALE
                 base = idx * SUB
                 out[r, i, base + lo : base + hi] = True
+    return out
+
+
+def run_meta_row_len(cap: int) -> int:
+    return 1 + 2 * cap
+
+
+def _run_chunks(a, b, block_kv):
+    """Chunks of run [a, b): its SUB-aligned base walks in block_kv steps."""
+    base = (a // SUB) * SUB
+    return -(-(b - base) // block_kv)
+
+
+def run_meta(sel, starts, sizes, *, block_kv: int, cap: int):
+    """Run-list metadata on sel's device (counterpart of run_meta_jnp).
+
+    sel (R, NR, C) bool: per metadata row, the clusters it visits; starts
+    (R, C): each cluster's first token in the cluster-sorted K/V (exclusive
+    cumsum of sizes); sizes (R, C): cluster sizes (empty clusters allowed,
+    and they break runs). Rows with more than `cap` runs keep the first
+    `cap` (cap = C is always exact). Returns (R, NR, 1 + 2*cap) int32.
+    """
+    R, NR, C = sel.shape
+    if block_kv % SUB:
+        raise ValueError(f"block_kv={block_kv} must be a multiple of {SUB}")
+    starts = starts.long()
+    ends = starts + sizes.long()
+    sel = sel & (sizes > 0)[:, None, :]
+    no = torch.zeros_like(sel[..., :1])
+    run_start = sel & ~torch.cat([no, sel[..., :-1]], dim=-1)
+    run_end = sel & ~torch.cat([sel[..., 1:], no], dim=-1)
+    origin = torch.where(run_start, starts[:, None, :], -1).cummax(dim=-1).values
+    # run ends to the front, in cluster order (the keys are distinct)
+    cap_eff = min(cap, C)
+    iota = torch.arange(C, device=sel.device)
+    key = torch.where(run_end, iota, C + iota)
+    order = torch.argsort(key, dim=-1)[..., :cap_eff]
+    is_run = key.gather(-1, order) < C
+    a = torch.where(is_run, origin.gather(-1, order), 0)
+    b = torch.where(is_run, ends[:, None, :].expand(R, NR, C).gather(-1, order), 0)
+    n = torch.where(is_run, _run_chunks(a, b, block_kv), 0).sum(-1)
+    entries = torch.stack([a, b], dim=-1).reshape(R, NR, 2 * cap_eff)
+    if cap_eff < cap:
+        entries = torch.nn.functional.pad(entries, (0, 2 * (cap - cap_eff)))
+    return torch.cat([n[..., None], entries], dim=-1).to(torch.int32)
+
+
+def run_meta_np(sel, starts, sizes, *, block_kv: int, cap: int | None = None):
+    """Numpy oracle of run_meta (tests)."""
+    sel = np.asarray(sel)
+    starts = np.asarray(starts)
+    sizes = np.asarray(sizes)
+    R, NR, C = sel.shape
+    rows = []
+    max_runs = 0
+    for r in range(R):
+        for i in range(NR):
+            runs = []
+            c = 0
+            while c < C:
+                # zero-size clusters break runs (as in run_meta)
+                if sel[r, i, c] and sizes[r, c] > 0:
+                    a = int(starts[r, c])
+                    b = int(starts[r, c] + sizes[r, c])
+                    c += 1
+                    while c < C and sel[r, i, c] and sizes[r, c] > 0:
+                        b = int(starts[r, c] + sizes[r, c])
+                        c += 1
+                    runs.append((a, b))
+                else:
+                    c += 1
+            rows.append(runs)
+            max_runs = max(max_runs, len(runs))
+    if cap is None:
+        cap = max(max_runs, 1)
+    meta = np.zeros((R, NR, run_meta_row_len(cap)), np.int32)
+    it = iter(rows)
+    for r in range(R):
+        for i in range(NR):
+            runs = next(it)[:cap]
+            meta[r, i, 0] = sum(_run_chunks(a, b, block_kv) for a, b in runs)
+            for e, (a, b) in enumerate(runs):
+                meta[r, i, 1 + 2 * e] = a
+                meta[r, i, 2 + 2 * e] = b
+    return meta
+
+
+def decode_run_meta(meta, *, seq_kv: int):
+    """Run-list metadata -> per-row boolean token mask (R, NR, seq_kv) (tests only)."""
+    meta = np.asarray(meta)
+    R, NR, L = meta.shape
+    out = np.zeros((R, NR, seq_kv), bool)
+    for r in range(R):
+        for i in range(NR):
+            for e in range((L - 1) // 2):
+                out[r, i, meta[r, i, 1 + 2 * e]:meta[r, i, 2 + 2 * e]] = True
     return out

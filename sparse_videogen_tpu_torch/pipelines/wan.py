@@ -1,18 +1,23 @@
 """Wan 2.1 T2V generation pipeline (counterpart of
-sparse_videogen_tpu/pipelines/wan.py): FlowUniPC, CFG batched as
-[cond, null], and the dense/SVG1 self-attention runtime.
+sparse_videogen_tpu/pipelines/wan.py): FlowUniPC, CFG, and the dense / SVG1 /
+SAP self-attention runtime. Dense and SVG1 batch CFG as [cond, null]; SAP
+runs the two streams as separate batch-1 forwards, each with its own k-means
+states, as the JAX pipeline does.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import types
 
+import numpy as np
 import torch
 
-from sparse_videogen_tpu_torch.config import SparseMode, SVGConfig, VideoLayout, WarmupSchedule
+from sparse_videogen_tpu.utils.density import DensityLogger, log_sap_states
+from sparse_videogen_tpu_torch.config import SAPConfig, SparseMode, SVGConfig, VideoLayout, WarmupSchedule
 from sparse_videogen_tpu_torch.models.wan.model import WanConfig, WanModel
 from sparse_videogen_tpu_torch.schedulers import FlowUniPC
-from sparse_videogen_tpu_torch.sparse.runtimes import DenseRuntime, SVG1Runtime
+from sparse_videogen_tpu_torch.sparse.runtimes import DenseRuntime, SAPRuntime, SVG1Runtime
 from sparse_videogen_tpu_torch.sparse.svg1 import make_svg1_plan
 
 VAE_SPATIAL = 8
@@ -38,14 +43,15 @@ def make_wan_runtime(
     pattern: str = "SVG",
     warmup: WarmupSchedule = WarmupSchedule(),
     svg: SVGConfig = SVGConfig(),
+    sap: SAPConfig = SAPConfig(),
     mesh=None,
 ):
     if mesh is not None:
         raise NotImplementedError("sequence/ring parallelism is not ported to the torch package yet (ROADMAP.md)")
     mode = SparseMode(pattern)
-    if mode == SparseMode.SAP:
-        raise NotImplementedError("pattern SAP (SVG2) is not ported to the torch package yet (ROADMAP.md)")
     plan = make_svg1_plan(layout, svg, warmup, block_q=BLOCK_Q, block_kv=BLOCK_KV)
+    if mode == SparseMode.SAP:
+        return SAPRuntime(plan, sap, warmup, device=device)
     return (DenseRuntime if mode == SparseMode.DENSE else SVG1Runtime)(plan, device=device)
 
 
@@ -69,11 +75,15 @@ class WanPipeline:
         first_layers_fp: float = 0.0,
         first_times_fp: float = 0.0,
         svg: SVGConfig = SVGConfig(),
+        sap: SAPConfig = SAPConfig(),
         seed: int = 0,
         callback=None,
+        logging_file: str | None = None,
     ):
         """Run the denoise loop from noise drawn with torch.Generator(seed) on
-        the model's device; return the final f32 latents (1, C, F', H', W')."""
+        the model's device; return the final f32 latents (1, C, F', H', W').
+        With pattern SAP, `logging_file` receives the per-(step, layer) density
+        of the cond stream as JSONL (utils/density.py of the JAX package)."""
         if sampler != "unipc":
             raise NotImplementedError(f"sampler {sampler!r} is not ported to the torch package yet (ROADMAP.md)")
         device = self.model.patch_embedding.weight.device
@@ -84,15 +94,17 @@ class WanPipeline:
         return self._denoise(
             context, context_null, lat, height=height, width=width, num_frames=num_frames,
             num_inference_steps=num_inference_steps, guidance_scale=guidance_scale, flow_shift=flow_shift,
-            pattern=pattern, first_layers_fp=first_layers_fp, first_times_fp=first_times_fp, svg=svg,
-            generator=gen, callback=callback,
+            pattern=pattern, first_layers_fp=first_layers_fp, first_times_fp=first_times_fp, svg=svg, sap=sap,
+            generator=gen, callback=callback, logging_file=logging_file,
         )
 
     def _denoise(self, context, context_null, lat, *, height, width, num_frames, num_inference_steps,
-                 guidance_scale, flow_shift, pattern, first_layers_fp, first_times_fp, svg,
-                 generator=None, profile_rows=None, callback=None):
+                 guidance_scale, flow_shift, pattern, first_layers_fp, first_times_fp, svg, sap=SAPConfig(),
+                 generator=None, profile_rows=None, kmeans_init=None, callback=None, logging_file=None):
         """The loop behind generate_latents, from the given initial latents.
-        `profile_rows[step][layer]` hands the SVG1 profiler fixed rows instead
+        `profile_rows[step][layer]` hands the SVG1 profiler fixed rows, and
+        `kmeans_init[step][stream][layer]` = (q indices, k indices) hands SAP's
+        cold-start k-means its token draws (stream 0 cond, 1 uncond), instead
         of drawing them from `generator` (tests hand in the JAX package's)."""
         model = self.model
         cfgm = model.cfg
@@ -100,16 +112,37 @@ class WanPipeline:
         layout = wan_layout(cfgm, height, width, num_frames)
         sch = FlowUniPC(num_inference_steps, shift=flow_shift)
         warmup = WarmupSchedule.from_fractions(first_layers_fp, first_times_fp, cfgm.num_layers, sch.timesteps)
-        runtime = make_wan_runtime(layout, device=device, pattern=pattern, warmup=warmup, svg=svg)
+        runtime = make_wan_runtime(layout, device=device, pattern=pattern, warmup=warmup, svg=svg, sap=sap)
+        sap_mode = isinstance(runtime, SAPRuntime)
+        dlog = DensityLogger(logging_file if sap_mode else None)
+        stream_states = [{}, {}]  # SAP: layer -> SAPState, per CFG stream
         ctx_pair = torch.cat([context, context_null], dim=0).to(device)
         lat = lat.to(device)
         sstate = sch.init_state(lat)
         for i in range(num_inference_steps):
-            t = torch.full((2,), float(sch.timesteps[i]), dtype=torch.float32, device=device)
-            v = model(torch.cat([lat, lat], dim=0).to(dtype), t, ctx_pair, attention=runtime, generator=generator,
-                      profile_rows=None if profile_rows is None else profile_rows[i])
-            v_cond, v_uncond = v[:1], v[1:2]
+            if sap_mode:
+                t = torch.full((1,), float(sch.timesteps[i]), dtype=torch.float32, device=device)
+                v_cond, v_uncond = (
+                    self._sap_forward(runtime, stream_states, s, lat.to(dtype), t, ctx_pair[s:s + 1], generator,
+                                      None if kmeans_init is None else kmeans_init[i][s])
+                    for s in range(2))
+            else:
+                t = torch.full((2,), float(sch.timesteps[i]), dtype=torch.float32, device=device)
+                v = model(torch.cat([lat, lat], dim=0).to(dtype), t, ctx_pair, attention=runtime,
+                          generator=generator, profile_rows=None if profile_rows is None else profile_rows[i])
+                v_cond, v_uncond = v[:1], v[1:2]
             lat, sstate = sch.step(i, lat, v_uncond + guidance_scale * (v_cond - v_uncond), sstate)
+            if dlog.path:
+                cond = stream_states[0]
+                dens = np.stack([cond[li].last_density.cpu().numpy() for li in sorted(cond)])
+                log_sap_states(dlog, float(sch.timesteps[i]), types.SimpleNamespace(last_density=dens))
             if callback is not None:
                 callback(i, lat)
         return lat
+
+    def _sap_forward(self, runtime: SAPRuntime, stream_states, s, x, t, ctx, generator, kmeans_init):
+        """One batch-1 forward of CFG stream s with that stream's SAP states."""
+        runtime.states, runtime.kmeans_init = stream_states[s], kmeans_init
+        v = self.model(x, t, ctx, attention=runtime, generator=generator)
+        stream_states[s] = runtime.states
+        return v

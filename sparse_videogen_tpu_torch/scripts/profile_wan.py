@@ -1,18 +1,21 @@
 """Per-step time and per-kernel breakdown of full-size Wan 2.1 1.3B T2V on one GPU.
 
-    python -m sparse_videogen_tpu_torch.scripts.profile_wan [--runs SVG,dense,dense,SVG]
+    python -m sparse_videogen_tpu_torch.scripts.profile_wan [--runs SVG,dense,SAP,SAP,dense,SVG]
 
 Random bf16 weights from --seed and a random (1, 512, 4096) context (UMT5-XXL's
-shape), batched CFG, the CLI's sparsity and warm-up fractions. Two parts:
+shape), the CLI's sparsity, SAP and warm-up settings. Dense and SVG1 batch
+CFG; SAP runs cond and uncond as separate batch-1 forwards. Two parts:
 
   [time]    WanPipeline.generate_latents for --steps UniPC steps, once per
             entry of --runs (alternate the patterns to see drift), after one
             1-step warm-up generation per pattern; seconds per step from CUDA
-            events recorded by the step callback.
-  [profile] one CFG-batched forward per pattern (a denoising step without the
-            UniPC update, at the second timestep) under torch.profiler: device
-            time by category of kernel name, launches, and the device idle
-            share = 1 - (union of device-activity intervals) / (their span).
+            events recorded by the step callback. SAP's first step includes
+            its cold k-means (kmeans_iter_init iterations).
+  [profile] one denoising step's forwards per pattern (without the UniPC
+            update, at the second timestep; SAP's k-means warm, its states
+            made by one forward before) under torch.profiler: device time by
+            category of kernel name, launches, and the device idle share =
+            1 - (union of device-activity intervals) / (their span).
 
 --out writes the same numbers as JSON.
 """
@@ -21,19 +24,25 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
+import tempfile
 import time
 
 import torch
 
 # (category, substrings of the kernel name); first match wins, the rest is elementwise
 CATEGORIES = (
-    ("kernel A (bsa_kernel)", ("bsa_kernel",)),
-    ("kernel B (rope_kernel)", ("rope_kernel",)),
+    ("K1 attention (bsa_kernel)", ("bsa_kernel",)),
+    ("K2 RoPE (rope_kernel)", ("rope_kernel",)),
+    ("K3 run-list attention (runs_kernel)", ("runs_kernel",)),
+    ("K5 k-means (kmeans_*_kernel)", ("kmeans_slab_kernel", "kmeans_reduce_kernel")),
     ("GEMM (cuBLAS)", ("nvjet", "gemm", "xmma", "cutlass")),
     ("softmax", ("softmax",)),
     ("reduce", ("reduce_kernel",)),
     ("copy/memset/cat", ("copy", "Memcpy", "Memset", "CatArray")),
+    ("sort/scan/gather/scatter (SAP index maps)", ("sort", "Sort", "scan", "Scan", "gather", "scatter", "index",
+                                                   "Index")),
 )
 
 
@@ -70,13 +79,13 @@ def main(argv=None):
     ap.add_argument("--width", type=int, default=832)
     ap.add_argument("--num_frames", type=int, default=81)
     ap.add_argument("--steps", type=int, default=4)
-    ap.add_argument("--runs", default="SVG,dense,dense,SVG")
+    ap.add_argument("--runs", default="SVG,dense,SAP,SAP,dense,SVG")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=None, help="write the results as JSON here")
     args = ap.parse_args(argv)
 
     from sparse_videogen_tpu_torch import _kernels
-    from sparse_videogen_tpu_torch.config import SVGConfig, WarmupSchedule
+    from sparse_videogen_tpu_torch.config import SAPConfig, SVGConfig, WarmupSchedule
     from sparse_videogen_tpu_torch.models.wan.model import WAN_1_3B, WanModel
     from sparse_videogen_tpu_torch.pipelines import WanPipeline
     from sparse_videogen_tpu_torch.pipelines.wan import make_wan_runtime, wan_layout
@@ -91,6 +100,7 @@ def main(argv=None):
     torch.backends.cuda.matmul.allow_tf32 = False
     sparsity, first_layers_fp, first_times_fp, flow_shift, guidance = 0.25, 0.025, 0.075, 3.0, 5.0  # CLI defaults
     svg = SVGConfig(sparsity=sparsity)
+    sap = SAPConfig()  # the CLI's SAP defaults (cluster mode)
 
     cfg = WAN_1_3B
     gen = torch.Generator(device=dev).manual_seed(args.seed)
@@ -100,11 +110,13 @@ def main(argv=None):
     pipe = WanPipeline(model)
     gen_kw = dict(height=args.height, width=args.width, num_frames=args.num_frames, guidance_scale=guidance,
                   flow_shift=flow_shift, first_layers_fp=first_layers_fp, first_times_fp=first_times_fp, svg=svg,
-                  seed=args.seed)
+                  sap=sap, seed=args.seed)
     runs = args.runs.split(",")
     for pattern in dict.fromkeys(runs):
         pipe.generate_latents(ctx, ctx_null, num_inference_steps=1, pattern=pattern, **gen_kw)
     result = {"device": smi, "time": [], "profile": {}}
+    tmp = tempfile.TemporaryDirectory()
+    dlog = os.path.join(tmp.name, "density.jsonl")  # SAP's density log of the cond stream
 
     for pattern in runs:
         events = []
@@ -119,13 +131,20 @@ def main(argv=None):
             events.append(ev)
 
         pipe.generate_latents(ctx, ctx_null, num_inference_steps=args.steps, pattern=pattern, callback=on_step,
-                              **gen_kw)
+                              logging_file=dlog if pattern == "SAP" else None, **gen_kw)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         steps = [start.elapsed_time(events[0]) / 1e3] + [
             events[i - 1].elapsed_time(events[i]) / 1e3 for i in range(1, len(events))]
-        print(f"[time] {pattern}: per-step s {steps} wall {wall} s (the first step includes set-up)", flush=True)
-        result["time"].append({"pattern": pattern, "per_step_s": steps, "wall_s": wall})
+        run = {"pattern": pattern, "per_step_s": steps, "wall_s": wall}
+        if pattern == "SAP":
+            with open(dlog) as f:
+                dens = [json.loads(line)["avg_density"] for line in f]
+            run["density_mean"] = sum(dens) / len(dens)
+        print(f"[time] {pattern}: per-step s {steps} wall {wall} s (the first step includes set-up)"
+              + (f"; SAP density mean {run['density_mean']} (cond stream, random weights)" if pattern == "SAP" else ""),
+              flush=True)
+        result["time"].append(run)
 
     lay = wan_layout(cfg, args.height, args.width, args.num_frames)
     sch = FlowUniPC(args.steps, shift=flow_shift)
@@ -135,17 +154,26 @@ def main(argv=None):
                     device=dev).to(torch.bfloat16)
     t = torch.full((2,), float(sch.timesteps[1]), device=dev)
     for pattern in dict.fromkeys(runs):
-        rt = make_wan_runtime(lay, device=dev, pattern=pattern, warmup=warmup, svg=svg)
-        if pattern == "SVG" and rt.is_dense(0, float(t[0])):
-            raise AssertionError("the profiled SVG forward would run dense (warm-up)")
-        model(x, t, ctx_pair, attention=rt, generator=gen)
+        rt = make_wan_runtime(lay, device=dev, pattern=pattern, warmup=warmup, svg=svg, sap=sap)
+        if pattern != "dense" and rt.is_dense(0, float(t[0])):
+            raise AssertionError(f"the profiled {pattern} forward would run dense (warm-up)")
+        states = [{}, {}]  # SAP: the k-means states of the cond and uncond streams
+
+        def step_forwards():
+            if pattern != "SAP":
+                return model(x, t, ctx_pair, attention=rt, generator=gen)
+            for s in range(2):  # SAP: one batch-1 forward per CFG stream, each with its own states
+                rt.states = states[s]
+                model(x[s:s + 1], t[:1], ctx_pair[s:s + 1], attention=rt, generator=gen)
+
+        step_forwards()
         torch.cuda.synchronize()
         _kernels.reset_counts()
         prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                                   torch.profiler.ProfilerActivity.CUDA])
         t0 = time.perf_counter()
         with prof:
-            model(x, t, ctx_pair, attention=rt, generator=gen)
+            step_forwards()
             torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         dev_events = [(e.name(), e.start_ns(), e.end_ns()) for e in prof.profiler.kineto_results.events()
@@ -154,7 +182,7 @@ def main(argv=None):
             raise RuntimeError("torch.profiler recorded no device activity")
         cats, total, busy, span = breakdown(dev_events)
         idle = 1 - busy / span
-        print(f"[profile] {pattern} forward: host wall {wall} s (profiler on), {len(dev_events)} device events, "
+        print(f"[profile] {pattern} step forwards: host wall {wall} s (profiler on), {len(dev_events)} device events, "
               f"device time {total} ms, busy (union) {busy} ms of span {span} ms -> idle share {idle}; "
               f"launch counters {dict(_kernels.LAUNCHES)}", flush=True)
         for cat, c in sorted(cats.items(), key=lambda kv: -kv[1]["ms"]):
@@ -162,6 +190,7 @@ def main(argv=None):
                   f"{c['launches']} launches", flush=True)
         result["profile"][pattern] = {"host_wall_s": wall, "device_ms": total, "busy_ms": busy, "span_ms": span,
                                       "idle_share": idle, "categories": cats}
+    tmp.cleanup()
     if args.out:
         with open(args.out, "w") as f:
             json.dump(result, f, indent=1)

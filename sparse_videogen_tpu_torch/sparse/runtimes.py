@@ -1,5 +1,5 @@
 """Self-attention runtimes (counterpart of sparse_videogen_tpu/sparse/runtimes.py):
-dense and SVG1. The model calls one per block:
+dense, SVG1 and SAP. The model calls one per block:
 
     runtime(q, k, v, t, layer_idx, rows=None, generator=None) -> out
 
@@ -7,15 +7,23 @@ q, k, v (B, H, S, D); t the step's timestep (0..1000); rows the profiler's
 sampled query rows (drawn from `generator` when None). The metadata and the
 mask scalars go to the device once, when the runtime is built. The JAX
 warm-up `lax.cond` is a Python `if`.
+
+SAP carries a k-means state per layer. JAX threads it through the forward
+as an argument; here the runtime holds the states of the stream it runs
+(`SAPRuntime.states`, layer -> SAPState), and the pipeline swaps in each
+CFG stream's own before that stream's forward, so the call signature above
+stays the same for every pattern.
 """
 
 from __future__ import annotations
 
 import torch
 
+from sparse_videogen_tpu_torch.config import SAPConfig, WarmupSchedule
 from sparse_videogen_tpu_torch.core.profiler import sample_rows
 from sparse_videogen_tpu_torch.ops import metadata as MD
 from sparse_videogen_tpu_torch.sparse.svg1 import SVG1Plan, dense_impl, svg1_sparse_impl, to_device_meta
+from sparse_videogen_tpu_torch.sparse.svg2 import SAPState, check_sap_config, init_sap_state, sap_attention
 
 
 def _classified(meta, spec, plan: SVG1Plan, block_q):
@@ -54,3 +62,33 @@ class SVG1Runtime(DenseRuntime):
                                sample_mse_max_row=c.sample_mse_max_row, generator=generator,
                                device=q.device)
         return svg1_sparse_impl(q, k, v, rows, self.sparse_meta, self.plan, self.aux)
+
+
+class SAPRuntime(DenseRuntime):
+    """SAP (SVG2) cluster mode with the dense warm-up of the plan's dense
+    metadata. `states` maps a layer to its SAPState (a missing layer starts
+    cold); `kmeans_init`, when set, maps a layer to the (q, k) cold-start
+    token indices for the next forward (tests hand in the JAX package's
+    draws); otherwise they are drawn from the forward's generator."""
+
+    def __init__(self, plan: SVG1Plan, cfg: SAPConfig, warmup: WarmupSchedule, *, device):
+        check_sap_config(cfg, plan.layout)
+        super().__init__(plan, device=device)
+        self.cfg = cfg
+        self.warmup = warmup
+        self.states: dict[int, SAPState] = {}
+        self.kmeans_init = None
+
+    def is_dense(self, layer_idx: int, t: float) -> bool:
+        return layer_idx < self.warmup.first_layers or t > self.warmup.first_times
+
+    def __call__(self, q, k, v, t, layer_idx, rows=None, generator=None):
+        B, H, S, D = q.shape
+        state = self.states.get(layer_idx)
+        if state is None:
+            state = init_sap_state(B * H, D, self.cfg, device=q.device)
+        out, self.states[layer_idx] = sap_attention(
+            q, k, v, t, state, layout=self.plan.layout, cfg=self.cfg, warmup=self.warmup, layer_idx=layer_idx,
+            dense_fn=lambda q_, k_, v_: dense_impl(q_, k_, v_, self.dense_meta, self.plan, self.aux),
+            generator=generator, init_idx=None if self.kmeans_init is None else self.kmeans_init[layer_idx])
+        return out

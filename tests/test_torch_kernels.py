@@ -14,7 +14,13 @@ import torch
 from sparse_videogen_tpu_torch import _kernels
 from sparse_videogen_tpu_torch.models.common.rope import wan_rope_cos_sin
 from sparse_videogen_tpu_torch.ops import metadata as MD
-from sparse_videogen_tpu_torch.ops.attention import block_sparse_attention_kv, block_sparse_attention_kv_plain
+from sparse_videogen_tpu_torch.ops.attention import (
+    block_sparse_attention_kv,
+    block_sparse_attention_kv_plain,
+    block_sparse_attention_runs,
+    block_sparse_attention_runs_plain,
+)
+from sparse_videogen_tpu_torch.ops.kmeans import kmeans_assign_update, kmeans_assign_update_plain
 from sparse_videogen_tpu_torch.ops.mask_spec import MaskSpec
 from sparse_videogen_tpu_torch.ops.rope import rope_apply, rope_plain
 
@@ -37,6 +43,101 @@ def test_cpu_tensor_runs_plain_and_bad_shapes_raise():
         block_sparse_attention_kv(q[:, :200], kv, kv, meta, block_q=128, block_kv=128)
     with pytest.raises(ValueError):  # metadata rows do not match the q blocks
         block_sparse_attention_kv(q, kv, kv, meta[:, :1], block_q=128, block_kv=128)
+
+
+def _run_list_case(rng, BH, C, S, Sq, bq, bkv):
+    """Run lists over random cluster sizes (one empty cluster), per head, with
+    q block 1 visiting nothing."""
+    sizes = np.zeros((BH, C), np.int32)
+    for b in range(BH):
+        w = rng.random(C)
+        w[rng.integers(0, C)] = 0.0
+        sizes[b] = np.floor(w / w.sum() * S)
+        sizes[b, np.argmax(sizes[b])] += S - sizes[b].sum()
+    starts = np.concatenate([np.zeros((BH, 1), np.int32), np.cumsum(sizes, axis=1)[:, :-1]], axis=1)
+    sel = rng.random((BH, Sq // bq, C)) < 0.5
+    sel[:, 1] = False
+    return MD.run_meta_np(sel, starts, sizes, block_kv=bkv, cap=C)
+
+
+def test_runs_and_kmeans_cpu_tensors_run_plain():
+    rng = np.random.default_rng(0)
+    meta = torch.as_tensor(_run_list_case(rng, 2, 5, 300, 256, 128, 256))
+    q, k = torch.zeros(2, 256, 64), torch.zeros(2, 384, 64)
+    _kernels.reset_counts()
+    out = block_sparse_attention_runs(q, k, k, meta, block_q=128, block_kv=256)
+    labels, sums, counts = kmeans_assign_update(torch.randn(2, 40, 8), torch.randn(2, 3, 8))
+    assert _kernels.PLAIN_CALLS["block_sparse_attn_runs"] == 1 and _kernels.PLAIN_CALLS["kmeans"] == 1
+    assert not any(_kernels.LAUNCHES.values())
+    assert out.shape == q.shape and labels.shape == (2, 40) and sums.shape == (2, 3, 8) and counts.sum() == 80
+    with pytest.raises(ValueError):  # block_kv not a multiple of 128
+        block_sparse_attention_runs(q, k, k, meta, block_q=128, block_kv=192)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("spec", [MaskSpec(), MaskSpec(kind="band_sink", band_width=300, sink_size=200)],
+                         ids=["none", "band_sink"])
+@pytest.mark.parametrize("D_", [64, 128])
+def test_runs_kernel_matches_plain(cuda, spec, D_):
+    """The run-list kernel (mask none) and its MaskSpec path (band_sink)
+    against the plain version on the card, bf16, per-head run lists, an empty
+    q block (exactly 0) and aux offsets; same tolerance and reason as the
+    chunked kernel's: atol 2e-2."""
+    rng = np.random.default_rng(12)
+    BH, C, S, Sq, bq, bkv = 3, 11, 1900, 1024, 256, 512
+    meta = torch.as_tensor(_run_list_case(rng, BH, C, S, Sq, bq, bkv), device=cuda)
+    skv = -(-S // MD.SUB) * MD.SUB
+    q, k, v = (torch.randn(BH, n, D_, device=cuda).to(torch.bfloat16) for n in (Sq, skv, skv))
+    aux = torch.as_tensor(np.asarray([0, 0, 5, 9], np.int32), device=cuda)
+    kw = dict(block_q=bq, block_kv=bkv, mask_spec=spec)
+    _kernels.reset_counts()
+    out = block_sparse_attention_runs(q, k, v, meta, aux, **kw)
+    assert _kernels.LAUNCHES["block_sparse_attn_runs"] == 1 and _kernels.PLAIN_CALLS["block_sparse_attn_runs"] == 0
+    ref = block_sparse_attention_runs_plain(q, k, v, meta, aux, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2, rtol=0)
+    assert torch.all(out[:, bq:2 * bq] == 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K", [50, 200])
+@pytest.mark.parametrize("D_", [64, 128])
+def test_kmeans_kernel_matches_plain_and_is_deterministic(cuda, K, D_):
+    """Two launches give the same bits. Labels equal the plain version's
+    wherever its best-to-second distance gap exceeds 1e-3 x |best distance|
+    (the f32 products sum in another order, so nearer ties may flip) and on
+    >= 99.9% of the tokens; the f32 sums equal the plain segment sums of the
+    kernel's own labels to 1e-5 relative to the largest |sum|."""
+    gen = torch.Generator(device=cuda).manual_seed(K + D_)
+    B, N = 3, 5000
+    x = torch.randn(B, N, D_, generator=gen, device=cuda).to(torch.bfloat16)
+    c = x[:, torch.randperm(N, generator=gen, device=cuda)[:K]]
+    _kernels.reset_counts()
+    labels, sums, counts = kmeans_assign_update(x, c)
+    again = kmeans_assign_update(x, c)
+    assert _kernels.LAUNCHES["kmeans"] == 2 and _kernels.PLAIN_CALLS["kmeans"] == 0
+    for a, b in zip((labels, sums, counts), again):
+        assert torch.equal(a, b)
+    ref_labels, _, _ = kmeans_assign_update_plain(x, c)
+    cf = c.float()
+    dist = (cf * cf).sum(-1)[:, None, :] - 2.0 * x.float() @ cf.transpose(1, 2)
+    top2 = dist.topk(2, dim=-1, largest=False).values
+    clear = (top2[..., 1] - top2[..., 0]) > 1e-3 * top2[..., 0].abs()
+    assert torch.equal(labels[clear], ref_labels[clear])
+    assert (labels == ref_labels).float().mean().item() >= 0.999
+    onehot = torch.nn.functional.one_hot(labels.long(), K).float()
+    seg = onehot.transpose(1, 2) @ x.float()
+    assert torch.equal(counts, onehot.sum(1))
+    assert (sums - seg).abs().max().item() <= 1e-5 * seg.abs().max().item()
+
+
+@pytest.mark.gpu
+def test_kmeans_kernel_raises_past_its_shared_memory(cuda):
+    """K = 257 at D = 128 does not fit the slab in shared memory: the wrapper
+    raises before launching (no fallback)."""
+    x = torch.randn(1, 300, 128, device=cuda).to(torch.bfloat16)
+    with pytest.raises(ValueError):
+        kmeans_assign_update(x, x[:, :257])
 
 
 @pytest.mark.gpu
@@ -81,12 +182,16 @@ def test_rope_kernel_matches_plain(cuda, D):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("pattern", ["dense", "SVG"])
+@pytest.mark.parametrize("pattern", ["dense", "SVG", "SAP"])
 def test_small_wan_forward_kernels_vs_plain(cuda, pattern):
     """A small bf16 Wan forward at batch 1 (head views that are not
     contiguous on their own): kernels on the card against the plain versions
-    on the CPU, same weights, inputs and profiler rows. CPU and GPU matmuls
-    round bf16 at other places over 4 blocks: rel L2 error <= 3e-2."""
+    on the CPU, same weights, inputs and profiler rows. SAP runs at full
+    density (top_p 1.0, min_kc_ratio 1.0): the two devices' k-means may
+    split near-ties differently, and full density makes the output
+    independent of the clustering. CPU and GPU matmuls round bf16 at other
+    places over 4 blocks: rel L2 error <= 3e-2."""
+    from sparse_videogen_tpu_torch.config import SAPConfig
     from sparse_videogen_tpu_torch.models.wan.model import WanConfig, WanModel
     from sparse_videogen_tpu_torch.pipelines.wan import make_wan_runtime, wan_layout
 
@@ -102,7 +207,9 @@ def test_small_wan_forward_kernels_vs_plain(cuda, pattern):
     rows = torch.randint(0, lay.seq_len, (cfg.num_layers, 64), generator=gen)
     outs = []
     for model, dev in ((gpu, cuda), (cpu, torch.device("cpu"))):
-        rt = make_wan_runtime(lay, device=dev, pattern=pattern)
-        outs.append(model(x.to(dev), t.to(dev), ctx.to(dev), attention=rt, profile_rows=rows).cpu())
+        sap = SAPConfig(num_q_centroids=8, num_k_centroids=12, kmeans_iter_init=8, top_p_kmeans=1.0, min_kc_ratio=1.0)
+        rt = make_wan_runtime(lay, device=dev, pattern=pattern, sap=sap)
+        outs.append(model(x.to(dev), t.to(dev), ctx.to(dev), attention=rt, profile_rows=rows,
+                          generator=torch.Generator(device=dev).manual_seed(0)).cpu())
     assert ((outs[0] - outs[1]).norm() / outs[1].norm()).item() <= 3e-2
 

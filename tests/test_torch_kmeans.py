@@ -1,0 +1,87 @@
+"""k-means of the torch port against the JAX package.
+
+The port's plain fused pass (what a CPU tensor runs) is held against the JAX
+Pallas kernel in interpret mode, and batch_kmeans against the JAX
+batch_kmeans, on the same numpy inputs. Labels and counts must be equal;
+sums and centroids differ by f32 summation order only.
+
+The Hopper kernel against the plain version: tests/test_torch_kernels.py.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from sparse_videogen_tpu.core import kmeans as JKM
+from sparse_videogen_tpu.ops.kmeans_pallas import kmeans_assign_update as jax_assign_update
+from sparse_videogen_tpu_torch import _kernels
+from sparse_videogen_tpu_torch.core import kmeans as TKM
+from sparse_videogen_tpu_torch.ops.kmeans import kmeans_assign_update
+
+DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def _inputs(seed, B, N, K, D):
+    rng = np.random.default_rng(seed)
+    return rng.standard_normal((B, N, D)).astype(np.float32), rng.standard_normal((B, K, D)).astype(np.float32)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("B,N,K,D", [(2, 512, 7, 32), (1, 300, 130, 16)])
+def test_assign_update_plain_matches_jax(B, N, K, D, dtype):
+    """Labels and counts equal; f32 sums of the same tokens agree to 1e-5
+    (rtol and atol: the sums are over at most N tokens of size ~1)."""
+    jd, td = DTYPES[dtype]
+    x, c = _inputs(B + K, B, N, K, D)
+    jl, js, jc = (np.asarray(a) for a in jax_assign_update(jnp.asarray(x, jd), jnp.asarray(c, jd), blk_n=256))
+    _kernels.reset_counts()
+    tl, ts, tc = kmeans_assign_update(torch.from_numpy(x).to(td), torch.from_numpy(c).to(td))
+    assert _kernels.PLAIN_CALLS["kmeans"] == 1 and _kernels.LAUNCHES["kmeans"] == 0
+    assert tl.dtype == torch.int32 and ts.dtype == torch.float32 and tc.dtype == torch.float32
+    np.testing.assert_array_equal(tl.numpy(), jl)
+    np.testing.assert_array_equal(tc.numpy(), jc)
+    np.testing.assert_allclose(ts.numpy(), js, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("mode", ["cold", "warm", "assign_only"])
+def test_batch_kmeans_matches_jax(mode):
+    """From the same initial centroids (cold: the tokens JAX's init_centroids
+    draws, 8 iterations; warm: carried bf16 centroids, 2 iterations;
+    assign_only: max_iters 0): labels and sizes equal, bf16 centroids equal
+    (the f32 means agree to 1e-6 before the bf16 rounding)."""
+    B, N, K, D = 2, 384, 9, 32
+    x, c = _inputs(3, B, N, K, D)
+    jx, tx = jnp.asarray(x, jnp.bfloat16), torch.from_numpy(x).to(torch.bfloat16)
+    key = jax.random.PRNGKey(4)
+    if mode == "cold":
+        idx = np.array(jax.random.randint(key, (B, K), 0, N))
+        j_init, t_init, iters = JKM.init_centroids(jx, K, key), TKM.init_centroids(tx, K, idx=torch.from_numpy(idx)), 8
+        np.testing.assert_array_equal(t_init.float().numpy(), np.asarray(j_init, np.float32))
+    else:
+        j_init, t_init = jnp.asarray(c, jnp.bfloat16), torch.from_numpy(c).to(torch.bfloat16)
+        iters = 2 if mode == "warm" else 0
+    jl, jc, js = (np.asarray(a) for a in JKM.batch_kmeans(jx, K, iters, j_init))
+    tl, tc, ts = TKM.batch_kmeans(tx, K, iters, t_init)
+    np.testing.assert_array_equal(tl.numpy(), jl)
+    np.testing.assert_array_equal(ts.numpy(), js)
+    assert tc.dtype == torch.bfloat16
+    np.testing.assert_array_equal(tc.float().numpy(), np.asarray(jc, np.float32))
+
+
+def test_init_centroids_draws_from_the_generator():
+    x = torch.randn(3, 50, 8)
+    a = TKM.init_centroids(x, 4, torch.Generator().manual_seed(1))
+    b = TKM.init_centroids(x, 4, torch.Generator().manual_seed(1))
+    assert a.shape == (3, 4, 8) and torch.equal(a, b)
+    # every centroid is one of its row's tokens
+    assert all(any(torch.equal(a[i, j], x[i, n]) for n in range(50)) for i in range(3) for j in range(4))
+
+
+@pytest.mark.parametrize("kw", [dict(metric="cosine"), dict(metric="dot"), dict(axis_name="sp")],
+                         ids=["cosine", "dot", "axis_name"])
+def test_unported_kmeans_options_raise(kw):
+    x = torch.randn(1, 16, 8)
+    with pytest.raises(NotImplementedError):
+        TKM.batch_kmeans(x, 2, 1, x[:, :2], **kw)

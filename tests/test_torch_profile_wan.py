@@ -6,8 +6,12 @@ from sparse_videogen_tpu_torch.scripts.profile_wan import breakdown, category
 
 
 @pytest.mark.parametrize("name,cat", [
-    ("void (anonymous namespace)::bsa_kernel<128>(...)", "kernel A (bsa_kernel)"),
-    ("svt_rope::rope_kernel(...)", "kernel B (rope_kernel)"),
+    ("void (anonymous namespace)::bsa_kernel<128>(...)", "K1 attention (bsa_kernel)"),
+    ("svt_rope::rope_kernel(...)", "K2 RoPE (rope_kernel)"),
+    ("void (anonymous namespace)::runs_kernel<128>(...)", "K3 run-list attention (runs_kernel)"),
+    ("void (anonymous namespace)::kmeans_slab_kernel<128>(...)", "K5 k-means (kmeans_*_kernel)"),
+    ("void (anonymous namespace)::kmeans_reduce_kernel(...)", "K5 k-means (kmeans_*_kernel)"),
+    ("void at_cuda_detail::cub::DeviceRadixSortOnesweepKernel<...>(...)", "sort/scan/gather/scatter (SAP index maps)"),
     ("nvjet_tst_192x192_64x4_2x1_v_bz_coopB_bias_TNN", "GEMM (cuBLAS)"),
     ("void at::native::unrolled_elementwise_kernel<at::native::direct_copy_kernel_cuda(...)>", "copy/memset/cat"),
     ("Memcpy HtoD (Pageable -> Device)", "copy/memset/cat"),
@@ -25,4 +29,4 @@ def test_breakdown_busy_is_the_union_of_intervals():
     assert total == pytest.approx(10 + 15 + 10 + 1)  # ms: summed durations count overlap twice
     assert busy == pytest.approx(20 + 10 + 1)
     assert span == pytest.approx(42)
-    assert cats["kernel A (bsa_kernel)"] == {"ms": pytest.approx(10), "launches": 1}
+    assert cats["K1 attention (bsa_kernel)"] == {"ms": pytest.approx(10), "launches": 1}

@@ -148,7 +148,7 @@ def test_cli_smoke_cpu(tmp_path):
     (["--device", "cuda:99"], RuntimeError),
     (["--device", "cpu", "--model_dir", "/nonexistent"], NotImplementedError),
     (["--device", "cpu", "--output_file", "video.mp4"], NotImplementedError),
-    (["--device", "cpu", "--pattern", "SAP"], NotImplementedError),
+    (["--device", "cpu", "--pattern", "SAP", "--sap_block_mode", "tile"], NotImplementedError),
 ], ids=["no_card_no_fallback", "model_dir", "video", "sap"])
 def test_cli_refuses_what_is_not_ported(tmp_path, argv, exc):
     if argv[1].startswith("cuda") and torch.cuda.is_available():
