@@ -10,19 +10,26 @@ is non-zero:
   3. kernels - each Hopper kernel against its plain PyTorch version at the
                slices' shapes (bf16), with the tolerance stated, and both
                timed with CUDA events: RoPE, the chunked-CSR attention (dense
-               and SVG1 metadata), k-means (K = 50 and 200, and two runs
-               giving the same bits), the run-list attention on the run
-               lists of SAP's own front half (mask none, and band_sink for
-               its MaskSpec path); then one full-width layer of SAP at full
-               density against the dense kernel.
-  4. slice   - WanPipeline.generate_latents with Wan 2.1 1.3B at full width
-               and depth (random weights from a seed), 480x832x81, 4 UniPC
-               steps: SVG1 with batched CFG, then SAP (cluster mode, the
-               CLI's defaults) with cond and uncond as separate forwards;
-               each path's kernel launch counts are read around its run and
-               held to what the configuration implies. Then one forward of a
-               small Wan with the kernels (on the card) against the plain
-               versions (on the CPU), dense, SVG1 and SAP.
+               and SVG1 metadata), the run-list attention on the run lists of
+               SAP's own front half at 480p (mask none, and band_sink for its
+               MaskSpec path) and one full-width layer of SAP at full density
+               against the dense kernel; k-means at the 480p SAP shape (12
+               heads, 32,760 tokens, K = 50 and 200) and at Wan 2.1 14B 720p's
+               (40 heads, 75,600 tokens, K = 300 and 1000) and the five probe
+               variants (K = 300 and 125), each twice for the same bits; then
+               the run-list attention on the run lists of the 720p SAP
+               config's own front half (QC 300, KC 1000).
+  4. slice   - WanPipeline.generate_latents with random weights from a seed:
+               Wan 2.1 1.3B at full width and depth, 480x832x81, 4 UniPC
+               steps, SVG1 with batched CFG, then SAP (cluster mode, the CLI's
+               defaults) with cond and uncond as separate forwards; the K8
+               probe's entry (probe_kmeans_variants.probe) on its own data;
+               Wan 2.1 14B at full width and LAYERS_14B layers, 720x1280x81,
+               5 UniPC steps, SAP at the reference's 720p config. Each path's
+               kernel launch counts are read around its run and held to what
+               the configuration implies. Then one forward of a small Wan with
+               the kernels (on the card) against the plain versions (on the
+               CPU), dense, SVG1 and SAP.
   5. cli     - the port's CLI in --smoke mode for SVG, dense and SAP.
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
@@ -42,10 +49,13 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
-HEIGHT, WIDTH, NUM_FRAMES, STEPS = 480, 832, 81, 4
-# CLI defaults (cli/wan_t2v.py)
-SPARSITY, FIRST_LAYERS_FP, FIRST_TIMES_FP, FLOW_SHIFT, GUIDANCE = 0.25, 0.025, 0.075, 3.0, 5.0
+STEPS, STEPS_14B = 4, 5  # 5 steps: first_times_fp 0.2 gives the 720p run one dense warm-up step
+# Wan 2.1 14B keeps its full width (dim 5120, 40 heads, FFN 13824) and the
+# first LAYERS_14B of its 40 blocks: the smoke's time limit, not the card's
+# memory, bounds the depth (PERF.md section 4)
+LAYERS_14B = 2
 CHECK_HEADS = 2  # first and last heads held against the plain attention (the plain version is slow)
+KMEANS_CHUNK = 8  # heads per plain k-means call: (8, 75,600, 1000) f32 distances are 2.4 GB
 TIMED_ITERS = 5
 # the run-list and chunked attention kernels against their plain versions:
 # both accumulate in f32 with P rounded to bf16 for PV; they differ in the
@@ -103,11 +113,12 @@ def phase_build():
                 log("build", "ptxas: " + line.strip())
 
 
-def slice_layout():
-    from sparse_videogen_tpu_torch.models.wan.model import WAN_1_3B
+def slice_layout(preset="1.3B-480p"):
     from sparse_videogen_tpu_torch.pipelines.wan import wan_layout
+    from sparse_videogen_tpu_torch.presets import PRESETS
 
-    return wan_layout(WAN_1_3B, HEIGHT, WIDTH, NUM_FRAMES)
+    run = PRESETS[preset]
+    return wan_layout(run.model, run.height, run.width, run.num_frames)
 
 
 def phase_rope(dev):
@@ -115,9 +126,12 @@ def phase_rope(dev):
     from sparse_videogen_tpu_torch.models.common.rope import wan_rope_cos_sin
     from sparse_videogen_tpu_torch.ops.rope import rope_apply, rope_plain
 
+    from sparse_videogen_tpu_torch.presets import T2V_480P as run
+
     lay = slice_layout()
     BH, S, D = 2 * 12, lay.seq_len, 128
-    cos, sin = (torch.as_tensor(a, device=dev) for a in wan_rope_cos_sin(lay.num_frames, HEIGHT // 16, WIDTH // 16, D))
+    cos, sin = (torch.as_tensor(a, device=dev)
+                for a in wan_rope_cos_sin(lay.num_frames, run.height // 16, run.width // 16, D))
     gen = torch.Generator(device=dev).manual_seed(1)
     x = torch.randn(BH, S, D, generator=gen, device=dev).to(torch.bfloat16)
     out = rope_apply(x, cos, sin)
@@ -157,12 +171,12 @@ def phase_attention(dev):
     """Kernel A at the slice's width (B=2 CFG pair x 12 heads) on the
     metadata and mask scalars of the pipeline's own runtime; the first and
     last CHECK_HEADS heads are held against the plain version."""
-    from sparse_videogen_tpu_torch.config import SVGConfig
     from sparse_videogen_tpu_torch.ops.attention import block_sparse_attention_kv, block_sparse_attention_kv_plain
     from sparse_videogen_tpu_torch.pipelines.wan import make_wan_runtime
+    from sparse_videogen_tpu_torch.presets import T2V_480P
 
     lay = slice_layout()
-    rt = make_wan_runtime(lay, device=dev, pattern="SVG", svg=SVGConfig(sparsity=SPARSITY))
+    rt = make_wan_runtime(lay, device=dev, pattern="SVG", svg=T2V_480P.generate_kwargs()["svg"])
     plan = rt.plan
     S, D, BH = lay.seq_len, 128, 2 * 12
     heads = torch.tensor(list(range(CHECK_HEADS)) + list(range(BH - CHECK_HEADS, BH)), device=dev)
@@ -209,66 +223,180 @@ def phase_attention(dev):
     return entry
 
 
-def phase_kmeans(dev):
-    """K5 at the SAP slice's shape (12 heads of one CFG stream, S tokens,
-    D = 128, bf16), K = 50 and 200 centroids drawn from the tokens."""
-    import torch.nn.functional as F
+def _onehot(labels, K):
+    return torch.zeros(*labels.shape, K, device=labels.device).scatter_(-1, labels.long()[..., None], 1.0)
 
-    from sparse_videogen_tpu_torch.core.kmeans import init_centroids
-    from sparse_videogen_tpu_torch.ops.kmeans import kmeans_assign_update, kmeans_assign_update_plain
 
-    lay = slice_layout()
-    B, N, D = 12, lay.seq_len, 128
-    gen = torch.Generator(device=dev).manual_seed(4)
-    x = torch.randn(B, N, D, generator=gen, device=dev).to(torch.bfloat16)
-    entry = None
-    for K in (50, 200):
-        c = init_centroids(x, K, gen)
-        labels, sums, counts = kmeans_assign_update(x, c)
-        again = kmeans_assign_update(x, c)
-        ref_labels, ref_sums, ref_counts = kmeans_assign_update_plain(x, c)
-        torch.cuda.synchronize()
-        same_bits = all(torch.equal(a, b) for a, b in zip((labels, sums, counts), again))
-        # labels: the f32 products sum in another order than the plain
-        # version's, so near-ties may flip; they must agree wherever the
-        # plain best-to-second gap exceeds 1e-3 x |best distance|, and on
-        # >= 99.9% of the tokens; counts move by at most one per flip each way
-        cf = c.float()
-        top2 = ((cf * cf).sum(-1)[:, None, :] - 2.0 * torch.bmm(x.float(), cf.transpose(1, 2))).topk(
+def check_kmeans(x, c, out, again, plain, *, sums_and_counts=True):
+    """A k-means kernel's (labels, sums, counts) against its plain version,
+    run on KMEANS_CHUNK heads at a time. Two runs must give the same bits.
+    Labels: the f32 products sum in another order than the plain version's,
+    so near-ties may flip; they must agree wherever the plain best-to-second
+    gap exceeds 1e-3 x |best distance|, and on >= 99.9% of the tokens; counts
+    move by at most one per flip each way. Sums: against the plain segment
+    sums of the kernel's own labels (f32 sums of the same bf16 tokens in
+    another order), <= 1e-5 of the largest |sum|; and against the plain
+    version's own sums over the clusters no flipped token touches (reported
+    as max_abs_err). sums_and_counts=False (variant E): both must be 0.
+    Returns (ok, stats)."""
+    labels, sums, counts = out
+    B, N, _ = x.shape
+    K = c.shape[1]
+    st = {"same_bits": all(torch.equal(u, w) for u, w in zip(out, again)), "flips": 0, "clear": 0,
+          "clear_equal": True, "count_moves": 0, "seg_err": 0.0, "seg_max": 0.0, "max_abs": 0.0}
+    for h in range(0, B, KMEANS_CHUNK):
+        hs = slice(h, h + KMEANS_CHUNK)
+        xs, cs, lab = x[hs], c[hs], labels[hs]
+        ref_labels, ref_sums, ref_counts = plain(xs, cs)
+        cf = cs.float()
+        top2 = ((cf * cf).sum(-1)[:, None, :] - 2.0 * torch.bmm(xs.float(), cf.transpose(1, 2))).topk(
             2, dim=-1, largest=False).values
         clear = (top2[..., 1] - top2[..., 0]) > 1e-3 * top2[..., 0].abs()
-        eq = labels == ref_labels
-        flips = int((~eq).sum())
-        count_moves = int((counts - ref_counts).abs().sum())
-        # sums: against the plain segment sums of the kernel's own labels
-        # (f32 sums of the same bf16 tokens in another order): <= 1e-5 of
-        # the largest |sum|; and against the plain version's own sums over
-        # the clusters no flipped token touches
-        seg = torch.bmm(F.one_hot(labels.long(), K).float().transpose(1, 2), x.float())
-        seg_rel = ((sums - seg).abs().max() / seg.abs().max()).item()
-        touched = torch.zeros(B, K + 1, dtype=torch.bool, device=dev)  # column K: tokens that did not flip
-        for lab in (labels, ref_labels):
-            touched.scatter_(1, torch.where(eq, K, lab).long(), True)
-        max_abs = (sums - ref_sums).abs().amax(-1).masked_fill(touched[:, :K], 0).max().item()
-        ok = (same_bits and bool(eq[clear].all()) and eq.float().mean().item() >= 0.999
-              and count_moves <= 2 * flips and seg_rel <= 1e-5)
-        log("kernels", f"kmeans (B={B}, N={N}, D={D}, K={K}) bf16: two runs same bits {same_bits}; labels equal "
-                       f"{eq.float().mean().item():.6f} ({flips} flips, all {int(clear.sum())} clear-gap tokens "
-                       f"equal {bool(eq[clear].all())}, tol 0.999); count moves {count_moves} (tol {2 * flips}); "
-                       f"sums vs plain segment sums of the kernel labels rel {seg_rel:.3e} (tol 1e-5); sums vs "
-                       f"plain on untouched clusters max_abs_err {max_abs:.3e}")
-        if not ok:
-            raise AssertionError(f"kmeans kernel (K={K}) disagrees with its plain version or is not deterministic")
-        ms = cuda_ms(lambda: kmeans_assign_update(x, c))
-        plain_ms = cuda_ms(lambda: kmeans_assign_update_plain(x, c))
-        tflops = 2 * B * N * K * D / (ms * 1e-3) / 1e12
-        log("kernels", f"kmeans K={K}: kernel {ms:.4f} ms ({tflops:.1f} TFLOP/s on x.c^T, "
-                       f"{B * N * D * 2 / (ms * 1e-3) / 1e9:.1f} GB/s of x), plain {plain_ms:.4f} ms")
-        entry = {"name": "kmeans", "route": "cuda", "source": "sparse_videogen_tpu_torch/csrc/kmeans.cu",
-                 "replaces": "sparse_videogen_tpu/ops/kmeans_pallas.py:31", "max_abs_err": max_abs,
-                 "ms": ms, "plain_ms": plain_ms}
+        eq = lab == ref_labels
+        st["flips"] += int((~eq).sum())
+        st["clear"] += int(clear.sum())
+        st["clear_equal"] &= bool(eq[clear].all())
+        if not sums_and_counts:
+            continue
+        st["count_moves"] += int((counts[hs] - ref_counts).abs().sum())
+        seg = torch.bmm(_onehot(lab, K).transpose(1, 2), xs.float())
+        st["seg_err"] = max(st["seg_err"], (sums[hs] - seg).abs().max().item())
+        st["seg_max"] = max(st["seg_max"], seg.abs().max().item())
+        touched = torch.zeros(xs.shape[0], K + 1, dtype=torch.bool, device=x.device)  # column K: tokens that did not flip
+        for lb in (lab, ref_labels):
+            touched.scatter_(1, torch.where(eq, K, lb).long(), True)
+        st["max_abs"] = max(st["max_abs"], (sums[hs] - ref_sums).abs().amax(-1).masked_fill(touched[:, :K], 0).max().item())
+        del ref_labels, ref_sums, ref_counts, top2, seg
+    st["equal_frac"] = 1.0 - st["flips"] / (B * N)
+    st["seg_rel"] = st["seg_err"] / max(st["seg_max"], 1e-30)
+    ok = st["same_bits"] and st["clear_equal"] and st["equal_frac"] >= 0.999
+    if sums_and_counts:
+        ok = ok and st["count_moves"] <= 2 * st["flips"] and st["seg_rel"] <= 1e-5
+    else:
+        ok = ok and not sums.any() and not counts.any()
+    return ok, st
+
+
+def _kmeans_log(name, st):
+    return (f"{name}: two runs same bits {st['same_bits']}; labels equal {st['equal_frac']:.6f} ({st['flips']} flips, "
+            f"all {st['clear']} clear-gap tokens equal {st['clear_equal']}, tol 0.999); count moves "
+            f"{st['count_moves']} (tol {2 * st['flips']}); sums vs plain segment sums of the kernel labels rel "
+            f"{st['seg_rel']:.3e} (tol 1e-5); sums vs plain on untouched clusters max_abs_err {st['max_abs']:.3e}")
+
+
+def _chunked(plain):
+    """The plain version over all heads, KMEANS_CHUNK at a time (for timing)."""
+    return lambda x, c: [plain(x[h:h + KMEANS_CHUNK], c[h:h + KMEANS_CHUNK]) for h in range(0, x.shape[0], KMEANS_CHUNK)]
+
+
+def phase_kmeans(dev):
+    """K5 at the SAP slices' shapes (D = 128, bf16, centroids drawn from the
+    tokens): Wan 2.1 1.3B 480p's (12 heads of one CFG stream, 32,760 tokens,
+    K = 50 and 200) and Wan 2.1 14B 720p's (40 heads, 75,600 tokens, K = 300,
+    the q clusters, and 1000, the k clusters), each under check_kmeans'
+    criteria and each launch counted. The plain version runs KMEANS_CHUNK
+    heads at a time (all 40 at once would hold ~26 GB of f32 distances and
+    one-hots)."""
+    from sparse_videogen_tpu_torch import _kernels
+    from sparse_videogen_tpu_torch.core.kmeans import init_centroids
+    from sparse_videogen_tpu_torch.ops.kmeans import WIDE_VARIANT, kmeans_assign_update, kmeans_assign_update_plain
+
+    times, worst = {}, 0.0
+    for preset, B, ks, seed in (("1.3B-480p", 12, (50, 200), 4), ("14B-720p-sap", 40, (300, 1000), 6)):
+        N, D = slice_layout(preset).seq_len, 128
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        x = torch.randn(B, N, D, generator=gen, device=dev).to(torch.bfloat16)
+        for K in ks:
+            c = init_centroids(x, K, gen)
+            n0 = _kernels.LAUNCHES["kmeans_wide"]
+            out = kmeans_assign_update(x, c)
+            if _kernels.LAUNCHES["kmeans_wide"] != n0 + 1:
+                raise AssertionError(f"K={K} did not launch the k-means kernel")
+            ok, st = check_kmeans(x, c, out, kmeans_assign_update(x, c), kmeans_assign_update_plain)
+            torch.cuda.synchronize()
+            log("kernels", _kmeans_log(f"kmeans_wide (variant {WIDE_VARIANT}; B={B}, N={N}, D={D}, K={K}) bf16", st))
+            if not ok:
+                raise AssertionError(f"kmeans kernel (K={K}) disagrees with its plain version or is not deterministic")
+            ms = cuda_ms(lambda: kmeans_assign_update(x, c))
+            plain_ms = cuda_ms(lambda: _chunked(kmeans_assign_update_plain)(x, c), iters=2)
+            log("kernels", f"kmeans_wide K={K}: kernel {ms:.4f} ms ({2 * B * N * K * D / (ms * 1e-3) / 1e12:.1f} "
+                           f"TFLOP/s on x.c^T, {B * N * D * 2 / (ms * 1e-3) / 1e9:.1f} GB/s of x), plain "
+                           f"{plain_ms:.4f} ms ({KMEANS_CHUNK} heads a call)")
+            times[K] = (ms, plain_ms)
+            worst = max(worst, st["max_abs"])
+        del x
+        torch.cuda.empty_cache()
+    ms, plain_ms = times[1000]
+    return {"name": "kmeans_wide", "route": "cuda", "source": "sparse_videogen_tpu_torch/csrc/kmeans_wide.cu",
+            "replaces": "sparse_videogen_tpu/ops/kmeans_pallas.py:31", "max_abs_err": worst, "ms": ms,
+            "plain_ms": plain_ms, "K": 1000, "ms_by_K": {k: t[0] for k, t in times.items()}}
+
+
+def phase_variants(dev):
+    """The five probe variants (K8) on the probe's own data (40 heads,
+    75,600 tokens, D = 128), K = 300 and 125, with the last two centroids
+    copies of the first two so that tokens tie exactly. A, B, C and E against
+    their plain versions under phase_kmeans' criteria (E: sums and counts 0),
+    B and C equal to A bit for bit. D (no labels; multi-hot dist <= min):
+    every token counts in its A cluster and that centroid's copies (exact
+    ties are the same distances on the card; the probe's tight clusters also
+    tie a few tokens exactly between distinct centroids); against its plain
+    version the counts move by at most 4 per A flip (a flipped token leaves
+    and enters at most two tied clusters each) and the sums agree to 1e-5 of
+    the largest |sum| on the clusters whose counts agree."""
+    from sparse_videogen_tpu_torch.ops.kmeans import VARIANTS, kmeans_variant_pass, kmeans_variant_pass_plain
+    from sparse_videogen_tpu_torch.scripts.probe_kmeans_variants import KS, SHAPE, make_inputs
+
+    x, cents = make_inputs(*SHAPE, KS, seed=0, device=dev)
+    B, N, D = x.shape
+    times, worst = {}, 0.0
+    for K, c in cents.items():
+        c = c.clone()
+        c[:, K - 2:] = c[:, :2]
+        outs = {}
+        for v in VARIANTS:
+            plain = lambda xs, cs, v=v: kmeans_variant_pass_plain(xs, cs, v)
+            out = outs[v] = kmeans_variant_pass(x, c, v)
+            again = kmeans_variant_pass(x, c, v)
+            if v == "D":
+                same = all(torch.equal(u, w) for u, w in zip(out, again))
+                moves, flips, err, smax, covers = 0, 0, 0.0, 0.0, True
+                for h in range(0, B, KMEANS_CHUNK):
+                    hs = slice(h, h + KMEANS_CHUNK)
+                    _, ref_sums, ref_counts = plain(x[hs], c[hs])
+                    tie = (c[hs, :, None] == c[hs, None, :]).all(-1).float()  # (b, K, K): identical centroids
+                    covers &= bool((out[2][hs] >= torch.bmm(_onehot(outs["A"][0][hs], K), tie).sum(1)).all())
+                    moves += int((out[2][hs] - ref_counts).abs().sum())
+                    flips += int((outs["A"][0][hs] != kmeans_variant_pass_plain(x[hs], c[hs], "A")[0]).sum())
+                    same_n = out[2][hs] == ref_counts
+                    err = max(err, (out[1][hs] - ref_sums).abs().amax(-1).masked_fill(~same_n, 0).max().item())
+                    smax = max(smax, ref_sums.abs().max().item())
+                ok = same and not out[0].any() and covers and moves <= 4 * flips and err <= 1e-5 * smax
+                log("kernels", f"kmeans_variants D (K={K}): same bits {same}; every token in its A cluster and the "
+                               f"copies of that centroid {covers}; count moves vs plain {moves} (tol {4 * flips}); sums "
+                               f"vs plain on the clusters of equal counts max_abs_err {err:.3e} (tol {1e-5 * smax:.3e})")
+            else:
+                ok, st = check_kmeans(x, c, out, again, plain, sums_and_counts=v != "E")
+                if v in ("B", "C"):
+                    ok = ok and all(torch.equal(u, w) for u, w in zip(out, outs["A"]))
+                log("kernels", _kmeans_log(f"kmeans_variants {v} (B={B}, N={N}, D={D}, K={K})", st)
+                    + ("; equal to A bit for bit" if v in ("B", "C") and ok else ""))
+                err = st["max_abs"]
+            torch.cuda.synchronize()
+            if not ok:
+                raise AssertionError(f"k-means variant {v} (K={K}) disagrees with its plain version")
+            worst = max(worst, err)
+            times[f"{v}@{K}"] = (cuda_ms(lambda: kmeans_variant_pass(x, c, v)),
+                                 cuda_ms(lambda: _chunked(plain)(x, c), iters=2))
+            log("kernels", f"kmeans_variants {v} K={K}: kernel {times[f'{v}@{K}'][0]:.4f} ms, plain "
+                           f"{times[f'{v}@{K}'][1]:.4f} ms ({KMEANS_CHUNK} heads a call)")
+        del outs
+    ms, plain_ms = times["C@300"]  # the variant the TPU kernel's wide branch ships
     del x
-    return entry
+    torch.cuda.empty_cache()
+    return {"name": "kmeans_variants", "route": "cuda", "source": "sparse_videogen_tpu_torch/csrc/kmeans_wide.cu",
+            "replaces": "scripts/probe_kmeans_variants.py:31", "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+            "variant_ms": {k: t[0] for k, t in times.items()}}
 
 
 def _run_pairs(meta, block_q):
@@ -278,38 +406,52 @@ def _run_pairs(meta, block_q):
     return int(((b - a).sum(-1) * (m[..., 0] > 0)).sum()) * block_q
 
 
-def phase_sap_attention(dev):
+def phase_sap_attention(dev, preset="1.3B-480p", all_checks=True):
     """The run-list kernel on the inputs SAP's own front half builds (k-means,
     dynamic map, relabel, permutations, run lists) from random full-width
-    q, k, v of one CFG stream (12 heads, S tokens, D = 128), at the CLI's SAP
-    configuration; the first and last CHECK_HEADS heads are held against the
-    plain version, for mask none and for the band_sink MaskSpec path. Then
-    one full-width layer of SAP at full density against the dense kernel."""
+    q, k, v of one CFG stream at a preset's model and SAP configuration
+    (1.3B-480p: 12 heads, the CLI's SAP; 14B-720p-sap: 40 heads, the
+    reference's 720p SAP, QC 300, KC 1000: run lists of up to 2 KC entries).
+    q blocks that hold no token must have empty run lists. all_checks: the
+    first and last CHECK_HEADS heads against the plain version (one run: it
+    is slow) with mask none and the band_sink MaskSpec path, then one layer of
+    SAP at full density against the dense kernel; else mask none on the first
+    and last head (the plain version takes ~15 s a head at 720p)."""
     from sparse_videogen_tpu_torch.config import SAPConfig
     from sparse_videogen_tpu_torch.ops.attention import block_sparse_attention_runs, block_sparse_attention_runs_plain
     from sparse_videogen_tpu_torch.ops.mask_spec import MaskSpec
     from sparse_videogen_tpu_torch.pipelines.wan import make_wan_runtime
+    from sparse_videogen_tpu_torch.presets import PRESETS
     from sparse_videogen_tpu_torch.sparse import svg2
     from sparse_videogen_tpu_torch.sparse.svg1 import make_svg1_plan
 
-    lay = slice_layout()
-    H, S, D = 12, lay.seq_len, 128
+    lay = slice_layout(preset)
+    run = PRESETS[preset]
+    H, S, D = run.model.num_heads, lay.seq_len, run.model.head_dim
+    sap = run.sap
+    n_check = CHECK_HEADS if all_checks else 1
     gen = torch.Generator(device=dev).manual_seed(5)
     q, k, v = ((torch.randn(1, H, S, D, generator=gen, device=dev) * sc).to(torch.bfloat16) for sc in (2.0, 1.0, 1.0))
-    sap = SAPConfig()
     state0 = svg2.init_sap_state(H, D, sap, device=dev)
     a = svg2.sap_prepare(q, k, v, state0, layout=lay, cfg=sap, generator=gen)
-    heads = torch.tensor(list(range(CHECK_HEADS)) + list(range(H - CHECK_HEADS, H)), device=dev)
+    heads = torch.tensor(list(range(n_check)) + list(range(H - n_check, H)), device=dev)
     qs, ks, vs, metas = (x.index_select(0, heads).contiguous() for x in (a.q, a.k, a.v, a.meta))
     pairs = _run_pairs(a.meta, sap.block_q)
-    log("kernels", f"SAP front half (QC {sap.num_q_centroids}, KC {sap.num_k_centroids}, "
-                   f"{sap.kmeans_iter_init} k-means iterations, top_p {sap.top_p_kmeans}): density "
-                   f"{a.density.mean().item():.4f} (random weights: the centroid attention is flat); q padded "
-                   f"{S} -> {a.q.shape[1]} rows, meta {tuple(a.meta.shape)}, visited pairs {pairs / H / S / S:.3f} "
-                   f"of S x S per head (incl. padded q rows)")
-    band = make_svg1_plan(lay).mask_spec
+    n_q = a.meta.shape[1]
+    live = torch.zeros(H, n_q, dtype=torch.bool, device=dev).scatter_(1, (a.pos // sap.block_q).long(), True)
+    empty_ok = not bool(a.meta[..., 0][~live].any())
+    log("kernels", f"SAP front half, {preset} {run.height}x{run.width}x{run.num_frames} (QC {sap.num_q_centroids}, "
+                   f"KC {sap.num_k_centroids}, min_kc_ratio {sap.min_kc_ratio}, {sap.kmeans_iter_init} k-means "
+                   f"iterations, top_p {sap.top_p_kmeans}): density {a.density.mean().item():.4f} (random weights: the "
+                   f"centroid attention is flat); q padded {S} -> {a.q.shape[1]} rows, meta {tuple(a.meta.shape)}, "
+                   f"{int((~live).sum())} of {H * n_q} q blocks hold no token, their run lists empty {empty_ok}; "
+                   f"visited pairs {pairs / H / S / S:.3f} of S x S per head (incl. padded q rows)")
+    if not empty_ok or a.meta.shape[-1] != 1 + 2 * sap.num_k_centroids:
+        raise AssertionError("SAP front half: a q block without tokens has runs, or the run lists are cut")
+    specs = (("none", MaskSpec()), ("band_sink", make_svg1_plan(lay).mask_spec)) if all_checks else (
+        ("none", MaskSpec()),)
     entry = None
-    for name, spec in (("none", MaskSpec()), ("band_sink", band)):
+    for name, spec in specs:
         kw = dict(block_q=sap.block_q, block_kv=sap.block_kv, mask_spec=spec)
         out = block_sparse_attention_runs(a.q, a.k, a.v, a.meta, **kw)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -320,16 +462,16 @@ def phase_sap_attention(dev):
         torch.cuda.synchronize()
         plain_ms = start.elapsed_time(end)  # one run: the plain version is slow
         max_abs, mean_rel = err_stats(out.index_select(0, heads), ref)
-        log("kernels", f"runs attention, mask {spec.kind} (H={H}, heads {heads.tolist()} checked, q rows "
+        log("kernels", f"runs attention, mask {spec.kind} ({preset}, H={H}, heads {heads.tolist()} checked, q rows "
                        f"{a.q.shape[1]}, kv {a.k.shape[1]}, D={D}, block_q {sap.block_q}, block_kv {sap.block_kv}): "
                        f"max_abs_err {max_abs:.3e} (tol {ATTN_TOL_ABS}), mean_rel_err {mean_rel:.3e} "
                        f"(tol {ATTN_TOL_REL})")
         if not (max_abs <= ATTN_TOL_ABS and mean_rel <= ATTN_TOL_REL):
-            raise AssertionError(f"run-list attention kernel ({spec.kind}) disagrees with its plain version")
+            raise AssertionError(f"run-list attention kernel ({spec.kind}, {preset}) disagrees with its plain version")
         ms = cuda_ms(lambda: block_sparse_attention_runs(qs, ks, vs, metas, **kw))
-        ms_all = cuda_ms(lambda: block_sparse_attention_runs(a.q, a.k, a.v, a.meta, **kw))
+        ms_all = cuda_ms(lambda: block_sparse_attention_runs(a.q, a.k, a.v, a.meta, **kw), iters=2)
         sub_pairs = _run_pairs(metas, sap.block_q)
-        log("kernels", f"runs attention {spec.kind} on the {len(heads)} checked heads: kernel {ms:.3f} ms "
+        log("kernels", f"runs attention {spec.kind} ({preset}) on the {len(heads)} checked heads: kernel {ms:.3f} ms "
                        f"({4 * D * sub_pairs / (ms * 1e-3) / 1e12:.1f} TFLOP/s on the visited pairs), plain "
                        f"{plain_ms:.3f} ms (one run); all H={H}: kernel {ms_all:.3f} ms "
                        f"({4 * D * pairs / (ms_all * 1e-3) / 1e12:.1f} TFLOP/s)")
@@ -339,19 +481,21 @@ def phase_sap_attention(dev):
                      "replaces": "sparse_videogen_tpu/ops/attention.py:720", "max_abs_err": max_abs,
                      "ms": ms, "plain_ms": plain_ms}
         del out, ref
-    # every cluster pair selected: SAP must reproduce dense attention
-    full = SAPConfig(top_p_kmeans=1.0, min_kc_ratio=1.0)
-    out, st = svg2.sap_sparse_attention(q, k, v, svg2.init_sap_state(H, D, full, device=dev), layout=lay, cfg=full,
-                                        generator=gen)
-    dense = make_wan_runtime(lay, device=dev, pattern="dense")(q, k, v, 999.0, 0)
-    torch.cuda.synchronize()
-    max_abs, mean_rel = err_stats(out, dense)
-    log("kernels", f"SAP at full density (top_p 1.0, min_kc_ratio 1.0; density {st.last_density.mean().item():.4f}) "
-                   f"vs the dense kernel, one full-width layer: max_abs_err {max_abs:.3e} (tol {ATTN_TOL_ABS}), "
-                   f"mean_rel_err {mean_rel:.3e} (tol {ATTN_TOL_REL})")
-    if not (max_abs <= ATTN_TOL_ABS and mean_rel <= ATTN_TOL_REL):
-        raise AssertionError("SAP at full density disagrees with dense attention")
-    del q, k, v, a, qs, ks, vs, out, dense
+    if all_checks:
+        # every cluster pair selected: SAP must reproduce dense attention
+        full = SAPConfig(top_p_kmeans=1.0, min_kc_ratio=1.0)
+        out, st = svg2.sap_sparse_attention(q, k, v, svg2.init_sap_state(H, D, full, device=dev), layout=lay,
+                                            cfg=full, generator=gen)
+        dense = make_wan_runtime(lay, device=dev, pattern="dense")(q, k, v, 999.0, 0)
+        torch.cuda.synchronize()
+        max_abs, mean_rel = err_stats(out, dense)
+        log("kernels", f"SAP at full density (top_p 1.0, min_kc_ratio 1.0; density {st.last_density.mean().item():.4f}) "
+                       f"vs the dense kernel, one full-width layer: max_abs_err {max_abs:.3e} (tol {ATTN_TOL_ABS}), "
+                       f"mean_rel_err {mean_rel:.3e} (tol {ATTN_TOL_REL})")
+        if not (max_abs <= ATTN_TOL_ABS and mean_rel <= ATTN_TOL_REL):
+            raise AssertionError("SAP at full density disagrees with dense attention")
+        del out, dense
+    del q, k, v, a, qs, ks, vs
     torch.cuda.empty_cache()
     return entry
 
@@ -361,11 +505,13 @@ def expected_launches(pattern, n_layers, sap, warmup, timesteps):
     q and on k; a dense warm-up layer runs the chunked-CSR kernel (so does
     every SVG1 layer: its sparse path uses the same kernel), a sparse SAP
     layer the run-list kernel. SAP runs the two CFG streams as separate
-    forwards, and its k-means launches once per Lloyd iteration for q and for
-    k: kmeans_iter_init at a layer's first clustering in a stream,
+    forwards, and its k-means kernel launches once per Lloyd iteration for q
+    and for k: kmeans_iter_init at a layer's first clustering in a stream,
     kmeans_iter_step after (warm-up layers cluster only with
     zero_step_kmeans_init)."""
-    want = {"block_sparse_attn": 0, "rope": 0, "block_sparse_attn_runs": 0, "kmeans": 0}
+    from sparse_videogen_tpu_torch import _kernels
+
+    want = {name: 0 for name in _kernels.KERNELS}
     streams = 2 if pattern == "SAP" else 1
     for _ in range(streams):
         initialized = [False] * n_layers
@@ -378,90 +524,150 @@ def expected_launches(pattern, n_layers, sap, warmup, timesteps):
                     continue
                 want["block_sparse_attn" if dense else "block_sparse_attn_runs"] += 1
                 if not dense or sap.zero_step_kmeans_init:
-                    want["kmeans"] += 2 * (sap.kmeans_iter_step if initialized[li] else sap.kmeans_iter_init)
+                    iters = sap.kmeans_iter_step if initialized[li] else sap.kmeans_iter_init
+                    want["kmeans_wide"] += 2 * iters
                     initialized[li] = True
     return want
 
 
-def phase_slice(dev):
-    """Full-size Wan 2.1 1.3B, SVG1 then SAP; returns each kernel's launches
-    from the path that runs it (RoPE and the chunked kernel: SVG1)."""
+def drive(model, run, pattern, steps):
+    """One WanPipeline.generate_latents run with the kernel counters set to 0
+    just before it and read just after; holds them to expected_launches, the
+    plain-version calls to 0 and the latents to finite values of the right
+    shape. Returns the launches."""
     import json as _json
 
     from sparse_videogen_tpu_torch import _kernels
-    from sparse_videogen_tpu_torch.config import SAPConfig, SVGConfig, WarmupSchedule
-    from sparse_videogen_tpu_torch.models.wan.model import WAN_1_3B, WanModel
+    from sparse_videogen_tpu_torch.config import WarmupSchedule
     from sparse_videogen_tpu_torch.pipelines import WanPipeline
+    from sparse_videogen_tpu_torch.pipelines.wan import wan_layout
     from sparse_videogen_tpu_torch.schedulers import FlowUniPC
 
-    cfg = WAN_1_3B
-    gen = torch.Generator(device=dev).manual_seed(0)
-    t0 = time.perf_counter()
-    model = WanModel(cfg, dtype=torch.bfloat16, device=dev).init_random(gen)
+    cfg = model.cfg
+    dev = model.patch_embedding.weight.device
+    gen = torch.Generator(device=dev).manual_seed(1)
     ctx = torch.randn(1, cfg.text_len, cfg.text_dim, generator=gen, device=dev).to(torch.bfloat16)
     ctx_null = torch.randn(1, cfg.text_len, cfg.text_dim, generator=gen, device=dev).to(torch.bfloat16)
+    lay = wan_layout(cfg, run.height, run.width, run.num_frames)
+    timesteps = FlowUniPC(steps, shift=run.flow_shift).timesteps
+    warmup = WarmupSchedule.from_fractions(run.first_layers_fp, run.first_times_fp, cfg.num_layers, timesteps)
+    events = []
+
+    def on_step(i, lat):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append(ev)
+
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        dlog = os.path.join(tmp, "density.jsonl")
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.Event(enable_timing=True)
+        _kernels.reset_counts()
+        start.record()
+        t0 = time.perf_counter()
+        lat = WanPipeline(model).generate_latents(
+            ctx, ctx_null, num_inference_steps=steps, pattern=pattern, seed=0, callback=on_step,
+            logging_file=dlog if pattern == "SAP" else None, **run.generate_kwargs())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, plain = dict(_kernels.LAUNCHES), dict(_kernels.PLAIN_CALLS)
+        dens = [_json.loads(line)["avg_density"] for line in open(dlog)] if pattern == "SAP" else []
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    step_s = [start.elapsed_time(events[0]) / 1e3] + [
+        events[i - 1].elapsed_time(events[i]) / 1e3 for i in range(1, len(events))]
+    finite = bool(torch.isfinite(lat).all())
+    how = "cond and uncond as separate batch-1 forwards" if pattern == "SAP" else "CFG batch 2"
+    name = f"Wan dim {cfg.dim} x {cfg.num_layers} layers"
+    log("slice", f"{name}, {run.height}x{run.width}x{run.num_frames} (S={lay.seq_len} = {lay.num_frames}x"
+                 f"{lay.frame_size}), {pattern}, {steps} steps ({warmup.first_layers} warm-up layers, steps with t > "
+                 f"{warmup.first_times} dense), {how}: per-step s {[round(x, 4) for x in step_s]}, total {wall:.2f} s, "
+                 f"peak memory {peak:.2f} GiB")
+    if dens:
+        log("slice", f"{name} SAP density (cond stream, {len(dens)} logged layer-steps): mean {np.mean(dens):.4f}, "
+                     f"min {min(dens):.4f}, max {max(dens):.4f} (random weights)")
+    want = expected_launches(pattern, cfg.num_layers, run.sap, warmup, timesteps)
+    log("slice", f"{name} {pattern} launches {launches} (expected {want}), plain-version calls {plain}, "
+                 f"latents {tuple(lat.shape)} finite {finite}, std {lat.std().item():.4f}")
+    if launches != want:
+        raise AssertionError(f"{name} {pattern}: kernel launches {launches} != expected {want}")
+    if any(plain.values()):
+        raise AssertionError(f"{name} {pattern}: the main path called a plain version: {plain}")
+    if not finite or tuple(lat.shape) != (1, 16, lay.num_frames, run.height // 8, run.width // 8):
+        raise AssertionError(f"{name} {pattern}: slice latents are not finite or have the wrong shape")
+    return launches
+
+
+def _new_model(cfg, dev):
+    from sparse_videogen_tpu_torch.models.wan.model import WanModel
+
+    t0 = time.perf_counter()
+    model = WanModel(cfg, dtype=torch.bfloat16, device=dev).init_random(torch.Generator(device=dev).manual_seed(0))
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.parameters())
-    log("slice", f"Wan 2.1 1.3B: dim {cfg.dim}, {cfg.num_layers} layers, {cfg.num_heads} heads, "
+    log("slice", f"Wan dim {cfg.dim}: {cfg.num_layers} layers, {cfg.num_heads} heads, FFN {cfg.ffn_dim}, "
                  f"{n_params / 1e9:.3f} B params, init {time.perf_counter() - t0:.1f} s")
-    lay = slice_layout()
-    sap = SAPConfig()  # the CLI's SAP defaults: cluster mode, QC 50, KC 200, 50 + 2 iterations, top_p 0.9
-    timesteps = FlowUniPC(STEPS, shift=FLOW_SHIFT).timesteps
-    warmup = WarmupSchedule.from_fractions(FIRST_LAYERS_FP, FIRST_TIMES_FP, cfg.num_layers, timesteps)
+    return model
+
+
+def phase_slice(dev):
+    """Full-size Wan 2.1 1.3B, SVG1 then SAP; returns each kernel's launches
+    from the path that runs it first (RoPE and the chunked kernel: SVG1)."""
+    from sparse_videogen_tpu_torch.presets import T2V_480P
+
+    model = _new_model(T2V_480P.model, dev)
     counts = {}
     for pattern in ("SVG", "SAP"):
-        events = []
-
-        def on_step(i, lat):
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            events.append(ev)
-
-        with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
-            dlog = os.path.join(tmp, "density.jsonl")
-            torch.cuda.reset_peak_memory_stats()
-            start = torch.cuda.Event(enable_timing=True)
-            _kernels.reset_counts()
-            start.record()
-            t0 = time.perf_counter()
-            lat = WanPipeline(model).generate_latents(
-                ctx, ctx_null, height=HEIGHT, width=WIDTH, num_frames=NUM_FRAMES, num_inference_steps=STEPS,
-                guidance_scale=GUIDANCE, flow_shift=FLOW_SHIFT, pattern=pattern,
-                first_layers_fp=FIRST_LAYERS_FP, first_times_fp=FIRST_TIMES_FP,
-                svg=SVGConfig(sparsity=SPARSITY), sap=sap, seed=0, callback=on_step,
-                logging_file=dlog if pattern == "SAP" else None,
-            )
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            launches, plain = dict(_kernels.LAUNCHES), dict(_kernels.PLAIN_CALLS)
-            dens = [_json.loads(line)["avg_density"] for line in open(dlog)] if pattern == "SAP" else []
-        peak = torch.cuda.max_memory_allocated() / 2**30
-        steps = [start.elapsed_time(events[0]) / 1e3] + [
-            events[i - 1].elapsed_time(events[i]) / 1e3 for i in range(1, len(events))]
-        finite = bool(torch.isfinite(lat).all())
-        how = "cond and uncond as separate batch-1 forwards" if pattern == "SAP" else "CFG batch 2"
-        log("slice", f"{HEIGHT}x{WIDTH}x{NUM_FRAMES} (S={lay.seq_len} = {lay.num_frames}x{lay.frame_size}), "
-                     f"{pattern}, {STEPS} steps, {how}: per-step s {[round(s, 4) for s in steps]}, "
-                     f"total {wall:.2f} s, peak memory {peak:.2f} GiB")
-        if dens:
-            log("slice", f"SAP density (cond stream, {len(dens)} logged layer-steps): mean {np.mean(dens):.4f}, "
-                         f"min {min(dens):.4f}, max {max(dens):.4f} (random weights)")
-        want = expected_launches(pattern, cfg.num_layers, sap, warmup, timesteps)
-        log("slice", f"{pattern} launches {launches} (expected {want}), plain-version calls {plain}, "
-                     f"latents {tuple(lat.shape)} finite {finite}, std {lat.std().item():.4f}")
-        if launches != want:
-            raise AssertionError(f"{pattern}: kernel launches {launches} != expected {want}")
-        if any(plain.values()):
-            raise AssertionError(f"{pattern}: the main path called a plain version: {plain}")
-        if not finite or tuple(lat.shape) != (1, 16, lay.num_frames, HEIGHT // 8, WIDTH // 8):
-            raise AssertionError(f"{pattern}: slice latents are not finite or have the wrong shape")
-        for name, n in launches.items():
+        for name, n in drive(model, T2V_480P, pattern, STEPS).items():
             if n and name not in counts:
                 counts[name] = n
-        del lat
     del model
     torch.cuda.empty_cache()
     return counts
+
+
+def phase_probe(dev):
+    """The K8 probe's entry (probe_kmeans_variants.probe) on its own data:
+    every variant at K = 300 and 125, B and C equal to A; the variant kernel
+    launches counted around it."""
+    from sparse_videogen_tpu_torch import _kernels
+    from sparse_videogen_tpu_torch.ops.kmeans import VARIANTS
+    from sparse_videogen_tpu_torch.scripts import probe_kmeans_variants as probe
+
+    x, cents = probe.make_inputs(*probe.SHAPE, probe.KS, seed=0, device=dev)
+    iters, warmup = 5, 1
+    _kernels.reset_counts()
+    rows = probe.probe(x, cents, iters=iters, warmup=warmup)
+    torch.cuda.synchronize()
+    launches, plain = dict(_kernels.LAUNCHES), dict(_kernels.PLAIN_CALLS)
+    want = len(cents) * len(VARIANTS) * (1 + warmup + iters)
+    log("slice", f"K8 probe {tuple(x.shape)} bf16: " + ", ".join(
+        f"K={r['K']} {r['variant']} {r['ms']:.4f} ms" + ("" if r["exact_match"] is None else
+                                                        f" (= A: {r['exact_match']})") for r in rows)
+        + f"; kmeans_variants launches {launches['kmeans_variants']} (expected {want}), plain-version calls {plain}")
+    if launches["kmeans_variants"] != want or any(plain.values()):
+        raise AssertionError("K8 probe: wrong launch count or a plain-version call")
+    if not all(r["exact_match"] for r in rows if r["exact_match"] is not None):
+        raise AssertionError("K8 probe: B or C differs from A")
+    del x, cents
+    torch.cuda.empty_cache()
+    return {"kmeans_variants": launches["kmeans_variants"]}
+
+
+def phase_slice_14b(dev):
+    """Wan 2.1 14B at full width (dim 5120, 40 heads, FFN 13824, D = 128) and
+    LAYERS_14B layers, 720x1280x81 (S = 75,600), 5 UniPC steps, SAP at the
+    reference's 720p config (QC 300, KC 1000, min_kc_ratio 0.10, top_p 0.9,
+    first_times_fp 0.2: step 0 is a dense warm-up step on K1); cond and uncond
+    as separate batch-1 forwards."""
+    import dataclasses
+
+    from sparse_videogen_tpu_torch.presets import T2V_720P_SAP
+
+    model = _new_model(dataclasses.replace(T2V_720P_SAP.model, num_layers=LAYERS_14B), dev)
+    launches = drive(model, T2V_720P_SAP, "SAP", STEPS_14B)
+    del model
+    torch.cuda.empty_cache()
+    return {name: n for name, n in launches.items() if n}
 
 
 def phase_small_reference(dev):
@@ -521,8 +727,13 @@ def main():
     dev = torch.device("cuda", 0)
     phase_build()
     kernels = {"rope": phase_rope(dev), "block_sparse_attn": phase_attention(dev),
-               "block_sparse_attn_runs": phase_sap_attention(dev), "kmeans": phase_kmeans(dev)}
+               "block_sparse_attn_runs": phase_sap_attention(dev), "kmeans_wide": phase_kmeans(dev),
+               "kmeans_variants": phase_variants(dev)}
+    phase_sap_attention(dev, "14B-720p-sap", all_checks=False)
     launches = phase_slice(dev)
+    for counts in (phase_probe(dev), phase_slice_14b(dev)):
+        for name, n in counts.items():
+            launches.setdefault(name, n)
     phase_small_reference(dev)
     phase_cli()
     for name, entry in kernels.items():

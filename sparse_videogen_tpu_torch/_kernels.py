@@ -30,7 +30,7 @@ NVCC_FLAGS = [
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo",
 ]
 
-KERNELS = ("block_sparse_attn", "rope", "block_sparse_attn_runs", "kmeans")
+KERNELS = ("block_sparse_attn", "rope", "block_sparse_attn_runs", "kmeans_wide", "kmeans_variants")
 LAUNCHES = {name: 0 for name in KERNELS}
 PLAIN_CALLS = {name: 0 for name in KERNELS}
 
@@ -50,12 +50,10 @@ _SIGNATURES = {
     # mask_kind, band_width, sink_size, q_scale, stream
     "svt_block_sparse_attn_runs": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                                    _I, _I, _I, _F, _P],
-    # K, D -> dynamic shared memory bytes of the k-means slab kernel
-    "svt_kmeans_smem_bytes": [_I, _I],
-    # B, N -> number of token slabs
-    "svt_kmeans_num_slabs": [_I, _I],
-    # x, c, labels, part_sums, part_counts, sums, counts, B, N, K, D, n_slabs, stream
-    "svt_kmeans_assign_update": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # B, N, K -> number of token slabs of the k-means update
+    "svt_kmeans_wide_num_slabs": [_I, _I, _I],
+    # x, c, csq, labels, overflow, part_sums, part_counts, sums, counts, B, N, K, D, variant, n_slabs, stream
+    "svt_kmeans_wide": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
 
 

@@ -44,6 +44,7 @@ class WanConfig:
 
 
 WAN_1_3B = WanConfig()
+WAN_14B = WanConfig(dim=5120, ffn_dim=13824, num_heads=40, num_layers=40)
 
 F32 = torch.float32
 

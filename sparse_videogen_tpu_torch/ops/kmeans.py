@@ -1,13 +1,27 @@
-"""Fused k-means Lloyd pass (counterpart of sparse_videogen_tpu/ops/kmeans_pallas.py).
+"""Fused k-means Lloyd pass (counterpart of sparse_videogen_tpu/ops/kmeans_pallas.py)
+and its variant probe (counterpart of scripts/probe_kmeans_variants.py).
 
 One pass over x computes both the nearest-centroid labels and the per-cluster
 f32 sums and counts that the centroid update needs (core/kmeans.py).
 
-`kmeans_assign_update` launches the Hopper kernel (csrc/kmeans.cu) for CUDA
-tensors and the plain version for CPU tensors; `kmeans_assign_update_plain`
-is the plain version itself, the kernel's oracle on the card. The TPU's
-padding of K to 128 lanes with +inf distances and of N to the block size has
-no counterpart: the kernel bounds-checks both.
+`kmeans_assign_update` launches a Hopper kernel for CUDA tensors
+(csrc/kmeans_wide.cu, any K: the design of the TPU kernel's wide-K branch,
+which keeps neither the centroids nor the (K, D) f32 sums in shared memory)
+and the plain version for CPU tensors. `kmeans_assign_update_plain` is the
+plain version itself, the kernel's oracle on the card. The TPU's padding of
+K to 128 lanes with +inf distances and of N to the block size has no
+counterpart: the kernel bounds-checks both.
+
+`kmeans_variant_pass` runs one of the probe's five variants on the same
+kernel (any K), `kmeans_variant_pass_plain` its plain version:
+  A  argmin labels; sums and counts from their one-hot
+  B  the same labels by a two-min tiebreak (min, then the first k at it)
+  C  B, with the counts as a product (onehot^T 1)
+  D  no labels (all 0); multi-hot dist <= min: a tied token adds to every
+     tied cluster
+  E  argmin labels only; sums and counts 0
+A, B and C give the same labels, sums and counts; K5 runs WIDE_VARIANT,
+the fastest of the three on the card (PERF.md).
 """
 
 from __future__ import annotations
@@ -15,6 +29,11 @@ from __future__ import annotations
 import torch
 
 from sparse_videogen_tpu_torch import _kernels
+
+VARIANTS = ("A", "B", "C", "D", "E")
+WIDE_VARIANT = "A"
+# tied clusters the kernel keeps per token in variant D, more raise (TIES in csrc/kmeans_wide.cu)
+D_TIES = 4
 
 
 def _check(x, centroids):
@@ -24,62 +43,122 @@ def _check(x, centroids):
         raise ValueError("need at least one centroid")
 
 
-def kmeans_assign_update_plain(x, centroids):
-    """labels = argmin_k (|c_k|^2 - 2 x.c_k) in f32 (|x|^2 is constant per
-    row and left out, as the TPU kernel does), ties to the first index;
-    sums = onehot(labels)^T x and counts, both f32. The centroids are cast to
-    x's dtype first."""
-    _check(x, centroids)
-    _kernels.PLAIN_CALLS["kmeans"] += 1
+def _plain_pass(x, centroids, variant):
     B, N, D = x.shape
     K = centroids.shape[1]
     cf = centroids.to(x.dtype).float()
     xf = x.float()
     csq = (cf * cf).sum(-1)  # (B, K)
     dist = csq[:, None, :] - 2.0 * torch.bmm(xf, cf.transpose(1, 2))
-    labels = torch.argmin(dist, dim=-1)  # the first index among equal minima
-    onehot = torch.zeros(B, N, K, dtype=torch.float32, device=x.device)
-    onehot.scatter_(2, labels[..., None], 1.0)
+    if variant in ("A", "E"):
+        labels = torch.argmin(dist, dim=-1)  # the first index among equal minima
+    else:
+        hit = dist <= dist.amin(dim=-1, keepdim=True)
+        del dist
+        iota = torch.arange(K, dtype=torch.int32, device=x.device)
+        labels = torch.where(hit, iota, K).amin(dim=-1) if variant != "D" else torch.zeros(B, N, device=x.device)
+    if variant == "E":
+        return labels.to(torch.int32), x.new_zeros(B, K, D, dtype=torch.float32), x.new_zeros(B, K, dtype=torch.float32)
+    if variant == "D":
+        onehot = hit.float()
+    else:
+        onehot = torch.zeros(B, N, K, dtype=torch.float32, device=x.device)
+        onehot.scatter_(2, labels.long()[..., None], 1.0)
     sums = torch.bmm(onehot.transpose(1, 2), xf)
-    counts = onehot.sum(1)
+    if variant == "C":
+        counts = torch.bmm(torch.ones(B, 1, N, device=x.device), onehot)[:, 0]
+    else:
+        counts = onehot.sum(1)
     return labels.to(torch.int32), sums, counts
+
+
+def kmeans_assign_update_plain(x, centroids):
+    """labels = argmin_k (|c_k|^2 - 2 x.c_k) in f32 (|x|^2 is constant per
+    row and left out, as the TPU kernel does), ties to the first index;
+    sums = onehot(labels)^T x and counts, both f32. The centroids are cast to
+    x's dtype first."""
+    _check(x, centroids)
+    _kernels.PLAIN_CALLS["kmeans_wide"] += 1
+    return _plain_pass(x, centroids, "A")
+
+
+def kmeans_variant_pass_plain(x, centroids, variant: str):
+    """Plain version of probe variant `variant` (module docstring); returns
+    (labels (B, N) int32, sums (B, K, D) f32, counts (B, K) f32)."""
+    _check(x, centroids)
+    if variant not in VARIANTS:
+        raise ValueError(f"variant {variant!r} not in {VARIANTS}")
+    _kernels.PLAIN_CALLS["kmeans_variants"] += 1
+    return _plain_pass(x, centroids, variant)
+
+
+def _cuda_args(x, centroids):
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    c = centroids.to(x.dtype).contiguous()
+    if x.dtype != torch.bfloat16 or not x.is_contiguous() or c.device != x.device:
+        raise ValueError(f"x: need contiguous bf16 on {x.device}, got {x.dtype}, centroids on {c.device}")
+    if x.shape[2] not in (64, 128):
+        raise ValueError(f"kernel takes D in (64, 128), got {x.shape[2]}")
+    if x.data_ptr() % 16 or c.data_ptr() % 16:
+        raise ValueError("x and centroids must be 16-byte aligned")
+    return c
+
+
+def _wide_pass(x, c, variant):
+    B, N, D = x.shape
+    K = c.shape[1]
+    dev = x.device
+    lib = _kernels.lib()
+    n_slabs = lib.svt_kmeans_wide_num_slabs(B, N, K)
+    csq = torch.empty(B, -(-K // 64) * 64, dtype=torch.float32, device=dev)
+    overflow = torch.zeros(1, dtype=torch.int32, device=dev)
+    lab_buf = torch.empty((B, N, D_TIES) if variant == "D" else (B, N), dtype=torch.int32, device=dev)
+    outs = [None] * 4  # part_sums, part_counts, sums, counts: E writes none
+    if variant != "E":
+        outs = [torch.empty(B, n_slabs, K, D, dtype=torch.float32, device=dev),
+                torch.empty(B, n_slabs, K, dtype=torch.int32, device=dev),
+                torch.empty(B, K, D, dtype=torch.float32, device=dev),
+                torch.empty(B, K, dtype=torch.float32, device=dev)]
+    err = lib.svt_kmeans_wide(
+        x.data_ptr(), c.data_ptr(), csq.data_ptr(), lab_buf.data_ptr(), overflow.data_ptr(),
+        *(None if t is None else t.data_ptr() for t in outs), B, N, K, D,
+        VARIANTS.index(variant), n_slabs, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    sums, counts = outs[2:]
+    _kernels.check(err, "kmeans_wide")
+    if variant == "E":
+        return lab_buf, torch.zeros(B, K, D, dtype=torch.float32, device=dev), torch.zeros(B, K, device=dev)
+    if variant == "D":
+        if int(overflow.item()):  # a host sync: the probe's D only
+            raise RuntimeError(f"variant D: {int(overflow.item())} tokens tie more than {D_TIES} clusters")
+        return torch.zeros(B, N, dtype=torch.int32, device=dev), sums, counts
+    return lab_buf, sums, counts
 
 
 def kmeans_assign_update(x, centroids):
     """x (B, N, D), centroids (B, K, D). Returns (labels (B, N) int32,
     sums (B, K, D) f32, counts (B, K) f32).
 
-    CUDA tensors launch the kernel (bf16, contiguous, D in {64, 128}, K small
-    enough for its shared-memory slab: K <= 256 at D = 128 on an H100) and
-    raise on anything else; CPU tensors run the plain version."""
+    CUDA tensors launch a kernel (bf16, contiguous, D in {64, 128}, any K)
+    and raise on anything else; CPU tensors run the plain version."""
     _check(x, centroids)
     if x.device.type == "cpu":
         return kmeans_assign_update_plain(x, centroids)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
-    B, N, D = x.shape
-    K = centroids.shape[1]
-    c = centroids.to(x.dtype).contiguous()
-    if x.dtype != torch.bfloat16 or not x.is_contiguous() or c.device != x.device:
-        raise ValueError(f"x: need contiguous bf16 on {x.device}, got {x.dtype}, centroids on {c.device}")
-    if D not in (64, 128):
-        raise ValueError(f"kernel takes D in (64, 128), got {D}")
-    lib = _kernels.lib()
-    smem = lib.svt_kmeans_smem_bytes(K, D)
-    room = torch.cuda.get_device_properties(x.device).shared_memory_per_block_optin
-    if smem > room:
-        raise ValueError(f"K={K} at D={D} needs {smem} B of shared memory (the card has {room}); "
-                         "wider K is not ported yet (ROADMAP.md)")
-    n_slabs = lib.svt_kmeans_num_slabs(B, N)
-    labels = torch.empty(B, N, dtype=torch.int32, device=x.device)
-    part_sums = torch.empty(B, n_slabs, K, D, dtype=torch.float32, device=x.device)
-    part_counts = torch.empty(B, n_slabs, K, dtype=torch.int32, device=x.device)
-    sums = torch.empty(B, K, D, dtype=torch.float32, device=x.device)
-    counts = torch.empty(B, K, dtype=torch.float32, device=x.device)
-    err = lib.svt_kmeans_assign_update(
-        x.data_ptr(), c.data_ptr(), labels.data_ptr(), part_sums.data_ptr(), part_counts.data_ptr(),
-        sums.data_ptr(), counts.data_ptr(), B, N, K, D, n_slabs, torch.cuda.current_stream(x.device).cuda_stream,
-    )
-    _kernels.check(err, "kmeans")
-    _kernels.LAUNCHES["kmeans"] += 1
-    return labels, sums, counts
+    out = _wide_pass(x, _cuda_args(x, centroids), WIDE_VARIANT)
+    _kernels.LAUNCHES["kmeans_wide"] += 1
+    return out
+
+
+def kmeans_variant_pass(x, centroids, variant: str):
+    """Probe variant `variant` (module docstring) of the pass on the kernel
+    at any K for CUDA tensors (bf16, contiguous, D in {64, 128}); its
+    plain version for CPU tensors. Same returns as kmeans_assign_update."""
+    _check(x, centroids)
+    if variant not in VARIANTS:
+        raise ValueError(f"variant {variant!r} not in {VARIANTS}")
+    if x.device.type == "cpu":
+        return kmeans_variant_pass_plain(x, centroids, variant)
+    out = _wide_pass(x, _cuda_args(x, centroids), variant)
+    _kernels.LAUNCHES["kmeans_variants"] += 1
+    return out

@@ -1,0 +1,48 @@
+"""Wan 2.1 T2V runs of the repo's scripts: the model with its generation
+settings, which chip_smoke.py and scripts/profile_wan.py run with random
+weights (no checkpoint).
+
+T2V_480P ("1.3B-480p"): Wan 2.1 1.3B with the CLI's defaults
+  (cli/wan_t2v.py of the JAX package) at 480x832x81, BASELINE.json
+  configs[0]'s resolution; SAP in cluster mode at QC 50 / KC 200.
+T2V_720P_SAP ("14B-720p-sap"): Wan 2.1 14B with the reference's canonical
+  Wan 2.1 720p SAP run (scripts/wan/wan_t2v_720p_sap.sh): 720x1280x81, flow
+  shift 5.0, SAP at QC 300 / KC 1000, top_p 0.9, min_kc_ratio 0.10, 50 cold
+  / 2 warm k-means iterations, first_times_fp 0.2, first_layers_fp 0.03.
+Both keep the CLI's SVG1 sparsity (0.25) and guidance scale (5.0).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+from sparse_videogen_tpu_torch.config import SAPConfig, SVGConfig
+from sparse_videogen_tpu_torch.models.wan.model import WAN_1_3B, WAN_14B, WanConfig
+
+
+@dataclasses.dataclass(frozen=True)
+class WanRunSettings:
+    model: WanConfig
+    height: int
+    width: int
+    num_frames: int
+    flow_shift: float
+    first_layers_fp: float
+    first_times_fp: float
+    sap: SAPConfig
+
+    def generate_kwargs(self) -> dict:
+        """Keyword arguments of WanPipeline.generate_latents (the CLI's SVG1
+        sparsity 0.25 and guidance scale 5.0)."""
+        return dict(height=self.height, width=self.width, num_frames=self.num_frames, guidance_scale=5.0,
+                    flow_shift=self.flow_shift, first_layers_fp=self.first_layers_fp,
+                    first_times_fp=self.first_times_fp, svg=SVGConfig(sparsity=0.25), sap=self.sap)
+
+
+T2V_480P = WanRunSettings(WAN_1_3B, 480, 832, 81, flow_shift=3.0, first_layers_fp=0.025, first_times_fp=0.075,
+                          sap=SAPConfig())
+T2V_720P_SAP = WanRunSettings(
+    WAN_14B, 720, 1280, 81, flow_shift=5.0, first_layers_fp=0.03, first_times_fp=0.2,
+    sap=SAPConfig(num_q_centroids=300, num_k_centroids=1000, top_p_kmeans=0.9, min_kc_ratio=0.10,
+                  kmeans_iter_init=50, kmeans_iter_step=2))
+PRESETS = {"1.3B-480p": T2V_480P, "14B-720p-sap": T2V_720P_SAP}

@@ -1,16 +1,23 @@
-"""Per-step time and per-kernel breakdown of full-size Wan 2.1 1.3B T2V on one GPU.
+"""Per-step time and per-kernel breakdown of Wan 2.1 T2V (1.3B or 14B) on one GPU.
 
     python -m sparse_videogen_tpu_torch.scripts.profile_wan [--runs SVG,dense,SAP,SAP,dense,SVG]
+    python -m sparse_videogen_tpu_torch.scripts.profile_wan --preset 14B-720p-sap --layers 4 \
+        --steps 5 --runs SAP,dense,dense,SAP
 
-Random bf16 weights from --seed and a random (1, 512, 4096) context (UMT5-XXL's
-shape), the CLI's sparsity, SAP and warm-up settings. Dense and SVG1 batch
-CFG; SAP runs cond and uncond as separate batch-1 forwards. Two parts:
+--preset picks the model and its generation settings (presets.PRESETS):
+1.3B-480p, Wan 2.1 1.3B with the CLI's sparsity, SAP (QC 50 / KC 200) and
+warm-up; 14B-720p-sap, Wan 2.1 14B with the reference's Wan 720p SAP run
+(QC 300 / KC 1000, min_kc_ratio 0.10, first_times_fp 0.2, first_layers_fp
+0.03, flow shift 5.0). Random bf16 weights from --seed at the model's full
+width, --layers of its blocks (default: all), and a random (1, 512, 4096)
+context (UMT5-XXL's shape). Dense and SVG1 batch CFG; SAP runs cond and
+uncond as separate batch-1 forwards. Two parts:
 
   [time]    WanPipeline.generate_latents for --steps UniPC steps, once per
             entry of --runs (alternate the patterns to see drift), after one
             1-step warm-up generation per pattern; seconds per step from CUDA
-            events recorded by the step callback. SAP's first step includes
-            its cold k-means (kmeans_iter_init iterations).
+            events recorded by the step callback. SAP's first sparse step
+            includes its cold k-means (kmeans_iter_init iterations).
   [profile] one denoising step's forwards per pattern (without the UniPC
             update, at the second timestep; SAP's k-means warm, its states
             made by one forward before) under torch.profiler: device time by
@@ -23,6 +30,7 @@ CFG; SAP runs cond and uncond as separate batch-1 forwards. Two parts:
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import subprocess
@@ -31,12 +39,15 @@ import time
 
 import torch
 
+from sparse_videogen_tpu_torch.presets import PRESETS
+
 # (category, substrings of the kernel name); first match wins, the rest is elementwise
 CATEGORIES = (
     ("K1 attention (bsa_kernel)", ("bsa_kernel",)),
     ("K2 RoPE (rope_kernel)", ("rope_kernel",)),
     ("K3 run-list attention (runs_kernel)", ("runs_kernel",)),
-    ("K5 k-means (kmeans_*_kernel)", ("kmeans_slab_kernel", "kmeans_reduce_kernel")),
+    ("K5 k-means (kmeans_*_kernel)", ("kmeans_reduce_kernel", "kmeans_wide_assign_kernel", "kmeans_wide_update_kernel",
+                                      "kmeans_csq_kernel")),
     ("GEMM (cuBLAS)", ("nvjet", "gemm", "xmma", "cutlass")),
     ("softmax", ("softmax",)),
     ("reduce", ("reduce_kernel",)),
@@ -75,9 +86,8 @@ def breakdown(events):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--height", type=int, default=480)
-    ap.add_argument("--width", type=int, default=832)
-    ap.add_argument("--num_frames", type=int, default=81)
+    ap.add_argument("--preset", choices=tuple(PRESETS), default="1.3B-480p")
+    ap.add_argument("--layers", type=int, default=None, help="blocks to keep (default: the model's depth)")
     ap.add_argument("--steps", type=int, default=4)
     ap.add_argument("--runs", default="SVG,dense,SAP,SAP,dense,SVG")
     ap.add_argument("--seed", type=int, default=0)
@@ -85,8 +95,8 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     from sparse_videogen_tpu_torch import _kernels
-    from sparse_videogen_tpu_torch.config import SAPConfig, SVGConfig, WarmupSchedule
-    from sparse_videogen_tpu_torch.models.wan.model import WAN_1_3B, WanModel
+    from sparse_videogen_tpu_torch.config import WarmupSchedule
+    from sparse_videogen_tpu_torch.models.wan.model import WanModel
     from sparse_videogen_tpu_torch.pipelines import WanPipeline
     from sparse_videogen_tpu_torch.pipelines.wan import make_wan_runtime, wan_layout
     from sparse_videogen_tpu_torch.schedulers import FlowUniPC
@@ -98,23 +108,23 @@ def main(argv=None):
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(f"[device] {smi}; torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
-    sparsity, first_layers_fp, first_times_fp, flow_shift, guidance = 0.25, 0.025, 0.075, 3.0, 5.0  # CLI defaults
-    svg = SVGConfig(sparsity=sparsity)
-    sap = SAPConfig()  # the CLI's SAP defaults (cluster mode)
-
-    cfg = WAN_1_3B
+    run_cfg = PRESETS[args.preset]
+    svg, sap = run_cfg.generate_kwargs()["svg"], run_cfg.sap
+    cfg = dataclasses.replace(run_cfg.model, num_layers=args.layers or run_cfg.model.num_layers)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     model = WanModel(cfg, dtype=torch.bfloat16, device=dev).init_random(gen)
     ctx = torch.randn(1, cfg.text_len, cfg.text_dim, generator=gen, device=dev).to(torch.bfloat16)
     ctx_null = torch.randn(1, cfg.text_len, cfg.text_dim, generator=gen, device=dev).to(torch.bfloat16)
     pipe = WanPipeline(model)
-    gen_kw = dict(height=args.height, width=args.width, num_frames=args.num_frames, guidance_scale=guidance,
-                  flow_shift=flow_shift, first_layers_fp=first_layers_fp, first_times_fp=first_times_fp, svg=svg,
-                  sap=sap, seed=args.seed)
+    gen_kw = dict(run_cfg.generate_kwargs(), seed=args.seed)
+    print(f"[config] {args.preset}: Wan 2.1 dim {cfg.dim}, {cfg.num_layers} layers, {cfg.num_heads} heads; "
+          f"{run_cfg.height}x{run_cfg.width}x{run_cfg.num_frames}, {args.steps} steps; SAP QC {sap.num_q_centroids} "
+          f"KC {sap.num_k_centroids} min_kc_ratio {sap.min_kc_ratio}", flush=True)
     runs = args.runs.split(",")
     for pattern in dict.fromkeys(runs):
         pipe.generate_latents(ctx, ctx_null, num_inference_steps=1, pattern=pattern, **gen_kw)
-    result = {"device": smi, "time": [], "profile": {}}
+    result = {"device": smi, "preset": args.preset, "layers": cfg.num_layers, "time": [],
+              "profile": {}}
     tmp = tempfile.TemporaryDirectory()
     dlog = os.path.join(tmp.name, "density.jsonl")  # SAP's density log of the cond stream
 
@@ -122,6 +132,7 @@ def main(argv=None):
         events = []
         start = torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         start.record()
         t0 = time.perf_counter()
 
@@ -136,7 +147,8 @@ def main(argv=None):
         wall = time.perf_counter() - t0
         steps = [start.elapsed_time(events[0]) / 1e3] + [
             events[i - 1].elapsed_time(events[i]) / 1e3 for i in range(1, len(events))]
-        run = {"pattern": pattern, "per_step_s": steps, "wall_s": wall}
+        run = {"pattern": pattern, "per_step_s": steps, "wall_s": wall,
+               "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
         if pattern == "SAP":
             with open(dlog) as f:
                 dens = [json.loads(line)["avg_density"] for line in f]
@@ -146,11 +158,12 @@ def main(argv=None):
               flush=True)
         result["time"].append(run)
 
-    lay = wan_layout(cfg, args.height, args.width, args.num_frames)
-    sch = FlowUniPC(args.steps, shift=flow_shift)
-    warmup = WarmupSchedule.from_fractions(first_layers_fp, first_times_fp, cfg.num_layers, sch.timesteps)
+    lay = wan_layout(cfg, run_cfg.height, run_cfg.width, run_cfg.num_frames)
+    sch = FlowUniPC(args.steps, shift=run_cfg.flow_shift)
+    warmup = WarmupSchedule.from_fractions(run_cfg.first_layers_fp, run_cfg.first_times_fp, cfg.num_layers,
+                                           sch.timesteps)
     ctx_pair = torch.cat([ctx, ctx_null])
-    x = torch.randn(2, cfg.out_dim, lay.num_frames, args.height // 8, args.width // 8, generator=gen,
+    x = torch.randn(2, cfg.out_dim, lay.num_frames, run_cfg.height // 8, run_cfg.width // 8, generator=gen,
                     device=dev).to(torch.bfloat16)
     t = torch.full((2,), float(sch.timesteps[1]), device=dev)
     for pattern in dict.fromkeys(runs):

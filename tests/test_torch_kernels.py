@@ -20,7 +20,13 @@ from sparse_videogen_tpu_torch.ops.attention import (
     block_sparse_attention_runs,
     block_sparse_attention_runs_plain,
 )
-from sparse_videogen_tpu_torch.ops.kmeans import kmeans_assign_update, kmeans_assign_update_plain
+from sparse_videogen_tpu_torch.ops.kmeans import (
+    VARIANTS,
+    kmeans_assign_update,
+    kmeans_assign_update_plain,
+    kmeans_variant_pass,
+    kmeans_variant_pass_plain,
+)
 from sparse_videogen_tpu_torch.ops.mask_spec import MaskSpec
 from sparse_videogen_tpu_torch.ops.rope import rope_apply, rope_plain
 
@@ -67,7 +73,9 @@ def test_runs_and_kmeans_cpu_tensors_run_plain():
     _kernels.reset_counts()
     out = block_sparse_attention_runs(q, k, k, meta, block_q=128, block_kv=256)
     labels, sums, counts = kmeans_assign_update(torch.randn(2, 40, 8), torch.randn(2, 3, 8))
-    assert _kernels.PLAIN_CALLS["block_sparse_attn_runs"] == 1 and _kernels.PLAIN_CALLS["kmeans"] == 1
+    kmeans_variant_pass(torch.randn(2, 40, 8), torch.randn(2, 300, 8), "D")
+    assert _kernels.PLAIN_CALLS["block_sparse_attn_runs"] == 1 and _kernels.PLAIN_CALLS["kmeans_wide"] == 1
+    assert _kernels.PLAIN_CALLS["kmeans_variants"] == 1
     assert not any(_kernels.LAUNCHES.values())
     assert out.shape == q.shape and labels.shape == (2, 40) and sums.shape == (2, 3, 8) and counts.sum() == 80
     with pytest.raises(ValueError):  # block_kv not a multiple of 128
@@ -99,45 +107,80 @@ def test_runs_kernel_matches_plain(cuda, spec, D_):
     assert torch.all(out[:, bq:2 * bq] == 0)
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("K", [50, 200])
-@pytest.mark.parametrize("D_", [64, 128])
-def test_kmeans_kernel_matches_plain_and_is_deterministic(cuda, K, D_):
-    """Two launches give the same bits. Labels equal the plain version's
-    wherever its best-to-second distance gap exceeds 1e-3 x |best distance|
-    (the f32 products sum in another order, so nearer ties may flip) and on
-    >= 99.9% of the tokens; the f32 sums equal the plain segment sums of the
-    kernel's own labels to 1e-5 relative to the largest |sum|."""
-    gen = torch.Generator(device=cuda).manual_seed(K + D_)
-    B, N = 3, 5000
-    x = torch.randn(B, N, D_, generator=gen, device=cuda).to(torch.bfloat16)
-    c = x[:, torch.randperm(N, generator=gen, device=cuda)[:K]]
-    _kernels.reset_counts()
-    labels, sums, counts = kmeans_assign_update(x, c)
-    again = kmeans_assign_update(x, c)
-    assert _kernels.LAUNCHES["kmeans"] == 2 and _kernels.PLAIN_CALLS["kmeans"] == 0
-    for a, b in zip((labels, sums, counts), again):
-        assert torch.equal(a, b)
-    ref_labels, _, _ = kmeans_assign_update_plain(x, c)
+def _check_labels_and_sums(x, c, out, ref_labels):
+    """Labels equal the plain version's wherever its best-to-second distance
+    gap exceeds 1e-3 x |best distance| (the f32 products sum in another
+    order, so nearer ties may flip) and on >= 99.9% of the tokens; the counts
+    are those of the kernel's own labels and the f32 sums equal their plain
+    segment sums to 1e-5 relative to the largest |sum|."""
+    labels, sums, counts = out
     cf = c.float()
     dist = (cf * cf).sum(-1)[:, None, :] - 2.0 * x.float() @ cf.transpose(1, 2)
     top2 = dist.topk(2, dim=-1, largest=False).values
     clear = (top2[..., 1] - top2[..., 0]) > 1e-3 * top2[..., 0].abs()
     assert torch.equal(labels[clear], ref_labels[clear])
     assert (labels == ref_labels).float().mean().item() >= 0.999
-    onehot = torch.nn.functional.one_hot(labels.long(), K).float()
+    onehot = torch.nn.functional.one_hot(labels.long(), c.shape[1]).float()
     seg = onehot.transpose(1, 2) @ x.float()
     assert torch.equal(counts, onehot.sum(1))
     assert (sums - seg).abs().max().item() <= 1e-5 * seg.abs().max().item()
 
 
 @pytest.mark.gpu
-def test_kmeans_kernel_raises_past_its_shared_memory(cuda):
-    """K = 257 at D = 128 does not fit the slab in shared memory: the wrapper
-    raises before launching (no fallback)."""
-    x = torch.randn(1, 300, 128, device=cuda).to(torch.bfloat16)
-    with pytest.raises(ValueError):
-        kmeans_assign_update(x, x[:, :257])
+@pytest.mark.parametrize("K", [50, 200, 257, 300, 1000])
+@pytest.mark.parametrize("D_", [64, 128])
+def test_kmeans_kernel_matches_plain_and_is_deterministic(cuda, K, D_):
+    """K5 on the card: one kernel at every K (50 and 200, the 480p SAP
+    config's; 257, 300 and 1000, past the 256 centroids whose f32 sums a CTA
+    could hold). Two launches give the same bits; labels, counts and sums as
+    _check_labels_and_sums states."""
+    gen = torch.Generator(device=cuda).manual_seed(K + D_)
+    B, N = 3, 5000
+    x = torch.randn(B, N, D_, generator=gen, device=cuda).to(torch.bfloat16)
+    c = x[:, torch.randperm(N, generator=gen, device=cuda)[:K]]
+    _kernels.reset_counts()
+    out = kmeans_assign_update(x, c)
+    again = kmeans_assign_update(x, c)
+    assert _kernels.LAUNCHES["kmeans_wide"] == 2 and not any(_kernels.PLAIN_CALLS.values())
+    for a, b in zip(out, again):
+        assert torch.equal(a, b)
+    _check_labels_and_sums(x, c, out, kmeans_assign_update_plain(x, c)[0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant", VARIANTS)
+@pytest.mark.parametrize("D_", [64, 128])
+def test_kmeans_variant_kernels_match_plain(cuda, variant, D_):
+    """The probe's variants on the k-means kernel at K = 300, with the last two
+    centroids copies of the first two (exact ties). Same bits twice. A, B, C:
+    as K5 against the plain version, and B, C equal to A bit for bit; E: A's
+    labels, sums and counts 0; D: labels 0, and the counts and sums of A's
+    labels spread over the identical centroids (counts exactly, sums to 1e-5)."""
+    gen = torch.Generator(device=cuda).manual_seed(7 + D_)
+    B, N, K = 3, 5000, 300
+    x = torch.randn(B, N, D_, generator=gen, device=cuda).to(torch.bfloat16)
+    c = torch.randn(B, K, D_, generator=gen, device=cuda).to(torch.bfloat16)
+    c[:, K - 2:] = c[:, :2]
+    _kernels.reset_counts()
+    out = kmeans_variant_pass(x, c, variant)
+    again = kmeans_variant_pass(x, c, variant)
+    assert _kernels.LAUNCHES["kmeans_variants"] == 2 and not any(_kernels.PLAIN_CALLS.values())
+    for a, b in zip(out, again):
+        assert torch.equal(a, b)
+    a_out = kmeans_variant_pass(x, c, "A")
+    ref_labels = kmeans_variant_pass_plain(x, c, "A")[0]
+    if variant in ("A", "B", "C"):
+        _check_labels_and_sums(x, c, out, ref_labels)
+        for a, b in zip(out, a_out):
+            assert torch.equal(a, b)
+    elif variant == "E":
+        assert torch.equal(out[0], a_out[0]) and not out[1].any() and not out[2].any()
+    else:
+        tie = (c[:, :, None] == c[:, None, :]).all(-1).float()
+        multi = torch.nn.functional.one_hot(a_out[0].long(), K).float() @ tie
+        want = multi.transpose(1, 2) @ x.float()
+        assert not out[0].any() and torch.equal(out[2], multi.sum(1)) and out[2].sum() > B * N
+        assert (out[1] - want).abs().max().item() <= 1e-5 * want.abs().max().item()
 
 
 @pytest.mark.gpu

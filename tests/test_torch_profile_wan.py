@@ -9,8 +9,11 @@ from sparse_videogen_tpu_torch.scripts.profile_wan import breakdown, category
     ("void (anonymous namespace)::bsa_kernel<128>(...)", "K1 attention (bsa_kernel)"),
     ("svt_rope::rope_kernel(...)", "K2 RoPE (rope_kernel)"),
     ("void (anonymous namespace)::runs_kernel<128>(...)", "K3 run-list attention (runs_kernel)"),
-    ("void (anonymous namespace)::kmeans_slab_kernel<128>(...)", "K5 k-means (kmeans_*_kernel)"),
+    ("void at::native::reduce_kernel<512, 1, at::native::ReduceOp<float, ...>>(...)", "reduce"),
     ("void (anonymous namespace)::kmeans_reduce_kernel(...)", "K5 k-means (kmeans_*_kernel)"),
+    ("void (anonymous namespace)::kmeans_wide_assign_kernel<128, 0>(...)", "K5 k-means (kmeans_*_kernel)"),
+    ("void (anonymous namespace)::kmeans_wide_update_kernel<128, 1, false>(...)", "K5 k-means (kmeans_*_kernel)"),
+    ("void (anonymous namespace)::kmeans_csq_kernel(...)", "K5 k-means (kmeans_*_kernel)"),
     ("void at_cuda_detail::cub::DeviceRadixSortOnesweepKernel<...>(...)", "sort/scan/gather/scatter (SAP index maps)"),
     ("nvjet_tst_192x192_64x4_2x1_v_bz_coopB_bias_TNN", "GEMM (cuBLAS)"),
     ("void at::native::unrolled_elementwise_kernel<at::native::direct_copy_kernel_cuda(...)>", "copy/memset/cat"),

@@ -241,14 +241,14 @@ def test_sap_runtime_warmup_routing(zero_step):
     rt(q, k, v, 950.0, 1)  # t > first_times: dense warm-up step
     assert _kernels.PLAIN_CALLS["block_sparse_attn"] == 2 and _kernels.PLAIN_CALLS["block_sparse_attn_runs"] == 0
     assert all(rt.states[li].initialized == zero_step for li in (0, 1))
-    assert _kernels.PLAIN_CALLS["kmeans"] == (2 * 2 * 3 if zero_step else 0)
+    assert _kernels.PLAIN_CALLS["kmeans_wide"] == (2 * 2 * 3 if zero_step else 0)
     assert not rt.states[1].last_density.any()  # dense steps log no density
     _kernels.reset_counts()
     gen = torch.Generator().manual_seed(0)
     out = rt(q, k, v, 500.0, 1, generator=gen)  # sparse
     assert _kernels.PLAIN_CALLS["block_sparse_attn_runs"] == 1 and _kernels.PLAIN_CALLS["block_sparse_attn"] == 0
     # warm: kmeans_iter_step (2) passes for q and for k; cold: kmeans_iter_init (3)
-    assert _kernels.PLAIN_CALLS["kmeans"] == 2 * (cfg.kmeans_iter_step if zero_step else cfg.kmeans_iter_init)
+    assert _kernels.PLAIN_CALLS["kmeans_wide"] == 2 * (cfg.kmeans_iter_step if zero_step else cfg.kmeans_iter_init)
     assert rt.states[1].initialized and rt.states[1].last_density.gt(0).all() and out.shape == q.shape
 
 
