@@ -1,4 +1,5 @@
-"""Drive the torch port of the Wan 2.1 T2V dense/SVG1/SAP paths once on one NVIDIA GPU.
+"""Drive the torch port's main paths once on one NVIDIA GPU: Wan 2.1 T2V
+dense/SVG1/SAP, HunyuanVideo T2V dense/SVG1, and the probe entries of K6 and K8.
 
     python3 chip_smoke.py
 
@@ -18,25 +19,39 @@ is non-zero:
                (40 heads, 75,600 tokens, K = 300 and 1000) and the five probe
                variants (K = 300 and 125), each twice for the same bits; then
                the run-list attention on the run lists of the 720p SAP
-               config's own front half (QC 300, KC 1000).
+               config's own front half (QC 300, KC 1000). K1's hyvideo kind at
+               HunyuanVideo 720p x 129 (S = 119,056, 24 heads) on the
+               pipeline runtime's dense and SVG1 metadata; K6 (Triton RMSNorm)
+               on its probe's shapes; K7 (q-split dense attention) at (12,
+               32768, 128) for every (bq, qsplit) it compiles. Each entry of
+               the kernels line carries its bound (bytes or operations over
+               the H100's peaks) and, where one PyTorch call computes the same
+               function, that call's time.
   4. slice   - WanPipeline.generate_latents with random weights from a seed:
                Wan 2.1 1.3B at full width and depth, 480x832x81, 4 UniPC
                steps, SVG1 with batched CFG, then SAP (cluster mode, the CLI's
                defaults) with cond and uncond as separate forwards; the K8
                probe's entry (probe_kmeans_variants.probe) on its own data;
                Wan 2.1 14B at full width and LAYERS_14B layers, 720x1280x81,
-               5 UniPC steps, SAP at the reference's 720p config. Each path's
-               kernel launch counts are read around its run and held to what
-               the configuration implies. Then one forward of a small Wan with
-               the kernels (on the card) against the plain versions (on the
-               CPU), dense, SVG1 and SAP.
-  5. cli     - the port's CLI in --smoke mode for SVG, dense and SAP.
+               5 UniPC steps, SAP at the reference's 720p config;
+               HunyuanVideo (HYVIDEO_T2 at full width, HY_DOUBLE + HY_SINGLE
+               blocks) through HyVideoPipeline.generate_latents at
+               720x1280x129, SVG1 for HY_STEPS_SVG steps (one dense warm-up
+               step) and dense for HY_STEPS_DENSE, prompt HY_PROMPT of 256
+               text tokens; the K6 and K7 probe entries on their own data.
+               Each path's kernel launch counts are read around its run and
+               held to what the configuration implies. Then one forward of a
+               small Wan and a small HunyuanVideo with the kernels (on the
+               card) against the plain versions (on the CPU).
+  5. cli     - the port's CLIs in --smoke mode: Wan for SVG, dense and SAP,
+               HunyuanVideo for SVG and dense.
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -62,6 +77,18 @@ TIMED_ITERS = 5
 # order of sums and in where the running max rescales P (64-token sub-tiles
 # vs whole chunks), which moves bf16 roundings of P
 ATTN_TOL_ABS, ATTN_TOL_REL = 2e-2, 1e-2
+# H100 SXM published peaks (NVIDIA data sheet): dense bf16 tensor-core FLOP/s,
+# f32 FLOP/s outside the tensor cores, HBM3 bytes/s; a kernel's bound is the
+# larger of its operations over the peak and its bytes (each input read once,
+# each output written once) over the memory rate
+PEAK_BF16_FLOPS, PEAK_F32_FLOPS, PEAK_BYTES = 989e12, 67e12, 3.35e12
+# HunyuanVideo: HYVIDEO_T2's full width, the first HY_DOUBLE of its 20 double
+# and HY_SINGLE of its 40 single blocks (the time limit bounds the depth,
+# PERF.md section 4); HY_STEPS_SVG steps make first_times_fp 0.1 one dense
+# warm-up step; a live prompt of HY_PROMPT of the 256 text tokens
+HY_DOUBLE, HY_SINGLE = 2, 2
+HY_STEPS_SVG, HY_STEPS_DENSE = 10, 2
+HY_PROMPT = 32
 
 
 def log(phase: str, msg: str) -> None:
@@ -79,6 +106,29 @@ def cuda_ms(fn, iters: int = TIMED_ITERS) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def bound(flops: float, nbytes: float, peak_flops: float = PEAK_BF16_FLOPS) -> dict:
+    """The least time the card could take: {bound_ms, bound_by}."""
+    t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES
+    return {"bound_ms": 1e3 * max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def attention_bound(pairs: int, q) -> dict:
+    """Attention over `pairs` (q, k) pairs summed over heads, D = q.shape[-1]:
+    4 D FLOPs a pair (QK^T and PV); q, k, v read and the output written once."""
+    return bound(4.0 * q.shape[-1] * pairs, 4 * q.numel() * q.element_size())
+
+
+def event_ms(fn) -> float:
+    """Milliseconds of one fn() by CUDA events (for the slow plain versions)."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
 
 
 def err_stats(out: torch.Tensor, ref: torch.Tensor):
@@ -149,9 +199,12 @@ def phase_rope(dev):
     plain_ms = cuda_ms(lambda: rope_plain(x, cos, sin))
     gbs = (2 * x.numel() * 2 + 2 * cos.numel() * 4) / (ms * 1e-3) / 1e9
     log("kernels", f"rope kernel {ms:.4f} ms ({gbs:.1f} GB/s), plain {plain_ms:.4f} ms")
+    # 6 f32 operations a rotated pair, outside the tensor cores; x read, the
+    # output written, the cos/sin tables read once
     return {"name": "rope", "route": "cuda", "source": "sparse_videogen_tpu_torch/csrc/rope.cu",
             "replaces": "sparse_videogen_tpu/ops/rope_pallas.py:48", "max_abs_err": max_abs,
-            "ms": ms, "plain_ms": plain_ms}
+            "ms": ms, "plain_ms": plain_ms,
+            **bound(3.0 * x.numel(), 2 * x.numel() * 2 + 2 * cos.numel() * 4, PEAK_F32_FLOPS), "library_ms": None}
 
 
 def _visited_pairs(meta_np, block_q, seq_q):
@@ -214,12 +267,18 @@ def phase_attention(dev):
                        f"({4 * D * pairs * len(heads) / (ms * 1e-3) / 1e12:.1f} TFLOP/s on {pairs / S / S:.3f} "
                        f"of the S x S pairs), plain {plain_ms:.3f} ms; all BH={BH}: kernel {ms_all:.3f} ms "
                        f"({4 * D * pairs * BH / (ms_all * 1e-3) / 1e12:.1f} TFLOP/s)")
-        del q, k, v, qs, ks, vs, out, ref
-        if name == "svg1":
+        if name == "dense":
+            # the same function as one PyTorch call (a yardstick only): SDPA on the real tokens
+            sdpa_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                qs[None, :, :S], ks[None, :, :S], vs[None, :, :S]))
+            b = attention_bound(len(heads) * S * S, qs[:, :S])
+            log("kernels", f"attention dense on the {len(heads)} checked heads: F.scaled_dot_product_attention "
+                           f"{sdpa_ms:.3f} ms; bound {b['bound_ms']:.3f} ms ({b['bound_by']})")
             entry = {"name": "block_sparse_attn", "route": "cuda",
                      "source": "sparse_videogen_tpu_torch/csrc/block_sparse_attn.cu",
                      "replaces": "sparse_videogen_tpu/ops/attention.py:62", "max_abs_err": max_abs,
-                     "ms": ms, "plain_ms": plain_ms}
+                     "ms": ms, "plain_ms": plain_ms, **b, "library_ms": sdpa_ms}
+        del q, k, v, qs, ks, vs, out, ref
     return entry
 
 
@@ -289,6 +348,13 @@ def _chunked(plain):
     return lambda x, c: [plain(x[h:h + KMEANS_CHUNK], c[h:h + KMEANS_CHUNK]) for h in range(0, x.shape[0], KMEANS_CHUNK)]
 
 
+def kmeans_bound(B, N, K, D) -> dict:
+    """One Lloyd pass: x . c^T (2 B N K D tensor-core FLOPs; the argmin and
+    the sums' B N D adds are small beside it); x and c read, labels, sums
+    and counts written once."""
+    return bound(2.0 * B * N * K * D, B * N * D * 2 + B * K * D * 2 + B * N * 4 + B * K * D * 4 + B * K * 4)
+
+
 def phase_kmeans(dev):
     """K5 at the SAP slices' shapes (D = 128, bf16, centroids drawn from the
     tokens): Wan 2.1 1.3B 480p's (12 heads of one CFG stream, 32,760 tokens,
@@ -329,7 +395,8 @@ def phase_kmeans(dev):
     ms, plain_ms = times[1000]
     return {"name": "kmeans_wide", "route": "cuda", "source": "sparse_videogen_tpu_torch/csrc/kmeans_wide.cu",
             "replaces": "sparse_videogen_tpu/ops/kmeans_pallas.py:31", "max_abs_err": worst, "ms": ms,
-            "plain_ms": plain_ms, "K": 1000, "ms_by_K": {k: t[0] for k, t in times.items()}}
+            "plain_ms": plain_ms, **kmeans_bound(B, N, 1000, D), "library_ms": None, "K": 1000,
+            "ms_by_K": {k: t[0] for k, t in times.items()}}
 
 
 def phase_variants(dev):
@@ -396,14 +463,16 @@ def phase_variants(dev):
     torch.cuda.empty_cache()
     return {"name": "kmeans_variants", "route": "cuda", "source": "sparse_videogen_tpu_torch/csrc/kmeans_wide.cu",
             "replaces": "scripts/probe_kmeans_variants.py:31", "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-            "variant_ms": {k: t[0] for k, t in times.items()}}
+            **kmeans_bound(B, N, 300, D), "library_ms": None, "variant_ms": {k: t[0] for k, t in times.items()}}
 
 
-def _run_pairs(meta, block_q):
-    """q x kv pairs a run-list metadata visits (every q row of a visited block)."""
+def _run_pairs(meta, block_q, rows=None):
+    """q x kv pairs a run-list metadata visits: every q row of a visited
+    block, or, with rows (R, nQ) the real tokens of each q block, those."""
     m = meta.cpu().numpy().astype(np.int64)
     a, b = m[..., 1::2], m[..., 2::2]
-    return int(((b - a).sum(-1) * (m[..., 0] > 0)).sum()) * block_q
+    per_block = (b - a).sum(-1) * (m[..., 0] > 0)
+    return int(per_block.sum()) * block_q if rows is None else int((per_block * rows.cpu().numpy()).sum())
 
 
 def phase_sap_attention(dev, preset="1.3B-480p", all_checks=True):
@@ -476,10 +545,16 @@ def phase_sap_attention(dev, preset="1.3B-480p", all_checks=True):
                        f"{plain_ms:.3f} ms (one run); all H={H}: kernel {ms_all:.3f} ms "
                        f"({4 * D * pairs / (ms_all * 1e-3) / 1e12:.1f} TFLOP/s)")
         if spec.kind == "none":
+            # the work this data needs: the real q tokens of each block times its runs' tokens
+            rows = torch.zeros(H, n_q, device=dev).scatter_add_(1, (a.pos // sap.block_q).long(),
+                                                                torch.ones_like(a.pos, dtype=torch.float32))
+            b = attention_bound(_run_pairs(metas, sap.block_q, rows.index_select(0, heads)), qs)
+            log("kernels", f"runs attention none ({preset}), checked heads: bound {b['bound_ms']:.3f} ms "
+                           f"({b['bound_by']}, real q rows only)")
             entry = {"name": "block_sparse_attn_runs", "route": "cuda",
                      "source": "sparse_videogen_tpu_torch/csrc/runs_attn.cu",
                      "replaces": "sparse_videogen_tpu/ops/attention.py:720", "max_abs_err": max_abs,
-                     "ms": ms, "plain_ms": plain_ms}
+                     "ms": ms, "plain_ms": plain_ms, **b, "library_ms": None}
         del out, ref
     if all_checks:
         # every cluster pair selected: SAP must reproduce dense attention
@@ -705,21 +780,364 @@ def phase_small_reference(dev):
         if not rel <= 3e-2:
             raise AssertionError(f"small forward ({pattern}) disagrees with the CPU reference: {rel}")
 
+def hy_layout():
+    """HunyuanVideo 720x1280x129's token layout with the live prompt HY_PROMPT."""
+    from sparse_videogen_tpu_torch.pipelines.hyvideo import hyvideo_layout
+    from sparse_videogen_tpu_torch.presets import HY_720P_SVG as run
+
+    lay = hyvideo_layout(run.model, run.height, run.width, run.num_frames)
+    return dataclasses.replace(lay, prompt_length=HY_PROMPT)
+
+
+def hyvideo_pairs(spec, real: int, S: int) -> int:
+    """(q, k) pairs of the real sequence that the hyvideo predicate allows
+    (the work this data needs), per head: a real text row sees every real
+    column; a video row its band inside the video plus the real text; a fake
+    row the fake columns."""
+    vid, bw = spec.video_len, spec.band_width
+    qv = np.arange(vid, dtype=np.int64)
+    band = np.minimum(vid, qv + bw) - np.maximum(0, qv - bw + 1)
+    return int(band.sum()) + vid * (real - vid) + (real - vid) * real + (S - real) ** 2
+
+
+def phase_hyvideo_attention(dev):
+    """K1's hyvideo kind at HunyuanVideo 720p x 129 (S = 119,056: 33 x 3600
+    video + 256 text tokens, prompt HY_PROMPT; 24 heads, D = 128) on the
+    metadata and aux of the pipeline's own runtime: dense (band 1 << 24) and
+    SVG1 (floor band, cheap-first metadata), the first and last head against
+    the plain version (one run: it is slow at this length)."""
+    from sparse_videogen_tpu_torch.ops.attention import block_sparse_attention_kv, block_sparse_attention_kv_plain
+    from sparse_videogen_tpu_torch.pipelines.hyvideo import make_hyvideo_runtime
+    from sparse_videogen_tpu_torch.presets import HY_720P_SVG as run
+
+    lay = hy_layout()
+    rt = make_hyvideo_runtime(lay, device=dev, prompt_length=HY_PROMPT, pattern="SVG", svg=run.generate_kwargs()["svg"])
+    plan = rt.plan
+    S, D, BH = lay.seq_len, run.model.head_dim, run.model.heads_num
+    real = int(rt.aux[0])
+    heads = torch.tensor([0, BH - 1], device=dev)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    cases = {"dense": (rt.dense_meta, plan.dense_mask_spec, plan.dense_block_q),
+             "svg1": (rt.sparse_meta, plan.mask_spec, plan.block_q)}
+    entry, times = None, {}
+    for name, (meta, spec, bq) in cases.items():
+        def rand(s_pad, scale):
+            x = torch.zeros(BH, s_pad, D, device=dev, dtype=torch.bfloat16)
+            x[:, :S] = (torch.randn(BH, S, D, generator=gen, device=dev) * scale).to(torch.bfloat16)
+            return x
+
+        q, k, v = rand(-(-S // bq) * bq, 2.0), rand(plan.seq_pad_kv, 1.0), rand(plan.seq_pad_kv, 1.0)
+        kw = dict(block_q=bq, block_kv=plan.block_kv, mask_spec=spec)
+        out = block_sparse_attention_kv(q, k, v, meta, rt.aux, **kw)
+        qs, ks, vs = (x.index_select(0, heads) for x in (q, k, v))
+        ref = None
+
+        def plain():
+            nonlocal ref
+            ref = block_sparse_attention_kv_plain(qs, ks, vs, meta, rt.aux, **kw)
+
+        plain_ms = event_ms(plain)
+        max_abs, mean_rel = err_stats(out.index_select(0, heads)[:, :S], ref[:, :S])
+        n_cheap = int((meta[..., 0] // 4096).sum())
+        log("kernels", f"attention hyvideo {name} (band {spec.band_width}, video {spec.video_len}, real {real} of "
+                       f"S={S}; BH={BH}, heads {heads.tolist()} checked, block_q {bq}, block_kv {plan.block_kv}, "
+                       f"meta {tuple(meta.shape)}, {n_cheap} cheap chunks): max_abs_err {max_abs:.3e} "
+                       f"(tol {ATTN_TOL_ABS}), mean_rel_err {mean_rel:.3e} (tol {ATTN_TOL_REL})")
+        if not (max_abs <= ATTN_TOL_ABS and mean_rel <= ATTN_TOL_REL):
+            raise AssertionError(f"attention kernel (hyvideo {name}) disagrees with its plain version")
+        fake = ref[:, real:S].float().abs().amax().item()
+        if not fake > 0:
+            raise AssertionError("hyvideo: the fake text rows output nothing")
+        pairs = hyvideo_pairs(spec, real, S)
+        b = attention_bound(len(heads) * pairs, qs[:, :S])
+        ms = times[name] = cuda_ms(lambda: block_sparse_attention_kv(qs, ks, vs, meta, rt.aux, **kw))
+        ms_all = cuda_ms(lambda: block_sparse_attention_kv(q, k, v, meta, rt.aux, **kw), iters=2)
+        log("kernels", f"attention hyvideo {name} on the {len(heads)} checked heads: kernel {ms:.3f} ms "
+                       f"({4 * D * pairs * len(heads) / (ms * 1e-3) / 1e12:.1f} TFLOP/s on the {pairs / S / S:.4f} "
+                       f"of the S x S pairs the mask allows; bound {b['bound_ms']:.3f} ms, {b['bound_by']}), plain "
+                       f"{plain_ms:.3f} ms (one run); all BH={BH}: kernel {ms_all:.3f} ms "
+                       f"({4 * D * pairs * BH / (ms_all * 1e-3) / 1e12:.1f} TFLOP/s)")
+        if name == "svg1":
+            # no one PyTorch call computes it: SDPA would need a 119,056^2 mask (14 GB)
+            entry = {"name": "block_sparse_attn[hyvideo]", "route": "cuda",
+                     "source": "sparse_videogen_tpu_torch/csrc/block_sparse_attn.cu",
+                     "replaces": "sparse_videogen_tpu/ops/attention.py:62", "max_abs_err": max_abs, "ms": ms,
+                     "plain_ms": plain_ms, **b, "library_ms": None, "dense_ms": times["dense"], "S": S}
+        del q, k, v, qs, ks, vs, out, ref
+    torch.cuda.empty_cache()
+    return entry
+
+
+def phase_rmsnorm(dev):
+    """K6 (Triton) against its plain version on the probe's shapes, bf16:
+    the mean of squares sums in another order and rsqrt may differ in its
+    last f32 bit, so the cast may round to the neighbouring bf16 and the
+    weight product rounds again: |diff| <= 2^-6 |plain| + 1e-6 (two roundings
+    of one ulp each). Timed beside the plain version and F.rms_norm (other
+    rounding) at every shape; the entry is HunyuanVideo's qk-norm shape."""
+    import torch.nn.functional as F
+
+    from sparse_videogen_tpu_torch.ops.rmsnorm import rms_norm_kernel, rms_norm_plain
+    from sparse_videogen_tpu_torch.scripts import bench_rmsnorm as probe
+
+    worst, entry = 0.0, None
+    for i, (name, shape) in enumerate(probe.SHAPES.items()):
+        x, w = probe.make_inputs(shape, seed=i, device=dev)
+        out = rms_norm_kernel(x, w, probe.EPS)
+        ref = rms_norm_plain(x, w, probe.EPS)
+        torch.cuda.synchronize()
+        d = (out.float() - ref.float()).abs()
+        ok = bool((d <= 2.0 ** -6 * ref.float().abs() + 1e-6).all())
+        exact = (d == 0).float().mean().item()
+        worst = max(worst, d.max().item())
+        ms = cuda_ms(lambda: rms_norm_kernel(x, w, probe.EPS), iters=20)
+        plain_ms = cuda_ms(lambda: rms_norm_plain(x, w, probe.EPS), iters=20)
+        wb = w.to(x.dtype)
+        lib_ms = cuda_ms(lambda: F.rms_norm(x, (shape[-1],), wb, probe.EPS), iters=20)
+        b = bound(3.0 * x.numel(), 2 * x.numel() * 2 + w.numel() * 4, PEAK_F32_FLOPS)
+        gb = 2 * x.numel() * 2 / 1e9
+        log("kernels", f"rmsnorm {name} {tuple(shape)} bf16: max_abs_err {d.max().item():.3e} (tol 2^-6 |plain| + "
+                       f"1e-6: {ok}), {exact:.6f} of the entries equal; kernel {ms:.4f} ms ({gb / ms * 1e3:.1f} "
+                       f"GB/s), plain {plain_ms:.4f} ms ({gb / plain_ms * 1e3:.1f} GB/s), F.rms_norm {lib_ms:.4f} ms "
+                       f"({gb / lib_ms * 1e3:.1f} GB/s); bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
+        if not ok:
+            raise AssertionError(f"rmsnorm kernel disagrees with its plain version at {shape}")
+        if name == "hyvideo-qk-norm":
+            entry = {"name": "rmsnorm", "route": "triton", "source": "sparse_videogen_tpu_torch/csrc/rmsnorm_triton.py",
+                     "replaces": "sparse_videogen_tpu/ops/rmsnorm_pallas.py:33", "ms": ms, "plain_ms": plain_ms,
+                     **b, "library_ms": lib_ms, "shape": list(shape)}
+        del x, w, out, ref, d
+    entry["max_abs_err"] = worst
+    torch.cuda.empty_cache()
+    return entry
+
+
+def phase_qsplit(dev):
+    """K7 at the probe's shape (12, 32768, 128) bf16, bkv 1024, against its
+    plain version (one run: it is the same function at every (bq, qsplit))
+    for every (bq, qsplit) the kernel compiles; both round q_s and P to bf16,
+    the kernel rescales P per 64-token sub-tile, the plain version per bkv
+    chunk: the attention tolerances. The entry is the fastest pair, beside
+    F.scaled_dot_product_attention."""
+    from sparse_videogen_tpu_torch.ops.dense_qsplit import KERNEL_CONFIGS, dense_attn, dense_attn_plain
+    from sparse_videogen_tpu_torch.scripts import bench_qsplit as probe
+
+    q, k, v = probe.make_inputs(probe.SHAPE, seed=0, device=dev)
+    ref = None
+
+    def plain():
+        nonlocal ref
+        ref = dense_attn_plain(q, k, v, bq=256, bkv=probe.BKV)
+
+    plain_ms = event_ms(plain)
+    fl = probe.flops(q.shape)
+    times, worst = {}, 0.0
+    for bq, qs in KERNEL_CONFIGS:
+        out = dense_attn(q, k, v, bq=bq, bkv=probe.BKV, qsplit=qs)
+        torch.cuda.synchronize()
+        max_abs, mean_rel = err_stats(out, ref)
+        ms = cuda_ms(lambda: dense_attn(q, k, v, bq=bq, bkv=probe.BKV, qsplit=qs))
+        log("kernels", f"dense_qsplit bq={bq} qsplit={qs} {tuple(q.shape)} bf16: max_abs_err {max_abs:.3e} (tol "
+                       f"{ATTN_TOL_ABS}), mean_rel_err {mean_rel:.3e} (tol {ATTN_TOL_REL}); kernel {ms:.3f} ms "
+                       f"({fl / (ms * 1e-3) / 1e12:.1f} TFLOP/s)")
+        if not (max_abs <= ATTN_TOL_ABS and mean_rel <= ATTN_TOL_REL):
+            raise AssertionError(f"dense_qsplit kernel (bq={bq}, qsplit={qs}) disagrees with its plain version")
+        times[f"{bq}/{qs}"] = ms
+        worst = max(worst, max_abs)
+        del out
+    sdpa_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(q[None], k[None], v[None]))
+    b = attention_bound(q.shape[0] * q.shape[1] ** 2, q)
+    best = min(times, key=times.get)
+    log("kernels", f"dense_qsplit: plain {plain_ms:.3f} ms (one run), F.scaled_dot_product_attention {sdpa_ms:.3f} ms "
+                   f"({fl / (sdpa_ms * 1e-3) / 1e12:.1f} TFLOP/s); bound {b['bound_ms']:.3f} ms ({b['bound_by']}); "
+                   f"fastest bq/qsplit {best}")
+    del q, k, v, ref
+    torch.cuda.empty_cache()
+    return {"name": "dense_qsplit", "route": "cuda", "source": "sparse_videogen_tpu_torch/csrc/dense_qsplit.cu",
+            "replaces": "scripts/bench_qsplit.py:28", "max_abs_err": worst, "ms": times[best], "plain_ms": plain_ms,
+            **b, "library_ms": sdpa_ms, "config": best, "ms_by_config": times}
+
+
+def drive_hyvideo(model, run, steps):
+    """One HyVideoPipeline.generate_latents run with the kernel counters set
+    to 0 just before it and read just after; holds them to what the
+    configuration implies (per forward and block: RoPE on q and on k of the
+    video tokens, one K1 launch, dense or hyvideo-SVG1), the plain-version
+    calls to 0 and the latents to finite values of the right shape."""
+    from sparse_videogen_tpu_torch import _kernels
+    from sparse_videogen_tpu_torch.config import WarmupSchedule
+    from sparse_videogen_tpu_torch.pipelines import HyVideoPipeline
+    from sparse_videogen_tpu_torch.schedulers import FlowMatchEuler
+
+    cfg = model.cfg
+    dev = model.img_in.weight.device
+    gen = torch.Generator(device=dev).manual_seed(1)
+    text = torch.randn(1, cfg.text_len, cfg.text_states_dim, generator=gen, device=dev).to(torch.bfloat16)
+    mask = torch.zeros(1, cfg.text_len, dtype=torch.int32, device=dev)
+    mask[0, :HY_PROMPT] = 1
+    pooled = torch.randn(1, cfg.text_states_dim_2, generator=gen, device=dev).to(torch.bfloat16)
+    lay = hy_layout()
+    timesteps = FlowMatchEuler(steps, shift=run.flow_shift).timesteps
+    warmup = WarmupSchedule.from_fractions(run.first_layers_fp, run.first_times_fp, cfg.num_layers, timesteps)
+    n_dense = steps * cfg.num_layers if run.pattern == "dense" else sum(
+        li < warmup.first_layers or float(t) > warmup.first_times for t in timesteps for li in range(cfg.num_layers))
+    events = []
+
+    def on_step(i, lat):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append(ev)
+
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    _kernels.reset_counts()
+    start.record()
+    t0 = time.perf_counter()
+    lat = HyVideoPipeline(model).generate_latents(text, mask, pooled, prompt_length=HY_PROMPT,
+                                                  num_inference_steps=steps, seed=0, callback=on_step,
+                                                  **run.generate_kwargs())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, plain = dict(_kernels.LAUNCHES), dict(_kernels.PLAIN_CALLS)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    step_s = [start.elapsed_time(events[0]) / 1e3] + [
+        events[i - 1].elapsed_time(events[i]) / 1e3 for i in range(1, len(events))]
+    finite = bool(torch.isfinite(lat).all())
+    name = f"HunyuanVideo hidden {cfg.hidden_size} x {cfg.mm_double_blocks_depth}+{cfg.mm_single_blocks_depth} blocks"
+    log("slice", f"{name}, {run.height}x{run.width}x{run.num_frames} (S={lay.seq_len} = {lay.num_frames}x"
+                 f"{lay.frame_size} + {cfg.text_len} text, prompt {HY_PROMPT}), {run.pattern}, {steps} Euler steps "
+                 f"(steps with t > {warmup.first_times} dense, {warmup.first_layers} warm-up layers: {n_dense} dense "
+                 f"block-steps of {steps * cfg.num_layers}), embedded guidance: per-step s "
+                 f"{[round(x, 4) for x in step_s]}, total {wall:.2f} s, peak memory {peak:.2f} GiB")
+    want = {n: 0 for n in _kernels.KERNELS}
+    want["block_sparse_attn"] = steps * cfg.num_layers
+    want["rope"] = 2 * steps * cfg.num_layers
+    shape = (1, 16, lay.num_frames, run.height // 8, run.width // 8)
+    log("slice", f"{name} {run.pattern} launches {launches} (expected {want}; K1 dense {n_dense}, K1 hyvideo-SVG1 "
+                 f"{want['block_sparse_attn'] - n_dense}), plain-version calls {plain}, latents {tuple(lat.shape)} "
+                 f"finite {finite}, std {lat.std().item():.4f}")
+    if launches != want:
+        raise AssertionError(f"{name} {run.pattern}: kernel launches {launches} != expected {want}")
+    if any(plain.values()):
+        raise AssertionError(f"{name} {run.pattern}: the main path called a plain version: {plain}")
+    if not finite or tuple(lat.shape) != shape:
+        raise AssertionError(f"{name} {run.pattern}: latents are not finite or not of shape {shape}")
+    return launches
+
+
+def phase_hyvideo_slice(dev):
+    """HunyuanVideo at HYVIDEO_T2's full width (hidden 3072, 24 heads, D =
+    128, MLP 12288, text (1, 256, 4096), pooled (1, 768)) with HY_DOUBLE +
+    HY_SINGLE blocks, 720x1280x129: SVG1 for HY_STEPS_SVG steps, then dense
+    for HY_STEPS_DENSE; returns the SVG1 run's launches."""
+    from sparse_videogen_tpu_torch.models.hyvideo.model import HYVIDEO_T2, HyVideoModel
+    from sparse_videogen_tpu_torch.presets import HY_720P_DENSE, HY_720P_SVG
+
+    cfg = dataclasses.replace(HYVIDEO_T2, mm_double_blocks_depth=HY_DOUBLE, mm_single_blocks_depth=HY_SINGLE)
+    t0 = time.perf_counter()
+    model = HyVideoModel(cfg, dtype=torch.bfloat16, device=dev).init_random(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    log("slice", f"HunyuanVideo hidden {cfg.hidden_size}: {HY_DOUBLE} double + {HY_SINGLE} single blocks, "
+                 f"{cfg.heads_num} heads, MLP {cfg.mlp_hidden}, {sum(p.numel() for p in model.parameters()) / 1e9:.3f} "
+                 f"B params, init {time.perf_counter() - t0:.1f} s")
+    launches = drive_hyvideo(model, HY_720P_SVG, HY_STEPS_SVG)
+    drive_hyvideo(model, HY_720P_DENSE, HY_STEPS_DENSE)
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_kernel_probes(dev):
+    """The K6 and K7 probe entries (scripts/bench_rmsnorm.py and
+    scripts/bench_qsplit.py) on their own data, each kernel's launches
+    counted around its probe."""
+    from sparse_videogen_tpu_torch import _kernels
+    from sparse_videogen_tpu_torch.ops.dense_qsplit import KERNEL_CONFIGS
+    from sparse_videogen_tpu_torch.scripts import bench_qsplit, bench_rmsnorm
+
+    iters, warmup = 5, 1
+    counts = {}
+    inputs = {n: bench_rmsnorm.make_inputs(s, seed=i, device=dev)
+              for i, (n, s) in enumerate(bench_rmsnorm.SHAPES.items())}
+    _kernels.reset_counts()
+    rows = bench_rmsnorm.probe(inputs, iters=iters, warmup=warmup)
+    torch.cuda.synchronize()
+    counts["rmsnorm"] = _kernels.LAUNCHES["rmsnorm"]
+    want = len(inputs) * (iters + warmup)
+    log("slice", "K6 probe (bench_rmsnorm): " + ", ".join(
+        f"{r['name']} kernel {r['kernel_gbs']:.1f} / plain {r['plain_gbs']:.1f} / F.rms_norm {r['library_gbs']:.1f} "
+        f"GB/s" for r in rows) + f"; rmsnorm launches {counts['rmsnorm']} (expected {want})")
+    if counts["rmsnorm"] != want:
+        raise AssertionError("K6 probe: wrong launch count")
+    del inputs
+    q, k, v = bench_qsplit.make_inputs(bench_qsplit.SHAPE, seed=0, device=dev)
+    _kernels.reset_counts()
+    rows = bench_qsplit.probe(q, k, v, iters=iters, warmup=warmup)
+    torch.cuda.synchronize()
+    counts["dense_qsplit"] = _kernels.LAUNCHES["dense_qsplit"]
+    want = len(KERNEL_CONFIGS) * (iters + warmup)
+    log("slice", f"K7 probe (bench_qsplit) {bench_qsplit.SHAPE} bf16: " + ", ".join(
+        f"{r['name']} {r['ms']:.3f} ms ({r['tflops']:.1f} TFLOP/s)" for r in rows)
+        + f"; dense_qsplit launches {counts['dense_qsplit']} (expected {want})")
+    if counts["dense_qsplit"] != want:
+        raise AssertionError("K7 probe: wrong launch count")
+    del q, k, v
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_small_hyvideo_reference(dev):
+    """One forward of the CLI's small HunyuanVideo, kernels on the card vs
+    plain versions on the CPU, same weights, inputs and profiler rows: dense
+    and SVG1 (prompt 10 of 16 text tokens)."""
+    from sparse_videogen_tpu_torch.cli.hyvideo_t2v import SMOKE_CFG, SMOKE_PROMPT_LENGTH
+    from sparse_videogen_tpu_torch.config import SVGConfig
+    from sparse_videogen_tpu_torch.models.hyvideo.model import HyVideoConfig, HyVideoModel
+    from sparse_videogen_tpu_torch.pipelines.hyvideo import hyvideo_layout, make_hyvideo_runtime
+
+    cfg = HyVideoConfig(**SMOKE_CFG)
+    gen = torch.Generator().manual_seed(4)
+    cpu_model = HyVideoModel(cfg, dtype=torch.bfloat16, device="cpu").init_random(gen)
+    gpu_model = HyVideoModel(cfg, dtype=torch.bfloat16, device=dev)
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    lay = hyvideo_layout(cfg, 96, 128, 9)
+    rows = torch.randint(0, lay.seq_len, (cfg.num_layers, 64), generator=gen)
+    x = torch.randn(1, 16, lay.num_frames, 12, 16, generator=gen).to(torch.bfloat16)
+    text = torch.randn(1, cfg.text_len, cfg.text_states_dim, generator=gen).to(torch.bfloat16)
+    mask = torch.zeros(1, cfg.text_len, dtype=torch.int32)
+    mask[0, :SMOKE_PROMPT_LENGTH] = 1
+    pooled = torch.randn(1, cfg.text_states_dim_2, generator=gen).to(torch.bfloat16)
+    t, g = torch.full((1,), 900.0), torch.full((1,), 6000.0)
+    for pattern in ("dense", "SVG"):
+        outs = []
+        for model, d in ((gpu_model, dev), (cpu_model, torch.device("cpu"))):
+            rt = make_hyvideo_runtime(lay, device=d, prompt_length=SMOKE_PROMPT_LENGTH, pattern=pattern,
+                                      svg=SVGConfig(profile_multiplier=1.5))
+            outs.append(model(x.to(d), t.to(d), text.to(d), mask.to(d), pooled.to(d), guidance=g.to(d), attention=rt,
+                              profile_rows=rows).cpu())
+        rel = ((outs[0] - outs[1]).norm() / outs[1].norm()).item()
+        # bf16 model: CPU and GPU matmuls round at other places; 4 blocks
+        log("slice", f"small HunyuanVideo forward, {pattern}: kernels on the card vs plain on the CPU, "
+                     f"rel L2 err {rel:.3e} (tol 3e-2)")
+        if not rel <= 3e-2:
+            raise AssertionError(f"small HunyuanVideo forward ({pattern}) disagrees with the CPU reference: {rel}")
+
 
 def phase_cli():
+    runs = [("wan_t2v", p) for p in ("SVG", "dense", "SAP")] + [("hyvideo_t2v", p) for p in ("SVG", "dense")]
     with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
-        for pattern in ("SVG", "dense", "SAP"):
-            out = os.path.join(tmp, f"smoke_{pattern}.npz")
-            cmd = [sys.executable, "-m", "sparse_videogen_tpu_torch.cli.wan_t2v", "--smoke", "--pattern", pattern,
+        for cli, pattern in runs:
+            out = os.path.join(tmp, f"{cli}_{pattern}.npz")
+            cmd = [sys.executable, "-m", f"sparse_videogen_tpu_torch.cli.{cli}", "--smoke", "--pattern", pattern,
                    "--device", "cuda", "--output_file", out]
             t0 = time.perf_counter()
             subprocess.run(cmd, cwd=ROOT, check=True, timeout=600)
             lat = np.load(out)["latents"]
             finite = bool(np.isfinite(lat).all())
-            log("cli", f"--smoke --pattern {pattern}: {os.path.basename(out)} exists, latents {lat.shape} "
+            log("cli", f"{cli} --smoke --pattern {pattern}: {os.path.basename(out)} exists, latents {lat.shape} "
                        f"finite {finite} ({time.perf_counter() - t0:.1f} s)")
             if not finite:
-                raise AssertionError(f"CLI smoke ({pattern}) wrote non-finite latents")
+                raise AssertionError(f"CLI smoke ({cli} {pattern}) wrote non-finite latents")
 
 
 def main():
@@ -728,13 +1146,16 @@ def main():
     phase_build()
     kernels = {"rope": phase_rope(dev), "block_sparse_attn": phase_attention(dev),
                "block_sparse_attn_runs": phase_sap_attention(dev), "kmeans_wide": phase_kmeans(dev),
-               "kmeans_variants": phase_variants(dev)}
+               "kmeans_variants": phase_variants(dev), "block_sparse_attn[hyvideo]": phase_hyvideo_attention(dev),
+               "rmsnorm": phase_rmsnorm(dev), "dense_qsplit": phase_qsplit(dev)}
     phase_sap_attention(dev, "14B-720p-sap", all_checks=False)
     launches = phase_slice(dev)
-    for counts in (phase_probe(dev), phase_slice_14b(dev)):
+    for counts in (phase_probe(dev), phase_slice_14b(dev), phase_kernel_probes(dev)):
         for name, n in counts.items():
             launches.setdefault(name, n)
+    launches["block_sparse_attn[hyvideo]"] = phase_hyvideo_slice(dev)["block_sparse_attn"]
     phase_small_reference(dev)
+    phase_small_hyvideo_reference(dev)
     phase_cli()
     for name, entry in kernels.items():
         entry["launches"] = launches[name]

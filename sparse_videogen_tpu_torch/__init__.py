@@ -3,20 +3,24 @@ for one NVIDIA H100 (Hopper, sm_90a).
 
 The JAX package beside it is the reference: every module here mirrors the
 JAX module at the same path, and the tests feed both the same numpy inputs.
-This package imports torch, numpy and the standard library, and of the JAX
-package only its jax-free `config` and the Wan CLI's argument parser.
+This package imports torch, numpy and the standard library (triton only
+inside the launch of its Triton kernel), and no module of the JAX package:
+it keeps its own copy of what it needs (config, CLI flags, density log).
 
 Layering (bottom-up):
-  csrc/       hand-written Hopper kernels (CUDA C++), built by _kernels.py
+  csrc/       hand-written Hopper kernels (CUDA C++, built by _kernels.py;
+              one Triton source, compiled at its first launch)
   ops/        kernel wrappers + their plain PyTorch versions, mask
-              predicates, chunked-CSR metadata
-  core/       SVG1 mask math, online profiler, per-head placement
-  sparse/     SVG1 plan and the dense / SVG1 self-attention runtimes
-  models/     Wan 2.1 DiT (nn.Module)
-  schedulers/ FlowUniPC
-  pipelines/  Wan T2V generation pipeline
-  io/         JAX param pytree -> state_dict
-  cli/        wan_t2v entry point
+              predicates, chunked-CSR and run-list metadata
+  core/       SVG1 mask math, online profiler, placement; SAP k-means,
+              dynamic map, permutations
+  sparse/     SVG1 plan and the dense / SVG1 / SAP self-attention runtimes
+  models/     Wan 2.1 and HunyuanVideo DiTs (nn.Module)
+  schedulers/ FlowUniPC, FlowMatchEuler
+  pipelines/  Wan and HunyuanVideo T2V generation pipelines
+  io/         JAX param pytrees -> the port's modules
+  cli/        wan_t2v and hyvideo_t2v entry points
+  scripts/    profiles and kernel probes for the card
 
 On a CUDA tensor every kernel wrapper launches its kernel or raises; the
 plain version runs only for tensors on the CPU.

@@ -1,6 +1,8 @@
 """Build, load and count the hand-written Hopper kernels in ``csrc/``.
 
-All CUDA sources compile with nvcc into ONE shared library with a plain C
+The Triton kernel (csrc/rmsnorm_triton.py) is compiled by Triton at its
+first launch (ops/rmsnorm.py); it is counted here like the others. All CUDA
+sources compile with nvcc into ONE shared library with a plain C
 interface (no PyTorch headers, so the build takes seconds), loaded with
 ctypes: one nvcc per source, all started together, then one link. The
 build happens at first use, never at import: hosts without a card import
@@ -30,7 +32,8 @@ NVCC_FLAGS = [
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo",
 ]
 
-KERNELS = ("block_sparse_attn", "rope", "block_sparse_attn_runs", "kmeans_wide", "kmeans_variants")
+KERNELS = ("block_sparse_attn", "rope", "block_sparse_attn_runs", "kmeans_wide", "kmeans_variants", "rmsnorm",
+           "dense_qsplit")
 LAUNCHES = {name: 0 for name in KERNELS}
 PLAIN_CALLS = {name: 0 for name in KERNELS}
 
@@ -41,9 +44,9 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
     # q, k, v, o, meta, aux, BH, Sq, Skv, D, R, nQ, L, block_q,
-    # mask_kind, band_width, sink_size, q_scale, stream
+    # mask_kind, band_width, sink_size, video_len, q_scale, stream
     "svt_block_sparse_attn": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                              _I, _I, _I, _F, _P],
+                              _I, _I, _I, _I, _F, _P],
     # x, cos, sin, out, BH, S, D, stream
     "svt_rope": [_P, _P, _P, _P, _I, _I, _I, _P],
     # q, k, v, o, meta, aux, BH, Sq, Skv, D, R, nQ, L, block_q, block_kv,
@@ -54,6 +57,8 @@ _SIGNATURES = {
     "svt_kmeans_wide_num_slabs": [_I, _I, _I],
     # x, c, csq, labels, overflow, part_sums, part_counts, sums, counts, B, N, K, D, variant, n_slabs, stream
     "svt_kmeans_wide": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # q, k, v, o, BH, S, D, bq, qsplit, q_scale, stream
+    "svt_dense_qsplit": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
 }
 
 

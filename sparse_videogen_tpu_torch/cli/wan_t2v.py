@@ -1,8 +1,8 @@
 """Wan 2.1 T2V generation CLI (counterpart of sparse_videogen_tpu/cli/wan_t2v.py).
 
-The flags are the JAX CLI's own (`build_parser`), plus `--device`, since
-PyTorch needs one named. There is no fallback to the CPU: `--device cuda` on
-a host without a card fails.
+The flags are the JAX CLI's, by name and default (the port declares its own
+parser), plus `--device`, since PyTorch needs one named. There is no
+fallback to the CPU: `--device cuda` on a host without a card fails.
 
 What runs today is the random-weight path that the JAX CLI takes without
 `--model_dir` (`--smoke`, or no checkpoint): a tiny Wan at a reduced size,
@@ -18,12 +18,13 @@ Usage:
 
 from __future__ import annotations
 
+import argparse
 import logging
 import os
 
 import numpy as np
 
-from sparse_videogen_tpu.cli.wan_t2v import build_parser as _jax_parser
+from sparse_videogen_tpu_torch.cli._common import add_device, add_model_id, add_vae_tiling_flags, resolve_device
 
 logger = logging.getLogger("sparse_videogen_tpu_torch")
 
@@ -32,10 +33,49 @@ SMOKE_CFG = dict(dim=256, ffn_dim=512, num_heads=4, num_layers=4, freq_dim=64, t
 
 
 def build_parser():
-    p = _jax_parser()
-    p.add_argument("--device", type=str, default="cuda",
-                   help="torch device to run on (cuda, cuda:N or cpu); never falls back")
-    return p
+    p = argparse.ArgumentParser("wan_t2v")
+    p.add_argument("--prompt", type=str, default="A cat walks on the grass, realistic")
+    p.add_argument("--neg_prompt", "--negative_prompt", dest="neg_prompt", type=str, default="")
+    p.add_argument("--prompt_source", type=str, default="prompt")
+    p.add_argument("--prompt_idx", type=int, default=0)
+    p.add_argument("--model_dir", type=str, default=None)
+    add_model_id(p, "Wan-AI/Wan2.1-T2V-14B-Diffusers")
+    add_vae_tiling_flags(p)
+    p.add_argument("--model_size", type=str, default="1.3B", choices=["1.3B", "14B"])
+    p.add_argument("--height", type=int, default=480)
+    p.add_argument("--width", type=int, default=832)
+    p.add_argument("--num_frames", type=int, default=81)
+    p.add_argument("--num_inference_steps", type=int, default=50)
+    p.add_argument("--guidance_scale", type=float, default=5.0)
+    p.add_argument("--flow_shift", type=float, default=None, help="default 5.0 for 720p, 3.0 otherwise")
+    p.add_argument("--sampler", type=str, default="unipc", choices=["unipc", "dpm++"])
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--output_file", type=str, default="output.npz")
+    p.add_argument("--skip_existing", action="store_true")
+    p.add_argument("--converted_cache", type=str, default=None)
+    p.add_argument("--pattern", type=str, default="SVG", choices=["SVG", "dense", "SAP"])
+    p.add_argument("--first_layers_fp", type=float, default=0.025)
+    p.add_argument("--first_times_fp", type=float, default=0.075)
+    p.add_argument("--num_sampled_rows", type=int, default=64)
+    p.add_argument("--sample_mse_max_row", type=int, default=10000)
+    p.add_argument("--sparsity", type=float, default=0.25)
+    p.add_argument("--num_q_centroids", type=int, default=50)
+    p.add_argument("--num_k_centroids", type=int, default=200)
+    p.add_argument("--top_p_kmeans", type=float, default=0.9)
+    p.add_argument("--min_kc_ratio", type=float, default=0.0)
+    p.add_argument("--kmeans_iter_init", type=int, default=50)
+    p.add_argument("--kmeans_iter_step", type=int, default=2)
+    p.add_argument("--sap_block_mode", type=str, default="cluster", choices=["cluster", "tile"])
+    p.add_argument("--zero_step_kmeans_init", action="store_true")
+    p.add_argument("--logging_file", type=str, default=None, help="JSONL density telemetry for SAP")
+    p.add_argument("--dp", type=int, default=1)
+    p.add_argument("--ulysses_degree", type=int, default=1)
+    p.add_argument("--ring_degree", type=int, default=1)
+    p.add_argument("--dit_fsdp", action="store_true")
+    p.add_argument("--smoke", action="store_true", help="tiny random-weight run (no checkpoints needed)")
+    p.add_argument("--use_fp8", action="store_true")
+    p.add_argument("--quant", choices=["none", "fp8", "int8"], default=None)
+    return add_device(p)
 
 
 def _unported(args) -> str | None:
@@ -70,9 +110,7 @@ def main(argv=None):
     from sparse_videogen_tpu_torch.models.wan.model import WanConfig, WanModel
     from sparse_videogen_tpu_torch.pipelines import WanPipeline
 
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"--device {args.device}: no CUDA device is available")
+    device = resolve_device(args.device)
     if args.flow_shift is None:
         args.flow_shift = 5.0 if args.height >= 720 else 3.0
 

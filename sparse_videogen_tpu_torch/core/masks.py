@@ -1,9 +1,15 @@
 """SVG1 mask math (counterpart of sparse_videogen_tpu/core/masks.py):
 sparsity calibration, profiling-mask predicates and the block-level
 execution mask. Block masks depend only on static shapes and are numpy;
-the profiling predicates evaluate on torch tensors of positions. Only
-video-only layouts (Wan) are ported: sparse/svg1.make_svg1_plan rejects a
-layout with text tokens in the sequence.
+the profiling predicates evaluate on torch tensors of positions.
+
+Two layouts are ported, and each fixes the mask family the JAX package
+selects with its flags:
+- video only (Wan, TextPosition.NONE): first-frame sink, band rounded up
+  to 128 with <=;
+- text last (HunyuanVideo, TextPosition.LAST): no sink, band rounded down
+  with a strict <, text rows and columns fully attended.
+Text first (CogVideoX) raises NotImplementedError (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -12,7 +18,14 @@ import math
 
 import numpy as np
 
-from sparse_videogen_tpu_torch.config import VideoLayout
+from sparse_videogen_tpu_torch.config import TextPosition, VideoLayout
+
+
+def check_layout(layout: VideoLayout) -> None:
+    """Raise NotImplementedError on a text-first (CogVideoX) layout."""
+    if layout.text_position == TextPosition.FIRST:
+        raise NotImplementedError("SVG1 with text first in the sequence (CogVideoX) is not ported to the torch "
+                                  "package yet (ROADMAP.md)")
 
 
 def sparsity_to_width(sparsity: float, context_length: int, num_frame: int, frame_size: int) -> float:
@@ -26,11 +39,14 @@ def sparsity_to_width(sparsity: float, context_length: int, num_frame: int, fram
 
 def temporal_index_map(layout: VideoLayout) -> np.ndarray:
     """(seq_len,) int32 gather indices of the token-major ("temporal")
-    layout of a video-only sequence: destination p*nf + f holds source
-    f*fs + p."""
-    nf, fs = layout.num_frames, layout.frame_size
-    o = np.arange(layout.seq_len, dtype=np.int32)
-    return (o % nf) * fs + o // nf
+    layout: on the video tokens destination p*nf + f holds source f*fs + p;
+    text tokens (after the video) stay in place."""
+    check_layout(layout)
+    nf, fs, vid = layout.num_frames, layout.frame_size, layout.video_length
+    g = np.arange(layout.seq_len, dtype=np.int32)
+    o = g[:vid]
+    g[:vid] = (o % nf) * fs + o // nf
+    return g
 
 
 def inverse_permutation(g: np.ndarray) -> np.ndarray:
@@ -40,35 +56,49 @@ def inverse_permutation(g: np.ndarray) -> np.ndarray:
 
 
 def profile_mask_predicate(layout: VideoLayout, mask_name: str, multiplier: float, *, block: int = 128):
-    """fn(q_idx, k_idx) -> bool for the emulated profiling masks of a
-    video-only sequence ("spatial": block band in frame-major order;
-    "temporal": the same band through the token-major permutation), plus the
-    first-frame sink. q_idx, k_idx: broadcastable int tensors of positions."""
-    nf, fs = layout.num_frames, layout.frame_size
+    """fn(q_idx, k_idx) -> bool for the emulated profiling masks ("spatial":
+    block band in frame-major order; "temporal": the same band through the
+    token-major permutation). Video only: plus the first-frame sink. Text
+    last: no sink, and text rows and columns are fully attended. q_idx,
+    k_idx: broadcastable int tensors of positions."""
+    check_layout(layout)
+    nf, fs, vid = layout.num_frames, layout.frame_size, layout.video_length
     thres = int(multiplier * fs) // block
+    text = layout.context_length > 0
 
     def pred(q_idx, k_idx):
         qv, kv = q_idx, k_idx
         if mask_name == "temporal":
             qv = (qv % fs) * nf + qv // fs
             kv = (kv % fs) * nf + kv // fs
-        return (abs(qv // block - kv // block) < thres) | (kv < fs)
+        m = abs(qv // block - kv // block) < thres
+        if text:
+            return m | (q_idx >= vid) | (k_idx >= vid)
+        return m | (kv < fs)
 
     return pred
 
 
 def execution_mask_block(layout: VideoLayout, multiplier: float, *, block_q: int = 128,
                          block_kv: int = 128) -> np.ndarray:
-    """(n_q, n_k) block mask of the shared SVG1 execution mask of a
-    video-only sequence: a block is active iff the band |q - kv| <= W
-    (W = multiplier * frame_size rounded up to 128) holds for its closest
-    token pair, or its first column is in the first-frame sink."""
+    """(n_q, n_k) block mask of the shared SVG1 execution mask: a block is
+    active iff the band holds for its closest token pair. Video only: band
+    |q - kv| <= W, W = multiplier * frame_size rounded up to 128, or the
+    block's first column in the first-frame sink. Text last: band
+    |q - kv| < W rounded down, or the block touches a text column or a text
+    row (the static superset any prompt length can reach; the kernel's
+    hyvideo predicate masks exactly inside it)."""
+    check_layout(layout)
+    fs, vid = layout.frame_size, layout.video_length
     n_q = -(-layout.seq_len // block_q)
     n_k = -(-layout.seq_len // block_kv)
-    two_frame = math.ceil(multiplier * layout.frame_size / 128) * 128
     qi = np.arange(n_q) * block_q
     ki = np.arange(n_k) * block_kv
     q_lo, q_hi = qi[:, None], (qi + block_q - 1)[:, None]
     k_lo, k_hi = ki[None, :], (ki + block_kv - 1)[None, :]
     gap = np.maximum(np.maximum(k_lo - q_hi, q_lo - k_hi), 0)
-    return (gap <= two_frame) | (k_lo < layout.frame_size)
+    if layout.context_length:
+        band = math.floor(multiplier * fs / 128) * 128
+        return (gap < band) | (k_hi >= vid) | (q_hi >= vid)
+    band = math.ceil(multiplier * fs / 128) * 128
+    return (gap <= band) | (k_lo < fs)

@@ -1,8 +1,8 @@
 """SVG1 per-head layout transform (counterpart of
 sparse_videogen_tpu/core/placement.py::temporal_transpose).
 
-On a video-only sequence the temporal re-layout is a (num_frames,
-frame_size) matrix transpose.
+The temporal re-layout is a (num_frames, frame_size) matrix transpose of
+the video tokens; text tokens after them (HunyuanVideo) stay in place.
 """
 
 from __future__ import annotations
@@ -10,15 +10,18 @@ from __future__ import annotations
 import torch
 
 from sparse_videogen_tpu_torch.config import VideoLayout
+from sparse_videogen_tpu_torch.core.masks import check_layout
 
 
 def temporal_transpose(x, layout: VideoLayout, *, inverse: bool = False):
     """x (..., S, D) -> x[..., temporal_index_map(layout), :] (inverse: the
-    inverse map), as reshape + transpose."""
-    nf, fs = layout.num_frames, layout.frame_size
+    inverse map), as reshape + transpose of the video segment."""
+    check_layout(layout)
+    nf, fs, vid = layout.num_frames, layout.frame_size, layout.video_length
     lead, (S, D) = x.shape[:-2], x.shape[-2:]
     a, b = (fs, nf) if inverse else (nf, fs)
-    return x.reshape(*lead, a, b, D).transpose(-3, -2).reshape(*lead, S, D)
+    xv = x[..., :vid, :].reshape(*lead, a, b, D).transpose(-3, -2).reshape(*lead, vid, D)
+    return xv if vid == S else torch.cat([xv, x[..., vid:, :]], dim=-2)
 
 
 def place_heads(x, is_temporal, layout: VideoLayout, *, inverse: bool = False):

@@ -2,8 +2,9 @@
 //
 // Replaces the TPU kernel sparse_videogen_tpu/ops/attention.py::_kernel
 // (entry block_sparse_attention_kv). Same metadata (ops/metadata.py), same
-// MaskSpec semantics (kinds "none" and "band_sink", global positions offset
-// by aux[2]/aux[3]), same numerics (csrc/flash_chunk.cuh).
+// MaskSpec semantics (kinds "none", "band_sink" and "hyvideo", global
+// positions offset by aux[2]/aux[3], hyvideo's real length in aux[0]), same
+// numerics (csrc/flash_chunk.cuh).
 //
 // Metadata row r = (R == 1 ? 0 : bh), q-block i = (tile * TQ) / block_q:
 //   meta[r, i, 0]       = n_cheap * 4096 + n
@@ -28,12 +29,12 @@ namespace {
 constexpr int ENTRY_SCALE = 2048;
 constexpr int N_CHEAP_SCALE = 4096;
 
-template <int D>
+template <int D, bool TEXT_LAST>
 __global__ void __launch_bounds__(NTHREADS)
 bsa_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
            bf16* __restrict__ o, const int* __restrict__ meta, const int* __restrict__ aux,
            int Sq, int Skv, int R, int nQ, int L, int block_q, int mask_kind, int band_width,
-           int sink_size, float q_scale) {
+           int sink_size, int video_len, float q_scale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
   bf16* sK = sQ + TQ * (D + 8);
@@ -60,27 +61,28 @@ bsa_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* _
   const int n = e0 % N_CHEAP_SCALE;
   const int n_cheap = e0 / N_CHEAP_SCALE;
   const int qpos[2] = {q0 + r0 + aux[2], q0 + r0 + 8 + aux[2]};
+  const MaskArgs mk = {band_width, sink_size, video_len, TEXT_LAST ? aux[0] : 0};
 
   for (int c = 0; c < n; ++c) {
     const int win = m[2 + 2 * c];
-    attend_chunk<D>(st, kb, vb, sK, sV, Skv, m[1 + 2 * c] * SUB, win / ENTRY_SCALE, win % ENTRY_SCALE,
-                    mask_kind != 0 && c >= n_cheap, qpos, aux[3], band_width, sink_size, g, t4);
+    attend_chunk<D, TEXT_LAST>(st, kb, vb, sK, sV, Skv, m[1 + 2 * c] * SUB, win / ENTRY_SCALE, win % ENTRY_SCALE,
+                    mask_kind != 0 && c >= n_cheap, qpos, aux[3], mk, g, t4);
   }
   store_rows<D>(st, o + ((size_t)bh * Sq + q0 + r0) * D, t4);
 }
 
-template <int D>
+template <int D, bool TEXT_LAST>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, const int* meta, const int* aux,
                    int BH, int Sq, int Skv, int R, int nQ, int L, int block_q, int mask_kind,
-                   int band_width, int sink_size, float q_scale, cudaStream_t stream) {
+                   int band_width, int sink_size, int video_len, float q_scale, cudaStream_t stream) {
   const int smem = flash_smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(bsa_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaError_t err = cudaFuncSetAttribute(bsa_kernel<D, TEXT_LAST>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   dim3 grid(Sq / TQ, BH);
-  bsa_kernel<D><<<grid, NTHREADS, smem, stream>>>(
+  bsa_kernel<D, TEXT_LAST><<<grid, NTHREADS, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<bf16*>(o), meta, aux, Sq, Skv, R, nQ, L, block_q, mask_kind, band_width, sink_size,
-      q_scale);
+      video_len, q_scale);
   return cudaGetLastError();
 }
 
@@ -92,16 +94,25 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, const i
 extern "C" int svt_block_sparse_attn(const void* q, const void* k, const void* v, void* o,
                                      const void* meta, const void* aux, int BH, int Sq, int Skv, int D,
                                      int R, int nQ, int L, int block_q, int mask_kind, int band_width,
-                                     int sink_size, float q_scale, void* stream) {
+                                     int sink_size, int video_len, float q_scale, void* stream) {
   // chunk extents come from the [lo, hi) windows, so block_kv is not needed
   const int* m = static_cast<const int*>(meta);
   const int* a = static_cast<const int*>(aux);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // kind 2 (hyvideo) has its own instance: the none/band_sink instance keeps
+  // the registers it had before the kind existed
+  const bool text_last = mask_kind == 2;
+  if (D == 128 && text_last)
+    return (int)launch<128, true>(q, k, v, o, m, a, BH, Sq, Skv, R, nQ, L, block_q, mask_kind, band_width,
+                                  sink_size, video_len, q_scale, s);
   if (D == 128)
-    return (int)launch<128>(q, k, v, o, m, a, BH, Sq, Skv, R, nQ, L, block_q, mask_kind, band_width,
-                            sink_size, q_scale, s);
+    return (int)launch<128, false>(q, k, v, o, m, a, BH, Sq, Skv, R, nQ, L, block_q, mask_kind, band_width,
+                                   sink_size, video_len, q_scale, s);
+  if (D == 64 && text_last)
+    return (int)launch<64, true>(q, k, v, o, m, a, BH, Sq, Skv, R, nQ, L, block_q, mask_kind, band_width,
+                                 sink_size, video_len, q_scale, s);
   if (D == 64)
-    return (int)launch<64>(q, k, v, o, m, a, BH, Sq, Skv, R, nQ, L, block_q, mask_kind, band_width,
-                           sink_size, q_scale, s);
+    return (int)launch<64, false>(q, k, v, o, m, a, BH, Sq, Skv, R, nQ, L, block_q, mask_kind, band_width,
+                                  sink_size, video_len, q_scale, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -100,15 +100,38 @@ __device__ __forceinline__ void load_q_frags(FlashRows<D>& st, const bf16* qb, b
   st.l_i[0] = st.l_i[1] = 0.f;
 }
 
+// The token-level mask predicates (ops/mask_spec.py apply_mask_spec) at
+// global positions (q, k), strict band |q - k| < band_width. TEXT_LAST
+// false: band_sink, band | k < sink_size. TEXT_LAST true: hyvideo (text
+// last; real = video_len + prompt_length, from aux[0]):
+//   (q < real & k < real & (band | k in [video_len, real) | q in [video_len, real)))
+//   | (q >= real & k >= real)
+// Kind none never calls it. The kind is a template parameter so that the
+// band_sink kernels carry no registers for hyvideo's scalars.
+struct MaskArgs {
+  int band_width, sink_size, video_len, real;
+};
+
+template <bool TEXT_LAST>
+__device__ __forceinline__ bool mask_allows(const MaskArgs& mk, int qp, int kp) {
+  const int d = qp - kp;
+  const bool band = d < mk.band_width && d > -mk.band_width;
+  if (!TEXT_LAST) return band || kp < mk.sink_size;
+  const bool q_real = qp < mk.real, k_real = kp < mk.real;
+  const bool text_col = kp >= mk.video_len && k_real;
+  const bool text_row = qp >= mk.video_len && q_real;
+  return (q_real && k_real && (band || text_col || text_row)) || (!q_real && !k_real);
+}
+
 // Attend this warp's rows to the live columns [lo, hi) of the chunk whose
 // first token is `base` (kb/vb: the (Skv, D) K and V of this head). With
-// `pred`, a column must also pass the band_sink predicate at global positions
+// `pred`, a column must also pass the mask predicate at global positions
 // (qpos[row], base + col + koff). Every thread of the CTA must call it with
 // the same chunk: it synchronises the CTA around the shared K/V sub-tiles.
-template <int D>
+template <int D, bool TEXT_LAST = false>
 __device__ __forceinline__ void attend_chunk(FlashRows<D>& st, const bf16* kb, const bf16* vb, bf16* sK, bf16* sV,
                                              int Skv, int base, int lo, int hi, bool pred, const int (&qpos)[2],
-                                             int koff, int band_width, int sink_size, int g, int t4) {
+                                             int koff, const MaskArgs& mk, int g, int t4) {
   constexpr int LD = D + 8;
   constexpr int VPR = D / 8;
   for (int s0 = (lo / TK) * TK; s0 < hi; s0 += TK) {
@@ -138,18 +161,14 @@ __device__ __forceinline__ void attend_chunk(FlashRows<D>& st, const bf16* kb, c
       }
     }
 
-    // the window on every chunk; the band_sink predicate where asked
+    // the window on every chunk; the mask predicate where asked
 #pragma unroll
     for (int nt = 0; nt < TK / 8; ++nt) {
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int col = s0 + nt * 8 + 2 * t4 + (j & 1);
         bool ok = col >= lo && col < hi;
-        if (pred && ok) {
-          const int kp = base + col + koff;
-          const int d = qpos[j >> 1] - kp;
-          ok = (d < band_width && d > -band_width) || kp < sink_size;
-        }
+        if (pred && ok) ok = mask_allows<TEXT_LAST>(mk, qpos[j >> 1], base + col + koff);
         if (!ok) s[nt][j] = NEG_INF;
       }
     }

@@ -21,7 +21,7 @@
 // the order changes only the rounding of the f32 sums. The TPU kernel expands
 // the runs into an SMEM chunk table in a scalar prologue; here the CTA walks
 // the run list twice (full chunks, then edge chunks), which needs no table.
-// With a MaskSpec (kind band_sink) every chunk also evaluates the token-level
+// With a MaskSpec (kind band_sink; the wrapper takes no other) every chunk also evaluates the token-level
 // predicate at (q position + aux[2], permuted k position + aux[3]), as the
 // TPU's _runs_kernel does; there is no cheap-first split for runs.
 //
@@ -67,6 +67,7 @@ runs_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* 
   const int cap = (L - 1) / 2;
   const int qpos[2] = {q0 + r0 + aux[2], q0 + r0 + 8 + aux[2]};
   const bool pred = mask_kind != 0;
+  const MaskArgs mk = {band_width, sink_size, 0, 0};
 
   for (int pass = 0; pass < 2; ++pass) {  // full chunks, then edge chunks
     int c = 0;                            // chunks walked; the row lists n of them
@@ -81,7 +82,7 @@ runs_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* 
         const int hi = min(b - s0, block_kv);
         const bool full = lo == 0 && hi == block_kv;
         if (full != (pass == 0)) continue;
-        attend_chunk<D>(st, kb, vb, sK, sV, Skv, s0, lo, hi, pred, qpos, aux[3], band_width, sink_size, g, t4);
+        attend_chunk<D>(st, kb, vb, sK, sV, Skv, s0, lo, hi, pred, qpos, aux[3], mk, g, t4);
       }
     }
   }

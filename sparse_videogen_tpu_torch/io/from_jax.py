@@ -1,5 +1,6 @@
 """JAX package state (as numpy) -> the port's: the Wan parameter pytree ->
-WanModel state_dict, and SAP's k-means carry -> SAPState.
+WanModel state_dict, the HunyuanVideo pytree -> a HyVideoModel, and SAP's
+k-means carry -> SAPState.
 
 The JAX package stores linears as {"w": (d_in, d_out), "b": (d_out,)} and
 stacks the blocks on a leading layer axis; nn.Linear wants (d_out, d_in) and
@@ -45,6 +46,55 @@ def wan_params_from_numpy(tree, cfg) -> dict:
         for fc in ("fc1", "fc2"):
             _linear(sd, f"{b}.ffn.{fc}", {k: layer(a) for k, a in blocks["ffn"][fc].items()})
     return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()}
+
+
+def hyvideo_params_from_numpy(tree, cfg):
+    """tree: init_hyvideo_params(...) output with numpy leaves (blocks
+    stacked on a leading layer axis, linears {"w": (in, out), "b"}). Returns
+    a HyVideoModel(cfg) on the CPU holding those weights, its linears in the
+    dtype of the tree's linears."""
+    from sparse_videogen_tpu_torch.models.hyvideo.model import HyVideoModel
+
+    sd = {}
+    lin = lambda name, p: _linear(sd, name, p)
+    lin("img_in", tree["img_in"])
+    for grp in ("time_in", "vector_in", "guidance_in"):
+        if grp in tree:
+            for fc in ("fc1", "fc2"):
+                lin(f"{grp}.{fc}", tree[grp][fc])
+    ti = tree["txt_in"]
+    lin("txt_in.input_embedder", ti["input_embedder"])
+    for grp in ("t_embedder", "c_embedder"):
+        for fc in ("fc1", "fc2"):
+            lin(f"txt_in.{grp}.{fc}", ti[grp][fc])
+
+    def stacked(prefix, blocks, n, linears, mlps, vectors, norms=()):
+        for i in range(n):
+            layer = lambda a: np.asarray(a)[i]
+            for nm in linears:
+                lin(f"{prefix}.{i}.{nm}", {k: layer(a) for k, a in blocks[nm].items()})
+            for nm in mlps:
+                for fc in ("fc1", "fc2"):
+                    lin(f"{prefix}.{i}.{nm}.{fc}", {k: layer(a) for k, a in blocks[nm][fc].items()})
+            for nm in vectors:
+                sd[f"{prefix}.{i}.{nm}"] = layer(blocks[nm])
+            for nm in norms:
+                sd[f"{prefix}.{i}.{nm}.weight"] = layer(blocks[nm]["w"])
+                sd[f"{prefix}.{i}.{nm}.bias"] = layer(blocks[nm]["b"])
+
+    stacked("txt_in.blocks", ti["blocks"], cfg.refiner_depth, ("qkv", "proj", "adaln"), ("mlp",), (),
+            ("norm1", "norm2"))
+    stacked("double_blocks", tree["double_blocks"], cfg.mm_double_blocks_depth,
+            [f"{s}_{nm}" for s in ("img", "txt") for nm in ("mod", "qkv", "proj")], ("img_mlp", "txt_mlp"),
+            [f"{s}_{nm}_norm" for s in ("img", "txt") for nm in ("q", "k")])
+    stacked("single_blocks", tree["single_blocks"], cfg.mm_single_blocks_depth, ("modulation", "linear1", "linear2"),
+            (), ("q_norm", "k_norm"))
+    lin("final_adaln", tree["final_adaln"])
+    lin("final_linear", tree["final_linear"])
+    sd = {k: _tensor(v, "cpu") for k, v in sd.items()}
+    model = HyVideoModel(cfg, dtype=sd["img_in.weight"].dtype)
+    model.load_state_dict(sd)
+    return model
 
 
 def _tensor(a, device):

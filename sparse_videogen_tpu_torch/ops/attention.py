@@ -28,7 +28,9 @@ from sparse_videogen_tpu_torch.ops.metadata import ENTRY_SCALE, N_CHEAP_SCALE, S
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 LOG2E = 1.4426950408889634
 TQ = 64  # q rows per CTA of the kernel; divides every block_q it accepts
-_KERNEL_MASKS = {"none": 0, "band_sink": 1}
+# mask kinds each Hopper kernel evaluates (csrc/flash_chunk.cuh MaskArgs)
+_KERNEL_MASKS = {"none": 0, "band_sink": 1, "hyvideo": 2}
+_RUNS_KERNEL_MASKS = ("none", "band_sink")
 
 
 def _check(q, k, v, meta, block_q, block_kv, *, packed_windows=True):
@@ -43,10 +45,10 @@ def _check(q, k, v, meta, block_q, block_kv, *, packed_windows=True):
         raise ValueError(f"meta {tuple(meta.shape)} for BH={BH}, nQ={Sq // block_q}")
 
 
-def _check_kernel_args(q, k, v, meta, aux, mask_spec, block_q):
+def _check_kernel_args(q, k, v, meta, aux, mask_spec, block_q, kinds=tuple(_KERNEL_MASKS)):
     """What the Hopper kernels take; returns aux on the device."""
     D = q.shape[2]
-    if mask_spec.kind not in _KERNEL_MASKS:
+    if mask_spec.kind not in kinds:
         raise NotImplementedError(f"mask kind {mask_spec.kind!r} has no Hopper kernel yet (ROADMAP.md)")
     if D not in (64, 128) or block_q % TQ:
         raise ValueError(f"kernel takes D in (64, 128) and block_q % {TQ} == 0; got D={D}, block_q={block_q}")
@@ -124,8 +126,8 @@ def block_sparse_attention_kv(q, k, v, meta, aux=None, *, block_q: int = 512, bl
     aux (4,) int32 or None. Returns (BH, Sq, D) in q's dtype.
 
     CUDA tensors launch the Hopper kernel (bf16, D in {64, 128}, mask kinds
-    none/band_sink) and raise on anything else; CPU tensors run the plain
-    version."""
+    none/band_sink/hyvideo) and raise on anything else; CPU tensors run the
+    plain version."""
     if q.device.type == "cpu":
         return block_sparse_attention_kv_plain(q, k, v, meta, aux, block_q=block_q, block_kv=block_kv,
                                                mask_spec=mask_spec, scale=scale)
@@ -139,7 +141,7 @@ def block_sparse_attention_kv(q, k, v, meta, aux=None, *, block_q: int = 512, bl
     err = _kernels.lib().svt_block_sparse_attn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), meta.data_ptr(), aux.data_ptr(),
         BH, Sq, k.shape[1], D, meta.shape[0], meta.shape[1], meta.shape[2], block_q,
-        _KERNEL_MASKS[mask_spec.kind], mask_spec.band_width, mask_spec.sink_size,
+        _KERNEL_MASKS[mask_spec.kind], mask_spec.band_width, mask_spec.sink_size, mask_spec.video_len,
         scale * LOG2E, torch.cuda.current_stream(q.device).cuda_stream,
     )
     _kernels.check(err, "block_sparse_attn")
@@ -219,7 +221,7 @@ def block_sparse_attention_runs(q, k, v, meta, aux=None, *, block_q: int, block_
         raise ValueError(f"unsupported device {q.device}")
     _check(q, k, v, meta, block_q, block_kv, packed_windows=False)
     BH, Sq, D = q.shape
-    aux = _check_kernel_args(q, k, v, meta, aux, mask_spec, block_q)
+    aux = _check_kernel_args(q, k, v, meta, aux, mask_spec, block_q, _RUNS_KERNEL_MASKS)
     scale = 1.0 / math.sqrt(D) if scale is None else scale
     out = torch.empty_like(q)
     err = _kernels.lib().svt_block_sparse_attn_runs(

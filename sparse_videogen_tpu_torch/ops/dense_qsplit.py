@@ -1,0 +1,103 @@
+"""Dense attention with q-split sub-tiles (counterpart of the TPU probe
+kernel scripts/bench_qsplit.py::_kernel, K7; entry `dense_attn`).
+
+`dense_attn` launches the Hopper kernel (csrc/dense_qsplit.cu) for CUDA
+tensors and the plain version for CPU tensors; `dense_attn_plain` is the
+plain version, the kernel's oracle on the card. Numerics are the TPU
+kernel's: q scaled by D^-1/2 in f32 and rounded to q's dtype, natural-exp
+online softmax in f32 per bkv chunk, P rounded to v's dtype for PV, the
+output divided by max(l, 1e-20). K and V are separate tensors (the TPU
+packed them into one [K|V] row).
+
+On the card a CTA owns `bq` q rows as `qsplit` independent sub-tiles; the
+f32 accumulators bound bq (128 floats a row), so only the (bq, qsplit) pairs
+in KERNEL_CONFIGS are compiled; `unfit` says why any other pair is not.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from sparse_videogen_tpu_torch import _kernels
+
+NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
+TK = 64  # K/V tokens per shared-memory sub-tile of the kernel
+KERNEL_CONFIGS = ((64, 1), (128, 1), (128, 2), (256, 1), (256, 2))
+SMEM_LIMIT = 232448  # bytes of shared memory a CTA can use on the H100
+REGS_PER_SM = 65536
+
+
+def unfit(bq: int, qsplit: int, D: int = 128) -> str | None:
+    """None when the kernel takes (bq, qsplit) at head dim D, else the reason."""
+    if (bq, qsplit) in KERNEL_CONFIGS and D in (64, 128):
+        return None
+    smem = (bq + 4 * TK) * (D + 8) * 2
+    if smem > SMEM_LIMIT:
+        return f"shared memory: q tile + 2 K/V stages = {smem} B > {SMEM_LIMIT} B"
+    if bq * D > REGS_PER_SM // 2:
+        return (f"registers: the f32 accumulators of {bq} rows x {D} alone take {bq * D} of the SM's {REGS_PER_SM} "
+                f"registers; a CTA needs at least as many again for its scores, fragments and addresses")
+    return f"not compiled (compiled (bq, qsplit): {KERNEL_CONFIGS})"
+
+
+def _check(q, k, v, bq, bkv, qsplit):
+    if q.dim() != 3 or q.shape != k.shape or q.shape != v.shape:
+        raise ValueError(f"q, k, v must be (BH, S, D) of one shape, got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    S = q.shape[1]
+    if S % bq or S % bkv or bq % qsplit or (bq // qsplit) % 8:
+        raise ValueError(f"S={S} bq={bq} bkv={bkv} qsplit={qsplit}: need S % bq == S % bkv == 0 and "
+                         f"(bq / qsplit) % 8 == 0")
+
+
+def dense_attn_plain(q, k, v, *, bq: int, bkv: int, qsplit: int = 1):
+    """Plain PyTorch version: every q row at once (rows are independent, so
+    the q blocks and sub-tiles of the kernels change nothing), a loop over
+    the bkv-token chunks of K/V with the online softmax."""
+    _check(q, k, v, bq, bkv, qsplit)
+    _kernels.PLAIN_CALLS["dense_qsplit"] += 1
+    BH, S, D = q.shape
+    q_s = (q.float() * D ** -0.5).to(q.dtype).float()
+    acc = torch.zeros(BH, S, D, device=q.device)
+    m = torch.full((BH, S, 1), NEG_INF, device=q.device)
+    l = torch.zeros(BH, S, 1, device=q.device)
+    for c in range(S // bkv):
+        kb, vb = k[:, c * bkv:(c + 1) * bkv], v[:, c * bkv:(c + 1) * bkv]
+        s = q_s @ kb.float().transpose(-1, -2)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + p.to(v.dtype).float() @ vb.float()
+        m = m_new
+        del s, p
+    return (acc / l.clamp_min(1e-20)).to(q.dtype)
+
+
+def dense_attn(q, k, v, *, bq: int, bkv: int, qsplit: int = 1):
+    """q, k, v (BH, S, D); S % bq == S % bkv == 0. Returns (BH, S, D) in q's
+    dtype. CUDA tensors launch the Hopper kernel (bf16, contiguous, D in {64,
+    128}, S % 64 == 0, (bq, qsplit) in KERNEL_CONFIGS) and raise on anything
+    else; CPU tensors run the plain version."""
+    if q.device.type == "cpu":
+        return dense_attn_plain(q, k, v, bq=bq, bkv=bkv, qsplit=qsplit)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    _check(q, k, v, bq, bkv, qsplit)
+    BH, S, D = q.shape
+    reason = unfit(bq, qsplit, D)
+    if reason is not None:
+        raise ValueError(f"dense_attn kernel cannot take bq={bq}, qsplit={qsplit}, D={D}: {reason}")
+    if S % TK:
+        raise ValueError(f"S={S} must be a multiple of {TK}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.dtype != torch.bfloat16 or not t.is_contiguous() or t.device != q.device:
+            raise ValueError(f"{name}: need contiguous bf16 on {q.device}, got {t.dtype} on {t.device}")
+    out = torch.empty_like(q)
+    err = _kernels.lib().svt_dense_qsplit(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), BH, S, D, bq,
+                                          qsplit, 1.0 / math.sqrt(D), torch.cuda.current_stream(q.device).cuda_stream)
+    _kernels.check(err, "dense_qsplit")
+    _kernels.LAUNCHES["dense_qsplit"] += 1
+    return out

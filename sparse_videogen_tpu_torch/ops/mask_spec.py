@@ -5,8 +5,9 @@ The chunked metadata (ops/metadata.py) is the block skeleton; inside each
 visited chunk the attention evaluates the exact token-level predicate below.
 `apply_mask_spec` takes torch tensors (or numpy arrays) of positions;
 `full_block_allowed` is scalar interval math on numpy, used when the metadata
-is built. The Hopper kernel implements the kinds "none" and "band_sink";
-the others are exact here and in the plain attention.
+is built. The chunked-CSR Hopper kernel implements the kinds "none",
+"band_sink" and "hyvideo", the run-list kernel "none" and "band_sink"; the
+others are exact here and in the plain attention.
 """
 
 from __future__ import annotations

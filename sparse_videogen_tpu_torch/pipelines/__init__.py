@@ -1,3 +1,4 @@
 """End-to-end generation pipelines."""
 
+from sparse_videogen_tpu_torch.pipelines.hyvideo import HyVideoPipeline  # noqa: F401
 from sparse_videogen_tpu_torch.pipelines.wan import WanPipeline  # noqa: F401

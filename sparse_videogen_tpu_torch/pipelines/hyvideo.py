@@ -1,0 +1,120 @@
+"""HunyuanVideo T2V generation pipeline (counterpart of
+sparse_videogen_tpu/pipelines/hyvideo.py): flow-match Euler (shift 7.0),
+embedded guidance (the cfg-distilled checkpoint runs ONE forward per step
+with guidance x 1000, no CFG batch), and the dense or SVG1 self-attention
+runtime over the text-last layout, with the live prompt length in the mask
+scalars. SAP, sequence parallelism and I2V raise NotImplementedError.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from sparse_videogen_tpu_torch.config import SparseMode, SVGConfig, TextPosition, VideoLayout, WarmupSchedule
+from sparse_videogen_tpu_torch.models.hyvideo.model import HyVideoConfig, HyVideoModel
+from sparse_videogen_tpu_torch.schedulers import FlowMatchEuler
+from sparse_videogen_tpu_torch.sparse.runtimes import DenseRuntime, SVG1Runtime
+from sparse_videogen_tpu_torch.sparse.svg1 import make_svg1_plan
+
+VAE_SPATIAL = 8
+VAE_TEMPORAL = 4
+
+
+def hyvideo_layout(cfg: HyVideoConfig, height: int, width: int, num_frames: int) -> VideoLayout:
+    """Token layout from pixel dims: the video tokens, then cfg.text_len text tokens."""
+    pt, ph, pw = cfg.patch_size
+    nf = (1 + (num_frames - 1) // VAE_TEMPORAL) // pt
+    fs = (height // (VAE_SPATIAL * ph)) * (width // (VAE_SPATIAL * pw))
+    return VideoLayout(num_frames=nf, frame_size=fs, context_length=cfg.text_len, text_position=TextPosition.LAST)
+
+
+def make_hyvideo_runtime(layout: VideoLayout, *, device, prompt_length: int, pattern: str = "SVG",
+                         warmup: WarmupSchedule = WarmupSchedule(), svg: SVGConfig = SVGConfig()):
+    """The dense or SVG1 runtime of a text-last layout (the JAX pipeline's
+    plan: default block sizes)."""
+    mode = SparseMode(pattern)
+    if mode == SparseMode.SAP:
+        raise NotImplementedError("SAP on HunyuanVideo (the text-last SAP layouts) is not ported to the torch "
+                                  "package yet (ROADMAP.md)")
+    plan = make_svg1_plan(layout, svg, warmup)
+    cls = DenseRuntime if mode == SparseMode.DENSE else SVG1Runtime
+    return cls(plan, device=device, prompt_length=prompt_length)
+
+
+@dataclasses.dataclass
+class HyVideoPipeline:
+    model: HyVideoModel
+
+    def generate_latents(
+        self,
+        text_states,  # (1, text_len, 4096)
+        text_mask,  # (1, text_len)
+        text_pooled,  # (1, 768)
+        *,
+        prompt_length: int,  # real prompt tokens
+        height: int = 720,
+        width: int = 1280,
+        num_frames: int = 129,
+        num_inference_steps: int = 50,
+        embedded_guidance_scale: float = 6.0,
+        flow_shift: float = 7.0,
+        pattern: str = "SVG",
+        first_layers_fp: float = 0.025,
+        first_times_fp: float = 0.15,
+        svg: SVGConfig = SVGConfig(sparsity=0.25, profile_multiplier=1.5),
+        seed: int = 0,
+        image_latents=None,
+        mesh=None,
+        callback=None,
+    ):
+        """Run the denoise loop from noise drawn with torch.Generator(seed) on
+        the model's device; return the final f32 latents (1, C, F', H', W').
+        pattern "SAP" raises NotImplementedError (make_hyvideo_runtime)."""
+        if mesh is not None:
+            raise NotImplementedError("sequence/ring parallelism is not ported to the torch package yet (ROADMAP.md)")
+        if image_latents is not None:
+            raise NotImplementedError("HunyuanVideo I2V (latent_concat conditioning) is not ported to the torch "
+                                      "package yet (ROADMAP.md)")
+        cfg = self.model.cfg
+        device = self.model.img_in.weight.device
+        gen = torch.Generator(device=device).manual_seed(seed)
+        shape = (1, cfg.out_channels, 1 + (num_frames - 1) // VAE_TEMPORAL, height // VAE_SPATIAL,
+                 width // VAE_SPATIAL)
+        lat = torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
+        return self._denoise(text_states, text_mask, text_pooled, lat, prompt_length=prompt_length, height=height,
+                             width=width, num_frames=num_frames, num_inference_steps=num_inference_steps,
+                             embedded_guidance_scale=embedded_guidance_scale, flow_shift=flow_shift,
+                             pattern=pattern, first_layers_fp=first_layers_fp, first_times_fp=first_times_fp,
+                             svg=svg, generator=gen, callback=callback)
+
+    def _denoise(self, text_states, text_mask, text_pooled, lat, *, prompt_length, height, width, num_frames,
+                 num_inference_steps, embedded_guidance_scale, flow_shift, pattern, first_layers_fp,
+                 first_times_fp, svg, generator=None, profile_rows=None, callback=None):
+        """The loop behind generate_latents, from the given initial latents.
+        `profile_rows[step][layer]` hands the SVG1 profiler fixed rows
+        instead of drawing them from `generator` (tests hand in the JAX
+        package's)."""
+        model = self.model
+        cfg = model.cfg
+        device, dtype = model.img_in.weight.device, model.img_in.weight.dtype
+        layout = dataclasses.replace(hyvideo_layout(cfg, height, width, num_frames), prompt_length=prompt_length)
+        sch = FlowMatchEuler(num_inference_steps, shift=flow_shift)
+        warmup = WarmupSchedule.from_fractions(first_layers_fp, first_times_fp, cfg.num_layers, sch.timesteps)
+        runtime = make_hyvideo_runtime(layout, device=device, prompt_length=prompt_length, pattern=pattern,
+                                       warmup=warmup, svg=svg)
+        states = text_states.to(device, dtype)
+        mask = text_mask.to(device)
+        pooled = text_pooled.to(device, dtype)
+        guidance = torch.full((1,), embedded_guidance_scale * 1000.0, dtype=torch.float32, device=device)
+        lat = lat.to(device)
+        sstate = sch.init_state()
+        for i in range(num_inference_steps):
+            t = torch.full((1,), float(sch.timesteps[i]), dtype=torch.float32, device=device)
+            v = model(lat.to(dtype), t, states, mask, pooled, guidance=guidance, attention=runtime,
+                      generator=generator, profile_rows=None if profile_rows is None else profile_rows[i])
+            lat, sstate = sch.step(i, lat, v, sstate)
+            if callback is not None:
+                callback(i, lat)
+        return lat

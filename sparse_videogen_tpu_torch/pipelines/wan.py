@@ -13,12 +13,12 @@ import types
 import numpy as np
 import torch
 
-from sparse_videogen_tpu.utils.density import DensityLogger, log_sap_states
 from sparse_videogen_tpu_torch.config import SAPConfig, SparseMode, SVGConfig, VideoLayout, WarmupSchedule
 from sparse_videogen_tpu_torch.models.wan.model import WanConfig, WanModel
 from sparse_videogen_tpu_torch.schedulers import FlowUniPC
 from sparse_videogen_tpu_torch.sparse.runtimes import DenseRuntime, SAPRuntime, SVG1Runtime
 from sparse_videogen_tpu_torch.sparse.svg1 import make_svg1_plan
+from sparse_videogen_tpu_torch.utils.density import DensityLogger, log_sap_states
 
 VAE_SPATIAL = 8
 VAE_TEMPORAL = 4
@@ -83,7 +83,7 @@ class WanPipeline:
         """Run the denoise loop from noise drawn with torch.Generator(seed) on
         the model's device; return the final f32 latents (1, C, F', H', W').
         With pattern SAP, `logging_file` receives the per-(step, layer) density
-        of the cond stream as JSONL (utils/density.py of the JAX package)."""
+        of the cond stream as JSONL (utils/density.py)."""
         if sampler != "unipc":
             raise NotImplementedError(f"sampler {sampler!r} is not ported to the torch package yet (ROADMAP.md)")
         device = self.model.patch_embedding.weight.device

@@ -1,6 +1,6 @@
-"""Wan 2.1 T2V runs of the repo's scripts: the model with its generation
-settings, which chip_smoke.py and scripts/profile_wan.py run with random
-weights (no checkpoint).
+"""Runs of the repo's scripts: the model with its generation settings,
+which chip_smoke.py, scripts/profile_wan.py and scripts/profile_hyvideo.py
+run with random weights (no checkpoint).
 
 T2V_480P ("1.3B-480p"): Wan 2.1 1.3B with the CLI's defaults
   (cli/wan_t2v.py of the JAX package) at 480x832x81, BASELINE.json
@@ -10,6 +10,14 @@ T2V_720P_SAP ("14B-720p-sap"): Wan 2.1 14B with the reference's canonical
   shift 5.0, SAP at QC 300 / KC 1000, top_p 0.9, min_kc_ratio 0.10, 50 cold
   / 2 warm k-means iterations, first_times_fp 0.2, first_layers_fp 0.03.
 Both keep the CLI's SVG1 sparsity (0.25) and guidance scale (5.0).
+
+HunyuanVideo T2V at 720x1280x129 (HY_PRESETS), HYVIDEO_T2 with the
+reference's canonical runs: "hyvideo-720p-svg"
+(scripts/hyvideo/hyvideo_t2v_720p_svg.sh: 50 steps, flow shift 7.0, SVG1 at
+sparsity 0.25 with 64 sampled rows, first_times_fp 0.1, first_layers_fp
+0.025) and "hyvideo-720p-dense" (scripts/hyvideo/hyvideo_t2v_720p_dense.sh:
+the same run, dense). Both take the CLI's embedded guidance 6.0 and its
+SVG1 profiling band (profile_multiplier 1.5).
 """
 
 from __future__ import annotations
@@ -17,6 +25,7 @@ from __future__ import annotations
 import dataclasses
 
 from sparse_videogen_tpu_torch.config import SAPConfig, SVGConfig
+from sparse_videogen_tpu_torch.models.hyvideo.model import HYVIDEO_T2, HyVideoConfig
 from sparse_videogen_tpu_torch.models.wan.model import WAN_1_3B, WAN_14B, WanConfig
 
 
@@ -46,3 +55,31 @@ T2V_720P_SAP = WanRunSettings(
     sap=SAPConfig(num_q_centroids=300, num_k_centroids=1000, top_p_kmeans=0.9, min_kc_ratio=0.10,
                   kmeans_iter_init=50, kmeans_iter_step=2))
 PRESETS = {"1.3B-480p": T2V_480P, "14B-720p-sap": T2V_720P_SAP}
+
+
+@dataclasses.dataclass(frozen=True)
+class HyVideoRunSettings:
+    model: HyVideoConfig
+    height: int
+    width: int
+    num_frames: int
+    flow_shift: float
+    pattern: str
+    first_layers_fp: float
+    first_times_fp: float
+
+    def generate_kwargs(self) -> dict:
+        """Keyword arguments of HyVideoPipeline.generate_latents but the step
+        count (the scripts run 50; the callers here cut it) and the prompt
+        length (the CLI's SVG1 knobs: sparsity 0.25, 64 sampled rows,
+        profiling band 1.5 frames; embedded guidance 6.0)."""
+        return dict(height=self.height, width=self.width, num_frames=self.num_frames, embedded_guidance_scale=6.0,
+                    flow_shift=self.flow_shift, pattern=self.pattern, first_layers_fp=self.first_layers_fp,
+                    first_times_fp=self.first_times_fp,
+                    svg=SVGConfig(sparsity=0.25, num_sampled_rows=64, profile_multiplier=1.5))
+
+
+HY_720P_SVG = HyVideoRunSettings(HYVIDEO_T2, 720, 1280, 129, flow_shift=7.0, pattern="SVG", first_layers_fp=0.025,
+                                 first_times_fp=0.1)
+HY_720P_DENSE = dataclasses.replace(HY_720P_SVG, pattern="dense", first_times_fp=0.15)
+HY_PRESETS = {"hyvideo-720p-svg": HY_720P_SVG, "hyvideo-720p-dense": HY_720P_DENSE}

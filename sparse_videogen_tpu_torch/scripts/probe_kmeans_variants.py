@@ -16,12 +16,12 @@ Prints the card's name and power limit first.
 from __future__ import annotations
 
 import argparse
-import subprocess
 
 import numpy as np
 import torch
 
 from sparse_videogen_tpu_torch.ops.kmeans import VARIANTS, kmeans_variant_pass
+from sparse_videogen_tpu_torch.scripts.timing import cuda_ms, device_line
 
 SHAPE = (40, 75600, 128)
 KS = (300, 125)
@@ -39,19 +39,6 @@ def make_inputs(B, N, D, ks, seed, device):
     return x, cents
 
 
-def _cuda_ms(fn, iters, warmup):
-    for _ in range(warmup):
-        fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def probe(x, cents, *, iters, warmup):
     """Every variant at every K: rows {K, variant, ms, exact_match (B, C vs A)}.
     Launches each variant 1 + warmup + iters times."""
@@ -60,7 +47,7 @@ def probe(x, cents, *, iters, warmup):
         ref = None
         for v in VARIANTS:
             out = kmeans_variant_pass(x, c, v)
-            ms = _cuda_ms(lambda: kmeans_variant_pass(x, c, v), iters, warmup)
+            ms = cuda_ms(lambda: kmeans_variant_pass(x, c, v), iters, warmup)
             match = None
             if v == "A":
                 ref = out
@@ -75,11 +62,7 @@ def main(argv=None):
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--warmup", type=int, default=2)
     args = ap.parse_args(argv)
-    if not torch.cuda.is_available():
-        raise RuntimeError("probe_kmeans_variants needs a CUDA device")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    print(f"[device] {smi}; torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
+    print(device_line("probe_kmeans_variants"), flush=True)
     x, cents = make_inputs(*SHAPE, KS, seed=0, device=torch.device("cuda", 0))
     rows = probe(x, cents, iters=args.iters, warmup=args.warmup)
     for r in rows:

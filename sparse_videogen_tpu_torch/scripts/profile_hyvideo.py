@@ -1,0 +1,158 @@
+"""Per-step time and per-kernel breakdown of HunyuanVideo T2V on one GPU.
+
+    python -m sparse_videogen_tpu_torch.scripts.profile_hyvideo [--double 2 --single 2 --steps 4 \\
+        --runs SVG,dense,dense,SVG --out hy.json]
+
+HYVIDEO_T2 at its full width (hidden 3072, 24 heads, D = 128, MLP 12288),
+--double of its 20 double-stream and --single of its 40 single-stream
+blocks, random bf16 weights from --seed, random text states of the real
+shapes ((1, 256, 4096) LLaMA, (1, 768) CLIP pooled) with a live prompt of
+--prompt tokens, at 720x1280x129 (S = 119,056) with the reference's 720p
+runs (presets.HY_PRESETS: SVG1 sparsity 0.25, first_times_fp 0.1, flow shift
+7.0; dense). Two parts, as scripts/profile_wan.py:
+
+  [time]    HyVideoPipeline.generate_latents for --steps Euler steps, once per
+            entry of --runs (alternate the patterns to see drift), after one
+            1-step warm-up generation per pattern; seconds per step from CUDA
+            events recorded by the step callback.
+  [profile] one forward per pattern at the second timestep (past SVG1's
+            dense warm-up steps) under torch.profiler: device time by
+            category of kernel name (profile_wan's categories), launches,
+            and the device idle share.
+
+--out writes the same numbers as JSON.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import time
+
+import torch
+
+from sparse_videogen_tpu_torch.presets import HY_PRESETS
+from sparse_videogen_tpu_torch.scripts.profile_wan import breakdown
+from sparse_videogen_tpu_torch.scripts.timing import device_line
+
+RUNS = {"SVG": HY_PRESETS["hyvideo-720p-svg"], "dense": HY_PRESETS["hyvideo-720p-dense"]}
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--double", type=int, default=2, help="double-stream blocks to keep (of 20)")
+    ap.add_argument("--single", type=int, default=2, help="single-stream blocks to keep (of 40)")
+    ap.add_argument("--steps", type=int, default=4)
+    ap.add_argument("--runs", default="SVG,dense,dense,SVG")
+    ap.add_argument("--prompt", type=int, default=32, help="live prompt tokens of the 256")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--out", default=None, help="write the results as JSON here")
+    args = ap.parse_args(argv)
+
+    from sparse_videogen_tpu_torch import _kernels
+    from sparse_videogen_tpu_torch.config import WarmupSchedule
+    from sparse_videogen_tpu_torch.models.hyvideo.model import HyVideoModel
+    from sparse_videogen_tpu_torch.pipelines import HyVideoPipeline
+    from sparse_videogen_tpu_torch.pipelines.hyvideo import hyvideo_layout, make_hyvideo_runtime
+    from sparse_videogen_tpu_torch.schedulers import FlowMatchEuler
+
+    smi = device_line("profile_hyvideo")
+    print(smi, flush=True)
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    base = RUNS["SVG"]
+    cfg = dataclasses.replace(base.model, mm_double_blocks_depth=args.double, mm_single_blocks_depth=args.single)
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    model = HyVideoModel(cfg, dtype=torch.bfloat16, device=dev).init_random(gen)
+    text = torch.randn(1, cfg.text_len, cfg.text_states_dim, generator=gen, device=dev).to(torch.bfloat16)
+    mask = torch.zeros(1, cfg.text_len, dtype=torch.int32, device=dev)
+    mask[0, :args.prompt] = 1
+    pooled = torch.randn(1, cfg.text_states_dim_2, generator=gen, device=dev).to(torch.bfloat16)
+    pipe = HyVideoPipeline(model)
+    lay = hyvideo_layout(cfg, base.height, base.width, base.num_frames)
+    print(f"[config] HunyuanVideo hidden {cfg.hidden_size}, {args.double}+{args.single} blocks, {cfg.heads_num} heads; "
+          f"{base.height}x{base.width}x{base.num_frames} (S = {lay.seq_len}), prompt {args.prompt}, {args.steps} steps",
+          flush=True)
+    runs = args.runs.split(",")
+
+    def generate(pattern, steps, callback=None):
+        return pipe.generate_latents(text, mask, pooled, prompt_length=args.prompt, num_inference_steps=steps,
+                                     seed=args.seed, callback=callback, **RUNS[pattern].generate_kwargs())
+
+    for pattern in dict.fromkeys(runs):
+        generate(pattern, 1)
+    result = {"device": smi, "double": args.double, "single": args.single, "prompt": args.prompt, "time": [],
+              "profile": {}}
+    for pattern in runs:
+        events = []
+
+        def on_step(i, lat):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            events.append(ev)
+
+        start = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start.record()
+        t0 = time.perf_counter()
+        generate(pattern, args.steps, on_step)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        steps = [start.elapsed_time(events[0]) / 1e3] + [
+            events[i - 1].elapsed_time(events[i]) / 1e3 for i in range(1, len(events))]
+        run = {"pattern": pattern, "per_step_s": steps, "wall_s": wall,
+               "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+        print(f"[time] {pattern}: per-step s {steps} wall {wall} s, peak {run['peak_gib']} GiB", flush=True)
+        result["time"].append(run)
+
+    x = torch.randn(1, cfg.out_channels, lay.num_frames, base.height // 8, base.width // 8, generator=gen,
+                    device=dev).to(torch.bfloat16)
+    guidance = torch.full((1,), 6000.0, device=dev)
+    for pattern in dict.fromkeys(runs):
+        run_cfg = RUNS[pattern]
+        sch = FlowMatchEuler(args.steps, shift=run_cfg.flow_shift)
+        warmup = WarmupSchedule.from_fractions(run_cfg.first_layers_fp, run_cfg.first_times_fp, cfg.num_layers,
+                                               sch.timesteps)
+        t = torch.full((1,), float(sch.timesteps[min(1, args.steps - 1)]), device=dev)
+        rt = make_hyvideo_runtime(dataclasses.replace(lay, prompt_length=args.prompt), device=dev,
+                                  prompt_length=args.prompt, pattern=pattern, warmup=warmup,
+                                  svg=run_cfg.generate_kwargs()["svg"])
+        if pattern != "dense" and rt.is_dense(cfg.num_layers - 1, float(t[0])):
+            raise AssertionError(f"the profiled {pattern} forward would run dense (warm-up)")
+
+        def forward():
+            return model(x, t, text, mask, pooled, guidance=guidance, attention=rt, generator=gen)
+
+        forward()
+        torch.cuda.synchronize()
+        _kernels.reset_counts()
+        prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                  torch.profiler.ProfilerActivity.CUDA])
+        t0 = time.perf_counter()
+        with prof:
+            forward()
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        dev_events = [(e.name(), e.start_ns(), e.end_ns()) for e in prof.profiler.kineto_results.events()
+                      if e.device_type() == torch.autograd.DeviceType.CUDA]
+        if not dev_events:
+            raise RuntimeError("torch.profiler recorded no device activity")
+        cats, total, busy, span = breakdown(dev_events)
+        idle = 1 - busy / span
+        print(f"[profile] {pattern} forward: host wall {wall} s (profiler on), {len(dev_events)} device events, "
+              f"device time {total} ms, busy (union) {busy} ms of span {span} ms -> idle share {idle}; "
+              f"launch counters {dict(_kernels.LAUNCHES)}", flush=True)
+        for cat, c in sorted(cats.items(), key=lambda kv: -kv[1]["ms"]):
+            print(f"[profile] {pattern} {cat}: {c['ms']} ms ({100 * c['ms'] / total:.1f}%), "
+                  f"{c['launches']} launches", flush=True)
+        result["profile"][pattern] = {"host_wall_s": wall, "device_ms": total, "busy_ms": busy, "span_ms": span,
+                                      "idle_share": idle, "categories": cats}
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(result, f, indent=1)
+
+
+if __name__ == "__main__":
+    main()

@@ -26,28 +26,32 @@ from sparse_videogen_tpu_torch.sparse.svg1 import SVG1Plan, dense_impl, svg1_spa
 from sparse_videogen_tpu_torch.sparse.svg2 import SAPState, check_sap_config, init_sap_state, sap_attention
 
 
-def _classified(meta, spec, plan: SVG1Plan, block_q):
+def _classified(meta, spec, plan: SVG1Plan, prompt_length, block_q):
     """Cheap-first metadata (ops/metadata.classify_cheap_np); its aux must
     equal the runtime's aux."""
-    return MD.classify_cheap_np(meta, spec, plan.default_aux(), block_q=block_q,
+    return MD.classify_cheap_np(meta, spec, plan.default_aux(prompt_length), block_q=block_q,
                                 block_kv=plan.block_kv, seq_q=plan.layout.seq_len)
 
 
 class DenseRuntime:
-    def __init__(self, plan: SVG1Plan, *, device):
+    """prompt_length: the live prompt tokens of a text-last layout
+    (HunyuanVideo); None takes the layout's context_length."""
+
+    def __init__(self, plan: SVG1Plan, *, device, prompt_length: int | None = None):
         self.plan = plan
         self.dense_meta = to_device_meta(
-            _classified(plan.dense_meta(), plan.dense_mask_spec, plan, plan.dense_block_q), device)
-        self.aux = torch.as_tensor(plan.default_aux(), device=device)
+            _classified(plan.dense_meta(), plan.dense_mask_spec, plan, prompt_length, plan.dense_block_q), device)
+        self.aux = torch.as_tensor(plan.default_aux(prompt_length), device=device)
 
     def __call__(self, q, k, v, t, layer_idx, rows=None, generator=None):
         return dense_impl(q, k, v, self.dense_meta, self.plan, self.aux)
 
 
 class SVG1Runtime(DenseRuntime):
-    def __init__(self, plan: SVG1Plan, *, device):
-        super().__init__(plan, device=device)
-        self.sparse_meta = to_device_meta(_classified(plan.sparse_meta(), plan.mask_spec, plan, plan.block_q), device)
+    def __init__(self, plan: SVG1Plan, *, device, prompt_length: int | None = None):
+        super().__init__(plan, device=device, prompt_length=prompt_length)
+        self.sparse_meta = to_device_meta(
+            _classified(plan.sparse_meta(), plan.mask_spec, plan, prompt_length, plan.block_q), device)
 
     def is_dense(self, layer_idx: int, t: float) -> bool:
         w = self.plan.warmup
@@ -69,7 +73,9 @@ class SAPRuntime(DenseRuntime):
     metadata. `states` maps a layer to its SAPState (a missing layer starts
     cold); `kmeans_init`, when set, maps a layer to the (q, k) cold-start
     token indices for the next forward (tests hand in the JAX package's
-    draws); otherwise they are drawn from the forward's generator."""
+    draws); otherwise they are drawn from the forward's generator. A
+    text-last layout (HunyuanVideo) raises NotImplementedError
+    (svg2.check_sap_config)."""
 
     def __init__(self, plan: SVG1Plan, cfg: SAPConfig, warmup: WarmupSchedule, *, device):
         check_sap_config(cfg, plan.layout)

@@ -2,7 +2,11 @@
 (counterpart of sparse_videogen_tpu/sparse/svg1.py, placement path only).
 
 The plan is static per (layout, config): it builds the numpy metadata once;
-the runtimes (sparse/runtimes.py) copy it to the device.
+the runtimes (sparse/runtimes.py) copy it to the device. The layout fixes
+the mask family (`mask_kind`): "band_sink" for a video-only sequence (Wan),
+"hyvideo" for text last (HunyuanVideo: the real/fake split of the text
+tokens, with the real length video_len + prompt_length in aux[0]). Text
+first (CogVideoX) raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -36,6 +40,11 @@ class SVG1Plan:
         object.__setattr__(self, "_cache", {})
 
     @property
+    def mask_kind(self) -> str:
+        """band_sink (video only) or hyvideo (text last)."""
+        return "hyvideo" if self.layout.text_position == TextPosition.LAST else "band_sink"
+
+    @property
     def seq_pad_q(self) -> int:
         return -(-self.layout.seq_len // self.block_q) * self.block_q
 
@@ -47,25 +56,42 @@ class SVG1Plan:
     @property
     def dense_block_q(self) -> int:
         """block_q of the dense path (JAX's dense_exec[0]): up to 2048 for
-        unmasked dense attention over long sequences, else block_q."""
-        if self.seq_pad_kv >= 2048:
+        unmasked dense attention over long sequences, else block_q (also for
+        the masked dense of a text-last layout)."""
+        if self.dense_mask_spec.kind == "none" and self.seq_pad_kv >= 2048:
             return min(2048, -(-self.layout.seq_len // 128) * 128)
         return self.block_q
 
     @property
     def mask_spec(self) -> MaskSpec:
+        lay = self.layout
+        if self.mask_kind == "hyvideo":
+            # floor-rounded, strict < (the reference's HunyuanVideo mask)
+            w = math.floor(self.multiplier * lay.frame_size / 128) * 128
+            return MaskSpec(kind="hyvideo", band_width=w, video_len=lay.video_length)
         # reference band is |q-kv| <= w (ceil-rounded); the predicate is strict <
-        w = math.ceil(self.multiplier * self.layout.frame_size / 128) * 128
-        return MaskSpec(kind="band_sink", band_width=w + 1, sink_size=self.layout.frame_size)
+        w = math.ceil(self.multiplier * lay.frame_size / 128) * 128
+        return MaskSpec(kind="band_sink", band_width=w + 1, sink_size=lay.frame_size)
 
     @property
     def dense_mask_spec(self) -> MaskSpec:
+        """Dense attention of a text-last layout keeps the real/fake split
+        (the reference runs varlen attention over the real tokens): a band
+        wider than any sequence lets every real pair attend."""
+        if self.mask_kind == "hyvideo":
+            return MaskSpec(kind="hyvideo", band_width=1 << 24, video_len=self.layout.video_length)
         return MaskSpec()
 
-    def default_aux(self) -> np.ndarray:
-        """(4,) int32 mask scalars; band_sink reads only the global q/k
-        offsets aux[2:4], which are 0 for an unsharded sequence."""
-        return np.zeros((4,), np.int32)
+    def default_aux(self, prompt_length: int | None = None) -> np.ndarray:
+        """(4,) int32 mask scalars. hyvideo: aux[0] = video_len +
+        prompt_length (the real tokens; the layout's context_length when
+        prompt_length is None). aux[2:4] are the global q/k offsets, 0 for an
+        unsharded sequence."""
+        aux = np.zeros((4,), np.int32)
+        if self.mask_kind == "hyvideo":
+            lay = self.layout
+            aux[0] = lay.video_length + (lay.context_length if prompt_length is None else prompt_length)
+        return aux
 
     def _build(self, key, fn):
         if key not in self._cache:
@@ -110,13 +136,10 @@ def make_svg1_plan(
     block_q: int | None = None,
     block_kv: int = 1024,
 ) -> SVG1Plan:
-    """The band+sink plan of a video-only (Wan) layout. block_q defaults to
-    1024 at S >= 8192, else 512; block_q and block_kv are clamped to the
-    128-padded sequence length."""
-    if layout.text_position != TextPosition.NONE or layout.context_length:
-        raise NotImplementedError(
-            "SVG1 with text tokens in the sequence (HunyuanVideo, Cog) is not ported to the torch package yet "
-            "(ROADMAP.md)")
+    """The plan of a video-only (Wan: band_sink) or text-last (HunyuanVideo:
+    hyvideo) layout. block_q defaults to 1024 at S >= 8192, else 512;
+    block_q and block_kv are clamped to the 128-padded sequence length."""
+    core_masks.check_layout(layout)
     s_pad = -(-layout.seq_len // 128) * 128
     if block_q is None:
         block_q = 1024 if layout.seq_len >= 8192 else 512
@@ -145,7 +168,8 @@ def _run_kernel(q, k, v, meta, plan: SVG1Plan, mask_spec, aux, *, block_q: int):
 
 def svg1_sparse_impl(q, k, v, rows, meta, plan: SVG1Plan, aux=None):
     """Profile the sampled `rows`, re-lay-out the temporal heads, run the
-    shared band+sink attention, restore the original order."""
+    shared sparse attention (band+sink or hyvideo), restore the original
+    order."""
     mses = sample_mse(q, k, v, plan.profile_preds(), rows)
     is_t = best_mask_idx(mses) == 1  # (B, H)
     o = _run_kernel(place_heads(q, is_t, plan.layout), place_heads(k, is_t, plan.layout),

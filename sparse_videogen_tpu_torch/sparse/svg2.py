@@ -63,8 +63,10 @@ def check_sap_config(cfg: SAPConfig, layout: VideoLayout) -> None:
         raise NotImplementedError(f"k-means metric {cfg.kmeans_metric!r} is not ported to the torch package yet "
                                   "(ROADMAP.md)")
     if layout.text_position != TextPosition.NONE or layout.context_length:
-        raise NotImplementedError("SAP with text tokens in the sequence (HunyuanVideo) is not ported to the torch "
-                                  "package yet (ROADMAP.md)")
+        raise NotImplementedError(
+            "SAP with text tokens in the sequence (HunyuanVideo's text-last SAP layouts: the text clusters of "
+            "svg2.py _extend_text_clusters/_extend_text_dyn and K3 over them) is not ported to the torch package "
+            "yet (ROADMAP.md)")
 
 
 def _kmeans_with_warmstart(x, n_clusters, state_centroids, initialized, cfg: SAPConfig, generator, init_idx):

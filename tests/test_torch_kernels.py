@@ -27,7 +27,9 @@ from sparse_videogen_tpu_torch.ops.kmeans import (
     kmeans_variant_pass,
     kmeans_variant_pass_plain,
 )
+from sparse_videogen_tpu_torch.ops.dense_qsplit import KERNEL_CONFIGS, dense_attn, dense_attn_plain
 from sparse_videogen_tpu_torch.ops.mask_spec import MaskSpec
+from sparse_videogen_tpu_torch.ops.rmsnorm import rms_norm_kernel, rms_norm_plain
 from sparse_videogen_tpu_torch.ops.rope import rope_apply, rope_plain
 
 
@@ -209,6 +211,74 @@ def test_attention_kernel_matches_plain(cuda, spec, D_):
     torch.cuda.synchronize()
     torch.testing.assert_close(out[:, :S].float(), ref[:, :S].float(), atol=2e-2, rtol=0)
     assert torch.all(out[1, :bq] == 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("which", ["dense", "svg1"])
+@pytest.mark.parametrize("D_", [64, 128])
+def test_attention_kernel_hyvideo_matches_plain(cuda, which, D_):
+    """K1's hyvideo kind on the card: a text-last layout (3 frames x 160
+    tokens + 8 text tokens, prompt 3: real, fake and padded rows), the
+    runtime's cheap-first metadata and aux, dense (band 1 << 24) and SVG1
+    (floor band); same tolerance and reason as the other kinds: atol 2e-2."""
+    from sparse_videogen_tpu_torch.config import SVGConfig, TextPosition, VideoLayout
+    from sparse_videogen_tpu_torch.sparse.runtimes import SVG1Runtime
+    from sparse_videogen_tpu_torch.sparse.svg1 import make_svg1_plan
+
+    lay = VideoLayout(num_frames=3, frame_size=160, context_length=8, text_position=TextPosition.LAST)
+    plan = make_svg1_plan(lay, SVGConfig(sparsity=0.6), block_q=128, block_kv=256)
+    rt = SVG1Runtime(plan, device=cuda, prompt_length=3)
+    meta, spec, bq = ((rt.dense_meta, plan.dense_mask_spec, plan.dense_block_q) if which == "dense"
+                      else (rt.sparse_meta, plan.mask_spec, plan.block_q))
+    q = torch.randn(3, plan.seq_pad_q, D_, device=cuda).to(torch.bfloat16)
+    k, v = (torch.randn(3, plan.seq_pad_kv, D_, device=cuda).to(torch.bfloat16) for _ in range(2))
+    kw = dict(block_q=bq, block_kv=plan.block_kv, mask_spec=spec)
+    _kernels.reset_counts()
+    out = block_sparse_attention_kv(q, k, v, meta, rt.aux, **kw)
+    assert _kernels.LAUNCHES["block_sparse_attn"] == 1 and _kernels.PLAIN_CALLS["block_sparse_attn"] == 0
+    ref = block_sparse_attention_kv_plain(q, k, v, meta, rt.aux, **kw)
+    torch.cuda.synchronize()
+    S = lay.seq_len
+    torch.testing.assert_close(out[:, :S].float(), ref[:, :S].float(), atol=2e-2, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bq,qsplit", KERNEL_CONFIGS)
+@pytest.mark.parametrize("D_", [64, 128])
+def test_dense_qsplit_kernel_matches_plain(cuda, bq, qsplit, D_):
+    """K7 on the card against its plain version, bf16, S = 1024, bkv 256:
+    both round q_s and P to bf16; the kernel rescales P per 64-token
+    sub-tile, the plain version per bkv chunk: atol 2e-2."""
+    g = torch.Generator(device=cuda).manual_seed(bq + qsplit + D_)
+    q, k, v = (torch.randn(2, 1024, D_, generator=g, device=cuda).to(torch.bfloat16) for _ in range(3))
+    _kernels.reset_counts()
+    out = dense_attn(q, k, v, bq=bq, bkv=256, qsplit=qsplit)
+    assert _kernels.LAUNCHES["dense_qsplit"] == 1 and _kernels.PLAIN_CALLS["dense_qsplit"] == 0
+    ref = dense_attn_plain(q, k, v, bq=bq, bkv=256, qsplit=qsplit)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2, rtol=0)
+    with pytest.raises(ValueError):  # a configuration the kernel does not take raises, never falls back
+        dense_attn(q, k, v, bq=512, bkv=256, qsplit=4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(1000, 128), (3, 77, 1536), (40, 3072)], ids=["qk", "block", "hidden"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_rmsnorm_kernel_matches_plain(cuda, shape, dtype):
+    """K6 (Triton) on the card: the mean of squares sums in another order and
+    rsqrt may differ in its last f32 bit, so the cast may round to the
+    neighbouring value: |diff| <= 2^-6 |plain| + 1e-6 in bf16 (two roundings,
+    one ulp each), 1e-5 relative in f32."""
+    g = torch.Generator(device=cuda).manual_seed(shape[-1])
+    x = (torch.randn(shape, generator=g, device=cuda) * 3).to(dtype)
+    w = torch.rand(shape[-1], generator=g, device=cuda) + 0.5
+    _kernels.reset_counts()
+    out = rms_norm_kernel(x, w, 1e-6)
+    assert _kernels.LAUNCHES["rmsnorm"] == 1 and _kernels.PLAIN_CALLS["rmsnorm"] == 0
+    ref = rms_norm_plain(x, w, 1e-6)
+    torch.cuda.synchronize()
+    rtol = 2.0 ** -6 if dtype == torch.bfloat16 else 1e-5
+    assert bool(((out.float() - ref.float()).abs() <= rtol * ref.float().abs() + 1e-6).all())
 
 
 @pytest.mark.gpu

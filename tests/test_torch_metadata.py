@@ -8,11 +8,12 @@ import numpy as np
 import pytest
 import torch
 
-from sparse_videogen_tpu.config import SVGConfig, TextPosition, VideoLayout
+from sparse_videogen_tpu import config as JC
 from sparse_videogen_tpu.ops import mask_spec as JMS
 from sparse_videogen_tpu.ops import metadata as JMD
 from sparse_videogen_tpu.sparse import runtimes as JRT
 from sparse_videogen_tpu.sparse import svg1 as JS1
+from sparse_videogen_tpu_torch import config as TC
 from sparse_videogen_tpu_torch.ops import mask_spec as TMS
 from sparse_videogen_tpu_torch.ops import metadata as TMD
 from sparse_videogen_tpu_torch.sparse import runtimes as TRT
@@ -86,21 +87,21 @@ def test_apply_mask_spec_and_full_block_allowed_equal(spec):
     assert TMS.apply_mask_spec(TMS.MaskSpec(), qpos, kpos, None) is None
 
 
+# (num_frames, frame_size); each package builds its own VideoLayout from them
 LAYOUTS = [
-    VideoLayout(num_frames=3, frame_size=100),  # S = 300: not a multiple of 128
-    VideoLayout(num_frames=4, frame_size=96),  # S = 384: block_kv clamped to 384
-    VideoLayout(num_frames=5, frame_size=200),  # S = 1000
-    VideoLayout(num_frames=2, frame_size=60),  # S = 120: one padded sub-block, block_kv clamped to 128
-    VideoLayout(num_frames=6, frame_size=1560),  # S = 9360: default block_q 1024, dense block_q 2048
+    (3, 100),  # S = 300: not a multiple of 128
+    (4, 96),  # S = 384: block_kv clamped to 384
+    (5, 200),  # S = 1000
+    (2, 60),  # S = 120: one padded sub-block, block_kv clamped to 128
+    (6, 1560),  # S = 9360: default block_q 1024, dense block_q 2048
 ]
 
 
-@pytest.mark.parametrize("lay", LAYOUTS, ids=lambda l: f"{l.num_frames}x{l.frame_size}+{l.context_length}")
+@pytest.mark.parametrize("lay", LAYOUTS, ids=lambda l: f"{l[0]}x{l[1]}+0")
 @pytest.mark.parametrize("bq", [None, 128])
 def test_svg1_plan_metadata_equal(lay, bq):
-    cfg = SVGConfig(sparsity=0.3)
-    ours = TS1.make_svg1_plan(lay, cfg, block_q=bq, block_kv=512)
-    ref = JS1.make_svg1_plan(lay, cfg, block_q=bq, block_kv=512)
+    ours = TS1.make_svg1_plan(TC.VideoLayout(*lay), TC.SVGConfig(sparsity=0.3), block_q=bq, block_kv=512)
+    ref = JS1.make_svg1_plan(JC.VideoLayout(*lay), JC.SVGConfig(sparsity=0.3), block_q=bq, block_kv=512)
     assert (ours.block_q, ours.block_kv, ours.seq_pad_q, ours.seq_pad_kv, ours.multiplier) == (
         ref.block_q, ref.block_kv, ref.seq_pad_q, ref.seq_pad_kv, ref.multiplier)
     assert ours.dense_block_q == ref.dense_exec[0]
@@ -115,15 +116,22 @@ def test_svg1_plan_metadata_equal(lay, bq):
         ((ours.dense_mask_spec, ours.dense_meta(), ours.dense_block_q),
          (ref.dense_mask_spec, ref.dense_meta(), ref.dense_exec[0])),
     ):
-        np.testing.assert_array_equal(TRT._classified(meta_o, spec_o, ours, bq_o),
+        np.testing.assert_array_equal(TRT._classified(meta_o, spec_o, ours, None, bq_o),
                                       np.asarray(JRT._classified(meta_r, spec_r, ref, None, bq_r)))
 
 
-@pytest.mark.parametrize("pos", [TextPosition.LAST, TextPosition.FIRST])
+@pytest.mark.parametrize("pos", [JC.TextPosition.LAST, JC.TextPosition.FIRST])
 def test_svg1_plan_rejects_text_in_sequence(pos):
-    """The port's plan is Wan's band+sink only; a layout with text tokens in
-    the sequence (HunyuanVideo, Cog) must not silently get that mask."""
-    lay = VideoLayout(num_frames=2, frame_size=60, context_length=40, text_position=pos)
-    JS1.make_svg1_plan(lay, SVGConfig(sparsity=0.3))  # the JAX package takes it
+    """A layout with text tokens never silently gets Wan's band+sink mask:
+    text last (HunyuanVideo) gets the hyvideo plan, as in the JAX package;
+    text first (CogVideoX) is not ported and raises."""
+    kw = dict(num_frames=2, frame_size=60, context_length=40)
+    ref = JS1.make_svg1_plan(JC.VideoLayout(text_position=pos, **kw), JC.SVGConfig(sparsity=0.3))
+    lay = TC.VideoLayout(text_position=TC.TextPosition(pos.value), **kw)
+    if pos == JC.TextPosition.LAST:
+        ours = TS1.make_svg1_plan(lay, TC.SVGConfig(sparsity=0.3))
+        assert ours.mask_kind == ref.mask_kind == "hyvideo"
+        assert ours.mask_spec == TMS.MaskSpec(**vars(ref.mask_spec))
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TS1.make_svg1_plan(lay, SVGConfig(sparsity=0.3))
+        TS1.make_svg1_plan(lay, TC.SVGConfig(sparsity=0.3))

@@ -1,5 +1,7 @@
-"""The torch port must run where JAX is not installed: importing every module
-of sparse_videogen_tpu_torch, and chip_smoke.py, pulls in no jax."""
+"""The torch port must run where JAX is not installed and keeps its own copy
+of what it needs: importing every module of sparse_videogen_tpu_torch, and
+chip_smoke.py, pulls in no jax and no module of the JAX package
+(sparse_videogen_tpu or sparse_videogen_tpu.*)."""
 
 import os
 import subprocess
@@ -14,7 +16,8 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 for name in names:
     importlib.import_module(name)
 import chip_smoke
-leaked = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib")))
+leaked = sorted(m for m in sys.modules if m in ("jax", "sparse_videogen_tpu")
+                or m.startswith(("jax.", "jaxlib", "sparse_videogen_tpu.")))
 print(len(names), leaked)
 assert not leaked, leaked
 assert len(names) >= 20, names

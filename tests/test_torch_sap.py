@@ -9,6 +9,7 @@ must be equal; float outputs differ by f32 summation order only, with the
 tolerance stated per test.
 """
 
+import dataclasses
 import json
 
 import jax
@@ -17,7 +18,7 @@ import numpy as np
 import pytest
 import torch
 
-from sparse_videogen_tpu.config import SAPConfig, SVGConfig, TextPosition, VideoLayout, WarmupSchedule
+from sparse_videogen_tpu import config as JC
 from sparse_videogen_tpu.core import dynamic_map as JDM
 from sparse_videogen_tpu.core import permute as JP
 from sparse_videogen_tpu.ops import attention as JA
@@ -26,6 +27,7 @@ from sparse_videogen_tpu.ops import metadata as JMD
 from sparse_videogen_tpu.sparse import svg2 as J2
 from sparse_videogen_tpu_torch import _kernels
 from sparse_videogen_tpu_torch.cli import wan_t2v as TCLI
+from sparse_videogen_tpu_torch.config import SAPConfig, SVGConfig, TextPosition, VideoLayout, WarmupSchedule
 from sparse_videogen_tpu_torch.core import dynamic_map as TDM
 from sparse_videogen_tpu_torch.core import permute as TP
 from sparse_videogen_tpu_torch.io.from_jax import sap_state_from_numpy
@@ -163,9 +165,11 @@ def test_runs_attention_plain_matches_jax(mask):
     np.testing.assert_allclose(ours, ref, atol=1e-5, rtol=0)
 
 
+# the port's configs; the JAX package gets its own, built from the same values
 LAYOUT = VideoLayout(num_frames=3, frame_size=100)
 SAP_CFG = SAPConfig(num_q_centroids=6, num_k_centroids=12, kmeans_iter_init=8, kmeans_iter_step=2, block_q=128,
                     block_kv=256)
+JLAYOUT, JSAP_CFG = JC.VideoLayout(num_frames=3, frame_size=100), JC.SAPConfig(**dataclasses.asdict(SAP_CFG))
 
 
 def _qkv(seed, H=2, D=64, S=300):
@@ -188,9 +192,9 @@ def test_sap_sparse_attention_matches_jax():
     H, S, D = q.shape[1], q.shape[2], q.shape[3]
     key = jax.random.PRNGKey(5)
     jq, jk, jv = (jnp.asarray(a) for a in (q, k, v))
-    jo1, js1 = J2.sap_sparse_attention(jq, jk, jv, J2.init_sap_state(H, D, SAP_CFG), key, layout=LAYOUT,
-                                       cfg=SAP_CFG)
-    jo2, js2 = J2.sap_sparse_attention(jq, jk, jv, js1, key, layout=LAYOUT, cfg=SAP_CFG)
+    jo1, js1 = J2.sap_sparse_attention(jq, jk, jv, J2.init_sap_state(H, D, JSAP_CFG), key, layout=JLAYOUT,
+                                       cfg=JSAP_CFG)
+    jo2, js2 = J2.sap_sparse_attention(jq, jk, jv, js1, key, layout=JLAYOUT, cfg=JSAP_CFG)
     tq, tk, tv = t(q), t(k), t(v)
     to1, ts1 = T2.sap_sparse_attention(tq, tk, tv, T2.init_sap_state(H, D, SAP_CFG), layout=LAYOUT, cfg=SAP_CFG,
                                        init_idx=_jax_draws(key, H, S, SAP_CFG))
@@ -277,14 +281,15 @@ def test_generate_latents_sap_matches_jax(tmp_path):
 
     jcfg, params, model = _tiny_wan()
     steps, seed, H_LAT, W_LAT, NF = 2, 0, 10, 16, 9
-    sap = SAPConfig(num_q_centroids=4, num_k_centroids=8, kmeans_iter_init=8, block_q=128, block_kv=256)
+    sap_kw = dict(num_q_centroids=4, num_k_centroids=8, kmeans_iter_init=8, block_q=128, block_kv=256)
+    sap = SAPConfig(**sap_kw)
     kw = dict(height=8 * H_LAT, width=8 * W_LAT, num_frames=NF, num_inference_steps=steps, guidance_scale=5.0,
-              flow_shift=3.0, pattern="SAP", first_layers_fp=0.5, first_times_fp=0.0, sap=sap)
+              flow_shift=3.0, pattern="SAP", first_layers_fp=0.5, first_times_fp=0.0)
     rng = np.random.default_rng(3)
     ctx, ctx_null = (rng.standard_normal((1, jcfg.text_len, jcfg.text_dim)).astype(np.float32) for _ in range(2))
     jlog, tlog = tmp_path / "jax.jsonl", tmp_path / "torch.jsonl"
     ref = np.asarray(JPW.WanPipeline(jcfg, params, dtype=jnp.float32).generate_latents(
-        jnp.asarray(ctx), jnp.asarray(ctx_null), seed=seed, logging_file=str(jlog), **kw))
+        jnp.asarray(ctx), jnp.asarray(ctx_null), seed=seed, logging_file=str(jlog), sap=JC.SAPConfig(**sap_kw), **kw))
     key, nkey = jax.random.split(jax.random.PRNGKey(seed))
     lay = JPW.wan_layout(jcfg, kw["height"], kw["width"], NF)
     lat0 = np.array(jax.random.normal(nkey, (1, 16, lay.num_frames, H_LAT, W_LAT), jnp.float32))
@@ -292,7 +297,7 @@ def test_generate_latents_sap_matches_jax(tmp_path):
     draws = [[{li: _jax_draws(jax.random.fold_in(jax.random.fold_in(key, i), li), jcfg.num_heads, lay.seq_len, sap)
                for li in range(jcfg.num_layers)}] * 2 for i in range(steps)]
     ours = TPW.WanPipeline(model)._denoise(t(ctx), t(ctx_null), t(lat0), kmeans_init=draws, logging_file=str(tlog),
-                                           svg=SVGConfig(), **kw).numpy()
+                                           svg=SVGConfig(), sap=sap, **kw).numpy()
     assert np.isfinite(ours).all()
     assert np.linalg.norm(ours - ref) / np.linalg.norm(ref) <= 1e-5
     jrows, trows = ([json.loads(line) for line in open(p)] for p in (jlog, tlog))
@@ -314,7 +319,7 @@ def test_cli_smoke_sap_cpu(tmp_path):
 def test_sap_state_from_numpy():
     """Single and layer-stacked JAX states (bf16 centroids) convert exactly."""
     H, D, L = 3, 16, 2
-    one = J2.init_sap_state(H, D, SAP_CFG)
+    one = J2.init_sap_state(H, D, JSAP_CFG)
     rng = np.random.default_rng(0)
     one = J2.SAPState(jnp.asarray(rng.standard_normal(one.q_centroids.shape), jnp.bfloat16),
                       jnp.asarray(rng.standard_normal(one.k_centroids.shape), jnp.bfloat16),

@@ -13,55 +13,54 @@ import numpy as np
 import pytest
 import torch
 
-from sparse_videogen_tpu.config import SVGConfig, VideoLayout
+from sparse_videogen_tpu import config as JC
 from sparse_videogen_tpu.core import masks as JM
 from sparse_videogen_tpu.core import placement as JP
 from sparse_videogen_tpu.core import profiler as JPR
 from sparse_videogen_tpu.sparse import runtimes as JRT
 from sparse_videogen_tpu.sparse import svg1 as JS1
+from sparse_videogen_tpu_torch import config as TC
 from sparse_videogen_tpu_torch.core import masks as TM
 from sparse_videogen_tpu_torch.core import placement as TP
 from sparse_videogen_tpu_torch.core import profiler as TPR
 from sparse_videogen_tpu_torch.sparse import runtimes as TRT
 from sparse_videogen_tpu_torch.sparse import svg1 as TS1
 
-LAYOUTS = [
-    VideoLayout(num_frames=3, frame_size=100),
-    VideoLayout(num_frames=4, frame_size=96),
-    VideoLayout(num_frames=2, frame_size=60),
-    VideoLayout(num_frames=5, frame_size=200),
-]
+# (num_frames, frame_size); each package builds its own VideoLayout from them
+LAYOUTS = [(3, 100), (4, 96), (2, 60), (5, 200)]
 IDS = ["3x100", "4x96", "2x60", "5x200"]
 
 
 @pytest.mark.parametrize("lay", LAYOUTS, ids=IDS)
 def test_mask_math_equal(lay):
+    jl, lay = JC.VideoLayout(*lay), TC.VideoLayout(*lay)
     for sp in (0.1, 0.25, 0.5):
         assert TM.sparsity_to_width(sp, lay.context_length, lay.num_frames, lay.frame_size) == \
             JM.sparsity_to_width(sp, lay.context_length, lay.num_frames, lay.frame_size)
     g = TM.temporal_index_map(lay)
-    np.testing.assert_array_equal(g, JM.temporal_index_map(lay))
+    np.testing.assert_array_equal(g, JM.temporal_index_map(jl))
     np.testing.assert_array_equal(TM.inverse_permutation(g), JM.inverse_permutation(g))
     qi, ki = np.arange(lay.seq_len)[:, None], np.arange(lay.seq_len)[None, :]
     # the port's masks are Wan's: first-frame sink, band rounded up ("ceil")
     for name in ("spatial", "temporal"):
         for mul in (0.7, 2.0):
             ours = TM.profile_mask_predicate(lay, name, mul)(torch.as_tensor(qi), torch.as_tensor(ki))
-            ref = JM.profile_mask_predicate(lay, name, mul, first_frame_sink=True)(qi, ki)
+            ref = JM.profile_mask_predicate(jl, name, mul, first_frame_sink=True)(qi, ki)
             np.testing.assert_array_equal(ours.numpy(), np.asarray(ref))
     for mul in (0.4, 1.3):
         for bq, bkv in ((128, 128), (256, 128)):
             np.testing.assert_array_equal(
                 TM.execution_mask_block(lay, mul, block_q=bq, block_kv=bkv),
-                JM.execution_mask_block(lay, mul, block_q=bq, block_kv=bkv, first_frame_sink=True, round_mode="ceil"))
+                JM.execution_mask_block(jl, mul, block_q=bq, block_kv=bkv, first_frame_sink=True, round_mode="ceil"))
 
 
 @pytest.mark.parametrize("lay", LAYOUTS, ids=IDS)
 def test_temporal_transpose_equal(lay):
+    jl, lay = JC.VideoLayout(*lay), TC.VideoLayout(*lay)
     x = np.random.default_rng(0).standard_normal((2, 3, lay.seq_len, 8)).astype(np.float32)
     for inverse in (False, True):
         ours = TP.temporal_transpose(torch.from_numpy(x), lay, inverse=inverse).numpy()
-        np.testing.assert_array_equal(ours, np.asarray(JP.temporal_transpose(jnp.asarray(x), lay, inverse=inverse)))
+        np.testing.assert_array_equal(ours, np.asarray(JP.temporal_transpose(jnp.asarray(x), jl, inverse=inverse)))
     g = TM.temporal_index_map(lay)
     np.testing.assert_array_equal(TP.temporal_transpose(torch.from_numpy(x), lay).numpy(), x[..., g, :])
     is_t = torch.tensor([[True, False, True], [False, False, True]])
@@ -70,8 +69,11 @@ def test_temporal_transpose_equal(lay):
     np.testing.assert_array_equal(placed[1, 2], x[1, 2][g])
 
 
-LAY = VideoLayout(num_frames=3, frame_size=100)  # S = 300: a padded tail in q and kv
-CFG = SVGConfig(sparsity=0.25, num_sampled_rows=32, sample_mse_max_row=250)
+# S = 300: a padded tail in q and kv; each package builds its own layout and config
+LAY_KW = dict(num_frames=3, frame_size=100)
+CFG_KW = dict(sparsity=0.25, num_sampled_rows=32, sample_mse_max_row=250)
+LAY, CFG = TC.VideoLayout(**LAY_KW), TC.SVGConfig(**CFG_KW)
+JLAY, JCFG = JC.VideoLayout(**LAY_KW), JC.SVGConfig(**CFG_KW)
 
 
 def _qkv(seed=0):
@@ -95,7 +97,7 @@ def _jax_rows(key):
 
 def test_sample_mse_with_jax_rows():
     q, k, v = _qkv()
-    plan_j = JS1.make_svg1_plan(LAY, CFG)
+    plan_j = JS1.make_svg1_plan(JLAY, JCFG)
     plan_t = TS1.make_svg1_plan(LAY, CFG)
     key = jax.random.PRNGKey(3)
     ref = np.asarray(JPR.sample_mse(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), plan_j.profile_preds(), key,
@@ -118,7 +120,7 @@ def test_attention_impls_match_jax(which):
     """dense_impl and svg1_sparse_impl at the runtimes' (cheap-first)
     metadata, through padding, placement and the inverse placement."""
     q, k, v = _qkv(1)
-    plan_j = JS1.make_svg1_plan(LAY, CFG, block_q=128, block_kv=256)
+    plan_j = JS1.make_svg1_plan(JLAY, JCFG, block_q=128, block_kv=256)
     plan_t = TS1.make_svg1_plan(LAY, CFG, block_q=128, block_kv=256)
     consts = JRT.SVG1Runtime(plan_j).consts()
     rt = TRT.SVG1Runtime(plan_t, device="cpu")

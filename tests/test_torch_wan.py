@@ -13,10 +13,11 @@ import numpy as np
 import pytest
 import torch
 
-from sparse_videogen_tpu.config import SVGConfig, WarmupSchedule
+from sparse_videogen_tpu import config as JC
 from sparse_videogen_tpu.models.wan import model as JWM
 from sparse_videogen_tpu.pipelines import wan as JPW
 from sparse_videogen_tpu.schedulers import FlowUniPC as JUniPC
+from sparse_videogen_tpu_torch import config as TC
 from sparse_videogen_tpu_torch.cli import wan_t2v as TCLI
 from sparse_videogen_tpu_torch.io.from_jax import wan_params_from_numpy
 from sparse_videogen_tpu_torch.models.wan import model as TWM
@@ -27,7 +28,9 @@ CFG_KW = dict(dim=128, ffn_dim=256, num_heads=2, num_layers=2, freq_dim=32, text
 JCFG, TCFG = JWM.WanConfig(**CFG_KW), TWM.WanConfig(**CFG_KW)
 # latents (B, 16, 3, 10, 16) -> token grid (3, 5, 8): S = 120, frame_size 40, head_dim 64
 H_LAT, W_LAT, NUM_FRAMES = 10, 16, 9
-SVG = SVGConfig(sparsity=0.25, num_sampled_rows=32)
+# each package gets its own SVGConfig with these values
+SVG_KW = dict(sparsity=0.25, num_sampled_rows=32)
+SVG, JSVG = TC.SVGConfig(**SVG_KW), JC.SVGConfig(**SVG_KW)
 
 
 def rel_err(a, b):
@@ -75,15 +78,15 @@ def test_wan_forward_matches_jax(params, model, pattern):
     """One forward with layer 0 in dense warm-up and layer 1 on the pattern.
     f32 over 2 blocks: rel L2 error <= 1e-5 (measured ~4e-7 on the CPU)."""
     lay = JPW.wan_layout(JCFG, 8 * H_LAT, 8 * W_LAT, NUM_FRAMES)
-    warm = WarmupSchedule(first_layers=1)
+    tlay = TPW.wan_layout(TCFG, 8 * H_LAT, 8 * W_LAT, NUM_FRAMES)
     rng = np.random.default_rng(1)
     x = rng.standard_normal((2, 16, lay.num_frames, H_LAT, W_LAT)).astype(np.float32)
     ctx = rng.standard_normal((2, JCFG.text_len, JCFG.text_dim)).astype(np.float32)
     t = np.asarray([700.0, 700.0], np.float32)
     key = jax.random.PRNGKey(2)
-    jrt = JPW.make_wan_runtime(lay, pattern=pattern, warmup=warm, svg=SVG)
+    jrt = JPW.make_wan_runtime(lay, pattern=pattern, warmup=JC.WarmupSchedule(first_layers=1), svg=JSVG)
     ref, _ = JWM.wan_forward(params, JCFG, jnp.asarray(x), jnp.asarray(t), jnp.asarray(ctx), attention=jrt, rng=key)
-    trt = TPW.make_wan_runtime(lay, device="cpu", pattern=pattern, warmup=warm, svg=SVG)
+    trt = TPW.make_wan_runtime(tlay, device="cpu", pattern=pattern, warmup=TC.WarmupSchedule(first_layers=1), svg=SVG)
     ours = TWM.wan_forward(model, torch.from_numpy(x), torch.from_numpy(t), torch.from_numpy(ctx), attention=trt,
                            profile_rows=layer_rows(key, JCFG.num_layers, lay.seq_len))
     assert ours.dtype == torch.float32 and ours.shape == x.shape
@@ -118,12 +121,11 @@ def test_generate_latents_matches_jax(params, model, pattern):
     f32, 3 steps x 2 blocks x CFG 5.0: rel L2 error <= 1e-5 (measured ~1e-6 on the CPU)."""
     steps, seed = 3, 0
     kw = dict(height=8 * H_LAT, width=8 * W_LAT, num_frames=NUM_FRAMES, num_inference_steps=steps,
-              guidance_scale=5.0, flow_shift=3.0, pattern=pattern, first_layers_fp=0.5, first_times_fp=0.34,
-              svg=SVG)
+              guidance_scale=5.0, flow_shift=3.0, pattern=pattern, first_layers_fp=0.5, first_times_fp=0.34)
     rng = np.random.default_rng(3)
     ctx, ctx_null = (rng.standard_normal((1, JCFG.text_len, JCFG.text_dim)).astype(np.float32) for _ in range(2))
     ref = JPW.WanPipeline(JCFG, params, dtype=jnp.float32).generate_latents(
-        jnp.asarray(ctx), jnp.asarray(ctx_null), seed=seed, **kw)
+        jnp.asarray(ctx), jnp.asarray(ctx_null), seed=seed, svg=JSVG, **kw)
     # generate_latents' own draws: noise from split(PRNGKey(seed))[1], rows
     # from fold_in(fold_in(key, step), layer)
     key, nkey = jax.random.split(jax.random.PRNGKey(seed))
@@ -131,7 +133,7 @@ def test_generate_latents_matches_jax(params, model, pattern):
     lat0 = np.array(jax.random.normal(nkey, (1, 16, lay.num_frames, H_LAT, W_LAT), jnp.float32))
     rows = [layer_rows(jax.random.fold_in(key, i), JCFG.num_layers, lay.seq_len) for i in range(steps)]
     ours = TPW.WanPipeline(model)._denoise(torch.from_numpy(ctx), torch.from_numpy(ctx_null),
-                                           torch.from_numpy(lat0), profile_rows=rows, **kw)
+                                           torch.from_numpy(lat0), profile_rows=rows, svg=SVG, **kw)
     assert np.isfinite(ours.numpy()).all()
     assert rel_err(ours.numpy(), ref) <= 1e-5
 

@@ -16,12 +16,13 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
-from sparse_videogen_tpu.config import SAPConfig, VideoLayout, WarmupSchedule
+from sparse_videogen_tpu import config as JC
 from sparse_videogen_tpu.core import dynamic_map as JDM
 from sparse_videogen_tpu.models.wan import model as JWM
 from sparse_videogen_tpu.ops import metadata as JMD
 from sparse_videogen_tpu.pipelines import wan as JPW
 from sparse_videogen_tpu.sparse import svg2 as J2
+from sparse_videogen_tpu_torch import config as TC
 from sparse_videogen_tpu_torch.core import dynamic_map as TDM
 from sparse_videogen_tpu_torch.io.from_jax import wan_params_from_numpy
 from sparse_videogen_tpu_torch.models.wan import model as TWM
@@ -32,6 +33,7 @@ from sparse_videogen_tpu_torch.sparse import svg2 as T2
 
 t = lambda a: torch.from_numpy(np.array(a))
 SAP_720P = dataclasses.replace(T2V_720P_SAP.sap, kmeans_iter_init=4, block_q=16, block_kv=128)
+JSAP_720P = JC.SAPConfig(**dataclasses.asdict(SAP_720P))  # the JAX package's own config, same values
 QC, KC = SAP_720P.num_q_centroids, SAP_720P.num_k_centroids
 
 
@@ -48,8 +50,8 @@ def test_wan_14b_config_matches_jax():
         assert getattr(TWM.WAN_14B, name) == getattr(JWM.WAN_14B, name), name
     assert TWM.WAN_14B.head_dim == 128
     assert T2V_720P_SAP.model == TWM.WAN_14B and PRESETS["14B-720p-sap"] is T2V_720P_SAP
-    assert T2V_720P_SAP.sap == SAPConfig(num_q_centroids=300, num_k_centroids=1000, top_p_kmeans=0.9,
-                                         min_kc_ratio=0.10, kmeans_iter_init=50, kmeans_iter_step=2)
+    assert T2V_720P_SAP.sap == TC.SAPConfig(num_q_centroids=300, num_k_centroids=1000, top_p_kmeans=0.9,
+                                            min_kc_ratio=0.10, kmeans_iter_init=50, kmeans_iter_step=2)
 
 
 def test_dynamic_map_and_run_meta_at_720p_config():
@@ -95,13 +97,13 @@ def test_sap_layer_at_720p_config_matches_jax():
     """One SAP layer, cold from JAX's draws, on 2 x 1024 tokens (QC 300 q
     clusters of ~7 tokens, KC 1000 k clusters of ~2): bf16 centroids and
     densities equal, f32 outputs within atol 1e-5."""
-    layout = VideoLayout(num_frames=2, frame_size=1024)
+    layout, jlayout = TC.VideoLayout(num_frames=2, frame_size=1024), JC.VideoLayout(num_frames=2, frame_size=1024)
     H, S, D = 1, layout.seq_len, 16
     rng = np.random.default_rng(1)
     q, k, v = (rng.standard_normal((1, H, S, D)).astype(np.float32) for _ in range(3))
     key = jax.random.PRNGKey(5)
-    jo, js = J2.sap_sparse_attention(*(jnp.asarray(a) for a in (q, k, v)), J2.init_sap_state(H, D, SAP_720P), key,
-                                     layout=layout, cfg=SAP_720P)
+    jo, js = J2.sap_sparse_attention(*(jnp.asarray(a) for a in (q, k, v)), J2.init_sap_state(H, D, JSAP_720P), key,
+                                     layout=jlayout, cfg=JSAP_720P)
     to, ts = T2.sap_sparse_attention(t(q), t(k), t(v), T2.init_sap_state(H, D, SAP_720P), layout=layout,
                                      cfg=SAP_720P, init_idx=_jax_draws(key, H, S))
     np.testing.assert_array_equal(ts.q_centroids.float().numpy(), np.asarray(js.q_centroids, np.float32))
@@ -122,14 +124,15 @@ def test_wan_forward_40_heads_sap_matches_jax():
     model = TWM.WanModel(tcfg, dtype=torch.float32)
     model.load_state_dict(wan_params_from_numpy(params, tcfg))
     lay = JPW.wan_layout(jcfg, 80, 128, 9)  # latents (1, 16, 3, 10, 16): S = 120
-    warm = WarmupSchedule(first_layers=1)
+    tlay = TPW.wan_layout(tcfg, 80, 128, 9)
     x = rng.standard_normal((1, 16, lay.num_frames, 10, 16)).astype(np.float32)
     ctx = rng.standard_normal((1, jcfg.text_len, jcfg.text_dim)).astype(np.float32)
     tt = np.asarray([700.0], np.float32)
     key = jax.random.PRNGKey(3)
-    jrt = JPW.make_wan_runtime(lay, pattern="SAP", warmup=warm, sap=SAP_720P)
+    jrt = JPW.make_wan_runtime(lay, pattern="SAP", warmup=JC.WarmupSchedule(first_layers=1), sap=JSAP_720P)
     ref, _ = JWM.wan_forward(params, jcfg, jnp.asarray(x), jnp.asarray(tt), jnp.asarray(ctx), attention=jrt, rng=key)
-    trt = TPW.make_wan_runtime(lay, device="cpu", pattern="SAP", warmup=warm, sap=SAP_720P)
+    trt = TPW.make_wan_runtime(tlay, device="cpu", pattern="SAP", warmup=TC.WarmupSchedule(first_layers=1),
+                               sap=SAP_720P)
     trt.kmeans_init = {li: _jax_draws(jax.random.fold_in(key, li), jcfg.num_heads, lay.seq_len) for li in range(2)}
     ours = TWM.wan_forward(model, t(x), t(tt), t(ctx), attention=trt).numpy()
     ref = np.asarray(ref)
