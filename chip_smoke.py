@@ -1,5 +1,6 @@
 """Drive the torch port's main paths once on one NVIDIA GPU: Wan 2.1 T2V
-dense/SVG1/SAP, HunyuanVideo T2V dense/SVG1, and the probe entries of K6 and K8.
+dense/SVG1/SAP, HunyuanVideo T2V dense/SVG1, CogVideoX 1.5 I2V dense/SVG1,
+and the probe entries of K6 and K8.
 
     python3 chip_smoke.py
 
@@ -23,7 +24,12 @@ is non-zero:
                HunyuanVideo 720p x 129 (S = 119,056, 24 heads) on the
                pipeline runtime's dense and SVG1 metadata; K6 (Triton RMSNorm)
                on its probe's shapes; K7 (q-split dense attention) at (12,
-               32768, 128) for every (bq, qsplit) it compiles. Each entry of
+               32768, 128) for every (bq, qsplit) it compiles; K1 at D = 64,
+               its cog kind and its unmasked dense path, at CogVideoX 768 x
+               1360 x 81 (S = 45,106, 96 rows) on the pipeline runtime's
+               metadata, and K2 at D = 64 on CogVideoX's video rows. The
+               run-list attention's band_sink check also counts the pairs its
+               predicate allows (K4's bound). Each entry of
                the kernels line carries its bound (bytes or operations over
                the H100's peaks) and, where one PyTorch call computes the same
                function, that call's time.
@@ -38,13 +44,16 @@ is non-zero:
                blocks) through HyVideoPipeline.generate_latents at
                720x1280x129, SVG1 for HY_STEPS_SVG steps (one dense warm-up
                step) and dense for HY_STEPS_DENSE, prompt HY_PROMPT of 256
-               text tokens; the K6 and K7 probe entries on their own data.
+               text tokens; the K6 and K7 probe entries on their own data;
+               CogVideoX 1.5 5B I2V (COG_1_5_5B_I2V at full width, COG_LAYERS
+               layers) through CogPipeline.generate_latents at 768x1360x81,
+               SVG1 then dense for COG_STEPS DDIM steps (CFG batch 2).
                Each path's kernel launch counts are read around its run and
                held to what the configuration implies. Then one forward of a
-               small Wan and a small HunyuanVideo with the kernels (on the
-               card) against the plain versions (on the CPU).
+               small Wan, a small HunyuanVideo and a small CogVideoX with the
+               kernels (on the card) against the plain versions (on the CPU).
   5. cli     - the port's CLIs in --smoke mode: Wan for SVG, dense and SAP,
-               HunyuanVideo for SVG and dense.
+               HunyuanVideo and CogVideoX for SVG and dense.
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
 """
@@ -89,6 +98,10 @@ PEAK_BF16_FLOPS, PEAK_F32_FLOPS, PEAK_BYTES = 989e12, 67e12, 3.35e12
 HY_DOUBLE, HY_SINGLE = 2, 2
 HY_STEPS_SVG, HY_STEPS_DENSE = 10, 2
 HY_PROMPT = 32
+# CogVideoX: COG_1_5_5B_I2V's full width, the first COG_LAYERS of its 42
+# layers (PERF.md section 4); COG_STEPS DDIM steps make first_times_fp 0.2
+# one dense warm-up step
+COG_LAYERS, COG_STEPS = 4, 5
 
 
 def log(phase: str, msg: str) -> None:
@@ -475,6 +488,25 @@ def _run_pairs(meta, block_q, rows=None):
     return int(per_block.sum()) * block_q if rows is None else int((per_block * rows.cpu().numpy()).sum())
 
 
+def _band_sink_run_pairs(meta, pos, block_q, spec) -> int:
+    """(q, k) pairs the band_sink predicate allows inside run-list metadata,
+    over the real q rows: meta (R, nQ, L) run lists, pos (R, n) the padded
+    positions of each row's real q tokens. A row q sees |[a, b) & ([q - w + 1,
+    q + w - 1] | [0, sink))| tokens of a run [a, b), w the band width."""
+    m = meta.cpu().numpy().astype(np.int64)
+    w, sink = spec.band_width, spec.sink_size
+    total = 0
+    for r, rows in enumerate(pos.cpu().numpy().astype(np.int64)):
+        a, b = m[r, rows // block_q, 1::2], m[r, rows // block_q, 2::2]
+        q = rows[:, None]
+        lo = np.maximum(a, q - w + 1)
+        band = np.clip(np.minimum(b, q + w) - lo, 0, None)
+        in_sink = np.clip(np.minimum(b, sink) - a, 0, None)
+        both = np.clip(np.minimum(np.minimum(b, sink), q + w) - lo, 0, None)
+        total += int((band + in_sink - both).sum())
+    return total
+
+
 def phase_sap_attention(dev, preset="1.3B-480p", all_checks=True):
     """The run-list kernel on the inputs SAP's own front half builds (k-means,
     dynamic map, relabel, permutations, run lists) from random full-width
@@ -544,6 +576,14 @@ def phase_sap_attention(dev, preset="1.3B-480p", all_checks=True):
                        f"({4 * D * sub_pairs / (ms * 1e-3) / 1e12:.1f} TFLOP/s on the visited pairs), plain "
                        f"{plain_ms:.3f} ms (one run); all H={H}: kernel {ms_all:.3f} ms "
                        f"({4 * D * pairs / (ms_all * 1e-3) / 1e12:.1f} TFLOP/s)")
+        if spec.kind == "band_sink":
+            # K4: the pairs the band_sink predicate allows inside the run lists, real q rows only
+            k4_pairs = _band_sink_run_pairs(metas, a.pos.index_select(0, heads), sap.block_q, spec)
+            b = attention_bound(k4_pairs, qs)
+            log("kernels", f"runs attention band_sink (K4's MaskSpec path, {preset}), checked heads: "
+                           f"{k4_pairs} pairs allowed by the predicate inside the run lists "
+                           f"({k4_pairs / len(heads) / S / S:.4f} of S x S a head, real q rows only); bound "
+                           f"{b['bound_ms']:.3f} ms ({b['bound_by']})")
         if spec.kind == "none":
             # the work this data needs: the real q tokens of each block times its runs' tokens
             rows = torch.zeros(H, n_q, device=dev).scatter_add_(1, (a.pos // sap.block_q).long(),
@@ -1123,13 +1163,277 @@ def phase_small_hyvideo_reference(dev):
             raise AssertionError(f"small HunyuanVideo forward ({pattern}) disagrees with the CPU reference: {rel}")
 
 
+def cog_run_layout():
+    """CogVideoX 768x1360x81's token layout (COG_1_5_5B_I2V: S = 45,106, the 226 text tokens first)."""
+    from sparse_videogen_tpu_torch.pipelines.cog import cog_layout
+    from sparse_videogen_tpu_torch.presets import COG_768P_SVG as run
+
+    return cog_layout(run.model, run.height, run.width, run.num_frames)
+
+
+def cog_pairs(spec, plen: int, S: int) -> int:
+    """(q, k) pairs of the sequence that the cog predicate allows (the work
+    this data needs), per head: a prompt row sees every column; any other
+    row the prompt columns and its band |q - k| < w past them."""
+    q = np.arange(plen, S, dtype=np.int64)
+    band = np.minimum(S, q + spec.band_width) - np.maximum(plen, q - spec.band_width + 1)
+    return plen * S + (S - plen) * plen + int(band.sum())
+
+
+def phase_cog_attention(dev):
+    """K1 at D = 64 on CogVideoX 768x1360x81 (S = 45,106: 226 text tokens,
+    then 11 x 4080 video tokens; 2 x 48 = 96 (batch, head) rows of the CFG
+    pair) on the metadata and aux of the pipeline's own runtime: the cog
+    kind (SVG1: floor band 5,760, text rows and columns [0, 226) fully
+    attended) and the unmasked dense path (kind none, block_q 2048). The
+    first and last rows against the plain version (one run), then both timed
+    on those 2 rows and on all 96, beside their bounds; the dense path also
+    beside F.scaled_dot_product_attention on all 96 rows (no one PyTorch call
+    computes the cog kind: SDPA would need a 45,106^2 mask)."""
+    from sparse_videogen_tpu_torch.ops.attention import block_sparse_attention_kv, block_sparse_attention_kv_plain
+    from sparse_videogen_tpu_torch.pipelines.cog import make_cog_runtime
+    from sparse_videogen_tpu_torch.presets import COG_768P_SVG as run
+
+    lay = cog_run_layout()
+    rt = make_cog_runtime(lay, device=dev, pattern="SVG", svg=run.generate_kwargs()["svg"])
+    plan = rt.plan
+    S, D, BH = lay.seq_len, run.model.head_dim, 2 * run.model.heads_num
+    plen = int(rt.aux[0])
+    heads = torch.tensor([0, BH - 1], device=dev)
+    gen = torch.Generator(device=dev).manual_seed(8)
+    cases = {"dense": (rt.dense_meta, plan.dense_mask_spec, plan.dense_block_q),
+             "cog": (rt.sparse_meta, plan.mask_spec, plan.block_q)}
+    res = {}
+    for name, (meta, spec, bq) in cases.items():
+        def rand(s_pad, scale):
+            x = torch.zeros(BH, s_pad, D, device=dev, dtype=torch.bfloat16)
+            x[:, :S] = (torch.randn(BH, S, D, generator=gen, device=dev) * scale).to(torch.bfloat16)
+            return x
+
+        q, k, v = rand(-(-S // bq) * bq, 2.0), rand(plan.seq_pad_kv, 1.0), rand(plan.seq_pad_kv, 1.0)
+        kw = dict(block_q=bq, block_kv=plan.block_kv, mask_spec=spec)
+        out = block_sparse_attention_kv(q, k, v, meta, rt.aux, **kw)
+        qs, ks, vs = (x.index_select(0, heads) for x in (q, k, v))
+        ref = None
+
+        def plain():
+            nonlocal ref
+            ref = block_sparse_attention_kv_plain(qs, ks, vs, meta, rt.aux, **kw)
+
+        plain_ms = event_ms(plain)
+        max_abs, mean_rel = err_stats(out.index_select(0, heads)[:, :S], ref[:, :S])
+        n_cheap = int((meta[..., 0] // 4096).sum())
+        log("kernels", f"attention D=64 {name} (mask {spec.kind}, band {spec.band_width}, prompt {plen} text tokens "
+                       f"first, S={S}; BH={BH}, rows {heads.tolist()} checked, block_q {bq}, block_kv "
+                       f"{plan.block_kv}, meta {tuple(meta.shape)}, {n_cheap} cheap chunks): max_abs_err "
+                       f"{max_abs:.3e} (tol {ATTN_TOL_ABS}), mean_rel_err {mean_rel:.3e} (tol {ATTN_TOL_REL})")
+        if not (max_abs <= ATTN_TOL_ABS and mean_rel <= ATTN_TOL_REL):
+            raise AssertionError(f"attention kernel (D=64 {name}) disagrees with its plain version")
+        pairs = S * S if spec.kind == "none" else cog_pairs(spec, plen, S)
+        b = attention_bound(len(heads) * pairs, qs[:, :S])
+        b_all = attention_bound(BH * pairs, q[:, :S])
+        ms = cuda_ms(lambda: block_sparse_attention_kv(qs, ks, vs, meta, rt.aux, **kw))
+        ms_all = cuda_ms(lambda: block_sparse_attention_kv(q, k, v, meta, rt.aux, **kw), iters=2)
+        log("kernels", f"attention D=64 {name} on the {len(heads)} checked rows: kernel {ms:.3f} ms "
+                       f"({4 * D * pairs * len(heads) / (ms * 1e-3) / 1e12:.1f} TFLOP/s on the {pairs / S / S:.4f} "
+                       f"of the S x S pairs the mask allows; bound {b['bound_ms']:.3f} ms, {b['bound_by']}), plain "
+                       f"{plain_ms:.3f} ms (one run); all BH={BH}: kernel {ms_all:.3f} ms "
+                       f"({4 * D * pairs * BH / (ms_all * 1e-3) / 1e12:.1f} TFLOP/s, "
+                       f"{4 * D * pairs * BH / 1e12:.2f} TFLOP; bound {b_all['bound_ms']:.3f} ms, {b_all['bound_by']})")
+        res[name] = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, ms_all=ms_all, bound_all_ms=b_all["bound_ms"],
+                         pairs=pairs, **b)
+        if name == "dense":
+            sdpa_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                q[None, :, :S], k[None, :, :S], v[None, :, :S]), iters=2)
+            log("kernels", f"attention D=64 dense, all BH={BH}: F.scaled_dot_product_attention {sdpa_ms:.3f} ms "
+                           f"({4 * D * S * S * BH / (sdpa_ms * 1e-3) / 1e12:.1f} TFLOP/s)")
+            res[name]["sdpa_ms"] = sdpa_ms
+        del q, k, v, qs, ks, vs, out, ref
+    torch.cuda.empty_cache()
+    c, d = res["cog"], res["dense"]
+    return {"name": "block_sparse_attn[cog]", "route": "cuda",
+            "source": "sparse_videogen_tpu_torch/csrc/block_sparse_attn.cu",
+            "replaces": "sparse_videogen_tpu/ops/attention.py:62",
+            "max_abs_err": max(c["max_abs_err"], d["max_abs_err"]), "ms": c["ms"], "plain_ms": c["plain_ms"],
+            "bound_ms": c["bound_ms"], "bound_by": c["bound_by"], "library_ms": None, "S": S, "D": D,
+            "ms_all_rows": c["ms_all"], "bound_all_rows_ms": c["bound_all_ms"],
+            "dense_d64": {"ms": d["ms"], "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"],
+                          "ms_all_rows": d["ms_all"], "bound_all_rows_ms": d["bound_all_ms"],
+                          "sdpa_all_rows_ms": d["sdpa_ms"]}}
+
+
+def phase_cog_rope(dev):
+    """K2 at D = 64 on CogVideoX's video rows (96 (batch, head) rows x 44,880
+    tokens, the (11, 48, 85) grid's tables with rope_dims (16, 24, 24))
+    against its plain version: bit for bit, as at D = 128. Then the model's
+    whole route for one of q and k (copy, K2, cat), to show what the copies
+    around the kernel cost."""
+    from sparse_videogen_tpu_torch.models.common.rope import apply_rope_interleaved, nd_rope_cos_sin
+    from sparse_videogen_tpu_torch.ops.rope import rope_apply, rope_plain
+    from sparse_videogen_tpu_torch.presets import COG_768P_SVG as run
+
+    lay, cfg = cog_run_layout(), run.model
+    grid = (lay.num_frames, run.height // 16, run.width // 16)
+    cos, sin = (torch.as_tensor(a, device=dev) for a in nd_rope_cos_sin(grid, cfg.rope_dims))
+    gen = torch.Generator(device=dev).manual_seed(9)
+    x = torch.randn(2 * cfg.heads_num, lay.video_length, cfg.head_dim, generator=gen, device=dev).to(torch.bfloat16)
+    out, ref = rope_apply(x, cos, sin), rope_plain(x, cos, sin)
+    torch.cuda.synchronize()
+    max_abs, _ = err_stats(out, ref)
+    ms = cuda_ms(lambda: rope_apply(x, cos, sin))
+    plain_ms = cuda_ms(lambda: rope_plain(x, cos, sin))
+    nbytes = 2 * x.numel() * 2 + 2 * cos.numel() * 4
+    b = bound(3.0 * x.numel(), nbytes, PEAK_F32_FLOPS)
+    log("kernels", f"rope D=64 {tuple(x.shape)} bf16 (grid {grid}): max_abs_err {max_abs:.3e} (tol 0); kernel {ms:.4f} "
+                   f"ms ({nbytes / (ms * 1e-3) / 1e9:.1f} GB/s), plain {plain_ms:.4f} ms; bound {b['bound_ms']:.4f} ms "
+                   f"({b['bound_by']})")
+    if not max_abs == 0.0:
+        raise AssertionError(f"rope kernel at D=64 disagrees with its plain version: {max_abs}")
+    del x, out, ref
+    # the model's route (models/cog/model.py Attention): the video rows of a (B, H, S, D) view of the qk-norm
+    # output are copied contiguous, rotated, and joined back to the text rows
+    y = torch.randn(2, lay.seq_len, cfg.heads_num, cfg.head_dim, generator=gen, device=dev).to(torch.bfloat16)
+    y = y.transpose(1, 2)
+    tl = lay.context_length
+    route_ms = cuda_ms(lambda: torch.cat([y[:, :, :tl], apply_rope_interleaved(y[:, :, tl:], cos, sin)], dim=2))
+    log("kernels", f"rope D=64, the model's route on one (2, 48, {lay.seq_len}, 64) q or k (copy of the video rows, "
+                   f"K2, cat with the text rows): {route_ms:.4f} ms, of which K2 {ms:.4f} ms: the copies "
+                   f"{route_ms - ms:.4f} ms a tensor, two tensors a layer")
+    del y
+    return {"shape": [2 * cfg.heads_num, lay.video_length, cfg.head_dim], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b["bound_ms"], "route_ms": route_ms}
+
+
+def drive_cog(model, run, steps):
+    """One CogPipeline.generate_latents run with the kernel counters set to 0
+    just before it and read just after; holds them to what the
+    configuration implies (per forward, a CFG batch of 2, and layer: RoPE on
+    the video rows of q and of k, one K1 launch, dense or cog-SVG1), the
+    plain-version calls to 0 and the latents to finite values of the right
+    shape. Returns (launches, dense K1 launches)."""
+    from sparse_videogen_tpu_torch import _kernels
+    from sparse_videogen_tpu_torch.config import WarmupSchedule
+    from sparse_videogen_tpu_torch.pipelines import CogPipeline
+    from sparse_videogen_tpu_torch.pipelines.cog import latent_frames
+    from sparse_videogen_tpu_torch.schedulers import CogDDIM
+
+    cfg = model.cfg
+    dev = model.patch_proj.weight.device
+    gen = torch.Generator(device=dev).manual_seed(1)
+    ctx, ctx_null = (torch.randn(1, cfg.text_len, cfg.text_dim, generator=gen, device=dev).to(torch.bfloat16)
+                     for _ in range(2))
+    shape = (1, cfg.out_channels, latent_frames(cfg, run.num_frames)[0], run.height // 8, run.width // 8)
+    img = torch.randn(1, cfg.out_channels, 1, *shape[3:], generator=gen, device=dev)
+    lay = cog_run_layout()
+    kw = run.generate_kwargs()
+    timesteps = CogDDIM(steps).timesteps
+    warmup = WarmupSchedule.from_fractions(kw["first_layers_fp"], kw["first_times_fp"], cfg.num_layers, timesteps)
+    n_dense = steps * cfg.num_layers if run.pattern == "dense" else sum(
+        li < warmup.first_layers or float(t) > warmup.first_times for t in timesteps for li in range(cfg.num_layers))
+    events = []
+
+    def on_step(i, lat):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append(ev)
+
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    _kernels.reset_counts()
+    start.record()
+    t0 = time.perf_counter()
+    lat = CogPipeline(model).generate_latents(ctx, ctx_null, img, num_inference_steps=steps, seed=0, callback=on_step,
+                                              **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, plain = dict(_kernels.LAUNCHES), dict(_kernels.PLAIN_CALLS)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    step_s = [start.elapsed_time(events[0]) / 1e3] + [
+        events[i - 1].elapsed_time(events[i]) / 1e3 for i in range(1, len(events))]
+    finite = bool(torch.isfinite(lat).all())
+    name = f"CogVideoX hidden {cfg.hidden_size} x {cfg.num_layers} layers"
+    log("slice", f"{name}, {run.height}x{run.width}x{run.num_frames} (S={lay.seq_len} = {cfg.text_len} text + "
+                 f"{lay.num_frames}x{lay.frame_size}), {run.pattern}, {steps} DDIM steps, CFG batch 2 (steps with t > "
+                 f"{warmup.first_times} dense, {warmup.first_layers} warm-up layers: {n_dense} dense layer-steps of "
+                 f"{steps * cfg.num_layers}): per-step s {[round(x, 4) for x in step_s]}, total {wall:.2f} s, peak "
+                 f"memory {peak:.2f} GiB")
+    want = {n: 0 for n in _kernels.KERNELS}
+    want["block_sparse_attn"] = steps * cfg.num_layers
+    want["rope"] = 2 * steps * cfg.num_layers
+    log("slice", f"{name} {run.pattern} launches {launches} (expected {want}; K1 none {n_dense}, K1 cog-SVG1 "
+                 f"{want['block_sparse_attn'] - n_dense}), plain-version calls {plain}, latents {tuple(lat.shape)} "
+                 f"finite {finite}, std {lat.std().item():.4f}")
+    if launches != want:
+        raise AssertionError(f"{name} {run.pattern}: kernel launches {launches} != expected {want}")
+    if any(plain.values()):
+        raise AssertionError(f"{name} {run.pattern}: the main path called a plain version: {plain}")
+    if not finite or tuple(lat.shape) != shape:
+        raise AssertionError(f"{name} {run.pattern}: latents are not finite or not of shape {shape}")
+    return launches, n_dense
+
+
+def phase_cog_slice(dev):
+    """CogVideoX 1.5 5B I2V at COG_1_5_5B_I2V's full width (hidden 3072, 48
+    heads of 64, FFN 12288, T5 states (1, 226, 4096), image latents (1, 16,
+    1, 96, 170)) with COG_LAYERS of its 42 layers, 768x1360x81: SVG1 then
+    dense for COG_STEPS DDIM steps each (first_times_fp 0.2: step 0 of the
+    SVG1 run is dense). Returns the SVG1 run's cog-kind K1 launches."""
+    from sparse_videogen_tpu_torch.models.cog.model import CogModel
+    from sparse_videogen_tpu_torch.presets import COG_768P_DENSE, COG_768P_SVG
+
+    cfg = dataclasses.replace(COG_768P_SVG.model, num_layers=COG_LAYERS)
+    t0 = time.perf_counter()
+    model = CogModel(cfg, dtype=torch.bfloat16, device=dev).init_random(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    log("slice", f"CogVideoX hidden {cfg.hidden_size}: {cfg.num_layers} layers, {cfg.heads_num} heads of "
+                 f"{cfg.head_dim}, {sum(p.numel() for p in model.parameters()) / 1e9:.3f} B params, init "
+                 f"{time.perf_counter() - t0:.1f} s")
+    launches, n_dense = drive_cog(model, COG_768P_SVG, COG_STEPS)
+    drive_cog(model, COG_768P_DENSE, COG_STEPS)
+    del model
+    torch.cuda.empty_cache()
+    return launches["block_sparse_attn"] - n_dense
+
+
+def phase_small_cog_reference(dev):
+    """One forward of the CLI's small CogVideoX (ofs on) over a CFG batch of
+    2, kernels on the card vs plain versions on the CPU, same weights,
+    inputs and profiler rows: dense and SVG1 (the cog kind at D = 64)."""
+    from sparse_videogen_tpu_torch.cli.cog_i2v import SMOKE_CFG
+    from sparse_videogen_tpu_torch.models.cog.model import CogConfig, CogModel
+    from sparse_videogen_tpu_torch.pipelines.cog import cog_layout, make_cog_runtime
+
+    cfg = CogConfig(**SMOKE_CFG, ofs_embed=True)
+    gen = torch.Generator().manual_seed(5)
+    cpu_model = CogModel(cfg, dtype=torch.bfloat16, device="cpu").init_random(gen)
+    gpu_model = CogModel(cfg, dtype=torch.bfloat16, device=dev)
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    lay = cog_layout(cfg, 96, 128, 17)
+    rows = torch.randint(0, lay.seq_len, (cfg.num_layers, 32), generator=gen)
+    x = torch.randn(2, cfg.in_channels, lay.num_frames * cfg.patch_size_t, 12, 16, generator=gen).to(torch.bfloat16)
+    text = torch.randn(2, cfg.text_len, cfg.text_dim, generator=gen).to(torch.bfloat16)
+    t = torch.full((2,), 900.0)
+    for pattern in ("dense", "SVG"):
+        outs = []
+        for model, d in ((gpu_model, dev), (cpu_model, torch.device("cpu"))):
+            rt = make_cog_runtime(lay, device=d, pattern=pattern)
+            outs.append(model(x.to(d), t.to(d), text.to(d), attention=rt, profile_rows=rows).cpu())
+        rel = ((outs[0] - outs[1]).norm() / outs[1].norm()).item()
+        # bf16 model: CPU and GPU matmuls round at other places; 2 layers
+        log("slice", f"small CogVideoX forward, {pattern}: kernels on the card vs plain on the CPU, "
+                     f"rel L2 err {rel:.3e} (tol 3e-2)")
+        if not rel <= 3e-2:
+            raise AssertionError(f"small CogVideoX forward ({pattern}) disagrees with the CPU reference: {rel}")
+
+
 def phase_cli():
-    runs = [("wan_t2v", p) for p in ("SVG", "dense", "SAP")] + [("hyvideo_t2v", p) for p in ("SVG", "dense")]
+    runs = [("wan_t2v", p) for p in ("SVG", "dense", "SAP")] + [(cli, p) for cli in ("hyvideo_t2v", "cog_i2v")
+                                                                  for p in ("SVG", "dense")]
     with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
         for cli, pattern in runs:
             out = os.path.join(tmp, f"{cli}_{pattern}.npz")
             cmd = [sys.executable, "-m", f"sparse_videogen_tpu_torch.cli.{cli}", "--smoke", "--pattern", pattern,
-                   "--device", "cuda", "--output_file", out]
+                   "--device", "cuda", "--output_path" if cli == "cog_i2v" else "--output_file", out]
             t0 = time.perf_counter()
             subprocess.run(cmd, cwd=ROOT, check=True, timeout=600)
             lat = np.load(out)["latents"]
@@ -1147,15 +1451,19 @@ def main():
     kernels = {"rope": phase_rope(dev), "block_sparse_attn": phase_attention(dev),
                "block_sparse_attn_runs": phase_sap_attention(dev), "kmeans_wide": phase_kmeans(dev),
                "kmeans_variants": phase_variants(dev), "block_sparse_attn[hyvideo]": phase_hyvideo_attention(dev),
-               "rmsnorm": phase_rmsnorm(dev), "dense_qsplit": phase_qsplit(dev)}
+               "rmsnorm": phase_rmsnorm(dev), "dense_qsplit": phase_qsplit(dev),
+               "block_sparse_attn[cog]": phase_cog_attention(dev)}
+    kernels["rope"]["d64"] = phase_cog_rope(dev)
     phase_sap_attention(dev, "14B-720p-sap", all_checks=False)
     launches = phase_slice(dev)
     for counts in (phase_probe(dev), phase_slice_14b(dev), phase_kernel_probes(dev)):
         for name, n in counts.items():
             launches.setdefault(name, n)
     launches["block_sparse_attn[hyvideo]"] = phase_hyvideo_slice(dev)["block_sparse_attn"]
+    launches["block_sparse_attn[cog]"] = phase_cog_slice(dev)
     phase_small_reference(dev)
     phase_small_hyvideo_reference(dev)
+    phase_small_cog_reference(dev)
     phase_cli()
     for name, entry in kernels.items():
         entry["launches"] = launches[name]

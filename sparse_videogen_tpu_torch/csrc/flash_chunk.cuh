@@ -101,23 +101,31 @@ __device__ __forceinline__ void load_q_frags(FlashRows<D>& st, const bf16* qb, b
 }
 
 // The token-level mask predicates (ops/mask_spec.py apply_mask_spec) at
-// global positions (q, k), strict band |q - k| < band_width. TEXT_LAST
-// false: band_sink, band | k < sink_size. TEXT_LAST true: hyvideo (text
-// last; real = video_len + prompt_length, from aux[0]):
-//   (q < real & k < real & (band | k in [video_len, real) | q in [video_len, real)))
-//   | (q >= real & k >= real)
-// Kind none never calls it. The kind is a template parameter so that the
-// band_sink kernels carry no registers for hyvideo's scalars.
+// global positions (q, k), strict band |q - k| < band_width. text_end is
+// aux[0], the end of the live text tokens:
+//   KIND_BAND_SINK: band | k < sink_size
+//   KIND_HYVIDEO (text last; text_end = video_len + prompt_length):
+//     (q < text_end & k < text_end & (band | k in [video_len, text_end) | q in [video_len, text_end)))
+//     | (q >= text_end & k >= text_end)
+//   KIND_COG (text first; text_end = prompt_length): band | k < text_end | q < text_end
+// Kind none never calls it (it runs the band_sink instance without the
+// predicate). The kind is a template parameter so that the band_sink
+// kernels carry no registers for the text kinds' scalars.
+constexpr int KIND_BAND_SINK = 1;
+constexpr int KIND_HYVIDEO = 2;
+constexpr int KIND_COG = 3;
+
 struct MaskArgs {
-  int band_width, sink_size, video_len, real;
+  int band_width, sink_size, video_len, text_end;
 };
 
-template <bool TEXT_LAST>
+template <int KIND>
 __device__ __forceinline__ bool mask_allows(const MaskArgs& mk, int qp, int kp) {
   const int d = qp - kp;
   const bool band = d < mk.band_width && d > -mk.band_width;
-  if (!TEXT_LAST) return band || kp < mk.sink_size;
-  const bool q_real = qp < mk.real, k_real = kp < mk.real;
+  if (KIND == KIND_BAND_SINK) return band || kp < mk.sink_size;
+  if (KIND == KIND_COG) return band || kp < mk.text_end || qp < mk.text_end;
+  const bool q_real = qp < mk.text_end, k_real = kp < mk.text_end;
   const bool text_col = kp >= mk.video_len && k_real;
   const bool text_row = qp >= mk.video_len && q_real;
   return (q_real && k_real && (band || text_col || text_row)) || (!q_real && !k_real);
@@ -128,7 +136,7 @@ __device__ __forceinline__ bool mask_allows(const MaskArgs& mk, int qp, int kp) 
 // `pred`, a column must also pass the mask predicate at global positions
 // (qpos[row], base + col + koff). Every thread of the CTA must call it with
 // the same chunk: it synchronises the CTA around the shared K/V sub-tiles.
-template <int D, bool TEXT_LAST = false>
+template <int D, int KIND = KIND_BAND_SINK>
 __device__ __forceinline__ void attend_chunk(FlashRows<D>& st, const bf16* kb, const bf16* vb, bf16* sK, bf16* sV,
                                              int Skv, int base, int lo, int hi, bool pred, const int (&qpos)[2],
                                              int koff, const MaskArgs& mk, int g, int t4) {
@@ -168,7 +176,7 @@ __device__ __forceinline__ void attend_chunk(FlashRows<D>& st, const bf16* kb, c
       for (int j = 0; j < 4; ++j) {
         const int col = s0 + nt * 8 + 2 * t4 + (j & 1);
         bool ok = col >= lo && col < hi;
-        if (pred && ok) ok = mask_allows<TEXT_LAST>(mk, qpos[j >> 1], base + col + koff);
+        if (pred && ok) ok = mask_allows<KIND>(mk, qpos[j >> 1], base + col + koff);
         if (!ok) s[nt][j] = NEG_INF;
       }
     }

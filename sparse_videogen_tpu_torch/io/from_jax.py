@@ -1,6 +1,6 @@
 """JAX package state (as numpy) -> the port's: the Wan parameter pytree ->
-WanModel state_dict, the HunyuanVideo pytree -> a HyVideoModel, and SAP's
-k-means carry -> SAPState.
+WanModel state_dict, the HunyuanVideo pytree -> a HyVideoModel, the
+CogVideoX pytree -> a CogModel, and SAP's k-means carry -> SAPState.
 
 The JAX package stores linears as {"w": (d_in, d_out), "b": (d_out,)} and
 stacks the blocks on a leading layer axis; nn.Linear wants (d_out, d_in) and
@@ -93,6 +93,43 @@ def hyvideo_params_from_numpy(tree, cfg):
     lin("final_linear", tree["final_linear"])
     sd = {k: _tensor(v, "cpu") for k, v in sd.items()}
     model = HyVideoModel(cfg, dtype=sd["img_in.weight"].dtype)
+    model.load_state_dict(sd)
+    return model
+
+
+def cog_params_from_numpy(tree, cfg):
+    """tree: init_cog_params(...) output with numpy leaves (blocks stacked
+    on a leading layer axis, linears {"w": (in, out), "b"}, LayerNorms {"w",
+    "b"}). Returns a CogModel(cfg) on the CPU holding those weights, its
+    linears in the dtype of the tree's linears."""
+    from sparse_videogen_tpu_torch.models.cog.model import CogModel
+
+    sd = {}
+    for grp in ("time_emb", "ofs_emb"):
+        if grp in tree:
+            for fc in ("fc1", "fc2"):
+                _linear(sd, f"{grp}.{fc}", tree[grp][fc])
+    for nm in ("patch_proj", "text_proj", "norm_out_lin", "proj_out"):
+        _linear(sd, nm, tree[nm])
+    for nm in ("norm_final", "norm_out"):
+        sd[f"{nm}.weight"], sd[f"{nm}.bias"] = tree[nm]["w"], tree[nm]["b"]
+    blocks = tree["blocks"]
+    for i in range(cfg.num_layers):
+        layer = lambda p: {k: np.asarray(a)[i] for k, a in p.items()}
+        for nm, sub in (("norm1", blocks["norm1"]), ("norm2", blocks["norm2"])):
+            _linear(sd, f"blocks.{i}.{nm}.lin", layer(sub["lin"]))
+            ln = layer(sub["norm"])
+            sd[f"blocks.{i}.{nm}.norm.weight"], sd[f"blocks.{i}.{nm}.norm.bias"] = ln["w"], ln["b"]
+        att = blocks["attn"]
+        for nm in ("q", "k", "v", "o"):
+            _linear(sd, f"blocks.{i}.attn.{nm}", layer(att[nm]))
+        for nm in ("norm_q", "norm_k"):
+            ln = layer(att[nm])
+            sd[f"blocks.{i}.attn.{nm}.weight"], sd[f"blocks.{i}.attn.{nm}.bias"] = ln["w"], ln["b"]
+        for fc in ("fc1", "fc2"):
+            _linear(sd, f"blocks.{i}.ffn.{fc}", layer(blocks["ffn"][fc]))
+    sd = {k: _tensor(v, "cpu") for k, v in sd.items()}
+    model = CogModel(cfg, dtype=sd["patch_proj.weight"].dtype)
     model.load_state_dict(sd)
     return model
 

@@ -29,7 +29,7 @@ NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 LOG2E = 1.4426950408889634
 TQ = 64  # q rows per CTA of the kernel; divides every block_q it accepts
 # mask kinds each Hopper kernel evaluates (csrc/flash_chunk.cuh MaskArgs)
-_KERNEL_MASKS = {"none": 0, "band_sink": 1, "hyvideo": 2}
+_KERNEL_MASKS = {"none": 0, "band_sink": 1, "hyvideo": 2, "cog": 3}
 _RUNS_KERNEL_MASKS = ("none", "band_sink")
 
 
@@ -126,7 +126,7 @@ def block_sparse_attention_kv(q, k, v, meta, aux=None, *, block_q: int = 512, bl
     aux (4,) int32 or None. Returns (BH, Sq, D) in q's dtype.
 
     CUDA tensors launch the Hopper kernel (bf16, D in {64, 128}, mask kinds
-    none/band_sink/hyvideo) and raise on anything else; CPU tensors run the
+    none/band_sink/hyvideo/cog) and raise on anything else; CPU tensors run the
     plain version."""
     if q.device.type == "cpu":
         return block_sparse_attention_kv_plain(q, k, v, meta, aux, block_q=block_q, block_kv=block_kv,

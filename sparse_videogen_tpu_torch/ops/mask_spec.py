@@ -6,8 +6,8 @@ visited chunk the attention evaluates the exact token-level predicate below.
 `apply_mask_spec` takes torch tensors (or numpy arrays) of positions;
 `full_block_allowed` is scalar interval math on numpy, used when the metadata
 is built. The chunked-CSR Hopper kernel implements the kinds "none",
-"band_sink" and "hyvideo", the run-list kernel "none" and "band_sink"; the
-others are exact here and in the plain attention.
+"band_sink", "hyvideo" and "cog", the run-list kernel "none" and
+"band_sink"; band_sink_perm is exact here and in the plain attention.
 """
 
 from __future__ import annotations

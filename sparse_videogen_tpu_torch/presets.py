@@ -18,6 +18,12 @@ sparsity 0.25 with 64 sampled rows, first_times_fp 0.1, first_layers_fp
 0.025) and "hyvideo-720p-dense" (scripts/hyvideo/hyvideo_t2v_720p_dense.sh:
 the same run, dense). Both take the CLI's embedded guidance 6.0 and its
 SVG1 profiling band (profile_multiplier 1.5).
+
+CogVideoX 1.5 5B I2V at 768x1360x81 (COG_PRESETS), COG_1_5_5B_I2V with the
+reference's canonical run (scripts/cog/cog_inference.sh, the CLI's defaults:
+50 DDIM steps, guidance 6.0, SVG1 at sparsity 0.25 with 32 sampled rows,
+first_layers_fp 0.025, first_times_fp 0.2): "cog-768p-svg" and
+"cog-768p-dense" (the same run, dense).
 """
 
 from __future__ import annotations
@@ -25,8 +31,10 @@ from __future__ import annotations
 import dataclasses
 
 from sparse_videogen_tpu_torch.config import SAPConfig, SVGConfig
+from sparse_videogen_tpu_torch.models.cog.model import COG_1_5_5B_I2V, CogConfig
 from sparse_videogen_tpu_torch.models.hyvideo.model import HYVIDEO_T2, HyVideoConfig
 from sparse_videogen_tpu_torch.models.wan.model import WAN_1_3B, WAN_14B, WanConfig
+from sparse_videogen_tpu_torch.pipelines.cog import COG_SVG
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,3 +91,26 @@ HY_720P_SVG = HyVideoRunSettings(HYVIDEO_T2, 720, 1280, 129, flow_shift=7.0, pat
                                  first_times_fp=0.1)
 HY_720P_DENSE = dataclasses.replace(HY_720P_SVG, pattern="dense", first_times_fp=0.15)
 HY_PRESETS = {"hyvideo-720p-svg": HY_720P_SVG, "hyvideo-720p-dense": HY_720P_DENSE}
+
+
+@dataclasses.dataclass(frozen=True)
+class CogRunSettings:
+    model: CogConfig
+    height: int
+    width: int
+    num_frames: int
+    pattern: str
+
+    def generate_kwargs(self) -> dict:
+        """Keyword arguments of CogPipeline.generate_latents but the step
+        count (the script runs 50; the callers here cut it): guidance 6.0
+        (v1.5: no dynamic CFG), SVG1 sparsity 0.25 with 32 sampled rows,
+        first_layers_fp 0.025, first_times_fp 0.2."""
+        return dict(height=self.height, width=self.width, num_frames=self.num_frames, guidance_scale=6.0,
+                    pattern=self.pattern, first_layers_fp=0.025, first_times_fp=0.2,
+                    svg=COG_SVG)
+
+
+COG_768P_SVG = CogRunSettings(COG_1_5_5B_I2V, 768, 1360, 81, pattern="SVG")
+COG_768P_DENSE = dataclasses.replace(COG_768P_SVG, pattern="dense")
+COG_PRESETS = {"cog-768p-svg": COG_768P_SVG, "cog-768p-dense": COG_768P_DENSE}

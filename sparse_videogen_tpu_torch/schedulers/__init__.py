@@ -1,4 +1,5 @@
-"""Flow-matching samplers (host-side f64 coefficient tables + torch steps)."""
+"""Samplers (host-side f64 coefficient tables + torch steps)."""
 
+from sparse_videogen_tpu_torch.schedulers.ddim_cog import CogDDIM  # noqa: F401
 from sparse_videogen_tpu_torch.schedulers.euler import FlowMatchEuler  # noqa: F401
 from sparse_videogen_tpu_torch.schedulers.unipc import FlowUniPC  # noqa: F401

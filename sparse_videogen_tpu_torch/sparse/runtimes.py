@@ -35,7 +35,8 @@ def _classified(meta, spec, plan: SVG1Plan, prompt_length, block_q):
 
 class DenseRuntime:
     """prompt_length: the live prompt tokens of a text-last layout
-    (HunyuanVideo); None takes the layout's context_length."""
+    (HunyuanVideo) or a text-first one (CogVideoX: its 226 text tokens);
+    None takes the layout's context_length."""
 
     def __init__(self, plan: SVG1Plan, *, device, prompt_length: int | None = None):
         self.plan = plan
@@ -74,8 +75,8 @@ class SAPRuntime(DenseRuntime):
     cold); `kmeans_init`, when set, maps a layer to the (q, k) cold-start
     token indices for the next forward (tests hand in the JAX package's
     draws); otherwise they are drawn from the forward's generator. A
-    text-last layout (HunyuanVideo) raises NotImplementedError
-    (svg2.check_sap_config)."""
+    layout with text in the sequence, last (HunyuanVideo) or first
+    (CogVideoX), raises NotImplementedError (svg2.check_sap_config)."""
 
     def __init__(self, plan: SVG1Plan, cfg: SAPConfig, warmup: WarmupSchedule, *, device):
         check_sap_config(cfg, plan.layout)

@@ -5,8 +5,9 @@ The plan is static per (layout, config): it builds the numpy metadata once;
 the runtimes (sparse/runtimes.py) copy it to the device. The layout fixes
 the mask family (`mask_kind`): "band_sink" for a video-only sequence (Wan),
 "hyvideo" for text last (HunyuanVideo: the real/fake split of the text
-tokens, with the real length video_len + prompt_length in aux[0]). Text
-first (CogVideoX) raises NotImplementedError.
+tokens, with the real length video_len + prompt_length in aux[0]), "cog"
+for text first (CogVideoX: text rows and columns [0, prompt_length) fully
+attended, prompt_length in aux[0]).
 """
 
 from __future__ import annotations
@@ -41,8 +42,8 @@ class SVG1Plan:
 
     @property
     def mask_kind(self) -> str:
-        """band_sink (video only) or hyvideo (text last)."""
-        return "hyvideo" if self.layout.text_position == TextPosition.LAST else "band_sink"
+        """band_sink (video only), hyvideo (text last) or cog (text first)."""
+        return _MASK_KINDS[self.layout.text_position]
 
     @property
     def seq_pad_q(self) -> int:
@@ -57,7 +58,8 @@ class SVG1Plan:
     def dense_block_q(self) -> int:
         """block_q of the dense path (JAX's dense_exec[0]): up to 2048 for
         unmasked dense attention over long sequences, else block_q (also for
-        the masked dense of a text-last layout)."""
+        the masked dense of a text-last layout; a text-first layout's dense
+        spec is unmasked)."""
         if self.dense_mask_spec.kind == "none" and self.seq_pad_kv >= 2048:
             return min(2048, -(-self.layout.seq_len // 128) * 128)
         return self.block_q
@@ -69,6 +71,8 @@ class SVG1Plan:
             # floor-rounded, strict < (the reference's HunyuanVideo mask)
             w = math.floor(self.multiplier * lay.frame_size / 128) * 128
             return MaskSpec(kind="hyvideo", band_width=w, video_len=lay.video_length)
+        if self.mask_kind == "cog":
+            return MaskSpec(kind="cog", band_width=math.floor(self.multiplier * lay.frame_size / 128) * 128)
         # reference band is |q-kv| <= w (ceil-rounded); the predicate is strict <
         w = math.ceil(self.multiplier * lay.frame_size / 128) * 128
         return MaskSpec(kind="band_sink", band_width=w + 1, sink_size=lay.frame_size)
@@ -77,20 +81,24 @@ class SVG1Plan:
     def dense_mask_spec(self) -> MaskSpec:
         """Dense attention of a text-last layout keeps the real/fake split
         (the reference runs varlen attention over the real tokens): a band
-        wider than any sequence lets every real pair attend."""
+        wider than any sequence lets every real pair attend. Video only and
+        text first: unmasked."""
         if self.mask_kind == "hyvideo":
             return MaskSpec(kind="hyvideo", band_width=1 << 24, video_len=self.layout.video_length)
         return MaskSpec()
 
     def default_aux(self, prompt_length: int | None = None) -> np.ndarray:
         """(4,) int32 mask scalars. hyvideo: aux[0] = video_len +
-        prompt_length (the real tokens; the layout's context_length when
-        prompt_length is None). aux[2:4] are the global q/k offsets, 0 for an
-        unsharded sequence."""
+        prompt_length (the real tokens); cog: aux[0] = prompt_length; the
+        layout's context_length when prompt_length is None. aux[2:4] are the
+        global q/k offsets, 0 for an unsharded sequence."""
         aux = np.zeros((4,), np.int32)
+        lay = self.layout
+        pl = lay.context_length if prompt_length is None else prompt_length
         if self.mask_kind == "hyvideo":
-            lay = self.layout
-            aux[0] = lay.video_length + (lay.context_length if prompt_length is None else prompt_length)
+            aux[0] = lay.video_length + pl
+        elif self.mask_kind == "cog":
+            aux[0] = pl
         return aux
 
     def _build(self, key, fn):
@@ -128,6 +136,9 @@ class SVG1Plan:
         return self._build("preds", build)
 
 
+_MASK_KINDS = {TextPosition.NONE: "band_sink", TextPosition.LAST: "hyvideo", TextPosition.FIRST: "cog"}
+
+
 def make_svg1_plan(
     layout: VideoLayout,
     cfg: SVGConfig = SVGConfig(),
@@ -136,10 +147,10 @@ def make_svg1_plan(
     block_q: int | None = None,
     block_kv: int = 1024,
 ) -> SVG1Plan:
-    """The plan of a video-only (Wan: band_sink) or text-last (HunyuanVideo:
-    hyvideo) layout. block_q defaults to 1024 at S >= 8192, else 512;
-    block_q and block_kv are clamped to the 128-padded sequence length."""
-    core_masks.check_layout(layout)
+    """The plan of a video-only (Wan: band_sink), text-last (HunyuanVideo:
+    hyvideo) or text-first (CogVideoX: cog) layout. block_q defaults to
+    1024 at S >= 8192, else 512; block_q and block_kv are clamped to the
+    128-padded sequence length."""
     s_pad = -(-layout.seq_len // 128) * 128
     if block_q is None:
         block_q = 1024 if layout.seq_len >= 8192 else 512
@@ -168,7 +179,7 @@ def _run_kernel(q, k, v, meta, plan: SVG1Plan, mask_spec, aux, *, block_q: int):
 
 def svg1_sparse_impl(q, k, v, rows, meta, plan: SVG1Plan, aux=None):
     """Profile the sampled `rows`, re-lay-out the temporal heads, run the
-    shared sparse attention (band+sink or hyvideo), restore the original
+    shared sparse attention (band+sink, hyvideo or cog), restore the original
     order."""
     mses = sample_mse(q, k, v, plan.profile_preds(), rows)
     is_t = best_mask_idx(mses) == 1  # (B, H)

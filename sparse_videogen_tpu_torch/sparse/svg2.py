@@ -65,8 +65,8 @@ def check_sap_config(cfg: SAPConfig, layout: VideoLayout) -> None:
     if layout.text_position != TextPosition.NONE or layout.context_length:
         raise NotImplementedError(
             "SAP with text tokens in the sequence (HunyuanVideo's text-last SAP layouts: the text clusters of "
-            "svg2.py _extend_text_clusters/_extend_text_dyn and K3 over them) is not ported to the torch package "
-            "yet (ROADMAP.md)")
+            "svg2.py _extend_text_clusters/_extend_text_dyn and K3 over them; CogVideoX's text first, which the "
+            "reference runs with SVG1 or dense only) is not ported to the torch package yet (ROADMAP.md)")
 
 
 def _kmeans_with_warmstart(x, n_clusters, state_centroids, initialized, cfg: SAPConfig, generator, init_idx):

@@ -311,4 +311,4 @@ def test_sap_on_text_last_raises():
         TPH.make_hyvideo_runtime(tl, device="cpu", prompt_length=3, pattern="SAP")
     text_first = TC.VideoLayout(num_frames=2, frame_size=64, context_length=8, text_position=TC.TextPosition.FIRST)
     with pytest.raises(NotImplementedError, match="CogVideoX"):
-        TS1.make_svg1_plan(text_first)
+        TRT.SAPRuntime(TS1.make_svg1_plan(text_first), TC.SAPConfig(), TC.WarmupSchedule(), device="cpu")

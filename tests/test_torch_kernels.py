@@ -243,6 +243,36 @@ def test_attention_kernel_hyvideo_matches_plain(cuda, which, D_):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("which", ["dense", "svg1"])
+@pytest.mark.parametrize("D_", [64, 128])
+def test_attention_kernel_cog_matches_plain(cuda, which, D_):
+    """K1's cog kind on the card: a text-first layout (16 text tokens, then
+    3 frames x 160 tokens) with a prompt of 5 of them, so the text rows and
+    columns past the prompt fall to the band; the runtime's cheap-first
+    metadata and aux, dense (mask none) and SVG1 (floor band); same
+    tolerance and reason as the other kinds: atol 2e-2."""
+    from sparse_videogen_tpu_torch.config import SVGConfig, TextPosition, VideoLayout
+    from sparse_videogen_tpu_torch.sparse.runtimes import SVG1Runtime
+    from sparse_videogen_tpu_torch.sparse.svg1 import make_svg1_plan
+
+    lay = VideoLayout(num_frames=3, frame_size=160, context_length=16, text_position=TextPosition.FIRST)
+    plan = make_svg1_plan(lay, SVGConfig(sparsity=0.6), block_q=128, block_kv=256)
+    rt = SVG1Runtime(plan, device=cuda, prompt_length=5)
+    meta, spec, bq = ((rt.dense_meta, plan.dense_mask_spec, plan.dense_block_q) if which == "dense"
+                      else (rt.sparse_meta, plan.mask_spec, plan.block_q))
+    q = torch.randn(3, -(-lay.seq_len // bq) * bq, D_, device=cuda).to(torch.bfloat16)
+    k, v = (torch.randn(3, plan.seq_pad_kv, D_, device=cuda).to(torch.bfloat16) for _ in range(2))
+    kw = dict(block_q=bq, block_kv=plan.block_kv, mask_spec=spec)
+    _kernels.reset_counts()
+    out = block_sparse_attention_kv(q, k, v, meta, rt.aux, **kw)
+    assert _kernels.LAUNCHES["block_sparse_attn"] == 1 and _kernels.PLAIN_CALLS["block_sparse_attn"] == 0
+    ref = block_sparse_attention_kv_plain(q, k, v, meta, rt.aux, **kw)
+    torch.cuda.synchronize()
+    S = lay.seq_len
+    torch.testing.assert_close(out[:, :S].float(), ref[:, :S].float(), atol=2e-2, rtol=0)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("bq,qsplit", KERNEL_CONFIGS)
 @pytest.mark.parametrize("D_", [64, 128])
 def test_dense_qsplit_kernel_matches_plain(cuda, bq, qsplit, D_):

@@ -123,15 +123,12 @@ def test_svg1_plan_metadata_equal(lay, bq):
 @pytest.mark.parametrize("pos", [JC.TextPosition.LAST, JC.TextPosition.FIRST])
 def test_svg1_plan_rejects_text_in_sequence(pos):
     """A layout with text tokens never silently gets Wan's band+sink mask:
-    text last (HunyuanVideo) gets the hyvideo plan, as in the JAX package;
-    text first (CogVideoX) is not ported and raises."""
+    text last (HunyuanVideo) gets the hyvideo plan and text first (CogVideoX)
+    the cog plan, as in the JAX package."""
     kw = dict(num_frames=2, frame_size=60, context_length=40)
     ref = JS1.make_svg1_plan(JC.VideoLayout(text_position=pos, **kw), JC.SVGConfig(sparsity=0.3))
     lay = TC.VideoLayout(text_position=TC.TextPosition(pos.value), **kw)
-    if pos == JC.TextPosition.LAST:
-        ours = TS1.make_svg1_plan(lay, TC.SVGConfig(sparsity=0.3))
-        assert ours.mask_kind == ref.mask_kind == "hyvideo"
-        assert ours.mask_spec == TMS.MaskSpec(**vars(ref.mask_spec))
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TS1.make_svg1_plan(lay, TC.SVGConfig(sparsity=0.3))
+    ours = TS1.make_svg1_plan(lay, TC.SVGConfig(sparsity=0.3))
+    assert ours.mask_kind == ref.mask_kind == ("hyvideo" if pos == JC.TextPosition.LAST else "cog")
+    assert ours.mask_spec == TMS.MaskSpec(**vars(ref.mask_spec))
+    np.testing.assert_array_equal(ours.default_aux(), np.asarray(ref.default_aux()))

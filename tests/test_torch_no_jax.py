@@ -21,6 +21,8 @@ leaked = sorted(m for m in sys.modules if m in ("jax", "sparse_videogen_tpu")
 print(len(names), leaked)
 assert not leaked, leaked
 assert len(names) >= 20, names
+for mod in ("models.cog.model", "pipelines.cog", "schedulers.ddim_cog", "cli.cog_i2v", "scripts.profile_cog"):
+    assert pkg.__name__ + "." + mod in names, mod
 """
 
 
