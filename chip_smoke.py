@@ -27,12 +27,13 @@ is non-zero:
                32768, 128) for every (bq, qsplit) it compiles; K1 at D = 64,
                its cog kind and its unmasked dense path, at CogVideoX 768 x
                1360 x 81 (S = 45,106, 96 rows) on the pipeline runtime's
-               metadata, and K2 at D = 64 on CogVideoX's video rows. The
+               metadata (the cog kind beside SDPA with its mask as an (S, S)
+               attn_mask), and K2 at D = 64 on CogVideoX's video rows. The
                run-list attention's band_sink check also counts the pairs its
-               predicate allows (K4's bound). Each entry of
-               the kernels line carries its bound (bytes or operations over
-               the H100's peaks) and, where one PyTorch call computes the same
-               function, that call's time.
+               predicate allows (K4's bound). Each entry of the kernels line
+               carries its bound (bytes or operations over the H100's peaks)
+               and, where one PyTorch call computes the same function, that
+               call's time.
   4. slice   - WanPipeline.generate_latents with random weights from a seed:
                Wan 2.1 1.3B at full width and depth, 480x832x81, 4 UniPC
                steps, SVG1 with batched CFG, then SAP (cluster mode, the CLI's
@@ -48,8 +49,9 @@ is non-zero:
                CogVideoX 1.5 5B I2V (COG_1_5_5B_I2V at full width, COG_LAYERS
                layers) through CogPipeline.generate_latents at 768x1360x81,
                SVG1 then dense for COG_STEPS DDIM steps (CFG batch 2).
-               Each path's kernel launch counts are read around its run and
-               held to what the configuration implies. Then one forward of a
+               Each path's kernel launch counts, and K1's launches by mask
+               kind, are read around its run and held to what the
+               configuration implies. Then one forward of a
                small Wan, a small HunyuanVideo and a small CogVideoX with the
                kernels (on the card) against the plain versions (on the CPU).
   5. cli     - the port's CLIs in --smoke mode: Wan for SVG, dense and SAP,
@@ -60,6 +62,7 @@ last line is {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import json
 import os
@@ -86,6 +89,11 @@ TIMED_ITERS = 5
 # order of sums and in where the running max rescales P (64-token sub-tiles
 # vs whole chunks), which moves bf16 roundings of P
 ATTN_TOL_ABS, ATTN_TOL_REL = 2e-2, 1e-2
+# masked SDPA (a yardstick) against the chunked kernel: SDPA does not round
+# q * scale to bf16 before QK^T as the kernel does, which moves every logit
+# by up to 2^-9 of itself; rows that attend few columns (HunyuanVideo's
+# fake text rows) average that over few values
+SDPA_TOL_ABS = 5e-2
 # H100 SXM published peaks (NVIDIA data sheet): dense bf16 tensor-core FLOP/s,
 # f32 FLOP/s outside the tensor cores, HBM3 bytes/s; a kernel's bound is the
 # larger of its operations over the peak and its bytes (each input read once,
@@ -615,45 +623,76 @@ def phase_sap_attention(dev, preset="1.3B-480p", all_checks=True):
     return entry
 
 
-def expected_launches(pattern, n_layers, sap, warmup, timesteps):
-    """Kernel launches one generation implies. Per forward and layer: RoPE on
-    q and on k; a dense warm-up layer runs the chunked-CSR kernel (so does
-    every SVG1 layer: its sparse path uses the same kernel), a sparse SAP
-    layer the run-list kernel. SAP runs the two CFG streams as separate
-    forwards, and its k-means kernel launches once per Lloyd iteration for q
-    and for k: kmeans_iter_init at a layer's first clustering in a stream,
+def expected_launches(pattern, n_layers, warmup, timesteps, kinds, sap=None):
+    """Kernel launches one generation implies, and the chunked-CSR kernel's
+    launches by mask kind. Per forward and layer: RoPE on q and on k; a
+    dense layer (the dense pattern, or a warm-up layer) runs the chunked-CSR
+    kernel with the dense mask kind kinds[0], an SVG1 layer the same kernel
+    with the sparse kind kinds[1], a sparse SAP layer the run-list kernel.
+    SAP runs the two CFG streams as separate forwards, and its k-means
+    kernel launches once per Lloyd iteration for q and for k:
+    kmeans_iter_init at a layer's first clustering in a stream,
     kmeans_iter_step after (warm-up layers cluster only with
     zero_step_kmeans_init)."""
     from sparse_videogen_tpu_torch import _kernels
 
     want = {name: 0 for name in _kernels.KERNELS}
+    want_kinds = collections.Counter()
     streams = 2 if pattern == "SAP" else 1
     for _ in range(streams):
         initialized = [False] * n_layers
         for t in timesteps:
             for li in range(n_layers):
                 want["rope"] += 2
-                dense = li < warmup.first_layers or float(t) > warmup.first_times
-                if pattern != "SAP":
+                dense = pattern == "dense" or li < warmup.first_layers or float(t) > warmup.first_times
+                if dense or pattern == "SVG":
                     want["block_sparse_attn"] += 1
-                    continue
-                want["block_sparse_attn" if dense else "block_sparse_attn_runs"] += 1
-                if not dense or sap.zero_step_kmeans_init:
+                    want_kinds[f"block_sparse_attn[{kinds[0] if dense else kinds[1]}]"] += 1
+                else:
+                    want["block_sparse_attn_runs"] += 1
+                if pattern == "SAP" and (not dense or sap.zero_step_kmeans_init):
                     iters = sap.kmeans_iter_step if initialized[li] else sap.kmeans_iter_init
                     want["kmeans_wide"] += 2 * iters
                     initialized[li] = True
-    return want
+    return want, want_kinds
+
+
+def drive_pipeline(name, desc, run, pattern, timesteps, n_layers, generate, shape, kinds, sap=None):
+    """One generation through a pipeline's entry point, generate(callback),
+    timed by the profile scripts' time_generation (the kernel counters set
+    to 0 just before it and read just after), and held to what the
+    configuration implies: the launches and the chunked-CSR kernel's
+    launches by mask kind (expected_launches), no plain-version call, and
+    finite latents of `shape`. Returns time_generation's record."""
+    from sparse_videogen_tpu_torch.config import WarmupSchedule
+    from sparse_videogen_tpu_torch.scripts.profile_wan import time_generation
+
+    kw = run.generate_kwargs()
+    warmup = WarmupSchedule.from_fractions(kw["first_layers_fp"], kw["first_times_fp"], n_layers, timesteps)
+    want, want_kinds = expected_launches(pattern, n_layers, warmup, timesteps, kinds, sap)
+    lat, r = time_generation(generate)
+    finite = bool(torch.isfinite(lat).all())
+    log("slice", f"{name}, {desc}, {pattern}, {len(timesteps)} steps ({warmup.first_layers} warm-up layers, steps "
+                 f"with t > {warmup.first_times} dense): per-step s {[round(x, 4) for x in r['per_step_s']]}, total "
+                 f"{r['wall_s']:.2f} s, peak memory {r['peak_gib']:.2f} GiB")
+    log("slice", f"{name} {pattern} launches {r['launches']} (expected {want}), chunked-CSR launches by mask kind "
+                 f"{r['kind_launches']} (expected {dict(want_kinds)}), plain-version calls {r['plain_calls']}, "
+                 f"latents {tuple(lat.shape)} finite {finite}, std {lat.float().std().item():.4f}")
+    if r["launches"] != want:
+        raise AssertionError(f"{name} {pattern}: kernel launches {r['launches']} != expected {want}")
+    if collections.Counter(r["kind_launches"]) != want_kinds:
+        raise AssertionError(f"{name} {pattern}: launches by mask kind {r['kind_launches']} != expected {want_kinds}")
+    if any(r["plain_calls"].values()):
+        raise AssertionError(f"{name} {pattern}: the main path called a plain version: {r['plain_calls']}")
+    if not finite or tuple(lat.shape) != tuple(shape):
+        raise AssertionError(f"{name} {pattern}: latents are not finite or not of shape {shape}")
+    return r
 
 
 def drive(model, run, pattern, steps):
-    """One WanPipeline.generate_latents run with the kernel counters set to 0
-    just before it and read just after; holds them to expected_launches, the
-    plain-version calls to 0 and the latents to finite values of the right
-    shape. Returns the launches."""
-    import json as _json
-
-    from sparse_videogen_tpu_torch import _kernels
-    from sparse_videogen_tpu_torch.config import WarmupSchedule
+    """Wan: one WanPipeline.generate_latents run through drive_pipeline (K1
+    dense: kind none; SVG1: band_sink), then SAP's density log. Returns the
+    launches."""
     from sparse_videogen_tpu_torch.pipelines import WanPipeline
     from sparse_videogen_tpu_torch.pipelines.wan import wan_layout
     from sparse_videogen_tpu_torch.schedulers import FlowUniPC
@@ -665,51 +704,22 @@ def drive(model, run, pattern, steps):
     ctx_null = torch.randn(1, cfg.text_len, cfg.text_dim, generator=gen, device=dev).to(torch.bfloat16)
     lay = wan_layout(cfg, run.height, run.width, run.num_frames)
     timesteps = FlowUniPC(steps, shift=run.flow_shift).timesteps
-    warmup = WarmupSchedule.from_fractions(run.first_layers_fp, run.first_times_fp, cfg.num_layers, timesteps)
-    events = []
-
-    def on_step(i, lat):
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        events.append(ev)
-
+    name = f"Wan dim {cfg.dim} x {cfg.num_layers} layers"
+    how = "cond and uncond as separate batch-1 forwards" if pattern == "SAP" else "CFG batch 2"
+    desc = f"{run.height}x{run.width}x{run.num_frames} (S={lay.seq_len} = {lay.num_frames}x{lay.frame_size}), {how}"
     with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
         dlog = os.path.join(tmp, "density.jsonl")
-        torch.cuda.reset_peak_memory_stats()
-        start = torch.cuda.Event(enable_timing=True)
-        _kernels.reset_counts()
-        start.record()
-        t0 = time.perf_counter()
-        lat = WanPipeline(model).generate_latents(
-            ctx, ctx_null, num_inference_steps=steps, pattern=pattern, seed=0, callback=on_step,
-            logging_file=dlog if pattern == "SAP" else None, **run.generate_kwargs())
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches, plain = dict(_kernels.LAUNCHES), dict(_kernels.PLAIN_CALLS)
-        dens = [_json.loads(line)["avg_density"] for line in open(dlog)] if pattern == "SAP" else []
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    step_s = [start.elapsed_time(events[0]) / 1e3] + [
-        events[i - 1].elapsed_time(events[i]) / 1e3 for i in range(1, len(events))]
-    finite = bool(torch.isfinite(lat).all())
-    how = "cond and uncond as separate batch-1 forwards" if pattern == "SAP" else "CFG batch 2"
-    name = f"Wan dim {cfg.dim} x {cfg.num_layers} layers"
-    log("slice", f"{name}, {run.height}x{run.width}x{run.num_frames} (S={lay.seq_len} = {lay.num_frames}x"
-                 f"{lay.frame_size}), {pattern}, {steps} steps ({warmup.first_layers} warm-up layers, steps with t > "
-                 f"{warmup.first_times} dense), {how}: per-step s {[round(x, 4) for x in step_s]}, total {wall:.2f} s, "
-                 f"peak memory {peak:.2f} GiB")
+        r = drive_pipeline(name, desc, run, pattern, timesteps, cfg.num_layers,
+                           lambda on_step: WanPipeline(model).generate_latents(
+                               ctx, ctx_null, num_inference_steps=steps, pattern=pattern, seed=0, callback=on_step,
+                               logging_file=dlog if pattern == "SAP" else None, **run.generate_kwargs()),
+                           (1, 16, lay.num_frames, run.height // 8, run.width // 8), ("none", "band_sink"),
+                           sap=run.sap)
+        dens = [json.loads(line)["avg_density"] for line in open(dlog)] if pattern == "SAP" else []
     if dens:
         log("slice", f"{name} SAP density (cond stream, {len(dens)} logged layer-steps): mean {np.mean(dens):.4f}, "
                      f"min {min(dens):.4f}, max {max(dens):.4f} (random weights)")
-    want = expected_launches(pattern, cfg.num_layers, run.sap, warmup, timesteps)
-    log("slice", f"{name} {pattern} launches {launches} (expected {want}), plain-version calls {plain}, "
-                 f"latents {tuple(lat.shape)} finite {finite}, std {lat.std().item():.4f}")
-    if launches != want:
-        raise AssertionError(f"{name} {pattern}: kernel launches {launches} != expected {want}")
-    if any(plain.values()):
-        raise AssertionError(f"{name} {pattern}: the main path called a plain version: {plain}")
-    if not finite or tuple(lat.shape) != (1, 16, lay.num_frames, run.height // 8, run.width // 8):
-        raise AssertionError(f"{name} {pattern}: slice latents are not finite or have the wrong shape")
-    return launches
+    return r["launches"]
 
 
 def _new_model(cfg, dev):
@@ -845,7 +855,8 @@ def phase_hyvideo_attention(dev):
     video + 256 text tokens, prompt HY_PROMPT; 24 heads, D = 128) on the
     metadata and aux of the pipeline's own runtime: dense (band 1 << 24) and
     SVG1 (floor band, cheap-first metadata), the first and last head against
-    the plain version (one run: it is slow at this length)."""
+    the plain version (one run: it is slow at this length); SVG1 also beside
+    masked_sdpa (the predicate as an (S, S) attn_mask, 28 GB)."""
     from sparse_videogen_tpu_torch.ops.attention import block_sparse_attention_kv, block_sparse_attention_kv_plain
     from sparse_videogen_tpu_torch.pipelines.hyvideo import make_hyvideo_runtime
     from sparse_videogen_tpu_torch.presets import HY_720P_SVG as run
@@ -898,11 +909,13 @@ def phase_hyvideo_attention(dev):
                        f"{plain_ms:.3f} ms (one run); all BH={BH}: kernel {ms_all:.3f} ms "
                        f"({4 * D * pairs * BH / (ms_all * 1e-3) / 1e12:.1f} TFLOP/s)")
         if name == "svg1":
-            # no one PyTorch call computes it: SDPA would need a 119,056^2 mask (14 GB)
+            sdpa_ms, sdpa_all_ms = masked_sdpa("hyvideo svg1", spec, rt.aux, pairs, (q, k, v), (qs, ks, vs),
+                                               out.index_select(0, heads)[:, :S])
             entry = {"name": "block_sparse_attn[hyvideo]", "route": "cuda",
                      "source": "sparse_videogen_tpu_torch/csrc/block_sparse_attn.cu",
                      "replaces": "sparse_videogen_tpu/ops/attention.py:62", "max_abs_err": max_abs, "ms": ms,
-                     "plain_ms": plain_ms, **b, "library_ms": None, "dense_ms": times["dense"], "S": S}
+                     "plain_ms": plain_ms, **b, "library_ms": sdpa_ms, "library_all_rows_ms": sdpa_all_ms,
+                     "dense_ms": times["dense"], "S": S}
         del q, k, v, qs, ks, vs, out, ref
     torch.cuda.empty_cache()
     return entry
@@ -999,13 +1012,9 @@ def phase_qsplit(dev):
 
 
 def drive_hyvideo(model, run, steps):
-    """One HyVideoPipeline.generate_latents run with the kernel counters set
-    to 0 just before it and read just after; holds them to what the
-    configuration implies (per forward and block: RoPE on q and on k of the
-    video tokens, one K1 launch, dense or hyvideo-SVG1), the plain-version
-    calls to 0 and the latents to finite values of the right shape."""
-    from sparse_videogen_tpu_torch import _kernels
-    from sparse_videogen_tpu_torch.config import WarmupSchedule
+    """HunyuanVideo: one HyVideoPipeline.generate_latents run through
+    drive_pipeline (K1 dense and SVG1 both run the hyvideo kind: the dense
+    spec keeps the real/fake text split)."""
     from sparse_videogen_tpu_torch.pipelines import HyVideoPipeline
     from sparse_videogen_tpu_torch.schedulers import FlowMatchEuler
 
@@ -1017,52 +1026,14 @@ def drive_hyvideo(model, run, steps):
     mask[0, :HY_PROMPT] = 1
     pooled = torch.randn(1, cfg.text_states_dim_2, generator=gen, device=dev).to(torch.bfloat16)
     lay = hy_layout()
-    timesteps = FlowMatchEuler(steps, shift=run.flow_shift).timesteps
-    warmup = WarmupSchedule.from_fractions(run.first_layers_fp, run.first_times_fp, cfg.num_layers, timesteps)
-    n_dense = steps * cfg.num_layers if run.pattern == "dense" else sum(
-        li < warmup.first_layers or float(t) > warmup.first_times for t in timesteps for li in range(cfg.num_layers))
-    events = []
-
-    def on_step(i, lat):
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        events.append(ev)
-
-    torch.cuda.reset_peak_memory_stats()
-    start = torch.cuda.Event(enable_timing=True)
-    _kernels.reset_counts()
-    start.record()
-    t0 = time.perf_counter()
-    lat = HyVideoPipeline(model).generate_latents(text, mask, pooled, prompt_length=HY_PROMPT,
-                                                  num_inference_steps=steps, seed=0, callback=on_step,
-                                                  **run.generate_kwargs())
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches, plain = dict(_kernels.LAUNCHES), dict(_kernels.PLAIN_CALLS)
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    step_s = [start.elapsed_time(events[0]) / 1e3] + [
-        events[i - 1].elapsed_time(events[i]) / 1e3 for i in range(1, len(events))]
-    finite = bool(torch.isfinite(lat).all())
     name = f"HunyuanVideo hidden {cfg.hidden_size} x {cfg.mm_double_blocks_depth}+{cfg.mm_single_blocks_depth} blocks"
-    log("slice", f"{name}, {run.height}x{run.width}x{run.num_frames} (S={lay.seq_len} = {lay.num_frames}x"
-                 f"{lay.frame_size} + {cfg.text_len} text, prompt {HY_PROMPT}), {run.pattern}, {steps} Euler steps "
-                 f"(steps with t > {warmup.first_times} dense, {warmup.first_layers} warm-up layers: {n_dense} dense "
-                 f"block-steps of {steps * cfg.num_layers}), embedded guidance: per-step s "
-                 f"{[round(x, 4) for x in step_s]}, total {wall:.2f} s, peak memory {peak:.2f} GiB")
-    want = {n: 0 for n in _kernels.KERNELS}
-    want["block_sparse_attn"] = steps * cfg.num_layers
-    want["rope"] = 2 * steps * cfg.num_layers
-    shape = (1, 16, lay.num_frames, run.height // 8, run.width // 8)
-    log("slice", f"{name} {run.pattern} launches {launches} (expected {want}; K1 dense {n_dense}, K1 hyvideo-SVG1 "
-                 f"{want['block_sparse_attn'] - n_dense}), plain-version calls {plain}, latents {tuple(lat.shape)} "
-                 f"finite {finite}, std {lat.std().item():.4f}")
-    if launches != want:
-        raise AssertionError(f"{name} {run.pattern}: kernel launches {launches} != expected {want}")
-    if any(plain.values()):
-        raise AssertionError(f"{name} {run.pattern}: the main path called a plain version: {plain}")
-    if not finite or tuple(lat.shape) != shape:
-        raise AssertionError(f"{name} {run.pattern}: latents are not finite or not of shape {shape}")
-    return launches
+    desc = (f"{run.height}x{run.width}x{run.num_frames} (S={lay.seq_len} = {lay.num_frames}x{lay.frame_size} + "
+            f"{cfg.text_len} text, prompt {HY_PROMPT}), Euler, embedded guidance")
+    return drive_pipeline(name, desc, run, run.pattern, FlowMatchEuler(steps, shift=run.flow_shift).timesteps,
+                          cfg.num_layers, lambda on_step: HyVideoPipeline(model).generate_latents(
+                              text, mask, pooled, prompt_length=HY_PROMPT, num_inference_steps=steps, seed=0,
+                              callback=on_step, **run.generate_kwargs()),
+                          (1, 16, lay.num_frames, run.height // 8, run.width // 8), ("hyvideo", "hyvideo"))
 
 
 def phase_hyvideo_slice(dev):
@@ -1080,11 +1051,11 @@ def phase_hyvideo_slice(dev):
     log("slice", f"HunyuanVideo hidden {cfg.hidden_size}: {HY_DOUBLE} double + {HY_SINGLE} single blocks, "
                  f"{cfg.heads_num} heads, MLP {cfg.mlp_hidden}, {sum(p.numel() for p in model.parameters()) / 1e9:.3f} "
                  f"B params, init {time.perf_counter() - t0:.1f} s")
-    launches = drive_hyvideo(model, HY_720P_SVG, HY_STEPS_SVG)
+    r = drive_hyvideo(model, HY_720P_SVG, HY_STEPS_SVG)
     drive_hyvideo(model, HY_720P_DENSE, HY_STEPS_DENSE)
     del model
     torch.cuda.empty_cache()
-    return launches
+    return r["kind_launches"]["block_sparse_attn[hyvideo]"]
 
 
 def phase_kernel_probes(dev):
@@ -1180,6 +1151,57 @@ def cog_pairs(spec, plen: int, S: int) -> int:
     return plen * S + (S - plen) * plen + int(band.sum())
 
 
+def mask_bias(spec, aux, S: int, dev, rows: int = 1024):
+    """A mask kind's predicate (ops/mask_spec.py apply_mask_spec) over an
+    S-token sequence as an additive bf16 attn_mask for
+    F.scaled_dot_product_attention: 0 where it allows a pair, -inf
+    elsewhere, built a slab of rows at a time in an (S, S rounded up to 8)
+    buffer so that SDPA takes it without a padded copy. Returns it and the
+    pairs it allows. A yardstick only: the port never builds an S x S mask."""
+    from sparse_videogen_tpu_torch.ops.mask_spec import apply_mask_spec
+
+    aux_h = [int(a) for a in aux.cpu()]
+    bias = torch.empty(S, -(-S // 8) * 8, dtype=torch.bfloat16, device=dev)[:, :S]
+    k = torch.arange(S, device=dev)[None, :]
+    allowed = 0
+    for r0 in range(0, S, rows):
+        q = torch.arange(r0, min(S, r0 + rows), device=dev)[:, None]
+        ok = apply_mask_spec(spec, q, k, aux_h)
+        allowed += int(ok.sum())
+        bias[r0:r0 + q.shape[0]] = torch.where(ok, 0.0, float("-inf"))
+    return bias, allowed
+
+
+def masked_sdpa(name, spec, aux, pairs, rows, checked, kernel_out):
+    """The library yardstick of K1's masked kinds: one
+    F.scaled_dot_product_attention call with the kind's predicate as its
+    attn_mask (mask_bias). Holds mask_bias to `pairs` allowed pairs and
+    SDPA's output on the `checked` (q, k, v) rows to the kernel's
+    (kernel_out), then times it there and on all `rows`; returns both
+    times (ms)."""
+    S, D, BH = kernel_out.shape[1], rows[0].shape[-1], rows[0].shape[0]
+    bias, allowed = mask_bias(spec, aux, S, kernel_out.device)
+    if allowed != pairs:
+        raise AssertionError(f"{name}: the mask allows {allowed} pairs, the pair count says {pairs}")
+
+    def sdpa(q, k, v):
+        return torch.nn.functional.scaled_dot_product_attention(q[None, :, :S], k[None, :, :S], v[None, :, :S],
+                                                                attn_mask=bias)[0]
+
+    max_abs, mean_rel = err_stats(sdpa(*checked), kernel_out)
+    ms = cuda_ms(lambda: sdpa(*checked))
+    ms_all = cuda_ms(lambda: sdpa(*rows), iters=2)
+    log("kernels", f"attention {name}: F.scaled_dot_product_attention with the {spec.kind} predicate as an ({S}, {S}) "
+                   f"bf16 attn_mask: {len(checked[0])} checked rows {ms:.3f} ms, all BH={BH} {ms_all:.3f} ms "
+                   f"({4 * D * pairs * BH / (ms_all * 1e-3) / 1e12:.1f} TFLOP/s on the allowed pairs); its output vs "
+                   f"the kernel's on the checked rows: max_abs_err {max_abs:.3e} (tol {SDPA_TOL_ABS}), mean_rel_err "
+                   f"{mean_rel:.3e} (tol {ATTN_TOL_REL})")
+    if not (max_abs <= SDPA_TOL_ABS and mean_rel <= ATTN_TOL_REL):
+        raise AssertionError(f"masked SDPA (the {name} yardstick) disagrees with the kernel")
+    del bias
+    return ms, ms_all
+
+
 def phase_cog_attention(dev):
     """K1 at D = 64 on CogVideoX 768x1360x81 (S = 45,106: 226 text tokens,
     then 11 x 4080 video tokens; 2 x 48 = 96 (batch, head) rows of the CFG
@@ -1187,9 +1209,10 @@ def phase_cog_attention(dev):
     kind (SVG1: floor band 5,760, text rows and columns [0, 226) fully
     attended) and the unmasked dense path (kind none, block_q 2048). The
     first and last rows against the plain version (one run), then both timed
-    on those 2 rows and on all 96, beside their bounds; the dense path also
-    beside F.scaled_dot_product_attention on all 96 rows (no one PyTorch call
-    computes the cog kind: SDPA would need a 45,106^2 mask)."""
+    on those 2 rows and on all 96, beside their bounds. The yardstick is
+    F.scaled_dot_product_attention: unmasked for the dense path (all 96
+    rows), and for the cog kind masked_sdpa (the predicate as an (S, S)
+    attn_mask, 4 GB) on the 2 checked rows and on all 96."""
     from sparse_videogen_tpu_torch.ops.attention import block_sparse_attention_kv, block_sparse_attention_kv_plain
     from sparse_videogen_tpu_torch.pipelines.cog import make_cog_runtime
     from sparse_videogen_tpu_torch.presets import COG_768P_SVG as run
@@ -1248,6 +1271,10 @@ def phase_cog_attention(dev):
             log("kernels", f"attention D=64 dense, all BH={BH}: F.scaled_dot_product_attention {sdpa_ms:.3f} ms "
                            f"({4 * D * S * S * BH / (sdpa_ms * 1e-3) / 1e12:.1f} TFLOP/s)")
             res[name]["sdpa_ms"] = sdpa_ms
+        else:
+            sdpa_ms, sdpa_all_ms = masked_sdpa("D=64 cog", spec, rt.aux, pairs, (q, k, v), (qs, ks, vs),
+                                               out.index_select(0, heads)[:, :S])
+            res[name].update(sdpa_ms=sdpa_ms, sdpa_all_ms=sdpa_all_ms)
         del q, k, v, qs, ks, vs, out, ref
     torch.cuda.empty_cache()
     c, d = res["cog"], res["dense"]
@@ -1255,8 +1282,8 @@ def phase_cog_attention(dev):
             "source": "sparse_videogen_tpu_torch/csrc/block_sparse_attn.cu",
             "replaces": "sparse_videogen_tpu/ops/attention.py:62",
             "max_abs_err": max(c["max_abs_err"], d["max_abs_err"]), "ms": c["ms"], "plain_ms": c["plain_ms"],
-            "bound_ms": c["bound_ms"], "bound_by": c["bound_by"], "library_ms": None, "S": S, "D": D,
-            "ms_all_rows": c["ms_all"], "bound_all_rows_ms": c["bound_all_ms"],
+            "bound_ms": c["bound_ms"], "bound_by": c["bound_by"], "library_ms": c["sdpa_ms"], "S": S, "D": D,
+            "ms_all_rows": c["ms_all"], "bound_all_rows_ms": c["bound_all_ms"], "library_all_rows_ms": c["sdpa_all_ms"],
             "dense_d64": {"ms": d["ms"], "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"],
                           "ms_all_rows": d["ms_all"], "bound_all_rows_ms": d["bound_all_ms"],
                           "sdpa_all_rows_ms": d["sdpa_ms"]}}
@@ -1305,14 +1332,8 @@ def phase_cog_rope(dev):
 
 
 def drive_cog(model, run, steps):
-    """One CogPipeline.generate_latents run with the kernel counters set to 0
-    just before it and read just after; holds them to what the
-    configuration implies (per forward, a CFG batch of 2, and layer: RoPE on
-    the video rows of q and of k, one K1 launch, dense or cog-SVG1), the
-    plain-version calls to 0 and the latents to finite values of the right
-    shape. Returns (launches, dense K1 launches)."""
-    from sparse_videogen_tpu_torch import _kernels
-    from sparse_videogen_tpu_torch.config import WarmupSchedule
+    """CogVideoX: one CogPipeline.generate_latents run (a CFG batch of 2 a
+    forward) through drive_pipeline (K1 dense: kind none; SVG1: cog)."""
     from sparse_videogen_tpu_torch.pipelines import CogPipeline
     from sparse_videogen_tpu_torch.pipelines.cog import latent_frames
     from sparse_videogen_tpu_torch.schedulers import CogDDIM
@@ -1325,51 +1346,12 @@ def drive_cog(model, run, steps):
     shape = (1, cfg.out_channels, latent_frames(cfg, run.num_frames)[0], run.height // 8, run.width // 8)
     img = torch.randn(1, cfg.out_channels, 1, *shape[3:], generator=gen, device=dev)
     lay = cog_run_layout()
-    kw = run.generate_kwargs()
-    timesteps = CogDDIM(steps).timesteps
-    warmup = WarmupSchedule.from_fractions(kw["first_layers_fp"], kw["first_times_fp"], cfg.num_layers, timesteps)
-    n_dense = steps * cfg.num_layers if run.pattern == "dense" else sum(
-        li < warmup.first_layers or float(t) > warmup.first_times for t in timesteps for li in range(cfg.num_layers))
-    events = []
-
-    def on_step(i, lat):
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        events.append(ev)
-
-    torch.cuda.reset_peak_memory_stats()
-    start = torch.cuda.Event(enable_timing=True)
-    _kernels.reset_counts()
-    start.record()
-    t0 = time.perf_counter()
-    lat = CogPipeline(model).generate_latents(ctx, ctx_null, img, num_inference_steps=steps, seed=0, callback=on_step,
-                                              **kw)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches, plain = dict(_kernels.LAUNCHES), dict(_kernels.PLAIN_CALLS)
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    step_s = [start.elapsed_time(events[0]) / 1e3] + [
-        events[i - 1].elapsed_time(events[i]) / 1e3 for i in range(1, len(events))]
-    finite = bool(torch.isfinite(lat).all())
-    name = f"CogVideoX hidden {cfg.hidden_size} x {cfg.num_layers} layers"
-    log("slice", f"{name}, {run.height}x{run.width}x{run.num_frames} (S={lay.seq_len} = {cfg.text_len} text + "
-                 f"{lay.num_frames}x{lay.frame_size}), {run.pattern}, {steps} DDIM steps, CFG batch 2 (steps with t > "
-                 f"{warmup.first_times} dense, {warmup.first_layers} warm-up layers: {n_dense} dense layer-steps of "
-                 f"{steps * cfg.num_layers}): per-step s {[round(x, 4) for x in step_s]}, total {wall:.2f} s, peak "
-                 f"memory {peak:.2f} GiB")
-    want = {n: 0 for n in _kernels.KERNELS}
-    want["block_sparse_attn"] = steps * cfg.num_layers
-    want["rope"] = 2 * steps * cfg.num_layers
-    log("slice", f"{name} {run.pattern} launches {launches} (expected {want}; K1 none {n_dense}, K1 cog-SVG1 "
-                 f"{want['block_sparse_attn'] - n_dense}), plain-version calls {plain}, latents {tuple(lat.shape)} "
-                 f"finite {finite}, std {lat.std().item():.4f}")
-    if launches != want:
-        raise AssertionError(f"{name} {run.pattern}: kernel launches {launches} != expected {want}")
-    if any(plain.values()):
-        raise AssertionError(f"{name} {run.pattern}: the main path called a plain version: {plain}")
-    if not finite or tuple(lat.shape) != shape:
-        raise AssertionError(f"{name} {run.pattern}: latents are not finite or not of shape {shape}")
-    return launches, n_dense
+    desc = (f"{run.height}x{run.width}x{run.num_frames} (S={lay.seq_len} = {cfg.text_len} text + "
+            f"{lay.num_frames}x{lay.frame_size}), DDIM, CFG batch 2")
+    return drive_pipeline(f"CogVideoX hidden {cfg.hidden_size} x {cfg.num_layers} layers", desc, run, run.pattern,
+                          CogDDIM(steps).timesteps, cfg.num_layers, lambda on_step: CogPipeline(model).generate_latents(
+                              ctx, ctx_null, img, num_inference_steps=steps, seed=0, callback=on_step,
+                              **run.generate_kwargs()), shape, ("none", "cog"))
 
 
 def phase_cog_slice(dev):
@@ -1388,11 +1370,11 @@ def phase_cog_slice(dev):
     log("slice", f"CogVideoX hidden {cfg.hidden_size}: {cfg.num_layers} layers, {cfg.heads_num} heads of "
                  f"{cfg.head_dim}, {sum(p.numel() for p in model.parameters()) / 1e9:.3f} B params, init "
                  f"{time.perf_counter() - t0:.1f} s")
-    launches, n_dense = drive_cog(model, COG_768P_SVG, COG_STEPS)
+    r = drive_cog(model, COG_768P_SVG, COG_STEPS)
     drive_cog(model, COG_768P_DENSE, COG_STEPS)
     del model
     torch.cuda.empty_cache()
-    return launches["block_sparse_attn"] - n_dense
+    return r["kind_launches"]["block_sparse_attn[cog]"]
 
 
 def phase_small_cog_reference(dev):
@@ -1459,7 +1441,7 @@ def main():
     for counts in (phase_probe(dev), phase_slice_14b(dev), phase_kernel_probes(dev)):
         for name, n in counts.items():
             launches.setdefault(name, n)
-    launches["block_sparse_attn[hyvideo]"] = phase_hyvideo_slice(dev)["block_sparse_attn"]
+    launches["block_sparse_attn[hyvideo]"] = phase_hyvideo_slice(dev)
     launches["block_sparse_attn[cog]"] = phase_cog_slice(dev)
     phase_small_reference(dev)
     phase_small_hyvideo_reference(dev)

@@ -13,12 +13,15 @@ The library lands in ``build/kernels/<hash>/`` at the root of the checkout
 to a source rebuilds it and an unchanged tree reuses it across processes.
 
 Counters: ``LAUNCHES[name]`` grows by one each time a wrapper launches its
-kernel; ``PLAIN_CALLS[name]`` each time the plain PyTorch version runs. A run
-that resets both and then reads them shows which path the work took.
+kernel; ``PLAIN_CALLS[name]`` each time the plain PyTorch version runs;
+``KIND_LAUNCHES["block_sparse_attn[<kind>]"]`` counts the chunked-CSR
+attention's launches by mask kind (each kind is its own kernel instance). A
+run that resets them and then reads them shows which path the work took.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -36,6 +39,7 @@ KERNELS = ("block_sparse_attn", "rope", "block_sparse_attn_runs", "kmeans_wide",
            "dense_qsplit")
 LAUNCHES = {name: 0 for name in KERNELS}
 PLAIN_CALLS = {name: 0 for name in KERNELS}
+KIND_LAUNCHES: collections.Counter = collections.Counter()
 
 _LIB = None
 
@@ -66,6 +70,7 @@ def reset_counts() -> None:
     for d in (LAUNCHES, PLAIN_CALLS):
         for name in d:
             d[name] = 0
+    KIND_LAUNCHES.clear()
 
 
 def _sources():

@@ -86,16 +86,16 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, const i
   return cudaGetLastError();
 }
 
-// kinds 2 (hyvideo) and 3 (cog) have their own instances: the none/band_sink
-// instance keeps the registers it had before the text kinds existed
+// the text kinds have their own instances: the none/band_sink instance keeps
+// the registers it had before they existed
 template <int D>
 cudaError_t launch_kind(const void* q, const void* k, const void* v, void* o, const int* meta, const int* aux,
                         int BH, int Sq, int Skv, int R, int nQ, int L, int block_q, int mask_kind, int band_width,
                         int sink_size, int video_len, float q_scale, cudaStream_t stream) {
-  if (mask_kind == 2)
+  if (mask_kind == KIND_HYVIDEO)
     return launch<D, KIND_HYVIDEO>(q, k, v, o, meta, aux, BH, Sq, Skv, R, nQ, L, block_q, mask_kind, band_width,
                                    sink_size, video_len, q_scale, stream);
-  if (mask_kind == 3)
+  if (mask_kind == KIND_COG)
     return launch<D, KIND_COG>(q, k, v, o, meta, aux, BH, Sq, Skv, R, nQ, L, block_q, mask_kind, band_width,
                                sink_size, video_len, q_scale, stream);
   return launch<D, KIND_BAND_SINK>(q, k, v, o, meta, aux, BH, Sq, Skv, R, nQ, L, block_q, mask_kind, band_width,

@@ -28,7 +28,8 @@ from sparse_videogen_tpu_torch.ops.metadata import ENTRY_SCALE, N_CHEAP_SCALE, S
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 LOG2E = 1.4426950408889634
 TQ = 64  # q rows per CTA of the kernel; divides every block_q it accepts
-# mask kinds each Hopper kernel evaluates (csrc/flash_chunk.cuh MaskArgs)
+# mask kinds each Hopper kernel evaluates, as the kernels number them
+# (csrc/flash_chunk.cuh: KIND_BAND_SINK, KIND_HYVIDEO, KIND_COG; 0 runs no predicate)
 _KERNEL_MASKS = {"none": 0, "band_sink": 1, "hyvideo": 2, "cog": 3}
 _RUNS_KERNEL_MASKS = ("none", "band_sink")
 
@@ -146,6 +147,7 @@ def block_sparse_attention_kv(q, k, v, meta, aux=None, *, block_q: int = 512, bl
     )
     _kernels.check(err, "block_sparse_attn")
     _kernels.LAUNCHES["block_sparse_attn"] += 1
+    _kernels.KIND_LAUNCHES[f"block_sparse_attn[{mask_spec.kind}]"] += 1
     return out
 
 

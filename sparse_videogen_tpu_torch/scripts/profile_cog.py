@@ -36,7 +36,7 @@ import time
 import torch
 
 from sparse_videogen_tpu_torch.presets import COG_PRESETS
-from sparse_videogen_tpu_torch.scripts.profile_wan import breakdown
+from sparse_videogen_tpu_torch.scripts.profile_wan import profile_forward, time_generation
 from sparse_videogen_tpu_torch.scripts.timing import device_line
 
 RUNS = {"SVG": COG_PRESETS["cog-768p-svg"], "dense": COG_PRESETS["cog-768p-dense"]}
@@ -51,7 +51,6 @@ def main(argv=None):
     ap.add_argument("--out", default=None, help="write the results as JSON here")
     args = ap.parse_args(argv)
 
-    from sparse_videogen_tpu_torch import _kernels
     from sparse_videogen_tpu_torch.config import WarmupSchedule
     from sparse_videogen_tpu_torch.models.cog.model import CogModel
     from sparse_videogen_tpu_torch.pipelines import CogPipeline
@@ -91,33 +90,16 @@ def main(argv=None):
     result = {"device": smi, "layers": args.layers, "steps": args.steps, "params": n_params, "time": [],
               "profile": {}}
     for pattern in runs:
-        events = []
-
-        def on_step(i, lat):
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            events.append(ev)
-
-        start = torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        start.record()
-        t0 = time.perf_counter()
-        lat = generate(pattern, args.steps, on_step)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        steps = [start.elapsed_time(events[0]) / 1e3] + [
-            events[i - 1].elapsed_time(events[i]) / 1e3 for i in range(1, len(events))]
+        lat, run = time_generation(lambda on_step: generate(pattern, args.steps, on_step))
         run_kw = RUNS[pattern].generate_kwargs()
         warm = WarmupSchedule.from_fractions(run_kw["first_layers_fp"], run_kw["first_times_fp"], cfg.num_layers,
                                              timesteps)
         dense_steps = [i for i, t in enumerate(timesteps) if pattern == "SVG" and float(t) > warm.first_times]
-        run = {"pattern": pattern, "per_step_s": steps, "dense_warmup_steps": dense_steps, "wall_s": wall,
-               "peak_gib": torch.cuda.max_memory_allocated() / 2**30, "finite": bool(torch.isfinite(lat).all()),
-               "latents": list(lat.shape)}
-        print(f"[time] {pattern}: per-step s {steps} (dense warm-up steps {dense_steps}, {warm.first_layers} dense "
-              f"layers) wall {wall} s, peak {run['peak_gib']} GiB, latents {run['latents']} finite {run['finite']}",
-              flush=True)
+        run.update(pattern=pattern, dense_warmup_steps=dense_steps, finite=bool(torch.isfinite(lat).all()),
+                   latents=list(lat.shape))
+        print(f"[time] {pattern}: per-step s {run['per_step_s']} (dense warm-up steps {dense_steps}, "
+              f"{warm.first_layers} dense layers) wall {run['wall_s']} s, peak {run['peak_gib']} GiB, latents "
+              f"{run['latents']} finite {run['finite']}", flush=True)
         if not run["finite"] or run["latents"] != [1, 16, latent_frames(cfg, base.num_frames)[0], h_lat, w_lat]:
             raise AssertionError(f"{pattern}: latents are not finite or of the wrong shape")
         result["time"].append(run)
@@ -137,30 +119,7 @@ def main(argv=None):
         def forward():
             return model(x, t, ctx2, attention=rt, generator=gen)
 
-        forward()
-        torch.cuda.synchronize()
-        _kernels.reset_counts()
-        prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                                  torch.profiler.ProfilerActivity.CUDA])
-        t0 = time.perf_counter()
-        with prof:
-            forward()
-            torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        dev_events = [(e.name(), e.start_ns(), e.end_ns()) for e in prof.profiler.kineto_results.events()
-                      if e.device_type() == torch.autograd.DeviceType.CUDA]
-        if not dev_events:
-            raise RuntimeError("torch.profiler recorded no device activity")
-        cats, total, busy, span = breakdown(dev_events)
-        idle = 1 - busy / span
-        print(f"[profile] {pattern} forward (CFG batch 2): host wall {wall} s (profiler on), {len(dev_events)} device "
-              f"events, device time {total} ms, busy (union) {busy} ms of span {span} ms -> idle share {idle}; "
-              f"launch counters {dict(_kernels.LAUNCHES)}", flush=True)
-        for cat, c in sorted(cats.items(), key=lambda kv: -kv[1]["ms"]):
-            print(f"[profile] {pattern} {cat}: {c['ms']} ms ({100 * c['ms'] / total:.1f}%), "
-                  f"{c['launches']} launches", flush=True)
-        result["profile"][pattern] = {"host_wall_s": wall, "device_ms": total, "busy_ms": busy, "span_ms": span,
-                                      "idle_share": idle, "categories": cats, "launches": dict(_kernels.LAUNCHES)}
+        result["profile"][pattern] = profile_forward(f"{pattern} forward (CFG batch 2)", forward)
     if args.out:
         with open(args.out, "w") as f:
             json.dump(result, f, indent=1)

@@ -28,12 +28,11 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
-import time
 
 import torch
 
 from sparse_videogen_tpu_torch.presets import HY_PRESETS
-from sparse_videogen_tpu_torch.scripts.profile_wan import breakdown
+from sparse_videogen_tpu_torch.scripts.profile_wan import profile_forward, time_generation
 from sparse_videogen_tpu_torch.scripts.timing import device_line
 
 RUNS = {"SVG": HY_PRESETS["hyvideo-720p-svg"], "dense": HY_PRESETS["hyvideo-720p-dense"]}
@@ -50,7 +49,6 @@ def main(argv=None):
     ap.add_argument("--out", default=None, help="write the results as JSON here")
     args = ap.parse_args(argv)
 
-    from sparse_videogen_tpu_torch import _kernels
     from sparse_videogen_tpu_torch.config import WarmupSchedule
     from sparse_videogen_tpu_torch.models.hyvideo.model import HyVideoModel
     from sparse_videogen_tpu_torch.pipelines import HyVideoPipeline
@@ -85,26 +83,10 @@ def main(argv=None):
     result = {"device": smi, "double": args.double, "single": args.single, "prompt": args.prompt, "time": [],
               "profile": {}}
     for pattern in runs:
-        events = []
-
-        def on_step(i, lat):
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            events.append(ev)
-
-        start = torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        start.record()
-        t0 = time.perf_counter()
-        generate(pattern, args.steps, on_step)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        steps = [start.elapsed_time(events[0]) / 1e3] + [
-            events[i - 1].elapsed_time(events[i]) / 1e3 for i in range(1, len(events))]
-        run = {"pattern": pattern, "per_step_s": steps, "wall_s": wall,
-               "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
-        print(f"[time] {pattern}: per-step s {steps} wall {wall} s, peak {run['peak_gib']} GiB", flush=True)
+        _, run = time_generation(lambda on_step: generate(pattern, args.steps, on_step))
+        run["pattern"] = pattern
+        print(f"[time] {pattern}: per-step s {run['per_step_s']} wall {run['wall_s']} s, peak {run['peak_gib']} GiB",
+              flush=True)
         result["time"].append(run)
 
     x = torch.randn(1, cfg.out_channels, lay.num_frames, base.height // 8, base.width // 8, generator=gen,
@@ -125,30 +107,7 @@ def main(argv=None):
         def forward():
             return model(x, t, text, mask, pooled, guidance=guidance, attention=rt, generator=gen)
 
-        forward()
-        torch.cuda.synchronize()
-        _kernels.reset_counts()
-        prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                                  torch.profiler.ProfilerActivity.CUDA])
-        t0 = time.perf_counter()
-        with prof:
-            forward()
-            torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        dev_events = [(e.name(), e.start_ns(), e.end_ns()) for e in prof.profiler.kineto_results.events()
-                      if e.device_type() == torch.autograd.DeviceType.CUDA]
-        if not dev_events:
-            raise RuntimeError("torch.profiler recorded no device activity")
-        cats, total, busy, span = breakdown(dev_events)
-        idle = 1 - busy / span
-        print(f"[profile] {pattern} forward: host wall {wall} s (profiler on), {len(dev_events)} device events, "
-              f"device time {total} ms, busy (union) {busy} ms of span {span} ms -> idle share {idle}; "
-              f"launch counters {dict(_kernels.LAUNCHES)}", flush=True)
-        for cat, c in sorted(cats.items(), key=lambda kv: -kv[1]["ms"]):
-            print(f"[profile] {pattern} {cat}: {c['ms']} ms ({100 * c['ms'] / total:.1f}%), "
-                  f"{c['launches']} launches", flush=True)
-        result["profile"][pattern] = {"host_wall_s": wall, "device_ms": total, "busy_ms": busy, "span_ms": span,
-                                      "idle_share": idle, "categories": cats}
+        result["profile"][pattern] = profile_forward(f"{pattern} forward", forward)
     if args.out:
         with open(args.out, "w") as f:
             json.dump(result, f, indent=1)

@@ -84,6 +84,70 @@ def breakdown(events):
     return cats, sum(c["ms"] for c in cats.values()), busy / 1e6, span / 1e6
 
 
+def time_generation(generate):
+    """Runs generate(callback) once with the kernel counters set to 0 just
+    before it and read just after; the step callback records a CUDA event a
+    step. Returns (its output, {per_step_s, wall_s, peak_gib, launches,
+    kind_launches, plain_calls}); the first step includes the set-up."""
+    from sparse_videogen_tpu_torch import _kernels
+
+    events = []
+
+    def on_step(i, lat):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append(ev)
+
+    start = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_counts()
+    start.record()
+    t0 = time.perf_counter()
+    out = generate(on_step)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    steps = [start.elapsed_time(events[0]) / 1e3] + [
+        events[i - 1].elapsed_time(events[i]) / 1e3 for i in range(1, len(events))]
+    return out, {"per_step_s": steps, "wall_s": wall, "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                 "launches": dict(_kernels.LAUNCHES), "kind_launches": dict(_kernels.KIND_LAUNCHES),
+                 "plain_calls": dict(_kernels.PLAIN_CALLS)}
+
+
+def profile_forward(label, forward):
+    """forward() once to warm up, then once under torch.profiler with the
+    kernel counters set to 0; prints the device time by category, the idle
+    share and the launches under `label` ("<pattern> <what>"), and returns
+    them."""
+    from sparse_videogen_tpu_torch import _kernels
+
+    forward()
+    torch.cuda.synchronize()
+    _kernels.reset_counts()
+    prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                              torch.profiler.ProfilerActivity.CUDA])
+    t0 = time.perf_counter()
+    with prof:
+        forward()
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    dev_events = [(e.name(), e.start_ns(), e.end_ns()) for e in prof.profiler.kineto_results.events()
+                  if e.device_type() == torch.autograd.DeviceType.CUDA]
+    if not dev_events:
+        raise RuntimeError("torch.profiler recorded no device activity")
+    cats, total, busy, span = breakdown(dev_events)
+    idle = 1 - busy / span
+    print(f"[profile] {label}: host wall {wall} s (profiler on), {len(dev_events)} device events, device time "
+          f"{total} ms, busy (union) {busy} ms of span {span} ms -> idle share {idle}; launch counters "
+          f"{dict(_kernels.LAUNCHES)}", flush=True)
+    pattern = label.split()[0]
+    for cat, c in sorted(cats.items(), key=lambda kv: -kv[1]["ms"]):
+        print(f"[profile] {pattern} {cat}: {c['ms']} ms ({100 * c['ms'] / total:.1f}%), {c['launches']} launches",
+              flush=True)
+    return {"host_wall_s": wall, "device_ms": total, "busy_ms": busy, "span_ms": span, "idle_share": idle,
+            "categories": cats, "launches": dict(_kernels.LAUNCHES)}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--preset", choices=tuple(PRESETS), default="1.3B-480p")
@@ -94,7 +158,6 @@ def main(argv=None):
     ap.add_argument("--out", default=None, help="write the results as JSON here")
     args = ap.parse_args(argv)
 
-    from sparse_videogen_tpu_torch import _kernels
     from sparse_videogen_tpu_torch.config import WarmupSchedule
     from sparse_videogen_tpu_torch.models.wan.model import WanModel
     from sparse_videogen_tpu_torch.pipelines import WanPipeline
@@ -129,33 +192,17 @@ def main(argv=None):
     dlog = os.path.join(tmp.name, "density.jsonl")  # SAP's density log of the cond stream
 
     for pattern in runs:
-        events = []
-        start = torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        start.record()
-        t0 = time.perf_counter()
-
-        def on_step(i, lat):
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            events.append(ev)
-
-        pipe.generate_latents(ctx, ctx_null, num_inference_steps=args.steps, pattern=pattern, callback=on_step,
-                              logging_file=dlog if pattern == "SAP" else None, **gen_kw)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        steps = [start.elapsed_time(events[0]) / 1e3] + [
-            events[i - 1].elapsed_time(events[i]) / 1e3 for i in range(1, len(events))]
-        run = {"pattern": pattern, "per_step_s": steps, "wall_s": wall,
-               "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+        _, run = time_generation(lambda on_step: pipe.generate_latents(
+            ctx, ctx_null, num_inference_steps=args.steps, pattern=pattern, callback=on_step,
+            logging_file=dlog if pattern == "SAP" else None, **gen_kw))
+        run["pattern"] = pattern
         if pattern == "SAP":
             with open(dlog) as f:
                 dens = [json.loads(line)["avg_density"] for line in f]
             run["density_mean"] = sum(dens) / len(dens)
-        print(f"[time] {pattern}: per-step s {steps} wall {wall} s (the first step includes set-up)"
-              + (f"; SAP density mean {run['density_mean']} (cond stream, random weights)" if pattern == "SAP" else ""),
-              flush=True)
+        print(f"[time] {pattern}: per-step s {run['per_step_s']} wall {run['wall_s']} s (the first step includes "
+              f"set-up)" + (f"; SAP density mean {run['density_mean']} (cond stream, random weights)"
+                            if pattern == "SAP" else ""), flush=True)
         result["time"].append(run)
 
     lay = wan_layout(cfg, run_cfg.height, run_cfg.width, run_cfg.num_frames)
@@ -179,30 +226,7 @@ def main(argv=None):
                 rt.states = states[s]
                 model(x[s:s + 1], t[:1], ctx_pair[s:s + 1], attention=rt, generator=gen)
 
-        step_forwards()
-        torch.cuda.synchronize()
-        _kernels.reset_counts()
-        prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                                  torch.profiler.ProfilerActivity.CUDA])
-        t0 = time.perf_counter()
-        with prof:
-            step_forwards()
-            torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        dev_events = [(e.name(), e.start_ns(), e.end_ns()) for e in prof.profiler.kineto_results.events()
-                      if e.device_type() == torch.autograd.DeviceType.CUDA]
-        if not dev_events:
-            raise RuntimeError("torch.profiler recorded no device activity")
-        cats, total, busy, span = breakdown(dev_events)
-        idle = 1 - busy / span
-        print(f"[profile] {pattern} step forwards: host wall {wall} s (profiler on), {len(dev_events)} device events, "
-              f"device time {total} ms, busy (union) {busy} ms of span {span} ms -> idle share {idle}; "
-              f"launch counters {dict(_kernels.LAUNCHES)}", flush=True)
-        for cat, c in sorted(cats.items(), key=lambda kv: -kv[1]["ms"]):
-            print(f"[profile] {pattern} {cat}: {c['ms']} ms ({100 * c['ms'] / total:.1f}%), "
-                  f"{c['launches']} launches", flush=True)
-        result["profile"][pattern] = {"host_wall_s": wall, "device_ms": total, "busy_ms": busy, "span_ms": span,
-                                      "idle_share": idle, "categories": cats}
+        result["profile"][pattern] = profile_forward(f"{pattern} step forwards", step_forwards)
     tmp.cleanup()
     if args.out:
         with open(args.out, "w") as f:

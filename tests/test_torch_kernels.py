@@ -44,9 +44,12 @@ def test_cpu_tensor_runs_plain_and_bad_shapes_raise():
     q = torch.zeros(1, 256, 64)
     kv = torch.zeros(1, 256, 64)
     meta = torch.as_tensor(MD.dense_meta(256, 256, block_q=128, block_kv=128))
+    _kernels.KIND_LAUNCHES["block_sparse_attn[none]"] += 1
     _kernels.reset_counts()
+    assert not _kernels.KIND_LAUNCHES
     block_sparse_attention_kv(q, kv, kv, meta, block_q=128, block_kv=128)
     assert _kernels.PLAIN_CALLS["block_sparse_attn"] == 1 and _kernels.LAUNCHES["block_sparse_attn"] == 0
+    assert not _kernels.KIND_LAUNCHES
     with pytest.raises(ValueError):  # Sq not a multiple of block_q
         block_sparse_attention_kv(q[:, :200], kv, kv, meta, block_q=128, block_kv=128)
     with pytest.raises(ValueError):  # metadata rows do not match the q blocks
@@ -207,6 +210,7 @@ def test_attention_kernel_matches_plain(cuda, spec, D_):
     _kernels.reset_counts()
     out = block_sparse_attention_kv(q, k, v, t(meta), aux, **kw)
     assert _kernels.LAUNCHES["block_sparse_attn"] == 1 and _kernels.PLAIN_CALLS["block_sparse_attn"] == 0
+    assert _kernels.KIND_LAUNCHES == {f"block_sparse_attn[{spec.kind}]": 1}
     ref = block_sparse_attention_kv_plain(q, k, v, t(meta), aux, **kw)
     torch.cuda.synchronize()
     torch.testing.assert_close(out[:, :S].float(), ref[:, :S].float(), atol=2e-2, rtol=0)
@@ -236,6 +240,7 @@ def test_attention_kernel_hyvideo_matches_plain(cuda, which, D_):
     _kernels.reset_counts()
     out = block_sparse_attention_kv(q, k, v, meta, rt.aux, **kw)
     assert _kernels.LAUNCHES["block_sparse_attn"] == 1 and _kernels.PLAIN_CALLS["block_sparse_attn"] == 0
+    assert _kernels.KIND_LAUNCHES == {f"block_sparse_attn[{spec.kind}]": 1}
     ref = block_sparse_attention_kv_plain(q, k, v, meta, rt.aux, **kw)
     torch.cuda.synchronize()
     S = lay.seq_len
@@ -266,6 +271,7 @@ def test_attention_kernel_cog_matches_plain(cuda, which, D_):
     _kernels.reset_counts()
     out = block_sparse_attention_kv(q, k, v, meta, rt.aux, **kw)
     assert _kernels.LAUNCHES["block_sparse_attn"] == 1 and _kernels.PLAIN_CALLS["block_sparse_attn"] == 0
+    assert _kernels.KIND_LAUNCHES == {f"block_sparse_attn[{spec.kind}]": 1}
     ref = block_sparse_attention_kv_plain(q, k, v, meta, rt.aux, **kw)
     torch.cuda.synchronize()
     S = lay.seq_len
