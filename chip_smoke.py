@@ -8,14 +8,19 @@ Phases, each printed on its own line; any failure raises and the exit code
 is non-zero:
   1. device  - needs torch.cuda; prints torch/CUDA versions, the card, its
                capability and `nvidia-smi` name and power limit.
-  2. build   - compiles sparse_videogen_tpu_torch/csrc/*.cu with nvcc (sm_90a).
+  2. build   - compiles sparse_videogen_tpu_torch/csrc/*.cu with nvcc (sm_90a)
+               and prints ptxas' registers, spills and shared memory of
+               every K1 (bsa_kernel<D, KIND>) and K3 (runs_kernel<D>)
+               instance; a K1 instance that spills fails the phase.
   3. kernels - each Hopper kernel against its plain PyTorch version at the
                slices' shapes (bf16), with the tolerance stated, and both
                timed with CUDA events: RoPE, the chunked-CSR attention (dense
                and SVG1 metadata), the run-list attention on the run lists of
                SAP's own front half at 480p (mask none, and band_sink for its
-               MaskSpec path) and one full-width layer of SAP at full density
-               against the dense kernel; k-means at the 480p SAP shape (12
+               MaskSpec path, each beside F.scaled_dot_product_attention
+               with the run lists, and the predicate, as an attn_mask) and
+               one full-width layer of SAP at full density against the
+               dense kernel; k-means at the 480p SAP shape (12
                heads, 32,760 tokens, K = 50 and 200) and at Wan 2.1 14B 720p's
                (40 heads, 75,600 tokens, K = 300 and 1000) and the five probe
                variants (K = 300 and 125), each twice for the same bits; then
@@ -179,9 +184,22 @@ def phase_build():
     _kernels.lib()
     log("build", f"{os.path.relpath(path, ROOT)}: built and loaded in {time.perf_counter() - t0:.2f} s")
     with open(os.path.join(os.path.dirname(path), "ptxas.log")) as f:
-        for line in f:
-            if "Compiling entry" in line or "registers" in line or "spill" in line:
-                log("build", "ptxas: " + line.strip())
+        text = f.read()
+    for line in text.splitlines():
+        if "Compiling entry" in line or "registers" in line or "spill" in line or "setmaxnreg" in line:
+            log("build", "ptxas: " + line.strip())
+    # the attention kernels' instances: K1 (bsa_kernel<D, KIND>, its dynamic
+    # shared memory from the library) must not spill; K3 (runs_kernel<D>)
+    rows = _kernels.ptxas_report(text)
+    for r in rows:
+        dyn = _kernels.lib().svt_block_sparse_attn_smem(r["D"]) if r["kernel"] == "bsa_kernel" else None
+        log("build", f"{r['kernel']}<D={r['D']}" + (f", kind {r['kind']}" if r["kind"] else "") + f">: "
+                     f"{r['registers']} registers, spill stores {r['spill_stores']} B, spill loads "
+                     f"{r['spill_loads']} B, static smem {r['static_smem']} B"
+                     + (f", dynamic smem {dyn} B" if dyn is not None else ""))
+    bsa = [r for r in rows if r["kernel"] == "bsa_kernel"]
+    if len(bsa) != 6 or any(r["spill_stores"] or r["spill_loads"] for r in bsa):
+        raise AssertionError(f"K1 instances: expected 6 (D 64/128 x 3 kinds) without spills, got {bsa}")
 
 
 def slice_layout(preset="1.3B-480p"):
@@ -515,6 +533,55 @@ def _band_sink_run_pairs(meta, pos, block_q, spec) -> int:
     return total
 
 
+def runs_masked_sdpa(name, spec, metas, pos, block_q, checked, kernel_out):
+    """The library yardstick of K3 (mask none) and K4 (band_sink): one
+    F.scaled_dot_product_attention call on the checked heads' permuted q, k,
+    v with a bf16 attn_mask per head, 0 where the run lists (metas, (h, nQ,
+    L)) visit a column and, for band_sink, the predicate allows it at the
+    padded q and permuted k positions (as the kernel evaluates it), -inf
+    elsewhere. Its output is held to the kernel's on the real q rows (pos,
+    (h, n) padded positions) that see a column. Returns its time (ms)."""
+    from sparse_videogen_tpu_torch.ops.mask_spec import apply_mask_spec
+
+    qs, ks, vs = checked
+    h, Sq, Skv = qs.shape[0], qs.shape[1], ks.shape[1]
+    m = metas.long()
+    diff = torch.zeros(h, m.shape[1], Skv + 1, device=qs.device)
+    diff.scatter_add_(2, m[..., 1::2], torch.ones_like(m[..., 1::2], dtype=diff.dtype))
+    diff.scatter_add_(2, m[..., 2::2], -torch.ones_like(m[..., 2::2], dtype=diff.dtype))
+    visited = diff.cumsum(-1)[..., :Skv] > 0  # (h, nQ, Skv)
+    del diff
+    bias = torch.zeros(1, h, Sq, Skv, dtype=qs.dtype, device=qs.device)
+    sees = torch.zeros(h, Sq, dtype=torch.bool, device=qs.device)
+    k = torch.arange(Skv, device=qs.device)[None, :]
+    for r0 in range(0, Sq, 2048):
+        q = torch.arange(r0, min(Sq, r0 + 2048), device=qs.device)[:, None]
+        ok = visited[:, q[:, 0] // block_q]
+        pred = apply_mask_spec(spec, q, k, None)
+        if pred is not None:
+            ok &= pred[None]
+        bias[0, :, r0:r0 + q.shape[0]].masked_fill_(~ok, float("-inf"))
+        sees[:, r0:r0 + q.shape[0]] = ok.any(-1)
+    del visited
+    rows = torch.zeros(h, Sq, dtype=torch.bool, device=qs.device).scatter_(1, pos.long(), True) & sees
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(qs[None], ks[None], vs[None], attn_mask=bias)[0]
+
+    max_abs, mean_rel = err_stats(sdpa()[rows], kernel_out[rows])
+    ms = cuda_ms(sdpa)
+    log("kernels", f"runs attention {name}: F.scaled_dot_product_attention with the run lists"
+                   f"{' and the band_sink predicate' if pred is not None else ''} as a ({h}, {Sq}, {Skv}) "
+                   f"attn_mask on the checked heads: {ms:.3f} ms; its output vs the kernel's on the {int(rows.sum())} "
+                   f"real q rows that see a column: max_abs_err {max_abs:.3e} (tol {SDPA_TOL_ABS}), mean_rel_err "
+                   f"{mean_rel:.3e} (tol {ATTN_TOL_REL})")
+    if not (max_abs <= SDPA_TOL_ABS and mean_rel <= ATTN_TOL_REL):
+        raise AssertionError(f"masked SDPA (the {name} yardstick) disagrees with the run-list kernel")
+    del bias
+    torch.cuda.empty_cache()
+    return ms
+
+
 def phase_sap_attention(dev, preset="1.3B-480p", all_checks=True):
     """The run-list kernel on the inputs SAP's own front half builds (k-means,
     dynamic map, relabel, permutations, run lists) from random full-width
@@ -584,6 +651,8 @@ def phase_sap_attention(dev, preset="1.3B-480p", all_checks=True):
                        f"({4 * D * sub_pairs / (ms * 1e-3) / 1e12:.1f} TFLOP/s on the visited pairs), plain "
                        f"{plain_ms:.3f} ms (one run); all H={H}: kernel {ms_all:.3f} ms "
                        f"({4 * D * pairs / (ms_all * 1e-3) / 1e12:.1f} TFLOP/s)")
+        lib_ms = runs_masked_sdpa(f"{spec.kind} ({preset})", spec, metas, a.pos.index_select(0, heads), sap.block_q,
+                                  (qs, ks, vs), out.index_select(0, heads)) if all_checks else None
         if spec.kind == "band_sink":
             # K4: the pairs the band_sink predicate allows inside the run lists, real q rows only
             k4_pairs = _band_sink_run_pairs(metas, a.pos.index_select(0, heads), sap.block_q, spec)
@@ -592,6 +661,7 @@ def phase_sap_attention(dev, preset="1.3B-480p", all_checks=True):
                            f"{k4_pairs} pairs allowed by the predicate inside the run lists "
                            f"({k4_pairs / len(heads) / S / S:.4f} of S x S a head, real q rows only); bound "
                            f"{b['bound_ms']:.3f} ms ({b['bound_by']})")
+            entry.update(band_sink_ms=ms, band_sink_bound_ms=b["bound_ms"], band_sink_library_ms=lib_ms)
         if spec.kind == "none":
             # the work this data needs: the real q tokens of each block times its runs' tokens
             rows = torch.zeros(H, n_q, device=dev).scatter_add_(1, (a.pos // sap.block_q).long(),
@@ -602,7 +672,7 @@ def phase_sap_attention(dev, preset="1.3B-480p", all_checks=True):
             entry = {"name": "block_sparse_attn_runs", "route": "cuda",
                      "source": "sparse_videogen_tpu_torch/csrc/runs_attn.cu",
                      "replaces": "sparse_videogen_tpu/ops/attention.py:720", "max_abs_err": max_abs,
-                     "ms": ms, "plain_ms": plain_ms, **b, "library_ms": None}
+                     "ms": ms, "plain_ms": plain_ms, **b, "library_ms": lib_ms}
         del out, ref
     if all_checks:
         # every cluster pair selected: SAP must reproduce dense attention

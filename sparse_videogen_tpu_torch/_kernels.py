@@ -25,6 +25,7 @@ import collections
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 
@@ -47,10 +48,12 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    # q, k, v, o, meta, aux, BH, Sq, Skv, D, R, nQ, L, block_q,
+    # q, k, v, o, meta, aux, order, BH, Sq, Skv, D, R, nQ, L, block_q,
     # mask_kind, band_width, sink_size, video_len, q_scale, stream
-    "svt_block_sparse_attn": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+    "svt_block_sparse_attn": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                               _I, _I, _I, _I, _F, _P],
+    # D -> dynamic shared memory of one chunked-CSR attention CTA (bytes)
+    "svt_block_sparse_attn_smem": [_I],
     # x, cos, sin, out, BH, S, D, stream
     "svt_rope": [_P, _P, _P, _P, _I, _I, _I, _P],
     # q, k, v, o, meta, aux, BH, Sq, Skv, D, R, nQ, L, block_q, block_kv,
@@ -127,6 +130,36 @@ def build() -> str:
         f.write("".join(logs))
     os.replace(tmp, lib)  # atomic: concurrent processes never load a half-written file
     return lib
+
+
+_ENTRY = re.compile(r"Compiling entry function '([^']+)'")
+_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+_USED = re.compile(r"Used (\d+) registers")
+_SMEM = re.compile(r"(\d+) bytes smem")
+_ATTN = re.compile(r"(bsa_kernel|runs_kernel)ILi(\d+)E(?:Li(\d+)E)?")
+
+
+def ptxas_report(log: str) -> list[dict]:
+    """The attention kernels' entries in nvcc's -Xptxas -v output: one dict
+    {kernel, D, kind, registers, spill_stores, spill_loads, static_smem} for
+    each bsa_kernel<D, KIND> (K1) and runs_kernel<D> (K3) instance."""
+    rows, cur = [], None
+    for line in log.splitlines():
+        if (e := _ENTRY.search(line)) is not None:
+            a = _ATTN.search(e.group(1))
+            cur = None if a is None else {"kernel": a.group(1), "D": int(a.group(2)),
+                                          "kind": None if a.group(3) is None else int(a.group(3)),
+                                          "registers": None, "spill_stores": None, "spill_loads": None,
+                                          "static_smem": 0}
+            if cur is not None:
+                rows.append(cur)
+        elif cur is not None and (s := _SPILL.search(line)) is not None:
+            cur["spill_stores"], cur["spill_loads"] = int(s.group(1)), int(s.group(2))
+        elif cur is not None and (u := _USED.search(line)) is not None:
+            cur["registers"] = int(u.group(1))
+            if (sm := _SMEM.search(line)) is not None:
+                cur["static_smem"] = int(sm.group(1))
+    return rows
 
 
 def lib() -> ctypes.CDLL:

@@ -1,10 +1,12 @@
-// The per-chunk body of the block-sparse flash attention kernels, bf16, sm_90a.
+// The per-chunk body of the run-list flash attention kernel, bf16, sm_90a.
 //
-// Shared by csrc/block_sparse_attn.cu (chunked-CSR metadata: the chunk comes
-// from a CSR entry) and csrc/runs_attn.cu (run-list metadata: the chunk comes
-// from a walk over token runs). Both kernels give one CTA of 4 warps TQ = 64
-// q rows (16 per warp); the CTA loads its q tile once (load_q_frags), calls
-// attend_chunk for every chunk it visits, and writes its rows (store_rows).
+// It serves csrc/runs_attn.cu (K3/K4: the chunk comes from a walk over token
+// runs) alone; csrc/dense_qsplit.cu (K7) borrows its mma helpers. The
+// chunked-CSR kernel K1 (csrc/block_sparse_attn.cu) has its own TMA/wgmma
+// body and shares only the mask predicates (csrc/mask_pred.cuh). The kernel
+// gives one CTA of 4 warps TQ = 64 q rows (16 per warp); the CTA loads its
+// q tile once (load_q_frags), calls attend_chunk for every chunk it visits,
+// and writes its rows (store_rows).
 //
 // Numerics (the TPU kernels' own): q is pre-scaled by scale*log2(e) and
 // rounded to bf16; the online softmax runs in f32 in the exp2 domain; P is
@@ -23,6 +25,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "mask_pred.cuh"
 
 namespace {
 
@@ -98,37 +102,6 @@ __device__ __forceinline__ void load_q_frags(FlashRows<D>& st, const bf16* qb, b
   for (int dt = 0; dt < D / 8; ++dt) st.acc[dt][0] = st.acc[dt][1] = st.acc[dt][2] = st.acc[dt][3] = 0.f;
   st.m_i[0] = st.m_i[1] = NEG_INF;
   st.l_i[0] = st.l_i[1] = 0.f;
-}
-
-// The token-level mask predicates (ops/mask_spec.py apply_mask_spec) at
-// global positions (q, k), strict band |q - k| < band_width. text_end is
-// aux[0], the end of the live text tokens:
-//   KIND_BAND_SINK: band | k < sink_size
-//   KIND_HYVIDEO (text last; text_end = video_len + prompt_length):
-//     (q < text_end & k < text_end & (band | k in [video_len, text_end) | q in [video_len, text_end)))
-//     | (q >= text_end & k >= text_end)
-//   KIND_COG (text first; text_end = prompt_length): band | k < text_end | q < text_end
-// Kind none never calls it (it runs the band_sink instance without the
-// predicate). The kind is a template parameter so that the band_sink
-// kernels carry no registers for the text kinds' scalars.
-constexpr int KIND_BAND_SINK = 1;
-constexpr int KIND_HYVIDEO = 2;
-constexpr int KIND_COG = 3;
-
-struct MaskArgs {
-  int band_width, sink_size, video_len, text_end;
-};
-
-template <int KIND>
-__device__ __forceinline__ bool mask_allows(const MaskArgs& mk, int qp, int kp) {
-  const int d = qp - kp;
-  const bool band = d < mk.band_width && d > -mk.band_width;
-  if (KIND == KIND_BAND_SINK) return band || kp < mk.sink_size;
-  if (KIND == KIND_COG) return band || kp < mk.text_end || qp < mk.text_end;
-  const bool q_real = qp < mk.text_end, k_real = kp < mk.text_end;
-  const bool text_col = kp >= mk.video_len && k_real;
-  const bool text_row = qp >= mk.video_len && q_real;
-  return (q_real && k_real && (band || text_col || text_row)) || (!q_real && !k_real);
 }
 
 // Attend this warp's rows to the live columns [lo, hi) of the chunk whose
@@ -244,7 +217,7 @@ __device__ __forceinline__ void store_rows(const FlashRows<D>& st, bf16* orow0, 
   }
 }
 
-// dynamic shared memory of both attention kernels: a q tile and one K and one
+// dynamic shared memory of the run-list kernel: a q tile and one K and one
 // V sub-tile, rows padded to D + 8
 template <int D>
 constexpr int flash_smem_bytes() {

@@ -1,11 +1,14 @@
 """Block-sparse flash attention (counterpart of sparse_videogen_tpu/ops/attention.py).
 
-Two metadata formats, one kernel each, sharing one CTA body
-(csrc/flash_chunk.cuh):
+Two metadata formats, one kernel each, sharing the mask predicates
+(csrc/mask_pred.cuh):
 - chunked CSR (`block_sparse_attention_kv`, csrc/block_sparse_attn.cu):
-  dense and SVG1 attention; only the metadata and the MaskSpec differ;
-- run lists (`block_sparse_attention_runs`, csrc/runs_attn.cu): SAP's
-  attention over unpadded cluster-sorted K/V (ops/metadata.py run_meta).
+  dense and SVG1 attention; only the metadata and the MaskSpec differ. A
+  CTA takes 128 q rows (TMA ring, wgmma, warp-specialised) and the grid
+  runs the (head, q tile) items heaviest first (`work_order`);
+- run lists (`block_sparse_attention_runs`, csrc/runs_attn.cu, CTA body
+  csrc/flash_chunk.cuh): SAP's attention over unpadded cluster-sorted K/V
+  (ops/metadata.py run_meta).
 K and V arrive as separate (BH, Skv, D) tensors; the TPU's packed [K|V]
 layout and its scheduling knobs (nbuf, unroll, qsplit, pair, expand,
 fast_mask, mxu_lsum) have no counterpart here.
@@ -27,9 +30,10 @@ from sparse_videogen_tpu_torch.ops.metadata import ENTRY_SCALE, N_CHEAP_SCALE, S
 
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 LOG2E = 1.4426950408889634
-TQ = 64  # q rows per CTA of the kernel; divides every block_q it accepts
+BQ = 128  # q rows per CTA of the chunked-CSR kernel; divides every block_q it accepts
+TQ = 64  # the same for the run-list kernel
 # mask kinds each Hopper kernel evaluates, as the kernels number them
-# (csrc/flash_chunk.cuh: KIND_BAND_SINK, KIND_HYVIDEO, KIND_COG; 0 runs no predicate)
+# (csrc/mask_pred.cuh: KIND_BAND_SINK, KIND_HYVIDEO, KIND_COG; 0 runs no predicate)
 _KERNEL_MASKS = {"none": 0, "band_sink": 1, "hyvideo": 2, "cog": 3}
 _RUNS_KERNEL_MASKS = ("none", "band_sink")
 
@@ -46,16 +50,18 @@ def _check(q, k, v, meta, block_q, block_kv, *, packed_windows=True):
         raise ValueError(f"meta {tuple(meta.shape)} for BH={BH}, nQ={Sq // block_q}")
 
 
-def _check_kernel_args(q, k, v, meta, aux, mask_spec, block_q, kinds=tuple(_KERNEL_MASKS)):
+def _check_kernel_args(q, k, v, meta, aux, mask_spec, block_q, kinds=tuple(_KERNEL_MASKS), rows_per_cta=BQ):
     """What the Hopper kernels take; returns aux on the device."""
     D = q.shape[2]
     if mask_spec.kind not in kinds:
         raise NotImplementedError(f"mask kind {mask_spec.kind!r} has no Hopper kernel yet (ROADMAP.md)")
-    if D not in (64, 128) or block_q % TQ:
-        raise ValueError(f"kernel takes D in (64, 128) and block_q % {TQ} == 0; got D={D}, block_q={block_q}")
+    if D not in (64, 128) or block_q % rows_per_cta:
+        raise ValueError(f"kernel takes D in (64, 128) and block_q % {rows_per_cta} == 0; got D={D}, "
+                         f"block_q={block_q}")
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.dtype != torch.bfloat16 or not t.is_contiguous() or t.device != q.device:
-            raise ValueError(f"{name}: need contiguous bf16 on {q.device}, got {t.dtype} on {t.device}")
+        if t.dtype != torch.bfloat16 or not t.is_contiguous() or t.device != q.device or t.data_ptr() % 16:
+            raise ValueError(f"{name}: need contiguous 16-byte aligned bf16 on {q.device}, got {t.dtype} on "
+                             f"{t.device}")
     aux = torch.zeros(4, dtype=torch.int32, device=q.device) if aux is None else aux
     for name, t in (("meta", meta), ("aux", aux)):
         if t.dtype != torch.int32 or not t.is_contiguous() or t.device != q.device:
@@ -120,15 +126,46 @@ def block_sparse_attention_kv_plain(q, k, v, meta, aux=None, *, block_q: int, bl
     return out
 
 
+def work_order(meta, n_heads: int, seq_q: int, block_q: int):
+    """The chunked-CSR kernel's work items (head h, 128-row q tile t), item
+    h * (seq_q // BQ) + t, heaviest first: returns (order, weight), order
+    an int32 permutation of the items by descending weight (ties in item
+    order), weight (items,) int64 the tokens each item's metadata row
+    visits (the sum of its chunks' hi - lo). Plain tensor ops on meta's
+    device: no copy to the host."""
+    if block_q % BQ or seq_q % block_q or meta.shape[1] != seq_q // block_q or meta.shape[0] not in (1, n_heads):
+        raise ValueError(f"meta {tuple(meta.shape)} for {n_heads} heads, seq_q {seq_q}, block_q {block_q}")
+    m = meta.long()
+    cap = (m.shape[2] - 1) // 2
+    win = m[..., 2:2 + 2 * cap:2]
+    live = torch.arange(cap, device=m.device) < (m[..., :1] % N_CHEAP_SCALE)
+    per_block = ((win % ENTRY_SCALE - win // ENTRY_SCALE) * live).sum(-1)  # (R, nQ)
+    tiles = torch.arange(seq_q // BQ, device=m.device) * BQ // block_q
+    weight = per_block[:, tiles].expand(n_heads, -1).reshape(-1)
+    order = torch.sort(-weight, stable=True).indices.to(torch.int32)
+    return order, weight
+
+
+def _cached_order(meta, n_heads: int, seq_q: int, block_q: int):
+    """work_order, built once per metadata tensor (and rebuilt if it is
+    written in place): the runtimes hold theirs for the whole run."""
+    key = (meta._version, n_heads, seq_q, block_q)
+    cached = getattr(meta, "_svt_work_order", None)
+    if cached is None or cached[0] != key:
+        cached = (key, work_order(meta, n_heads, seq_q, block_q)[0])
+        meta._svt_work_order = cached
+    return cached[1]
+
+
 def block_sparse_attention_kv(q, k, v, meta, aux=None, *, block_q: int = 512, block_kv: int = 512,
                               mask_spec: MaskSpec = MaskSpec(), scale: float | None = None):
     """q (BH, Sq, D) with Sq % block_q == 0; k, v (BH, Skv, D) with
     Skv % 128 == 0; meta (R, Sq // block_q, 1 + 2*cap) int32, R in {1, BH};
     aux (4,) int32 or None. Returns (BH, Sq, D) in q's dtype.
 
-    CUDA tensors launch the Hopper kernel (bf16, D in {64, 128}, mask kinds
-    none/band_sink/hyvideo/cog) and raise on anything else; CPU tensors run the
-    plain version."""
+    CUDA tensors launch the Hopper kernel (bf16, D in {64, 128}, block_q %
+    128 == 0, mask kinds none/band_sink/hyvideo/cog) and raise on anything
+    else; CPU tensors run the plain version."""
     if q.device.type == "cpu":
         return block_sparse_attention_kv_plain(q, k, v, meta, aux, block_q=block_q, block_kv=block_kv,
                                                mask_spec=mask_spec, scale=scale)
@@ -137,10 +174,11 @@ def block_sparse_attention_kv(q, k, v, meta, aux=None, *, block_q: int = 512, bl
     _check(q, k, v, meta, block_q, block_kv)
     BH, Sq, D = q.shape
     aux = _check_kernel_args(q, k, v, meta, aux, mask_spec, block_q)
+    order = _cached_order(meta, BH, Sq, block_q)
     scale = 1.0 / math.sqrt(D) if scale is None else scale
     out = torch.empty_like(q)
     err = _kernels.lib().svt_block_sparse_attn(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), meta.data_ptr(), aux.data_ptr(),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), meta.data_ptr(), aux.data_ptr(), order.data_ptr(),
         BH, Sq, k.shape[1], D, meta.shape[0], meta.shape[1], meta.shape[2], block_q,
         _KERNEL_MASKS[mask_spec.kind], mask_spec.band_width, mask_spec.sink_size, mask_spec.video_len,
         scale * LOG2E, torch.cuda.current_stream(q.device).cuda_stream,
@@ -223,7 +261,7 @@ def block_sparse_attention_runs(q, k, v, meta, aux=None, *, block_q: int, block_
         raise ValueError(f"unsupported device {q.device}")
     _check(q, k, v, meta, block_q, block_kv, packed_windows=False)
     BH, Sq, D = q.shape
-    aux = _check_kernel_args(q, k, v, meta, aux, mask_spec, block_q, _RUNS_KERNEL_MASKS)
+    aux = _check_kernel_args(q, k, v, meta, aux, mask_spec, block_q, _RUNS_KERNEL_MASKS, TQ)
     scale = 1.0 / math.sqrt(D) if scale is None else scale
     out = torch.empty_like(q)
     err = _kernels.lib().svt_block_sparse_attn_runs(

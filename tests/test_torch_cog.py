@@ -279,6 +279,77 @@ def test_generate_latents_matches_jax(params, model, pattern):
     assert err <= 1e-4
 
 
+CFG_V1 = dict(CFG_KW, ofs_embed=False)
+
+
+def test_generate_latents_v1_dynamic_cfg_matches_jax():
+    """CogVideoX v1.0 (no ofs embedding) with dynamic CFG, the case no other
+    test holds: 3 DDIM steps over the CFG pair (step 0 a dense warm-up, layer
+    0 dense), dense and SVG1 from the same f32 weights, JAX's noise and
+    profiler rows. f32: rel L2 error <= 1e-4 (as the v1.5 slice; measured
+    3.6e-6)."""
+    jcfg, tcfg = JCM.CogConfig(**CFG_V1), TCM.CogConfig(**CFG_V1)
+    tree = JCM.init_cog_params(jax.random.PRNGKey(4), jcfg, dtype=jnp.float32)
+    rng = np.random.default_rng(4)
+    params = jax.tree.map(lambda a: (np.asarray(a) + 0.05 * rng.standard_normal(a.shape)).astype(np.float32), tree)
+    model = cog_params_from_numpy(params, tcfg)
+    assert not any(k.startswith("ofs_emb") for k in model.state_dict())
+    steps, seed = 3, 1
+    ctx, ctx_null = (rng.standard_normal((1, jcfg.text_len, jcfg.text_dim)).astype(np.float32) for _ in range(2))
+    img = rng.standard_normal((1, 16, 1, H_LAT, W_LAT)).astype(np.float32)
+    key, nkey = jax.random.split(jax.random.PRNGKey(seed))
+    lat0 = np.array(jax.random.normal(nkey, (1, 16, 6, H_LAT, W_LAT), jnp.float32))
+    seq = 3 * (H_LAT // 2) * (W_LAT // 2) + jcfg.text_len
+    rows = [layer_rows(jax.random.fold_in(key, i), tcfg.num_layers, seq) for i in range(steps)]
+    f = torch.from_numpy
+    for pattern in ("dense", "SVG"):
+        kw = dict(height=8 * H_LAT, width=8 * W_LAT, num_frames=NUM_FRAMES, num_inference_steps=steps,
+                  guidance_scale=6.0, pattern=pattern, first_layers_fp=0.5, first_times_fp=0.34)
+        ref = JPC.CogPipeline(jcfg, params, dtype=jnp.float32).generate_latents(
+            jnp.asarray(ctx), jnp.asarray(ctx_null), jnp.asarray(img), seed=seed, svg=JC.SVGConfig(**SVG_KW),
+            use_dynamic_cfg=True, **kw)
+        ours = TPC.CogPipeline(model)._denoise(f(ctx), f(ctx_null), f(img), f(lat0), svg=TC.SVGConfig(**SVG_KW),
+                                               use_dynamic_cfg=True, profile_rows=rows, **kw)
+        assert ours.shape == (1, 16, 5, H_LAT, W_LAT) and np.isfinite(ours.numpy()).all()
+        err = np.linalg.norm(ours.numpy() - np.asarray(ref)) / np.linalg.norm(np.asarray(ref))
+        assert err <= 1e-4
+
+
+def test_generate_latents_bf16_step_matches_jax(params, model):
+    """One DDIM step of the bf16 pipeline (the card's working type), SVG1
+    over the CFG pair with no warm-up, the same bf16 weights on both sides
+    (JAX's bf16 layout: the norms and the time path f32), JAX's noise and
+    profiler rows. bf16 keeps 8 bits and the two frameworks round at other
+    places (each matmul's sums, where an elementwise result is cast), over 2
+    layers, and CFG at 6.0 multiplies the cond - uncond difference: the
+    step's update (latents - noise) within rel L2 1e-1 of JAX's (measured
+    3.7e-2; 5.9e-3 at guidance 1.0)."""
+    kw = dict(height=8 * H_LAT, width=8 * W_LAT, num_frames=NUM_FRAMES, num_inference_steps=1,
+              guidance_scale=6.0, pattern="SVG", first_layers_fp=0.0, first_times_fp=0.0)
+    rng = np.random.default_rng(7)
+    ctx, ctx_null = (rng.standard_normal((1, JCFG.text_len, JCFG.text_dim)).astype(np.float32) for _ in range(2))
+    img = rng.standard_normal((1, 16, 1, H_LAT, W_LAT)).astype(np.float32)
+    layout = JCM.init_cog_params(jax.random.PRNGKey(0), JCFG, dtype=jnp.bfloat16)
+    jparams = jax.tree.map(lambda a, ref: np.asarray(a).astype(ref.dtype), params, layout)
+    ref = JPC.CogPipeline(JCFG, jparams, dtype=jnp.bfloat16).generate_latents(
+        jnp.asarray(ctx), jnp.asarray(ctx_null), jnp.asarray(img), seed=0, svg=JC.SVGConfig(**SVG_KW), **kw)
+    key, nkey = jax.random.split(jax.random.PRNGKey(0))
+    lat0 = np.array(jax.random.normal(nkey, (1, 16, 6, H_LAT, W_LAT), jnp.float32))
+    seq = 3 * (H_LAT // 2) * (W_LAT // 2) + JCFG.text_len
+    bf = TCM.CogModel(TCFG, dtype=torch.bfloat16)
+    bf.load_state_dict(model.state_dict())
+    f = torch.from_numpy
+    ours = TPC.CogPipeline(bf)._denoise(f(ctx), f(ctx_null), f(img), f(lat0), svg=TC.SVGConfig(**SVG_KW),
+                                        use_dynamic_cfg=False,
+                                        profile_rows=[layer_rows(jax.random.fold_in(key, 0), TCFG.num_layers, seq)],
+                                        **kw)
+    ours, ref = ours.float().numpy(), np.asarray(ref, np.float32)
+    lat0 = lat0[:, :, 1:]  # the front padding frame is dropped
+    err = np.linalg.norm((ours - lat0) - (ref - lat0)) / np.linalg.norm(ref - lat0)
+    assert np.isfinite(ours).all()
+    assert err <= 1e-1
+
+
 @pytest.mark.parametrize("extra", [[], ["--version", "v1", "--pattern", "dense"], ["--image_path", "npy"]],
                          ids=["svg", "v1_dense", "image_npy"])
 def test_cli_smoke_cpu(tmp_path, extra):

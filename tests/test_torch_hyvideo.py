@@ -265,6 +265,38 @@ def test_generate_latents_matches_jax(params, model, pattern):
     assert err <= 1e-4
 
 
+def test_generate_latents_bf16_step_matches_jax(params, model):
+    """One Euler step of the bf16 pipeline (the card's working type), SVG1
+    with no warm-up, embedded guidance, the same bf16 weights on both sides
+    (JAX's bf16 layout: norms and the time path f32), JAX's noise and
+    profiler rows. bf16 keeps 8 bits and the two frameworks round at other
+    places (each matmul's sums, where an elementwise result is cast), over 4
+    blocks: the step's update (latents - noise) within rel L2 5e-2 of JAX's
+    (measured 1.0e-2)."""
+    kw = dict(height=8 * H_LAT, width=8 * W_LAT, num_frames=NUM_FRAMES, num_inference_steps=1,
+              embedded_guidance_scale=6.0, flow_shift=7.0, pattern="SVG", first_layers_fp=0.0, first_times_fp=0.0)
+    text, mask, pooled = _text(np.random.default_rng(6))
+    layout = JHM.init_hyvideo_params(jax.random.PRNGKey(0), JCFG, dtype=jnp.bfloat16)
+    jparams = jax.tree.map(lambda a, ref: np.asarray(a).astype(ref.dtype), params, layout)
+    ref = JPH.HyVideoPipeline(JCFG, jparams, dtype=jnp.bfloat16).generate_latents(
+        jnp.asarray(text), jnp.asarray(mask), jnp.asarray(pooled), prompt_length=PROMPT, seed=0,
+        svg=JC.SVGConfig(**SVG_KW), **kw)
+    key, nkey = jax.random.split(jax.random.PRNGKey(0))
+    lat0 = np.array(jax.random.normal(nkey, (1, 16, 3, H_LAT, W_LAT), jnp.float32))
+    seq = 3 * (H_LAT // 2) * (W_LAT // 2) + JCFG.text_len
+    bf = THM.HyVideoModel(TCFG, dtype=torch.bfloat16)
+    bf.load_state_dict(model.state_dict())
+    f = torch.from_numpy
+    ours = TPH.HyVideoPipeline(bf)._denoise(f(text), f(mask), f(pooled), f(lat0), prompt_length=PROMPT,
+                                            svg=TC.SVGConfig(**SVG_KW),
+                                            profile_rows=[layer_rows(jax.random.fold_in(key, 0), TCFG.num_layers, seq)],
+                                            **kw)
+    ours, ref = ours.float().numpy(), np.asarray(ref, np.float32)
+    err = np.linalg.norm((ours - lat0) - (ref - lat0)) / np.linalg.norm(ref - lat0)
+    assert np.isfinite(ours).all()
+    assert err <= 5e-2
+
+
 def test_cli_smoke_cpu(tmp_path):
     out = tmp_path / "lat.npz"
     TCLI.main(["--smoke", "--pattern", "SVG", "--device", "cpu", "--num_inference_steps", "2",

@@ -19,6 +19,7 @@ from sparse_videogen_tpu_torch.ops.attention import (
     block_sparse_attention_kv_plain,
     block_sparse_attention_runs,
     block_sparse_attention_runs_plain,
+    work_order,
 )
 from sparse_videogen_tpu_torch.ops.kmeans import (
     VARIANTS,
@@ -54,6 +55,66 @@ def test_cpu_tensor_runs_plain_and_bad_shapes_raise():
         block_sparse_attention_kv(q[:, :200], kv, kv, meta, block_q=128, block_kv=128)
     with pytest.raises(ValueError):  # metadata rows do not match the q blocks
         block_sparse_attention_kv(q, kv, kv, meta[:, :1], block_q=128, block_kv=128)
+
+
+@pytest.mark.parametrize("R", [1, 3])
+def test_work_order_is_heaviest_first_permutation(R):
+    """K1's work items (head, 128-row q tile), item h * (Sq // 128) + t:
+    work_order returns a permutation of all of them by descending weight,
+    ties in item order, and each weight is the tokens its metadata row
+    visits (decode_meta's live columns)."""
+    rng = np.random.default_rng(R)
+    BH, S, sq, skv, bq, bkv = 3, 1000, 1024, 1024, 256, 512
+    mask = rng.random((R, sq // bq, skv // MD.SUB)) < 0.5
+    mask[0, 1] = False
+    meta = MD.chunk_meta_np(mask, np.repeat(MD.kv_counts_for_seq(S, skv), R, axis=0), block_kv=bkv)
+    order, weight = work_order(torch.as_tensor(meta), BH, sq, bq)
+    assert order.dtype == torch.int32 and sorted(order.tolist()) == list(range(BH * sq // 128))
+    tokens = MD.decode_meta(meta, block_kv=bkv, seq_kv=skv).sum(-1)  # (R, nQ)
+    h, t = np.divmod(np.arange(BH * sq // 128), sq // 128)
+    assert weight.tolist() == tokens[0 if R == 1 else h, t * 128 // bq].tolist()
+    w = weight[order.long()]
+    assert bool((w[:-1] >= w[1:]).all())
+    ties = (w[:-1] == w[1:])
+    assert bool((order[:-1][ties] < order[1:][ties]).all())
+    empty = weight.reshape(BH, -1)[:, 2:4] if R == 1 else weight.reshape(BH, -1)[0, 2:4]  # q block 1 of row 0
+    assert not empty.any()
+
+
+def test_kernel_args_need_block_q_multiple_of_cta_rows():
+    """The chunked-CSR kernel takes 128 q rows a CTA: its check (and the
+    work-order builder) raise on block_q % 128 != 0; the run-list kernel
+    keeps 64."""
+    from sparse_videogen_tpu_torch.ops.attention import BQ, TQ, _check_kernel_args
+
+    q = torch.zeros(1, 384, 64, dtype=torch.bfloat16)
+    meta = torch.as_tensor(MD.dense_meta(384, 384, block_q=192, block_kv=128))
+    with pytest.raises(ValueError, match="block_q % 128"):
+        _check_kernel_args(q, q, q, meta, None, MaskSpec(), 192)
+    with pytest.raises(ValueError):
+        work_order(meta, 1, 384, 192)
+    assert BQ == 128 and TQ == 64
+    assert _check_kernel_args(q, q, q, meta, None, MaskSpec(), 192, ("none",), TQ).tolist() == [0, 0, 0, 0]
+    assert _check_kernel_args(q, q, q, meta, None, MaskSpec(), 128).tolist() == [0, 0, 0, 0]
+
+
+def test_ptxas_report_reads_the_attention_entries():
+    """chip_smoke's build phase reads registers and spills of every K1 and
+    K3 instance from nvcc's -Xptxas -v log."""
+    log = ("ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_110bsa_kernelILi64ELi3EEEvPKi' for 'sm_90a'\n"
+           "ptxas info    : Function properties for _ZN12_GLOBAL__N_110bsa_kernelILi64ELi3EEEvPKi\n"
+           "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+           "ptxas info    : Used 168 registers, used 1 barriers, 960 bytes cmem[0]\n"
+           "ptxas info    : Compiling entry function '_Z9rope_kernPKf' for 'sm_90a'\n"
+           "ptxas info    : Used 30 registers, 380 bytes cmem[0]\n"
+           "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_111runs_kernelILi128EEEvPKi' for 'sm_90a'\n"
+           "    0 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads\n"
+           "ptxas info    : Used 166 registers, 16 bytes smem, 400 bytes cmem[0]\n")
+    assert _kernels.ptxas_report(log) == [
+        {"kernel": "bsa_kernel", "D": 64, "kind": 3, "registers": 168, "spill_stores": 0, "spill_loads": 0,
+         "static_smem": 0},
+        {"kernel": "runs_kernel", "D": 128, "kind": None, "registers": 166, "spill_stores": 8, "spill_loads": 4,
+         "static_smem": 16}]
 
 
 def _run_list_case(rng, BH, C, S, Sq, bq, bkv):
@@ -215,6 +276,52 @@ def test_attention_kernel_matches_plain(cuda, spec, D_):
     torch.cuda.synchronize()
     torch.testing.assert_close(out[:, :S].float(), ref[:, :S].float(), atol=2e-2, rtol=0)
     assert torch.all(out[1, :bq] == 0)
+
+
+_EDGE_SPECS = {
+    "none": (MaskSpec(), [0, 0, 3, 1]),
+    "band_sink": (MaskSpec(kind="band_sink", band_width=300, sink_size=200), [0, 0, 3, 1]),
+    "hyvideo": (MaskSpec(kind="hyvideo", band_width=300, video_len=800), [900, 0, 0, 0]),
+    "cog": (MaskSpec(kind="cog", band_width=300), [50, 0, 0, 0]),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", list(_EDGE_SPECS))
+@pytest.mark.parametrize("D_", [64, 128])
+def test_attention_kernel_edges(cuda, kind, D_):
+    """K1's tile edges on the card, each kind at D = 64 and 128, per-head
+    metadata (R = BH = 2), bf16: head 0's first q block visits one chunk
+    clamped to the end of the array (lo = 256 > 0) whose window ends inside
+    a 128-token tile (hi = 488, the sequence tail at S = 1000); head 1's
+    third q block visits nothing and must output exactly 0; the rest is
+    random, cheap-first per the kind. Same tolerance as the other kinds:
+    atol 2e-2."""
+    spec, aux_l = _EDGE_SPECS[kind]
+    rng = np.random.default_rng(21)
+    S, sq, skv, bq, bkv = 1000, 1024, 1024, 256, 512
+    mask = rng.random((2, sq // bq, skv // MD.SUB)) < 0.6
+    mask[0, 0] = False
+    mask[0, 0, 6:] = True
+    mask[1, 2] = False
+    meta = MD.chunk_meta_np(mask, np.repeat(MD.kv_counts_for_seq(S, skv), 2, axis=0), block_kv=bkv)
+    aux = np.asarray(aux_l, np.int32)
+    meta = MD.classify_cheap_np(meta, spec, aux, block_q=bq, block_kv=bkv, seq_q=S)
+    assert meta[0, 0, 0] % MD.N_CHEAP_SCALE == 1 and meta[0, 0, 1] == 4 and meta[0, 0, 2] == MD.pack_window(256, 488)
+    t = lambda a: torch.as_tensor(a, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(D_)
+    q, k, v = (torch.randn(2, n, D_, generator=g, device=cuda).to(torch.bfloat16) for n in (sq, skv, skv))
+    kw = dict(block_q=bq, block_kv=bkv, mask_spec=spec)
+    _kernels.reset_counts()
+    out = block_sparse_attention_kv(q, k, v, t(meta), t(aux), **kw)
+    assert _kernels.LAUNCHES["block_sparse_attn"] == 1 and _kernels.KIND_LAUNCHES == {f"block_sparse_attn[{kind}]": 1}
+    ref = block_sparse_attention_kv_plain(q, k, v, t(meta), t(aux), **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out[:, :S].float(), ref[:, :S].float(), atol=2e-2, rtol=0)
+    assert torch.all(out[1, 2 * bq:3 * bq] == 0)
+    with pytest.raises(ValueError, match="block_q % 128"):  # a CUDA call the kernel cannot take raises
+        block_sparse_attention_kv(q, k, v, t(MD.dense_meta(sq, skv, block_q=64, block_kv=bkv)), t(aux),
+                                  block_q=64, block_kv=bkv, mask_spec=spec)
 
 
 @pytest.mark.gpu

@@ -138,6 +138,41 @@ def test_generate_latents_matches_jax(params, model, pattern):
     assert rel_err(ours.numpy(), ref) <= 1e-5
 
 
+def bf16_tree(tree, layout):
+    """tree's f32 values in the dtype of each leaf of `layout` (a JAX init in
+    bf16: linears bf16, the time path f32), rounded to nearest even as torch's
+    load_state_dict rounds them into a bf16 model."""
+    return jax.tree.map(lambda a, ref: np.asarray(a).astype(ref.dtype), tree, layout)
+
+
+def test_generate_latents_bf16_step_matches_jax(params):
+    """One UniPC step of the bf16 pipeline (the card's working type), SVG1
+    with batched CFG and no warm-up, the same bf16 weights on both sides,
+    JAX's noise and profiler rows. bf16 keeps 8 bits and the two frameworks
+    round at other places (each matmul's sums, where an elementwise result is
+    cast), over 2 blocks: the step's update (latents - noise) within rel L2
+    5e-2 of JAX's (measured 1.7e-2)."""
+    pattern = "SVG"
+    kw = dict(height=8 * H_LAT, width=8 * W_LAT, num_frames=NUM_FRAMES, num_inference_steps=1,
+              guidance_scale=5.0, flow_shift=3.0, pattern=pattern, first_layers_fp=0.0, first_times_fp=0.0)
+    rng = np.random.default_rng(5)
+    ctx, ctx_null = (rng.standard_normal((1, JCFG.text_len, JCFG.text_dim)).astype(np.float32) for _ in range(2))
+    jparams = bf16_tree(params, JWM.init_wan_params(jax.random.PRNGKey(0), JCFG, dtype=jnp.bfloat16))
+    ref = JPW.WanPipeline(JCFG, jparams, dtype=jnp.bfloat16).generate_latents(
+        jnp.asarray(ctx), jnp.asarray(ctx_null), seed=0, svg=JSVG, **kw)
+    key, nkey = jax.random.split(jax.random.PRNGKey(0))
+    lay = JPW.wan_layout(JCFG, kw["height"], kw["width"], NUM_FRAMES)
+    lat0 = np.array(jax.random.normal(nkey, (1, 16, lay.num_frames, H_LAT, W_LAT), jnp.float32))
+    model = TWM.WanModel(TCFG, dtype=torch.bfloat16, device="cpu")
+    model.load_state_dict(wan_params_from_numpy(params, TCFG))
+    ours = TPW.WanPipeline(model)._denoise(torch.from_numpy(ctx), torch.from_numpy(ctx_null), torch.from_numpy(lat0),
+                                           profile_rows=[layer_rows(jax.random.fold_in(key, 0), JCFG.num_layers,
+                                                                    lay.seq_len)], svg=SVG, **kw)
+    ours, ref = ours.float().numpy(), np.asarray(ref, np.float32)
+    assert np.isfinite(ours).all()
+    assert rel_err(ours - lat0, ref - lat0) <= 5e-2
+
+
 def test_cli_smoke_cpu(tmp_path):
     out = tmp_path / "lat.npz"
     TCLI.main(["--smoke", "--pattern", "SVG", "--device", "cpu", "--num_inference_steps", "2",
