@@ -10,8 +10,9 @@ is non-zero:
                capability and `nvidia-smi` name and power limit.
   2. build   - compiles sparse_videogen_tpu_torch/csrc/*.cu with nvcc (sm_90a)
                and prints ptxas' registers, spills and shared memory of
-               every K1 (bsa_kernel<D, KIND>) and K3 (runs_kernel<D>)
-               instance; a K1 instance that spills fails the phase.
+               every K1 (bsa_kernel<D, KIND>) and K3/K4 (runs_kernel<D>)
+               instance, both on the CTA body of csrc/hopper_attn.cuh; an
+               instance that is missing or spills fails the phase.
   3. kernels - each Hopper kernel against its plain PyTorch version at the
                slices' shapes (bf16), with the tolerance stated, and both
                timed with CUDA events: RoPE, the chunked-CSR attention (dense
@@ -20,7 +21,9 @@ is non-zero:
                MaskSpec path, each beside F.scaled_dot_product_attention
                with the run lists, and the predicate, as an attn_mask) and
                one full-width layer of SAP at full density against the
-               dense kernel; k-means at the 480p SAP shape (12
+               dense kernel, and the share of the loaded 128-token K/V
+               tile columns that the run lists keep live; k-means at the
+               480p SAP shape (12
                heads, 32,760 tokens, K = 50 and 200) and at Wan 2.1 14B 720p's
                (40 heads, 75,600 tokens, K = 300 and 1000) and the five probe
                variants (K = 300 and 125), each twice for the same bits; then
@@ -188,18 +191,19 @@ def phase_build():
     for line in text.splitlines():
         if "Compiling entry" in line or "registers" in line or "spill" in line or "setmaxnreg" in line:
             log("build", "ptxas: " + line.strip())
-    # the attention kernels' instances: K1 (bsa_kernel<D, KIND>, its dynamic
-    # shared memory from the library) must not spill; K3 (runs_kernel<D>)
+    # the attention kernels' instances, one CTA body (its dynamic shared
+    # memory from the library): K1 (bsa_kernel<D, KIND>) and K3/K4
+    # (runs_kernel<D>) must not spill
     rows = _kernels.ptxas_report(text)
     for r in rows:
-        dyn = _kernels.lib().svt_block_sparse_attn_smem(r["D"]) if r["kernel"] == "bsa_kernel" else None
         log("build", f"{r['kernel']}<D={r['D']}" + (f", kind {r['kind']}" if r["kind"] else "") + f">: "
                      f"{r['registers']} registers, spill stores {r['spill_stores']} B, spill loads "
-                     f"{r['spill_loads']} B, static smem {r['static_smem']} B"
-                     + (f", dynamic smem {dyn} B" if dyn is not None else ""))
-    bsa = [r for r in rows if r["kernel"] == "bsa_kernel"]
-    if len(bsa) != 6 or any(r["spill_stores"] or r["spill_loads"] for r in bsa):
-        raise AssertionError(f"K1 instances: expected 6 (D 64/128 x 3 kinds) without spills, got {bsa}")
+                     f"{r['spill_loads']} B, static smem {r['static_smem']} B, dynamic smem "
+                     f"{_kernels.lib().svt_block_sparse_attn_smem(r['D'])} B")
+    for kernel, want in (("bsa_kernel", 6), ("runs_kernel", 2)):
+        got = [r for r in rows if r["kernel"] == kernel]
+        if len(got) != want or any(r["spill_stores"] or r["spill_loads"] for r in got):
+            raise AssertionError(f"{kernel} instances: expected {want} (D 64/128) without spills, got {got}")
 
 
 def slice_layout(preset="1.3B-480p"):
@@ -315,6 +319,7 @@ def phase_attention(dev):
                            f"{sdpa_ms:.3f} ms; bound {b['bound_ms']:.3f} ms ({b['bound_by']})")
             entry = {"name": "block_sparse_attn", "route": "cuda",
                      "source": "sparse_videogen_tpu_torch/csrc/block_sparse_attn.cu",
+                     "body": "sparse_videogen_tpu_torch/csrc/hopper_attn.cuh",
                      "replaces": "sparse_videogen_tpu/ops/attention.py:62", "max_abs_err": max_abs,
                      "ms": ms, "plain_ms": plain_ms, **b, "library_ms": sdpa_ms}
         del q, k, v, qs, ks, vs, out, ref
@@ -582,6 +587,28 @@ def runs_masked_sdpa(name, spec, metas, pos, block_q, checked, kernel_out):
     return ms
 
 
+def live_column_share(meta, block_kv, n_walk=8) -> dict:
+    """How much of each 128-token K/V tile the run-list kernel loads is live:
+    runs_tile_stats over every row, held to the kernel's walk model
+    (runs_tile_walk) on the n_walk rows that load most tiles."""
+    from sparse_videogen_tpu_torch.ops.attention import runs_tile_stats, runs_tile_walk
+
+    live, loaded = runs_tile_stats(meta)
+    m = meta.cpu().numpy()
+    walked = live > 0
+    runs = torch.as_tensor((m[..., 2::2] > m[..., 1::2]).sum(-1)).to(live.device)
+    rows = torch.argsort(loaded.reshape(-1), descending=True)[:n_walk].tolist()
+    for i in rows:
+        r, b = divmod(i, m.shape[1])
+        tiles = runs_tile_walk(m[r, b], block_kv)
+        if (sum(hi - lo for _, lo, hi in tiles), len(tiles)) != (int(live[r, b]), int(loaded[r, b])):
+            raise AssertionError(f"runs_tile_stats disagrees with runs_tile_walk on row ({r}, {b})")
+    n_rows = max(int(walked.sum()), 1)
+    return {"live": int(live.sum()), "loaded": 128 * int(loaded.sum()),
+            "share": int(live.sum()) / max(128 * int(loaded.sum()), 1), "tiles_per_row": int(loaded.sum()) / n_rows,
+            "runs_per_row": int(runs[walked].sum()) / n_rows, "rows_walked": len(rows)}
+
+
 def phase_sap_attention(dev, preset="1.3B-480p", all_checks=True):
     """The run-list kernel on the inputs SAP's own front half builds (k-means,
     dynamic map, relabel, permutations, run lists) from random full-width
@@ -624,6 +651,10 @@ def phase_sap_attention(dev, preset="1.3B-480p", all_checks=True):
                    f"visited pairs {pairs / H / S / S:.3f} of S x S per head (incl. padded q rows)")
     if not empty_ok or a.meta.shape[-1] != 1 + 2 * sap.num_k_centroids:
         raise AssertionError("SAP front half: a q block without tokens has runs, or the run lists are cut")
+    share = live_column_share(a.meta, sap.block_kv)
+    log("kernels", f"SAP run lists ({preset}): {share['live']} live of {share['loaded']} loaded 128-token tile "
+                   f"columns, live share {share['share']:.4f}; {share['tiles_per_row']:.1f} tiles a walked row, "
+                   f"{share['runs_per_row']:.1f} runs (runs_tile_walk on {share['rows_walked']} rows agrees)")
     specs = (("none", MaskSpec()), ("band_sink", make_svg1_plan(lay).mask_spec)) if all_checks else (
         ("none", MaskSpec()),)
     entry = None
@@ -671,8 +702,9 @@ def phase_sap_attention(dev, preset="1.3B-480p", all_checks=True):
                            f"({b['bound_by']}, real q rows only)")
             entry = {"name": "block_sparse_attn_runs", "route": "cuda",
                      "source": "sparse_videogen_tpu_torch/csrc/runs_attn.cu",
+                     "body": "sparse_videogen_tpu_torch/csrc/hopper_attn.cuh",
                      "replaces": "sparse_videogen_tpu/ops/attention.py:720", "max_abs_err": max_abs,
-                     "ms": ms, "plain_ms": plain_ms, **b, "library_ms": lib_ms}
+                     "ms": ms, "plain_ms": plain_ms, **b, "library_ms": lib_ms, "live_column_share": share["share"]}
         del out, ref
     if all_checks:
         # every cluster pair selected: SAP must reproduce dense attention

@@ -56,9 +56,9 @@ _SIGNATURES = {
     "svt_block_sparse_attn_smem": [_I],
     # x, cos, sin, out, BH, S, D, stream
     "svt_rope": [_P, _P, _P, _P, _I, _I, _I, _P],
-    # q, k, v, o, meta, aux, BH, Sq, Skv, D, R, nQ, L, block_q, block_kv,
+    # q, k, v, o, meta, aux, order, BH, Sq, Skv, D, R, nQ, L, block_q, block_kv,
     # mask_kind, band_width, sink_size, q_scale, stream
-    "svt_block_sparse_attn_runs": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+    "svt_block_sparse_attn_runs": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                                    _I, _I, _I, _F, _P],
     # B, N, K -> number of token slabs of the k-means update
     "svt_kmeans_wide_num_slabs": [_I, _I, _I],

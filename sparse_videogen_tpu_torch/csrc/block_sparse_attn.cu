@@ -16,287 +16,33 @@
 // The first n_cheap chunks are proven fully allowed by the mask and only
 // apply the window; the rest also evaluate the token-level predicate.
 //
-// What bounds it on the H100: the tensor-core FLOPs of QK^T and PV (4 D per
-// visited pair); at D = 64 the per-pair softmax work (one exp2 and a few
-// f32 operations a pair) comes close to it. So the design keeps the tensor
-// cores fed from shared memory that TMA fills ahead, shares each K/V tile
-// across 128 q rows, and keeps masking off the tiles that do not need it:
-// - One CTA of three warpgroups owns BQ = 128 q rows of one (batch*head)
-//   row: a producer warpgroup, whose first thread issues every load, and
-//   two consumer warpgroups of 64 rows each. setmaxnreg moves the
-//   producer's registers to the consumers (40 / 232).
-// - The producer walks the row's chunks in 128-token tiles and keeps TMA
-//   loads of the K and V tiles in flight in a ring of STAGES stages
-//   (mbarriers: full K, full V and empty per stage). Tiles are 128B
-//   swizzled (two 64-column boxes a row at D = 128). Q is loaded once by
-//   TMA; each consumer warpgroup scales and rounds its 64 rows in shared
-//   memory.
-// - Each consumer warpgroup computes S = Q K^T with wgmma m64n128k16 (both
-//   operands in shared memory), masks the window (tiles that straddle
-//   [lo, hi)) and, on chunks past n_cheap, the kind's predicate: first
-//   over its whole 64 x 128 tile (mask_tile: a tile allowed nowhere is
-//   skipped, one allowed everywhere needs no per-pair test), then per pair
-//   on the mixed tiles. It runs the exp2
-//   online softmax in registers, converts P to bf16 in registers and
-//   accumulates O += P V with wgmma (A from registers, V the transposed B
-//   operand in shared memory), then frees the stage.
-// - Work items (batch*head, 128-row q tile) run heaviest first: the grid
-//   is ordered by `order` (ops/attention.py work_order: tokens visited,
-//   descending), so the text tiles that visit every column start first
-//   instead of running on alone at the end.
+// The CTA body (TMA ring, wgmma, two consumer warpgroups of 64 q rows,
+// tile-level mask classification, heaviest items first) is
+// csrc/hopper_attn.cuh, shared with the run-list kernel K3/K4; this file
+// gives it the chunked-CSR chunk source and the C entry.
 
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-#include "mask_pred.cuh"
+#include "hopper_attn.cuh"
 
 namespace {
 
-typedef __nv_bfloat16 bf16;
-
-constexpr int BQ = 128;  // q rows a CTA: two consumer warpgroups of 64
-constexpr int BK = 128;  // K/V tokens a tile
-constexpr int NTHREADS = 384;
-constexpr int SUB = 128;
 constexpr int ENTRY_SCALE = 2048;
 constexpr int N_CHEAP_SCALE = 4096;
-constexpr int ROW_BYTES = 128;  // one 64-column box row, the 128B swizzle span
-constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
-constexpr float NEG_INF = -0.7f * 3.402823466e38f;
 
-template <int D>
-struct Layout {
-  static constexpr int STAGES = D == 128 ? 2 : 4;
-  static constexpr int TILE_BYTES = BK * D * 2;  // a K or a V tile
-  static constexpr int Q_BYTES = BQ * D * 2;
-  static constexpr int K_OFF = Q_BYTES;
-  static constexpr int V_OFF = K_OFF + STAGES * TILE_BYTES;
-  static constexpr int BAR_OFF = V_OFF + STAGES * TILE_BYTES;
-  // barriers: full K, full V, empty (per stage), Q; 1024 bytes to align the base
-  static constexpr int SMEM = BAR_OFF + (3 * STAGES + 1) * 8 + 1024;
-  // more than half an SM's shared memory: one CTA an SM, so the consumers'
-  // setmaxnreg.inc always finds the producer's registers
-  static_assert(SMEM > 232448 / 2 && SMEM <= 232448, "shared memory layout");
-};
+// chunk c of a metadata row: s0 = idx_c * 128, [lo, hi) from win_c; the
+// first n_cheap chunks skip the predicate, and kind none (mask_kind 0)
+// never evaluates it
+struct CsrChunks {
+  const int* m;  // the row: (n + n_cheap * N_CHEAP_SCALE, idx_0, win_0, idx_1, ...)
+  int n, n_cheap, mask_kind;
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-// until the phase of parity `parity` has completed
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// a 64-column x 128-row box at (column c0, row c1) of a 2-D tensor map
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(
-          dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wg_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wg_wait0() { asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory"); }
-
-// keeps the compiler from moving reads of wgmma accumulators above the wait
-template <int N>
-__device__ __forceinline__ void reg_fence(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// shared-memory matrix descriptor, 128B swizzle; lbo/sbo in bytes
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
-}
-
-#define F8(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
-              "+f"(d[i + 6]), "+f"(d[i + 7])
-#define F32(i) F8(i), F8(i + 8), F8(i + 16), F8(i + 24)
-
-// d[64] (+)= A(64 x 16, K-major smem) . B(128 x 16, K-major smem)^T
-__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, "
-      "%23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
-      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
-      : F32(0), F32(32)
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// d[64] += A(64 x 16, registers) . B(16 x 128, MN-major smem)
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, "
-      "%23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
-      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : F32(0), F32(32)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// d[32] += A(64 x 16, registers) . B(16 x 64, MN-major smem)
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, "
-      "%23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : F32(0)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-#undef F32
-#undef F8
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// two floats -> packed bf16x2, `lo` in the low half (the lower column index)
-__device__ __forceinline__ uint32_t pack_f2(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// S (64 x 128 tokens) = this warpgroup's Q rows . the K tile^T. Both are
-// K-major with 128B rows: a 16-deep k-step is 32 bytes into the row, the
-// next 64 columns are the next box (rows x 128 bytes further).
-template <int D>
-__device__ __forceinline__ void qk_gemm(float (&s)[64], uint32_t q_addr, uint32_t k_addr) {
-  wg_fence();
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const uint32_t col = (kk % 4) * 32;
-    const uint64_t da = sw128_desc(q_addr + (kk / 4) * BQ * ROW_BYTES + col, 16, 8 * ROW_BYTES);
-    const uint64_t db = sw128_desc(k_addr + (kk / 4) * BK * ROW_BYTES + col, 16, 8 * ROW_BYTES);
-    wgmma_ss_n128(s, da, db, kk > 0);
-  }
-  wg_commit();
-}
-
-// O (64 x D) += P (64 x 128 tokens, bf16 A fragments) . the V tile. V is
-// MN-major for this product: a 16-token k-step is 16 rows further; the
-// next 64 output columns are the next box (LBO).
-template <int D>
-__device__ __forceinline__ void pv_gemm(float (&o)[D / 2], const uint32_t (&p)[32], uint32_t v_addr) {
-  wg_fence();
-#pragma unroll
-  for (int kk = 0; kk < BK / 16; ++kk) {
-    const uint32_t a[4] = {p[4 * kk], p[4 * kk + 1], p[4 * kk + 2], p[4 * kk + 3]};
-    const uint64_t db = sw128_desc(v_addr + kk * 16 * ROW_BYTES, BK * ROW_BYTES, 8 * ROW_BYTES);
-    if constexpr (D == 128)
-      wgmma_rs_n128(o, a, db);
-    else
-      wgmma_rs_n64(o, a, db);
-  }
-  wg_commit();
-}
-
-// the online softmax state of a thread's rows g and g + 8 (l: this thread's
-// partial row sum; the quad adds its four at the end)
-struct RowState {
-  float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;
-};
-
-// One K/V tile for a consumer warpgroup (its K has arrived): S = Q K^T, the
-// window where the tile straddles [lo, hi) and, MASKED with cls ==
-// TILE_SOME, the kind's predicate per pair; the exp2 online softmax; then,
-// once V has arrived, O += P V.
-template <int D, int KIND, bool MASKED>
-__device__ __forceinline__ void attend_tile(float (&acc)[D / 2], float (&s)[64], RowState& st, uint32_t q_addr,
-                                            uint32_t k_addr, uint32_t v_addr, uint32_t v_bar, uint32_t phase, int t0,
-                                            int lo, int hi, int cls, const MaskArgs& mk, int qp0, int kbase, int t4) {
-  qk_gemm<D>(s, q_addr, k_addr);
-  wg_wait0();
-  reg_fence(s);
-
-  if ((MASKED && cls == TILE_SOME) || t0 < lo || t0 + BK > hi) {
-#pragma unroll
-    for (int i = 0; i < 64; ++i) {
-      const int col = t0 + 8 * (i / 4) + 2 * t4 + (i & 1);
-      bool ok = col >= lo && col < hi;
-      if (MASKED && cls == TILE_SOME && ok) ok = mask_allows<KIND>(mk, qp0 + ((i & 2) ? 8 : 0), kbase + col);
-      if (!ok) s[i] = NEG_INF;
+  template <class F>
+  __device__ __forceinline__ void walk(F&& f) const {
+    for (int c = 0; c < n; ++c) {
+      const int win = m[2 + 2 * c];
+      f(m[1 + 2 * c] * SUB, win / ENTRY_SCALE, win % ENTRY_SCALE, !(mask_kind == 0 || c < n_cheap));
     }
   }
-
-  // online softmax, exp2 domain; a row lives in the 4 threads of a quad
-  float mx0 = NEG_INF, mx1 = NEG_INF;
-#pragma unroll
-  for (int i = 0; i < 64; i += 4) {
-    mx0 = fmaxf(mx0, fmaxf(s[i], s[i + 1]));
-    mx1 = fmaxf(mx1, fmaxf(s[i + 2], s[i + 3]));
-  }
-  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
-  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
-  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
-  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-  const float mn0 = fmaxf(st.m0, mx0), mn1 = fmaxf(st.m1, mx1);
-  const float alpha0 = ex2(st.m0 - mn0), alpha1 = ex2(st.m1 - mn1);
-  // a row with no live column so far exponentiates against 0: p == 0
-  const float ms0 = mn0 > 0.5f * NEG_INF ? mn0 : 0.f, ms1 = mn1 > 0.5f * NEG_INF ? mn1 : 0.f;
-  st.m0 = mn0;
-  st.m1 = mn1;
-  float sum0 = 0.f, sum1 = 0.f;
-  uint32_t p[32];
-#pragma unroll
-  for (int i = 0; i < 64; i += 4) {
-    const float p0 = ex2(s[i] - ms0), p1 = ex2(s[i + 1] - ms0);
-    const float p2 = ex2(s[i + 2] - ms1), p3 = ex2(s[i + 3] - ms1);
-    sum0 += p0 + p1;
-    sum1 += p2 + p3;
-    p[i / 2] = pack_f2(p0, p1);
-    p[i / 2 + 1] = pack_f2(p2, p3);
-  }
-  st.l0 = st.l0 * alpha0 + sum0;
-  st.l1 = st.l1 * alpha1 + sum1;
-#pragma unroll
-  for (int i = 0; i < D / 2; i += 4) {
-    acc[i] *= alpha0;
-    acc[i + 1] *= alpha0;
-    acc[i + 2] *= alpha1;
-    acc[i + 3] *= alpha1;
-  }
-
-  mbar_wait(v_bar, phase);
-  pv_gemm<D>(acc, p, v_addr);
-  wg_wait0();
-  reg_fence(acc);
-}
+};
 
 template <int D, int KIND>
 __global__ void __launch_bounds__(NTHREADS, 1)
@@ -304,196 +50,10 @@ bsa_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUt
            const __grid_constant__ CUtensorMap tm_v, bf16* __restrict__ o, const int* __restrict__ meta,
            const int* __restrict__ aux, const int* __restrict__ order, int Sq, int Skv, int R, int nQ, int L,
            int block_q, int mask_kind, int band_width, int sink_size, int video_len, float q_scale) {
-  using LY = Layout<D>;
-  constexpr int STAGES = LY::STAGES;
-  extern __shared__ unsigned char smem_raw[];
-  const uint32_t raw = smem_u32(smem_raw);
-  const uint32_t base = (raw + 1023) & ~1023u;
-  unsigned char* gbase = smem_raw + (base - raw);
-  const uint32_t sq = base, bar = base + LY::BAR_OFF;
-  auto full_k = [&](int s) { return bar + 8 * s; };
-  auto full_v = [&](int s) { return bar + 8 * (STAGES + s); };
-  auto empty = [&](int s) { return bar + 8 * (2 * STAGES + s); };
-  const uint32_t q_full = bar + 8 * 3 * STAGES;
-
-  const int nT = Sq / BQ;
-  const int item = order[blockIdx.x];
-  const int bh = item / nT;
-  const int q0 = (item % nT) * BQ;
-  const int* m = meta + ((size_t)(R == 1 ? 0 : bh) * nQ + q0 / block_q) * L;
-  const int n = m[0] % N_CHEAP_SCALE;
-
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < STAGES; ++s) {
-      mbar_init(full_k(s), 1);
-      mbar_init(full_v(s), 1);
-      mbar_init(empty(s), 8);  // lane 0 of each consumer warp
-    }
-    mbar_init(q_full, 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
-
-  if (threadIdx.x < 128) {
-    // producer warpgroup: one thread issues every load
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
-    if (threadIdx.x == 0) {
-      mbar_expect_tx(q_full, LY::Q_BYTES);
-#pragma unroll
-      for (int cb = 0; cb < D / 64; ++cb) tma_load(sq + cb * BQ * ROW_BYTES, &tm_q, q_full, cb * 64, bh * Sq + q0);
-      int stage = 0;
-      uint32_t phase = 0;
-      for (int c = 0; c < n; ++c) {
-        const int win = m[2 + 2 * c];
-        const int hi = win % ENTRY_SCALE;
-        const int row0 = bh * Skv + m[1 + 2 * c] * SUB;
-        for (int t0 = (win / ENTRY_SCALE) & ~(BK - 1); t0 < hi; t0 += BK) {
-          mbar_wait(empty(stage), phase ^ 1);
-          const uint32_t ks = base + LY::K_OFF + stage * LY::TILE_BYTES;
-          const uint32_t vs = base + LY::V_OFF + stage * LY::TILE_BYTES;
-          mbar_expect_tx(full_k(stage), LY::TILE_BYTES);
-#pragma unroll
-          for (int cb = 0; cb < D / 64; ++cb) tma_load(ks + cb * BK * ROW_BYTES, &tm_k, full_k(stage), cb * 64, row0 + t0);
-          mbar_expect_tx(full_v(stage), LY::TILE_BYTES);
-#pragma unroll
-          for (int cb = 0; cb < D / 64; ++cb) tma_load(vs + cb * BK * ROW_BYTES, &tm_v, full_v(stage), cb * 64, row0 + t0);
-          if (++stage == STAGES) {
-            stage = 0;
-            phase ^= 1;
-          }
-        }
-      }
-    }
-  } else {
-    // consumer warpgroups: 64 q rows each
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
-    const int wg = threadIdx.x / 128 - 1;
-    const int tid = threadIdx.x % 128;
-    const int warp = tid / 32, lane = tid % 32;
-    const int g = lane / 4, t4 = lane % 4;
-
-    // scale and round this warpgroup's 64 q rows in place (elementwise: the
-    // swizzle does not matter), then make them visible to wgmma
-    mbar_wait(q_full, 0);
-#pragma unroll
-    for (int cb = 0; cb < D / 64; ++cb) {
-      uint4* rows = reinterpret_cast<uint4*>(gbase + cb * BQ * ROW_BYTES + wg * 64 * ROW_BYTES);
-#pragma unroll
-      for (int i = tid; i < 64 * ROW_BYTES / 16; i += 128) {
-        uint4 raw4 = rows[i];
-        bf16* e = reinterpret_cast<bf16*>(&raw4);
-#pragma unroll
-        for (int j = 0; j < 8; ++j) e[j] = __float2bfloat16_rn(__bfloat162float(e[j]) * q_scale);
-        rows[i] = raw4;
-      }
-    }
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
-
-    const uint32_t q_addr = sq + wg * 64 * ROW_BYTES;
-    const int n_cheap = m[0] / N_CHEAP_SCALE;
-    const int qw = q0 + wg * 64 + aux[2];  // this warpgroup's first q position
-    const int qp0 = qw + warp * 16 + g;
-    const int koff = aux[3];
-    const MaskArgs mk = {band_width, sink_size, video_len, KIND == KIND_BAND_SINK ? 0 : aux[0]};
-
-    float acc[D / 2];
-#pragma unroll
-    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
-    float s[64];
-#pragma unroll
-    for (int i = 0; i < 64; ++i) s[i] = 0.f;
-    RowState st;
-    int stage = 0;
-    uint32_t phase = 0;
-
-    auto release = [&]() {
-      if (lane == 0) mbar_arrive(empty(stage));
-      if (++stage == STAGES) {
-        stage = 0;
-        phase ^= 1;
-      }
-    };
-    for (int c = 0; c < n; ++c) {
-      const int win = m[2 + 2 * c];
-      const int lo = win / ENTRY_SCALE, hi = win % ENTRY_SCALE;
-      const int kbase = m[1 + 2 * c] * SUB + koff;
-      const uint32_t k0 = base + LY::K_OFF, v0 = base + LY::V_OFF;
-      if (mask_kind == 0 || c < n_cheap) {
-        for (int t0 = lo & ~(BK - 1); t0 < hi; t0 += BK) {
-          mbar_wait(full_k(stage), phase);
-          attend_tile<D, KIND, false>(acc, s, st, q_addr, k0 + stage * LY::TILE_BYTES, v0 + stage * LY::TILE_BYTES,
-                                      full_v(stage), phase, t0, lo, hi, TILE_ALL, mk, qp0, kbase, t4);
-          release();
-        }
-      } else {
-        // the predicate over this warpgroup's 64 rows x the tile's live
-        // columns first: a tile it allows nowhere changes nothing (p == 0,
-        // alpha == 1) and is skipped; one it allows everywhere only applies
-        // the window
-        for (int t0 = lo & ~(BK - 1); t0 < hi; t0 += BK) {
-          const int cls = mask_tile<KIND>(mk, qw, qw + 63, kbase + max(t0, lo), kbase + min(t0 + BK, hi) - 1);
-          mbar_wait(full_k(stage), phase);
-          if (cls == TILE_NONE)
-            mbar_wait(full_v(stage), phase);
-          else
-            attend_tile<D, KIND, true>(acc, s, st, q_addr, k0 + stage * LY::TILE_BYTES, v0 + stage * LY::TILE_BYTES,
-                                       full_v(stage), phase, t0, lo, hi, cls, mk, qp0, kbase, t4);
-          release();
-        }
-      }
-    }
-
-    // normalise and write rows g and g + 8 of this warp's 16; a row that
-    // never saw a live column has acc == 0, l == 0 -> 0
-    float l0 = st.l0, l1 = st.l1;
-    l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
-    l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
-    const float inv0 = 1.f / fmaxf(l0, 1e-20f), inv1 = 1.f / fmaxf(l1, 1e-20f);
-    bf16* orow = o + ((size_t)bh * Sq + q0 + wg * 64 + warp * 16 + g) * D + 2 * t4;
-#pragma unroll
-    for (int i = 0; i < D / 2; i += 4) {
-      const int col = 2 * i;  // 8 * (i / 4)
-      *reinterpret_cast<__nv_bfloat162*>(orow + col) = __floats2bfloat162_rn(acc[i] * inv0, acc[i + 1] * inv0);
-      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * D + col) =
-          __floats2bfloat162_rn(acc[i + 2] * inv1, acc[i + 3] * inv1);
-    }
-  }
-}
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-                                const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
-                                CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// the CUDA driver API's cuTensorMapEncodeTiled, reached through the runtime (no -lcuda)
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// (rows, D) bf16, row-major, read in 64-column x 128-row boxes with the 128B swizzle
-bool make_map(CUtensorMap* map, const void* ptr, long long rows, int D) {
-  EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[2] = {(cuuint64_t)D, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)D * sizeof(bf16)};
-  const cuuint32_t box[2] = {64, 128};
-  const cuuint32_t elem[2] = {1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims, strides, box, elem,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  const WorkItem it = work_item(order, Sq);
+  const int* m = meta + ((size_t)(R == 1 ? 0 : it.bh) * nQ + it.q0 / block_q) * L;
+  const CsrChunks chunks = {m, m[0] % N_CHEAP_SCALE, m[0] / N_CHEAP_SCALE, mask_kind};
+  attn_cta<D, KIND>(&tm_q, &tm_k, &tm_v, o, chunks, it, Sq, Skv, aux, band_width, sink_size, video_len, q_scale);
 }
 
 template <int D, int KIND>
@@ -501,9 +61,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, const i
                    const int* order, int BH, int Sq, int Skv, int R, int nQ, int L, int block_q, int mask_kind,
                    int band_width, int sink_size, int video_len, float q_scale, cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
-  if (!make_map(&tq, q, (long long)BH * Sq, D) || !make_map(&tk, k, (long long)BH * Skv, D) ||
-      !make_map(&tv, v, (long long)BH * Skv, D))
-    return cudaErrorInvalidValue;
+  if (!make_qkv_maps(&tq, &tk, &tv, q, k, v, BH, Sq, Skv, D)) return cudaErrorInvalidValue;
   const int smem = Layout<D>::SMEM;
   cudaError_t err = cudaFuncSetAttribute(bsa_kernel<D, KIND>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;

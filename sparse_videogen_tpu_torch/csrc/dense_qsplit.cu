@@ -25,11 +25,39 @@
 // rows take half of an SM's register file; the compiled (BQ, QS) pairs are
 // (64, 1), (128, 1), (128, 2), (256, 1), (256, 2) (ops/dense_qsplit.py).
 
-#include "flash_chunk.cuh"
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
+typedef __nv_bfloat16 bf16;
+
+constexpr int TK = 64;  // K/V tokens a sub-tile
+constexpr float NEG_INF = -0.7f * 3.402823466e38f;
 constexpr float LOG2E_F = 1.4426950408889634f;
+
+// c (16 x 8, f32) += A (16 x 16, bf16 fragments) . B (16 x 8, bf16 fragments)
+__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two floats -> packed bf16x2, `lo` in the low half (the lower column index)
+__device__ __forceinline__ uint32_t pack_f2(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint32_t pack_b2(bf16 lo, bf16 hi) {
+  __nv_bfloat162 v;
+  v.x = lo;
+  v.y = hi;
+  return *reinterpret_cast<uint32_t*>(&v);
+}
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(smem);

@@ -1,6 +1,6 @@
-// The token-level mask predicates of the attention kernels (one copy):
-// csrc/block_sparse_attn.cu (K1) and, through csrc/flash_chunk.cuh, the
-// run-list kernel csrc/runs_attn.cu (K3/K4) include it.
+// The token-level mask predicates of the attention kernels (one copy): the
+// CTA body csrc/hopper_attn.cuh of K1 (csrc/block_sparse_attn.cu) and K3/K4
+// (csrc/runs_attn.cu) includes it.
 //
 // ops/mask_spec.py apply_mask_spec at global positions (q, k), strict band
 // |q - k| < band_width. text_end is aux[0], the end of the live text tokens:

@@ -1,14 +1,16 @@
 """Block-sparse flash attention (counterpart of sparse_videogen_tpu/ops/attention.py).
 
-Two metadata formats, one kernel each, sharing the mask predicates
-(csrc/mask_pred.cuh):
+Two metadata formats, one kernel each, sharing one Hopper CTA body
+(csrc/hopper_attn.cuh: 128 q rows a CTA, a TMA ring of 128-token K/V
+tiles, wgmma, warp-specialised; the mask predicates of csrc/mask_pred.cuh)
+and running the (head, 128-row q tile) items heaviest first:
 - chunked CSR (`block_sparse_attention_kv`, csrc/block_sparse_attn.cu):
-  dense and SVG1 attention; only the metadata and the MaskSpec differ. A
-  CTA takes 128 q rows (TMA ring, wgmma, warp-specialised) and the grid
-  runs the (head, q tile) items heaviest first (`work_order`);
-- run lists (`block_sparse_attention_runs`, csrc/runs_attn.cu, CTA body
-  csrc/flash_chunk.cuh): SAP's attention over unpadded cluster-sorted K/V
-  (ops/metadata.py run_meta).
+  dense and SVG1 attention; only the metadata and the MaskSpec differ; its
+  items ordered by `work_order`;
+- run lists (`block_sparse_attention_runs`, csrc/runs_attn.cu): SAP's
+  attention over unpadded cluster-sorted K/V (ops/metadata.py run_meta);
+  its items ordered by `runs_work_order`, its chunks walked as
+  `runs_tile_walk` models.
 K and V arrive as separate (BH, Skv, D) tensors; the TPU's packed [K|V]
 layout and its scheduling knobs (nbuf, unroll, qsplit, pair, expand,
 fast_mask, mxu_lsum) have no counterpart here.
@@ -30,8 +32,7 @@ from sparse_videogen_tpu_torch.ops.metadata import ENTRY_SCALE, N_CHEAP_SCALE, S
 
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 LOG2E = 1.4426950408889634
-BQ = 128  # q rows per CTA of the chunked-CSR kernel; divides every block_q it accepts
-TQ = 64  # the same for the run-list kernel
+BQ = 128  # q rows per CTA of both kernels; divides every block_q they accept
 # mask kinds each Hopper kernel evaluates, as the kernels number them
 # (csrc/mask_pred.cuh: KIND_BAND_SINK, KIND_HYVIDEO, KIND_COG; 0 runs no predicate)
 _KERNEL_MASKS = {"none": 0, "band_sink": 1, "hyvideo": 2, "cog": 3}
@@ -50,14 +51,13 @@ def _check(q, k, v, meta, block_q, block_kv, *, packed_windows=True):
         raise ValueError(f"meta {tuple(meta.shape)} for BH={BH}, nQ={Sq // block_q}")
 
 
-def _check_kernel_args(q, k, v, meta, aux, mask_spec, block_q, kinds=tuple(_KERNEL_MASKS), rows_per_cta=BQ):
+def _check_kernel_args(q, k, v, meta, aux, mask_spec, block_q, kinds=tuple(_KERNEL_MASKS)):
     """What the Hopper kernels take; returns aux on the device."""
     D = q.shape[2]
     if mask_spec.kind not in kinds:
         raise NotImplementedError(f"mask kind {mask_spec.kind!r} has no Hopper kernel yet (ROADMAP.md)")
-    if D not in (64, 128) or block_q % rows_per_cta:
-        raise ValueError(f"kernel takes D in (64, 128) and block_q % {rows_per_cta} == 0; got D={D}, "
-                         f"block_q={block_q}")
+    if D not in (64, 128) or block_q % BQ:
+        raise ValueError(f"kernel takes D in (64, 128) and block_q % {BQ} == 0; got D={D}, block_q={block_q}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.dtype != torch.bfloat16 or not t.is_contiguous() or t.device != q.device or t.data_ptr() % 16:
             raise ValueError(f"{name}: need contiguous 16-byte aligned bf16 on {q.device}, got {t.dtype} on "
@@ -126,6 +126,21 @@ def block_sparse_attention_kv_plain(q, k, v, meta, aux=None, *, block_q: int, bl
     return out
 
 
+def _order_items(meta, n_heads, seq_q, block_q, per_block):
+    """(order, weight) of the work items (head h, 128-row q tile t), item
+    h * (seq_q // BQ) + t, from per_block (R, nQ), the tokens each metadata
+    row visits."""
+    tiles = torch.arange(seq_q // BQ, device=meta.device) * BQ // block_q
+    weight = per_block[:, tiles].expand(n_heads, -1).reshape(-1)
+    order = torch.sort(-weight, stable=True).indices.to(torch.int32)
+    return order, weight
+
+
+def _check_order_args(meta, n_heads, seq_q, block_q):
+    if block_q % BQ or seq_q % block_q or meta.shape[1] != seq_q // block_q or meta.shape[0] not in (1, n_heads):
+        raise ValueError(f"meta {tuple(meta.shape)} for {n_heads} heads, seq_q {seq_q}, block_q {block_q}")
+
+
 def work_order(meta, n_heads: int, seq_q: int, block_q: int):
     """The chunked-CSR kernel's work items (head h, 128-row q tile t), item
     h * (seq_q // BQ) + t, heaviest first: returns (order, weight), order
@@ -133,26 +148,34 @@ def work_order(meta, n_heads: int, seq_q: int, block_q: int):
     order), weight (items,) int64 the tokens each item's metadata row
     visits (the sum of its chunks' hi - lo). Plain tensor ops on meta's
     device: no copy to the host."""
-    if block_q % BQ or seq_q % block_q or meta.shape[1] != seq_q // block_q or meta.shape[0] not in (1, n_heads):
-        raise ValueError(f"meta {tuple(meta.shape)} for {n_heads} heads, seq_q {seq_q}, block_q {block_q}")
+    _check_order_args(meta, n_heads, seq_q, block_q)
     m = meta.long()
     cap = (m.shape[2] - 1) // 2
     win = m[..., 2:2 + 2 * cap:2]
     live = torch.arange(cap, device=m.device) < (m[..., :1] % N_CHEAP_SCALE)
     per_block = ((win % ENTRY_SCALE - win // ENTRY_SCALE) * live).sum(-1)  # (R, nQ)
-    tiles = torch.arange(seq_q // BQ, device=m.device) * BQ // block_q
-    weight = per_block[:, tiles].expand(n_heads, -1).reshape(-1)
-    order = torch.sort(-weight, stable=True).indices.to(torch.int32)
-    return order, weight
+    return _order_items(m, n_heads, seq_q, block_q, per_block)
 
 
-def _cached_order(meta, n_heads: int, seq_q: int, block_q: int):
-    """work_order, built once per metadata tensor (and rebuilt if it is
-    written in place): the runtimes hold theirs for the whole run."""
-    key = (meta._version, n_heads, seq_q, block_q)
+def runs_work_order(meta, n_heads: int, seq_q: int, block_q: int):
+    """work_order for the run-list kernel: each item's weight is the tokens
+    its run-list row visits, the sum of b - a over its entries (unused
+    entries are (0, 0)), or 0 where the row's chunk count n is 0 (SAP's q
+    blocks without a token keep their runs but n = 0). Plain tensor ops on
+    meta's device."""
+    _check_order_args(meta, n_heads, seq_q, block_q)
+    live, _ = runs_tile_stats(meta)
+    return _order_items(meta, n_heads, seq_q, block_q, live)
+
+
+def _cached_order(meta, n_heads: int, seq_q: int, block_q: int, build=work_order):
+    """build(...)'s order, made once per metadata tensor (and again if it is
+    written in place): the runtimes hold theirs for the whole run, SAP's
+    metadata is new at every layer."""
+    key = (build.__name__, meta._version, n_heads, seq_q, block_q)
     cached = getattr(meta, "_svt_work_order", None)
     if cached is None or cached[0] != key:
-        cached = (key, work_order(meta, n_heads, seq_q, block_q)[0])
+        cached = (key, build(meta, n_heads, seq_q, block_q)[0])
         meta._svt_work_order = cached
     return cached[1]
 
@@ -212,6 +235,52 @@ def run_chunks(meta_row, block_kv: int):
     return full + edge
 
 
+def runs_tile_walk(meta_row, block_kv: int):
+    """A model of the run-list kernel's walk over one metadata row
+    (csrc/runs_attn.cu RunChunks, then the tile loop of csrc/hopper_attn.cuh):
+    two passes over the runs, full chunks then edge chunks, stopping after
+    the row's n chunks; chunk k of run [a, b) starts at s0 = floor128(a) +
+    k * block_kv with live columns [lo, hi) relative to s0, and is loaded in
+    128-token tiles from s0 + (lo & ~127) while below s0 + hi. Returns one
+    (tile start, first live token, last live token + 1) per loaded tile, in
+    the order the kernel loads them, as token positions in the permuted K/V."""
+    n = int(meta_row[0])
+    cap = (len(meta_row) - 1) // 2
+    tiles = []
+    for full_pass in (True, False):
+        c = 0
+        for e in range(cap):
+            if c >= n:
+                break
+            a, b = int(meta_row[1 + 2 * e]), int(meta_row[2 + 2 * e])
+            base = a & ~(SUB - 1)
+            for kc in range(-(-(b - base) // block_kv)):
+                if c >= n:
+                    break
+                c += 1
+                s0 = base + kc * block_kv
+                lo, hi = max(a - s0, 0), min(b - s0, block_kv)
+                if (lo == 0 and hi == block_kv) != full_pass:
+                    continue
+                for t0 in range(lo & ~(SUB - 1), hi, SUB):
+                    tiles.append((s0 + t0, s0 + max(t0, lo), s0 + min(t0 + SUB, hi)))
+    return tiles
+
+
+def runs_tile_stats(meta):
+    """(live tokens, loaded 128-token tiles) per run-list metadata row, (R,
+    nQ) int64 each, as runs_tile_walk counts them when n is 0 or the chunk
+    count of every listed run (run_meta's, SAP's): a run [a, b) loads the
+    tiles from floor128(a) to ceil128(b) once each. Plain tensor ops on
+    meta's device."""
+    m = meta.long()
+    cap = (m.shape[2] - 1) // 2
+    a, b = m[..., 1:1 + 2 * cap:2], m[..., 2:2 + 2 * cap:2]
+    walked = m[..., 0] > 0
+    tiles = torch.where(b > a, -(-b // SUB) - a // SUB, 0)
+    return (b - a).sum(-1) * walked, tiles.sum(-1) * walked
+
+
 def block_sparse_attention_runs_plain(q, k, v, meta, aux=None, *, block_q: int, block_kv: int,
                                       mask_spec: MaskSpec = MaskSpec(), scale: float | None = None):
     """Plain PyTorch version of the run-list attention: a loop over q blocks
@@ -251,9 +320,9 @@ def block_sparse_attention_runs(q, k, v, meta, aux=None, *, block_q: int, block_
     Sq // block_q, 1 + 2*cap) int32 run lists, R in {1, BH}; aux (4,) int32
     or None. Returns (BH, Sq, D) in q's dtype; a row with n == 0 is 0.
 
-    CUDA tensors launch the Hopper kernel (bf16, D in {64, 128}, mask kinds
-    none/band_sink) and raise on anything else; CPU tensors run the plain
-    version."""
+    CUDA tensors launch the Hopper kernel (bf16, D in {64, 128}, block_q %
+    128 == 0, mask kinds none/band_sink) and raise on anything else; CPU
+    tensors run the plain version."""
     if q.device.type == "cpu":
         return block_sparse_attention_runs_plain(q, k, v, meta, aux, block_q=block_q, block_kv=block_kv,
                                                  mask_spec=mask_spec, scale=scale)
@@ -261,11 +330,12 @@ def block_sparse_attention_runs(q, k, v, meta, aux=None, *, block_q: int, block_
         raise ValueError(f"unsupported device {q.device}")
     _check(q, k, v, meta, block_q, block_kv, packed_windows=False)
     BH, Sq, D = q.shape
-    aux = _check_kernel_args(q, k, v, meta, aux, mask_spec, block_q, _RUNS_KERNEL_MASKS, TQ)
+    aux = _check_kernel_args(q, k, v, meta, aux, mask_spec, block_q, _RUNS_KERNEL_MASKS)
+    order = _cached_order(meta, BH, Sq, block_q, runs_work_order)
     scale = 1.0 / math.sqrt(D) if scale is None else scale
     out = torch.empty_like(q)
     err = _kernels.lib().svt_block_sparse_attn_runs(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), meta.data_ptr(), aux.data_ptr(),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), meta.data_ptr(), aux.data_ptr(), order.data_ptr(),
         BH, Sq, k.shape[1], D, meta.shape[0], meta.shape[1], meta.shape[2], block_q, block_kv,
         _KERNEL_MASKS[mask_spec.kind], mask_spec.band_width, mask_spec.sink_size,
         scale * LOG2E, torch.cuda.current_stream(q.device).cuda_stream,

@@ -79,9 +79,12 @@ class WanPipeline:
         seed: int = 0,
         callback=None,
         logging_file: str | None = None,
+        latents: torch.Tensor | None = None,
     ):
         """Run the denoise loop from noise drawn with torch.Generator(seed) on
-        the model's device; return the final f32 latents (1, C, F', H', W').
+        the model's device (or from `latents`, of the same shape; the generator
+        still serves SAP's k-means); return the final f32 latents (1, C, F',
+        H', W').
         With pattern SAP, `logging_file` receives the per-(step, layer) density
         of the cond stream as JSONL (utils/density.py)."""
         if sampler != "unipc":
@@ -90,7 +93,12 @@ class WanPipeline:
         gen = torch.Generator(device=device).manual_seed(seed)
         shape = (1, self.model.cfg.out_dim, 1 + (num_frames - 1) // VAE_TEMPORAL,
                  height // VAE_SPATIAL, width // VAE_SPATIAL)
-        lat = torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
+        if latents is None:
+            lat = torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
+        elif tuple(latents.shape) == shape:
+            lat = latents.float()
+        else:
+            raise ValueError(f"latents {tuple(latents.shape)}, expected {shape}")
         return self._denoise(
             context, context_null, lat, height=height, width=width, num_frames=num_frames,
             num_inference_steps=num_inference_steps, guidance_scale=guidance_scale, flow_shift=flow_shift,

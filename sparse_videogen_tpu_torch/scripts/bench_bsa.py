@@ -1,4 +1,4 @@
-"""K1 (the chunked-CSR block-sparse attention) and K3 (the run-list
+"""K1 (the chunked-CSR block-sparse attention) and K3/K4 (the run-list
 attention) at the shapes chip_smoke.py checks them, timed on one GPU.
 
     python -m sparse_videogen_tpu_torch.scripts.bench_bsa [--iters 3] [--out bsa.json]
@@ -12,12 +12,21 @@ q, k, v from a seed:
   K1 hyvideo dense and SVG1;
 - CogVideoX 1.5 768x1360x81 (S = 45,106, 96 rows, D = 64): K1 none (dense)
   and cog (SVG1);
-- K3 on the run lists SAP's own front half builds at Wan 480p (the first
-  and last 2 of 12 heads, as chip_smoke.py times it).
+- K3 (mask none) and K4 (its band_sink MaskSpec path, SVG1's band and
+  sink) on the run lists SAP's own front half builds at Wan 1.3B 480p (the
+  first and last 2 of 12 heads, as chip_smoke.py times them); K3 on those
+  of Wan 14B 720p (QC 300, KC 1000) on the first and last of 40 heads and
+  on the first alone.
 Each K1 case prints its time, the pairs its mask allows (over the real
 tokens), TFLOP/s on them, the bound (4 D FLOPs a pair over 989 TFLOP/s, or
 q, k, v and the output once over 3.35 TB/s, the larger) and, for the
 unmasked cases, F.scaled_dot_product_attention's time on the same rows.
+Each K3/K4 case prints its time, TFLOP/s on the visited pairs (every q row
+of a q block that visits a run, padding included), the bound on the pairs
+the real q rows need, the share of the loaded 128-token K/V tile columns
+that are live, and the yardstick: one F.scaled_dot_product_attention call
+with the run lists (and K4's predicate) as a bf16 attn_mask on the same
+heads (at 720p on one head: its mask is ~23 GB).
 The script uses only the port's public wrappers and runtimes, so it times
 another checkout's kernels when run from that checkout. Prints the card's
 name and power limit first.
@@ -33,11 +42,12 @@ import torch
 import torch.nn.functional as F
 
 from sparse_videogen_tpu_torch.ops.attention import block_sparse_attention_kv, block_sparse_attention_runs
-from sparse_videogen_tpu_torch.ops.mask_spec import apply_mask_spec
+from sparse_videogen_tpu_torch.ops.mask_spec import MaskSpec, apply_mask_spec
 from sparse_videogen_tpu_torch.scripts.timing import cuda_ms, device_line
 
 PEAK_BF16_FLOPS, PEAK_BYTES = 989e12, 3.35e12
 HY_PROMPT = 32  # chip_smoke.py's live HunyuanVideo prompt
+MASK_BYTES = 24e9  # the largest bf16 attn_mask the run-list yardstick builds (one 720p head: ~23 GB)
 
 
 def allowed_pairs(spec, aux, S: int, dev, rows: int = 2048) -> int:
@@ -104,24 +114,95 @@ def bench_k1(name, BH, rt, dense, *, iters, dev):
     return row
 
 
-def bench_k3(*, iters, dev):
-    """K3 on the run lists of SAP's front half at Wan 1.3B 480p (12 heads of
-    one CFG stream), timed on the first and last 2 heads."""
+def runs_bias(metas, pos, spec, Sq: int, Skv: int, block_q: int, dtype):
+    """The run lists as an additive attn_mask (1, h, Sq, Skv): 0 where a q
+    row's block visits a column (and spec's predicate allows it at the
+    padded q and permuted k positions, as the kernel evaluates it), -inf
+    elsewhere; and the pairs it allows over the real q rows (pos, (h, n)
+    padded positions of each head's real tokens)."""
+    dev = metas.device
+    h, m = metas.shape[0], metas.long()
+    diff = torch.zeros(h, m.shape[1], Skv + 1, device=dev)
+    diff.scatter_add_(2, m[..., 1::2], torch.ones_like(m[..., 1::2], dtype=diff.dtype))
+    diff.scatter_add_(2, m[..., 2::2], -torch.ones_like(m[..., 2::2], dtype=diff.dtype))
+    visited = (diff.cumsum(-1)[..., :Skv] > 0) & (m[..., :1] > 0)  # (h, nQ, Skv); n == 0 walks nothing
+    del diff
+    real = torch.zeros(h, Sq, dtype=torch.bool, device=dev).scatter_(1, pos.long(), True)
+    bias = torch.zeros(1, h, Sq, Skv, dtype=dtype, device=dev)
+    k = torch.arange(Skv, device=dev)[None, :]
+    pairs = 0
+    for r0 in range(0, Sq, 2048):
+        qi = torch.arange(r0, min(Sq, r0 + 2048), device=dev)
+        ok = visited[:, qi // block_q]
+        pred = apply_mask_spec(spec, qi[:, None], k, None)
+        if pred is not None:
+            ok &= pred[None]
+        bias[0, :, r0:r0 + len(qi)].masked_fill_(~ok, float("-inf"))
+        pairs += int((ok & real[:, r0:r0 + len(qi), None]).sum())
+    return bias, pairs
+
+
+def bench_runs(preset, head_sets, kinds, *, iters, dev):
+    """K3 (and K4 where kinds has band_sink) on the run lists of SAP's front
+    half at a preset (one CFG stream, random q, k, v from seed 5), timed on
+    each set of heads, each beside its masked-SDPA yardstick."""
     from sparse_videogen_tpu_torch.pipelines.wan import wan_layout
     from sparse_videogen_tpu_torch.presets import PRESETS
     from sparse_videogen_tpu_torch.sparse import svg2
+    from sparse_videogen_tpu_torch.sparse.svg1 import make_svg1_plan
 
-    run = PRESETS["1.3B-480p"]
+    run = PRESETS[preset]
     lay = wan_layout(run.model, run.height, run.width, run.num_frames)
     H, S, D, sap = run.model.num_heads, lay.seq_len, run.model.head_dim, run.sap
     gen = torch.Generator(device=dev).manual_seed(5)
     q, k, v = ((torch.randn(1, H, S, D, generator=gen, device=dev) * sc).to(torch.bfloat16) for sc in (2.0, 1.0, 1.0))
     a = svg2.sap_prepare(q, k, v, svg2.init_sap_state(H, D, sap, device=dev), layout=lay, cfg=sap, generator=gen)
-    heads = torch.tensor([0, 1, H - 2, H - 1], device=dev)
-    qs, ks, vs, metas = (x.index_select(0, heads).contiguous() for x in (a.q, a.k, a.v, a.meta))
-    ms = cuda_ms(lambda: block_sparse_attention_runs(qs, ks, vs, metas, block_q=sap.block_q, block_kv=sap.block_kv),
-                 iters, 1)
-    return {"case": "k3_runs_480p_4heads", "kind": "none", "BH": 4, "S": S, "D": D, "ms": ms}
+    del q, k, v
+    specs = {"none": MaskSpec(), "band_sink": make_svg1_plan(lay).mask_spec}
+    rows = []
+    for heads_l in head_sets:
+        heads = torch.tensor(heads_l, device=dev)
+        qs, ks, vs, metas, pos = (x.index_select(0, heads).contiguous() for x in (a.q, a.k, a.v, a.meta, a.pos))
+        Sq, Skv = qs.shape[1], ks.shape[1]
+        # runs_tile_stats, inline: the script also times checkouts that predate it
+        m = metas.long()
+        a_, b_ = m[..., 1::2], m[..., 2::2]
+        walked = m[..., :1] > 0
+        per_block = ((b_ - a_) * walked).sum(-1)
+        tiles = (torch.where(b_ > a_, -(-b_ // 128) - a_ // 128, 0) * walked).sum(-1)
+        visited = int(per_block.sum()) * sap.block_q
+        real_rows = torch.zeros_like(per_block).scatter_add_(1, pos.long() // sap.block_q, torch.ones_like(pos.long()))
+        for kind in kinds:
+            kw = dict(block_q=sap.block_q, block_kv=sap.block_kv, mask_spec=specs[kind])
+            ms = cuda_ms(lambda: block_sparse_attention_runs(qs, ks, vs, metas, **kw), iters, 1)
+            pairs, sdpa_ms = int((per_block * real_rows).sum()), None
+            if len(heads_l) * Sq * Skv * 2 <= MASK_BYTES:  # the yardstick's attn_mask fits
+                bias, pairs = runs_bias(metas, pos, specs[kind], Sq, Skv, sap.block_q, qs.dtype)
+                sdpa_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qs[None], ks[None], vs[None],
+                                                                         attn_mask=bias), iters, 1)
+                del bias
+                torch.cuda.empty_cache()
+            elif kind != "none":
+                raise ValueError(f"{kind}: its pairs need the attn_mask, which does not fit")
+            t_ops, t_bytes = 4.0 * D * pairs / PEAK_BF16_FLOPS, 4 * qs.numel() * 2 / PEAK_BYTES
+            rows.append({"case": f"k{3 if kind == 'none' else 4}_runs_{preset}_{len(heads_l)}heads", "kind": kind,
+                         "heads": heads_l, "S": S, "Sq": Sq, "Skv": Skv, "D": D, "block_q": sap.block_q,
+                         "block_kv": sap.block_kv, "ms": ms, "visited_pairs": visited, "needed_pairs": pairs,
+                         "tflops_visited": 4.0 * D * visited / (ms * 1e-3) / 1e12,
+                         "bound_ms": 1e3 * max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                         "live_column_share": int(per_block.sum()) / max(128 * int(tiles.sum()), 1),
+                         "density": a.density.mean().item(), "sdpa_ms": sdpa_ms})
+            r = rows[-1]
+            print(f"{r['case'].split('_')[0].upper()} {r['case']} ({kind}, heads {heads_l}, Sq {Sq}, Skv {Skv}, D {D}, "
+                  f"block_q {sap.block_q}, block_kv {sap.block_kv}): {ms:.3f} ms, {r['tflops_visited']:.1f} TFLOP/s "
+                  f"on {visited} visited pairs; bound {r['bound_ms']:.3f} ms ({r['bound_by']}, {pairs} pairs of the "
+                  f"real q rows); live column share {r['live_column_share']:.4f}; SDPA with the run lists as an "
+                  f"attn_mask " + ("not run (its mask exceeds MASK_BYTES)" if sdpa_ms is None else f"{sdpa_ms:.3f} ms"),
+                  flush=True)
+        del qs, ks, vs, metas, pos
+    del a
+    torch.cuda.empty_cache()
+    return rows
 
 
 def main(argv=None):
@@ -140,8 +221,8 @@ def main(argv=None):
               f"{r['tflops']:.1f} TFLOP/s on {r['allowed_pairs_per_head'] / r['S'] ** 2:.4f} of S x S; bound "
               f"{r['bound_ms']:.3f} ms ({r['bound_by']})"
               + ("" if r["sdpa_ms"] is None else f"; SDPA {r['sdpa_ms']:.3f} ms"), flush=True)
-    rows.append(bench_k3(iters=args.iters, dev=dev))
-    print(f"K3 {rows[-1]['case']}: {rows[-1]['ms']:.3f} ms", flush=True)
+    rows += bench_runs("1.3B-480p", [[0, 1, 10, 11]], ("none", "band_sink"), iters=args.iters, dev=dev)
+    rows += bench_runs("14B-720p-sap", [[0, 39], [0]], ("none",), iters=args.iters, dev=dev)
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"device": line, "rows": rows}, f, indent=1)

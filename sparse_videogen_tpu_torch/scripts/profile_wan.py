@@ -3,6 +3,7 @@
     python -m sparse_videogen_tpu_torch.scripts.profile_wan [--runs SVG,dense,SAP,SAP,dense,SVG]
     python -m sparse_videogen_tpu_torch.scripts.profile_wan --preset 14B-720p-sap --layers 4 \
         --steps 5 --runs SAP,dense,dense,SAP
+    python -m sparse_videogen_tpu_torch.scripts.profile_wan --organic 4.0 --runs SAP
 
 --preset picks the model and its generation settings (presets.PRESETS):
 1.3B-480p, Wan 2.1 1.3B with the CLI's sparsity, SAP (QC 50 / KC 200) and
@@ -11,7 +12,10 @@ warm-up; 14B-720p-sap, Wan 2.1 14B with the reference's Wan 720p SAP run
 0.03, flow shift 5.0). Random bf16 weights from --seed at the model's full
 width, --layers of its blocks (default: all), and a random (1, 512, 4096)
 context (UMT5-XXL's shape). Dense and SVG1 batch CFG; SAP runs cond and
-uncond as separate batch-1 forwards. Two parts:
+uncond as separate batch-1 forwards. --organic GAIN (default off) gives SAP
+an organic density instead of random weights' ~0.87 (utils/organic.py):
+every self-attention's K projection := its Q projection, norm_q x GAIN, and
+low-pass latents (smooth_latents) in both parts. Two parts:
 
   [time]    WanPipeline.generate_latents for --steps UniPC steps, once per
             entry of --runs (alternate the patterns to see drift), after one
@@ -22,7 +26,10 @@ uncond as separate batch-1 forwards. Two parts:
             update, at the second timestep; SAP's k-means warm, its states
             made by one forward before) under torch.profiler: device time by
             category of kernel name, launches, and the device idle share =
-            1 - (union of device-activity intervals) / (their span).
+            1 - (union of device-activity intervals) / (their span). For SAP,
+            one more step's forwards outside the profiler record its density
+            and the share of the loaded 128-token K/V tile columns that its
+            run lists keep live (ops/attention.py runs_tile_stats).
 
 --out writes the same numbers as JSON.
 """
@@ -148,6 +155,39 @@ def profile_forward(label, forward):
             "categories": cats, "launches": dict(_kernels.LAUNCHES)}
 
 
+def sap_run_list_stats(forward):
+    """forward() once (outside the profiler), recording every sparse SAP
+    layer's run lists: their live tokens and loaded 128-token tile columns
+    (runs_tile_stats) and SAP's density."""
+    from sparse_videogen_tpu_torch.ops.attention import runs_tile_stats
+    from sparse_videogen_tpu_torch.sparse import svg2
+
+    prepare, live, loaded, dens = svg2.sap_prepare, [], [], []
+
+    def recording(*args, **kw):
+        a = prepare(*args, **kw)
+        n_live, n_tiles = runs_tile_stats(a.meta)
+        live.append(n_live.sum())
+        loaded.append(128 * n_tiles.sum())
+        dens.append(a.density.mean())
+        return a
+
+    svg2.sap_prepare = recording
+    try:
+        forward()
+    finally:
+        svg2.sap_prepare = prepare
+    if not dens:
+        raise AssertionError("the SAP forward ran no sparse layer")
+    out = {"layers": len(dens), "density_mean": torch.stack(dens).mean().item(),
+           "live_columns": int(sum(live)), "loaded_columns": int(sum(loaded))}
+    out["live_column_share"] = out["live_columns"] / out["loaded_columns"]
+    print(f"[profile] SAP run lists over {out['layers']} sparse layer calls: density {out['density_mean']}, "
+          f"{out['live_columns']} live of {out['loaded_columns']} loaded 128-token tile columns, live share "
+          f"{out['live_column_share']}", flush=True)
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--preset", choices=tuple(PRESETS), default="1.3B-480p")
@@ -156,6 +196,8 @@ def main(argv=None):
     ap.add_argument("--runs", default="SVG,dense,SAP,SAP,dense,SVG")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=None, help="write the results as JSON here")
+    ap.add_argument("--organic", type=float, default=None, metavar="GAIN",
+                    help="K := Q with norm_q x GAIN and smooth latents (utils/organic.py); default off")
     args = ap.parse_args(argv)
 
     from sparse_videogen_tpu_torch.config import WarmupSchedule
@@ -163,6 +205,7 @@ def main(argv=None):
     from sparse_videogen_tpu_torch.pipelines import WanPipeline
     from sparse_videogen_tpu_torch.pipelines.wan import make_wan_runtime, wan_layout
     from sparse_videogen_tpu_torch.schedulers import FlowUniPC
+    from sparse_videogen_tpu_torch.utils.organic import align_self_attn_qk, smooth_latents
 
     if not torch.cuda.is_available():
         raise RuntimeError("profile_wan needs a CUDA device")
@@ -176,18 +219,25 @@ def main(argv=None):
     cfg = dataclasses.replace(run_cfg.model, num_layers=args.layers or run_cfg.model.num_layers)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     model = WanModel(cfg, dtype=torch.bfloat16, device=dev).init_random(gen)
+    if args.organic is not None:
+        align_self_attn_qk(model, gain=args.organic)
     ctx = torch.randn(1, cfg.text_len, cfg.text_dim, generator=gen, device=dev).to(torch.bfloat16)
     ctx_null = torch.randn(1, cfg.text_len, cfg.text_dim, generator=gen, device=dev).to(torch.bfloat16)
     pipe = WanPipeline(model)
     gen_kw = dict(run_cfg.generate_kwargs(), seed=args.seed)
+    lay = wan_layout(cfg, run_cfg.height, run_cfg.width, run_cfg.num_frames)
+    lat_shape = (cfg.out_dim, lay.num_frames, run_cfg.height // 8, run_cfg.width // 8)
+    if args.organic is not None:
+        gen_kw["latents"] = smooth_latents(gen, (1, *lat_shape), dtype=torch.float32)
     print(f"[config] {args.preset}: Wan 2.1 dim {cfg.dim}, {cfg.num_layers} layers, {cfg.num_heads} heads; "
           f"{run_cfg.height}x{run_cfg.width}x{run_cfg.num_frames}, {args.steps} steps; SAP QC {sap.num_q_centroids} "
-          f"KC {sap.num_k_centroids} min_kc_ratio {sap.min_kc_ratio}", flush=True)
+          f"KC {sap.num_k_centroids} min_kc_ratio {sap.min_kc_ratio}; "
+          + ("random weights" if args.organic is None else f"organic, gain {args.organic}"), flush=True)
     runs = args.runs.split(",")
     for pattern in dict.fromkeys(runs):
         pipe.generate_latents(ctx, ctx_null, num_inference_steps=1, pattern=pattern, **gen_kw)
-    result = {"device": smi, "preset": args.preset, "layers": cfg.num_layers, "time": [],
-              "profile": {}}
+    result = {"device": smi, "preset": args.preset, "layers": cfg.num_layers, "organic_gain": args.organic,
+              "time": [], "profile": {}}
     tmp = tempfile.TemporaryDirectory()
     dlog = os.path.join(tmp.name, "density.jsonl")  # SAP's density log of the cond stream
 
@@ -201,17 +251,18 @@ def main(argv=None):
                 dens = [json.loads(line)["avg_density"] for line in f]
             run["density_mean"] = sum(dens) / len(dens)
         print(f"[time] {pattern}: per-step s {run['per_step_s']} wall {run['wall_s']} s (the first step includes "
-              f"set-up)" + (f"; SAP density mean {run['density_mean']} (cond stream, random weights)"
-                            if pattern == "SAP" else ""), flush=True)
+              f"set-up)" + (f"; SAP density mean {run['density_mean']} (cond stream)" if pattern == "SAP" else ""),
+              flush=True)
         result["time"].append(run)
 
-    lay = wan_layout(cfg, run_cfg.height, run_cfg.width, run_cfg.num_frames)
     sch = FlowUniPC(args.steps, shift=run_cfg.flow_shift)
     warmup = WarmupSchedule.from_fractions(run_cfg.first_layers_fp, run_cfg.first_times_fp, cfg.num_layers,
                                            sch.timesteps)
     ctx_pair = torch.cat([ctx, ctx_null])
-    x = torch.randn(2, cfg.out_dim, lay.num_frames, run_cfg.height // 8, run_cfg.width // 8, generator=gen,
-                    device=dev).to(torch.bfloat16)
+    if args.organic is None:
+        x = torch.randn(2, *lat_shape, generator=gen, device=dev).to(torch.bfloat16)
+    else:
+        x = smooth_latents(gen, (2, *lat_shape))
     t = torch.full((2,), float(sch.timesteps[1]), device=dev)
     for pattern in dict.fromkeys(runs):
         rt = make_wan_runtime(lay, device=dev, pattern=pattern, warmup=warmup, svg=svg, sap=sap)
@@ -227,6 +278,8 @@ def main(argv=None):
                 model(x[s:s + 1], t[:1], ctx_pair[s:s + 1], attention=rt, generator=gen)
 
         result["profile"][pattern] = profile_forward(f"{pattern} step forwards", step_forwards)
+        if pattern == "SAP":
+            result["profile"][pattern]["run_lists"] = sap_run_list_stats(step_forwards)
     tmp.cleanup()
     if args.out:
         with open(args.out, "w") as f:

@@ -19,6 +19,10 @@ from sparse_videogen_tpu_torch.ops.attention import (
     block_sparse_attention_kv_plain,
     block_sparse_attention_runs,
     block_sparse_attention_runs_plain,
+    run_chunks,
+    runs_tile_stats,
+    runs_tile_walk,
+    runs_work_order,
     work_order,
 )
 from sparse_videogen_tpu_torch.ops.kmeans import (
@@ -82,19 +86,20 @@ def test_work_order_is_heaviest_first_permutation(R):
 
 
 def test_kernel_args_need_block_q_multiple_of_cta_rows():
-    """The chunked-CSR kernel takes 128 q rows a CTA: its check (and the
-    work-order builder) raise on block_q % 128 != 0; the run-list kernel
-    keeps 64."""
-    from sparse_videogen_tpu_torch.ops.attention import BQ, TQ, _check_kernel_args
+    """Both attention kernels take 128 q rows a CTA (one CTA body): their
+    check and both work-order builders raise on block_q % 128 != 0."""
+    from sparse_videogen_tpu_torch.ops.attention import _KERNEL_MASKS, _RUNS_KERNEL_MASKS, BQ, _check_kernel_args
 
     q = torch.zeros(1, 384, 64, dtype=torch.bfloat16)
     meta = torch.as_tensor(MD.dense_meta(384, 384, block_q=192, block_kv=128))
-    with pytest.raises(ValueError, match="block_q % 128"):
-        _check_kernel_args(q, q, q, meta, None, MaskSpec(), 192)
-    with pytest.raises(ValueError):
-        work_order(meta, 1, 384, 192)
-    assert BQ == 128 and TQ == 64
-    assert _check_kernel_args(q, q, q, meta, None, MaskSpec(), 192, ("none",), TQ).tolist() == [0, 0, 0, 0]
+    for kinds in (tuple(_KERNEL_MASKS), _RUNS_KERNEL_MASKS):
+        with pytest.raises(ValueError, match="block_q % 128"):
+            _check_kernel_args(q, q, q, meta, None, MaskSpec(), 192, kinds)
+    for order in (work_order, runs_work_order):
+        with pytest.raises(ValueError):
+            order(meta, 1, 384, 192)
+    assert BQ == 128
+    assert _check_kernel_args(q, q, q, meta, None, MaskSpec(), 128, _RUNS_KERNEL_MASKS).tolist() == [0, 0, 0, 0]
     assert _check_kernel_args(q, q, q, meta, None, MaskSpec(), 128).tolist() == [0, 0, 0, 0]
 
 
@@ -117,9 +122,9 @@ def test_ptxas_report_reads_the_attention_entries():
          "static_smem": 16}]
 
 
-def _run_list_case(rng, BH, C, S, Sq, bq, bkv):
-    """Run lists over random cluster sizes (one empty cluster), per head, with
-    q block 1 visiting nothing."""
+def _run_list_case(rng, BH, C, S, Sq, bq, bkv, p=0.5):
+    """Run lists over random cluster sizes (one empty cluster), per head, each
+    cluster selected with probability p, with q block 1 visiting nothing."""
     sizes = np.zeros((BH, C), np.int32)
     for b in range(BH):
         w = rng.random(C)
@@ -127,9 +132,85 @@ def _run_list_case(rng, BH, C, S, Sq, bq, bkv):
         sizes[b] = np.floor(w / w.sum() * S)
         sizes[b, np.argmax(sizes[b])] += S - sizes[b].sum()
     starts = np.concatenate([np.zeros((BH, 1), np.int32), np.cumsum(sizes, axis=1)[:, :-1]], axis=1)
-    sel = rng.random((BH, Sq // bq, C)) < 0.5
+    sel = rng.random((BH, Sq // bq, C)) < p
     sel[:, 1] = False
     return MD.run_meta_np(sel, starts, sizes, block_kv=bkv, cap=C)
+
+
+# short runs (< 128 tokens) that share 128-token tiles and start mid-tile,
+# a run of one token, runs across a tile edge and a chunk edge
+_SHORT_RUNS = [(5, 40), (60, 100), (130, 131), (250, 400), (509, 515), (1000, 1300), (1400, 1408)]
+
+
+def _runs_row(runs, bkv, cap):
+    row = np.zeros(MD.run_meta_row_len(cap), np.int32)
+    row[0] = sum(MD._run_chunks(a, b, bkv) for a, b in runs)
+    row[1:1 + 2 * len(runs)] = np.asarray(runs).reshape(-1)
+    return row
+
+
+@pytest.mark.parametrize("R", [1, 3])
+def test_runs_work_order_is_heaviest_first_permutation(R):
+    """The run-list kernel's work items (head, 128-row q tile): a permutation
+    of all of them by descending weight, ties in item order; each weight is
+    the tokens its row's chunks cover (run_chunks), 0 for a row with runs
+    but n = 0 (SAP's q blocks without a token); R == 1 gives every head
+    the same weights; shapes that do not match raise."""
+    rng = np.random.default_rng(40 + R)
+    BH, C, S, sq, bq, bkv = 3, 9, 1500, 1024, 256, 512
+    meta = _run_list_case(rng, R, C, S, sq, bq, bkv)
+    meta[0, 2, 0] = 0
+    assert meta[0, 2, 1:].any()
+    order, weight = runs_work_order(torch.as_tensor(meta), BH, sq, bq)
+    assert order.dtype == torch.int32 and sorted(order.tolist()) == list(range(BH * sq // 128))
+    tokens = np.asarray([[sum(hi - lo for lo, hi in run_chunks(meta[r, i], bkv)) for i in range(sq // bq)]
+                         for r in range(R)])
+    h, t = np.divmod(np.arange(BH * sq // 128), sq // 128)
+    assert weight.tolist() == tokens[0 if R == 1 else h, t * 128 // bq].tolist()
+    assert weight.reshape(BH, -1)[0, 4:6].tolist() == [0, 0]
+    if R == 1:
+        assert bool((weight.reshape(BH, -1) == weight.reshape(BH, -1)[:1]).all())
+    w = weight[order.long()]
+    assert bool((w[:-1] >= w[1:]).all())
+    ties = w[:-1] == w[1:]
+    assert bool((order[:-1][ties] < order[1:][ties]).all())
+    m = torch.as_tensor(meta)
+    bad = [(m, BH, sq, 192), (m[:, :2], BH, sq, bq), (m, BH, sq + 128, bq)] + ([(m, 2, sq, bq)] if R > 1 else [])
+    for args in bad:
+        with pytest.raises(ValueError):
+            runs_work_order(*args)
+
+
+def _check_tile_walk(row, bkv):
+    """runs_tile_walk against run_chunks on one row: the tiles' live tokens,
+    in walk order, are the chunks' tokens in theirs (full chunks first), each
+    token once; every tile starts on a multiple of 128, holds a live token
+    and covers its live span; runs_tile_stats counts the same."""
+    tiles = runs_tile_walk(row, bkv)
+    walked = [tok for _, lo, hi in tiles for tok in range(lo, hi)]
+    listed = [tok for lo, hi in run_chunks(row, bkv) for tok in range(lo, hi)]
+    assert walked == listed and len(set(walked)) == len(walked)
+    assert all(t0 % MD.SUB == 0 and t0 <= lo < hi <= t0 + MD.SUB for t0, lo, hi in tiles)
+    live, loaded = runs_tile_stats(torch.as_tensor(row)[None, None])
+    assert (int(live), int(loaded)) == (len(walked), len(tiles))
+    return tiles
+
+
+@pytest.mark.parametrize("bkv", [128, 256, 1024])
+def test_runs_tile_walk_covers_run_chunks(bkv):
+    """The model of the kernel's walk on random run lists (per head, with an
+    empty q block) and on short runs that share tiles."""
+    rng = np.random.default_rng(bkv)
+    meta = _run_list_case(rng, 2, 23, 3000, 1024, 256, bkv)
+    for row in meta.reshape(-1, meta.shape[-1]):
+        _check_tile_walk(row, bkv)
+    assert runs_tile_walk(meta[0, 1], bkv) == []
+    tiles = _check_tile_walk(_runs_row(_SHORT_RUNS, bkv, len(_SHORT_RUNS) + 2), bkv)
+    # the short runs touch tile 0 twice (5-40, 60-100), tile 384 twice (250-400 ends and 509-515 starts there)
+    starts = [t0 for t0, _, _ in tiles]
+    assert starts.count(0) == 2 and starts.count(384) == 2
+    live, loaded = runs_tile_stats(torch.as_tensor(meta))
+    assert live.shape == loaded.shape == meta.shape[:2] and not live[:, 1].any() and not loaded[:, 1].any()
 
 
 def test_runs_and_kmeans_cpu_tensors_run_plain():
@@ -148,18 +229,50 @@ def test_runs_and_kmeans_cpu_tensors_run_plain():
         block_sparse_attention_runs(q, k, k, meta, block_q=128, block_kv=192)
 
 
+def _runs_gpu_case(case, rng):
+    """(meta, BH, Sq, S, block_q, block_kv) of a run-list case; q block 1
+    visits nothing in each."""
+    if case == "random":  # per-head lists over 11 random clusters
+        BH, C, S, Sq, bq, bkv = 3, 11, 1900, 1024, 256, 512
+        return _run_list_case(rng, BH, C, S, Sq, bq, bkv), BH, Sq, S, bq, bkv
+    if case == "short_runs":  # 60 clusters of ~32 tokens: short runs that share 128-token tiles
+        BH, S, Sq, bq, bkv = 2, 1900, 1024, 256, 256
+        meta = _run_list_case(rng, BH, 60, S, Sq, bq, bkv, p=0.3)
+        meta[1, 0] = _runs_row(_SHORT_RUNS, bkv, 60)
+        return meta, BH, Sq, S, bq, bkv
+    if case == "shared_meta":  # R == 1: one list for all 3 heads
+        S, Sq, bq, bkv = 1900, 1024, 256, 512
+        return _run_list_case(rng, 1, 11, S, Sq, bq, bkv), 3, Sq, S, bq, bkv
+    if case == "block_q_512":
+        BH, S, Sq, bq, bkv = 2, 1900, 1536, 512, 1024
+        return _run_list_case(rng, BH, 11, S, Sq, bq, bkv), BH, Sq, S, bq, bkv
+    if case == "long_rows":  # q block 0 visits all 8000 tokens: 63 tiles, the ring wraps many times
+        BH, S, Sq, bq, bkv = 2, 8000, 512, 256, 1024
+        meta = _run_list_case(rng, BH, 4, S, Sq, bq, bkv)
+        meta[:, 0] = _runs_row([(0, S)], bkv, 4)
+        return meta, BH, Sq, S, bq, bkv
+    # heavy_row: q block 3 of head 1 visits every cluster, the rest ~10% of them
+    BH, C, S, Sq, bq, bkv = 2, 30, 4000, 1024, 128, 512
+    meta = _run_list_case(rng, BH, C, S, Sq, bq, bkv, p=0.1)
+    meta[1, 3] = _runs_row([(0, S)], bkv, C)
+    return meta, BH, Sq, S, bq, bkv
+
+
 @pytest.mark.gpu
+@pytest.mark.parametrize("case", ["random", "short_runs", "shared_meta", "block_q_512", "long_rows", "heavy_row"])
 @pytest.mark.parametrize("spec", [MaskSpec(), MaskSpec(kind="band_sink", band_width=300, sink_size=200)],
                          ids=["none", "band_sink"])
 @pytest.mark.parametrize("D_", [64, 128])
-def test_runs_kernel_matches_plain(cuda, spec, D_):
+def test_runs_kernel_matches_plain(cuda, spec, D_, case):
     """The run-list kernel (mask none) and its MaskSpec path (band_sink)
-    against the plain version on the card, bf16, per-head run lists, an empty
-    q block (exactly 0) and aux offsets; same tolerance and reason as the
-    chunked kernel's: atol 2e-2."""
+    against the plain version on the card, bf16, aux offsets, an empty q
+    block (exactly 0), and each case of _runs_gpu_case: random per-head
+    lists, short runs sharing tiles, R == 1, block_q 512, rows that wrap the
+    ring many times, one heavy row among light ones. Same tolerance and
+    reason as the chunked kernel's: atol 2e-2. block_q 64 raises."""
     rng = np.random.default_rng(12)
-    BH, C, S, Sq, bq, bkv = 3, 11, 1900, 1024, 256, 512
-    meta = torch.as_tensor(_run_list_case(rng, BH, C, S, Sq, bq, bkv), device=cuda)
+    meta_np, BH, Sq, S, bq, bkv = _runs_gpu_case(case, rng)
+    meta = torch.as_tensor(meta_np, device=cuda)
     skv = -(-S // MD.SUB) * MD.SUB
     q, k, v = (torch.randn(BH, n, D_, device=cuda).to(torch.bfloat16) for n in (Sq, skv, skv))
     aux = torch.as_tensor(np.asarray([0, 0, 5, 9], np.int32), device=cuda)
@@ -171,6 +284,10 @@ def test_runs_kernel_matches_plain(cuda, spec, D_):
     torch.cuda.synchronize()
     torch.testing.assert_close(out.float(), ref.float(), atol=2e-2, rtol=0)
     assert torch.all(out[:, bq:2 * bq] == 0)
+    if case == "random":  # a CUDA call the kernel cannot take raises, never falls back
+        meta64 = torch.as_tensor(_run_list_case(rng, BH, 11, S, Sq, 64, bkv), device=cuda)
+        with pytest.raises(ValueError, match="block_q % 128"):
+            block_sparse_attention_runs(q, k, v, meta64, aux, block_q=64, block_kv=bkv, mask_spec=spec)
 
 
 def _check_labels_and_sums(x, c, out, ref_labels):
