@@ -10,9 +10,11 @@ is non-zero:
                capability and `nvidia-smi` name and power limit.
   2. build   - compiles sparse_videogen_tpu_torch/csrc/*.cu with nvcc (sm_90a)
                and prints ptxas' registers, spills and shared memory of
-               every K1 (bsa_kernel<D, KIND>) and K3/K4 (runs_kernel<D>)
-               instance, both on the CTA body of csrc/hopper_attn.cuh; an
-               instance that is missing or spills fails the phase.
+               every K1 (bsa_kernel<D, KIND>), K3/K4 (runs_kernel<D>) and K7
+               (dense_kernel<D, MODE>) instance, all on the CTA body of
+               csrc/hopper_attn.cuh, and of K5's assign kernel
+               (kmeans_assign_kernel<D>); an instance that is missing or
+               spills fails the phase.
   3. kernels - each Hopper kernel against its plain PyTorch version at the
                slices' shapes (bf16), with the tolerance stated, and both
                timed with CUDA events: RoPE, the chunked-CSR attention (dense
@@ -32,7 +34,8 @@ is non-zero:
                HunyuanVideo 720p x 129 (S = 119,056, 24 heads) on the
                pipeline runtime's dense and SVG1 metadata; K6 (Triton RMSNorm)
                on its probe's shapes; K7 (q-split dense attention) at (12,
-               32768, 128) for every (bq, qsplit) it compiles; K1 at D = 64,
+               32768, 128) and (12, 32768, 64) for every (bq, qsplit) it
+               compiles; K1 at D = 64,
                its cog kind and its unmasked dense path, at CogVideoX 768 x
                1360 x 81 (S = 45,106, 96 rows) on the pipeline runtime's
                metadata (the cog kind beside SDPA with its mask as an (S, S)
@@ -191,16 +194,21 @@ def phase_build():
     for line in text.splitlines():
         if "Compiling entry" in line or "registers" in line or "spill" in line or "setmaxnreg" in line:
             log("build", "ptxas: " + line.strip())
-    # the attention kernels' instances, one CTA body (its dynamic shared
-    # memory from the library): K1 (bsa_kernel<D, KIND>) and K3/K4
-    # (runs_kernel<D>) must not spill
+    # the Hopper kernels' instances (the attention body's dynamic shared
+    # memory from the library): K1 (bsa_kernel<D, KIND>), K3/K4
+    # (runs_kernel<D>), K7 (dense_kernel<D, MODE>: MODE 1 is qsplit 1, 3 the
+    # ping-pong) and K5's assign (kmeans_assign_kernel<D>) must not spill
     rows = _kernels.ptxas_report(text)
     for r in rows:
-        log("build", f"{r['kernel']}<D={r['D']}" + (f", kind {r['kind']}" if r["kind"] else "") + f">: "
-                     f"{r['registers']} registers, spill stores {r['spill_stores']} B, spill loads "
-                     f"{r['spill_loads']} B, static smem {r['static_smem']} B, dynamic smem "
-                     f"{_kernels.lib().svt_block_sparse_attn_smem(r['D'])} B")
-    for kernel, want in (("bsa_kernel", 6), ("runs_kernel", 2)):
+        if r["kernel"] == "dense_kernel":
+            tag, dyn = f", mode {r['kind']}", _kernels.lib().svt_dense_qsplit_smem(r["D"], 2 if r["kind"] & 2 else 1)
+        else:
+            tag = f", kind {r['kind']}" if r["kind"] else ""
+            dyn = _kernels.lib().svt_block_sparse_attn_smem(r["D"]) if r["kernel"] != "kmeans_assign_kernel" else None
+        log("build", f"{r['kernel']}<D={r['D']}{tag}>: {r['registers']} registers, spill stores {r['spill_stores']} B, "
+                     f"spill loads {r['spill_loads']} B, static smem {r['static_smem']} B"
+                     + ("" if dyn is None else f", dynamic smem {dyn} B"))
+    for kernel, want in (("bsa_kernel", 6), ("runs_kernel", 2), ("dense_kernel", 4), ("kmeans_assign_kernel", 2)):
         got = [r for r in rows if r["kernel"] == kernel]
         if len(got) != want or any(r["spill_stores"] or r["spill_loads"] for r in got):
             raise AssertionError(f"{kernel} instances: expected {want} (D 64/128) without spills, got {got}")
@@ -409,7 +417,7 @@ def phase_kmeans(dev):
     one-hots)."""
     from sparse_videogen_tpu_torch import _kernels
     from sparse_videogen_tpu_torch.core.kmeans import init_centroids
-    from sparse_videogen_tpu_torch.ops.kmeans import WIDE_VARIANT, kmeans_assign_update, kmeans_assign_update_plain
+    from sparse_videogen_tpu_torch.ops.kmeans import kmeans_assign_update, kmeans_assign_update_plain
 
     times, worst = {}, 0.0
     for preset, B, ks, seed in (("1.3B-480p", 12, (50, 200), 4), ("14B-720p-sap", 40, (300, 1000), 6)):
@@ -424,7 +432,7 @@ def phase_kmeans(dev):
                 raise AssertionError(f"K={K} did not launch the k-means kernel")
             ok, st = check_kmeans(x, c, out, kmeans_assign_update(x, c), kmeans_assign_update_plain)
             torch.cuda.synchronize()
-            log("kernels", _kmeans_log(f"kmeans_wide (variant {WIDE_VARIANT}; B={B}, N={N}, D={D}, K={K}) bf16", st))
+            log("kernels", _kmeans_log(f"kmeans_wide (K5; B={B}, N={N}, D={D}, K={K}) bf16", st))
             if not ok:
                 raise AssertionError(f"kmeans kernel (K={K}) disagrees with its plain version or is not deterministic")
             ms = cuda_ms(lambda: kmeans_assign_update(x, c))
@@ -437,7 +445,7 @@ def phase_kmeans(dev):
         del x
         torch.cuda.empty_cache()
     ms, plain_ms = times[1000]
-    return {"name": "kmeans_wide", "route": "cuda", "source": "sparse_videogen_tpu_torch/csrc/kmeans_wide.cu",
+    return {"name": "kmeans_wide", "route": "cuda", "source": "sparse_videogen_tpu_torch/csrc/kmeans_lloyd.cu",
             "replaces": "sparse_videogen_tpu/ops/kmeans_pallas.py:31", "max_abs_err": worst, "ms": ms,
             "plain_ms": plain_ms, **kmeans_bound(B, N, 1000, D), "library_ms": None, "K": 1000,
             "ms_by_K": {k: t[0] for k, t in times.items()}}
@@ -1068,49 +1076,58 @@ def phase_rmsnorm(dev):
 
 
 def phase_qsplit(dev):
-    """K7 at the probe's shape (12, 32768, 128) bf16, bkv 1024, against its
-    plain version (one run: it is the same function at every (bq, qsplit))
-    for every (bq, qsplit) the kernel compiles; both round q_s and P to bf16,
-    the kernel rescales P per 64-token sub-tile, the plain version per bkv
-    chunk: the attention tolerances. The entry is the fastest pair, beside
-    F.scaled_dot_product_attention."""
+    """K7 at the probe's shape (12, 32768, 128) bf16, bkv 1024, and at head
+    dim 64 (12, 32768, 64), against its plain version (one run a shape: it
+    is the same function at every (bq, qsplit)) for every (bq, qsplit) the
+    kernel compiles; both round q_s and P to bf16, the kernel rescales P per
+    128-token tile, the plain version per bkv chunk: the attention
+    tolerances. F.scaled_dot_product_attention is timed beside each shape.
+    The entry is the fastest pair at D = 128."""
     from sparse_videogen_tpu_torch.ops.dense_qsplit import KERNEL_CONFIGS, dense_attn, dense_attn_plain
     from sparse_videogen_tpu_torch.scripts import bench_qsplit as probe
 
-    q, k, v = probe.make_inputs(probe.SHAPE, seed=0, device=dev)
-    ref = None
+    entry, worst = None, 0.0
+    for shape in (probe.SHAPE, probe.SHAPE[:2] + (64,)):
+        q, k, v = probe.make_inputs(shape, seed=0, device=dev)
+        ref = None
 
-    def plain():
-        nonlocal ref
-        ref = dense_attn_plain(q, k, v, bq=256, bkv=probe.BKV)
+        def plain():
+            nonlocal ref
+            ref = dense_attn_plain(q, k, v, bq=256, bkv=probe.BKV)
 
-    plain_ms = event_ms(plain)
-    fl = probe.flops(q.shape)
-    times, worst = {}, 0.0
-    for bq, qs in KERNEL_CONFIGS:
-        out = dense_attn(q, k, v, bq=bq, bkv=probe.BKV, qsplit=qs)
-        torch.cuda.synchronize()
-        max_abs, mean_rel = err_stats(out, ref)
-        ms = cuda_ms(lambda: dense_attn(q, k, v, bq=bq, bkv=probe.BKV, qsplit=qs))
-        log("kernels", f"dense_qsplit bq={bq} qsplit={qs} {tuple(q.shape)} bf16: max_abs_err {max_abs:.3e} (tol "
-                       f"{ATTN_TOL_ABS}), mean_rel_err {mean_rel:.3e} (tol {ATTN_TOL_REL}); kernel {ms:.3f} ms "
-                       f"({fl / (ms * 1e-3) / 1e12:.1f} TFLOP/s)")
-        if not (max_abs <= ATTN_TOL_ABS and mean_rel <= ATTN_TOL_REL):
-            raise AssertionError(f"dense_qsplit kernel (bq={bq}, qsplit={qs}) disagrees with its plain version")
-        times[f"{bq}/{qs}"] = ms
-        worst = max(worst, max_abs)
-        del out
-    sdpa_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(q[None], k[None], v[None]))
-    b = attention_bound(q.shape[0] * q.shape[1] ** 2, q)
-    best = min(times, key=times.get)
-    log("kernels", f"dense_qsplit: plain {plain_ms:.3f} ms (one run), F.scaled_dot_product_attention {sdpa_ms:.3f} ms "
-                   f"({fl / (sdpa_ms * 1e-3) / 1e12:.1f} TFLOP/s); bound {b['bound_ms']:.3f} ms ({b['bound_by']}); "
-                   f"fastest bq/qsplit {best}")
-    del q, k, v, ref
-    torch.cuda.empty_cache()
-    return {"name": "dense_qsplit", "route": "cuda", "source": "sparse_videogen_tpu_torch/csrc/dense_qsplit.cu",
-            "replaces": "scripts/bench_qsplit.py:28", "max_abs_err": worst, "ms": times[best], "plain_ms": plain_ms,
-            **b, "library_ms": sdpa_ms, "config": best, "ms_by_config": times}
+        plain_ms = event_ms(plain)
+        fl = probe.flops(q.shape)
+        times = {}
+        for bq, qs in KERNEL_CONFIGS:
+            out = dense_attn(q, k, v, bq=bq, bkv=probe.BKV, qsplit=qs)
+            torch.cuda.synchronize()
+            max_abs, mean_rel = err_stats(out, ref)
+            ms = cuda_ms(lambda: dense_attn(q, k, v, bq=bq, bkv=probe.BKV, qsplit=qs))
+            log("kernels", f"dense_qsplit bq={bq} qsplit={qs} {tuple(q.shape)} bf16: max_abs_err {max_abs:.3e} (tol "
+                           f"{ATTN_TOL_ABS}), mean_rel_err {mean_rel:.3e} (tol {ATTN_TOL_REL}); kernel {ms:.3f} ms "
+                           f"({fl / (ms * 1e-3) / 1e12:.1f} TFLOP/s)")
+            if not (max_abs <= ATTN_TOL_ABS and mean_rel <= ATTN_TOL_REL):
+                raise AssertionError(f"dense_qsplit kernel (bq={bq}, qsplit={qs}, {tuple(q.shape)}) disagrees with its "
+                                     f"plain version")
+            times[f"{bq}/{qs}"] = ms
+            worst = max(worst, max_abs)
+            del out
+        sdpa_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(q[None], k[None], v[None]))
+        b = attention_bound(q.shape[0] * q.shape[1] ** 2, q)
+        best = min(times, key=times.get)
+        log("kernels", f"dense_qsplit {tuple(q.shape)}: plain {plain_ms:.3f} ms (one run), "
+                       f"F.scaled_dot_product_attention {sdpa_ms:.3f} ms ({fl / (sdpa_ms * 1e-3) / 1e12:.1f} TFLOP/s); "
+                       f"bound {b['bound_ms']:.3f} ms ({b['bound_by']}); fastest bq/qsplit {best}")
+        if entry is None:
+            entry = {"name": "dense_qsplit", "route": "cuda", "source": "sparse_videogen_tpu_torch/csrc/dense_qsplit.cu",
+                     "replaces": "scripts/bench_qsplit.py:28", "ms": times[best], "plain_ms": plain_ms, **b,
+                     "library_ms": sdpa_ms, "config": best, "ms_by_config": times}
+        else:
+            entry["d64"] = {"ms_by_config": times, "plain_ms": plain_ms, "library_ms": sdpa_ms, **b}
+        del q, k, v, ref
+        torch.cuda.empty_cache()
+    entry["max_abs_err"] = worst
+    return entry
 
 
 def drive_hyvideo(model, run, steps):

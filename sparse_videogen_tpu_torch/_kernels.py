@@ -66,7 +66,14 @@ _SIGNATURES = {
     "svt_kmeans_wide": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # q, k, v, o, BH, S, D, bq, qsplit, q_scale, stream
     "svt_dense_qsplit": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    # D, qsplit -> dynamic shared memory of one K7 CTA (bytes)
+    "svt_dense_qsplit_smem": [_I, _I],
+    # x, c, labels, sums, counts, work, B, N, K, D, stream
+    "svt_kmeans_lloyd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # B, N, K, D -> bytes of the pass's workspace (a long long)
+    "svt_kmeans_lloyd_workspace": [_I, _I, _I, _I],
 }
+_RESTYPES = {"svt_kmeans_lloyd_workspace": ctypes.c_longlong}
 
 
 def reset_counts() -> None:
@@ -136,17 +143,19 @@ _ENTRY = re.compile(r"Compiling entry function '([^']+)'")
 _SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
 _USED = re.compile(r"Used (\d+) registers")
 _SMEM = re.compile(r"(\d+) bytes smem")
-_ATTN = re.compile(r"(bsa_kernel|runs_kernel)ILi(\d+)E(?:Li(\d+)E)?")
+_TRACKED = re.compile(r"(bsa_kernel|runs_kernel|dense_kernel|kmeans_assign_kernel)ILi(\d+)E(?:Li(\d+)E)?")
 
 
 def ptxas_report(log: str) -> list[dict]:
-    """The attention kernels' entries in nvcc's -Xptxas -v output: one dict
+    """The Hopper kernels' entries in nvcc's -Xptxas -v output: one dict
     {kernel, D, kind, registers, spill_stores, spill_loads, static_smem} for
-    each bsa_kernel<D, KIND> (K1) and runs_kernel<D> (K3) instance."""
+    each bsa_kernel<D, KIND> (K1), runs_kernel<D> (K3/K4), dense_kernel<D,
+    MODE> (K7; `kind` holds the MODE) and kmeans_assign_kernel<D> (K5)
+    instance."""
     rows, cur = [], None
     for line in log.splitlines():
         if (e := _ENTRY.search(line)) is not None:
-            a = _ATTN.search(e.group(1))
+            a = _TRACKED.search(e.group(1))
             cur = None if a is None else {"kernel": a.group(1), "D": int(a.group(2)),
                                           "kind": None if a.group(3) is None else int(a.group(3)),
                                           "registers": None, "spill_stores": None, "spill_loads": None,
@@ -170,7 +179,7 @@ def lib() -> ctypes.CDLL:
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(cdll, name)
             fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            fn.restype = _RESTYPES.get(name, ctypes.c_int)
         _LIB = cdll
     return _LIB
 

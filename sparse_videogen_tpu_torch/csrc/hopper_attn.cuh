@@ -1,10 +1,21 @@
-// The Hopper CTA body of the block-sparse attention kernels, bf16, sm_90a:
-// K1 (csrc/block_sparse_attn.cu, chunked-CSR metadata) and K3/K4
-// (csrc/runs_attn.cu, run lists) include it and differ only in where a
-// CTA's chunks come from (a `Chunks` source, below).
+// The Hopper CTA body of the attention kernels, bf16, sm_90a: K1
+// (csrc/block_sparse_attn.cu, chunked-CSR metadata), K3/K4
+// (csrc/runs_attn.cu, run lists) and K7 (csrc/dense_qsplit.cu, one dense
+// chunk a row) include it and differ only in where a CTA's chunks come from
+// (a `Chunks` source, below) and in MODE, which only K7 sets:
+//   MODE_NAT       K7's numerics: q pre-scaled by the scale alone, the
+//                  scores and the running max in natural units, log2(e)
+//                  folded into the FFMA of each exp2 argument
+//   MODE_PINGPONG  FA3's schedule (one unmasked chunk a row of whole
+//                  tiles): the two consumer warpgroups take turns issuing
+//                  their products (named barriers), so one's softmax runs
+//                  under the other's wgmma, and inside a warpgroup tile n's
+//                  QK^T is issued with tile n-1's PV, so tile n's softmax
+//                  runs under PV(n-1). K and V stages are freed apart and
+//                  the ring has 3 stages at D = 128.
 //
-// Numerics (the TPU kernels'): q pre-scaled by scale*log2(e) and rounded to
-// bf16, the online softmax in f32 in the exp2 domain, P rounded to bf16 for
+// Numerics (the TPU kernels' of K1, K3, K4): q pre-scaled by
+// scale*log2(e) and rounded to bf16, the online softmax in f32 in the exp2 domain, P rounded to bf16 for
 // PV while the row sum uses the f32 P, 0 for a row that sees no live column.
 //
 // What bounds it on the H100: the tensor-core FLOPs of QK^T and PV (4 D per
@@ -66,17 +77,23 @@ constexpr int SUB = 128;
 constexpr int ROW_BYTES = 128;  // one 64-column box row, the 128B swizzle span
 constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
 constexpr float NEG_INF = -0.7f * 3.402823466e38f;
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr int MODE_NAT = 1, MODE_PINGPONG = 2;
 
-template <int D>
+// PP: the ping-pong ring (MODE_PINGPONG): 3 stages at D = 128 and a
+// separate empty barrier for the K and the V of each stage
+template <int D, bool PP = false>
 struct Layout {
-  static constexpr int STAGES = D == 128 ? 2 : 4;
+  static constexpr int STAGES = D == 128 ? (PP ? 3 : 2) : 4;
   static constexpr int TILE_BYTES = BK * D * 2;  // a K or a V tile
   static constexpr int Q_BYTES = BQ * D * 2;
   static constexpr int K_OFF = Q_BYTES;
   static constexpr int V_OFF = K_OFF + STAGES * TILE_BYTES;
   static constexpr int BAR_OFF = V_OFF + STAGES * TILE_BYTES;
-  // barriers: full K, full V, empty (per stage), Q; 1024 bytes to align the base
-  static constexpr int SMEM = BAR_OFF + (3 * STAGES + 1) * 8 + 1024;
+  static constexpr int BARS_A_STAGE = PP ? 4 : 3;
+  // barriers: full K, full V, empty (K's with PP), [empty V with PP] (per
+  // stage), Q; 1024 bytes to align the base
+  static constexpr int SMEM = BAR_OFF + (BARS_A_STAGE * STAGES + 1) * 8 + 1024;
   // more than half an SM's shared memory: one CTA an SM, so the consumers'
   // setmaxnreg.inc always finds the producer's registers
   static_assert(SMEM > 232448 / 2 && SMEM <= 232448, "shared memory layout");
@@ -122,12 +139,21 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, u
 __device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
 __device__ __forceinline__ void wg_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
 __device__ __forceinline__ void wg_wait0() { asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory"); }
+__device__ __forceinline__ void wg_wait1() { asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory"); }
+
+// wait at named barrier `id` until `n` threads have reached it
+__device__ __forceinline__ void named_sync(int id, int n) { asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory"); }
 
 // keeps the compiler from moving reads of wgmma accumulators above the wait
 template <int N>
 __device__ __forceinline__ void reg_fence(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void reg_fence(uint32_t (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
 // shared-memory matrix descriptor, 128B swizzle; lbo/sbo in bytes
@@ -237,7 +263,8 @@ struct RowState {
 // window where the tile straddles [lo, hi) and, MASKED with cls ==
 // TILE_SOME, the kind's predicate per pair; the exp2 online softmax; then,
 // once V has arrived, O += P V.
-template <int D, int KIND, bool MASKED>
+// NAT: K7's natural-unit scores (MODE_NAT), log2(e) folded into the exp2 FFMA.
+template <int D, int KIND, bool MASKED, bool NAT = false>
 __device__ __forceinline__ void attend_tile(float (&acc)[D / 2], float (&s)[64], RowState& st, uint32_t q_addr,
                                             uint32_t k_addr, uint32_t v_addr, uint32_t v_bar, uint32_t phase, int t0,
                                             int lo, int hi, int cls, const MaskArgs& mk, int qp0, int kbase, int t4) {
@@ -267,17 +294,21 @@ __device__ __forceinline__ void attend_tile(float (&acc)[D / 2], float (&s)[64],
   mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
   mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
   const float mn0 = fmaxf(st.m0, mx0), mn1 = fmaxf(st.m1, mx1);
-  const float alpha0 = ex2(st.m0 - mn0), alpha1 = ex2(st.m1 - mn1);
+  const float alpha0 = NAT ? ex2((st.m0 - mn0) * LOG2E) : ex2(st.m0 - mn0);
+  const float alpha1 = NAT ? ex2((st.m1 - mn1) * LOG2E) : ex2(st.m1 - mn1);
   // a row with no live column so far exponentiates against 0: p == 0
   const float ms0 = mn0 > 0.5f * NEG_INF ? mn0 : 0.f, ms1 = mn1 > 0.5f * NEG_INF ? mn1 : 0.f;
+  const float nm0 = -ms0 * LOG2E, nm1 = -ms1 * LOG2E;  // NAT only
   st.m0 = mn0;
   st.m1 = mn1;
   float sum0 = 0.f, sum1 = 0.f;
   uint32_t p[32];
 #pragma unroll
   for (int i = 0; i < 64; i += 4) {
-    const float p0 = ex2(s[i] - ms0), p1 = ex2(s[i + 1] - ms0);
-    const float p2 = ex2(s[i + 2] - ms1), p3 = ex2(s[i + 3] - ms1);
+    const float p0 = NAT ? ex2(fmaf(s[i], LOG2E, nm0)) : ex2(s[i] - ms0);
+    const float p1 = NAT ? ex2(fmaf(s[i + 1], LOG2E, nm0)) : ex2(s[i + 1] - ms0);
+    const float p2 = NAT ? ex2(fmaf(s[i + 2], LOG2E, nm1)) : ex2(s[i + 2] - ms1);
+    const float p3 = NAT ? ex2(fmaf(s[i + 3], LOG2E, nm1)) : ex2(s[i + 3] - ms1);
     sum0 += p0 + p1;
     sum1 += p2 + p3;
     p[i / 2] = pack_f2(p0, p1);
@@ -299,6 +330,158 @@ __device__ __forceinline__ void attend_tile(float (&acc)[D / 2], float (&s)[64],
   reg_fence(acc);
 }
 
+// The online softmax of one whole S tile in place (S becomes f32 P), FA3's
+// part of a tile between its QK^T and its PV: the row max, the rescale
+// factors alpha of O (applied by the caller once PV(n-1) is done) and the
+// row sums. Straight-line code: it runs while a wgmma is in flight, and a
+// branch there makes ptxas serialize the wgmma. NAT as attend_tile.
+template <bool NAT>
+__device__ __forceinline__ void softmax_tile(float (&s)[64], RowState& st, float& alpha0, float& alpha1) {
+  float mx0 = NEG_INF, mx1 = NEG_INF;
+#pragma unroll
+  for (int i = 0; i < 64; i += 4) {
+    mx0 = fmaxf(mx0, fmaxf(s[i], s[i + 1]));
+    mx1 = fmaxf(mx1, fmaxf(s[i + 2], s[i + 3]));
+  }
+  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+  const float mn0 = fmaxf(st.m0, mx0), mn1 = fmaxf(st.m1, mx1);
+  const float L = NAT ? LOG2E : 1.f;
+  alpha0 = ex2((st.m0 - mn0) * L);
+  alpha1 = ex2((st.m1 - mn1) * L);
+  const float nm0 = -mn0 * L, nm1 = -mn1 * L;
+  st.m0 = mn0;
+  st.m1 = mn1;
+  float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+  for (int i = 0; i < 64; i += 4) {
+    s[i] = ex2(fmaf(s[i], L, nm0));
+    s[i + 1] = ex2(fmaf(s[i + 1], L, nm0));
+    s[i + 2] = ex2(fmaf(s[i + 2], L, nm1));
+    s[i + 3] = ex2(fmaf(s[i + 3], L, nm1));
+    sum0 += s[i] + s[i + 1];
+    sum1 += s[i + 2] + s[i + 3];
+  }
+  st.l0 = st.l0 * alpha0 + sum0;
+  st.l1 = st.l1 * alpha1 + sum1;
+}
+
+template <int D>
+__device__ __forceinline__ void rescale(float (&acc)[D / 2], float alpha0, float alpha1) {
+#pragma unroll
+  for (int i = 0; i < D / 2; i += 4) {
+    acc[i] *= alpha0;
+    acc[i + 1] *= alpha0;
+    acc[i + 2] *= alpha1;
+    acc[i + 3] *= alpha1;
+  }
+}
+
+// P (f32, in the S registers) -> bf16 A fragments
+__device__ __forceinline__ void pack_p(uint32_t (&p)[32], const float (&s)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; i += 4) {
+    p[i / 2] = pack_f2(s[i], s[i + 1]);
+    p[i / 2 + 1] = pack_f2(s[i + 2], s[i + 3]);
+  }
+}
+
+// without a branch (predicated): arrive on an mbarrier if lane == 0, on a
+// named barrier (without waiting) if `on`
+__device__ __forceinline__ void mbar_arrive_lane0(uint32_t bar, int lane) {
+  asm volatile("{\n .reg .pred p;\n setp.eq.u32 p, %1, 0;\n @p mbarrier.arrive.shared::cta.b64 _, [%0];\n}\n" ::"r"(bar),
+               "r"(lane)
+               : "memory");
+}
+__device__ __forceinline__ void named_arrive_if(bool on, int id, int n) {
+  asm volatile("{\n .reg .pred p;\n setp.ne.u32 p, %0, 0;\n @p bar.arrive %1, %2;\n}\n" ::"r"((int)on), "r"(id), "r"(n)
+               : "memory");
+}
+
+// MODE_PINGPONG's consumer warpgroup (FA3's schedule) over one unmasked
+// chunk a row whose window [lo, hi) covers whole 128-token tiles (K7's
+// dense chunk). Named barriers 3 and 4 hand the tensor cores from one
+// warpgroup to the other: a warpgroup waits for its turn (3 + wg), issues
+// its products and passes the turn on; warpgroup 1 passes first so that
+// warpgroup 0 starts, and does not pass after its last tile (each barrier
+// then sees as many arrivals as waits). Tile 0: S = QK^T(0), its softmax.
+// Tile n > 0: wait for K(n) and V(n-1); in turn issue QK^T(n) and O +=
+// P(n-1) V(n-1) back to back; wait for the QK^T (wgmma groups retire in
+// order), free K(n), run the softmax of tile n while PV(n-1) runs, wait for
+// it, free V(n-1), scale O by alpha(n) and round P(n) to bf16 in the
+// registers PV(n-1) read. After the last tile: its PV. No branch lies
+// between a wgmma's issue and its wait.
+template <int D, bool NAT, int STAGES, class Chunks>
+__device__ __forceinline__ void pingpong_consumer(float (&acc)[D / 2], float (&s)[64], RowState& st,
+                                                  const Chunks& chunks, uint32_t q_addr, uint32_t k_base,
+                                                  uint32_t v_base, uint32_t bar, int wg, int lane) {
+  constexpr int TILE = BK * D * 2;
+  auto full_k = [&](int i) { return bar + 8 * i; };
+  auto full_v = [&](int i) { return bar + 8 * (STAGES + i); };
+  auto empty_k = [&](int i) { return bar + 8 * (2 * STAGES + i); };
+  auto empty_v = [&](int i) { return bar + 8 * (3 * STAGES + i); };
+  int lo = 0, hi = 0;
+  chunks.walk([&](int, int l, int h, bool) {
+    lo = l;
+    hi = h;
+  });
+  const int n_tiles = (hi - lo) / BK;
+  if (n_tiles <= 0) return;
+  uint32_t p[32];
+  float alpha0, alpha1;
+  int stage = 0, pstage = 0;
+  uint32_t phase = 0, pphase = 0;
+  auto advance = [&]() {
+    pstage = stage;
+    pphase = phase;
+    if (++stage == STAGES) {
+      stage = 0;
+      phase ^= 1;
+    }
+  };
+  named_arrive_if(wg == 1, 3, 256);
+  // tile 0
+  mbar_wait(full_k(stage), phase);
+  named_sync(3 + wg, 256);
+  qk_gemm<D>(s, q_addr, k_base + stage * TILE);
+  named_arrive_if(wg == 0 || n_tiles > 1, 4 - wg, 256);
+  wg_wait0();
+  reg_fence(s);
+  mbar_arrive_lane0(empty_k(stage), lane);
+  softmax_tile<NAT>(s, st, alpha0, alpha1);
+  pack_p(p, s);
+  advance();
+  for (int n = 1; n < n_tiles; ++n) {
+    mbar_wait(full_k(stage), phase);
+    mbar_wait(full_v(pstage), pphase);
+    named_sync(3 + wg, 256);
+    reg_fence(s);
+    reg_fence(acc);
+    qk_gemm<D>(s, q_addr, k_base + stage * TILE);
+    pv_gemm<D>(acc, p, v_base + pstage * TILE);
+    named_arrive_if(wg == 0 || n + 1 < n_tiles, 4 - wg, 256);
+    wg_wait1();
+    reg_fence(s);
+    mbar_arrive_lane0(empty_k(stage), lane);
+    softmax_tile<NAT>(s, st, alpha0, alpha1);
+    wg_wait0();
+    reg_fence(acc);
+    reg_fence(p);  // PV(n-1) read p until here: its registers stay p's
+    mbar_arrive_lane0(empty_v(pstage), lane);
+    rescale<D>(acc, alpha0, alpha1);
+    pack_p(p, s);
+    advance();
+  }
+  mbar_wait(full_v(pstage), pphase);
+  reg_fence(acc);
+  pv_gemm<D>(acc, p, v_base + pstage * TILE);
+  wg_wait0();
+  reg_fence(acc);
+  mbar_arrive_lane0(empty_v(pstage), lane);
+}
+
 // the CTA's work item: (batch*head) row bh and its q tile [q0, q0 + BQ)
 struct WorkItem {
   int bh, q0;
@@ -310,16 +493,19 @@ __device__ __forceinline__ WorkItem work_item(const int* __restrict__ order, int
   return {item / nT, (item % nT) * BQ};
 }
 
-// The CTA body (launch with NTHREADS threads and Layout<D>::SMEM bytes of
-// dynamic shared memory): q rows [q0, q0 + BQ) of row bh attend to the
-// chunks of `chunks`; the mask predicate of KIND at (q + aux[2], k +
-// aux[3]) with text_end aux[0] (the text kinds) on masked chunks.
-template <int D, int KIND, class Chunks>
+// The CTA body (launch with NTHREADS threads and Layout<D, MODE &
+// MODE_PINGPONG>::SMEM bytes of dynamic shared memory): q rows [q0, q0 + BQ)
+// of row bh attend to the chunks of `chunks`; the mask predicate of KIND at
+// (q + aux[2], k + aux[3]) with text_end aux[0] (the text kinds) on masked
+// chunks. MODE: see the top of this file; with MODE_PINGPONG every chunk is
+// taken as unmasked (K7's dense chunk).
+template <int D, int KIND, int MODE = 0, class Chunks>
 __device__ __forceinline__ void attn_cta(const CUtensorMap* tm_q, const CUtensorMap* tm_k, const CUtensorMap* tm_v,
                                          bf16* __restrict__ o, const Chunks& chunks, WorkItem it, int Sq, int Skv,
                                          const int* __restrict__ aux, int band_width, int sink_size, int video_len,
                                          float q_scale) {
-  using LY = Layout<D>;
+  constexpr bool NAT = (MODE & MODE_NAT) != 0, PP = (MODE & MODE_PINGPONG) != 0;
+  using LY = Layout<D, PP>;
   constexpr int STAGES = LY::STAGES;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
@@ -328,8 +514,9 @@ __device__ __forceinline__ void attn_cta(const CUtensorMap* tm_q, const CUtensor
   const uint32_t sq = base, bar = base + LY::BAR_OFF;
   auto full_k = [&](int s) { return bar + 8 * s; };
   auto full_v = [&](int s) { return bar + 8 * (STAGES + s); };
-  auto empty = [&](int s) { return bar + 8 * (2 * STAGES + s); };
-  const uint32_t q_full = bar + 8 * 3 * STAGES;
+  auto empty = [&](int s) { return bar + 8 * (2 * STAGES + s); };  // with PP: K's
+  auto empty_v = [&](int s) { return bar + 8 * (3 * STAGES + s); };  // PP only
+  const uint32_t q_full = bar + 8 * LY::BARS_A_STAGE * STAGES;
   const int bh = it.bh, q0 = it.q0;
 
   if (threadIdx.x == 0) {
@@ -337,6 +524,7 @@ __device__ __forceinline__ void attn_cta(const CUtensorMap* tm_q, const CUtensor
       mbar_init(full_k(s), 1);
       mbar_init(full_v(s), 1);
       mbar_init(empty(s), 8);  // lane 0 of each consumer warp
+      if constexpr (PP) mbar_init(empty_v(s), 8);
     }
     mbar_init(q_full, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -361,6 +549,7 @@ __device__ __forceinline__ void attn_cta(const CUtensorMap* tm_q, const CUtensor
           mbar_expect_tx(full_k(stage), LY::TILE_BYTES);
 #pragma unroll
           for (int cb = 0; cb < D / 64; ++cb) tma_load(ks + cb * BK * ROW_BYTES, tm_k, full_k(stage), cb * 64, row0 + t0);
+          if constexpr (PP) mbar_wait(empty_v(stage), phase ^ 1);
           mbar_expect_tx(full_v(stage), LY::TILE_BYTES);
 #pragma unroll
           for (int cb = 0; cb < D / 64; ++cb) tma_load(vs + cb * BK * ROW_BYTES, tm_v, full_v(stage), cb * 64, row0 + t0);
@@ -413,6 +602,11 @@ __device__ __forceinline__ void attn_cta(const CUtensorMap* tm_q, const CUtensor
     int stage = 0;
     uint32_t phase = 0;
 
+    if constexpr (PP) {
+      pingpong_consumer<D, NAT, STAGES>(acc, s, st, chunks, q_addr, base + LY::K_OFF, base + LY::V_OFF, bar, wg,
+                                        lane);
+    } else {
+
     auto release = [&]() {
       if (lane == 0) mbar_arrive(empty(stage));
       if (++stage == STAGES) {
@@ -426,7 +620,7 @@ __device__ __forceinline__ void attn_cta(const CUtensorMap* tm_q, const CUtensor
       if (!masked) {
         for (int t0 = lo & ~(BK - 1); t0 < hi; t0 += BK) {
           mbar_wait(full_k(stage), phase);
-          attend_tile<D, KIND, false>(acc, s, st, q_addr, k0 + stage * LY::TILE_BYTES, v0 + stage * LY::TILE_BYTES,
+          attend_tile<D, KIND, false, NAT>(acc, s, st, q_addr, k0 + stage * LY::TILE_BYTES, v0 + stage * LY::TILE_BYTES,
                                       full_v(stage), phase, t0, lo, hi, TILE_ALL, mk, qp0, kbase, t4);
           release();
         }
@@ -441,12 +635,13 @@ __device__ __forceinline__ void attn_cta(const CUtensorMap* tm_q, const CUtensor
           if (cls == TILE_NONE)
             mbar_wait(full_v(stage), phase);
           else
-            attend_tile<D, KIND, true>(acc, s, st, q_addr, k0 + stage * LY::TILE_BYTES, v0 + stage * LY::TILE_BYTES,
+            attend_tile<D, KIND, true, NAT>(acc, s, st, q_addr, k0 + stage * LY::TILE_BYTES, v0 + stage * LY::TILE_BYTES,
                                        full_v(stage), phase, t0, lo, hi, cls, mk, qp0, kbase, t4);
           release();
         }
       }
     });
+    }
 
     // normalise and write rows g and g + 8 of this warp's 16; a row that
     // never saw a live column has acc == 0, l == 0 -> 0

@@ -9,9 +9,11 @@ online softmax in f32 per bkv chunk, P rounded to v's dtype for PV, the
 output divided by max(l, 1e-20). K and V are separate tensors (the TPU
 packed them into one [K|V] row).
 
-On the card a CTA owns `bq` q rows as `qsplit` independent sub-tiles; the
-f32 accumulators bound bq (128 floats a row), so only the (bq, qsplit) pairs
-in KERNEL_CONFIGS are compiled; `unfit` says why any other pair is not.
+On the card K7 runs the attention kernels' Hopper CTA body
+(csrc/hopper_attn.cuh): a CTA owns bq = 128 q rows as two consumer
+warpgroups of 64, the probe's independent sub-tiles. qsplit = 1 runs them
+on K1's schedule, qsplit = 2 in ping-pong (FA3's schedule). Those two pairs
+are KERNEL_CONFIGS; `unfit` says why any other pair is not compiled.
 """
 
 from __future__ import annotations
@@ -23,23 +25,33 @@ import torch
 from sparse_videogen_tpu_torch import _kernels
 
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
-TK = 64  # K/V tokens per shared-memory sub-tile of the kernel
-KERNEL_CONFIGS = ((64, 1), (128, 1), (128, 2), (256, 1), (256, 2))
+BQ = BK = 128  # q rows a CTA (two 64-row wgmma warpgroups); K/V tokens a tile
+KERNEL_CONFIGS = ((128, 1), (128, 2))
 SMEM_LIMIT = 232448  # bytes of shared memory a CTA can use on the H100
 REGS_PER_SM = 65536
+CONSUMER_REGS = 232  # registers a consumer thread holds (setmaxnreg): O (D / 2 a row pair), S (64), P, state
 
 
 def unfit(bq: int, qsplit: int, D: int = 128) -> str | None:
-    """None when the kernel takes (bq, qsplit) at head dim D, else the reason."""
+    """None when the kernel takes (bq, qsplit) at head dim D, else every reason it does not."""
     if (bq, qsplit) in KERNEL_CONFIGS and D in (64, 128):
         return None
-    smem = (bq + 4 * TK) * (D + 8) * 2
+    reasons = []
+    smem = bq * D * 2 + 2 * 2 * BK * D * 2  # the q tile, then two stages of a K and a V tile
     if smem > SMEM_LIMIT:
-        return f"shared memory: q tile + 2 K/V stages = {smem} B > {SMEM_LIMIT} B"
-    if bq * D > REGS_PER_SM // 2:
-        return (f"registers: the f32 accumulators of {bq} rows x {D} alone take {bq * D} of the SM's {REGS_PER_SM} "
-                f"registers; a CTA needs at least as many again for its scores, fragments and addresses")
-    return f"not compiled (compiled (bq, qsplit): {KERNEL_CONFIGS})"
+        reasons.append(f"shared memory: the q tile and 2 K/V stages take {smem} B > {SMEM_LIMIT} B")
+    wgs = max(bq // 64, 1)
+    if 128 * 24 + wgs * 128 * CONSUMER_REGS > REGS_PER_SM:
+        reasons.append(f"registers: {bq} rows are {wgs} consumer warpgroups of 64 (wgmma's M), each thread holding "
+                       f"~{CONSUMER_REGS} registers (its f32 O and S tiles alone take {D // 2 + 64}); with the "
+                       f"producer that exceeds the SM's {REGS_PER_SM}")
+    if qsplit not in (1, 2):
+        reasons.append(f"qsplit: the sub-tiles are the CTA's two consumer warpgroups, run on K1's schedule (1) or in "
+                       f"ping-pong (2); {qsplit} is neither")
+    if not reasons:
+        reasons.append(f"not compiled: a CTA owns {BQ} q rows, two 64-row warpgroups; qsplit 1 runs them on K1's "
+                       f"schedule, 2 in ping-pong (compiled (bq, qsplit): {KERNEL_CONFIGS})")
+    return "; ".join(reasons)
 
 
 def _check(q, k, v, bq, bkv, qsplit):
@@ -90,11 +102,12 @@ def dense_attn(q, k, v, *, bq: int, bkv: int, qsplit: int = 1):
     reason = unfit(bq, qsplit, D)
     if reason is not None:
         raise ValueError(f"dense_attn kernel cannot take bq={bq}, qsplit={qsplit}, D={D}: {reason}")
-    if S % TK:
-        raise ValueError(f"S={S} must be a multiple of {TK}")
+    if S % BK:
+        raise ValueError(f"S={S} must be a multiple of {BK}")
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.dtype != torch.bfloat16 or not t.is_contiguous() or t.device != q.device:
-            raise ValueError(f"{name}: need contiguous bf16 on {q.device}, got {t.dtype} on {t.device}")
+        if t.dtype != torch.bfloat16 or not t.is_contiguous() or t.device != q.device or t.data_ptr() % 16:
+            raise ValueError(f"{name}: need contiguous, 16-byte aligned bf16 on {q.device}, got {t.dtype} on "
+                             f"{t.device}")
     out = torch.empty_like(q)
     err = _kernels.lib().svt_dense_qsplit(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), BH, S, D, bq,
                                           qsplit, 1.0 / math.sqrt(D), torch.cuda.current_stream(q.device).cuda_stream)

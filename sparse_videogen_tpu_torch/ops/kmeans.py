@@ -4,24 +4,29 @@ and its variant probe (counterpart of scripts/probe_kmeans_variants.py).
 One pass over x computes both the nearest-centroid labels and the per-cluster
 f32 sums and counts that the centroid update needs (core/kmeans.py).
 
-`kmeans_assign_update` launches a Hopper kernel for CUDA tensors
-(csrc/kmeans_wide.cu, any K: the design of the TPU kernel's wide-K branch,
-which keeps neither the centroids nor the (K, D) f32 sums in shared memory)
-and the plain version for CPU tensors. `kmeans_assign_update_plain` is the
-plain version itself, the kernel's oracle on the card. The TPU's padding of
-K to 128 lanes with +inf distances and of N to the block size has no
-counterpart: the kernel bounds-checks both.
+`kmeans_assign_update` launches K5 for CUDA tensors (csrc/kmeans_lloyd.cu,
+any K: a TMA + wgmma assign kernel with a running argmin, then a
+deterministic sorted update: a stable counting sort of the token ids by
+label and per-cluster segment sums in token order) and the plain version
+for CPU tensors. `kmeans_assign_update_plain` is the plain version itself,
+the kernel's oracle on the card; `sorted_update_order` is the torch model of
+the update's counting sort and segments. The TPU's padding of K to 128
+lanes with +inf distances and of N to the block size has no counterpart:
+the kernel bounds-checks both.
 
-`kmeans_variant_pass` runs one of the probe's five variants on the same
-kernel (any K), `kmeans_variant_pass_plain` its plain version:
+`kmeans_variant_pass` runs one of the probe's five variants on K5's first
+kernel, csrc/kmeans_wide.cu (any K; an assign kernel that streams the
+centroids by cp.async into mma.sync, and a K-partitioned update), which K8
+keeps; `kmeans_variant_pass_plain` is its plain version:
   A  argmin labels; sums and counts from their one-hot
   B  the same labels by a two-min tiebreak (min, then the first k at it)
   C  B, with the counts as a product (onehot^T 1)
   D  no labels (all 0); multi-hot dist <= min: a tied token adds to every
      tied cluster
   E  argmin labels only; sums and counts 0
-A, B and C give the same labels, sums and counts; K5 runs WIDE_VARIANT,
-the fastest of the three on the card (PERF.md).
+A, B and C give the same labels, sums and counts as each other (K5's
+labels too, but at near-ties, where the two kernels' f32 sums may round
+apart).
 """
 
 from __future__ import annotations
@@ -31,7 +36,7 @@ import torch
 from sparse_videogen_tpu_torch import _kernels
 
 VARIANTS = ("A", "B", "C", "D", "E")
-WIDE_VARIANT = "A"
+CH, SEG = 1024, 128  # K5's counting-sort chunk and sum segment, in tokens (csrc/kmeans_lloyd.cu)
 # tied clusters the kernel keeps per token in variant D, more raise (TIES in csrc/kmeans_wide.cu)
 D_TIES = 4
 
@@ -136,16 +141,67 @@ def _wide_pass(x, c, variant):
     return lab_buf, sums, counts
 
 
+def sorted_update_order(labels, K: int):
+    """The torch model of K5's counting sort (csrc/kmeans_lloyd.cu, passes 1-3).
+    labels (B, N) -> (perm (B, N), offs (B, K), counts (B, K), seg_start
+    (B, K + 1)), int64: label histograms per chunk of CH tokens, each
+    (chunk, label)'s start in the order sorted by (label, token), each token's
+    rank among its chunk's tokens of its label, perm[start + rank] = token;
+    cluster k holds perm[offs[k] : offs[k] + counts[k]] and its segments of at
+    most SEG tokens are seg_start[k] : seg_start[k + 1] ([K] their number)."""
+    B, N = labels.shape
+    lab = labels.long()
+    n_ch = -(-N // CH)
+    chunk = torch.arange(N, device=lab.device) // CH
+    key = chunk * K + lab  # (B, N)
+    hist = torch.zeros(B, n_ch * K, dtype=torch.long, device=lab.device).scatter_add_(1, key, torch.ones_like(key))
+    hist = hist.view(B, n_ch, K)
+    counts = hist.sum(1)
+    offs = counts.cumsum(1) - counts
+    start = offs[:, None, :] + hist.cumsum(1) - hist  # (B, n_ch, K)
+    # rank: tokens before this one in its chunk with its label
+    order = torch.argsort(key, dim=1, stable=True)
+    sorted_key = key.gather(1, order)
+    first = torch.searchsorted(sorted_key, sorted_key, right=False)
+    rank = torch.empty_like(order).scatter_(1, order, torch.arange(N, device=lab.device).expand(B, N) - first)
+    pos = start.view(B, -1).gather(1, key) + rank
+    perm = torch.empty_like(pos).scatter_(1, pos, torch.arange(N, device=lab.device).expand(B, N))
+    nseg = (counts + SEG - 1) // SEG
+    seg_start = torch.cat([torch.zeros(B, 1, dtype=torch.long, device=lab.device), nseg.cumsum(1)], dim=1)
+    return perm, offs, counts, seg_start
+
+
+def _lloyd_pass(x, c):
+    B, N, D = x.shape
+    K = c.shape[1]
+    dev = x.device
+    lib = _kernels.lib()
+    labels = torch.empty(B, N, dtype=torch.int32, device=dev)
+    sums = torch.empty(B, K, D, dtype=torch.float32, device=dev)
+    counts = torch.empty(B, K, dtype=torch.float32, device=dev)
+    work = torch.empty(lib.svt_kmeans_lloyd_workspace(B, N, K, D), dtype=torch.uint8, device=dev)
+    err = lib.svt_kmeans_lloyd(x.data_ptr(), c.data_ptr(), labels.data_ptr(), sums.data_ptr(), counts.data_ptr(),
+                               work.data_ptr(), B, N, K, D, torch.cuda.current_stream(dev).cuda_stream)
+    _kernels.check(err, "kmeans_wide")
+    return labels, sums, counts
+
+
 def kmeans_assign_update(x, centroids):
     """x (B, N, D), centroids (B, K, D). Returns (labels (B, N) int32,
     sums (B, K, D) f32, counts (B, K) f32).
 
-    CUDA tensors launch a kernel (bf16, contiguous, D in {64, 128}, any K)
-    and raise on anything else; CPU tensors run the plain version."""
+    CUDA tensors launch K5 (bf16, contiguous, D in {64, 128}, any K up to
+    14,000: its scatter keeps 4 K ints in shared memory) and raise on
+    anything else; CPU tensors run the plain version. Its launches count
+    under "kmeans_wide" (the TPU kernel's wide-K branch, whose design it
+    first took)."""
     _check(x, centroids)
     if x.device.type == "cpu":
         return kmeans_assign_update_plain(x, centroids)
-    out = _wide_pass(x, _cuda_args(x, centroids), WIDE_VARIANT)
+    c = _cuda_args(x, centroids)
+    if c.shape[1] > 14000:
+        raise ValueError(f"K={c.shape[1]}: K5 takes K <= 14000")
+    out = _lloyd_pass(x, c)
     _kernels.LAUNCHES["kmeans_wide"] += 1
     return out
 

@@ -1,18 +1,19 @@
-"""Dense attention with q-split sub-tiles on one GPU: the Hopper kernel K7
-(ops/dense_qsplit.py) per (bq, qsplit), with K1's dense path and
-F.scaled_dot_product_attention as yardsticks (counterpart of
-scripts/bench_qsplit.py).
+"""Dense attention on one GPU: the Hopper kernel K7 (ops/dense_qsplit.py) per
+(bq, qsplit), with K1's dense path and F.scaled_dot_product_attention as
+yardsticks (counterpart of scripts/bench_qsplit.py).
 
     python -m sparse_videogen_tpu_torch.scripts.bench_qsplit [--iters 5]
 
 The JAX probe's shape, (12, 32768, 128) bf16, and its (bq, bkv, nbuf,
 qsplit) list: each entry that a Hopper CTA cannot hold is printed with the
-reason (ops/dense_qsplit.unfit: at bq >= 512 the f32 accumulators alone
-take half an SM's registers or more, at bq >= 1024 the q tile and the K/V
-stages exceed shared memory), then every (bq, qsplit) pair the kernel
-compiles runs at bkv 1024 (the list's). TFLOP/s counts 4 * BH * S^2 * D.
-The question: does sharing each staged K/V sub-tile across more q rows per
-CTA beat K1's 64-row CTA. Prints the card's name and power limit first.
+reason (ops/dense_qsplit.unfit: a CTA owns 128 q rows as two 64-row wgmma
+warpgroups; more rows take more registers than an SM has, and from 512 rows
+the q tile and the K/V ring exceed shared memory), then every (bq, qsplit)
+pair the kernel compiles runs at bkv 1024 (the list's): qsplit 1 runs the two
+warpgroups on K1's schedule, qsplit 2 in ping-pong (FA3's schedule). TFLOP/s
+counts 4 * BH * S^2 * D. The question: does overlapping one warpgroup's
+softmax with the other's products beat K1's schedule. Prints the card's name
+and power limit first.
 """
 
 from __future__ import annotations

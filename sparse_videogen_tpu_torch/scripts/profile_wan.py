@@ -53,8 +53,7 @@ CATEGORIES = (
     ("K1 attention (bsa_kernel)", ("bsa_kernel",)),
     ("K2 RoPE (rope_kernel)", ("rope_kernel",)),
     ("K3 run-list attention (runs_kernel)", ("runs_kernel",)),
-    ("K5 k-means (kmeans_*_kernel)", ("kmeans_reduce_kernel", "kmeans_wide_assign_kernel", "kmeans_wide_update_kernel",
-                                      "kmeans_csq_kernel")),
+    ("K5 k-means (kmeans_*_kernel)", ("kmeans_",)),  # K5's five kernels (and K8's, csrc/kmeans_wide.cu)
     ("GEMM (cuBLAS)", ("nvjet", "gemm", "xmma", "cutlass")),
     ("softmax", ("softmax",)),
     ("reduce", ("reduce_kernel",)),

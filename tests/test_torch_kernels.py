@@ -104,8 +104,9 @@ def test_kernel_args_need_block_q_multiple_of_cta_rows():
 
 
 def test_ptxas_report_reads_the_attention_entries():
-    """chip_smoke's build phase reads registers and spills of every K1 and
-    K3 instance from nvcc's -Xptxas -v log."""
+    """chip_smoke's build phase reads registers and spills of every K1, K3,
+    K7 and K5-assign instance from nvcc's -Xptxas -v log (K7's MODE in
+    `kind`); other entries (K5's scan, a RoPE kernel) are not reported."""
     log = ("ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_110bsa_kernelILi64ELi3EEEvPKi' for 'sm_90a'\n"
            "ptxas info    : Function properties for _ZN12_GLOBAL__N_110bsa_kernelILi64ELi3EEEvPKi\n"
            "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
@@ -114,12 +115,26 @@ def test_ptxas_report_reads_the_attention_entries():
            "ptxas info    : Used 30 registers, 380 bytes cmem[0]\n"
            "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_111runs_kernelILi128EEEvPKi' for 'sm_90a'\n"
            "    0 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads\n"
-           "ptxas info    : Used 166 registers, 16 bytes smem, 400 bytes cmem[0]\n")
+           "ptxas info    : Used 166 registers, 16 bytes smem, 400 bytes cmem[0]\n"
+           "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_112dense_kernelILi128ELi3EEEv14CUtensorMap_st' "
+           "for 'sm_90a'\n"
+           "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+           "ptxas info    : Used 168 registers, used 5 barriers, 912 bytes cmem[0]\n"
+           "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_118kmeans_scan_kernelEPiS0_S0_Pfii' for 'sm_90a'\n"
+           "ptxas info    : Used 24 registers, 256 bytes smem, 392 bytes cmem[0]\n"
+           "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_120kmeans_assign_kernelILi64EEEv14CUtensorMap_st' "
+           "for 'sm_90a'\n"
+           "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+           "ptxas info    : Used 168 registers, used 3 barriers, 400 bytes cmem[0]\n")
     assert _kernels.ptxas_report(log) == [
         {"kernel": "bsa_kernel", "D": 64, "kind": 3, "registers": 168, "spill_stores": 0, "spill_loads": 0,
          "static_smem": 0},
         {"kernel": "runs_kernel", "D": 128, "kind": None, "registers": 166, "spill_stores": 8, "spill_loads": 4,
-         "static_smem": 16}]
+         "static_smem": 16},
+        {"kernel": "dense_kernel", "D": 128, "kind": 3, "registers": 168, "spill_stores": 0, "spill_loads": 0,
+         "static_smem": 0},
+        {"kernel": "kmeans_assign_kernel", "D": 64, "kind": None, "registers": 168, "spill_stores": 0,
+         "spill_loads": 0, "static_smem": 0}]
 
 
 def _run_list_case(rng, BH, C, S, Sq, bq, bkv, p=0.5):
@@ -313,10 +328,11 @@ def _check_labels_and_sums(x, c, out, ref_labels):
 @pytest.mark.parametrize("K", [50, 200, 257, 300, 1000])
 @pytest.mark.parametrize("D_", [64, 128])
 def test_kmeans_kernel_matches_plain_and_is_deterministic(cuda, K, D_):
-    """K5 on the card: one kernel at every K (50 and 200, the 480p SAP
-    config's; 257, 300 and 1000, past the 256 centroids whose f32 sums a CTA
-    could hold). Two launches give the same bits; labels, counts and sums as
-    _check_labels_and_sums states."""
+    """K5 on the card (csrc/kmeans_lloyd.cu) at every K: 50 and 200, the
+    480p SAP config's; 300 and 1000, the 720p one's; 257, one past two
+    128-centroid tiles. N = 5000 is a multiple of neither the 256-token item
+    nor the 1024-token sort chunk. Two launches give the same bits; labels,
+    counts and sums as _check_labels_and_sums states."""
     gen = torch.Generator(device=cuda).manual_seed(K + D_)
     B, N = 3, 5000
     x = torch.randn(B, N, D_, generator=gen, device=cuda).to(torch.bfloat16)
@@ -327,6 +343,28 @@ def test_kmeans_kernel_matches_plain_and_is_deterministic(cuda, K, D_):
     assert _kernels.LAUNCHES["kmeans_wide"] == 2 and not any(_kernels.PLAIN_CALLS.values())
     for a, b in zip(out, again):
         assert torch.equal(a, b)
+    _check_labels_and_sums(x, c, out, kmeans_assign_update_plain(x, c)[0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D_", [64, 128])
+def test_kmeans_kernel_one_large_cluster(cuda, D_):
+    """K5 with 3000 of 5000 tokens copies of centroid 0 (cluster 0 spans 24
+    segments of 128 tokens in the sorted update, the rest hold a few tokens
+    each), K = 300: the same bits twice, and labels, counts and sums as
+    _check_labels_and_sums states."""
+    gen = torch.Generator(device=cuda).manual_seed(11 + D_)
+    B, N, K = 2, 5000, 300
+    x = torch.randn(B, N, D_, generator=gen, device=cuda).to(torch.bfloat16)
+    x[:, :3000] = x[:, 3000:3001]
+    c = x[:, 3000:3000 + K].clone()
+    _kernels.reset_counts()
+    out = kmeans_assign_update(x, c)
+    again = kmeans_assign_update(x, c)
+    assert _kernels.LAUNCHES["kmeans_wide"] == 2 and not any(_kernels.PLAIN_CALLS.values())
+    for a, b in zip(out, again):
+        assert torch.equal(a, b)
+    assert bool((out[2][:, 0] >= 3001).all())
     _check_labels_and_sums(x, c, out, kmeans_assign_update_plain(x, c)[0])
 
 
@@ -506,9 +544,10 @@ def test_attention_kernel_cog_matches_plain(cuda, which, D_):
 @pytest.mark.parametrize("bq,qsplit", KERNEL_CONFIGS)
 @pytest.mark.parametrize("D_", [64, 128])
 def test_dense_qsplit_kernel_matches_plain(cuda, bq, qsplit, D_):
-    """K7 on the card against its plain version, bf16, S = 1024, bkv 256:
-    both round q_s and P to bf16; the kernel rescales P per 64-token
-    sub-tile, the plain version per bkv chunk: atol 2e-2."""
+    """K7 on the card against its plain version, bf16, S = 1024, bkv 256, for
+    each compiled (bq, qsplit) (qsplit 2: the ping-pong schedule): both
+    round q_s and P to bf16; the kernel rescales P per 128-token tile, the
+    plain version per bkv chunk: atol 2e-2."""
     g = torch.Generator(device=cuda).manual_seed(bq + qsplit + D_)
     q, k, v = (torch.randn(2, 1024, D_, generator=g, device=cuda).to(torch.bfloat16) for _ in range(3))
     _kernels.reset_counts()

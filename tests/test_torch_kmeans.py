@@ -1,14 +1,16 @@
 """k-means of the torch port against the JAX package.
 
 The port's plain fused pass (what a CPU tensor runs) is held against the JAX
-Pallas kernel in interpret mode (at K > 128 its wide branch, whose design
-the card's kernel ports at every K), and batch_kmeans against the JAX batch_kmeans,
+Pallas kernel in interpret mode (at K > 128 its wide branch), and
+batch_kmeans against the JAX batch_kmeans,
 on the same numpy inputs. Labels and counts must be equal; sums and
 centroids differ by f32 summation order only. The probe variants' plain
 versions (K8) are held against the same JAX pass, and variant D against a
 numpy transcription of scripts/probe_kmeans_variants.py's multi-hot.
 
-The Hopper kernel against the plain version: tests/test_torch_kernels.py.
+The torch model of the card's sorted update (sorted_update_order) is held
+against a stable argsort. The Hopper kernel against the plain version:
+tests/test_torch_kernels.py.
 """
 
 import jax
@@ -173,3 +175,36 @@ def test_unported_kmeans_options_raise(kw):
     x = torch.randn(1, 16, 8)
     with pytest.raises(NotImplementedError):
         TKM.batch_kmeans(x, 2, 1, x[:, :2], **kw)
+
+
+@pytest.mark.parametrize("B,N,K", [(2, 9000, 300), (3, 5000, 1000), (1, 4096, 50), (1, 100, 7)])
+def test_sorted_update_order_is_a_stable_counting_sort(B, N, K):
+    """The torch model of K5's sorted update (ops/kmeans.sorted_update_order,
+    csrc/kmeans_lloyd.cu passes 1-3), exact integers: per-chunk histograms,
+    their starts and the ranks in token order give the stable sort of the
+    tokens by label (torch.argsort(stable=True)), across chunk edges (N >
+    CH, N not a multiple of it); cluster k holds perm[offs[k] : offs[k] +
+    counts[k]]; its segments hold at most SEG tokens, cover it exactly and
+    number sum(ceil(counts / SEG)) <= ceil(N / SEG) + K (the kernel's
+    partial-sum rows). Segment sums added in segment order equal the one-hot
+    sums (f64, so that only the layout is tested: 1e-9)."""
+    from sparse_videogen_tpu_torch.ops.kmeans import SEG, sorted_update_order
+
+    g = torch.Generator().manual_seed(N + K)
+    labels = torch.randint(0, K, (B, N), generator=g, dtype=torch.int32)
+    labels[:, : N // 3] = labels[:, :1]  # one large cluster: several segments
+    perm, offs, counts, seg_start = sorted_update_order(labels, K)
+    assert torch.equal(perm, torch.argsort(labels.long(), dim=1, stable=True))
+    assert torch.equal(counts, torch.stack([torch.bincount(r.long(), minlength=K) for r in labels]))
+    assert torch.equal(offs, counts.cumsum(1) - counts)
+    nseg = seg_start[:, 1:] - seg_start[:, :-1]
+    assert torch.equal(nseg, (counts + SEG - 1) // SEG) and int(seg_start[:, -1].max()) <= -(-N // SEG) + K
+    x = torch.randn(B, N, 8, generator=g, dtype=torch.float64)
+    want = torch.zeros(B, K, 8, dtype=torch.float64).index_put_((torch.arange(B)[:, None].expand(B, N), labels.long()), x, accumulate=True)
+    for b in range(B):
+        for k in range(K):
+            tok = perm[b, offs[b, k]:offs[b, k] + counts[b, k]]
+            assert bool((labels[b, tok] == k).all())
+            segs = [x[b, tok[j * SEG:(j + 1) * SEG]].sum(0) for j in range(int(nseg[b, k]))]
+            got = torch.stack(segs).sum(0) if segs else torch.zeros(8, dtype=torch.float64)
+            torch.testing.assert_close(got, want[b, k], atol=1e-9, rtol=0)

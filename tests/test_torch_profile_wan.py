@@ -14,6 +14,10 @@ from sparse_videogen_tpu_torch.scripts.profile_wan import breakdown, category
     ("void (anonymous namespace)::kmeans_wide_assign_kernel<128, 0>(...)", "K5 k-means (kmeans_*_kernel)"),
     ("void (anonymous namespace)::kmeans_wide_update_kernel<128, 1, false>(...)", "K5 k-means (kmeans_*_kernel)"),
     ("void (anonymous namespace)::kmeans_csq_kernel(...)", "K5 k-means (kmeans_*_kernel)"),
+    ("void (anonymous namespace)::kmeans_assign_kernel<128>(...)", "K5 k-means (kmeans_*_kernel)"),
+    ("(anonymous namespace)::kmeans_scatter_kernel(int const*, int const*, int*, int, int, int, int)",
+     "K5 k-means (kmeans_*_kernel)"),
+    ("void (anonymous namespace)::kmeans_segsum_kernel<128>(...)", "K5 k-means (kmeans_*_kernel)"),
     ("void at_cuda_detail::cub::DeviceRadixSortOnesweepKernel<...>(...)", "sort/scan/gather/scatter (SAP index maps)"),
     ("nvjet_tst_192x192_64x4_2x1_v_bz_coopB_bias_TNN", "GEMM (cuBLAS)"),
     ("void at::native::unrolled_elementwise_kernel<at::native::direct_copy_kernel_cuda(...)>", "copy/memset/cat"),
