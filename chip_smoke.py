@@ -60,11 +60,30 @@ is non-zero:
                CogVideoX 1.5 5B I2V (COG_1_5_5B_I2V at full width, COG_LAYERS
                layers) through CogPipeline.generate_latents at 768x1360x81,
                SVG1 then dense for COG_STEPS DDIM steps (CFG batch 2).
+               The Wan 1.3B slice also runs SVG1 in place (placement-free,
+               K1's dual per-head spec) from the same seed and weights and
+               holds its latents to the placement run's.
                Each path's kernel launch counts, and K1's launches by mask
                kind, are read around its run and held to what the
                configuration implies. Then one forward of a
                small Wan, a small HunyuanVideo and a small CogVideoX with the
                kernels (on the card) against the plain versions (on the CPU).
+               The phases inplace_svg1 and stats (in the kernels phase) and
+               ring (after the slices):
+               inplace_svg1: K1's dual spec on 4 heads of Wan 1.3B 480p
+                 (both classes) against its plain version, timed beside its
+                 bound, masked SDPA and the placement path, and at block_q
+                 1024, 512 and 128 with the dual metadata's visited
+                 sub-blocks;
+               stats: the (m, l) stats of K1 (each kind, D = 64 and 128, and
+                 the dual spec), K3 and K4 against the plain versions, o with
+                 stats bit for bit o without;
+               ring: the thread communicator with RING_N ranks on the card,
+                 the dense ring on Wan 1.3B 480p q/k/v against single-device
+                 K1 (time per rotation, merge), the SAP ring against
+                 single-device SAP on the same labels, and Wan 1.3B forwards
+                 of RING_LAYERS layers through RingDenseRuntime and
+                 RingSAPRuntime (their stats kernels' launches counted).
   5. cli     - the port's CLIs in --smoke mode: Wan for SVG, dense and SAP,
                HunyuanVideo and CogVideoX for SVG and dense.
 The line before the last is a JSON object with one entry per kernel; the
@@ -121,6 +140,19 @@ HY_PROMPT = 32
 # layers (PERF.md section 4); COG_STEPS DDIM steps make first_times_fp 0.2
 # one dense warm-up step
 COG_LAYERS, COG_STEPS = 4, 5
+# SVG1 in place against placement over a whole generation (30 bf16 layers of
+# random weights, STEPS steps): the two paths visit a temporal head's
+# columns in other orders and tiles, so P and the outputs round to bf16 at
+# other places, and the random model carries those differences forward
+INPLACE_LATENT_TOL = 5e-2
+# the (m, l) stats of the Hopper kernels against their plain versions: m
+# from the same bf16 q, k in f32 (the wgmma and torch sum the D products in
+# other orders; |m| is tens), l a sum of f32 exponentials (ex2.approx against
+# torch's exp2, other order)
+STATS_TOL_M, STATS_TOL_L_REL = 1e-3, 1e-4
+# ring attention: how many ranks the thread communicator runs on the card
+RING_N = 2
+RING_LAYERS = 2
 
 
 def log(phase: str, msg: str) -> None:
@@ -195,8 +227,10 @@ def phase_build():
         if "Compiling entry" in line or "registers" in line or "spill" in line or "setmaxnreg" in line:
             log("build", "ptxas: " + line.strip())
     # the Hopper kernels' instances (the attention body's dynamic shared
-    # memory from the library): K1 (bsa_kernel<D, KIND>), K3/K4
-    # (runs_kernel<D>), K7 (dense_kernel<D, MODE>: MODE 1 is qsplit 1, 3 the
+    # memory from the library): K1 (bsa_kernel<D, KIND>; with the (m, l)
+    # stats bsa_stats_kernel<D, KIND>; the dual per-head spec
+    # bsa_dual_kernel<D, MODE>, MODE 0 or 4 with the stats), K3/K4
+    # (runs_kernel<D>, runs_stats_kernel<D>), K7 (dense_kernel<D, MODE>: MODE 1 is qsplit 1, 3 the
     # ping-pong) and K5's assign (kmeans_assign_kernel<D>) must not spill
     rows = _kernels.ptxas_report(text)
     for r in rows:
@@ -208,7 +242,8 @@ def phase_build():
         log("build", f"{r['kernel']}<D={r['D']}{tag}>: {r['registers']} registers, spill stores {r['spill_stores']} B, "
                      f"spill loads {r['spill_loads']} B, static smem {r['static_smem']} B"
                      + ("" if dyn is None else f", dynamic smem {dyn} B"))
-    for kernel, want in (("bsa_kernel", 6), ("runs_kernel", 2), ("dense_kernel", 4), ("kmeans_assign_kernel", 2)):
+    for kernel, want in (("bsa_kernel", 6), ("bsa_stats_kernel", 6), ("bsa_dual_kernel", 4), ("runs_kernel", 2),
+                         ("runs_stats_kernel", 2), ("dense_kernel", 4), ("kmeans_assign_kernel", 2)):
         got = [r for r in rows if r["kernel"] == kernel]
         if len(got) != want or any(r["spill_stores"] or r["spill_loads"] for r in got):
             raise AssertionError(f"{kernel} instances: expected {want} (D 64/128) without spills, got {got}")
@@ -773,7 +808,8 @@ def drive_pipeline(name, desc, run, pattern, timesteps, n_layers, generate, shap
     to 0 just before it and read just after), and held to what the
     configuration implies: the launches and the chunked-CSR kernel's
     launches by mask kind (expected_launches), no plain-version call, and
-    finite latents of `shape`. Returns time_generation's record."""
+    finite latents of `shape`. Returns time_generation's record, the latents
+    under "latents"."""
     from sparse_videogen_tpu_torch.config import WarmupSchedule
     from sparse_videogen_tpu_torch.scripts.profile_wan import time_generation
 
@@ -796,13 +832,15 @@ def drive_pipeline(name, desc, run, pattern, timesteps, n_layers, generate, shap
         raise AssertionError(f"{name} {pattern}: the main path called a plain version: {r['plain_calls']}")
     if not finite or tuple(lat.shape) != tuple(shape):
         raise AssertionError(f"{name} {pattern}: latents are not finite or not of shape {shape}")
+    r["latents"] = lat
     return r
 
 
-def drive(model, run, pattern, steps):
+def drive(model, run, pattern, steps, inplace_temporal=False):
     """Wan: one WanPipeline.generate_latents run through drive_pipeline (K1
-    dense: kind none; SVG1: band_sink), then SAP's density log. Returns the
-    launches."""
+    dense: kind none; SVG1: band_sink, or with inplace_temporal the dual
+    spec, kind band_sink_perm), then SAP's density log. Returns
+    drive_pipeline's record."""
     from sparse_videogen_tpu_torch.pipelines import WanPipeline
     from sparse_videogen_tpu_torch.pipelines.wan import wan_layout
     from sparse_videogen_tpu_torch.schedulers import FlowUniPC
@@ -814,7 +852,7 @@ def drive(model, run, pattern, steps):
     ctx_null = torch.randn(1, cfg.text_len, cfg.text_dim, generator=gen, device=dev).to(torch.bfloat16)
     lay = wan_layout(cfg, run.height, run.width, run.num_frames)
     timesteps = FlowUniPC(steps, shift=run.flow_shift).timesteps
-    name = f"Wan dim {cfg.dim} x {cfg.num_layers} layers"
+    name = f"Wan dim {cfg.dim} x {cfg.num_layers} layers" + (", SVG1 in place" if inplace_temporal else "")
     how = "cond and uncond as separate batch-1 forwards" if pattern == "SAP" else "CFG batch 2"
     desc = f"{run.height}x{run.width}x{run.num_frames} (S={lay.seq_len} = {lay.num_frames}x{lay.frame_size}), {how}"
     with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
@@ -822,14 +860,15 @@ def drive(model, run, pattern, steps):
         r = drive_pipeline(name, desc, run, pattern, timesteps, cfg.num_layers,
                            lambda on_step: WanPipeline(model).generate_latents(
                                ctx, ctx_null, num_inference_steps=steps, pattern=pattern, seed=0, callback=on_step,
-                               logging_file=dlog if pattern == "SAP" else None, **run.generate_kwargs()),
-                           (1, 16, lay.num_frames, run.height // 8, run.width // 8), ("none", "band_sink"),
-                           sap=run.sap)
+                               logging_file=dlog if pattern == "SAP" else None, inplace_temporal=inplace_temporal,
+                               **run.generate_kwargs()),
+                           (1, 16, lay.num_frames, run.height // 8, run.width // 8),
+                           ("none", "band_sink_perm" if inplace_temporal else "band_sink"), sap=run.sap)
         dens = [json.loads(line)["avg_density"] for line in open(dlog)] if pattern == "SAP" else []
     if dens:
         log("slice", f"{name} SAP density (cond stream, {len(dens)} logged layer-steps): mean {np.mean(dens):.4f}, "
                      f"min {min(dens):.4f}, max {max(dens):.4f} (random weights)")
-    return r["launches"]
+    return r
 
 
 def _new_model(cfg, dev):
@@ -845,16 +884,29 @@ def _new_model(cfg, dev):
 
 
 def phase_slice(dev):
-    """Full-size Wan 2.1 1.3B, SVG1 then SAP; returns each kernel's launches
-    from the path that runs it first (RoPE and the chunked kernel: SVG1)."""
+    """Full-size Wan 2.1 1.3B, SVG1, SVG1 in place (placement-free: K1's dual
+    per-head spec) from the same seed and weights, then SAP; returns each
+    kernel's launches from the path that runs it first (RoPE and the chunked
+    kernel: SVG1; the dual spec: SVG1 in place). The in-place latents are
+    held to the placement run's (INPLACE_LATENT_TOL)."""
     from sparse_videogen_tpu_torch.presets import T2V_480P
 
     model = _new_model(T2V_480P.model, dev)
-    counts = {}
-    for pattern in ("SVG", "SAP"):
-        for name, n in drive(model, T2V_480P, pattern, STEPS).items():
+    counts, lat = {}, {}
+    for pattern, inplace in (("SVG", False), ("SVG", True), ("SAP", False)):
+        r = drive(model, T2V_480P, pattern, STEPS, inplace_temporal=inplace)
+        lat[(pattern, inplace)] = r["latents"]
+        for name, n in r["launches"].items():
             if n and name not in counts:
                 counts[name] = n
+        for name, n in r["kind_launches"].items():
+            counts.setdefault(name, n)
+    a, b = lat[("SVG", True)].float(), lat[("SVG", False)].float()
+    rel = ((a - b).norm() / b.norm()).item()
+    log("slice", f"Wan 1.3B SVG1 in place vs placement, same seed and weights, {STEPS} steps: latents rel L2 "
+                 f"{rel:.3e} (tol {INPLACE_LATENT_TOL})")
+    if not rel <= INPLACE_LATENT_TOL:
+        raise AssertionError(f"in-place SVG1 latents disagree with the placement path's: {rel}")
     del model
     torch.cuda.empty_cache()
     return counts
@@ -899,7 +951,7 @@ def phase_slice_14b(dev):
     from sparse_videogen_tpu_torch.presets import T2V_720P_SAP
 
     model = _new_model(dataclasses.replace(T2V_720P_SAP.model, num_layers=LAYERS_14B), dev)
-    launches = drive(model, T2V_720P_SAP, "SAP", STEPS_14B)
+    launches = drive(model, T2V_720P_SAP, "SAP", STEPS_14B)["launches"]
     del model
     torch.cuda.empty_cache()
     return {name: n for name, n in launches.items() if n}
@@ -1527,6 +1579,422 @@ def phase_small_cog_reference(dev):
             raise AssertionError(f"small CogVideoX forward ({pattern}) disagrees with the CPU reference: {rel}")
 
 
+
+def dual_heads(flags, S, D, dev, seed):
+    """q, k, v of len(flags) heads at S real tokens (q padded to a multiple
+    of 1024, k/v to the plan's 128-multiple), bf16 from a seed."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    H = len(flags)
+
+    def rand(s_pad, scale):
+        x = torch.zeros(H, s_pad, D, device=dev, dtype=torch.bfloat16)
+        x[:, :S] = (torch.randn(H, S, D, generator=gen, device=dev) * scale).to(torch.bfloat16)
+        return x
+
+    return rand(-(-S // 1024) * 1024, 2.0), rand(-(-S // 128) * 128, 1.0), rand(-(-S // 128) * 128, 1.0)
+
+
+def phase_inplace_svg1(dev):
+    """K1's dual per-head spec (placement-free SVG1) on 4 heads of Wan 1.3B
+    480x832x81 (S = 32,760 = 21 x 1560), two spatial (band_sink) and two
+    temporal (band_sink_perm), on the dual metadata of the pipeline's own
+    runtime (block_q 512, each half classified cheap-first under its spec):
+    against the plain version, then timed beside its bound (4 D FLOPs an
+    allowed pair), masked SDPA (each class's predicate as an (S, S) attn_mask)
+    and the placement path on the same heads (place_heads, K1 band_sink,
+    inverse). The dual metadata's visited 128-token sub-blocks per q block,
+    and the kernel's time, at block_q 1024, 512 and 128. Returns the
+    kernels-line entry."""
+    from sparse_videogen_tpu_torch.core import masks as core_masks
+    from sparse_videogen_tpu_torch.core.placement import place_heads
+    from sparse_videogen_tpu_torch.ops.attention import block_sparse_attention_kv, block_sparse_attention_kv_plain
+    from sparse_videogen_tpu_torch.pipelines.wan import BLOCK_KV, BLOCK_Q
+    from sparse_videogen_tpu_torch.presets import T2V_480P
+    from sparse_videogen_tpu_torch.sparse.runtimes import SVG1Runtime
+    from sparse_videogen_tpu_torch.sparse.svg1 import make_svg1_plan
+
+    lay = slice_layout()
+    svg = T2V_480P.generate_kwargs()["svg"]
+    S, D = lay.seq_len, 128
+    flags = torch.tensor([0, 1, 0, 1], dtype=torch.int32, device=dev)
+    H = len(flags)
+    q, k, v = dual_heads(flags.tolist(), S, D, dev, seed=7)
+    entry, times = None, {}
+    for bq in (BLOCK_Q, 1024, 128):
+        plan = make_svg1_plan(lay, svg, block_q=bq, block_kv=BLOCK_KV, inplace_temporal=True)
+        rt = SVG1Runtime(plan, device=dev)
+        spec_pair = plan.mask_spec_dual
+        visited = [fn(lay, plan.multiplier, block_q=bq, block_kv=128).sum(1).mean()
+                   for fn in (core_masks.execution_mask_block, core_masks.execution_mask_block_perm)]
+        meta = torch.where(flags[:, None, None] == 1, rt.sparse_meta[1][None], rt.sparse_meta[0][None]).contiguous()
+        aux = torch.cat([rt.aux, flags])
+        qb = q[:, :-(-S // bq) * bq].contiguous()
+        kw = dict(block_q=bq, block_kv=plan.block_kv, mask_spec=spec_pair)
+        ms = cuda_ms(lambda: block_sparse_attention_kv(qb, k, v, meta, aux, **kw))
+        times[bq] = ms
+        log("kernels", f"dual spec (SVG1 in place), block_q {bq}: visited 128-token sub-blocks a q block: spatial "
+                       f"{visited[0]:.1f}, temporal {visited[1]:.1f} of {k.shape[1] // 128}; meta "
+                       f"{tuple(rt.sparse_meta.shape)}, n_cheap of the rows: spatial "
+                       f"{int((rt.sparse_meta[0, :, 0] // 4096).sum())}, temporal "
+                       f"{int((rt.sparse_meta[1, :, 0] // 4096).sum())}; kernel on {H} heads {ms:.3f} ms")
+        if bq != BLOCK_Q:
+            continue
+        out = block_sparse_attention_kv(qb, k, v, meta, aux, **kw)
+        plain_ms = event_ms(lambda: block_sparse_attention_kv_plain(qb, k, v, meta, aux, **kw))
+        ref = block_sparse_attention_kv_plain(qb, k, v, meta, aux, **kw)
+        torch.cuda.synchronize()
+        max_abs, mean_rel = err_stats(out[:, :S], ref[:, :S])
+        log("kernels", f"dual spec, block_q {bq} (heads {flags.tolist()}: 1 = band_sink_perm), S={S}, D={D}: "
+                       f"max_abs_err {max_abs:.3e} (tol {ATTN_TOL_ABS}), mean_rel_err {mean_rel:.3e} "
+                       f"(tol {ATTN_TOL_REL})")
+        if not (max_abs <= ATTN_TOL_ABS and mean_rel <= ATTN_TOL_REL):
+            raise AssertionError("K1's dual spec disagrees with its plain version")
+        # the yardsticks: masked SDPA a class (its predicate as an attn_mask), and placement
+        pairs, lib_ms = 0, 0.0
+        for cls, spec in enumerate(spec_pair):
+            idx = (flags == cls).nonzero()[:, 0]
+            bias, allowed = mask_bias(spec, rt.aux, S, dev)
+            pairs += allowed * len(idx)
+            qs, ks, vs = (x.index_select(0, idx)[None, :, :S] for x in (qb, k, v))
+            sd = lambda: torch.nn.functional.scaled_dot_product_attention(qs, ks, vs, attn_mask=bias)
+            s_abs, s_rel = err_stats(sd()[0], out.index_select(0, idx)[:, :S])
+            if not (s_abs <= SDPA_TOL_ABS and s_rel <= ATTN_TOL_REL):
+                raise AssertionError(f"masked SDPA ({spec.kind}) disagrees with the dual kernel: {s_abs} {s_rel}")
+            lib_ms += cuda_ms(sd, iters=2)
+            log("kernels", f"dual spec: {spec.kind} allows {allowed} of {S * S} pairs a head "
+                           f"({allowed / S / S:.4f}); masked SDPA vs the kernel on those heads max_abs_err "
+                           f"{s_abs:.3e}, mean_rel_err {s_rel:.3e}")
+            del bias
+        is_t = flags.bool()[None]
+        place_plan = make_svg1_plan(lay, svg, block_q=bq, block_kv=BLOCK_KV)
+        place_rt = SVG1Runtime(place_plan, device=dev)
+
+        def placement():
+            qp, kp, vp = (place_heads(x[None, :, :S], is_t, lay)[0] for x in (q, k, v))
+            qp = torch.nn.functional.pad(qp, (0, 0, 0, qb.shape[1] - S)).contiguous()
+            kp, vp = (torch.nn.functional.pad(x, (0, 0, 0, k.shape[1] - S)).contiguous() for x in (kp, vp))
+            o = block_sparse_attention_kv(qp, kp, vp, place_rt.sparse_meta, place_rt.aux, block_q=bq,
+                                          block_kv=place_plan.block_kv, mask_spec=place_plan.mask_spec)
+            return place_heads(o[None, :, :S], is_t, lay, inverse=True)
+
+        p_abs, p_rel = err_stats(placement()[0], out[:, :S])
+        place_ms = cuda_ms(placement)
+        b = attention_bound(pairs, qb[:, :S])
+        log("kernels", f"dual spec, block_q {bq}, {H} heads: kernel {ms:.3f} ms ({4 * D * pairs / (ms * 1e-3) / 1e12:.1f} "
+                       f"TFLOP/s on the allowed pairs), plain {plain_ms:.3f} ms (one run), bound {b['bound_ms']:.3f} "
+                       f"ms ({b['bound_by']}), masked SDPA {lib_ms:.3f} ms; the placement path on the same heads "
+                       f"(place_heads, K1 band_sink, inverse) {place_ms:.3f} ms, its output vs the dual kernel's "
+                       f"max_abs_err {p_abs:.3e} (tol {ATTN_TOL_ABS}), mean_rel_err {p_rel:.3e}")
+        if not (p_abs <= ATTN_TOL_ABS and p_rel <= ATTN_TOL_REL):
+            raise AssertionError("in-place attention disagrees with the placement path on the same heads")
+        entry = {"name": "block_sparse_attn[band_sink_perm]", "route": "cuda",
+                 "source": "sparse_videogen_tpu_torch/csrc/block_sparse_attn.cu",
+                 "body": "sparse_videogen_tpu_torch/csrc/hopper_attn.cuh",
+                 "replaces": "sparse_videogen_tpu/ops/attention.py:269", "max_abs_err": max_abs, "ms": ms,
+                 "plain_ms": plain_ms, **b, "library_ms": lib_ms, "block_q_ms": dict(times), "placement_ms": place_ms}
+        del out, ref
+    entry["block_q_ms"] = times
+    log("kernels", f"dual spec kernel ms on {H} heads by block_q: {times}")
+    del q, k, v
+    torch.cuda.empty_cache()
+    return entry
+
+
+def check_stats(name, got, ref, o_plain_bits=None):
+    """(o, m, l) of a kernel against its plain version: o to ATTN_TOL, m to
+    STATS_TOL_M where live, the NEG_INF sentinels at the same rows, l to
+    STATS_TOL_L_REL of its scale. Returns o's max_abs_err."""
+    (o, m, l), (ro, rm, rl) = got, ref
+    o_abs, o_rel = err_stats(o, ro)
+    dead, rdead = m <= -1e37, rm <= -1e37
+    live = ~rdead
+    m_abs = (m - rm).abs()[live].max().item() if bool(live.any()) else 0.0
+    l_rel = ((l - rl).abs().max() / rl.abs().max().clamp_min(1e-30)).item()
+    ok = (o_abs <= ATTN_TOL_ABS and o_rel <= ATTN_TOL_REL and bool(torch.equal(dead, rdead))
+          and m_abs <= STATS_TOL_M and l_rel <= STATS_TOL_L_REL and bool((l[dead] == 0).all()))
+    log("kernels", f"stats {name}: o max_abs_err {o_abs:.3e} (tol {ATTN_TOL_ABS}); m max_abs_err {m_abs:.3e} "
+                   f"(tol {STATS_TOL_M}); l max_rel_err {l_rel:.3e} (tol {STATS_TOL_L_REL}); rows without a live "
+                   f"column {int(dead.sum())} (plain {int(rdead.sum())})")
+    if not ok:
+        raise AssertionError(f"stats of {name} disagree with the plain version")
+    return o_abs
+
+
+def phase_stats(dev):
+    """The (m, l) softmax stats (return_stats) of K1, every kind at D = 64
+    and 128 and the dual spec, of K3 (mask none) and of K4 (band_sink)
+    against the plain versions, with a q block that sees no live column; o
+    with the stats equals o without, bit for bit. Shapes: 4 heads of 8,192
+    tokens (8 frames of 1,024) for K1's kinds; the run lists of SAP's own
+    front half at Wan 1.3B 480p (12 heads) for K3/K4, which are timed there
+    with and without the stats. Returns the kernels-line entry of the run-list
+    stats instance."""
+    from sparse_videogen_tpu_torch.config import VideoLayout
+    from sparse_videogen_tpu_torch.ops import metadata as MD
+    from sparse_videogen_tpu_torch.ops.attention import (block_sparse_attention_kv, block_sparse_attention_kv_plain,
+                                                         block_sparse_attention_runs,
+                                                         block_sparse_attention_runs_plain)
+    from sparse_videogen_tpu_torch.ops.mask_spec import MaskSpec
+    from sparse_videogen_tpu_torch.presets import T2V_480P
+    from sparse_videogen_tpu_torch.sparse import svg2
+    from sparse_videogen_tpu_torch.sparse.svg1 import make_svg1_plan
+
+    lay = VideoLayout(num_frames=8, frame_size=1024)
+    S, bq, bkv = lay.seq_len, 512, 1024
+    plan = make_svg1_plan(lay, block_q=bq, block_kv=bkv, inplace_temporal=True)
+    bm = np.ones((1, S // bq, S // 128), bool)
+    bm[0, 1] = False  # q block 1 sees no column
+    dense = torch.as_tensor(MD.chunk_meta_np(bm, MD.kv_counts_for_seq(S - 100, S), block_kv=bkv), device=dev)
+    flags = torch.tensor([0, 1, 1, 0], dtype=torch.int32, device=dev)
+    z = torch.zeros(4, dtype=torch.int32, device=dev)
+    kinds = {"none": (MaskSpec(), z), "band_sink": (plan.mask_spec, z),
+             "hyvideo": (MaskSpec("hyvideo", 2048, video_len=7000), torch.tensor([7100, 0, 0, 0], device=dev,
+                                                                                  dtype=torch.int32)),
+             "cog": (MaskSpec("cog", 2048), torch.tensor([226, 0, 0, 0], device=dev, dtype=torch.int32)),
+             "dual": (plan.mask_spec_dual, torch.cat([z, flags]))}
+    for D in (64, 128):
+        gen = torch.Generator(device=dev).manual_seed(D)
+        q, k, v = ((torch.randn(4, S, D, generator=gen, device=dev) * sc).to(torch.bfloat16) for sc in (2.0, 1, 1))
+        for kind, (spec, aux) in kinds.items():
+            kw = dict(block_q=bq, block_kv=bkv, mask_spec=spec)
+            got = block_sparse_attention_kv(q, k, v, dense, aux, return_stats=True, **kw)
+            same = torch.equal(got[0], block_sparse_attention_kv(q, k, v, dense, aux, **kw))
+            check_stats(f"K1 {kind} D={D} (4 heads, S={S})", got,
+                        block_sparse_attention_kv_plain(q, k, v, dense, aux, return_stats=True, **kw))
+            if not same:
+                raise AssertionError(f"K1 {kind} D={D}: o with the stats differs from o without")
+        del q, k, v
+    log("kernels", "stats: K1 o with the stats equals o without, bit for bit, for every kind at D = 64 and 128")
+
+    # K3 / K4 on SAP's own run lists (Wan 1.3B 480p, one CFG stream)
+    slay = slice_layout()
+    H, S, D = T2V_480P.model.num_heads, slay.seq_len, 128
+    sap = T2V_480P.sap
+    gen = torch.Generator(device=dev).manual_seed(5)
+    q, k, v = ((torch.randn(1, H, S, D, generator=gen, device=dev) * sc).to(torch.bfloat16) for sc in (2.0, 1, 1))
+    a = svg2.sap_prepare(q, k, v, svg2.init_sap_state(H, D, sap, device=dev), layout=slay, cfg=sap, generator=gen)
+    heads = torch.tensor([0, H - 1], device=dev)
+    qs, ks, vs, ms_ = (x.index_select(0, heads).contiguous() for x in (a.q, a.k, a.v, a.meta))
+    entry = None
+    for name, spec in (("K3 (mask none)", MaskSpec()), ("K4 (band_sink)", make_svg1_plan(slay).mask_spec)):
+        kw = dict(block_q=sap.block_q, block_kv=sap.block_kv, mask_spec=spec)
+        got = block_sparse_attention_runs(a.q, a.k, a.v, a.meta, return_stats=True, **kw)
+        same = torch.equal(got[0], block_sparse_attention_runs(a.q, a.k, a.v, a.meta, **kw))
+        plain_ms = event_ms(lambda: block_sparse_attention_runs_plain(qs, ks, vs, ms_, return_stats=True, **kw))
+        ref = block_sparse_attention_runs_plain(qs, ks, vs, ms_, return_stats=True, **kw)
+        o_abs = check_stats(f"{name} on SAP's 480p run lists (heads {heads.tolist()} of {H})",
+                            tuple(x.index_select(0, heads) for x in got), ref)
+        if not same:
+            raise AssertionError(f"{name}: o with the stats differs from o without")
+        t_all = cuda_ms(lambda: block_sparse_attention_runs(a.q, a.k, a.v, a.meta, return_stats=True, **kw))
+        t_all_nostats = cuda_ms(lambda: block_sparse_attention_runs(a.q, a.k, a.v, a.meta, **kw))
+        t_stats = cuda_ms(lambda: block_sparse_attention_runs(qs, ks, vs, ms_, return_stats=True, **kw))
+        t_nostats = cuda_ms(lambda: block_sparse_attention_runs(qs, ks, vs, ms_, **kw))
+        b = attention_bound(_run_pairs(ms_, sap.block_q), qs)
+        lib_ms = runs_masked_sdpa(f"{name} stats", spec, ms_, a.pos.index_select(0, heads), sap.block_q,
+                                  (qs, ks, vs), got[0].index_select(0, heads))
+        log("kernels", f"stats {name} on the 2 checked heads: with stats {t_stats:.3f} ms, without {t_nostats:.3f} "
+                       f"ms, plain (one run) {plain_ms:.3f} ms, bound on the visited pairs {b['bound_ms']:.3f} ms "
+                       f"({b['bound_by']}), masked SDPA {lib_ms:.3f} ms; all {H} heads: with stats {t_all:.3f} ms, "
+                       f"without {t_all_nostats:.3f} ms; o with the stats equals o without: {same}")
+        row = {"max_abs_err": o_abs, "ms": t_stats, "plain_ms": plain_ms, **b, "library_ms": lib_ms,
+               "no_stats_ms": t_nostats, "all_heads_ms": t_all, "all_heads_no_stats_ms": t_all_nostats}
+        if entry is None:
+            entry = {"name": "block_sparse_attn_runs[stats]", "route": "cuda",
+                     "source": "sparse_videogen_tpu_torch/csrc/runs_attn.cu",
+                     "body": "sparse_videogen_tpu_torch/csrc/hopper_attn.cuh",
+                     "replaces": "sparse_videogen_tpu/ops/attention.py:1093", **row}
+        else:
+            entry["k4"] = {"replaces": "sparse_videogen_tpu/ops/attention.py:715", **row}
+    del q, k, v, a, got, ref
+    torch.cuda.empty_cache()
+    return entry
+
+
+def phase_ring(dev):
+    """Ring (context-parallel) attention with RING_N ranks as threads of this
+    process on the card (parallel/comm.py ThreadRanks: NCCL takes one rank a
+    device): the thread communicator's collectives; the dense ring
+    (RingDenseRuntime) on full-width Wan 1.3B 480p q, k, v (the CFG pair, 24
+    rows, S = 32,760) against single-device K1, with its time per rotation
+    and the merge's; the SAP ring (ring_sap.sap_ring_attention) against
+    single-device SAP on the same labels (warm centroids, assignment only:
+    kmeans_iter_step 0), and at the CLI's SAP config (2 warm iterations) with
+    the share of labels that agree; then a forward of Wan 1.3B (full width,
+    RING_LAYERS layers) through RingDenseRuntime and through RingSAPRuntime,
+    each against the single-device runtime, with the stats kernels' launches
+    counted around it. Returns the kernels-line entry of K1's stats instance
+    and the two forwards' launches."""
+    import dataclasses
+
+    from sparse_videogen_tpu_torch import _kernels
+    from sparse_videogen_tpu_torch.ops.attention import block_sparse_attention_kv, block_sparse_attention_kv_plain
+    from sparse_videogen_tpu_torch.parallel.comm import ThreadRanks
+    from sparse_videogen_tpu_torch.parallel.ring import merge_init, merge_partial
+    from sparse_videogen_tpu_torch.parallel.ring_runtime import RingDenseRuntime, RingSAPRuntime
+    from sparse_videogen_tpu_torch.parallel.ring_sap import sap_ring_attention
+    from sparse_videogen_tpu_torch.pipelines.wan import BLOCK_KV, BLOCK_Q
+    from sparse_videogen_tpu_torch.presets import T2V_480P
+    from sparse_videogen_tpu_torch.sparse import svg2
+    from sparse_videogen_tpu_torch.sparse.runtimes import DenseRuntime, SAPRuntime
+    from sparse_videogen_tpu_torch.sparse.svg1 import make_svg1_plan
+
+    n = RING_N
+    ranks = ThreadRanks(n)
+
+    def collectives(comm):
+        x = torch.full((3,), float(comm.rank + 1), device=dev)
+        return comm.rotate(x), comm.all_reduce_sum(x), torch.stack(comm.all_gather(x))
+
+    res = ranks.run(collectives)
+    ok = all(float(r[0][0]) == (i - 1) % n + 1 and float(r[1][0]) == n * (n + 1) / 2
+             and r[2][:, 0].tolist() == [j + 1.0 for j in range(n)] for i, r in enumerate(res))
+    log("ring", f"thread communicator, {n} ranks on the card: rotate, all_reduce_sum, all_gather agree {ok}")
+    if not ok:
+        raise AssertionError("the thread communicator's collectives are wrong")
+
+    lay = slice_layout()
+    cfgm = T2V_480P.model
+    plan = make_svg1_plan(lay, T2V_480P.generate_kwargs()["svg"], block_q=BLOCK_Q, block_kv=BLOCK_KV)
+    B, H, S, D = 2, cfgm.num_heads, lay.seq_len, cfgm.head_dim
+    gen = torch.Generator(device=dev).manual_seed(9)
+    q, k, v = ((torch.randn(B, H, S, D, generator=gen, device=dev) * sc).to(torch.bfloat16) for sc in (2.0, 1, 1))
+    ring = RingDenseRuntime(plan, ranks, device=dev)
+    single = DenseRuntime(plan, device=dev)
+    out, ref = ring(q, k, v, 900.0, 0), single(q, k, v, 900.0, 0)
+    max_abs, mean_rel = err_stats(out, ref)
+    ring_ms, single_ms = cuda_ms(lambda: ring(q, k, v, 900.0, 0), iters=3), cuda_ms(lambda: single(q, k, v, 900.0, 0),
+                                                                                     iters=3)
+    # one rotation of rank 0 (its own shard, then its neighbour's) and one merge, alone
+    Sl = ring.shard
+    qpad = torch.nn.functional.pad(q, (0, 0, 0, Sl * n - S))
+    kpad, vpad = (torch.nn.functional.pad(x, (0, 0, 0, Sl * n - S)) for x in (k, v))
+    q0 = qpad[:, :, :Sl].reshape(B * H, Sl, D).contiguous()
+    kv_src = [(kpad[:, :, j * Sl:(j + 1) * Sl].reshape(B * H, Sl, D).contiguous(),
+               vpad[:, :, j * Sl:(j + 1) * Sl].reshape(B * H, Sl, D).contiguous()) for j in range(n)]
+    kw = dict(block_q=plan.block_q, block_kv=ring.block_kv, mask_spec=plan.dense_mask_spec)
+    rot = lambda j, stats=True: block_sparse_attention_kv(q0, *kv_src[j], ring.meta_all[0, j][None],
+                                                          ring.aux_all[0, j], return_stats=stats, **kw)
+    rot_ms = [cuda_ms(lambda: rot(j)) for j in range(n)]
+    rot_nostats_ms = cuda_ms(lambda: rot(0, False))
+    o_r, m_r, l_r = rot(1)
+    st = merge_init((B * H, Sl), D, dev)
+    merge_ms = cuda_ms(lambda: merge_partial(st, o_r, m_r, l_r))
+    log("ring", f"dense ring, {n} ranks (threads), Wan 1.3B 480p q/k/v (B={B}, H={H}, S={S} padded to {Sl * n}, "
+                f"D={D}, block_q {plan.block_q}, block_kv {ring.block_kv}): vs single-device K1 max_abs_err "
+                f"{max_abs:.3e} (tol {ATTN_TOL_ABS}), mean_rel_err {mean_rel:.3e} (tol {ATTN_TOL_REL}); ring "
+                f"{ring_ms:.3f} ms, single device {single_ms:.3f} ms; rank 0's rotations (K1 with stats, "
+                f"{B * H} x {Sl} q rows against a {Sl}-token shard) {[round(x, 4) for x in rot_ms]} ms, without "
+                f"stats {rot_nostats_ms:.4f} ms; one merge {merge_ms:.4f} ms")
+    if not (max_abs <= ATTN_TOL_ABS and mean_rel <= ATTN_TOL_REL):
+        raise AssertionError("the dense ring disagrees with single-device K1")
+    # K1 stats entry: rank 0's rotation against its neighbour's shard, at the ring's shapes
+    heads = torch.tensor([0, B * H - 1], device=dev)
+    sub = lambda x: x.index_select(0, heads).contiguous()
+    got = rot(1)
+    plain_kw = dict(kw)
+    args = (sub(q0), sub(kv_src[1][0]), sub(kv_src[1][1]), ring.meta_all[0, 1][None], ring.aux_all[0, 1])
+    plain_ms = event_ms(lambda: block_sparse_attention_kv_plain(*args, return_stats=True, **plain_kw))
+    o_abs = check_stats(f"K1 none (the dense ring's rotation, rows {heads.tolist()} of {B * H})",
+                        tuple(x.index_select(0, heads) for x in got),
+                        block_sparse_attention_kv_plain(*args, return_stats=True, **plain_kw))
+    real = min(Sl, S - Sl)  # real kv tokens in shard 1
+    b = attention_bound(B * H * min(Sl, S) * real, q0)
+    lib_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q0[None], kv_src[1][0][None, :, :real], kv_src[1][1][None, :, :real]))
+    entry = {"name": "block_sparse_attn[stats]", "route": "cuda",
+             "source": "sparse_videogen_tpu_torch/csrc/block_sparse_attn.cu",
+             "body": "sparse_videogen_tpu_torch/csrc/hopper_attn.cuh",
+             "replaces": "sparse_videogen_tpu/ops/attention.py:406", "max_abs_err": o_abs, "ms": rot_ms[1],
+             "plain_ms": plain_ms, **b, "library_ms": lib_ms, "no_stats_ms": rot_nostats_ms, "merge_ms": merge_ms,
+             "ring_ms": ring_ms, "single_device_ms": single_ms}
+    del out, ref, qpad, kpad, vpad, q0, kv_src, got, o_r, m_r, l_r, st
+
+    # SAP ring against single-device SAP (one CFG stream)
+    sap = T2V_480P.sap
+    qs, ks, vs = (x[:1] for x in (q, k, v))
+    warm = svg2.sap_prepare(qs, ks, vs, svg2.init_sap_state(H, D, sap, device=dev), layout=lay, cfg=sap,
+                            generator=gen).state
+    Sl = S // n
+    part = lambda x, r: x[:, :, r * Sl:(r + 1) * Sl]
+    for iters in (0, sap.kmeans_iter_step):
+        cfg = dataclasses.replace(sap, kmeans_iter_step=iters)
+        ref_out, ref_state = svg2.sap_sparse_attention(qs, ks, vs, warm, layout=lay, cfg=cfg)
+        run = lambda: ranks.run(lambda c: sap_ring_attention(part(qs, c.rank), part(ks, c.rank), part(vs, c.rank),
+                                                             warm, c, layout=lay, cfg=cfg))
+        res = run()
+        out = torch.cat([r[0] for r in res], dim=2)
+        ring_ms = cuda_ms(lambda: run(), iters=2)
+        single_ms = cuda_ms(lambda: svg2.sap_sparse_attention(qs, ks, vs, warm, layout=lay, cfg=cfg), iters=2)
+        max_abs, mean_rel = err_stats(out, ref_out)
+        cent = (res[0][1].k_centroids.float() - ref_state.k_centroids.float()).abs().max().item()
+        # the labels of the last iteration, from both sides' pre-update centroids
+        agree = None
+        if iters:
+            from sparse_videogen_tpu_torch.ops.kmeans import kmeans_assign_update
+
+            prev = dataclasses.replace(cfg, kmeans_iter_step=iters - 1)
+            _, st_single = svg2.sap_sparse_attention(qs, ks, vs, warm, layout=lay, cfg=prev)
+            st_ring = ranks.run(lambda c: sap_ring_attention(part(qs, c.rank), part(ks, c.rank), part(vs, c.rank),
+                                                             warm, c, layout=lay, cfg=prev))[0][1]
+            kf = ks.reshape(H, S, D)
+            la = kmeans_assign_update(kf, st_single.k_centroids.to(kf.dtype))[0]
+            lb = kmeans_assign_update(kf, st_ring.k_centroids.to(kf.dtype))[0]
+            agree = (la == lb).float().mean().item()
+        log("ring", f"SAP ring, {n} ranks, Wan 1.3B 480p one stream (H={H}, S={S}, QC {cfg.num_q_centroids}, KC "
+                    f"{cfg.num_k_centroids}), warm centroids, kmeans_iter_step {iters}: vs single-device SAP "
+                    f"max_abs_err {max_abs:.3e}, mean_rel_err {mean_rel:.3e}; k centroids max diff {cent:.3e}"
+                    + ("" if agree is None else f"; k labels of the last iteration agree on {agree:.6f}")
+                    + f"; ring {ring_ms:.3f} ms, single device {single_ms:.3f} ms")
+        if iters == 0 and not (max_abs <= ATTN_TOL_ABS and mean_rel <= ATTN_TOL_REL):
+            raise AssertionError("the SAP ring disagrees with single-device SAP on the same labels")
+        if not bool(torch.isfinite(out).all()):
+            raise AssertionError("the SAP ring output is not finite")
+    del q, k, v, qs, ks, vs, out, ref_out
+    torch.cuda.empty_cache()
+
+    # Wan 1.3B forwards through the ring runtimes
+    model = _new_model(dataclasses.replace(cfgm, num_layers=RING_LAYERS), dev)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    launches = {}
+    for pattern, batch in (("dense", 2), ("SAP", 1)):
+        x = torch.randn(batch, 16, lay.num_frames, T2V_480P.height // 8, T2V_480P.width // 8, generator=gen,
+                        device=dev).to(torch.bfloat16)
+        ctx = torch.randn(batch, cfgm.text_len, cfgm.text_dim, generator=gen, device=dev).to(torch.bfloat16)
+        t = torch.full((batch,), 500.0, device=dev)
+        if pattern == "dense":
+            rts = (RingDenseRuntime(plan, ranks, device=dev), DenseRuntime(plan, device=dev))
+        else:
+            from sparse_videogen_tpu_torch.config import WarmupSchedule
+
+            w = WarmupSchedule(first_layers=0, first_times=1000.0)
+            rts = (RingSAPRuntime(plan, sap, w, ranks, device=dev), SAPRuntime(plan, sap, w, device=dev))
+            idx = [tuple(torch.randint(0, S, (H, c), generator=gen, device=dev)
+                         for c in (sap.num_q_centroids, sap.num_k_centroids)) for _ in range(RING_LAYERS)]
+            for rt in rts:
+                rt.kmeans_init = idx
+        outs = []
+        for i, rt in enumerate(rts):
+            torch.cuda.synchronize()
+            _kernels.reset_counts()
+            outs.append(model(x, t, ctx, attention=rt, generator=torch.Generator(device=dev).manual_seed(0)).float())
+            torch.cuda.synchronize()
+            if i == 0:
+                got_l, got_k, plain = dict(_kernels.LAUNCHES), dict(_kernels.KIND_LAUNCHES), dict(_kernels.PLAIN_CALLS)
+        rel = ((outs[0] - outs[1]).norm() / outs[1].norm()).item()
+        key = "block_sparse_attn[stats]" if pattern == "dense" else "block_sparse_attn_runs[stats]"
+        want = RING_LAYERS * n * n
+        log("ring", f"Wan 1.3B forward ({RING_LAYERS} layers, full width, batch {batch}) through the {pattern} ring "
+                    f"runtime, {n} ranks: vs the single-device runtime rel L2 {rel:.3e} (tol 3e-2); {key} launches "
+                    f"{got_k.get(key, 0)} (expected {want}), launches {got_l}, plain-version calls {plain}")
+        if got_k.get(key, 0) != want or any(plain.values()) or not rel <= 3e-2:
+            raise AssertionError(f"the {pattern} ring forward: wrong launches, a plain call, or output off: {rel}")
+        launches[key] = got_k[key]
+    del model
+    torch.cuda.empty_cache()
+    return entry, launches
+
+
 def phase_cli():
     runs = [("wan_t2v", p) for p in ("SVG", "dense", "SAP")] + [(cli, p) for cli in ("hyvideo_t2v", "cog_i2v")
                                                                   for p in ("SVG", "dense")]
@@ -1555,8 +2023,12 @@ def main():
                "rmsnorm": phase_rmsnorm(dev), "dense_qsplit": phase_qsplit(dev),
                "block_sparse_attn[cog]": phase_cog_attention(dev)}
     kernels["rope"]["d64"] = phase_cog_rope(dev)
+    kernels["block_sparse_attn[band_sink_perm]"] = phase_inplace_svg1(dev)
+    kernels["block_sparse_attn_runs[stats]"] = phase_stats(dev)
     phase_sap_attention(dev, "14B-720p-sap", all_checks=False)
     launches = phase_slice(dev)
+    kernels["block_sparse_attn[stats]"], ring_launches = phase_ring(dev)
+    launches.update(ring_launches)
     for counts in (phase_probe(dev), phase_slice_14b(dev), phase_kernel_probes(dev)):
         for name, n in counts.items():
             launches.setdefault(name, n)

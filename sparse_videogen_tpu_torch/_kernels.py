@@ -15,7 +15,10 @@ to a source rebuilds it and an unchanged tree reuses it across processes.
 Counters: ``LAUNCHES[name]`` grows by one each time a wrapper launches its
 kernel; ``PLAIN_CALLS[name]`` each time the plain PyTorch version runs;
 ``KIND_LAUNCHES["block_sparse_attn[<kind>]"]`` counts the chunked-CSR
-attention's launches by mask kind (each kind is its own kernel instance). A
+attention's launches by mask kind (each kind is its own kernel instance;
+``band_sink_perm`` is placement-free SVG1's dual per-head spec), and
+``KIND_LAUNCHES["<kernel>[stats]"]`` the launches of ``block_sparse_attn`` and
+``block_sparse_attn_runs`` that also return the (m, l) softmax stats. A
 run that resets them and then reads them shows which path the work took.
 """
 
@@ -28,6 +31,7 @@ import os
 import re
 import shutil
 import subprocess
+import threading
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_ROOT = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "build", "kernels")
@@ -49,17 +53,17 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
     # q, k, v, o, meta, aux, order, BH, Sq, Skv, D, R, nQ, L, block_q,
-    # mask_kind, band_width, sink_size, video_len, q_scale, stream
+    # mask_kind, band_width, sink_size, video_len, frame_size, num_frames, q_scale, m_out, l_out, stream
     "svt_block_sparse_attn": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                              _I, _I, _I, _I, _F, _P],
+                              _I, _I, _I, _I, _I, _I, _F, _P, _P, _P],
     # D -> dynamic shared memory of one chunked-CSR attention CTA (bytes)
     "svt_block_sparse_attn_smem": [_I],
     # x, cos, sin, out, BH, S, D, stream
     "svt_rope": [_P, _P, _P, _P, _I, _I, _I, _P],
     # q, k, v, o, meta, aux, order, BH, Sq, Skv, D, R, nQ, L, block_q, block_kv,
-    # mask_kind, band_width, sink_size, q_scale, stream
+    # mask_kind, band_width, sink_size, q_scale, m_out, l_out, stream
     "svt_block_sparse_attn_runs": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                                   _I, _I, _I, _F, _P],
+                                   _I, _I, _I, _F, _P, _P, _P],
     # B, N, K -> number of token slabs of the k-means update
     "svt_kmeans_wide_num_slabs": [_I, _I, _I],
     # x, c, csq, labels, overflow, part_sums, part_counts, sums, counts, B, N, K, D, variant, n_slabs, stream
@@ -74,6 +78,23 @@ _SIGNATURES = {
     "svt_kmeans_lloyd_workspace": [_I, _I, _I, _I],
 }
 _RESTYPES = {"svt_kmeans_lloyd_workspace": ctypes.c_longlong}
+
+
+_COUNT_LOCK = threading.Lock()  # ring ranks may run as threads of one process (parallel/comm.py)
+
+
+def launched(name: str, *kinds: str) -> None:
+    """Count one launch of kernel `name`, and one under each KIND_LAUNCHES key in `kinds`."""
+    with _COUNT_LOCK:
+        LAUNCHES[name] += 1
+        for k in kinds:
+            KIND_LAUNCHES[k] += 1
+
+
+def plain_call(name: str) -> None:
+    """Count one run of kernel `name`'s plain version."""
+    with _COUNT_LOCK:
+        PLAIN_CALLS[name] += 1
 
 
 def reset_counts() -> None:
@@ -143,15 +164,18 @@ _ENTRY = re.compile(r"Compiling entry function '([^']+)'")
 _SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
 _USED = re.compile(r"Used (\d+) registers")
 _SMEM = re.compile(r"(\d+) bytes smem")
-_TRACKED = re.compile(r"(bsa_kernel|runs_kernel|dense_kernel|kmeans_assign_kernel)ILi(\d+)E(?:Li(\d+)E)?")
+_TRACKED = re.compile(r"(bsa_kernel|bsa_stats_kernel|bsa_dual_kernel|runs_kernel|runs_stats_kernel|dense_kernel|"
+                      r"kmeans_assign_kernel)ILi(\d+)E(?:Li(\d+)E)?")
 
 
 def ptxas_report(log: str) -> list[dict]:
     """The Hopper kernels' entries in nvcc's -Xptxas -v output: one dict
     {kernel, D, kind, registers, spill_stores, spill_loads, static_smem} for
-    each bsa_kernel<D, KIND> (K1), runs_kernel<D> (K3/K4), dense_kernel<D,
-    MODE> (K7; `kind` holds the MODE) and kmeans_assign_kernel<D> (K5)
-    instance."""
+    each bsa_kernel<D, KIND> and bsa_stats_kernel<D, KIND> (K1, without and
+    with the (m, l) stats), bsa_dual_kernel<D, MODE> (K1's dual per-head
+    spec; `kind` holds the MODE: 0, or 4 with the stats), runs_kernel<D> and
+    runs_stats_kernel<D> (K3/K4), dense_kernel<D, MODE> (K7; `kind`
+    holds the MODE) and kmeans_assign_kernel<D> (K5) instance."""
     rows, cur = [], None
     for line in log.splitlines():
         if (e := _ENTRY.search(line)) is not None:

@@ -7,13 +7,18 @@ fallback to the CPU: `--device cuda` on a host without a card fails.
 What runs today is the random-weight path that the JAX CLI takes without
 `--model_dir` (`--smoke`, or no checkpoint): a tiny Wan at a reduced size,
 denoised with dense, SVG1 or SAP (cluster mode) attention, latents written
-to an `.npz`; `--logging_file` takes SAP's density log.
+to an `.npz`; `--logging_file` takes SAP's density log. `--ring_degree N`
+runs dense or SAP attention token-sharded over N ranks, one process a rank
+under torchrun (gloo with `--device cpu`, NCCL on cards); rank 0 writes the
+outputs. The other parallel flags (--dp, --ulysses_degree, --dit_fsdp) raise.
 Checkpoints (`--model_dir`), the UMT5 text encoder and the VAE decode to a
 video are not ported yet (ROADMAP.md) and raise NotImplementedError.
 
 Usage:
   python -m sparse_videogen_tpu_torch.cli.wan_t2v --smoke --pattern SAP \
       --device cuda --output_file out.npz
+  torchrun --nproc_per_node 2 -m sparse_videogen_tpu_torch.cli.wan_t2v --smoke \
+      --pattern dense --ring_degree 2 --device cpu --output_file out.npz
 """
 
 from __future__ import annotations
@@ -85,8 +90,8 @@ def _unported(args) -> str | None:
         return "video output (the Wan VAE decode); write latents to a .npz"
     if args.quant not in (None, "none") or args.use_fp8:
         return "--quant / --use_fp8"
-    if args.dp * args.ulysses_degree * args.ring_degree > 1 or args.dit_fsdp:
-        return "multi-device parallelism"
+    if args.dp * args.ulysses_degree > 1 or args.dit_fsdp:
+        return "--dp / --ulysses_degree / --dit_fsdp (data, Ulysses and FSDP parallelism)"
     if args.prompt_source != "prompt":
         return "--prompt_source (prompts need the UMT5 encoder)"
     if args.sap_block_mode != "cluster":
@@ -111,6 +116,14 @@ def main(argv=None):
     from sparse_videogen_tpu_torch.pipelines import WanPipeline
 
     device = resolve_device(args.device)
+    mesh, rank = None, 0
+    if args.ring_degree > 1:
+        from sparse_videogen_tpu_torch.parallel.mesh import make_mesh
+
+        mesh = make_mesh(args.ring_degree, device_type=device.type)
+        rank = mesh.comm.rank
+        if device.type == "cuda":
+            device = torch.device("cuda", torch.cuda.current_device())
     if args.flow_shift is None:
         args.flow_shift = 5.0 if args.height >= 720 else 3.0
 
@@ -143,10 +156,16 @@ def main(argv=None):
                       kmeans_iter_init=args.kmeans_iter_init, kmeans_iter_step=args.kmeans_iter_step,
                       zero_step_kmeans_init=args.zero_step_kmeans_init),
         seed=args.seed,
-        logging_file=args.logging_file,
+        logging_file=args.logging_file if rank == 0 else None,
+        mesh=mesh,
     )
-    np.savez(args.output_file, latents=lat.cpu().numpy())
-    logger.info(f"saved latents {tuple(lat.shape)} -> {args.output_file}")
+    if mesh is not None:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
+    if rank == 0:
+        np.savez(args.output_file, latents=lat.cpu().numpy())
+        logger.info(f"saved latents {tuple(lat.shape)} -> {args.output_file}")
 
 
 if __name__ == "__main__":

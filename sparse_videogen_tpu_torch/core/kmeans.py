@@ -4,6 +4,12 @@
 Every iteration is one fused pass (ops/kmeans.kmeans_assign_update: labels,
 f32 sums, counts) and the mean update below. The iteration count is fixed,
 as in the JAX package: no tolerance-based early stop, so no host sync.
+
+Token-sharded (ring SAP, parallel/ring_sap.py): with a communicator `comm`
+(parallel/comm.py) each rank holds a shard of the tokens; assignment is
+token-local given the centroids, and the update all-reduces the per-cluster
+sums and counts first, so every rank holds the global Lloyd centroids (the
+JAX package's psum over `axis_name`).
 """
 
 from __future__ import annotations
@@ -24,37 +30,62 @@ def init_centroids(x, n_clusters: int, generator: torch.Generator | None = None,
     return torch.gather(x, 1, idx[..., None].expand(B, n_clusters, D))
 
 
-def _finalize(sums, counts, old_centroids, dtype):
-    """Mean per cluster; an empty cluster keeps its old centroid. Returns
-    (centroids in `dtype`, counts int32)."""
+def init_centroids_sharded(x, n_clusters: int, comm, idx):
+    """Random global tokens as initial centroids when the token axis is
+    sharded: x is this rank's (B, N_local, D) shard (every rank's of the same
+    N_local), idx (B, n_clusters) the drawn global token indices, the same on
+    every rank. Each rank contributes the tokens it owns and an all-reduce
+    assembles the set: init_centroids over the gathered sequence."""
+    B, N, D = x.shape
+    loc = torch.as_tensor(idx, device=x.device).long() - comm.rank * N
+    mine = (loc >= 0) & (loc < N)
+    take = torch.gather(x, 1, loc.clamp(0, N - 1)[..., None].expand(B, n_clusters, D)).float()
+    return comm.all_reduce_sum(torch.where(mine[..., None], take, 0.0)).to(x.dtype)
+
+
+def label_counts(labels, n_clusters: int):
+    """(B, N) labels -> (B, K) int32 tokens a cluster."""
+    B = labels.shape[0]
+    counts = torch.zeros(B, n_clusters, dtype=torch.int32, device=labels.device)
+    return counts.scatter_add_(1, labels.long(), torch.ones_like(labels, dtype=torch.int32))
+
+
+def _finalize(sums, counts, old_centroids, dtype, comm=None):
+    """Mean per cluster; an empty cluster keeps its old centroid. With comm,
+    sums and counts are all-reduced first (the global Lloyd update).
+    Returns (centroids in `dtype`, counts int32)."""
+    if comm is not None:
+        sums, counts = comm.all_reduce_sum(sums), comm.all_reduce_sum(counts)
     means = sums / counts.clamp_min(1.0)[..., None]
     new = torch.where((counts == 0)[..., None], old_centroids.float(), means)
     return new.to(dtype), counts.to(torch.int32)
 
 
-def batch_kmeans(x, n_clusters: int, max_iters: int, init, *, metric: str = "euclid", axis_name=None):
+def batch_kmeans(x, n_clusters: int, max_iters: int, init, *, metric: str = "euclid", comm=None, axis_name=None):
     """`max_iters` Lloyd iterations from `init` centroids (cast to x's dtype).
 
     As in the JAX package (and its reference), each iteration assigns against
     the current centroids and then updates them, so the returned labels and
     sizes belong to the last iteration's pre-update centroids and the
     returned centroids are post-update. max_iters <= 0 assigns only and
-    returns `init`.
+    returns `init`. comm: x is this rank's token shard; the labels are the
+    shard's, the centroids and sizes global (the same on every rank). The
+    JAX package's `axis_name` (a mesh axis) has no counterpart: it raises.
 
     Returns (labels (B, N) int32, centroids (B, K, D), sizes (B, K) int32).
     """
     if metric != "euclid":
         raise NotImplementedError(f"k-means metric {metric!r} is not ported to the torch package yet (ROADMAP.md)")
     if axis_name is not None:
-        raise NotImplementedError("token-sharded k-means (axis_name) is not ported to the torch package yet "
-                                  "(ROADMAP.md)")
+        raise NotImplementedError("k-means shards its tokens through comm= (parallel/comm.py), not a JAX mesh "
+                                  "axis name")
     if init.shape[1] != n_clusters:
         raise ValueError(f"init has {init.shape[1]} centroids, n_clusters={n_clusters}")
     c = init.to(x.dtype)
     if max_iters <= 0:
         labels, sums, counts = kmeans_assign_update(x, c)
-        return labels, c, _finalize(sums, counts, c, x.dtype)[1]
+        return labels, c, _finalize(sums, counts, c, x.dtype, comm)[1]
     for _ in range(max_iters):
         labels, sums, counts = kmeans_assign_update(x, c)
-        c, sizes = _finalize(sums, counts, c, x.dtype)
+        c, sizes = _finalize(sums, counts, c, x.dtype, comm)
     return labels, c, sizes

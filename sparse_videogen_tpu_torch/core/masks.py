@@ -103,3 +103,28 @@ def execution_mask_block(layout: VideoLayout, multiplier: float, *, block_q: int
         return band | (k_hi >= vid) | (q_hi >= vid)
     band = math.ceil(multiplier * fs / 128) * 128
     return (gap <= band) | (k_lo < fs)
+
+
+def execution_mask_block_perm(layout: VideoLayout, multiplier: float, *, block_q: int = 128,
+                              block_kv: int = 128) -> np.ndarray:
+    """(n_q, n_k) block skeleton of the temporal band+sink mask in the
+    original token order (placement-free SVG1, video only): the band
+    |p(q) - p(k)| <= W, W = multiplier * frame_size rounded up to 128, with
+    the permuted positions p(x) = (x % fs) * F + x // fs, and the sink
+    p(k) < fs. The p-sets of a block are not intervals, so each q block's
+    allowed columns are computed exactly (numpy, once per plan)."""
+    seq, fs, nf = layout.video_length, layout.frame_size, layout.num_frames
+    w = math.ceil(multiplier * fs / 128) * 128
+    x = np.arange(seq)
+    p = (x % fs) * nf + x // fs
+    sink = p < fs
+    n_q = -(-seq // block_q)
+    n_k = -(-seq // block_kv)
+    out = np.zeros((n_q, n_k), bool)
+    pad = n_k * block_kv - seq
+    for b in range(n_q):
+        pq = p[b * block_q:(b + 1) * block_q][:, None]
+        allowed = (np.abs(pq - p[None, :]) <= w).any(axis=0) | sink
+        out[b] = np.concatenate([allowed, np.zeros(pad, bool)]).reshape(n_k, block_kv).any(axis=1)
+    return out
+

@@ -4,7 +4,9 @@
 // (entry block_sparse_attention_kv). Same metadata (ops/metadata.py), same
 // MaskSpec semantics (kinds "none", "band_sink", "hyvideo" and "cog", global
 // positions offset by aux[2]/aux[3], hyvideo's real length or cog's prompt
-// length in aux[0]; csrc/mask_pred.cuh), same numerics: q pre-scaled by
+// length in aux[0]; placement-free SVG1's dual per-head spec, band_sink or
+// band_sink_perm by aux[4 + bh]; csrc/mask_pred.cuh), the optional (m, l)
+// softmax stats of return_stats, same numerics: q pre-scaled by
 // scale*log2(e) and rounded to bf16, the online softmax in f32 in the exp2
 // domain, P rounded to bf16 for PV while the row sum uses the f32 P, 0 for a
 // row that sees no live column.
@@ -56,59 +58,118 @@ bsa_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUt
   attn_cta<D, KIND>(&tm_q, &tm_k, &tm_v, o, chunks, it, Sq, Skv, aux, band_width, sink_size, video_len, q_scale);
 }
 
+// bsa_kernel that also writes the rows' softmax stats (m, l)
 template <int D, int KIND>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, const int* meta, const int* aux,
-                   const int* order, int BH, int Sq, int Skv, int R, int nQ, int L, int block_q, int mask_kind,
-                   int band_width, int sink_size, int video_len, float q_scale, cudaStream_t stream) {
-  CUtensorMap tq, tk, tv;
-  if (!make_qkv_maps(&tq, &tk, &tv, q, k, v, BH, Sq, Skv, D)) return cudaErrorInvalidValue;
+__global__ void __launch_bounds__(NTHREADS, 1)
+bsa_stats_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                 const __grid_constant__ CUtensorMap tm_v, bf16* __restrict__ o, const int* __restrict__ meta,
+                 const int* __restrict__ aux, const int* __restrict__ order, int Sq, int Skv, int R, int nQ, int L,
+                 int block_q, int mask_kind, int band_width, int sink_size, int video_len, float q_scale,
+                 float* __restrict__ m_out, float* __restrict__ l_out) {
+  const WorkItem it = work_item(order, Sq);
+  const int* m = meta + ((size_t)(R == 1 ? 0 : it.bh) * nQ + it.q0 / block_q) * L;
+  const CsrChunks chunks = {m, m[0] % N_CHEAP_SCALE, m[0] / N_CHEAP_SCALE, mask_kind};
+  attn_cta<D, KIND, MODE_STATS>(&tm_q, &tm_k, &tm_v, o, chunks, it, Sq, Skv, aux, band_width, sink_size, video_len,
+                                q_scale, 0, 0, m_out, l_out);
+}
+
+// The dual per-head spec of placement-free SVG1: aux[4 + bh] == 1 picks the
+// temporal heads' band_sink_perm, else band_sink (both with band_width and
+// sink_size). A head's class is uniform over its items, so the CTA takes one
+// of the two bodies once, before any load; no branch lies between a wgmma's
+// issue and its wait. MODE is 0 or MODE_STATS.
+template <int D, int MODE>
+__global__ void __launch_bounds__(NTHREADS, 1)
+bsa_dual_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                const __grid_constant__ CUtensorMap tm_v, bf16* __restrict__ o, const int* __restrict__ meta,
+                const int* __restrict__ aux, const int* __restrict__ order, int Sq, int Skv, int R, int nQ, int L,
+                int block_q, int band_width, int sink_size, int frame_size, int num_frames, float q_scale,
+                float* __restrict__ m_out, float* __restrict__ l_out) {
+  const WorkItem it = work_item(order, Sq);
+  const int* m = meta + ((size_t)(R == 1 ? 0 : it.bh) * nQ + it.q0 / block_q) * L;
+  const CsrChunks chunks = {m, m[0] % N_CHEAP_SCALE, m[0] / N_CHEAP_SCALE, KIND_BAND_SINK};
+  if (aux[4 + it.bh] == 1)
+    attn_cta<D, KIND_BAND_SINK_PERM, MODE>(&tm_q, &tm_k, &tm_v, o, chunks, it, Sq, Skv, aux, band_width, sink_size,
+                                           0, q_scale, frame_size, num_frames, m_out, l_out);
+  else
+    attn_cta<D, KIND_BAND_SINK, MODE>(&tm_q, &tm_k, &tm_v, o, chunks, it, Sq, Skv, aux, band_width, sink_size, 0,
+                                      q_scale, 0, 0, m_out, l_out);
+}
+
+// what one call hands the kernels (C entry below)
+struct Call {
+  const void *q, *k, *v;
+  void* o;
+  const int *meta, *aux, *order;
+  int BH, Sq, Skv, R, nQ, L, block_q, mask_kind, band_width, sink_size, video_len, frame_size, num_frames;
+  float q_scale;
+  float *m_out, *l_out;  // both null: no stats
+  cudaStream_t stream;
+};
+
+// launch `kernel` over the call's (head, 128-row tile) items with K1's CTA
+template <int D, class Kernel, class... Args>
+cudaError_t launch_items(Kernel kernel, const Call& c, Args... args) {
   const int smem = Layout<D>::SMEM;
-  cudaError_t err = cudaFuncSetAttribute(bsa_kernel<D, KIND>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  bsa_kernel<D, KIND><<<BH * (Sq / BQ), NTHREADS, smem, stream>>>(
-      tq, tk, tv, static_cast<bf16*>(o), meta, aux, order, Sq, Skv, R, nQ, L, block_q, mask_kind, band_width,
-      sink_size, video_len, q_scale);
+  kernel<<<c.BH * (c.Sq / BQ), NTHREADS, smem, c.stream>>>(args...);
   return cudaGetLastError();
 }
 
-// one instance a kind: none runs the band_sink instance without the predicate
+template <int D, int KIND>
+cudaError_t launch_kind(const Call& c, const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv) {
+  bf16* o = static_cast<bf16*>(c.o);
+  if (c.m_out == nullptr)
+    return launch_items<D>(bsa_kernel<D, KIND>, c, tq, tk, tv, o, c.meta, c.aux, c.order, c.Sq, c.Skv, c.R, c.nQ,
+                           c.L, c.block_q, c.mask_kind, c.band_width, c.sink_size, c.video_len, c.q_scale);
+  return launch_items<D>(bsa_stats_kernel<D, KIND>, c, tq, tk, tv, o, c.meta, c.aux, c.order, c.Sq, c.Skv, c.R,
+                         c.nQ, c.L, c.block_q, c.mask_kind, c.band_width, c.sink_size, c.video_len, c.q_scale,
+                         c.m_out, c.l_out);
+}
+
+// one instance a kind (none runs the band_sink instance without the
+// predicate); KIND_BAND_SINK_PERM runs the dual kernel
 template <int D>
-cudaError_t launch_kind(const void* q, const void* k, const void* v, void* o, const int* meta, const int* aux,
-                        const int* order, int BH, int Sq, int Skv, int R, int nQ, int L, int block_q, int mask_kind,
-                        int band_width, int sink_size, int video_len, float q_scale, cudaStream_t stream) {
-  if (mask_kind == KIND_HYVIDEO)
-    return launch<D, KIND_HYVIDEO>(q, k, v, o, meta, aux, order, BH, Sq, Skv, R, nQ, L, block_q, mask_kind,
-                                   band_width, sink_size, video_len, q_scale, stream);
-  if (mask_kind == KIND_COG)
-    return launch<D, KIND_COG>(q, k, v, o, meta, aux, order, BH, Sq, Skv, R, nQ, L, block_q, mask_kind, band_width,
-                               sink_size, video_len, q_scale, stream);
-  return launch<D, KIND_BAND_SINK>(q, k, v, o, meta, aux, order, BH, Sq, Skv, R, nQ, L, block_q, mask_kind,
-                                   band_width, sink_size, video_len, q_scale, stream);
+cudaError_t launch(const Call& c) {
+  CUtensorMap tq, tk, tv;
+  if (!make_qkv_maps(&tq, &tk, &tv, c.q, c.k, c.v, c.BH, c.Sq, c.Skv, D)) return cudaErrorInvalidValue;
+  if (c.mask_kind == KIND_HYVIDEO) return launch_kind<D, KIND_HYVIDEO>(c, tq, tk, tv);
+  if (c.mask_kind == KIND_COG) return launch_kind<D, KIND_COG>(c, tq, tk, tv);
+  if (c.mask_kind == KIND_BAND_SINK_PERM) {
+    bf16* o = static_cast<bf16*>(c.o);
+    auto kernel = c.m_out == nullptr ? bsa_dual_kernel<D, 0> : bsa_dual_kernel<D, MODE_STATS>;
+    return launch_items<D>(kernel, c, tq, tk, tv, o, c.meta, c.aux, c.order, c.Sq, c.Skv, c.R, c.nQ, c.L,
+                           c.block_q, c.band_width, c.sink_size, c.frame_size, c.num_frames, c.q_scale, c.m_out,
+                           c.l_out);
+  }
+  return launch_kind<D, KIND_BAND_SINK>(c, tq, tk, tv);
 }
 
 }  // namespace
 
 // Shapes are checked by the Python wrapper (ops/attention.py): q (BH, Sq, D),
 // k/v (BH, Skv, D), o (BH, Sq, D), all bf16 contiguous and 16-byte aligned;
-// meta (R, nQ, L) int32; aux (4,) int32 on the device; order (BH * Sq / 128,)
-// int32, a permutation of the work items bh * (Sq / 128) + tile;
-// Sq % block_q == 0, block_q % 128 == 0, Skv % 128 == 0.
+// meta (R, nQ, L) int32; aux (4,) int32 on the device, (4 + BH,) with
+// mask_kind KIND_BAND_SINK_PERM (aux[4 + bh]: 1 for a band_sink_perm head, 0
+// for a band_sink one); order (BH * Sq / 128,) int32, a permutation of the
+// work items bh * (Sq / 128) + tile; Sq % block_q == 0, block_q % 128 == 0,
+// Skv % 128 == 0; m_out and l_out null, or both (BH, Sq) f32 for the stats;
+// frame_size > 8 with KIND_BAND_SINK_PERM.
 extern "C" int svt_block_sparse_attn(const void* q, const void* k, const void* v, void* o, const void* meta,
                                      const void* aux, const void* order, int BH, int Sq, int Skv, int D, int R,
                                      int nQ, int L, int block_q, int mask_kind, int band_width, int sink_size,
-                                     int video_len, float q_scale, void* stream) {
+                                     int video_len, int frame_size, int num_frames, float q_scale, void* m_out,
+                                     void* l_out, void* stream) {
   // chunk extents come from the [lo, hi) windows, so block_kv is not needed
-  const int* m = static_cast<const int*>(meta);
-  const int* a = static_cast<const int*>(aux);
-  const int* ord = static_cast<const int*>(order);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (Sq % BQ || block_q % BQ || Skv % BK) return (int)cudaErrorInvalidValue;
-  if (D == 128)
-    return (int)launch_kind<128>(q, k, v, o, m, a, ord, BH, Sq, Skv, R, nQ, L, block_q, mask_kind, band_width,
-                                 sink_size, video_len, q_scale, s);
-  if (D == 64)
-    return (int)launch_kind<64>(q, k, v, o, m, a, ord, BH, Sq, Skv, R, nQ, L, block_q, mask_kind, band_width,
-                                sink_size, video_len, q_scale, s);
+  const Call c = {q, k, v, o, static_cast<const int*>(meta), static_cast<const int*>(aux),
+                  static_cast<const int*>(order), BH, Sq, Skv, R, nQ, L, block_q, mask_kind, band_width, sink_size,
+                  video_len, frame_size, num_frames, q_scale, static_cast<float*>(m_out), static_cast<float*>(l_out),
+                  static_cast<cudaStream_t>(stream)};
+  if (Sq % BQ || block_q % BQ || Skv % BK || (m_out == nullptr) != (l_out == nullptr)) return (int)cudaErrorInvalidValue;
+  if (mask_kind == KIND_BAND_SINK_PERM && frame_size <= 8) return (int)cudaErrorInvalidValue;
+  if (D == 128) return (int)launch<128>(c);
+  if (D == 64) return (int)launch<64>(c);
   return (int)cudaErrorInvalidValue;
 }
 

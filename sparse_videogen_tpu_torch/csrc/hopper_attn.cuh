@@ -13,6 +13,12 @@
 //                  QK^T is issued with tile n-1's PV, so tile n's softmax
 //                  runs under PV(n-1). K and V stages are freed apart and
 //                  the ring has 3 stages at D = 128.
+//   MODE_STATS     also write each row's softmax stats (m, l) for the ring
+//                  merge (ops/attention.py return_stats): m the running max
+//                  in natural-log units (the NEG_INF sentinel of a row that
+//                  saw no live column kept as it is), l the f32 row sum.
+//                  A separate instance: the instances without it keep their
+//                  code.
 //
 // Numerics (the TPU kernels' of K1, K3, K4): q pre-scaled by
 // scale*log2(e) and rounded to bf16, the online softmax in f32 in the exp2 domain, P rounded to bf16 for
@@ -78,7 +84,7 @@ constexpr int ROW_BYTES = 128;  // one 64-column box row, the 128B swizzle span
 constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
 constexpr float NEG_INF = -0.7f * 3.402823466e38f;
 constexpr float LOG2E = 1.4426950408889634f;
-constexpr int MODE_NAT = 1, MODE_PINGPONG = 2;
+constexpr int MODE_NAT = 1, MODE_PINGPONG = 2, MODE_STATS = 4;
 
 // PP: the ping-pong ring (MODE_PINGPONG): 3 stages at D = 128 and a
 // separate empty barrier for the K and the V of each stage
@@ -259,6 +265,41 @@ struct RowState {
   float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;
 };
 
+// The window [lo, hi) and, with `pred`, KIND_BAND_SINK_PERM's predicate over
+// this thread's 64 scores of a tile: rows qp0 and qp0 + 8, columns t0 + 8j +
+// 2 t4 + e (j < 16, e < 2). The rows' permuted positions are computed once;
+// the columns' (frame, slot) pair is stepped along the walk (+1, +8 tokens:
+// at most one frame wrap while frame_size > 8) instead of a division a
+// column.
+__device__ __forceinline__ void perm_mask(float (&s)[64], const MaskArgs& mk, bool pred, int t0, int lo, int hi,
+                                          int qp0, int kbase, int t4) {
+  const int fs = mk.frame_size, F = mk.num_frames, w = mk.band_width;
+  const int pq0 = perm_pos(mk, qp0), pq1 = perm_pos(mk, qp0 + 8);
+  const int x = kbase + t0 + 2 * t4;
+  int kf = x / fs;
+  int ks = x - kf * fs;
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int col = t0 + 8 * j + 2 * t4 + e;
+      const bool wrap = ks + e >= fs;
+      const int pk = (wrap ? ks + e - fs : ks + e) * F + (wrap ? kf + 1 : kf);
+      const bool live = col >= lo && col < hi;
+      const bool sink = pk < mk.sink_size;
+      const bool ok0 = live && (!pred || sink || (pq0 - pk < w && pk - pq0 < w));
+      const bool ok1 = live && (!pred || sink || (pq1 - pk < w && pk - pq1 < w));
+      if (!ok0) s[4 * j + e] = NEG_INF;
+      if (!ok1) s[4 * j + 2 + e] = NEG_INF;
+    }
+    ks += 8;
+    if (ks >= fs) {
+      ks -= fs;
+      ++kf;
+    }
+  }
+}
+
 // One K/V tile for a consumer warpgroup (its K has arrived): S = Q K^T, the
 // window where the tile straddles [lo, hi) and, MASKED with cls ==
 // TILE_SOME, the kind's predicate per pair; the exp2 online softmax; then,
@@ -273,12 +314,16 @@ __device__ __forceinline__ void attend_tile(float (&acc)[D / 2], float (&s)[64],
   reg_fence(s);
 
   if ((MASKED && cls == TILE_SOME) || t0 < lo || t0 + BK > hi) {
+    if constexpr (MASKED && KIND == KIND_BAND_SINK_PERM) {
+      perm_mask(s, mk, cls == TILE_SOME, t0, lo, hi, qp0, kbase, t4);
+    } else {
 #pragma unroll
     for (int i = 0; i < 64; ++i) {
       const int col = t0 + 8 * (i / 4) + 2 * t4 + (i & 1);
       bool ok = col >= lo && col < hi;
       if (MASKED && cls == TILE_SOME && ok) ok = mask_allows<KIND>(mk, qp0 + ((i & 2) ? 8 : 0), kbase + col);
       if (!ok) s[i] = NEG_INF;
+    }
     }
   }
 
@@ -498,13 +543,17 @@ __device__ __forceinline__ WorkItem work_item(const int* __restrict__ order, int
 // of row bh attend to the chunks of `chunks`; the mask predicate of KIND at
 // (q + aux[2], k + aux[3]) with text_end aux[0] (the text kinds) on masked
 // chunks. MODE: see the top of this file; with MODE_PINGPONG every chunk is
-// taken as unmasked (K7's dense chunk).
+// taken as unmasked (K7's dense chunk). frame_size and num_frames are
+// KIND_BAND_SINK_PERM's; m_out and l_out ((BH, Sq) f32) MODE_STATS's.
 template <int D, int KIND, int MODE = 0, class Chunks>
 __device__ __forceinline__ void attn_cta(const CUtensorMap* tm_q, const CUtensorMap* tm_k, const CUtensorMap* tm_v,
                                          bf16* __restrict__ o, const Chunks& chunks, WorkItem it, int Sq, int Skv,
                                          const int* __restrict__ aux, int band_width, int sink_size, int video_len,
-                                         float q_scale) {
+                                         float q_scale, int frame_size = 0, int num_frames = 0,
+                                         float* __restrict__ m_out = nullptr, float* __restrict__ l_out = nullptr) {
   constexpr bool NAT = (MODE & MODE_NAT) != 0, PP = (MODE & MODE_PINGPONG) != 0;
+  constexpr bool STATS = (MODE & MODE_STATS) != 0;
+  static_assert(!(STATS && (NAT || PP)), "stats come with K1/K3/K4's numerics and schedule");
   using LY = Layout<D, PP>;
   constexpr int STAGES = LY::STAGES;
   extern __shared__ unsigned char smem_raw[];
@@ -590,7 +639,9 @@ __device__ __forceinline__ void attn_cta(const CUtensorMap* tm_q, const CUtensor
     const int qw = q0 + wg * 64 + aux[2];  // this warpgroup's first q position
     const int qp0 = qw + warp * 16 + g;
     const int koff = aux[3];
-    const MaskArgs mk = {band_width, sink_size, video_len, KIND == KIND_BAND_SINK ? 0 : aux[0]};
+    const MaskArgs mk = {band_width, sink_size, video_len,
+                         KIND == KIND_BAND_SINK || KIND == KIND_BAND_SINK_PERM ? 0 : aux[0], frame_size,
+                         num_frames};
 
     float acc[D / 2];
 #pragma unroll
@@ -651,6 +702,16 @@ __device__ __forceinline__ void attn_cta(const CUtensorMap* tm_q, const CUtensor
     l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
     l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
     const float inv0 = 1.f / fmaxf(l0, 1e-20f), inv1 = 1.f / fmaxf(l1, 1e-20f);
+    if constexpr (STATS) {
+      // the quad's four threads hold the same m and (summed) l
+      const size_t row = (size_t)bh * Sq + q0 + wg * 64 + warp * 16 + g;
+      if (t4 == 0) {
+        m_out[row] = st.m0 > 0.5f * NEG_INF ? st.m0 / LOG2E : st.m0;
+        m_out[row + 8] = st.m1 > 0.5f * NEG_INF ? st.m1 / LOG2E : st.m1;
+        l_out[row] = l0;
+        l_out[row + 8] = l1;
+      }
+    }
     bf16* orow = o + ((size_t)bh * Sq + q0 + wg * 64 + warp * 16 + g) * D + 2 * t4;
 #pragma unroll
     for (int i = 0; i < D / 2; i += 4) {

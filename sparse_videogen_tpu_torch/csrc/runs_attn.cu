@@ -32,7 +32,8 @@
 // The CTA body is K1's (csrc/hopper_attn.cuh: 128 q rows, TMA ring of
 // 128-token tiles, two wgmma consumer warpgroups, mask_tile classification);
 // the grid runs the (head, 128-row q tile) items heaviest first
-// (ops/attention.py runs_work_order).
+// (ops/attention.py runs_work_order). runs_stats_kernel also writes the
+// rows' (m, l) softmax stats (return_stats, for the ring merge of SAP).
 
 #include "hopper_attn.cuh"
 
@@ -63,6 +64,21 @@ struct RunChunks {
   }
 };
 
+// runs_kernel that also writes the rows' softmax stats (m, l)
+template <int D>
+__global__ void __launch_bounds__(NTHREADS, 1)
+runs_stats_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                  const __grid_constant__ CUtensorMap tm_v, bf16* __restrict__ o, const int* __restrict__ meta,
+                  const int* __restrict__ aux, const int* __restrict__ order, int Sq, int Skv, int R, int nQ, int L,
+                  int block_q, int block_kv, int mask_kind, int band_width, int sink_size, float q_scale,
+                  float* __restrict__ m_out, float* __restrict__ l_out) {
+  const WorkItem it = work_item(order, Sq);
+  const int* m = meta + ((size_t)(R == 1 ? 0 : it.bh) * nQ + it.q0 / block_q) * L;
+  const RunChunks chunks = {m + 1, m[0], (L - 1) / 2, block_kv, mask_kind != 0};
+  attn_cta<D, KIND_BAND_SINK, MODE_STATS>(&tm_q, &tm_k, &tm_v, o, chunks, it, Sq, Skv, aux, band_width, sink_size,
+                                          0, q_scale, 0, 0, m_out, l_out);
+}
+
 template <int D>
 __global__ void __launch_bounds__(NTHREADS, 1)
 runs_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
@@ -78,10 +94,20 @@ runs_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CU
 template <int D>
 cudaError_t launch_runs(const void* q, const void* k, const void* v, void* o, const int* meta, const int* aux,
                         const int* order, int BH, int Sq, int Skv, int R, int nQ, int L, int block_q, int block_kv,
-                        int mask_kind, int band_width, int sink_size, float q_scale, cudaStream_t stream) {
+                        int mask_kind, int band_width, int sink_size, float q_scale, float* m_out, float* l_out,
+                        cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
   if (!make_qkv_maps(&tq, &tk, &tv, q, k, v, BH, Sq, Skv, D)) return cudaErrorInvalidValue;
   const int smem = Layout<D>::SMEM;
+  if (m_out != nullptr) {
+    cudaError_t err =
+        cudaFuncSetAttribute(runs_stats_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    runs_stats_kernel<D><<<BH * (Sq / BQ), NTHREADS, smem, stream>>>(
+        tq, tk, tv, static_cast<bf16*>(o), meta, aux, order, Sq, Skv, R, nQ, L, block_q, block_kv, mask_kind,
+        band_width, sink_size, q_scale, m_out, l_out);
+    return cudaGetLastError();
+  }
   cudaError_t err = cudaFuncSetAttribute(runs_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   runs_kernel<D><<<BH * (Sq / BQ), NTHREADS, smem, stream>>>(tq, tk, tv, static_cast<bf16*>(o), meta, aux, order, Sq,
@@ -97,22 +123,26 @@ cudaError_t launch_runs(const void* q, const void* k, const void* v, void* o, co
 // D), all bf16 contiguous and 16-byte aligned; meta (R, nQ, L) int32; aux
 // (4,) int32 on the device; order (BH * Sq / 128,) int32, a permutation of
 // the work items bh * (Sq / 128) + tile; Sq % block_q == 0, block_q % 128 ==
-// 0, Skv % 128 == 0, block_kv % 128 == 0; mask_kind 0 (none) or band_sink.
+// 0, Skv % 128 == 0, block_kv % 128 == 0; mask_kind 0 (none) or band_sink;
+// m_out and l_out null, or both (BH, Sq) f32 for the softmax stats.
 extern "C" int svt_block_sparse_attn_runs(const void* q, const void* k, const void* v, void* o, const void* meta,
                                           const void* aux, const void* order, int BH, int Sq, int Skv, int D, int R,
                                           int nQ, int L, int block_q, int block_kv, int mask_kind, int band_width,
-                                          int sink_size, float q_scale, void* stream) {
+                                          int sink_size, float q_scale, void* m_out, void* l_out, void* stream) {
   const int* m = static_cast<const int*>(meta);
   const int* a = static_cast<const int*>(aux);
   const int* ord = static_cast<const int*>(order);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (Sq % BQ || block_q % BQ || Skv % BK || block_kv % BK || (mask_kind != 0 && mask_kind != KIND_BAND_SINK))
+  float* mo = static_cast<float*>(m_out);
+  float* lo = static_cast<float*>(l_out);
+  if (Sq % BQ || block_q % BQ || Skv % BK || block_kv % BK || (mask_kind != 0 && mask_kind != KIND_BAND_SINK) ||
+      (mo == nullptr) != (lo == nullptr))
     return (int)cudaErrorInvalidValue;
   if (D == 128)
     return (int)launch_runs<128>(q, k, v, o, m, a, ord, BH, Sq, Skv, R, nQ, L, block_q, block_kv, mask_kind,
-                                 band_width, sink_size, q_scale, s);
+                                 band_width, sink_size, q_scale, mo, lo, s);
   if (D == 64)
     return (int)launch_runs<64>(q, k, v, o, m, a, ord, BH, Sq, Skv, R, nQ, L, block_q, block_kv, mask_kind,
-                                band_width, sink_size, q_scale, s);
+                                band_width, sink_size, q_scale, mo, lo, s);
   return (int)cudaErrorInvalidValue;
 }

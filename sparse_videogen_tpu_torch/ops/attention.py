@@ -18,6 +18,14 @@ fast_mask, mxu_lsum) have no counterpart here.
 Each wrapper launches its Hopper kernel for CUDA tensors and its plain
 version for CPU tensors; the `*_plain` functions are the plain versions
 themselves, the kernels' oracles on the card.
+
+`return_stats=True` (both formats) also returns each row's softmax stats
+(m, l), (BH, Sq) f32 each, for the ring merge (parallel/ring.py,
+parallel/ring_sap.py): m the running max of the scaled scores in natural-log
+units, NEG_INF for a row that saw no live column, l the row sum of
+exp(score - m). The chunked-CSR format also takes placement-free SVG1's dual
+per-head spec: a pair (band_sink, band_sink_perm) of MaskSpecs, aux[4 + bh]
+picking the head's (0 spatial, 1 temporal).
 """
 
 from __future__ import annotations
@@ -34,8 +42,10 @@ NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 LOG2E = 1.4426950408889634
 BQ = 128  # q rows per CTA of both kernels; divides every block_q they accept
 # mask kinds each Hopper kernel evaluates, as the kernels number them
-# (csrc/mask_pred.cuh: KIND_BAND_SINK, KIND_HYVIDEO, KIND_COG; 0 runs no predicate)
-_KERNEL_MASKS = {"none": 0, "band_sink": 1, "hyvideo": 2, "cog": 3}
+# (csrc/mask_pred.cuh: KIND_BAND_SINK, KIND_HYVIDEO, KIND_COG,
+# KIND_BAND_SINK_PERM; 0 runs no predicate). band_sink_perm stands for the
+# dual pair, whose kernel runs band_sink or band_sink_perm by aux[4 + bh].
+_KERNEL_MASKS = {"none": 0, "band_sink": 1, "hyvideo": 2, "cog": 3, "band_sink_perm": 4}
 _RUNS_KERNEL_MASKS = ("none", "band_sink")
 
 
@@ -51,9 +61,36 @@ def _check(q, k, v, meta, block_q, block_kv, *, packed_windows=True):
         raise ValueError(f"meta {tuple(meta.shape)} for BH={BH}, nQ={Sq // block_q}")
 
 
+def mask_kind(mask_spec) -> str:
+    """The kind a MaskSpec, or a dual (spatial, temporal) pair, runs as:
+    a pair runs as band_sink_perm (the kernel's dual instance)."""
+    return "band_sink_perm" if isinstance(mask_spec, tuple) else mask_spec.kind
+
+
+def _dual_spec(pair):
+    """A dual (spatial band_sink, temporal band_sink_perm) pair, checked: the
+    kernel takes one band width and sink size for both."""
+    sp, tp = pair
+    if (sp.kind, tp.kind) != ("band_sink", "band_sink_perm") or (sp.band_width, sp.sink_size) != (
+            tp.band_width, tp.sink_size):
+        raise ValueError(f"dual spec needs (band_sink, band_sink_perm) with one band and sink: {pair}")
+    return sp, tp
+
+
 def _check_kernel_args(q, k, v, meta, aux, mask_spec, block_q, kinds=tuple(_KERNEL_MASKS)):
-    """What the Hopper kernels take; returns aux on the device."""
+    """What the Hopper kernels take; returns aux on the device ((4 + BH,)
+    with a dual spec)."""
     D = q.shape[2]
+    if isinstance(mask_spec, tuple):
+        if "band_sink_perm" not in kinds:
+            raise NotImplementedError("the run-list kernel takes no dual spec")
+        mask_spec = _dual_spec(mask_spec)[1]
+        if mask_spec.frame_size <= 8:
+            raise ValueError(f"the band_sink_perm kernel takes frame_size > 8, got {mask_spec.frame_size}")
+        if aux is None or aux.numel() < 4 + q.shape[0]:
+            raise ValueError(f"a dual spec needs aux of 4 + BH = {4 + q.shape[0]} entries")
+    elif mask_spec.kind == "band_sink_perm":
+        raise NotImplementedError("band_sink_perm runs in the kernel as the dual pair (band_sink, band_sink_perm)")
     if mask_spec.kind not in kinds:
         raise NotImplementedError(f"mask kind {mask_spec.kind!r} has no Hopper kernel yet (ROADMAP.md)")
     if D not in (64, 128) or block_q % BQ:
@@ -71,6 +108,22 @@ def _check_kernel_args(q, k, v, meta, aux, mask_spec, block_q, kinds=tuple(_KERN
     return aux
 
 
+def _predicate(mask_spec, qpos, kpos, aux_h, heads):
+    """apply_mask_spec for the plain versions; a dual spec selects each
+    head's (the slice `heads` of the batch*head axis) by aux[4 + bh]."""
+    if not isinstance(mask_spec, tuple):
+        return apply_mask_spec(mask_spec, qpos, kpos, aux_h)
+    sp, tp = _dual_spec(mask_spec)
+    flags = torch.tensor(aux_h[4:], device=qpos.device)[heads][:, None, None]
+    return torch.where(flags == 1, apply_mask_spec(tp, qpos, kpos, aux_h), apply_mask_spec(sp, qpos, kpos, aux_h))
+
+
+def _stats(m, l):
+    """The kernels' (m, l) from the online softmax state of a q block: m in
+    natural-log units where a column was live, the NEG_INF sentinel kept."""
+    return torch.where(m > 0.5 * NEG_INF, m / LOG2E, m)[..., 0], l[..., 0]
+
+
 def _online_softmax_step(state, s, vb):
     """One chunk of the kernels' online softmax (exp2 domain, P rounded to
     v's dtype for PV, the row sum from the f32 P); s holds NEG_INF where a
@@ -86,11 +139,13 @@ def _online_softmax_step(state, s, vb):
 
 
 def block_sparse_attention_kv_plain(q, k, v, meta, aux=None, *, block_q: int, block_kv: int,
-                                    mask_spec: MaskSpec = MaskSpec(), scale: float | None = None):
+                                    mask_spec: MaskSpec = MaskSpec(), scale: float | None = None,
+                                    return_stats: bool = False):
     """Plain PyTorch version: a loop over q blocks that walks each metadata
-    row's chunks with the kernel's online softmax (no S x S matrix)."""
+    row's chunks with the kernel's online softmax (no S x S matrix).
+    Returns out, or (out, m, l) with return_stats."""
     _check(q, k, v, meta, block_q, block_kv)
-    _kernels.PLAIN_CALLS["block_sparse_attn"] += 1
+    _kernels.plain_call("block_sparse_attn")
     BH, Sq, D = q.shape
     scale = 1.0 / math.sqrt(D) if scale is None else scale
     meta_h = meta.cpu().numpy()
@@ -98,6 +153,8 @@ def block_sparse_attention_kv_plain(q, k, v, meta, aux=None, *, block_q: int, bl
     R = meta_h.shape[0]
     q_s = (q.float() * (scale * LOG2E)).to(q.dtype).float()
     out = torch.empty_like(q)
+    m_all = torch.empty(BH, Sq, device=q.device)
+    l_all = torch.empty(BH, Sq, device=q.device)
     col = torch.arange(block_kv, device=q.device)
     for r in range(R):
         heads = slice(None) if R == 1 else slice(r, r + 1)
@@ -117,13 +174,15 @@ def block_sparse_attention_kv_plain(q, k, v, meta, aux=None, *, block_q: int, bl
                 s = qb @ kb.transpose(-1, -2)
                 allowed = ((col >= lo) & (col < hi))[None, :]
                 if c >= n_cheap:
-                    pred = apply_mask_spec(mask_spec, qpos, idx * SUB + col[None, :], aux_h)
+                    pred = _predicate(mask_spec, qpos, idx * SUB + col[None, :], aux_h, heads)
                     if pred is not None:
                         allowed = allowed & pred
                 s = torch.where(allowed, s, NEG_INF)
                 acc, m, l = _online_softmax_step((acc, m, l), s, vb)
-            out[heads, i * block_q:(i + 1) * block_q] = (acc / l.clamp_min(1e-20)).to(q.dtype)
-    return out
+            rows = slice(i * block_q, (i + 1) * block_q)
+            out[heads, rows] = (acc / l.clamp_min(1e-20)).to(q.dtype)
+            m_all[heads, rows], l_all[heads, rows] = _stats(m, l)
+    return (out, m_all, l_all) if return_stats else out
 
 
 def _order_items(meta, n_heads, seq_q, block_q, per_block):
@@ -180,18 +239,30 @@ def _cached_order(meta, n_heads: int, seq_q: int, block_q: int, build=work_order
     return cached[1]
 
 
+def _stats_out(q, return_stats):
+    """(m, l) outputs of a stats launch and their pointers (null without)."""
+    if not return_stats:
+        return None, None, None, None
+    m = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
+    l = torch.empty_like(m)
+    return m, l, m.data_ptr(), l.data_ptr()
+
+
 def block_sparse_attention_kv(q, k, v, meta, aux=None, *, block_q: int = 512, block_kv: int = 512,
-                              mask_spec: MaskSpec = MaskSpec(), scale: float | None = None):
+                              mask_spec: MaskSpec = MaskSpec(), scale: float | None = None,
+                              return_stats: bool = False):
     """q (BH, Sq, D) with Sq % block_q == 0; k, v (BH, Skv, D) with
     Skv % 128 == 0; meta (R, Sq // block_q, 1 + 2*cap) int32, R in {1, BH};
-    aux (4,) int32 or None. Returns (BH, Sq, D) in q's dtype.
+    aux (4,) int32 or None ((4 + BH,) with a dual spec). mask_spec: a
+    MaskSpec or a dual (band_sink, band_sink_perm) pair. Returns (BH, Sq, D)
+    in q's dtype, or (out, m, l) with return_stats.
 
     CUDA tensors launch the Hopper kernel (bf16, D in {64, 128}, block_q %
-    128 == 0, mask kinds none/band_sink/hyvideo/cog) and raise on anything
-    else; CPU tensors run the plain version."""
+    128 == 0, mask kinds none/band_sink/hyvideo/cog and the dual pair) and
+    raise on anything else; CPU tensors run the plain version."""
     if q.device.type == "cpu":
         return block_sparse_attention_kv_plain(q, k, v, meta, aux, block_q=block_q, block_kv=block_kv,
-                                               mask_spec=mask_spec, scale=scale)
+                                               mask_spec=mask_spec, scale=scale, return_stats=return_stats)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     _check(q, k, v, meta, block_q, block_kv)
@@ -199,17 +270,20 @@ def block_sparse_attention_kv(q, k, v, meta, aux=None, *, block_q: int = 512, bl
     aux = _check_kernel_args(q, k, v, meta, aux, mask_spec, block_q)
     order = _cached_order(meta, BH, Sq, block_q)
     scale = 1.0 / math.sqrt(D) if scale is None else scale
+    kind = mask_kind(mask_spec)
+    spec = mask_spec[1] if isinstance(mask_spec, tuple) else mask_spec
     out = torch.empty_like(q)
+    m, l, m_ptr, l_ptr = _stats_out(q, return_stats)
     err = _kernels.lib().svt_block_sparse_attn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), meta.data_ptr(), aux.data_ptr(), order.data_ptr(),
         BH, Sq, k.shape[1], D, meta.shape[0], meta.shape[1], meta.shape[2], block_q,
-        _KERNEL_MASKS[mask_spec.kind], mask_spec.band_width, mask_spec.sink_size, mask_spec.video_len,
-        scale * LOG2E, torch.cuda.current_stream(q.device).cuda_stream,
+        _KERNEL_MASKS[kind], spec.band_width, spec.sink_size, spec.video_len, spec.frame_size, spec.num_frames,
+        scale * LOG2E, m_ptr, l_ptr, torch.cuda.current_stream(q.device).cuda_stream,
     )
     _kernels.check(err, "block_sparse_attn")
-    _kernels.LAUNCHES["block_sparse_attn"] += 1
-    _kernels.KIND_LAUNCHES[f"block_sparse_attn[{mask_spec.kind}]"] += 1
-    return out
+    _kernels.launched("block_sparse_attn", f"block_sparse_attn[{kind}]",
+                      *(("block_sparse_attn[stats]",) if return_stats else ()))
+    return (out, m, l) if return_stats else out
 
 
 def run_chunks(meta_row, block_kv: int):
@@ -282,12 +356,14 @@ def runs_tile_stats(meta):
 
 
 def block_sparse_attention_runs_plain(q, k, v, meta, aux=None, *, block_q: int, block_kv: int,
-                                      mask_spec: MaskSpec = MaskSpec(), scale: float | None = None):
+                                      mask_spec: MaskSpec = MaskSpec(), scale: float | None = None,
+                                      return_stats: bool = False):
     """Plain PyTorch version of the run-list attention: a loop over q blocks
     that walks each row's chunks (run_chunks) with the kernel's online
-    softmax; with a MaskSpec every chunk also applies its predicate."""
+    softmax; with a MaskSpec every chunk also applies its predicate.
+    Returns out, or (out, m, l) with return_stats."""
     _check(q, k, v, meta, block_q, block_kv, packed_windows=False)
-    _kernels.PLAIN_CALLS["block_sparse_attn_runs"] += 1
+    _kernels.plain_call("block_sparse_attn_runs")
     BH, Sq, D = q.shape
     scale = 1.0 / math.sqrt(D) if scale is None else scale
     meta_h = meta.cpu().numpy()
@@ -295,6 +371,8 @@ def block_sparse_attention_runs_plain(q, k, v, meta, aux=None, *, block_q: int, 
     R = meta_h.shape[0]
     q_s = (q.float() * (scale * LOG2E)).to(q.dtype).float()
     out = torch.empty_like(q)
+    m_all = torch.empty(BH, Sq, device=q.device)
+    l_all = torch.empty(BH, Sq, device=q.device)
     for r in range(R):
         heads = slice(None) if R == 1 else slice(r, r + 1)
         for i in range(Sq // block_q):
@@ -308,24 +386,28 @@ def block_sparse_attention_runs_plain(q, k, v, meta, aux=None, *, block_q: int, 
                 if pred is not None:
                     s = torch.where(pred, s, NEG_INF)
                 state = _online_softmax_step(state, s, v[heads, lo:hi])
-            acc, _, l = state
-            out[heads, i * block_q:(i + 1) * block_q] = (acc / l.clamp_min(1e-20)).to(q.dtype)
-    return out
+            acc, m, l = state
+            rows = slice(i * block_q, (i + 1) * block_q)
+            out[heads, rows] = (acc / l.clamp_min(1e-20)).to(q.dtype)
+            m_all[heads, rows], l_all[heads, rows] = _stats(m, l)
+    return (out, m_all, l_all) if return_stats else out
 
 
 def block_sparse_attention_runs(q, k, v, meta, aux=None, *, block_q: int, block_kv: int,
-                                mask_spec: MaskSpec = MaskSpec(), scale: float | None = None):
+                                mask_spec: MaskSpec = MaskSpec(), scale: float | None = None,
+                                return_stats: bool = False):
     """q (BH, Sq, D) with Sq % block_q == 0; k, v (BH, Skv, D) with
     Skv % 128 == 0 and Skv >= block_kv, block_kv % 128 == 0; meta (R,
     Sq // block_q, 1 + 2*cap) int32 run lists, R in {1, BH}; aux (4,) int32
-    or None. Returns (BH, Sq, D) in q's dtype; a row with n == 0 is 0.
+    or None. Returns (BH, Sq, D) in q's dtype, a row with n == 0 is 0; or
+    (out, m, l) with return_stats.
 
     CUDA tensors launch the Hopper kernel (bf16, D in {64, 128}, block_q %
     128 == 0, mask kinds none/band_sink) and raise on anything else; CPU
     tensors run the plain version."""
     if q.device.type == "cpu":
         return block_sparse_attention_runs_plain(q, k, v, meta, aux, block_q=block_q, block_kv=block_kv,
-                                                 mask_spec=mask_spec, scale=scale)
+                                                 mask_spec=mask_spec, scale=scale, return_stats=return_stats)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     _check(q, k, v, meta, block_q, block_kv, packed_windows=False)
@@ -334,12 +416,13 @@ def block_sparse_attention_runs(q, k, v, meta, aux=None, *, block_q: int, block_
     order = _cached_order(meta, BH, Sq, block_q, runs_work_order)
     scale = 1.0 / math.sqrt(D) if scale is None else scale
     out = torch.empty_like(q)
+    m, l, m_ptr, l_ptr = _stats_out(q, return_stats)
     err = _kernels.lib().svt_block_sparse_attn_runs(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), meta.data_ptr(), aux.data_ptr(), order.data_ptr(),
         BH, Sq, k.shape[1], D, meta.shape[0], meta.shape[1], meta.shape[2], block_q, block_kv,
         _KERNEL_MASKS[mask_spec.kind], mask_spec.band_width, mask_spec.sink_size,
-        scale * LOG2E, torch.cuda.current_stream(q.device).cuda_stream,
+        scale * LOG2E, m_ptr, l_ptr, torch.cuda.current_stream(q.device).cuda_stream,
     )
     _kernels.check(err, "block_sparse_attn_runs")
-    _kernels.LAUNCHES["block_sparse_attn_runs"] += 1
-    return out
+    _kernels.launched("block_sparse_attn_runs", *(("block_sparse_attn_runs[stats]",) if return_stats else ()))
+    return (out, m, l) if return_stats else out

@@ -69,7 +69,7 @@ def dense_attn_plain(q, k, v, *, bq: int, bkv: int, qsplit: int = 1):
     the q blocks and sub-tiles of the kernels change nothing), a loop over
     the bkv-token chunks of K/V with the online softmax."""
     _check(q, k, v, bq, bkv, qsplit)
-    _kernels.PLAIN_CALLS["dense_qsplit"] += 1
+    _kernels.plain_call("dense_qsplit")
     BH, S, D = q.shape
     q_s = (q.float() * D ** -0.5).to(q.dtype).float()
     acc = torch.zeros(BH, S, D, device=q.device)
@@ -112,5 +112,5 @@ def dense_attn(q, k, v, *, bq: int, bkv: int, qsplit: int = 1):
     err = _kernels.lib().svt_dense_qsplit(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), BH, S, D, bq,
                                           qsplit, 1.0 / math.sqrt(D), torch.cuda.current_stream(q.device).cuda_stream)
     _kernels.check(err, "dense_qsplit")
-    _kernels.LAUNCHES["dense_qsplit"] += 1
+    _kernels.launched("dense_qsplit")
     return out

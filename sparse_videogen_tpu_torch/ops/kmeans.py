@@ -83,7 +83,7 @@ def kmeans_assign_update_plain(x, centroids):
     sums = onehot(labels)^T x and counts, both f32. The centroids are cast to
     x's dtype first."""
     _check(x, centroids)
-    _kernels.PLAIN_CALLS["kmeans_wide"] += 1
+    _kernels.plain_call("kmeans_wide")
     return _plain_pass(x, centroids, "A")
 
 
@@ -93,7 +93,7 @@ def kmeans_variant_pass_plain(x, centroids, variant: str):
     _check(x, centroids)
     if variant not in VARIANTS:
         raise ValueError(f"variant {variant!r} not in {VARIANTS}")
-    _kernels.PLAIN_CALLS["kmeans_variants"] += 1
+    _kernels.plain_call("kmeans_variants")
     return _plain_pass(x, centroids, variant)
 
 
@@ -202,7 +202,7 @@ def kmeans_assign_update(x, centroids):
     if c.shape[1] > 14000:
         raise ValueError(f"K={c.shape[1]}: K5 takes K <= 14000")
     out = _lloyd_pass(x, c)
-    _kernels.LAUNCHES["kmeans_wide"] += 1
+    _kernels.launched("kmeans_wide")
     return out
 
 
@@ -216,5 +216,5 @@ def kmeans_variant_pass(x, centroids, variant: str):
     if x.device.type == "cpu":
         return kmeans_variant_pass_plain(x, centroids, variant)
     out = _wide_pass(x, _cuda_args(x, centroids), variant)
-    _kernels.LAUNCHES["kmeans_variants"] += 1
+    _kernels.launched("kmeans_variants")
     return out

@@ -29,7 +29,7 @@ _MODULE = None
 def rms_norm_plain(x, weight, eps: float = 1e-5):
     """x (..., d), weight (d,): f32 mean of squares, times rsqrt(ms + eps),
     cast to x.dtype, times weight cast to x.dtype."""
-    _kernels.PLAIN_CALLS["rmsnorm"] += 1
+    _kernels.plain_call("rmsnorm")
     xf = x.float()
     n = xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
     return n.to(x.dtype) * weight.to(x.dtype)
@@ -77,5 +77,5 @@ def rms_norm_kernel(x, weight, eps: float = 1e-5):
     block_d, block_rows, warps = _blocks(d)
     kernel[(-(-n_rows // block_rows),)](x, weight, out, n_rows, d, eps, BLOCK_ROWS=block_rows, BLOCK_D=block_d,
                                         num_warps=warps)
-    _kernels.LAUNCHES["rmsnorm"] += 1
+    _kernels.launched("rmsnorm")
     return out

@@ -16,7 +16,7 @@ from sparse_videogen_tpu_torch import _kernels
 def rope_plain(x, cos, sin):
     """x (..., S, D); cos/sin (S, D/2). out[2i] = x0*c - x1*s,
     out[2i+1] = x0*s + x1*c, in f32, returned in x.dtype."""
-    _kernels.PLAIN_CALLS["rope"] += 1
+    _kernels.plain_call("rope")
     xf = x.float()
     x0, x1 = xf[..., 0::2], xf[..., 1::2]
     o0 = x0 * cos - x1 * sin
@@ -46,5 +46,5 @@ def rope_apply(x, cos, sin):
     err = _kernels.lib().svt_rope(x.data_ptr(), cos.data_ptr(), sin.data_ptr(), out.data_ptr(),
                                   BH, S, D, torch.cuda.current_stream(x.device).cuda_stream)
     _kernels.check(err, "rope")
-    _kernels.LAUNCHES["rope"] += 1
+    _kernels.launched("rope")
     return out

@@ -2,7 +2,9 @@
 sparse_videogen_tpu/pipelines/wan.py): FlowUniPC, CFG, and the dense / SVG1 /
 SAP self-attention runtime. Dense and SVG1 batch CFG as [cond, null]; SAP
 runs the two streams as separate batch-1 forwards, each with its own k-means
-states, as the JAX pipeline does.
+states, as the JAX pipeline does. With a ring of more than one rank (`mesh`,
+parallel/mesh.make_mesh; --ring_degree), dense and SAP attention run
+token-sharded (parallel/ring_runtime.py); SVG raises, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -45,11 +47,25 @@ def make_wan_runtime(
     svg: SVGConfig = SVGConfig(),
     sap: SAPConfig = SAPConfig(),
     mesh=None,
+    inplace_temporal: bool = False,
 ):
-    if mesh is not None:
-        raise NotImplementedError("sequence/ring parallelism is not ported to the torch package yet (ROADMAP.md)")
+    """The attention runtime of a pattern. mesh: the ring's rank group
+    (parallel/mesh.make_mesh under torchrun, or parallel/comm.ThreadRanks),
+    None or one rank for a single device;
+    inplace_temporal: SVG1 without placement (a measurement switch,
+    scripts/profile_wan.py --inplace_temporal)."""
     mode = SparseMode(pattern)
-    plan = make_svg1_plan(layout, svg, warmup, block_q=BLOCK_Q, block_kv=BLOCK_KV)
+    plan = make_svg1_plan(layout, svg, warmup, block_q=BLOCK_Q, block_kv=BLOCK_KV,
+                          inplace_temporal=inplace_temporal and mode == SparseMode.SVG)
+    if mesh is not None and mesh.size > 1:
+        from sparse_videogen_tpu_torch.parallel.ring_runtime import RingDenseRuntime, RingSAPRuntime
+
+        if mode == SparseMode.DENSE:
+            return RingDenseRuntime(plan, mesh, device=device)
+        if mode == SparseMode.SAP:
+            return RingSAPRuntime(plan, sap, warmup, mesh, device=device)
+        raise ValueError("pattern=SVG does not compose with ring_degree>1 (global per-head placement); use "
+                         "--ulysses_degree for SVG multi-chip")
     if mode == SparseMode.SAP:
         return SAPRuntime(plan, sap, warmup, device=device)
     return (DenseRuntime if mode == SparseMode.DENSE else SVG1Runtime)(plan, device=device)
@@ -80,13 +96,16 @@ class WanPipeline:
         callback=None,
         logging_file: str | None = None,
         latents: torch.Tensor | None = None,
+        mesh=None,
+        inplace_temporal: bool = False,
     ):
         """Run the denoise loop from noise drawn with torch.Generator(seed) on
         the model's device (or from `latents`, of the same shape; the generator
         still serves SAP's k-means); return the final f32 latents (1, C, F',
         H', W').
         With pattern SAP, `logging_file` receives the per-(step, layer) density
-        of the cond stream as JSONL (utils/density.py)."""
+        of the cond stream as JSONL (utils/density.py). mesh and
+        inplace_temporal go to make_wan_runtime."""
         if sampler != "unipc":
             raise NotImplementedError(f"sampler {sampler!r} is not ported to the torch package yet (ROADMAP.md)")
         device = self.model.patch_embedding.weight.device
@@ -103,12 +122,14 @@ class WanPipeline:
             context, context_null, lat, height=height, width=width, num_frames=num_frames,
             num_inference_steps=num_inference_steps, guidance_scale=guidance_scale, flow_shift=flow_shift,
             pattern=pattern, first_layers_fp=first_layers_fp, first_times_fp=first_times_fp, svg=svg, sap=sap,
-            generator=gen, callback=callback, logging_file=logging_file,
+            generator=gen, callback=callback, logging_file=logging_file, mesh=mesh,
+            inplace_temporal=inplace_temporal,
         )
 
     def _denoise(self, context, context_null, lat, *, height, width, num_frames, num_inference_steps,
                  guidance_scale, flow_shift, pattern, first_layers_fp, first_times_fp, svg, sap=SAPConfig(),
-                 generator=None, profile_rows=None, kmeans_init=None, callback=None, logging_file=None):
+                 generator=None, profile_rows=None, kmeans_init=None, callback=None, logging_file=None, mesh=None,
+                 inplace_temporal=False):
         """The loop behind generate_latents, from the given initial latents.
         `profile_rows[step][layer]` hands the SVG1 profiler fixed rows, and
         `kmeans_init[step][stream][layer]` = (q indices, k indices) hands SAP's
@@ -120,7 +141,8 @@ class WanPipeline:
         layout = wan_layout(cfgm, height, width, num_frames)
         sch = FlowUniPC(num_inference_steps, shift=flow_shift)
         warmup = WarmupSchedule.from_fractions(first_layers_fp, first_times_fp, cfgm.num_layers, sch.timesteps)
-        runtime = make_wan_runtime(layout, device=device, pattern=pattern, warmup=warmup, svg=svg, sap=sap)
+        runtime = make_wan_runtime(layout, device=device, pattern=pattern, warmup=warmup, svg=svg, sap=sap, mesh=mesh,
+                                   inplace_temporal=inplace_temporal)
         sap_mode = isinstance(runtime, SAPRuntime)
         dlog = DensityLogger(logging_file if sap_mode else None)
         stream_states = [{}, {}]  # SAP: layer -> SAPState, per CFG stream

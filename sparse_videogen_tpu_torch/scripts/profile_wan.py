@@ -4,6 +4,7 @@
     python -m sparse_videogen_tpu_torch.scripts.profile_wan --preset 14B-720p-sap --layers 4 \
         --steps 5 --runs SAP,dense,dense,SAP
     python -m sparse_videogen_tpu_torch.scripts.profile_wan --organic 4.0 --runs SAP
+    python -m sparse_videogen_tpu_torch.scripts.profile_wan --inplace_temporal --runs SVG,SVG
 
 --preset picks the model and its generation settings (presets.PRESETS):
 1.3B-480p, Wan 2.1 1.3B with the CLI's sparsity, SAP (QC 50 / KC 200) and
@@ -15,7 +16,10 @@ context (UMT5-XXL's shape). Dense and SVG1 batch CFG; SAP runs cond and
 uncond as separate batch-1 forwards. --organic GAIN (default off) gives SAP
 an organic density instead of random weights' ~0.87 (utils/organic.py):
 every self-attention's K projection := its Q projection, norm_q x GAIN, and
-low-pass latents (smooth_latents) in both parts. Two parts:
+low-pass latents (smooth_latents) in both parts. --inplace_temporal runs
+every SVG entry placement-free (SVG1Plan.inplace_temporal: the temporal heads
+stay in place under K1's dual per-head spec); a measurement switch, the CLI
+has no such flag. Two parts:
 
   [time]    WanPipeline.generate_latents for --steps UniPC steps, once per
             entry of --runs (alternate the patterns to see drift), after one
@@ -50,9 +54,9 @@ from sparse_videogen_tpu_torch.presets import PRESETS
 
 # (category, substrings of the kernel name); first match wins, the rest is elementwise
 CATEGORIES = (
-    ("K1 attention (bsa_kernel)", ("bsa_kernel",)),
+    ("K1 attention (bsa_kernel)", ("bsa_kernel", "bsa_stats_kernel", "bsa_dual_kernel")),
     ("K2 RoPE (rope_kernel)", ("rope_kernel",)),
-    ("K3 run-list attention (runs_kernel)", ("runs_kernel",)),
+    ("K3 run-list attention (runs_kernel)", ("runs_kernel", "runs_stats_kernel")),
     ("K5 k-means (kmeans_*_kernel)", ("kmeans_",)),  # K5's five kernels (and K8's, csrc/kmeans_wide.cu)
     ("GEMM (cuBLAS)", ("nvjet", "gemm", "xmma", "cutlass")),
     ("softmax", ("softmax",)),
@@ -197,6 +201,7 @@ def main(argv=None):
     ap.add_argument("--out", default=None, help="write the results as JSON here")
     ap.add_argument("--organic", type=float, default=None, metavar="GAIN",
                     help="K := Q with norm_q x GAIN and smooth latents (utils/organic.py); default off")
+    ap.add_argument("--inplace_temporal", action="store_true", help="run SVG1 placement-free (K1's dual spec)")
     args = ap.parse_args(argv)
 
     from sparse_videogen_tpu_torch.config import WarmupSchedule
@@ -223,7 +228,7 @@ def main(argv=None):
     ctx = torch.randn(1, cfg.text_len, cfg.text_dim, generator=gen, device=dev).to(torch.bfloat16)
     ctx_null = torch.randn(1, cfg.text_len, cfg.text_dim, generator=gen, device=dev).to(torch.bfloat16)
     pipe = WanPipeline(model)
-    gen_kw = dict(run_cfg.generate_kwargs(), seed=args.seed)
+    gen_kw = dict(run_cfg.generate_kwargs(), seed=args.seed, inplace_temporal=args.inplace_temporal)
     lay = wan_layout(cfg, run_cfg.height, run_cfg.width, run_cfg.num_frames)
     lat_shape = (cfg.out_dim, lay.num_frames, run_cfg.height // 8, run_cfg.width // 8)
     if args.organic is not None:
@@ -231,12 +236,13 @@ def main(argv=None):
     print(f"[config] {args.preset}: Wan 2.1 dim {cfg.dim}, {cfg.num_layers} layers, {cfg.num_heads} heads; "
           f"{run_cfg.height}x{run_cfg.width}x{run_cfg.num_frames}, {args.steps} steps; SAP QC {sap.num_q_centroids} "
           f"KC {sap.num_k_centroids} min_kc_ratio {sap.min_kc_ratio}; "
-          + ("random weights" if args.organic is None else f"organic, gain {args.organic}"), flush=True)
+          + ("random weights" if args.organic is None else f"organic, gain {args.organic}")
+          + ("; SVG1 in place (dual spec)" if args.inplace_temporal else ""), flush=True)
     runs = args.runs.split(",")
     for pattern in dict.fromkeys(runs):
         pipe.generate_latents(ctx, ctx_null, num_inference_steps=1, pattern=pattern, **gen_kw)
     result = {"device": smi, "preset": args.preset, "layers": cfg.num_layers, "organic_gain": args.organic,
-              "time": [], "profile": {}}
+              "inplace_temporal": args.inplace_temporal, "time": [], "profile": {}}
     tmp = tempfile.TemporaryDirectory()
     dlog = os.path.join(tmp.name, "density.jsonl")  # SAP's density log of the cond stream
 
@@ -264,7 +270,8 @@ def main(argv=None):
         x = smooth_latents(gen, (2, *lat_shape))
     t = torch.full((2,), float(sch.timesteps[1]), device=dev)
     for pattern in dict.fromkeys(runs):
-        rt = make_wan_runtime(lay, device=dev, pattern=pattern, warmup=warmup, svg=svg, sap=sap)
+        rt = make_wan_runtime(lay, device=dev, pattern=pattern, warmup=warmup, svg=svg, sap=sap,
+                              inplace_temporal=args.inplace_temporal)
         if pattern != "dense" and rt.is_dense(0, float(t[0])):
             raise AssertionError(f"the profiled {pattern} forward would run dense (warm-up)")
         states = [{}, {}]  # SAP: the k-means states of the cond and uncond streams

@@ -17,6 +17,7 @@ stays the same for every pattern.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from sparse_videogen_tpu_torch.config import SAPConfig, WarmupSchedule
@@ -49,10 +50,21 @@ class DenseRuntime:
 
 
 class SVG1Runtime(DenseRuntime):
+    """With plan.inplace_temporal, sparse_meta is the (2, nQ, L) dual stack,
+    each half classified cheap-first under its own spec (the JAX runtime
+    hands the kernel plan.sparse_meta() there, the single stack, which its
+    svg1_sparse_impl then reads as the dual one: ROADMAP.md section 3);
+    svg1_sparse_impl picks each head's row from the profiler's classes."""
+
     def __init__(self, plan: SVG1Plan, *, device, prompt_length: int | None = None):
         super().__init__(plan, device=device, prompt_length=prompt_length)
-        self.sparse_meta = to_device_meta(
-            _classified(plan.sparse_meta(), plan.mask_spec, plan, prompt_length, plan.block_q), device)
+        if plan.inplace_temporal:
+            dual = plan.sparse_meta_dual()
+            meta = np.concatenate([_classified(dual[i:i + 1], spec, plan, prompt_length, plan.block_q)
+                                   for i, spec in enumerate(plan.mask_spec_dual)])
+        else:
+            meta = _classified(plan.sparse_meta(), plan.mask_spec, plan, prompt_length, plan.block_q)
+        self.sparse_meta = to_device_meta(meta, device)
 
     def is_dense(self, layer_idx: int, t: float) -> bool:
         w = self.plan.warmup

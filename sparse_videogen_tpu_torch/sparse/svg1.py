@@ -1,5 +1,13 @@
 """SVG1: online profiling -> placement -> static block-sparse attention
-(counterpart of sparse_videogen_tpu/sparse/svg1.py, placement path only).
+(counterpart of sparse_videogen_tpu/sparse/svg1.py).
+
+Two ways to run the temporal heads: placement (the default) transposes their
+q, k, v to token-major order, runs the one band+sink mask over every head
+and transposes the output back; placement-free (`inplace_temporal`, video
+only) leaves every head in place and runs the dual per-head spec, band_sink
+for the spatial heads and band_sink_perm (the band at permuted positions)
+for the temporal ones, on a per-head metadata row taken from the dual stack
+(`sparse_meta_dual`).
 
 The plan is static per (layout, config): it builds the numpy metadata once;
 the runtimes (sparse/runtimes.py) copy it to the device. The layout fixes
@@ -36,6 +44,7 @@ class SVG1Plan:
     multiplier: float
     block_q: int
     block_kv: int
+    inplace_temporal: bool = False
 
     def __post_init__(self):
         object.__setattr__(self, "_cache", {})
@@ -78,6 +87,16 @@ class SVG1Plan:
         return MaskSpec(kind="band_sink", band_width=w + 1, sink_size=lay.frame_size)
 
     @property
+    def mask_spec_dual(self) -> tuple[MaskSpec, MaskSpec]:
+        """(spatial band_sink, temporal band_sink_perm) of the in-place mode."""
+        lay = self.layout
+        w = math.ceil(self.multiplier * lay.frame_size / 128) * 128
+        spatial = MaskSpec(kind="band_sink", band_width=w + 1, sink_size=lay.frame_size)
+        temporal = MaskSpec(kind="band_sink_perm", band_width=w + 1, sink_size=lay.frame_size,
+                            frame_size=lay.frame_size, num_frames=lay.num_frames)
+        return spatial, temporal
+
+    @property
     def dense_mask_spec(self) -> MaskSpec:
         """Dense attention of a text-last layout keeps the real/fake split
         (the reference runs varlen attention over the real tokens): a band
@@ -118,6 +137,27 @@ class SVG1Plan:
 
         return self._build("sparse_meta", build)
 
+    def sparse_meta_dual(self) -> np.ndarray:
+        """(2, nQ, L) int32: the spatial heads' metadata (the band+sink
+        skeleton) and the temporal heads' (execution_mask_block_perm), padded
+        to one row length, for the per-head select of the in-place mode."""
+        def build():
+            if self.mask_kind != "band_sink":
+                raise ValueError(f"inplace_temporal needs a video-only layout, got mask kind {self.mask_kind}")
+            lay = self.layout
+            nsub = self.seq_pad_kv // MD.SUB
+            nq_pad = self.seq_pad_q // self.block_q
+            counts = MD.kv_counts_for_seq(lay.seq_len, self.seq_pad_kv)
+            metas = []
+            for fn in (core_masks.execution_mask_block, core_masks.execution_mask_block_perm):
+                bm = fn(lay, self.multiplier, block_q=self.block_q, block_kv=MD.SUB)
+                bm = np.pad(bm, ((0, nq_pad - bm.shape[0]), (0, nsub - bm.shape[1])))
+                metas.append(MD.chunk_meta_np(bm[None], counts, block_kv=self.block_kv))
+            L = max(m.shape[-1] for m in metas)
+            return np.concatenate([np.pad(m, ((0, 0), (0, 0), (0, L - m.shape[-1]))) for m in metas])
+
+        return self._build("sparse_meta_dual", build)
+
     def dense_meta(self) -> np.ndarray:
         def build():
             counts = MD.kv_counts_for_seq(self.layout.seq_len, self.seq_pad_kv)
@@ -146,18 +186,22 @@ def make_svg1_plan(
     *,
     block_q: int | None = None,
     block_kv: int = 1024,
+    inplace_temporal: bool = False,
 ) -> SVG1Plan:
     """The plan of a video-only (Wan: band_sink), text-last (HunyuanVideo:
     hyvideo) or text-first (CogVideoX: cog) layout. block_q defaults to
     1024 at S >= 8192, else 512; block_q and block_kv are clamped to the
-    128-padded sequence length."""
+    128-padded sequence length. inplace_temporal (video only) runs the
+    temporal heads without placement."""
     s_pad = -(-layout.seq_len // 128) * 128
     if block_q is None:
         block_q = 1024 if layout.seq_len >= 8192 else 512
     block_kv = min(block_kv, s_pad)
     block_q = min(block_q, s_pad)
     mul = core_masks.sparsity_to_width(cfg.sparsity, layout.context_length, layout.num_frames, layout.frame_size)
-    return SVG1Plan(layout, cfg, warmup, mul, block_q, block_kv)
+    if inplace_temporal and _MASK_KINDS[layout.text_position] != "band_sink":
+        raise ValueError("inplace_temporal runs video-only layouts (mask kind band_sink)")
+    return SVG1Plan(layout, cfg, warmup, mul, block_q, block_kv, inplace_temporal)
 
 
 def _pad_seq(x, s_pad):
@@ -180,9 +224,19 @@ def _run_kernel(q, k, v, meta, plan: SVG1Plan, mask_spec, aux, *, block_q: int):
 def svg1_sparse_impl(q, k, v, rows, meta, plan: SVG1Plan, aux=None):
     """Profile the sampled `rows`, re-lay-out the temporal heads, run the
     shared sparse attention (band+sink, hyvideo or cog), restore the original
-    order."""
+    order. With plan.inplace_temporal, meta is the (2, nQ, L) dual stack
+    (sparse_meta_dual): every head stays in place and takes its class's
+    metadata row and mask (the dual spec, aux[4 + bh] its class)."""
     mses = sample_mse(q, k, v, plan.profile_preds(), rows)
-    is_t = best_mask_idx(mses) == 1  # (B, H)
+    best = best_mask_idx(mses)  # (B, H): 0 spatial, 1 temporal
+    if plan.inplace_temporal:
+        flags = best.reshape(-1).to(torch.int32)
+        meta_bh = torch.where(flags[:, None, None] == 1, meta[1][None], meta[0][None]).contiguous()
+        aux4 = torch.zeros(4, dtype=torch.int32, device=q.device) if aux is None else \
+            torch.as_tensor(aux, dtype=torch.int32, device=q.device)[:4]
+        return _run_kernel(q, k, v, meta_bh, plan, plan.mask_spec_dual, torch.cat([aux4, flags]),
+                           block_q=plan.block_q)
+    is_t = best == 1
     o = _run_kernel(place_heads(q, is_t, plan.layout), place_heads(k, is_t, plan.layout),
                     place_heads(v, is_t, plan.layout), meta, plan, plan.mask_spec, aux,
                     block_q=plan.block_q)
