@@ -1,6 +1,6 @@
 """Drive the torch port's main paths once on one NVIDIA GPU: Wan 2.1 T2V
-dense/SVG1/SAP, HunyuanVideo T2V dense/SVG1, CogVideoX 1.5 I2V dense/SVG1,
-and the probe entries of K6 and K8.
+dense/SVG1/SAP and from a prompt to a video, HunyuanVideo T2V dense/SVG1,
+CogVideoX 1.5 I2V dense/SVG1, and the probe entries of K6 and K8.
 
     python3 chip_smoke.py
 
@@ -84,8 +84,25 @@ is non-zero:
                  single-device SAP on the same labels, and Wan 1.3B forwards
                  of RING_LAYERS layers through RingDenseRuntime and
                  RingSAPRuntime (their stats kernels' launches counted).
+               p2v (after the slices): Wan 2.1 T2V from a prompt to a
+                 video at full width (phase_prompt_to_video): the port's
+                 tokenizer on a spiece.model this script writes, UMT5-XXL
+                 (random bf16 weights), Wan 2.1 1.3B 480x832x81 for
+                 P2V_STEPS SVG1 steps, the Wan VAE (dim 96, random) through
+                 the CLI's default decoder (12 tiles), a .y4m read back;
+                 each stage timed with its peak memory, K1 and K2 held to
+                 the configuration's launches with no plain-version call;
+                 then the decode in each mode (whole, streamed by 1 and 2
+                 latent frames; whole and streamed held to each other) and
+                 with cuDNN's TF32 on, and dense steps, for the projection
+                 of a CLI_STEPS-step generation. A small UMT5 and Wan VAE on
+                 the card against the CPU (UMT5_TOL, VAE_TOL).
   5. cli     - the port's CLIs in --smoke mode: Wan for SVG, dense and SAP,
-               HunyuanVideo and CogVideoX for SVG and dense.
+               HunyuanVideo and CogVideoX for SVG and dense; the Wan smoke
+               with a video name (its tiny VAE, a .y4m); the Wan CLI on a
+               checkpoint dir written by write_tiny_checkpoint (the port's
+               safetensors writer, the reference's names) from a prompt to
+               a .y4m.
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
 """
@@ -96,6 +113,7 @@ import collections
 import dataclasses
 import json
 import os
+import struct
 import subprocess
 import sys
 import tempfile
@@ -129,6 +147,7 @@ SDPA_TOL_ABS = 5e-2
 # larger of its operations over the peak and its bytes (each input read once,
 # each output written once) over the memory rate
 PEAK_BF16_FLOPS, PEAK_F32_FLOPS, PEAK_BYTES = 989e12, 67e12, 3.35e12
+PEAK_TF32_FLOPS = 495e12  # tensor cores on f32 inputs, where TF32 is allowed
 # HunyuanVideo: HYVIDEO_T2's full width, the first HY_DOUBLE of its 20 double
 # and HY_SINGLE of its 40 single blocks (the time limit bounds the depth,
 # PERF.md section 4); HY_STEPS_SVG steps make first_times_fp 0.1 one dense
@@ -153,6 +172,12 @@ STATS_TOL_M, STATS_TOL_L_REL = 1e-3, 1e-4
 # ring attention: how many ranks the thread communicator runs on the card
 RING_N = 2
 RING_LAYERS = 2
+# prompt -> video (Wan 2.1 1.3B 480x832x81): P2V_STEPS UniPC steps, projected
+# to the CLI's CLI_STEPS; the small UMT5 and VAE on the card against the CPU
+# in f32 with TF32 off: UMT5 differs by summation order; cuDNN may pick FFT or
+# Winograd convolutions, whose f32 rounding departs from a direct sum by ~1e-5
+P2V_STEPS, CLI_STEPS = 2, 50
+UMT5_TOL, VAE_TOL = 1e-5, 1e-4
 
 
 def log(phase: str, msg: str) -> None:
@@ -1995,7 +2020,414 @@ def phase_ring(dev):
     return entry, launches
 
 
+# ---------------------------------------------------------------------------
+# prompt -> video: the tokenizer, UMT5, the DiT, the Wan VAE and the writer
+# ---------------------------------------------------------------------------
+
+
+def write_spiece(path: str, pieces, unk_id: int) -> None:
+    """A sentencepiece ModelProto in the protobuf wire format, by hand:
+    pieces [(piece, score, type)] as field 1 (piece 1, score 2 as a float,
+    type 3), trainer_spec (field 2) with unk_id (field 40)."""
+    def varint(n):
+        out = bytearray()
+        while True:
+            b, n = n & 0x7F, n >> 7
+            out.append(b | (0x80 if n else 0))
+            if not n:
+                return bytes(out)
+
+    def field(num, wire, payload):
+        return varint(num << 3 | wire) + (varint(len(payload)) + payload if wire == 2 else payload)
+
+    msg = b"".join(field(1, 2, field(1, 2, p.encode()) + field(2, 5, struct.pack("<f", s)) + field(3, 0, varint(t)))
+                   for p, s, t in pieces)
+    msg += field(2, 2, field(40, 0, varint(unk_id)))
+    with open(os.path.join(path, "spiece.model"), "wb") as f:
+        f.write(msg)
+
+
+def synthetic_vocab(texts):
+    """<pad>, </s>, <unk> (id 2), "▁", "▁" + every word of `texts` and every
+    character of them: a Unigram vocabulary that covers the texts."""
+    words = sorted({w for t in texts for w in t.split()})
+    chars = sorted({c for t in texts for c in t if not c.isspace()})
+    return ([("<pad>", 0.0, 3), ("</s>", 0.0, 3), ("<unk>", 0.0, 2), ("▁", -2.0, 1)]
+            + [("▁" + w, -1.0 - 0.01 * len(w), 1) for w in words] + [(c, -3.0, 1) for c in chars])
+
+
+def _randn(g, *shape, fan_in=None):
+    return torch.randn(shape, generator=g) / np.sqrt(fan_in or shape[-1])
+
+
+def reference_wan_sd(cfg, g) -> dict:
+    """A Wan T2V DiT state dict in the reference's (wan_orig) names."""
+    d, sd = cfg.dim, {}
+
+    def lin(key, di, do):
+        sd[f"{key}.weight"], sd[f"{key}.bias"] = _randn(g, do, di), 0.1 * torch.randn(do, generator=g)
+
+    sd["patch_embedding.weight"] = _randn(g, d, cfg.in_dim, *cfg.patch_size, fan_in=cfg.in_dim * 4)
+    sd["patch_embedding.bias"] = torch.zeros(d)
+    lin("text_embedding.0", cfg.text_dim, d)
+    lin("text_embedding.2", d, d)
+    lin("time_embedding.0", cfg.freq_dim, d)
+    lin("time_embedding.2", d, d)
+    lin("time_projection.1", d, 6 * d)
+    sd["head.modulation"] = _randn(g, 1, 2, d)
+    lin("head.head", d, 4 * cfg.out_dim)
+    for i in range(cfg.num_layers):
+        b = f"blocks.{i}"
+        sd[f"{b}.modulation"] = _randn(g, 1, 6, d)
+        for att in ("self_attn", "cross_attn"):
+            for nm in "qkvo":
+                lin(f"{b}.{att}.{nm}", d, d)
+            sd[f"{b}.{att}.norm_q.weight"], sd[f"{b}.{att}.norm_k.weight"] = torch.ones(d), torch.ones(d)
+        sd[f"{b}.norm3.weight"], sd[f"{b}.norm3.bias"] = torch.ones(d), torch.zeros(d)
+        lin(f"{b}.ffn.0", d, cfg.ffn_dim)
+        lin(f"{b}.ffn.2", cfg.ffn_dim, d)
+    return sd
+
+
+def reference_umt5_sd(cfg, g) -> dict:
+    """A UMT5 encoder state dict in the reference's (wan_orig t5.py) names."""
+    sd = {"token_embedding.weight": torch.randn(cfg.vocab_size, cfg.dim, generator=g),
+          "norm.weight": torch.ones(cfg.dim)}
+    for i in range(cfg.num_layers):
+        b = f"blocks.{i}"
+        for nm in "qkv":
+            sd[f"{b}.attn.{nm}.weight"] = _randn(g, cfg.dim_attn, cfg.dim)
+        sd[f"{b}.attn.o.weight"] = _randn(g, cfg.dim, cfg.dim_attn)
+        sd[f"{b}.norm1.weight"], sd[f"{b}.norm2.weight"] = torch.ones(cfg.dim), torch.ones(cfg.dim)
+        sd[f"{b}.pos_embedding.embedding.weight"] = 0.1 * torch.randn(cfg.num_buckets, cfg.num_heads, generator=g)
+        sd[f"{b}.ffn.gate.0.weight"] = _randn(g, cfg.dim_ffn, cfg.dim)
+        sd[f"{b}.ffn.fc1.weight"] = _randn(g, cfg.dim_ffn, cfg.dim)
+        sd[f"{b}.ffn.fc2.weight"] = _randn(g, cfg.dim, cfg.dim_ffn)
+    return sd
+
+
+def reference_vae_decoder_sd(cfg, g) -> dict:
+    """The decoder side (and conv2) of a Wan VAE state dict in the
+    reference's (wan_orig vae.py) names: decoder.upsamples is one flat list
+    of residual blocks, each stage's ending in a resample."""
+    sd = {}
+
+    def conv(key, co, ci, *k):
+        sd[f"{key}.weight"], sd[f"{key}.bias"] = _randn(g, co, ci, *k, fan_in=ci * int(np.prod(k))), torch.zeros(co)
+
+    def res(prefix, ci, co):
+        sd[f"{prefix}.residual.0.gamma"] = torch.ones(ci, 1, 1, 1)
+        conv(f"{prefix}.residual.2", co, ci, 3, 3, 3)
+        sd[f"{prefix}.residual.3.gamma"] = torch.ones(co, 1, 1, 1)
+        conv(f"{prefix}.residual.6", co, co, 3, 3, 3)
+        if ci != co:
+            conv(f"{prefix}.shortcut", co, ci, 1, 1, 1)
+
+    dims = [cfg.dim * u for u in (cfg.dim_mult[-1],) + tuple(cfg.dim_mult[::-1])]
+    conv("conv2", cfg.z_dim, cfg.z_dim, 1, 1, 1)
+    conv("decoder.conv1", dims[0], cfg.z_dim, 3, 3, 3)
+    res("decoder.middle.0", dims[0], dims[0])
+    sd["decoder.middle.1.norm.gamma"] = torch.ones(dims[0], 1, 1)
+    conv("decoder.middle.1.to_qkv", 3 * dims[0], dims[0], 1, 1)
+    conv("decoder.middle.1.proj", dims[0], dims[0], 1, 1)
+    res("decoder.middle.2", dims[0], dims[0])
+    idx = 0
+    for i, (ci, co) in enumerate(zip(dims[:-1], dims[1:])):
+        for j in range(cfg.num_res_blocks + 1):
+            res(f"decoder.upsamples.{idx}", (ci // 2 if i in (1, 2, 3) else ci) if j == 0 else co, co)
+            idx += 1
+        if i != len(cfg.dim_mult) - 1:
+            conv(f"decoder.upsamples.{idx}.resample.1", co // 2, co, 3, 3)
+            if cfg.temporal_upsample[i]:
+                conv(f"decoder.upsamples.{idx}.time_conv", 2 * co, co, 3, 1, 1)
+            idx += 1
+    sd["decoder.head.0.gamma"] = torch.ones(dims[-1], 1, 1, 1)
+    conv("decoder.head.2", 3, dims[-1], 3, 3, 3)
+    return sd
+
+
+def write_tiny_checkpoint(path: str, prompt: str) -> None:
+    """A checkpoint dir as the CLI's --model_dir reads it, written with the
+    port's safetensors writer: transformer/ (a Wan T2V of the smoke model's
+    widths, head_dim 64 as the kernels take it, 2 layers), umt5/ (2 layers),
+    vae/ (the smoke VAE's config), their config.json files and a
+    spiece.model covering `prompt`."""
+    from sparse_videogen_tpu_torch.cli.wan_t2v import DEFAULT_NEG_PROMPT, SMOKE_CFG, SMOKE_VAE_CFG
+    from sparse_videogen_tpu_torch.io.safetensors import save_file
+    from sparse_videogen_tpu_torch.models.common.t5 import T5Config
+    from sparse_videogen_tpu_torch.models.wan.model import WanConfig
+    from sparse_videogen_tpu_torch.models.wan.vae import WanVAEConfig
+
+    g = torch.Generator().manual_seed(5)
+    pieces = synthetic_vocab([prompt, DEFAULT_NEG_PROMPT])
+    dit = dict(SMOKE_CFG, num_layers=2)
+    t5 = dict(vocab_size=len(pieces), dim=dit["text_dim"], dim_attn=dit["text_dim"], dim_ffn=128, num_heads=2,
+              num_layers=2, num_buckets=8)
+    vae = dict(SMOKE_VAE_CFG, dim_mult=list(SMOKE_VAE_CFG["dim_mult"]))
+    for sub, sd, cfg in (("transformer", reference_wan_sd(WanConfig(**dit), g), dit),
+                         ("umt5", reference_umt5_sd(T5Config(**t5), g), t5),
+                         ("vae", reference_vae_decoder_sd(WanVAEConfig(**SMOKE_VAE_CFG), g), vae)):
+        os.makedirs(os.path.join(path, sub))
+        save_file(sd, os.path.join(path, sub, "model.safetensors"))
+        with open(os.path.join(path, sub, "config.json"), "w") as f:
+            json.dump(cfg, f)
+    write_spiece(path, pieces, unk_id=2)
+
+
+def _timed(stages: dict, name: str, fn):
+    """fn() between two CUDA events, the peak device memory reset before it;
+    records (ms, peak GiB) under `name` and returns fn's result."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    stages[name] = (start.elapsed_time(end), torch.cuda.max_memory_allocated() / 2**30)
+    return out
+
+
+def meta_flops(fn) -> float:
+    """The FLOPs of the convolutions and matmuls fn() issues
+    (torch.utils.flop_counter), fn built on the meta device: no memory, no
+    compute."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with FlopCounterMode(display=False) as counter:
+        fn()
+    return float(counter.get_total_flops())
+
+
+def _steps(model, run, ctx, ctx_null, pattern, steps, callback=None):
+    """WanPipeline.generate_latents of `run` (a preset) with per-step CUDA
+    events; returns (latents, [s a step]: the first includes the set-up)."""
+    from sparse_videogen_tpu_torch.pipelines import WanPipeline
+
+    events = [torch.cuda.Event(enable_timing=True)]
+    events[0].record()
+
+    def on_step(i, lat):
+        events.append(torch.cuda.Event(enable_timing=True))
+        events[-1].record()
+
+    lat = WanPipeline(model).generate_latents(ctx, ctx_null, num_inference_steps=steps, pattern=pattern, seed=0,
+                                              callback=on_step, **run.generate_kwargs())
+    torch.cuda.synchronize()
+    return lat, [events[i].elapsed_time(events[i + 1]) / 1e3 for i in range(steps)]
+
+
+def phase_prompt_to_video(dev):
+    """Wan 2.1 T2V from a prompt to a video at full width: the port's
+    tokenizer on a synthetic spiece.model (this script's protobuf writer);
+    UMT5-XXL (UMT5_XXL: 24 layers, dim 4096, 64 heads, FFN 10,240; random
+    bf16 weights from a seed) through io/encoders.UMT5Encoder on the prompt
+    and the negative prompt at text_len 512, then freed; Wan 2.1 1.3B
+    (presets.T2V_480P, random weights) for P2V_STEPS UniPC steps of SVG1 at
+    480x832x81; the Wan VAE (WanVAEConfig(): dim 96, f32, random) through
+    the CLI's default decoder (--vae_tiling auto: 12 tiles of 32x32 latents,
+    overlap 8); export_video to a .y4m, read back. Each stage is timed with
+    CUDA events beside its peak memory. The kernel counters are set to 0
+    before the tokenizer and read after the writer: K1 and K2 launch as the
+    configuration implies, no plain version runs, and the frames are (81,
+    480, 832, 3). Then the decode alone in each mode (whole, streamed by 1
+    and 2 latent frames, tiled; a mode that does not fit in the card's
+    memory is reported as such), the tiled decode with cuDNN's TF32 on (the
+    CLI leaves torch's default, on), and P2V_STEPS dense steps, for the
+    projection of a whole generation to the CLI's CLI_STEPS steps."""
+    import logging
+
+    from sparse_videogen_tpu_torch import _kernels
+    from sparse_videogen_tpu_torch.cli._common import make_vae_decoder
+    from sparse_videogen_tpu_torch.cli.wan_t2v import DEFAULT_NEG_PROMPT, build_parser
+    from sparse_videogen_tpu_torch.config import WarmupSchedule
+    from sparse_videogen_tpu_torch.io.encoders import UMT5Encoder
+    from sparse_videogen_tpu_torch.io.native import read_y4m
+    from sparse_videogen_tpu_torch.io.tokenizer import T5TokenizerLite
+    from sparse_videogen_tpu_torch.models.common.t5 import UMT5_XXL, T5Encoder
+    from sparse_videogen_tpu_torch.models.wan.vae import WanVAE, WanVAEConfig, decoder_forward
+    from sparse_videogen_tpu_torch.pipelines.wan import export_video, wan_layout
+    from sparse_videogen_tpu_torch.presets import T2V_480P
+    from sparse_videogen_tpu_torch.schedulers import FlowUniPC
+
+    run, cfg, stages = T2V_480P, T2V_480P.model, {}
+    args = build_parser().parse_args([])  # the CLI's defaults: prompt, VAE tiling auto, tile 32, overlap 8
+    lay = wan_layout(cfg, run.height, run.width, run.num_frames)
+    timesteps = FlowUniPC(P2V_STEPS, shift=run.flow_shift).timesteps
+    kw = run.generate_kwargs()
+    warmup = WarmupSchedule.from_fractions(kw["first_layers_fp"], kw["first_times_fp"], cfg.num_layers, timesteps)
+    want, want_kinds = expected_launches("SVG", cfg.num_layers, warmup, timesteps, ("none", "band_sink"))
+    log("p2v", f"cuDNN TF32 {torch.backends.cudnn.allow_tf32}, matmul TF32 {torch.backends.cuda.matmul.allow_tf32} "
+               "(this script turns both off; the VAE and UMT5 run true f32)")
+    _kernels.reset_counts()
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        t0 = time.perf_counter()
+        write_spiece(tmp, synthetic_vocab([args.prompt, DEFAULT_NEG_PROMPT]), unk_id=2)
+        tok = T5TokenizerLite.from_dir(tmp)
+        ids, mask = tok([args.prompt, DEFAULT_NEG_PROMPT], seq_len=cfg.text_len)
+        log("p2v", f"tokenizer: {len(tok.model.vocab)} pieces, prompt {int(mask[0].sum())} and negative prompt "
+                   f"{int(mask[1].sum())} of {cfg.text_len} tokens, unk {int((ids == 2).sum())}, "
+                   f"{time.perf_counter() - t0:.3f} s on the host")
+        if (ids == 2).any() or ids[0, int(mask[0].sum()) - 1] != tok.eos_id:
+            raise AssertionError("tokenizer: an unknown piece or no </s> at the end of the prompt")
+        t5 = _timed(stages, "umt5 set-up", lambda: T5Encoder(UMT5_XXL, dtype=torch.bfloat16, device=dev).init_random(
+            torch.Generator(device=dev).manual_seed(0)))
+        enc = UMT5Encoder(t5, tok, text_len=cfg.text_len)
+        ctx = _timed(stages, "umt5 encode prompt", lambda: enc([args.prompt])).to(torch.bfloat16)
+        ctx_null = _timed(stages, "umt5 encode negative prompt", lambda: enc([DEFAULT_NEG_PROMPT])).to(torch.bfloat16)
+        n_t5 = sum(p.numel() for p in t5.parameters())
+        live = int(mask[0].sum())
+        log("p2v", f"UMT5-XXL {n_t5 / 1e9:.3f} B params bf16 ({n_t5 * 2 / 2**30:.2f} GiB): states "
+                   f"{tuple(ctx.shape)}, finite {bool(torch.isfinite(ctx).all())}, rows past the prompt zero "
+                   f"{bool((ctx[0, live:] == 0).all())}, std {ctx[0, :live].float().std().item():.4f}")
+        if tuple(ctx.shape) != (1, cfg.text_len, cfg.text_dim) or not torch.isfinite(ctx).all() or \
+                not (ctx[0, live:] == 0).all():
+            raise AssertionError("UMT5: text states of the wrong shape, not finite, or not zero past the prompt")
+        del enc, t5
+        torch.cuda.empty_cache()
+
+        model = _new_model(cfg, dev)
+        lat, svg_steps = _timed(stages, f"DiT {P2V_STEPS} steps SVG1",
+                                lambda: _steps(model, run, ctx, ctx_null, "SVG", P2V_STEPS))
+        vae = WanVAE(WanVAEConfig(), device=dev).init_random(torch.Generator(device=dev).manual_seed(0))
+        decode = make_vae_decoder(args, vae, logging.getLogger("chip_smoke"))
+        video = _timed(stages, "VAE decode (CLI default: tiled)", lambda: decode(lat))
+        path = os.path.join(tmp, "p2v.y4m")
+        t0 = time.perf_counter()
+        export_video(video, path, fps=16)
+        frames, fps = read_y4m(path)
+        export_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches, kinds, plain = dict(_kernels.LAUNCHES), dict(_kernels.KIND_LAUNCHES), dict(_kernels.PLAIN_CALLS)
+    for name, (ms, gib) in stages.items():
+        log("p2v", f"{name}: {ms:.1f} ms, peak {gib:.2f} GiB")
+    log("p2v", f"SVG1 s a step {[round(s, 4) for s in svg_steps]} (the first includes the set-up); export + read "
+               f"back {export_s:.2f} s on the host; frames {frames.shape} at {fps} fps, mean {frames.mean():.2f}")
+    log("p2v", f"launches {launches} (expected {want}), by mask kind {kinds} (expected {dict(want_kinds)}), "
+               f"plain-version calls {plain}")
+    if launches != want or collections.Counter(kinds) != want_kinds or any(plain.values()):
+        raise AssertionError("prompt -> video: the kernels did not launch as the configuration implies, or a plain "
+                             "version ran")
+    if frames.shape != (run.num_frames, run.height, run.width, 3) or tuple(video.shape) != (
+            1, 3, run.num_frames, run.height, run.width):
+        raise AssertionError(f"prompt -> video: video {tuple(video.shape)}, frames {frames.shape}")
+
+    # the decode alone, in each mode (the pre-clip output checked in the whole
+    # decode); whole and streamed are the same function up to summation order
+    modes = {"whole": lambda: decoder_forward(vae.decoder, vae.latent_input(lat)),
+             "streamed, chunk 1": lambda: vae.decode_streamed(lat, chunk=1),
+             "streamed, chunk 2": lambda: vae.decode_streamed(lat, chunk=2)}
+    decoded = {}
+    for name, fn in modes.items():
+        try:
+            out = _timed(stages, f"VAE decode {name}", fn)
+        except torch.cuda.OutOfMemoryError as e:
+            torch.cuda.empty_cache()
+            log("p2v", f"VAE decode {name}: does not fit in the card's memory ({str(e).splitlines()[0]})")
+            continue
+        if name == "whole":
+            finite = bool(torch.isfinite(out).all())
+            log("p2v", f"VAE decoder output before the clip: finite {finite}, |max| {out.abs().max().item():.3f}")
+            if not finite:
+                raise AssertionError("the VAE decoder's output is not finite")
+            out = out.clamp_(-1.0, 1.0)
+        decoded[name] = out
+        ms, gib = stages[f"VAE decode {name}"]
+        log("p2v", f"VAE decode {name}: {ms / 1e3:.3f} s, peak {gib:.2f} GiB")
+    ref_name = next(iter(decoded))
+    for name, out in decoded.items():
+        if name == ref_name:
+            continue
+        rel = ((out - decoded[ref_name]).norm() / decoded[ref_name].norm()).item()
+        log("p2v", f"VAE decode {name} against {ref_name}: rel L2 {rel:.3e} (tol {VAE_TOL})")
+        if not rel <= VAE_TOL:
+            raise AssertionError(f"the VAE decode {name} disagrees with {ref_name}: {rel}")
+    rel = ((video - decoded[ref_name]).norm() / decoded[ref_name].norm()).item()
+    log("p2v", f"VAE decode tiled (the main path) against {ref_name}: rel L2 {rel:.3e} (tiles see zeros past "
+               "their borders; the blend hides the seams, it does not remove the difference)")
+    del decoded, out
+    torch.backends.cudnn.allow_tf32 = True
+    _timed(stages, "VAE decode tiled, cuDNN TF32 on", lambda: decode(lat))
+    torch.backends.cudnn.allow_tf32 = False
+    ms, gib = stages["VAE decode tiled, cuDNN TF32 on"]
+    log("p2v", f"VAE decode tiled with cuDNN TF32 on (the CLI's default): {ms / 1e3:.3f} s, peak {gib:.2f} GiB")
+
+    # the stages' operations (counted on the meta device) against their time
+    # and the card's peak for the type they run in
+    meta_vae = WanVAE(WanVAEConfig(), device="meta")
+    meta_lat = torch.empty(tuple(lat.shape), device="meta")
+    flops = {"whole": meta_flops(lambda: decoder_forward(meta_vae.decoder, meta_vae.latent_input(meta_lat))),
+             "tiled": meta_flops(lambda: make_vae_decoder(args, meta_vae, logging.getLogger("chip_smoke"))(meta_lat)),
+             "umt5": meta_flops(lambda: T5Encoder(UMT5_XXL, device="meta")(ids[:1], mask[:1]))}
+    for stage, key, peak, peak_name in (
+            ("umt5 encode prompt", "umt5", PEAK_F32_FLOPS, "f32"),
+            ("VAE decode whole", "whole", PEAK_F32_FLOPS, "f32"),
+            ("VAE decode streamed, chunk 1", "whole", PEAK_F32_FLOPS, "f32"),
+            ("VAE decode (CLI default: tiled)", "tiled", PEAK_F32_FLOPS, "f32"),
+            ("VAE decode tiled, cuDNN TF32 on", "tiled", PEAK_TF32_FLOPS, "TF32")):
+        if stage in stages:
+            ms = stages[stage][0]
+            log("p2v", f"{stage}: {flops[key] / 1e12:.2f} TFLOP, {flops[key] / ms / 1e9:.1f} TFLOP/s, "
+                       f"{flops[key] / peak * 1e3 / ms:.3f} of the {peak_name} peak (bound "
+                       f"{flops[key] / peak * 1e3:.1f} ms, operations)")
+
+    _, dense_steps = _steps(model, run, ctx, ctx_null, "dense", P2V_STEPS)
+    log("p2v", f"dense s a step {[round(s, 4) for s in dense_steps]}")
+    encode_s = (stages["umt5 encode prompt"][0] + stages["umt5 encode negative prompt"][0]) / 1e3
+    warm50 = WarmupSchedule.from_fractions(kw["first_layers_fp"], kw["first_times_fp"], cfg.num_layers,
+                                           FlowUniPC(CLI_STEPS, shift=run.flow_shift).timesteps)
+    n_dense = sum(float(t) > warm50.first_times for t in FlowUniPC(CLI_STEPS, shift=run.flow_shift).timesteps)
+    for dec_name in ("VAE decode (CLI default: tiled)", "VAE decode tiled, cuDNN TF32 on"):
+        dec_s = stages[dec_name][0] / 1e3
+        svg_total = encode_s + n_dense * dense_steps[-1] + (CLI_STEPS - n_dense) * svg_steps[-1] + dec_s
+        dense_total = encode_s + CLI_STEPS * dense_steps[-1] + dec_s
+        log("p2v", f"projected {CLI_STEPS}-step generation at 480x832x81 ({dec_name}): SVG1 {svg_total:.2f} s "
+                   f"(encode {encode_s:.3f} + {n_dense} dense warm-up steps x {dense_steps[-1]:.4f} + "
+                   f"{CLI_STEPS - n_dense} x {svg_steps[-1]:.4f} + decode {dec_s:.3f}), dense {dense_total:.2f} s")
+    del model, vae, video, lat
+    torch.cuda.empty_cache()
+
+
+def phase_small_text_vae_reference(dev):
+    """A small UMT5 and a small Wan VAE on the card against the same modules
+    on the CPU (f32, same weights and inputs; this script turns TF32 off):
+    UMT5 within rel L2 UMT5_TOL, the VAE's whole and streamed decodes within
+    VAE_TOL."""
+    from sparse_videogen_tpu_torch.cli.wan_t2v import SMOKE_VAE_CFG
+    from sparse_videogen_tpu_torch.models.common.t5 import T5Config, T5Encoder
+    from sparse_videogen_tpu_torch.models.wan.vae import WanVAE, WanVAEConfig
+
+    g = torch.Generator().manual_seed(4)
+    cfg = T5Config(vocab_size=300, dim=64, dim_attn=64, dim_ffn=128, num_heads=2, num_layers=2, num_buckets=8)
+    cpu = T5Encoder(cfg, dtype=torch.float32).init_random(g)
+    gpu = T5Encoder(cfg, dtype=torch.float32, device=dev)
+    gpu.load_state_dict(cpu.state_dict())
+    ids = torch.randint(0, cfg.vocab_size, (2, 64), generator=g)
+    mask = (torch.arange(64)[None] < torch.tensor([[40], [64]])).int()
+    a, b = gpu(ids, mask).cpu(), cpu(ids, mask)
+    rel = ((a - b).norm() / b.norm()).item()
+    log("small", f"UMT5 (2 layers, dim 64) card vs CPU, f32: rel L2 {rel:.3e} (tol {UMT5_TOL})")
+    if not rel <= UMT5_TOL:
+        raise AssertionError(f"UMT5 on the card disagrees with the CPU: {rel}")
+    vcfg = WanVAEConfig(**SMOKE_VAE_CFG)
+    cpu_vae = WanVAE(vcfg).init_random(g)
+    gpu_vae = WanVAE(vcfg, device=dev)
+    gpu_vae.load_state_dict(cpu_vae.state_dict())
+    z = torch.randn(1, 16, 3, 12, 16, generator=g)
+    ref = cpu_vae.decode(z)
+    for name, out in (("whole", gpu_vae.decode(z.to(dev))),
+                      ("streamed, chunk 1", gpu_vae.decode_streamed(z.to(dev), 1))):
+        rel = ((out.cpu() - ref).norm() / ref.norm()).item()
+        log("small", f"Wan VAE (dim 16) {name} decode card vs CPU whole decode, f32: rel L2 {rel:.3e} (tol {VAE_TOL})")
+        if not rel <= VAE_TOL:
+            raise AssertionError(f"the VAE decode ({name}) on the card disagrees with the CPU: {rel}")
+
+
 def phase_cli():
+    """The CLIs as a user runs them: --smoke for each pattern (latents to an
+    .npz), the Wan smoke with a video name (its tiny random VAE, to a .y4m),
+    and the Wan CLI on a checkpoint dir (write_tiny_checkpoint) from the
+    prompt to a .y4m."""
     runs = [("wan_t2v", p) for p in ("SVG", "dense", "SAP")] + [(cli, p) for cli in ("hyvideo_t2v", "cog_i2v")
                                                                   for p in ("SVG", "dense")]
     with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
@@ -2011,6 +2443,24 @@ def phase_cli():
                        f"finite {finite} ({time.perf_counter() - t0:.1f} s)")
             if not finite:
                 raise AssertionError(f"CLI smoke ({cli} {pattern}) wrote non-finite latents")
+        from sparse_videogen_tpu_torch.io.native import read_y4m
+
+        prompt = "a cat on the grass."
+        write_tiny_checkpoint(os.path.join(tmp, "ckpt"), prompt)
+        for what, argv in (("--smoke, a video name", ["--smoke"]),
+                           ("--model_dir (tiny synthetic checkpoint)",
+                            ["--model_dir", os.path.join(tmp, "ckpt"), "--prompt", prompt, "--height", "96",
+                             "--width", "128", "--num_frames", "9", "--num_inference_steps", "2"])):
+            out = os.path.join(tmp, "video.y4m")
+            t0 = time.perf_counter()
+            subprocess.run([sys.executable, "-m", "sparse_videogen_tpu_torch.cli.wan_t2v", *argv, "--device", "cuda",
+                            "--output_file", out], cwd=ROOT, check=True, timeout=600)
+            frames, fps = read_y4m(out)
+            os.remove(out)
+            log("cli", f"wan_t2v {what}: frames {frames.shape} at {fps} fps, mean {frames.mean():.2f}, std "
+                       f"{frames.std():.2f} ({time.perf_counter() - t0:.1f} s)")
+            if frames.shape != (9, 96, 128, 3) or frames.std() == 0:
+                raise AssertionError(f"wan_t2v {what}: frames {frames.shape}, std {frames.std()}")
 
 
 def main():
@@ -2034,9 +2484,11 @@ def main():
             launches.setdefault(name, n)
     launches["block_sparse_attn[hyvideo]"] = phase_hyvideo_slice(dev)
     launches["block_sparse_attn[cog]"] = phase_cog_slice(dev)
+    phase_prompt_to_video(dev)
     phase_small_reference(dev)
     phase_small_hyvideo_reference(dev)
     phase_small_cog_reference(dev)
+    phase_small_text_vae_reference(dev)
     phase_cli()
     for name, entry in kernels.items():
         entry["launches"] = launches[name]

@@ -1,9 +1,11 @@
-"""Flag groups the CLIs share (the JAX package's cli/_common.py flags, by
-name and default). Only the flags are declared here: what they drive beyond
-the random-weight smoke path is not ported yet, and each CLI raises
-NotImplementedError when such a flag is set."""
+"""Flag groups and helpers the CLIs share (the JAX package's cli/_common.py:
+its flags by name and default, `resolve_model_dir` and `make_vae_decoder`),
+plus `--device`. A flag whose path a CLI has not ported raises
+NotImplementedError there."""
 
 from __future__ import annotations
+
+import os
 
 
 def add_model_id(p, default: str):
@@ -13,13 +15,54 @@ def add_model_id(p, default: str):
     return p
 
 
+def resolve_model_dir(args, logger=None):
+    """Fold --model_id into --model_dir: a local dir is used; a repo id cannot
+    be downloaded here, so it is noted and the run takes the smoke path."""
+    if getattr(args, "model_dir", None):
+        return args.model_dir
+    mid = getattr(args, "model_id", None)
+    if mid and os.path.isdir(mid):
+        if logger is not None:
+            logger.info(f"--model_id is a local dir; using it as --model_dir: {mid}")
+        return mid
+    if mid and logger is not None and not getattr(args, "smoke", False):
+        logger.warning(f"--model_id {mid!r} is an HF repo id and nothing is downloaded: convert the checkpoint "
+                       "locally and pass --model_dir. Falling back to smoke generation.")
+    return None
+
+
 def add_vae_tiling_flags(p):
-    p.add_argument("--vae_tiling", type=str, default="auto", choices=["auto", "on", "off"])
+    p.add_argument("--vae_tiling", type=str, default="auto", choices=["auto", "on", "off"],
+                   help="auto tiles when a latent frame exceeds 64x64")
     p.add_argument("--vae_tile", type=int, default=32, help="latent tile edge (pixels = 8x)")
     p.add_argument("--vae_tile_overlap", type=int, default=8, help="latent overlap blended between adjacent tiles")
     p.add_argument("--vae_stream_chunk", type=int, default=0,
-                   help="decode in N-latent-frame streamed chunks (0 = whole sequence)")
+                   help="decode in N-latent-frame streamed chunks with a per-conv cache (0 = whole sequence)")
     return p
+
+
+def make_vae_decoder(args, vae, logger):
+    """latents -> video through `vae` (models/wan/vae.WanVAE), honouring
+    --vae_tiling (auto: tiles when a latent frame exceeds 64x64),
+    --vae_tile, --vae_tile_overlap and --vae_stream_chunk (streamed decode,
+    composes with tiling)."""
+    from sparse_videogen_tpu_torch.models.common.vae_tiling import spatial_tiled_decode
+    from sparse_videogen_tpu_torch.models.wan.vae import SPATIAL
+
+    mode, tile, overlap, stream = args.vae_tiling, args.vae_tile, args.vae_tile_overlap, args.vae_stream_chunk
+
+    def run(z):
+        return vae.decode_streamed(z, chunk=stream) if stream else vae.decode(z)
+
+    def decode(z):
+        h, w = z.shape[-2], z.shape[-1]
+        if mode == "on" or (mode == "auto" and h * w > 64 * 64):
+            logger.info(f"VAE decode: spatial tiling (latent {h}x{w}, tile={tile}, overlap={overlap}"
+                        + (f", streamed chunk={stream}" if stream else "") + ")")
+            return spatial_tiled_decode(run, z, tile=tile, overlap=overlap, scale=SPATIAL)
+        return run(z)
+
+    return decode
 
 
 def add_device(p):

@@ -4,17 +4,24 @@ The flags are the JAX CLI's, by name and default (the port declares its own
 parser), plus `--device`, since PyTorch needs one named. There is no
 fallback to the CPU: `--device cuda` on a host without a card fails.
 
-What runs today is the random-weight path that the JAX CLI takes without
-`--model_dir` (`--smoke`, or no checkpoint): a tiny Wan at a reduced size,
-denoised with dense, SVG1 or SAP (cluster mode) attention, latents written
-to an `.npz`; `--logging_file` takes SAP's density log. `--ring_degree N`
-runs dense or SAP attention token-sharded over N ranks, one process a rank
-under torchrun (gloo with `--device cpu`, NCCL on cards); rank 0 writes the
-outputs. The other parallel flags (--dp, --ulysses_degree, --dit_fsdp) raise.
-Checkpoints (`--model_dir`), the UMT5 text encoder and the VAE decode to a
-video are not ported yet (ROADMAP.md) and raise NotImplementedError.
+With `--model_dir` (or a local dir as `--model_id`) it runs the whole main
+path: the prompt (or a line of `--prompt_source`) and the negative prompt
+through the UMT5 tokenizer and encoder (freed before the DiT runs), the Wan
+DiT from `transformer/` (diffusers or wan_orig names; `--converted_cache`
+keeps the converted weights), the denoise loop with dense, SVG1 or SAP
+(cluster mode) attention, the Wan VAE decode from `vae/` (`--vae_tiling`,
+`--vae_stream_chunk`) and the video writer: `.y4m`, or `.mp4` where PIL is
+installed; an `.npz` name becomes `.y4m`. Without `vae/` the latents go to
+the `.npz`. `--smoke` (or no checkpoint) takes the JAX CLI's random-weight
+path at a reduced size, and a video name decodes through a tiny random VAE.
+`--ring_degree N` runs dense or SAP attention token-sharded over N ranks,
+one process a rank under torchrun (gloo with `--device cpu`, NCCL on
+cards); rank 0 writes. --quant/--use_fp8, --dp, --ulysses_degree,
+--dit_fsdp and SAP's tile mode are not ported and raise.
 
 Usage:
+  python -m sparse_videogen_tpu_torch.cli.wan_t2v --model_dir DIR \
+      --prompt "a cat on the grass." --output_file out.y4m
   python -m sparse_videogen_tpu_torch.cli.wan_t2v --smoke --pattern SAP \
       --device cuda --output_file out.npz
   torchrun --nproc_per_node 2 -m sparse_videogen_tpu_torch.cli.wan_t2v --smoke \
@@ -29,12 +36,24 @@ import os
 
 import numpy as np
 
-from sparse_videogen_tpu_torch.cli._common import add_device, add_model_id, add_vae_tiling_flags, resolve_device
+from sparse_videogen_tpu_torch.cli._common import (add_device, add_model_id, add_vae_tiling_flags, make_vae_decoder,
+                                                   resolve_device, resolve_model_dir)
 
 logger = logging.getLogger("sparse_videogen_tpu_torch")
 
-# the JAX CLI's --smoke model (cli/wan_t2v.py there)
+# the JAX CLI's --smoke model and video decoder (cli/wan_t2v.py there)
 SMOKE_CFG = dict(dim=256, ffn_dim=512, num_heads=4, num_layers=4, freq_dim=64, text_dim=64, text_len=16)
+SMOKE_VAE_CFG = dict(dim=16, dim_mult=(1, 2, 2, 2), num_res_blocks=1)
+# the reference's negative prompt (wan_t2v_inference.py:108-110)
+DEFAULT_NEG_PROMPT = (
+    "Bright tones, overexposed, static, blurred details, subtitles, "
+    "style, works, paintings, images, static, overall gray, worst "
+    "quality, low quality, JPEG compression residue, ugly, incomplete, "
+    "extra fingers, poorly drawn hands, poorly drawn faces, deformed, "
+    "disfigured, misshapen limbs, fused fingers, still picture, messy "
+    "background, three legs, many people in the background, walking "
+    "backwards"
+)
 
 
 def build_parser():
@@ -84,27 +103,72 @@ def build_parser():
 
 
 def _unported(args) -> str | None:
-    if args.model_dir or (args.model_id and os.path.isdir(args.model_id)):
-        return "--model_dir (checkpoint conversion, UMT5, Wan VAE)"
-    if not args.output_file.endswith(".npz"):
-        return "video output (the Wan VAE decode); write latents to a .npz"
     if args.quant not in (None, "none") or args.use_fp8:
         return "--quant / --use_fp8"
     if args.dp * args.ulysses_degree > 1 or args.dit_fsdp:
         return "--dp / --ulysses_degree / --dit_fsdp (data, Ulysses and FSDP parallelism)"
-    if args.prompt_source != "prompt":
-        return "--prompt_source (prompts need the UMT5 encoder)"
     if args.sap_block_mode != "cluster":
         return f"--sap_block_mode {args.sap_block_mode} (SAP tile mode)"
     return None
 
 
+def _load_checkpoint(args, device):
+    """--model_dir: the DiT (converted, or from --converted_cache), the text
+    states of the prompt and the negative prompt (UMT5, freed before the DiT
+    runs) and the VAE decoder (None without vae/)."""
+    import torch
+
+    from sparse_videogen_tpu_torch.io.checkpoint import (convert_wan_dit, convert_wan_vae, dataclass_from_json,
+                                                         wan_config_from_json)
+    from sparse_videogen_tpu_torch.io.encoders import UMT5Encoder
+    from sparse_videogen_tpu_torch.io.safetensors import load_dir, load_file, save_file
+    from sparse_videogen_tpu_torch.models.wan.model import WAN_1_3B, WAN_14B, WanModel
+    from sparse_videogen_tpu_torch.models.wan.vae import WanVAE, WanVAEConfig
+
+    tdir = os.path.join(args.model_dir, "transformer")
+    cfg = wan_config_from_json(tdir) or (WAN_1_3B if args.model_size == "1.3B" else WAN_14B)
+    cache = os.path.join(args.converted_cache, "wan_dit") if args.converted_cache else None
+    cached = os.path.join(cache, "params.safetensors") if cache else None
+    if cached and os.path.isfile(cached):
+        logger.info(f"loading converted params from cache {cache}")
+        sd = load_file(cached)
+    else:
+        sd = convert_wan_dit(load_dir(tdir), cfg)
+    model = WanModel(cfg, dtype=torch.bfloat16, device=device)
+    model.load_state_dict(sd)
+    if cached and not os.path.isfile(cached):
+        os.makedirs(cache, exist_ok=True)
+        save_file(model.state_dict(), cached)
+        logger.info(f"cached converted params -> {cache}")
+    del sd
+
+    logger.info("encoding prompts with UMT5")
+    t5 = UMT5Encoder.from_dir(args.model_dir, text_len=cfg.text_len, device=device)
+    ctx = t5([args.prompt]).to(torch.bfloat16)
+    ctx_null = t5([args.neg_prompt]).to(torch.bfloat16)
+    del t5  # free the encoder (~11 GB for UMT5-XXL) before the DiT runs
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+    vae_dir = os.path.join(args.model_dir, "vae")
+    if not os.path.isdir(vae_dir):
+        logger.warning(f"no {vae_dir}: saving latents instead of video")
+        return model, ctx, ctx_null, None
+    vae_cfg = dataclass_from_json(vae_dir, WanVAEConfig) or WanVAEConfig()
+    vae = WanVAE(vae_cfg, device=device)
+    vae.load_state_dict(convert_wan_vae(load_dir(vae_dir), vae_cfg))
+    return model, ctx, ctx_null, make_vae_decoder(args, vae, logger)
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(levelname)s %(message)s")
-    if args.skip_existing and os.path.exists(args.output_file):
-        print(f"output {args.output_file} exists; skipping generation")
-        return
+    if args.skip_existing:
+        out = args.output_file
+        for path in (out, out[: -len(".npz")] + ".y4m" if out.endswith(".npz") else out):
+            if os.path.exists(path):
+                print(f"output {path} exists; skipping generation")
+                return
     missing = _unported(args)
     if missing is not None:
         raise NotImplementedError(f"{missing} is not ported to the torch package yet (ROADMAP.md)")
@@ -124,22 +188,43 @@ def main(argv=None):
         rank = mesh.comm.rank
         if device.type == "cuda":
             device = torch.device("cuda", torch.cuda.current_device())
+    if args.prompt_source != "prompt":
+        # --prompt is the prompt list and --prompt_idx picks the entry
+        from sparse_videogen_tpu_torch.utils.dataloader import load_prompt_or_image
+
+        args.prompt, _ = load_prompt_or_image(args.prompt_source, args.prompt_idx, args.prompt, None)
     if args.flow_shift is None:
         args.flow_shift = 5.0 if args.height >= 720 else 3.0
+    if not args.neg_prompt:
+        args.neg_prompt = DEFAULT_NEG_PROMPT
 
-    logger.warning("no --model_dir: running smoke generation with random weights")
-    cfg = WanConfig(**SMOKE_CFG)
-    gen = torch.Generator(device=device).manual_seed(args.seed)
-    model = WanModel(cfg, dtype=torch.bfloat16, device=device).init_random(gen)
-    rng = np.random.default_rng(args.seed)
-    ctx = torch.as_tensor(rng.standard_normal((1, cfg.text_len, cfg.text_dim)), dtype=torch.bfloat16, device=device)
-    ctx_null = torch.zeros_like(ctx)
-    args.height, args.width = min(args.height, 96), min(args.width, 128)
-    args.num_frames = min(args.num_frames, 9)
-    args.num_inference_steps = min(args.num_inference_steps, 4)
-    args.num_q_centroids = min(args.num_q_centroids, 8)
-    args.num_k_centroids = min(args.num_k_centroids, 12)
-    args.kmeans_iter_init = min(args.kmeans_iter_init, 8)
+    vae_decode = None
+    args.model_dir = resolve_model_dir(args, logger)
+    if args.smoke or args.model_dir is None:
+        logger.warning("no --model_dir: running smoke generation with random weights")
+        cfg = WanConfig(**SMOKE_CFG)
+        gen = torch.Generator(device=device).manual_seed(args.seed)
+        model = WanModel(cfg, dtype=torch.bfloat16, device=device).init_random(gen)
+        rng = np.random.default_rng(args.seed)
+        ctx = torch.as_tensor(rng.standard_normal((1, cfg.text_len, cfg.text_dim)), dtype=torch.bfloat16,
+                              device=device)
+        ctx_null = torch.zeros_like(ctx)
+        args.height, args.width = min(args.height, 96), min(args.width, 128)
+        args.num_frames = min(args.num_frames, 9)
+        args.num_inference_steps = min(args.num_inference_steps, 4)
+        args.num_q_centroids = min(args.num_q_centroids, 8)
+        args.num_k_centroids = min(args.num_k_centroids, 12)
+        args.kmeans_iter_init = min(args.kmeans_iter_init, 8)
+        if not args.output_file.endswith(".npz"):
+            # a video name: decode through a tiny random VAE, so the smoke run
+            # goes through pixels and the container too
+            from sparse_videogen_tpu_torch.models.wan.vae import WanVAE, WanVAEConfig
+
+            vae = WanVAE(WanVAEConfig(**SMOKE_VAE_CFG), device=device)
+            vae.init_random(torch.Generator(device=device).manual_seed(1))
+            vae_decode = make_vae_decoder(args, vae, logger)
+    else:
+        model, ctx, ctx_null, vae_decode = _load_checkpoint(args, device)
 
     lat = WanPipeline(model).generate_latents(
         ctx, ctx_null,
@@ -163,7 +248,18 @@ def main(argv=None):
         import torch.distributed as dist
 
         dist.destroy_process_group()
-    if rank == 0:
+    if rank != 0:
+        return
+    if vae_decode is not None:
+        from sparse_videogen_tpu_torch.pipelines.wan import export_video
+
+        video = vae_decode(lat)
+        out = args.output_file
+        if out.endswith(".npz"):
+            out = out[: -len(".npz")] + ".y4m"
+        export_video(video, out, fps=16)
+        logger.info(f"saved video {tuple(video.shape)} -> {out}")
+    else:
         np.savez(args.output_file, latents=lat.cpu().numpy())
         logger.info(f"saved latents {tuple(lat.shape)} -> {args.output_file}")
 

@@ -1,11 +1,13 @@
 """JAX package state (as numpy) -> the port's: the Wan parameter pytree ->
-WanModel state_dict, the HunyuanVideo pytree -> a HyVideoModel, the
-CogVideoX pytree -> a CogModel, and SAP's k-means carry -> SAPState.
+WanModel state_dict, the UMT5 pytree -> T5Encoder's, the Wan VAE pytree ->
+WanVAE's, the HunyuanVideo pytree -> a HyVideoModel, the CogVideoX pytree ->
+a CogModel, and SAP's k-means carry -> SAPState.
 
-The JAX package stores linears as {"w": (d_in, d_out), "b": (d_out,)} and
-stacks the blocks on a leading layer axis; nn.Linear wants (d_out, d_in) and
-a ModuleList. Feeding both packages the same weights and states is what the
-parity tests rest on.
+The JAX package stores linears as {"w": (d_in, d_out), "b": (d_out,)},
+convolutions channels-last ((kt, kh, kw, ci, co), (kh, kw, ci, co)), and
+stacks the blocks on a leading layer axis; nn.Linear wants (d_out, d_in),
+convolutions (co, ci, k...), and a ModuleList. Feeding both packages the
+same weights and states is what the parity tests rest on.
 """
 
 from __future__ import annotations
@@ -46,6 +48,53 @@ def wan_params_from_numpy(tree, cfg) -> dict:
         for fc in ("fc1", "fc2"):
             _linear(sd, f"{b}.ffn.{fc}", {k: layer(a) for k, a in blocks["ffn"][fc].items()})
     return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()}
+
+
+def umt5_params_from_numpy(tree, cfg) -> dict:
+    """tree: init_t5_params(...) (UMT5) with numpy leaves. Returns a state_dict
+    of torch tensors (the leaves' dtypes) for T5Encoder(cfg)."""
+    sd = {"token_embedding": tree["token_embedding"], "norm": tree["norm"]}
+    blocks = tree["blocks"]
+    for i in range(cfg.num_layers):
+        for nm in ("norm1", "norm2", "rel_embedding"):
+            sd[f"blocks.{i}.{nm}"] = np.asarray(blocks[nm])[i]
+        for nm in ("q", "k", "v", "o", "gate", "fc1", "fc2"):
+            sd[f"blocks.{i}.{nm}.weight"] = np.asarray(blocks[nm]["w"])[i].T
+    return {k: _tensor(v, "cpu") for k, v in sd.items()}
+
+
+def wan_vae_params_from_numpy(tree, cfg) -> dict:
+    """tree: init_wan_vae_params(...) or convert_wan_vae(...) with numpy
+    leaves. Returns a state_dict for WanVAE(cfg) (conv2 and the decoder):
+    conv3d (kt, kh, kw, ci, co) -> (co, ci, kt, kh, kw), conv2d (kh, kw, ci,
+    co) -> (co, ci, kh, kw)."""
+    sd = {}
+
+    def conv(name, p):
+        w = np.asarray(p["w"])
+        sd[f"{name}.weight"] = w.transpose(4, 3, 0, 1, 2) if w.ndim == 5 else w.transpose(3, 2, 0, 1)
+        sd[f"{name}.bias"] = p["b"]
+
+    def block(name, p):
+        for nm, v in p.items():
+            if isinstance(v, dict):
+                conv(f"{name}.{nm}", v)
+            else:
+                sd[f"{name}.{nm}"] = v
+
+    dec = tree["decoder"]
+    conv("conv2", tree["conv2"])
+    conv("decoder.conv1", dec["conv1"])
+    conv("decoder.head_conv", dec["head_conv"])
+    sd["decoder.head_norm"] = dec["head_norm"]
+    for j, p in enumerate(dec["middle"]):
+        block(f"decoder.middle.{j}", p)
+    for i, stage in enumerate(dec["up"]):
+        for j, p in enumerate(stage["blocks"]):
+            block(f"decoder.up.{i}.blocks.{j}", p)
+        for nm, p in stage.get("resample", {}).items():
+            conv(f"decoder.up.{i}.resample.{nm}", p)
+    return {k: _tensor(v, "cpu") for k, v in sd.items()}
 
 
 def hyvideo_params_from_numpy(tree, cfg):

@@ -5,6 +5,7 @@ runs the two streams as separate batch-1 forwards, each with its own k-means
 states, as the JAX pipeline does. With a ring of more than one rank (`mesh`,
 parallel/mesh.make_mesh; --ring_degree), dense and SAP attention run
 token-sharded (parallel/ring_runtime.py); SVG raises, as in the JAX package.
+`export_video` writes the VAE's output as a .y4m or .mp4.
 """
 
 from __future__ import annotations
@@ -176,3 +177,20 @@ class WanPipeline:
         v = self.model(x, t, ctx, attention=runtime, generator=generator)
         stream_states[s] = runtime.states
         return v
+
+
+def export_video(video, path: str, fps: int = 16) -> None:
+    """video (B, 3, T, H, W) in [-1, 1] (a tensor on any device) -> .mp4
+    (MJPEG, io/mp4.py; needs PIL) or, for any other name, .y4m (lossless,
+    io/native.py). The uint8 conversion truncates, as in the JAX package."""
+    v = video[0].float().cpu().numpy()
+    v = np.clip((v + 1.0) * 127.5, 0, 255).astype(np.uint8)
+    v = np.transpose(v, (1, 2, 3, 0))  # (T, H, W, 3)
+    if path.endswith(".mp4"):
+        from sparse_videogen_tpu_torch.io.mp4 import write_mp4
+
+        write_mp4(path, v, fps=fps)
+    else:
+        from sparse_videogen_tpu_torch.io.native import write_y4m
+
+        write_y4m(path, v, fps=fps)

@@ -7,6 +7,8 @@ in interpret mode, the port's plain versions on the CPU. Differences are
 f32 summation order only; tolerances are stated per test.
 """
 
+import sys
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -182,16 +184,21 @@ def test_cli_smoke_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("argv,exc", [
-    (["--device", "cuda:99"], RuntimeError),
-    (["--device", "cpu", "--model_dir", "/nonexistent"], NotImplementedError),
-    (["--device", "cpu", "--output_file", "video.mp4"], NotImplementedError),
-    (["--device", "cpu", "--pattern", "SAP", "--sap_block_mode", "tile"], NotImplementedError),
+    (["--smoke", "--device", "cuda:99"], RuntimeError),
+    (["--device", "cpu", "--model_dir", "/nonexistent"], FileNotFoundError),
+    (["--smoke", "--device", "cpu", "--output_file", "video.mp4"], ImportError),
+    (["--smoke", "--device", "cpu", "--pattern", "SAP", "--sap_block_mode", "tile"], NotImplementedError),
 ], ids=["no_card_no_fallback", "model_dir", "video", "sap"])
-def test_cli_refuses_what_is_not_ported(tmp_path, argv, exc):
-    if argv[1].startswith("cuda") and torch.cuda.is_available():
+def test_cli_refuses_what_is_not_ported(tmp_path, monkeypatch, argv, exc):
+    """No fallback to the CPU; a checkpoint dir that does not exist is refused,
+    not replaced by random weights; .mp4 on a host without PIL (the card's)
+    raises ImportError naming .y4m; SAP's tile mode is not ported."""
+    if "cuda:99" in argv and torch.cuda.is_available():
         pytest.skip("this host has a card: nothing to refuse")
-    with pytest.raises(exc):
-        TCLI.main(["--smoke", "--output_file", str(tmp_path / "x.npz")] + argv)
+    monkeypatch.setitem(sys.modules, "PIL", None)
+    argv = [str(tmp_path / a) if a.endswith(".mp4") else a for a in argv]
+    with pytest.raises(exc, match=r"\.y4m" if exc is ImportError else None):
+        TCLI.main(["--output_file", str(tmp_path / "x.npz")] + argv)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
