@@ -52,10 +52,10 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    # q, k, v, o, meta, aux, order, BH, Sq, Skv, D, R, nQ, L, block_q,
-    # mask_kind, band_width, sink_size, video_len, frame_size, num_frames, q_scale, m_out, l_out, stream
-    "svt_block_sparse_attn": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                              _I, _I, _I, _I, _I, _I, _F, _P, _P, _P],
+    # q, k, v, o, meta, slab_meta, aux, order, BH, Sq, Skv, D, R, nQ, L, block_q,
+    # mask_kind, band_width, sink_size, video_len, frame_size, num_frames, n_items, q_scale, m_out, l_out, stream
+    "svt_block_sparse_attn": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                              _I, _I, _I, _I, _I, _I, _I, _F, _P, _P, _P],
     # D -> dynamic shared memory of one chunked-CSR attention CTA (bytes)
     "svt_block_sparse_attn_smem": [_I],
     # x, cos, sin, out, BH, S, D, stream
@@ -64,18 +64,14 @@ _SIGNATURES = {
     # mask_kind, band_width, sink_size, q_scale, m_out, l_out, stream
     "svt_block_sparse_attn_runs": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                                    _I, _I, _I, _F, _P, _P, _P],
-    # B, N, K -> number of token slabs of the k-means update
-    "svt_kmeans_wide_num_slabs": [_I, _I, _I],
-    # x, c, csq, labels, overflow, part_sums, part_counts, sums, counts, B, N, K, D, variant, n_slabs, stream
-    "svt_kmeans_wide": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # q, k, v, o, BH, S, D, bq, qsplit, q_scale, stream
     "svt_dense_qsplit": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     # D, qsplit -> dynamic shared memory of one K7 CTA (bytes)
     "svt_dense_qsplit_smem": [_I, _I],
-    # x, c, labels, sums, counts, work, B, N, K, D, stream
-    "svt_kmeans_lloyd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    # B, N, K, D -> bytes of the pass's workspace (a long long)
-    "svt_kmeans_lloyd_workspace": [_I, _I, _I, _I],
+    # x, c, labels, sums, counts, overflow, work, B, N, K, D, variant, stream
+    "svt_kmeans_lloyd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # B, N, K, D, variant -> bytes of the pass's workspace (a long long)
+    "svt_kmeans_lloyd_workspace": [_I, _I, _I, _I, _I],
 }
 _RESTYPES = {"svt_kmeans_lloyd_workspace": ctypes.c_longlong}
 
@@ -175,7 +171,8 @@ def ptxas_report(log: str) -> list[dict]:
     with the (m, l) stats), bsa_dual_kernel<D, MODE> (K1's dual per-head
     spec; `kind` holds the MODE: 0, or 4 with the stats), runs_kernel<D> and
     runs_stats_kernel<D> (K3/K4), dense_kernel<D, MODE> (K7; `kind`
-    holds the MODE) and kmeans_assign_kernel<D> (K5) instance."""
+    holds the MODE) and kmeans_assign_kernel<D, V> (K5 and K8's variants;
+    `kind` holds V: 0 = A, K5's own) instance."""
     rows, cur = [], None
     for line in log.splitlines():
         if (e := _ENTRY.search(line)) is not None:

@@ -19,6 +19,17 @@
 //                  saw no live column kept as it is), l the f32 row sum.
 //                  A separate instance: the instances without it keep their
 //                  code.
+//   MODE_SLAB      K1's temporal heads of the dual spec (placement-free
+//                  SVG1): the CTA's q rows and every K/V tile are slot slabs,
+//                  n_s = 128 / F slots x all F frames (F = num_frames), each
+//                  loaded by one TMA box of a 4-D tensor map over (D, frame,
+//                  slot, batch*head) of the original token layout. The box
+//                  lands frame-fastest, so stage row r holds permuted
+//                  position p = slab * P + r (P = n_s * F rows, the rest of
+//                  the 128 padding that TMA never writes and the CTA zeroes
+//                  once), and band_sink_perm is KIND_BAND_SINK's band and sink
+//                  on p. A chunk is one K/V slab (SlabChunks); rows are
+//                  stored to token (p % F) * frame_size + p / F.
 //
 // Numerics (the TPU kernels' of K1, K3, K4): q pre-scaled by
 // scale*log2(e) and rounded to bf16, the online softmax in f32 in the exp2 domain, P rounded to bf16 for
@@ -84,7 +95,7 @@ constexpr int ROW_BYTES = 128;  // one 64-column box row, the 128B swizzle span
 constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
 constexpr float NEG_INF = -0.7f * 3.402823466e38f;
 constexpr float LOG2E = 1.4426950408889634f;
-constexpr int MODE_NAT = 1, MODE_PINGPONG = 2, MODE_STATS = 4;
+constexpr int MODE_NAT = 1, MODE_PINGPONG = 2, MODE_STATS = 4, MODE_SLAB = 8;
 
 // PP: the ping-pong ring (MODE_PINGPONG): 3 stages at D = 128 and a
 // separate empty barrier for the K and the V of each stage
@@ -139,6 +150,16 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, u
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(
           dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// a 64-column box at (column c0, c1, c2, c3) of a 4-D tensor map (MODE_SLAB)
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0, int c1, int c2,
+                                            int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], "
+      "[%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
 }
 
@@ -265,47 +286,15 @@ struct RowState {
   float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;
 };
 
-// The window [lo, hi) and, with `pred`, KIND_BAND_SINK_PERM's predicate over
-// this thread's 64 scores of a tile: rows qp0 and qp0 + 8, columns t0 + 8j +
-// 2 t4 + e (j < 16, e < 2). The rows' permuted positions are computed once;
-// the columns' (frame, slot) pair is stepped along the walk (+1, +8 tokens:
-// at most one frame wrap while frame_size > 8) instead of a division a
-// column.
-__device__ __forceinline__ void perm_mask(float (&s)[64], const MaskArgs& mk, bool pred, int t0, int lo, int hi,
-                                          int qp0, int kbase, int t4) {
-  const int fs = mk.frame_size, F = mk.num_frames, w = mk.band_width;
-  const int pq0 = perm_pos(mk, qp0), pq1 = perm_pos(mk, qp0 + 8);
-  const int x = kbase + t0 + 2 * t4;
-  int kf = x / fs;
-  int ks = x - kf * fs;
-#pragma unroll
-  for (int j = 0; j < 16; ++j) {
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int col = t0 + 8 * j + 2 * t4 + e;
-      const bool wrap = ks + e >= fs;
-      const int pk = (wrap ? ks + e - fs : ks + e) * F + (wrap ? kf + 1 : kf);
-      const bool live = col >= lo && col < hi;
-      const bool sink = pk < mk.sink_size;
-      const bool ok0 = live && (!pred || sink || (pq0 - pk < w && pk - pq0 < w));
-      const bool ok1 = live && (!pred || sink || (pq1 - pk < w && pk - pq1 < w));
-      if (!ok0) s[4 * j + e] = NEG_INF;
-      if (!ok1) s[4 * j + 2 + e] = NEG_INF;
-    }
-    ks += 8;
-    if (ks >= fs) {
-      ks -= fs;
-      ++kf;
-    }
-  }
-}
-
 // One K/V tile for a consumer warpgroup (its K has arrived): S = Q K^T, the
 // window where the tile straddles [lo, hi) and, MASKED with cls ==
 // TILE_SOME, the kind's predicate per pair; the exp2 online softmax; then,
 // once V has arrived, O += P V.
 // NAT: K7's natural-unit scores (MODE_NAT), log2(e) folded into the exp2 FFMA.
-template <int D, int KIND, bool MASKED, bool NAT = false>
+// SLAB (MODE_SLAB): the tile is a slab whose columns [hi, BK) are padding
+// (lo == t0 == 0); hi > 64 unless cls == TILE_SOME, so a tile without the
+// predicate masks only its upper half.
+template <int D, int KIND, bool MASKED, bool NAT = false, bool SLAB = false>
 __device__ __forceinline__ void attend_tile(float (&acc)[D / 2], float (&s)[64], RowState& st, uint32_t q_addr,
                                             uint32_t k_addr, uint32_t v_addr, uint32_t v_bar, uint32_t phase, int t0,
                                             int lo, int hi, int cls, const MaskArgs& mk, int qp0, int kbase, int t4) {
@@ -313,17 +302,26 @@ __device__ __forceinline__ void attend_tile(float (&acc)[D / 2], float (&s)[64],
   wg_wait0();
   reg_fence(s);
 
-  if ((MASKED && cls == TILE_SOME) || t0 < lo || t0 + BK > hi) {
-    if constexpr (MASKED && KIND == KIND_BAND_SINK_PERM) {
-      perm_mask(s, mk, cls == TILE_SOME, t0, lo, hi, qp0, kbase, t4);
-    } else {
+  if constexpr (SLAB) {
+    if (cls == TILE_SOME) {
+#pragma unroll
+      for (int i = 0; i < 64; ++i) {
+        const int col = 8 * (i / 4) + 2 * t4 + (i & 1);
+        if (!(col < hi && mask_allows<KIND>(mk, qp0 + ((i & 2) ? 8 : 0), kbase + col))) s[i] = NEG_INF;
+      }
+    } else if (hi < BK) {
+#pragma unroll
+      for (int i = 32; i < 64; ++i) {
+        if (8 * (i / 4) + 2 * t4 + (i & 1) >= hi) s[i] = NEG_INF;
+      }
+    }
+  } else if ((MASKED && cls == TILE_SOME) || t0 < lo || t0 + BK > hi) {
 #pragma unroll
     for (int i = 0; i < 64; ++i) {
       const int col = t0 + 8 * (i / 4) + 2 * t4 + (i & 1);
       bool ok = col >= lo && col < hi;
       if (MASKED && cls == TILE_SOME && ok) ok = mask_allows<KIND>(mk, qp0 + ((i & 2) ? 8 : 0), kbase + col);
       if (!ok) s[i] = NEG_INF;
-    }
     }
   }
 
@@ -544,7 +542,10 @@ __device__ __forceinline__ WorkItem work_item(const int* __restrict__ order, int
 // (q + aux[2], k + aux[3]) with text_end aux[0] (the text kinds) on masked
 // chunks. MODE: see the top of this file; with MODE_PINGPONG every chunk is
 // taken as unmasked (K7's dense chunk). frame_size and num_frames are
-// KIND_BAND_SINK_PERM's; m_out and l_out ((BH, Sq) f32) MODE_STATS's.
+// MODE_SLAB's: there it.q0 is the q slab's first permuted position, the
+// chunks are K/V slabs (SlabChunks in csrc/block_sparse_attn.cu), KIND is
+// KIND_BAND_SINK on permuted positions and the aux offsets are not read.
+// m_out and l_out ((BH, Sq) f32) are MODE_STATS's.
 template <int D, int KIND, int MODE = 0, class Chunks>
 __device__ __forceinline__ void attn_cta(const CUtensorMap* tm_q, const CUtensorMap* tm_k, const CUtensorMap* tm_v,
                                          bf16* __restrict__ o, const Chunks& chunks, WorkItem it, int Sq, int Skv,
@@ -552,8 +553,9 @@ __device__ __forceinline__ void attn_cta(const CUtensorMap* tm_q, const CUtensor
                                          float q_scale, int frame_size = 0, int num_frames = 0,
                                          float* __restrict__ m_out = nullptr, float* __restrict__ l_out = nullptr) {
   constexpr bool NAT = (MODE & MODE_NAT) != 0, PP = (MODE & MODE_PINGPONG) != 0;
-  constexpr bool STATS = (MODE & MODE_STATS) != 0;
+  constexpr bool STATS = (MODE & MODE_STATS) != 0, SLAB = (MODE & MODE_SLAB) != 0;
   static_assert(!(STATS && (NAT || PP)), "stats come with K1/K3/K4's numerics and schedule");
+  static_assert(!(SLAB && (NAT || PP)), "slabs come with K1's numerics and schedule");
   using LY = Layout<D, PP>;
   constexpr int STAGES = LY::STAGES;
   extern __shared__ unsigned char smem_raw[];
@@ -567,6 +569,20 @@ __device__ __forceinline__ void attn_cta(const CUtensorMap* tm_q, const CUtensor
   auto empty_v = [&](int s) { return bar + 8 * (3 * STAGES + s); };  // PP only
   const uint32_t q_full = bar + 8 * LY::BARS_A_STAGE * STAGES;
   const int bh = it.bh, q0 = it.q0;
+  // MODE_SLAB's geometry: n_s slots a slab, P rows of the 128 live, S
+  // tokens (and permuted positions) in the video
+  const int n_s = SLAB ? BQ / num_frames : 1, P = n_s * num_frames, S = frame_size * num_frames;
+
+  if constexpr (SLAB) {
+    // rows [P, 128) of the q tile and of every K and V stage, 16 KB boxes
+    // side by side from the base: TMA never writes them, and the zero V rows
+    // keep the masked columns' 0 * V finite
+    const int pad16 = (BQ - P) * ROW_BYTES / 16;
+    for (int i = threadIdx.x; i < (D / 64) * (1 + 2 * STAGES) * pad16; i += NTHREADS)
+      reinterpret_cast<uint4*>(gbase + (i / pad16) * BK * ROW_BYTES + P * ROW_BYTES)[i % pad16] =
+          make_uint4(0, 0, 0, 0);
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  }
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) {
@@ -583,7 +599,36 @@ __device__ __forceinline__ void attn_cta(const CUtensorMap* tm_q, const CUtensor
   if (threadIdx.x < 128) {
     // producer warpgroup: one thread issues every load
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
-    if (threadIdx.x == 0) {
+    if constexpr (SLAB) {
+      if (threadIdx.x == 0) {
+        // q slab q0 / P and each K/V slab: one box (64 columns, F frames, n_s
+        // slots) a 64-column half; rows past slot frame_size - 1 arrive as zeros
+        const uint32_t slab_bytes = P * ROW_BYTES * (D / 64);
+        mbar_expect_tx(q_full, slab_bytes);
+#pragma unroll
+        for (int cb = 0; cb < D / 64; ++cb)
+          tma_load_4d(sq + cb * BQ * ROW_BYTES, tm_q, q_full, cb * 64, 0, q0 / num_frames, bh);
+        int stage = 0;
+        uint32_t phase = 0;
+        chunks.walk([&](int slab, int, int, bool) {
+          mbar_wait(empty(stage), phase ^ 1);
+          const uint32_t ks = base + LY::K_OFF + stage * LY::TILE_BYTES;
+          const uint32_t vs = base + LY::V_OFF + stage * LY::TILE_BYTES;
+          mbar_expect_tx(full_k(stage), slab_bytes);
+#pragma unroll
+          for (int cb = 0; cb < D / 64; ++cb)
+            tma_load_4d(ks + cb * BK * ROW_BYTES, tm_k, full_k(stage), cb * 64, 0, slab * n_s, bh);
+          mbar_expect_tx(full_v(stage), slab_bytes);
+#pragma unroll
+          for (int cb = 0; cb < D / 64; ++cb)
+            tma_load_4d(vs + cb * BK * ROW_BYTES, tm_v, full_v(stage), cb * 64, 0, slab * n_s, bh);
+          if (++stage == STAGES) {
+            stage = 0;
+            phase ^= 1;
+          }
+        });
+      }
+    } else if (threadIdx.x == 0) {
       mbar_expect_tx(q_full, LY::Q_BYTES);
 #pragma unroll
       for (int cb = 0; cb < D / 64; ++cb) tma_load(sq + cb * BQ * ROW_BYTES, tm_q, q_full, cb * 64, bh * Sq + q0);
@@ -636,12 +681,10 @@ __device__ __forceinline__ void attn_cta(const CUtensorMap* tm_q, const CUtensor
     asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
 
     const uint32_t q_addr = sq + wg * 64 * ROW_BYTES;
-    const int qw = q0 + wg * 64 + aux[2];  // this warpgroup's first q position
+    const int qw = q0 + wg * 64 + (SLAB ? 0 : aux[2]);  // this warpgroup's first q position
     const int qp0 = qw + warp * 16 + g;
-    const int koff = aux[3];
-    const MaskArgs mk = {band_width, sink_size, video_len,
-                         KIND == KIND_BAND_SINK || KIND == KIND_BAND_SINK_PERM ? 0 : aux[0], frame_size,
-                         num_frames};
+    const int koff = SLAB ? 0 : aux[3];
+    const MaskArgs mk = {band_width, sink_size, video_len, KIND == KIND_BAND_SINK ? 0 : aux[0]};
 
     float acc[D / 2];
 #pragma unroll
@@ -656,6 +699,26 @@ __device__ __forceinline__ void attn_cta(const CUtensorMap* tm_q, const CUtensor
     if constexpr (PP) {
       pingpong_consumer<D, NAT, STAGES>(acc, s, st, chunks, q_addr, base + LY::K_OFF, base + LY::V_OFF, bar, wg,
                                         lane);
+    } else if constexpr (SLAB) {
+      // a chunk is K/V slab `slab`, live columns [0, hi), permuted positions
+      // slab * P + column; the window needs the predicate's column test below 64
+      chunks.walk([&](int slab, int, int hi, bool) {
+        const int kbase = slab * P;
+        int cls = mask_tile<KIND>(mk, qw, qw + 63, kbase, kbase + hi - 1);
+        if (hi < 64 && cls == TILE_ALL) cls = TILE_SOME;
+        mbar_wait(full_k(stage), phase);
+        if (cls == TILE_NONE)
+          mbar_wait(full_v(stage), phase);
+        else
+          attend_tile<D, KIND, true, false, true>(acc, s, st, q_addr, base + LY::K_OFF + stage * LY::TILE_BYTES,
+                                                  base + LY::V_OFF + stage * LY::TILE_BYTES, full_v(stage), phase, 0, 0,
+                                                  hi, cls, mk, qp0, kbase, t4);
+        if (lane == 0) mbar_arrive(empty(stage));
+        if (++stage == STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      });
     } else {
 
     auto release = [&]() {
@@ -702,6 +765,41 @@ __device__ __forceinline__ void attn_cta(const CUtensorMap* tm_q, const CUtensor
     l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
     l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
     const float inv0 = 1.f / fmaxf(l0, 1e-20f), inv1 = 1.f / fmaxf(l1, 1e-20f);
+    if constexpr (SLAB) {
+      // slab row r holds p = q0 + r, token (p % F) * frame_size + p / F;
+      // padding rows and p >= S are not stored
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = wg * 64 + warp * 16 + g + 8 * h, p = q0 + r;
+        if (r < P && p < S) {
+          const size_t row = (size_t)bh * Sq + (p % num_frames) * frame_size + p / num_frames;
+          const float inv = h ? inv1 : inv0, m = h ? st.m1 : st.m0;
+          if (STATS && t4 == 0) {
+            m_out[row] = m > 0.5f * NEG_INF ? m / LOG2E : m;
+            l_out[row] = h ? l1 : l0;
+          }
+          bf16* orow = o + row * D + 2 * t4;
+#pragma unroll
+          for (int i = 0; i < D / 2; i += 4)
+            *reinterpret_cast<__nv_bfloat162*>(orow + 2 * i) =
+                __floats2bfloat162_rn(acc[i + 2 * h] * inv, acc[i + 2 * h + 1] * inv);
+        }
+      }
+      // the q padding past the video, rows [S, Sq): the last slab writes
+      // them as rows that saw no live column
+      if (q0 + P >= S) {
+        const int ct = threadIdx.x - 128;
+        uint4* pad = reinterpret_cast<uint4*>(o + ((size_t)bh * Sq + S) * D);
+        for (int i = ct; i < (Sq - S) * D / 8; i += 256) pad[i] = make_uint4(0, 0, 0, 0);
+        if constexpr (STATS) {
+          for (int i = ct; i < Sq - S; i += 256) {
+            m_out[(size_t)bh * Sq + S + i] = NEG_INF;
+            l_out[(size_t)bh * Sq + S + i] = 0.f;
+          }
+        }
+      }
+      return;
+    }
     if constexpr (STATS) {
       // the quad's four threads hold the same m and (summed) l
       const size_t row = (size_t)bh * Sq + q0 + wg * 64 + warp * 16 + g;

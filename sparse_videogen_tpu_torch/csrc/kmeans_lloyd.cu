@@ -41,7 +41,24 @@
 //      segments' partial sums in segment order.
 // No float atomics: the same inputs give the same bits on every run (the
 // reference's sorted segment sum, as the TPU kernel's docstring names it).
+//
+// K8, the probe's five variants of the pass (scripts/probe_kmeans_variants.py
+// ::_kernel, entry run), run on this pipeline with the variant as a template
+// parameter of the assign; A is this pass itself:
+//   A  the running argmin above
+//   B  per 128-centroid tile a two-min (the tile's row minimum, then the
+//      first k at or below it), merged across tiles by a strict <: the
+//      same labels as A
+//   C  B's labels; the counts taken from the tensor cores
+//      (kmeans_count_kernel: the one-hot of the labels against a ones
+//      operand, mma.sync, exact in f32) instead of the histogram
+//   D  no labels: a multi-hot. The assign keeps up to TIES tied k a token
+//      (dist == the row's minimum; more count into `overflow`), labels (B,
+//      N, TIES) padded with -1, and the update sorts and sums every (token,
+//      tied k) entry
+//   E  the assign's labels alone; sums and counts 0
 
+#include <limits.h>
 #include <math.h>
 
 #include <type_traits>
@@ -57,6 +74,10 @@ constexpr int SEG = 128;   // tokens at most a segment of the sums
 constexpr int SCAN_THREADS = 1024;
 constexpr int WARPS = 4;   // warps a CTA of the |c|^2, scatter, segment-sum and combine kernels
 constexpr int INFLIGHT = 16;  // rows a segment-sum warp loads before it adds them
+constexpr int TIES = 4;       // tied clusters variant D keeps a token (ops/kmeans.py D_TIES)
+constexpr int COUNT_WARPS = 8;  // warps of a kmeans_count_kernel CTA, each a share of the tokens
+
+enum Variant { VA = 0, VB = 1, VC = 2, VD = 3, VE = 4 };
 
 template <int D>
 struct AssignLayout {
@@ -82,15 +103,16 @@ struct Work {
   int* hist;       // (B, n_ch, K): a chunk's label counts, then its start in the sorted order
   int* offs;       // (B, K): a cluster's first position in the sorted order
   int* seg_start;  // (B, K + 1): a cluster's first segment; [K] the number of segments
-  int* perm;       // (B, N): token ids sorted by (label, token)
+  int* perm;       // (B, N * slots): token ids sorted by (label, token)
   float* partial;  // (B, max_segs, D): the segments' sums
   int k_pad, n_ch, max_segs;
 };
 
 size_t align256(size_t x) { return (x + 255) & ~(size_t)255; }
 
-size_t carve(void* base, int B, int N, int K, int D, Work* w) {
-  const int k_pad = cdiv(K, CT) * CT, n_ch = cdiv(N, CH), max_segs = cdiv(N, SEG) + K;
+// `slots` sorted entries a token: 1, or TIES for variant D
+size_t carve(void* base, int B, int N, int K, int D, int slots, Work* w) {
+  const int k_pad = cdiv(K, CT) * CT, n_ch = cdiv(N, CH), max_segs = cdiv(N * slots, SEG) + K;
   size_t off = 0;
   auto take = [&](size_t bytes) {
     char* p = base == nullptr ? nullptr : static_cast<char*>(base) + off;
@@ -101,7 +123,7 @@ size_t carve(void* base, int B, int N, int K, int D, Work* w) {
   int* hist = (int*)take((size_t)B * n_ch * K * 4);
   int* offs = (int*)take((size_t)B * K * 4);
   int* seg = (int*)take((size_t)B * (K + 1) * 4);
-  int* perm = (int*)take((size_t)B * N * 4);
+  int* perm = (int*)take((size_t)B * N * slots * 4);
   float* partial = (float*)take((size_t)B * max_segs * D * 4);
   if (w != nullptr) *w = {csq, hist, offs, seg, perm, partial, k_pad, n_ch, max_segs};
   return off;
@@ -142,12 +164,14 @@ kmeans_csq_kernel(const bf16* __restrict__ c, float* __restrict__ csq, int B, in
 // + gridDim.x, ...: its producer loads an item's token tile into one of two
 // buffers (the next item's loads while this one computes) and streams the
 // item's centroid tiles, each with its |c|^2, through the ring. labels (B,
-// N); hist (B, n_ch, K) zeroed: += one per token and label.
-template <int D>
+// N), with V == VD (B, N, TIES); hist (B, n_ch, K) zeroed: += one per token
+// and label (V == VE: not touched); overflow (V == VD): += one per token
+// with more than TIES tied k. V is VA, VB, VD or VE (C runs VB).
+template <int D, int V>
 __global__ void __launch_bounds__(NTHREADS, 1)
 kmeans_assign_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtensorMap tm_c,
-                     const float* __restrict__ csq_g, int* __restrict__ labels, int* __restrict__ hist, int B, int N,
-                     int K, int k_pad, int n_ch) {
+                     const float* __restrict__ csq_g, int* __restrict__ labels, int* __restrict__ hist,
+                     int* __restrict__ overflow, int B, int N, int K, int k_pad, int n_ch) {
   using LY = AssignLayout<D>;
   constexpr int STAGES = LY::STAGES;
   const int tiles = cdiv(N, XT), n_items = B * tiles;
@@ -224,12 +248,17 @@ kmeans_assign_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_cons
     for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
       const int b = item / tiles, t0 = (item % tiles) * XT;
       const uint32_t xa = base + xb * LY::X_BYTES + wg * 128 * ROW_BYTES;  // this warpgroup's first row
+      // row r = 2 * tile + half of this thread: best distance, its k (D:
+      // the count and the first TIES k at it, ascending)
       float best[4];
-      int arg[4];
+      int arg[4], cnt[4], tie[4][TIES];
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
         best[r] = INFINITY;
         arg[r] = 0;
+        cnt[r] = 0;
+#pragma unroll
+        for (int e = 0; e < TIES; ++e) tie[r][e] = -1;
       }
       mbar_wait(x_full(xb), xphase);
       for (int j = 0; j < n_ct; ++j) {
@@ -254,19 +283,83 @@ kmeans_assign_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_cons
         // subtraction would); this thread's columns of a row come in
         // ascending k, so the strict < keeps the first
         const float* csq = reinterpret_cast<const float*>(gbase + LY::CSQ_OFF + stage * LY::CSQ_BYTES);
+        if constexpr (V == VB || V == VD) {
+          // the distances replace the products in place; this thread's
+          // minimum of each row over the tile
+          float tmin[4] = {INFINITY, INFINITY, INFINITY, INFINITY};
 #pragma unroll
-        for (int i = 0; i < 64; ++i) {
-          const int c = 8 * (i / 4) + 2 * t4 + (i & 1);
-          const float q = csq[c];
-          const int r = (i & 2) >> 1;
-          const float d0 = __fmaf_rn(-2.f, a0[i], q), d1 = __fmaf_rn(-2.f, a1[i], q);
-          if (d0 < best[r]) {
-            best[r] = d0;
-            arg[r] = k0 + c;
+          for (int i = 0; i < 64; ++i) {
+            const float q = csq[8 * (i / 4) + 2 * t4 + (i & 1)];
+            const int r = (i & 2) >> 1;
+            a0[i] = __fmaf_rn(-2.f, a0[i], q);
+            a1[i] = __fmaf_rn(-2.f, a1[i], q);
+            tmin[r] = fminf(tmin[r], a0[i]);
+            tmin[2 + r] = fminf(tmin[2 + r], a1[i]);
           }
-          if (d1 < best[2 + r]) {
-            best[2 + r] = d1;
-            arg[2 + r] = k0 + c;
+          if constexpr (V == VB) {
+            // B: the tile's row minimum, then the first k at or below it (the
+            // quad merges both); a tile replaces the state only if strictly smaller
+            int tidx[4] = {INT_MAX, INT_MAX, INT_MAX, INT_MAX};
+#pragma unroll
+            for (int r = 0; r < 4; ++r) {
+              tmin[r] = fminf(tmin[r], __shfl_xor_sync(0xffffffffu, tmin[r], 1));
+              tmin[r] = fminf(tmin[r], __shfl_xor_sync(0xffffffffu, tmin[r], 2));
+            }
+#pragma unroll
+            for (int i = 0; i < 64; ++i) {
+              const int c = 8 * (i / 4) + 2 * t4 + (i & 1);
+              const int r = (i & 2) >> 1;
+              if (a0[i] <= tmin[r] && k0 + c < tidx[r]) tidx[r] = k0 + c;
+              if (a1[i] <= tmin[2 + r] && k0 + c < tidx[2 + r]) tidx[2 + r] = k0 + c;
+            }
+#pragma unroll
+            for (int r = 0; r < 4; ++r) {
+              tidx[r] = min(tidx[r], __shfl_xor_sync(0xffffffffu, tidx[r], 1));
+              tidx[r] = min(tidx[r], __shfl_xor_sync(0xffffffffu, tidx[r], 2));
+              if (tmin[r] < best[r]) {
+                best[r] = tmin[r];
+                arg[r] = tidx[r];
+              }
+            }
+          } else {
+            // D: a running minimum with the k that tie it, ascending (a
+            // smaller minimum restarts the list; entries past cnt are stale)
+#pragma unroll
+            for (int r = 0; r < 4; ++r) {
+              if (tmin[r] < best[r]) {
+                best[r] = tmin[r];
+                cnt[r] = 0;
+              }
+            }
+            auto add = [&](int r, int k) {
+#pragma unroll
+              for (int e = 0; e < TIES; ++e)
+                if (cnt[r] == e) tie[r][e] = k;
+              ++cnt[r];
+            };
+#pragma unroll
+            for (int i = 0; i < 64; ++i) {
+              const int c = 8 * (i / 4) + 2 * t4 + (i & 1);
+              const int r = (i & 2) >> 1;
+              if (a0[i] == best[r]) add(r, k0 + c);
+              if (a1[i] == best[2 + r]) add(2 + r, k0 + c);
+            }
+          }
+        } else {
+#pragma unroll
+          for (int i = 0; i < 64; ++i) {
+            const int c = 8 * (i / 4) + 2 * t4 + (i & 1);
+            const float q = csq[c];
+            const int r = (i & 2) >> 1;
+            const float d0 = __fmaf_rn(-2.f, a0[i], q), d1 = __fmaf_rn(-2.f, a1[i], q);
+            if (d0 < best[r]) {
+              best[r] = d0;
+              arg[r] = k0 + c;
+            }
+            if (d1 < best[2 + r]) {
+              best[2 + r] = d1;
+              arg[2 + r] = k0 + c;
+            }
           }
         }
         __syncwarp();
@@ -282,28 +375,67 @@ kmeans_assign_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_cons
         xb = 0;
         xphase ^= 1;
       }
-      // the quad's four states of each row: the smaller index wins a tie
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-#pragma unroll
-        for (int off = 1; off <= 2; off <<= 1) {
-          const float ob = __shfl_xor_sync(0xffffffffu, best[r], off);
-          const int oa = __shfl_xor_sync(0xffffffffu, arg[r], off);
-          if (ob < best[r] || (ob == best[r] && oa < arg[r])) {
-            best[r] = ob;
-            arg[r] = oa;
-          }
-        }
-      }
-      if (t4 == 0) {
-        int* h = hist + ((size_t)b * n_ch + t0 / CH) * K;
+      int* h = hist + ((size_t)b * n_ch + t0 / CH) * K;
+      if constexpr (V == VD) {
+        // the quad's tie lists of each row: the k of the threads at the
+        // row's minimum, the TIES smallest in ascending order (each k is in
+        // one thread's list)
 #pragma unroll
         for (int r = 0; r < 4; ++r) {
-          // r = 2 * tile + half: row wg * 128 + tile * 64 + warp * 16 + half * 8 + g
+          float gmin = fminf(best[r], __shfl_xor_sync(0xffffffffu, best[r], 1));
+          gmin = fminf(gmin, __shfl_xor_sync(0xffffffffu, gmin, 2));
+          const int mine = best[r] == gmin ? cnt[r] : 0;
+          int total = mine + __shfl_xor_sync(0xffffffffu, mine, 1);
+          total += __shfl_xor_sync(0xffffffffu, total, 2);
+          int len[4], lists[4][TIES];
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            len[q] = min(__shfl_sync(0xffffffffu, mine, (lane & ~3) + q), TIES);
+#pragma unroll
+            for (int e = 0; e < TIES; ++e) lists[q][e] = __shfl_sync(0xffffffffu, tie[r][e], (lane & ~3) + q);
+          }
           const int t = t0 + wg * 128 + (r >> 1) * 64 + warp * 16 + (r & 1) * 8 + g;
-          if (t < N) {
-            labels[(size_t)b * N + t] = arg[r];
-            atomicAdd(h + arg[r], 1);
+          if (t4 == 0 && t < N) {
+            int* out = labels + ((size_t)b * N + t) * TIES;
+            int last = -1;
+#pragma unroll
+            for (int e = 0; e < TIES; ++e) {
+              int v = INT_MAX;
+#pragma unroll
+              for (int q = 0; q < 4; ++q)
+#pragma unroll
+                for (int u = 0; u < TIES; ++u)
+                  if (u < len[q] && lists[q][u] > last && lists[q][u] < v) v = lists[q][u];
+              out[e] = v == INT_MAX ? -1 : v;
+              if (v != INT_MAX) atomicAdd(h + v, 1);
+              last = v;
+            }
+            if (total > TIES) atomicAdd(overflow, 1);
+          }
+        }
+      } else {
+        // the quad's four states of each row: the smaller index wins a tie
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+#pragma unroll
+          for (int off = 1; off <= 2; off <<= 1) {
+            const float ob = __shfl_xor_sync(0xffffffffu, best[r], off);
+            const int oa = __shfl_xor_sync(0xffffffffu, arg[r], off);
+            if (ob < best[r] || (ob == best[r] && oa < arg[r])) {
+              best[r] = ob;
+              arg[r] = oa;
+            }
+          }
+        }
+        if (t4 == 0) {
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            // r = 2 * tile + half: row wg * 128 + tile * 64 + warp * 16 + half * 8 + g
+            const int t = t0 + wg * 128 + (r >> 1) * 64 + warp * 16 + (r & 1) * 8 + g;
+            if (t < N) {
+              labels[(size_t)b * N + t] = arg[r];
+              if (V != VE) atomicAdd(h + arg[r], 1);
+            }
           }
         }
       }
@@ -376,7 +508,10 @@ kmeans_scan_kernel(int* __restrict__ hist, int* __restrict__ offs, int* __restri
 
 // a warp per (b, chunk): perm[b, start of label + rank] = token, in token
 // order (a stable counting sort), the chunk's labels loaded first;
-// dynamic shared memory WARPS * K ints
+// dynamic shared memory WARPS * K ints. S > 1 (variant D): labels (B, N, S),
+// -1 where a token has no more tied k; each (token, slot) entry is placed,
+// 32 tokens at a time and slot by slot within them (a fixed order)
+template <int S>
 __global__ void __launch_bounds__(WARPS * 32)
 kmeans_scatter_kernel(const int* __restrict__ labels, const int* __restrict__ hist, int* __restrict__ perm, int B,
                       int N, int K, int n_ch) {
@@ -386,36 +521,110 @@ kmeans_scatter_kernel(const int* __restrict__ labels, const int* __restrict__ hi
   if (item >= B * n_ch) return;
   const int b = item / n_ch, c = item % n_ch;
   const int t_begin = c * CH, end = min(N, t_begin + CH);
-  const int* lb = labels + (size_t)b * N;
-  int lab[CH / 32];
+  const int* lb = labels + (size_t)b * N * S;
+  int lab[S == 1 ? CH / 32 : 1];
+  if constexpr (S == 1) {
 #pragma unroll
-  for (int u = 0; u < CH / 32; ++u) {
-    const int tok = t_begin + u * 32 + lane;
-    lab[u] = tok < end ? lb[tok] : -1 - lane;  // invalid lanes match nobody
+    for (int u = 0; u < CH / 32; ++u) {
+      const int tok = t_begin + u * 32 + lane;
+      lab[u] = tok < end ? lb[tok] : -1 - lane;  // invalid lanes match nobody
+    }
   }
   int* cur = cursor_all + w * K;
   for (int k = lane; k < K; k += 32) cur[k] = hist[(size_t)item * K + k];
   __syncwarp();
-  int* pb = perm + (size_t)b * N;
+  int* pb = perm + (size_t)b * N * S;
+  // place one entry a lane (label l; l < 0 places nothing) of tokens tok
+  auto place = [&](int tok, int l) {
+    const bool valid = tok < end && l >= 0;
+    const unsigned peers = __match_any_sync(0xffffffffu, l);
+    if (valid) pb[cur[l] + __popc(peers & ((1u << lane) - 1u))] = tok;
+    __syncwarp();
+    if (valid && lane == __ffs(peers) - 1) cur[l] += __popc(peers);
+    __syncwarp();
+  };
+  if constexpr (S == 1) {
 #pragma unroll
-  for (int u = 0; u < CH / 32; ++u) {
-    const int tok = t_begin + u * 32 + lane;
-    const bool valid = tok < end;
-    const unsigned peers = __match_any_sync(0xffffffffu, lab[u]);
-    if (valid) pb[cur[lab[u]] + __popc(peers & ((1u << lane) - 1u))] = tok;
-    __syncwarp();
-    if (valid && lane == __ffs(peers) - 1) cur[lab[u]] += __popc(peers);
-    __syncwarp();
+    for (int u = 0; u < CH / 32; ++u) place(t_begin + u * 32 + lane, lab[u]);
+  } else {
+    constexpr int AHEAD = 8;  // tokens a lane whose labels load before their placements
+    for (int u0 = 0; u0 < CH / 32; u0 += AHEAD) {
+      int l[AHEAD][S];
+#pragma unroll
+      for (int u = 0; u < AHEAD; ++u) {
+        const int tok = t_begin + (u0 + u) * 32 + lane;
+#pragma unroll
+        for (int e = 0; e < S; ++e) l[u][e] = tok < end ? lb[(size_t)tok * S + e] : -1 - lane;
+      }
+#pragma unroll
+      for (int u = 0; u < AHEAD; ++u)
+#pragma unroll
+        for (int e = 0; e < S; ++e) place(t_begin + (u0 + u) * 32 + lane, l[u][e]);
+    }
   }
 }
 
-// a warp per segment s of b: partial[b, s] = the f32 sum, in token order, of
-// the x rows of its tokens; lane l holds columns [l * D / 32, (l + 1) * D / 32)
+// Variant C's counts on the tensor cores: a CTA per (b, 16 clusters), warp
+// w a share of the tokens in 16-token steps; mma.sync m16n8k16 of the
+// one-hot (16 clusters x 16 tokens, from the labels) against ones, f32
+// (exact: integers below 2^24); the warps' partial counts added in warp
+// order. counts[b, k] (f32) for k < K.
+__global__ void __launch_bounds__(COUNT_WARPS * 32)
+kmeans_count_kernel(const int* __restrict__ labels, float* __restrict__ counts, int N, int K) {
+  __shared__ float part[COUNT_WARPS][16];
+  const int kt = cdiv(K, 16);
+  const int b = blockIdx.x / kt, k0 = (blockIdx.x % kt) * 16;
+  const int w = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t4 = lane % 4;
+  const int* lb = labels + (size_t)b * N;
+  const int steps = cdiv(N, 16), per = cdiv(steps, COUNT_WARPS);
+  constexpr uint32_t ONE = 0x3F80u, ONES = 0x3F803F80u;  // bf16 1.0, two of them
+  constexpr int AHEAD = 8;  // steps whose labels load before their products
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+  const int end = min(steps, (w + 1) * per);
+  for (int st0 = w * per; st0 < end; st0 += AHEAD) {
+    int l[AHEAD][4];  // tokens t, t + 1, t + 8, t + 9 of each step (t = 16 step + 2 t4); -1 past N
+#pragma unroll
+    for (int u = 0; u < AHEAD; ++u) {
+      const int t = (st0 + u) * 16 + 2 * t4;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int tok = t + (e & 1) + 8 * (e >> 1);
+        l[u][e] = st0 + u < end && tok < N ? lb[tok] : -1;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < AHEAD; ++u) {
+      auto hot = [&](int e, int row) { return l[u][e] == k0 + row ? ONE : 0u; };
+      const uint32_t a[4] = {hot(0, g) | (hot(1, g) << 16), hot(0, g + 8) | (hot(1, g + 8) << 16),
+                             hot(2, g) | (hot(3, g) << 16), hot(2, g + 8) | (hot(3, g + 8) << 16)};
+      asm volatile(
+          "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+          "{%0, %1, %2, %3};\n"
+          : "+f"(acc[0]), "+f"(acc[1]), "+f"(acc[2]), "+f"(acc[3])
+          : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(ONES), "r"(ONES));
+    }
+  }
+  // every column of a row holds its cluster's count: rows g (acc[0]) and g + 8 (acc[2])
+  if (t4 == 0) {
+    part[w][g] = acc[0];
+    part[w][g + 8] = acc[2];
+  }
+  __syncthreads();
+  if (threadIdx.x < 16 && k0 + threadIdx.x < K) {
+    float total = 0.f;
+    for (int i = 0; i < COUNT_WARPS; ++i) total += part[i][threadIdx.x];
+    counts[(size_t)b * K + k0 + threadIdx.x] = total;
+  }
+}
+
+// a warp per segment s of b: partial[b, s] = the f32 sum, in sorted order, of
+// the x rows of its entries (perm holds `slots` entries a token); lane l
+// holds columns [l * D / 32, (l + 1) * D / 32)
 template <int D>
 __global__ void __launch_bounds__(WARPS * 32)
 kmeans_segsum_kernel(const bf16* __restrict__ x, const int* __restrict__ perm, const int* __restrict__ offs,
                      const int* __restrict__ seg_start, const float* __restrict__ counts, float* __restrict__ partial,
-                     int B, int N, int K, int max_segs) {
+                     int B, int N, int K, int max_segs, int slots) {
   constexpr int C = D / 32;  // columns a lane: 4 (8 bytes) or 2 (4 bytes)
   using Raw = typename std::conditional<C == 4, uint2, uint32_t>::type;
   const int lane = threadIdx.x % 32;
@@ -437,7 +646,7 @@ kmeans_segsum_kernel(const bf16* __restrict__ x, const int* __restrict__ perm, c
   const int first = offs[(size_t)b * K + k] + (s - ss[k]) * SEG;
   const int n = min(SEG, offs[(size_t)b * K + k] + (int)counts[(size_t)b * K + k] - first);
   const bf16* xb = x + (size_t)b * N * D + lane * C;
-  const int* pb = perm + (size_t)b * N + first;
+  const int* pb = perm + (size_t)b * N * slots + first;
   float acc[C];
 #pragma unroll
   for (int u = 0; u < C; ++u) acc[u] = 0.f;
@@ -492,71 +701,98 @@ kmeans_combine_kernel(const float* __restrict__ partial, const int* __restrict__
   for (int q = 0; q < C; ++q) out[q] = acc[q];
 }
 
-// (rows, D) bf16 row-major in 64-column x 128-row boxes, 128B swizzle (the centroid
-// map's rows past B * K read as zeros; those columns get |c|^2 = +inf)
 int num_sms() {
   int dev = 0, sms = 132;
   if (cudaGetDevice(&dev) == cudaSuccess) cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   return sms;
 }
 
-// the tensor maps read (rows, D) bf16 in 64-column x 128-row boxes, 128B
-// swizzle; the centroid map's rows past B * K read as zeros (those columns
-// have |c|^2 = +inf)
-template <int D>
-cudaError_t launch(const void* x, const void* c, int* labels, float* sums, float* counts, void* work, int B, int N,
-                   int K, cudaStream_t stream) {
+// one pass of variant V (VA: K5's). The tensor maps read (rows, D) bf16 in
+// 64-column x 128-row boxes, 128B swizzle; the centroid map's rows past B *
+// K read as zeros (those columns have |c|^2 = +inf)
+template <int D, int V>
+cudaError_t launch(const void* x, const void* c, int* labels, float* sums, float* counts, int* overflow, void* work,
+                   int B, int N, int K, cudaStream_t stream) {
+  constexpr int S = V == VD ? TIES : 1;
+  constexpr int VA_ = V == VC ? VB : V;  // the assign C runs
   Work w;
-  carve(work, B, N, K, D, &w);
+  carve(work, B, N, K, D, S, &w);
   CUtensorMap tx, tc;
   if (!make_map(&tx, x, (long long)B * N, D) || !make_map(&tc, c, (long long)B * K, D)) return cudaErrorInvalidValue;
-  cudaError_t err = cudaMemsetAsync(w.hist, 0, (size_t)B * w.n_ch * K * sizeof(int), stream);
-  if (err != cudaSuccess) return err;
+  cudaError_t err = cudaSuccess;
+  if (V != VE && (err = cudaMemsetAsync(w.hist, 0, (size_t)B * w.n_ch * K * sizeof(int), stream)) != cudaSuccess)
+    return err;
   kmeans_csq_kernel<D><<<cdiv(B * w.k_pad, WARPS), WARPS * 32, 0, stream>>>(static_cast<const bf16*>(c), w.csq, B, K,
                                                                           w.k_pad);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   const int smem = AssignLayout<D>::SMEM;
-  err = cudaFuncSetAttribute(kmeans_assign_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  err = cudaFuncSetAttribute(kmeans_assign_kernel<D, VA_>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const int items = B * cdiv(N, XT);
-  kmeans_assign_kernel<D><<<items < num_sms() ? items : num_sms(), NTHREADS, smem, stream>>>(tx, tc, w.csq, labels, w.hist, B, N, K,
-                                                                            w.k_pad, w.n_ch);
+  kmeans_assign_kernel<D, VA_><<<items < num_sms() ? items : num_sms(), NTHREADS, smem, stream>>>(
+      tx, tc, w.csq, labels, w.hist, overflow, B, N, K, w.k_pad, w.n_ch);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if (V == VE) {
+    if ((err = cudaMemsetAsync(sums, 0, (size_t)B * K * D * sizeof(float), stream)) != cudaSuccess) return err;
+    return cudaMemsetAsync(counts, 0, (size_t)B * K * sizeof(float), stream);
+  }
   kmeans_scan_kernel<<<B, SCAN_THREADS, 0, stream>>>(w.hist, w.offs, w.seg_start, counts, K, w.n_ch);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if (V == VC) {
+    kmeans_count_kernel<<<B * cdiv(K, 16), COUNT_WARPS * 32, 0, stream>>>(labels, counts, N, K);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
   const int scatter_smem = WARPS * K * (int)sizeof(int);
-  err = cudaFuncSetAttribute(kmeans_scatter_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, scatter_smem);
+  err = cudaFuncSetAttribute(kmeans_scatter_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize, scatter_smem);
   if (err != cudaSuccess) return err;
-  kmeans_scatter_kernel<<<cdiv(B * w.n_ch, WARPS), WARPS * 32, scatter_smem, stream>>>(labels, w.hist, w.perm, B, N,
-                                                                                       K, w.n_ch);
+  kmeans_scatter_kernel<S><<<cdiv(B * w.n_ch, WARPS), WARPS * 32, scatter_smem, stream>>>(labels, w.hist, w.perm, B,
+                                                                                          N, K, w.n_ch);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   kmeans_segsum_kernel<D><<<cdiv(B * w.max_segs, WARPS), WARPS * 32, 0, stream>>>(
-      static_cast<const bf16*>(x), w.perm, w.offs, w.seg_start, counts, w.partial, B, N, K, w.max_segs);
+      static_cast<const bf16*>(x), w.perm, w.offs, w.seg_start, counts, w.partial, B, N, K, w.max_segs, S);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   kmeans_combine_kernel<D><<<cdiv(B * K, WARPS), WARPS * 32, 0, stream>>>(w.partial, w.seg_start, sums, B, K,
                                                                           w.max_segs);
   return cudaGetLastError();
 }
 
+template <int D>
+cudaError_t dispatch(int variant, const void* x, const void* c, int* l, float* su, float* co, int* ov, void* work,
+                     int B, int N, int K, cudaStream_t s) {
+  switch (variant) {
+    case VA: return launch<D, VA>(x, c, l, su, co, ov, work, B, N, K, s);
+    case VB: return launch<D, VB>(x, c, l, su, co, ov, work, B, N, K, s);
+    case VC: return launch<D, VC>(x, c, l, su, co, ov, work, B, N, K, s);
+    case VD: return launch<D, VD>(x, c, l, su, co, ov, work, B, N, K, s);
+    case VE: return launch<D, VE>(x, c, l, su, co, ov, work, B, N, K, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
-// bytes of the workspace one pass needs at (B, N, K, D)
-extern "C" long long svt_kmeans_lloyd_workspace(int B, int N, int K, int D) {
-  return (long long)carve(nullptr, B, N, K, D, nullptr);
+// bytes of the workspace one pass of `variant` (0-4 = A-E; A is K5's)
+// needs at (B, N, K, D)
+extern "C" long long svt_kmeans_lloyd_workspace(int B, int N, int K, int D, int variant) {
+  return (long long)carve(nullptr, B, N, K, D, variant == VD ? TIES : 1, nullptr);
 }
 
 // x (B, N, D) bf16, c (B, K, D) bf16, both contiguous and 16-byte aligned;
-// labels (B, N) int32, sums (B, K, D) f32, counts (B, K) f32; work the
-// workspace (svt_kmeans_lloyd_workspace bytes, 256-byte aligned); D in {64,
-// 128}; K * 4 * WARPS bytes of shared memory for the scatter (K <= 14,000).
-extern "C" int svt_kmeans_lloyd(const void* x, const void* c, void* labels, void* sums, void* counts, void* work,
-                                int B, int N, int K, int D, void* stream) {
+// labels (B, N) int32 ((B, N, 4) for variant D), sums (B, K, D) f32, counts
+// (B, K) f32; overflow (1,) int32 zeroed for variant D (tokens with more
+// than 4 tied k), else unused; work the workspace
+// (svt_kmeans_lloyd_workspace bytes, 256-byte aligned); D in {64, 128};
+// variant 0-4 = A-E (A: K5's pass); K * 4 * WARPS bytes of shared memory
+// for the scatter (K <= 14,000).
+extern "C" int svt_kmeans_lloyd(const void* x, const void* c, void* labels, void* sums, void* counts, void* overflow,
+                                void* work, int B, int N, int K, int D, int variant, void* stream) {
   if (B == 0 || N == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int* l = static_cast<int*>(labels);
   float* su = static_cast<float*>(sums);
   float* co = static_cast<float*>(counts);
-  if (D == 128) return (int)launch<128>(x, c, l, su, co, work, B, N, K, s);
-  if (D == 64) return (int)launch<64>(x, c, l, su, co, work, B, N, K, s);
+  int* ov = static_cast<int*>(overflow);
+  if (D == 128) return (int)dispatch<128>(variant, x, c, l, su, co, ov, work, B, N, K, s);
+  if (D == 64) return (int)dispatch<64>(variant, x, c, l, su, co, ov, work, B, N, K, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -25,18 +25,27 @@ parallel/ring_sap.py): m the running max of the scaled scores in natural-log
 units, NEG_INF for a row that saw no live column, l the row sum of
 exp(score - m). The chunked-CSR format also takes placement-free SVG1's dual
 per-head spec: a pair (band_sink, band_sink_perm) of MaskSpecs, aux[4 + bh]
-picking the head's (0 spatial, 1 temporal).
+picking the head's (0 spatial, 1 temporal). On the card a temporal head
+runs in slot slabs on permuted positions (ops/metadata.py slab_meta_np; its
+items ordered by `dual_work_order`, its walk modelled by `slab_tile_walk`),
+so its metadata rows feed only the plain version: the kernel attends every
+pair band_sink_perm allows among the video's tokens, and the wrapper
+refuses rows under which the plain version would not (`dual_meta_faults`;
+SVG1's dual metadata, sparse/svg1.py sparse_meta_dual, passes).
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
+import numpy as np
 import torch
 
 from sparse_videogen_tpu_torch import _kernels
 from sparse_videogen_tpu_torch.ops.mask_spec import MaskSpec, apply_mask_spec
-from sparse_videogen_tpu_torch.ops.metadata import ENTRY_SCALE, N_CHEAP_SCALE, SUB, _run_chunks
+from sparse_videogen_tpu_torch.ops.metadata import (ENTRY_SCALE, N_CHEAP_SCALE, SUB, _run_chunks, slab_geometry,
+                                                     slab_meta_np, slab_visits_np)
 
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 LOG2E = 1.4426950408889634
@@ -87,6 +96,11 @@ def _check_kernel_args(q, k, v, meta, aux, mask_spec, block_q, kinds=tuple(_KERN
         mask_spec = _dual_spec(mask_spec)[1]
         if mask_spec.frame_size <= 8:
             raise ValueError(f"the band_sink_perm kernel takes frame_size > 8, got {mask_spec.frame_size}")
+        slab_geometry(mask_spec.frame_size, mask_spec.num_frames)  # num_frames <= 128
+        video = mask_spec.frame_size * mask_spec.num_frames
+        if video > min(q.shape[1], k.shape[1]):
+            raise ValueError(f"the dual kernel's q and k/v hold the video's {video} tokens: Sq={q.shape[1]}, "
+                             f"Skv={k.shape[1]}")
         if aux is None or aux.numel() < 4 + q.shape[0]:
             raise ValueError(f"a dual spec needs aux of 4 + BH = {4 + q.shape[0]} entries")
     elif mask_spec.kind == "band_sink_perm":
@@ -200,6 +214,16 @@ def _check_order_args(meta, n_heads, seq_q, block_q):
         raise ValueError(f"meta {tuple(meta.shape)} for {n_heads} heads, seq_q {seq_q}, block_q {block_q}")
 
 
+def _csr_visits(meta):
+    """(R, nQ) int64: the tokens each chunked-CSR row visits (the sum of its
+    chunks' hi - lo)."""
+    m = meta.long()
+    cap = (m.shape[2] - 1) // 2
+    win = m[..., 2:2 + 2 * cap:2]
+    live = torch.arange(cap, device=m.device) < (m[..., :1] % N_CHEAP_SCALE)
+    return ((win % ENTRY_SCALE - win // ENTRY_SCALE) * live).sum(-1)
+
+
 def work_order(meta, n_heads: int, seq_q: int, block_q: int):
     """The chunked-CSR kernel's work items (head h, 128-row q tile t), item
     h * (seq_q // BQ) + t, heaviest first: returns (order, weight), order
@@ -208,12 +232,142 @@ def work_order(meta, n_heads: int, seq_q: int, block_q: int):
     visits (the sum of its chunks' hi - lo). Plain tensor ops on meta's
     device: no copy to the host."""
     _check_order_args(meta, n_heads, seq_q, block_q)
+    return _order_items(meta, n_heads, seq_q, block_q, _csr_visits(meta))
+
+
+def dual_work_order(meta, flags, spec, n_heads: int, seq_q: int, block_q: int):
+    """The dual kernel's work items, item h * n_items + t: a spatial head's
+    (flags[h] == 0) 128-row q tiles t < seq_q // BQ weighted as work_order
+    does, a temporal head's (1) q slabs t < n_slabs (slab_geometry of the
+    band_sink_perm `spec`) weighted by the tokens their slab rows visit,
+    n_items = max(seq_q // BQ, n_slabs). Returns (order, n_items): order an
+    int32 permutation of all n_heads * n_items items by descending weight
+    (ties in item order), the items past a head's count (weight -1) last;
+    the kernel skips them. Plain tensor ops on meta's device."""
+    _check_order_args(meta, n_heads, seq_q, block_q)
+    n_t = seq_q // BQ
+    visits = _slab_state(spec, str(meta.device))[2]
+    n_items = max(n_t, len(visits))
+    tiles = torch.arange(n_t, device=meta.device) * BQ // block_q
+    spatial = torch.nn.functional.pad(_csr_visits(meta)[:, tiles].expand(n_heads, -1), (0, n_items - n_t), value=-1)
+    temporal = torch.nn.functional.pad(visits, (0, n_items - len(visits)), value=-1)
+    weight = torch.where(flags.reshape(-1, 1) == 1, temporal[None], spatial)
+    return torch.sort(-weight.reshape(-1), stable=True).indices.to(torch.int32), n_items
+
+
+@functools.lru_cache(maxsize=8)
+def _slab_state(spec, device: str):
+    """(slab_meta_np(spec), and on `device` the slab metadata and
+    slab_visits_np), made once per (spec, device): a copy from the host at
+    every call would wait for the device."""
+    meta = slab_meta_np(spec)
+    return meta, torch.as_tensor(meta, device=device), torch.as_tensor(slab_visits_np(spec, meta), device=device)
+
+
+@functools.lru_cache(maxsize=8)
+def _dual_cover(spec, block_q: int, n_q: int, device: str):
+    """What a temporal head's chunked-CSR rows must hold for the plain
+    version to attend the pairs the dual kernel does, for q block i < n_q of
+    block_q rows of a band_sink_perm `spec` (S = frame_size * num_frames):
+    (need, full, real) on `device`. need and full are (n_q, S + 1) int32
+    prefix sums over the K/V tokens of the columns that some real q row of
+    the block may attend (need) and that all of them may (full); real (n_q,)
+    bool marks the blocks holding a q row of the video."""
+    fs, F, w = spec.frame_size, spec.num_frames, spec.band_width
+    S = fs * F
+    pk = (np.arange(S) % fs) * F + np.arange(S) // fs
+    sink = pk < spec.sink_size
+    need = np.zeros((n_q, S + 1), np.int32)
+    full = np.zeros((n_q, S + 1), np.int32)
+    real = np.zeros(n_q, bool)
+    for i in range(min(n_q, -(-S // block_q))):
+        x = np.arange(i * block_q, min((i + 1) * block_q, S))
+        pq = np.sort((x % fs) * F + x // fs)
+        at = np.searchsorted(pq, pk)
+        near = np.minimum(np.abs(pk - pq[np.maximum(at - 1, 0)]), np.abs(pq[np.minimum(at, len(pq) - 1)] - pk))
+        need[i, 1:] = np.cumsum(sink | (near < w))
+        full[i, 1:] = np.cumsum(sink | ((pk - pq[0] < w) & (pq[-1] - pk < w)))
+        real[i] = True
+    return tuple(torch.as_tensor(a, device=device) for a in (need, full, real))
+
+
+def dual_meta_faults(meta, flags, spec, block_q: int):
+    """(len(flags),) bool: the temporal heads (flags[h] == 1) whose chunked-
+    CSR rows in `meta` (R, nQ, L) would make the plain version attend other
+    pairs than the dual kernel, which reads a temporal head's band_sink_perm
+    from its slab metadata: every pair the `spec` allows among the video's S
+    tokens. For each q block that holds a q row of the video, a temporal
+    head's row must visit no K/V token past the video, in windows that do
+    not overlap, covering every token some real q row of the block may
+    attend; its first n_cheap (unmasked) windows may hold only tokens that
+    all of them may. SVG1's dual metadata (sparse_meta_dual) is such. Plain
+    tensor ops on meta's device."""
+    need, full, real = _dual_cover(spec, block_q, meta.shape[1], str(meta.device))
+    S = spec.frame_size * spec.num_frames
     m = meta.long()
     cap = (m.shape[2] - 1) // 2
-    win = m[..., 2:2 + 2 * cap:2]
-    live = torch.arange(cap, device=m.device) < (m[..., :1] % N_CHEAP_SCALE)
-    per_block = ((win % ENTRY_SCALE - win // ENTRY_SCALE) * live).sum(-1)  # (R, nQ)
-    return _order_items(m, n_heads, seq_q, block_q, per_block)
+    chunk = torch.arange(cap, device=m.device)
+    live = chunk < m[..., :1] % N_CHEAP_SCALE
+    cheap = live & (chunk < m[..., :1] // N_CHEAP_SCALE)
+    start, win = m[..., 1:1 + 2 * cap:2] * SUB, m[..., 2:2 + 2 * cap:2]
+    a, b = start + win // ENTRY_SCALE, start + win % ENTRY_SCALE
+    i = torch.arange(m.shape[1], device=m.device)[:, None]
+    ac, bc = a.clamp(0, S), b.clamp(0, S)
+    bad = ((b > S) | (b < a)).logical_and(live).any(-1)
+    bad |= (cheap & (full[i, bc] - full[i, ac] != b - a)).any(-1)
+    bad |= ((need[i, bc] - need[i, ac]) * live).sum(-1) != need[:, S]
+    first = torch.where(live, a, S + 1).sort(-1)
+    ends = b.gather(-1, first.indices)
+    bad |= (first.values[..., 1:] < ends[..., :-1]).logical_and(live[..., 1:]).any(-1)
+    rows = (bad & real).any(-1)
+    return (flags == 1) & (rows if rows.numel() > 1 else rows.expand(len(flags)))
+
+
+def _band_sink_tile(spec, qlo, qhi, klo, khi) -> int:
+    """csrc/mask_pred.cuh mask_tile<KIND_BAND_SINK> over [qlo, qhi] x [klo,
+    khi]: 2 (TILE_ALL), 0 (TILE_NONE) or 1 (TILE_SOME)."""
+    bw, sink = spec.band_width, spec.sink_size
+    if (qhi - klo < bw and khi - qlo < bw) or khi < sink:
+        return 2
+    if (klo - qhi >= bw or qlo - khi >= bw) and klo >= sink:
+        return 0
+    return 1
+
+
+def slab_tile_walk(spec, slab_q: int):
+    """A model of the dual kernel's walk over a temporal head's q slab
+    `slab_q` (csrc/block_sparse_attn.cu SlabChunks, then the MODE_SLAB tile
+    loop of csrc/hopper_attn.cuh) for a band_sink_perm `spec`: one (slab,
+    hi, (cls_0, cls_1)) per K/V slab loaded, in the kernel's order, with its
+    live rows [0, hi) (permuted positions slab * P + [0, hi)) and each
+    consumer warpgroup's class of the pair (rows [slab_q * P + 64 wg, + 64)):
+    2 TILE_ALL (the window alone), 1 TILE_SOME (the predicate per pair), 0
+    TILE_NONE (skipped); a slab of fewer than 64 live rows is never TILE_ALL."""
+    _, P, _ = slab_geometry(spec.frame_size, spec.num_frames)
+    S = spec.frame_size * spec.num_frames
+    row = _slab_state(spec, "cpu")[0][slab_q]
+    tiles = []
+    for a, b in row[1:1 + 2 * row[0]].reshape(-1, 2):
+        for slab in range(int(a), int(b)):
+            hi = min(P, S - slab * P)
+            q0 = slab_q * P
+            cls = tuple(_band_sink_tile(spec, q0 + 64 * wg, q0 + 64 * wg + 63, slab * P, slab * P + hi - 1)
+                        for wg in (0, 1))
+            tiles.append((slab, hi, tuple(1 if (c == 2 and hi < 64) else c for c in cls)))
+    return tiles
+
+
+def slab_tile_stats(spec) -> dict:
+    """What slab_tile_walk counts over one temporal head: K/V slabs loaded,
+    and the (warpgroup, slab) pairs of each class."""
+    _, _, n = slab_geometry(spec.frame_size, spec.num_frames)
+    st = {"loaded": 0, "TILE_ALL": 0, "TILE_SOME": 0, "TILE_NONE": 0}
+    for j in range(n):
+        for _, _, cls in slab_tile_walk(spec, j):
+            st["loaded"] += 1
+            for c in cls:
+                st[("TILE_NONE", "TILE_SOME", "TILE_ALL")[c]] += 1
+    return st
 
 
 def runs_work_order(meta, n_heads: int, seq_q: int, block_q: int):
@@ -231,12 +385,75 @@ def _cached_order(meta, n_heads: int, seq_q: int, block_q: int, build=work_order
     """build(...)'s order, made once per metadata tensor (and again if it is
     written in place): the runtimes hold theirs for the whole run, SAP's
     metadata is new at every layer."""
-    key = (build.__name__, meta._version, n_heads, seq_q, block_q)
-    cached = getattr(meta, "_svt_work_order", None)
+    return _meta_cached(meta, (build.__name__, n_heads, seq_q, block_q),
+                        lambda: build(meta, n_heads, seq_q, block_q)[0])
+
+
+def _meta_cached(t, key, make):
+    """make()'s result, kept on tensor `t` under `key` and t's version."""
+    key = (t._version,) + key
+    cached = getattr(t, "_svt_cached", None)
     if cached is None or cached[0] != key:
-        cached = (key, build(meta, n_heads, seq_q, block_q)[0])
-        meta._svt_work_order = cached
+        cached = (key, make())
+        t._svt_cached = cached
     return cached[1]
+
+
+def _refuse(faults, offsets, who: str = "temporal heads") -> None:
+    """Raise if a temporal head's rows were flagged (faults, bool per head
+    or row) or the offsets aux[2:4] (int) are not 0: one wait for the
+    device."""
+    bad = offsets.ne(0).any()
+    if faults is not None:
+        bad = bad | faults.any()
+    if bool(bad.item()):
+        if offsets.ne(0).any():
+            raise ValueError(f"the dual kernel takes no global offsets: aux[2:4] = {offsets.tolist()}")
+        raise ValueError(f"{who} {faults.nonzero()[:, 0].tolist()}: their metadata rows do not cover "
+                         f"exactly the pairs band_sink_perm allows among the video's tokens, which the dual "
+                         f"kernel attends (ops/attention.py dual_meta_faults)")
+
+
+def _dual_key(aux, n_heads: int, seq_q: int, block_q: int, spec):
+    return ("dual", n_heads, seq_q, block_q, spec, id(aux), aux._version)
+
+
+def _dual_order(meta, aux, spec, n_heads: int, seq_q: int, block_q: int):
+    """dual_work_order's (order, n_items), once per metadata tensor and aux
+    tensor (kept with it, so that its id stays its own) and their versions,
+    after a check that costs one wait for the device: aux[2:4] must be 0
+    and no temporal head may have rows that dual_meta_faults rejects."""
+    def make():
+        flags = aux[4:4 + n_heads]
+        _refuse(dual_meta_faults(meta, flags, spec, block_q), aux[2:4])
+        return dual_work_order(meta, flags, spec, n_heads, seq_q, block_q), aux
+
+    return _meta_cached(meta, _dual_key(aux, n_heads, seq_q, block_q, spec), make)[0]
+
+
+def dual_rows(stack, flags, spec, block_q: int, aux=None):
+    """(meta, aux) for block_sparse_attention_kv with the dual pair from a
+    (2, nQ, L) class stack (SVG1's sparse_meta_dual) and the heads' classes
+    `flags` (BH,) int32: head h takes row stack[flags[h]], aux is aux[:4]
+    (zeros if None) with the flags appended. The stack's temporal rows and
+    aux's offsets are checked once per tensor, as the wrapper checks them,
+    and the pair comes out with its work order made, so that new flags at
+    every layer cost no wait for the device. `spec` is the pair's
+    band_sink_perm MaskSpec."""
+    aux4 = torch.zeros(4, dtype=torch.int32, device=stack.device) if aux is None else \
+        torch.as_tensor(aux, dtype=torch.int32, device=stack.device)[:4]
+    meta = torch.where(flags[:, None, None] == 1, stack[1][None], stack[0][None]).contiguous()
+    aux_bh = torch.cat([aux4, flags])
+    ones = torch.ones(1, dtype=torch.int32, device=stack.device)
+    _meta_cached(stack, ("dual_stack", spec, block_q),
+                 lambda: _refuse(dual_meta_faults(stack[1:], ones, spec, block_q), aux4.new_zeros(2),
+                                 who="the class stack's temporal rows"))
+    if aux is not None:
+        _meta_cached(aux, ("dual_offsets",), lambda: _refuse(None, aux4[2:4]))
+    n_heads, seq_q = len(flags), stack.shape[1] * block_q
+    _meta_cached(meta, _dual_key(aux_bh, n_heads, seq_q, block_q, spec),
+                 lambda: (dual_work_order(meta, flags, spec, n_heads, seq_q, block_q), aux_bh))
+    return meta, aux_bh
 
 
 def _stats_out(q, return_stats):
@@ -259,7 +476,14 @@ def block_sparse_attention_kv(q, k, v, meta, aux=None, *, block_q: int = 512, bl
 
     CUDA tensors launch the Hopper kernel (bf16, D in {64, 128}, block_q %
     128 == 0, mask kinds none/band_sink/hyvideo/cog and the dual pair) and
-    raise on anything else; CPU tensors run the plain version."""
+    raise on anything else; CPU tensors run the plain version. With the
+    dual pair the kernel takes num_frames <= 128 and the video's
+    frame_size * num_frames tokens at the front of q and k/v and no offsets
+    (aux[2:4] == 0), reads a temporal head's band_sink_perm from its slab
+    metadata, refuses a temporal head whose `meta` rows would make the plain
+    version attend other pairs (dual_meta_faults: checked once per meta and
+    aux tensor, with one wait for the device) and writes its q rows past the
+    video as 0 (m = NEG_INF, l = 0)."""
     if q.device.type == "cpu":
         return block_sparse_attention_kv_plain(q, k, v, meta, aux, block_q=block_q, block_kv=block_kv,
                                                mask_spec=mask_spec, scale=scale, return_stats=return_stats)
@@ -268,17 +492,21 @@ def block_sparse_attention_kv(q, k, v, meta, aux=None, *, block_q: int = 512, bl
     _check(q, k, v, meta, block_q, block_kv)
     BH, Sq, D = q.shape
     aux = _check_kernel_args(q, k, v, meta, aux, mask_spec, block_q)
-    order = _cached_order(meta, BH, Sq, block_q)
     scale = 1.0 / math.sqrt(D) if scale is None else scale
     kind = mask_kind(mask_spec)
     spec = mask_spec[1] if isinstance(mask_spec, tuple) else mask_spec
+    if kind == "band_sink_perm":
+        order, n_items = _dual_order(meta, aux, spec, BH, Sq, block_q)
+        slab_ptr = _slab_state(spec, str(q.device))[1].data_ptr()
+    else:
+        order, n_items, slab_ptr = _cached_order(meta, BH, Sq, block_q), Sq // BQ, None
     out = torch.empty_like(q)
     m, l, m_ptr, l_ptr = _stats_out(q, return_stats)
     err = _kernels.lib().svt_block_sparse_attn(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), meta.data_ptr(), aux.data_ptr(), order.data_ptr(),
-        BH, Sq, k.shape[1], D, meta.shape[0], meta.shape[1], meta.shape[2], block_q,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), meta.data_ptr(), slab_ptr, aux.data_ptr(),
+        order.data_ptr(), BH, Sq, k.shape[1], D, meta.shape[0], meta.shape[1], meta.shape[2], block_q,
         _KERNEL_MASKS[kind], spec.band_width, spec.sink_size, spec.video_len, spec.frame_size, spec.num_frames,
-        scale * LOG2E, m_ptr, l_ptr, torch.cuda.current_stream(q.device).cuda_stream,
+        n_items, scale * LOG2E, m_ptr, l_ptr, torch.cuda.current_stream(q.device).cuda_stream,
     )
     _kernels.check(err, "block_sparse_attn")
     _kernels.launched("block_sparse_attn", f"block_sparse_attn[{kind}]",

@@ -14,19 +14,18 @@ the update's counting sort and segments. The TPU's padding of K to 128
 lanes with +inf distances and of N to the block size has no counterpart:
 the kernel bounds-checks both.
 
-`kmeans_variant_pass` runs one of the probe's five variants on K5's first
-kernel, csrc/kmeans_wide.cu (any K; an assign kernel that streams the
-centroids by cp.async into mma.sync, and a K-partitioned update), which K8
-keeps; `kmeans_variant_pass_plain` is its plain version:
-  A  argmin labels; sums and counts from their one-hot
-  B  the same labels by a two-min tiebreak (min, then the first k at it)
-  C  B, with the counts as a product (onehot^T 1)
+`kmeans_variant_pass` runs one of the probe's five variants (K8) on K5's
+kernel, its variant a template parameter of the assign (csrc/kmeans_lloyd.cu);
+`kmeans_variant_pass_plain` is its plain version:
+  A  argmin labels; sums and counts from their one-hot: K5's pass itself
+  B  the same labels by a two-min tiebreak (per 128-centroid tile the min,
+     then the first k at it; tiles merge by a strict <)
+  C  B, with the counts as a product on the tensor cores (onehot^T 1)
   D  no labels (all 0); multi-hot dist <= min: a tied token adds to every
-     tied cluster
+     tied cluster (up to D_TIES a token)
   E  argmin labels only; sums and counts 0
-A, B and C give the same labels, sums and counts as each other (K5's
-labels too, but at near-ties, where the two kernels' f32 sums may round
-apart).
+A, B and C give the same labels, sums and counts as each other and as K5,
+bit for bit.
 """
 
 from __future__ import annotations
@@ -37,7 +36,7 @@ from sparse_videogen_tpu_torch import _kernels
 
 VARIANTS = ("A", "B", "C", "D", "E")
 CH, SEG = 1024, 128  # K5's counting-sort chunk and sum segment, in tokens (csrc/kmeans_lloyd.cu)
-# tied clusters the kernel keeps per token in variant D, more raise (TIES in csrc/kmeans_wide.cu)
+# tied clusters the kernel keeps per token in variant D, more raise (TIES in csrc/kmeans_lloyd.cu)
 D_TIES = 4
 
 
@@ -110,37 +109,6 @@ def _cuda_args(x, centroids):
     return c
 
 
-def _wide_pass(x, c, variant):
-    B, N, D = x.shape
-    K = c.shape[1]
-    dev = x.device
-    lib = _kernels.lib()
-    n_slabs = lib.svt_kmeans_wide_num_slabs(B, N, K)
-    csq = torch.empty(B, -(-K // 64) * 64, dtype=torch.float32, device=dev)
-    overflow = torch.zeros(1, dtype=torch.int32, device=dev)
-    lab_buf = torch.empty((B, N, D_TIES) if variant == "D" else (B, N), dtype=torch.int32, device=dev)
-    outs = [None] * 4  # part_sums, part_counts, sums, counts: E writes none
-    if variant != "E":
-        outs = [torch.empty(B, n_slabs, K, D, dtype=torch.float32, device=dev),
-                torch.empty(B, n_slabs, K, dtype=torch.int32, device=dev),
-                torch.empty(B, K, D, dtype=torch.float32, device=dev),
-                torch.empty(B, K, dtype=torch.float32, device=dev)]
-    err = lib.svt_kmeans_wide(
-        x.data_ptr(), c.data_ptr(), csq.data_ptr(), lab_buf.data_ptr(), overflow.data_ptr(),
-        *(None if t is None else t.data_ptr() for t in outs), B, N, K, D,
-        VARIANTS.index(variant), n_slabs, torch.cuda.current_stream(dev).cuda_stream,
-    )
-    sums, counts = outs[2:]
-    _kernels.check(err, "kmeans_wide")
-    if variant == "E":
-        return lab_buf, torch.zeros(B, K, D, dtype=torch.float32, device=dev), torch.zeros(B, K, device=dev)
-    if variant == "D":
-        if int(overflow.item()):  # a host sync: the probe's D only
-            raise RuntimeError(f"variant D: {int(overflow.item())} tokens tie more than {D_TIES} clusters")
-        return torch.zeros(B, N, dtype=torch.int32, device=dev), sums, counts
-    return lab_buf, sums, counts
-
-
 def sorted_update_order(labels, K: int):
     """The torch model of K5's counting sort (csrc/kmeans_lloyd.cu, passes 1-3).
     labels (B, N) -> (perm (B, N), offs (B, K), counts (B, K), seg_start
@@ -171,18 +139,29 @@ def sorted_update_order(labels, K: int):
     return perm, offs, counts, seg_start
 
 
-def _lloyd_pass(x, c):
+def _lloyd_pass(x, c, variant="A"):
+    """One pass of `variant` on K5's kernels: (labels, sums, counts), D's
+    labels its tie lists (B, N, D_TIES), ascending and -1 past a token's
+    last tied k, after a host sync on their overflow count (the probe's D
+    only)."""
     B, N, D = x.shape
     K = c.shape[1]
+    if K > 14000:
+        raise ValueError(f"K={K}: K5 takes K <= 14000")
     dev = x.device
     lib = _kernels.lib()
-    labels = torch.empty(B, N, dtype=torch.int32, device=dev)
+    v = VARIANTS.index(variant)
+    labels = torch.empty((B, N, D_TIES) if variant == "D" else (B, N), dtype=torch.int32, device=dev)
     sums = torch.empty(B, K, D, dtype=torch.float32, device=dev)
     counts = torch.empty(B, K, dtype=torch.float32, device=dev)
-    work = torch.empty(lib.svt_kmeans_lloyd_workspace(B, N, K, D), dtype=torch.uint8, device=dev)
+    overflow = torch.zeros(1, dtype=torch.int32, device=dev) if variant == "D" else None
+    work = torch.empty(lib.svt_kmeans_lloyd_workspace(B, N, K, D, v), dtype=torch.uint8, device=dev)
     err = lib.svt_kmeans_lloyd(x.data_ptr(), c.data_ptr(), labels.data_ptr(), sums.data_ptr(), counts.data_ptr(),
-                               work.data_ptr(), B, N, K, D, torch.cuda.current_stream(dev).cuda_stream)
-    _kernels.check(err, "kmeans_wide")
+                               None if overflow is None else overflow.data_ptr(), work.data_ptr(), B, N, K, D, v,
+                               torch.cuda.current_stream(dev).cuda_stream)
+    _kernels.check(err, "kmeans_wide" if variant == "A" else "kmeans_variants")
+    if variant == "D" and int(overflow.item()):
+        raise RuntimeError(f"variant D: {int(overflow.item())} tokens tie more than {D_TIES} clusters")
     return labels, sums, counts
 
 
@@ -198,23 +177,22 @@ def kmeans_assign_update(x, centroids):
     _check(x, centroids)
     if x.device.type == "cpu":
         return kmeans_assign_update_plain(x, centroids)
-    c = _cuda_args(x, centroids)
-    if c.shape[1] > 14000:
-        raise ValueError(f"K={c.shape[1]}: K5 takes K <= 14000")
-    out = _lloyd_pass(x, c)
+    out = _lloyd_pass(x, _cuda_args(x, centroids))
     _kernels.launched("kmeans_wide")
     return out
 
 
 def kmeans_variant_pass(x, centroids, variant: str):
-    """Probe variant `variant` (module docstring) of the pass on the kernel
-    at any K for CUDA tensors (bf16, contiguous, D in {64, 128}); its
+    """Probe variant `variant` (module docstring) of the pass on K5's kernels
+    for CUDA tensors (bf16, contiguous, D in {64, 128}, K <= 14,000); its
     plain version for CPU tensors. Same returns as kmeans_assign_update."""
     _check(x, centroids)
     if variant not in VARIANTS:
         raise ValueError(f"variant {variant!r} not in {VARIANTS}")
     if x.device.type == "cpu":
         return kmeans_variant_pass_plain(x, centroids, variant)
-    out = _wide_pass(x, _cuda_args(x, centroids), variant)
+    labels, sums, counts = _lloyd_pass(x, _cuda_args(x, centroids), variant)
     _kernels.launched("kmeans_variants")
-    return out
+    if variant == "D":  # no labels
+        labels = torch.zeros(x.shape[:2], dtype=torch.int32, device=x.device)
+    return labels, sums, counts

@@ -11,6 +11,13 @@ live columns are [lo, hi) with win = lo * ENTRY_SCALE + hi. Rows R are 1
 The dense/SVG1 metadata depends only on static shapes, so it is built once
 on the host in numpy and copied to the device by the runtime.
 
+Slab metadata (the Hopper kernel's temporal heads of placement-free SVG1,
+`slab_meta_np`): per q slab j, the K/V slab runs
+    row[j] = [n, a_0, b_0, a_1, b_1]
+of band_sink_perm's band + sink skeleton on the permuted positions, where a
+slab is n_s = 128 // F slots x all F frames (`slab_geometry`). The plain
+version and the JAX package read the chunked CSR above instead.
+
 Run lists (SAP): per (row r, q-block i)
     meta[r, i, :] = [n_chunks, a_0, b_0, a_1, b_1, ...]
 lists the maximal token runs [a, b) of the cluster-sorted, unpadded K/V that
@@ -261,3 +268,53 @@ def decode_run_meta(meta, *, seq_kv: int):
             for e in range((L - 1) // 2):
                 out[r, i, meta[r, i, 1 + 2 * e]:meta[r, i, 2 + 2 * e]] = True
     return out
+
+
+SLAB_META_LEN = 5  # (n, a_0, b_0, a_1, b_1): at most the sink's run and the band's
+
+
+def slab_geometry(frame_size: int, num_frames: int):
+    """(n_s, P, n_slabs) of band_sink_perm's slabs: n_s = 128 // F slots of
+    all F frames a slab, P = n_s * F of its 128 rows live, n_slabs =
+    ceil(frame_size / n_s) slabs over the video (the last may run past slot
+    frame_size - 1). Slab j holds the permuted positions [j * P, j * P + P),
+    p = slot * F + frame."""
+    if not 1 <= num_frames <= SUB:
+        raise ValueError(f"a slab holds all frames of a slot: num_frames must be in [1, {SUB}], got {num_frames}")
+    n_s = SUB // num_frames
+    return n_s, n_s * num_frames, -(-frame_size // n_s)
+
+
+def slab_meta_np(spec) -> np.ndarray:
+    """(n_slabs, SLAB_META_LEN) int32 for a band_sink_perm MaskSpec: q slab
+    j visits K/V slab i iff execution_mask_block's band + sink skeleton, on
+    the permuted positions at slab granularity, holds: the gap between their
+    p-intervals (clipped to the video's S = frame_size * num_frames) is below
+    band_width, or slab i starts in the sink (p < sink_size). A row lists
+    those slabs as runs [a, b) in ascending order."""
+    _, P, n = slab_geometry(spec.frame_size, spec.num_frames)
+    S = spec.frame_size * spec.num_frames
+    lo = np.arange(n, dtype=np.int64) * P
+    hi = np.minimum(lo + P, S) - 1
+    gap = np.maximum(np.maximum(lo[None, :] - hi[:, None], lo[:, None] - hi[None, :]), 0)
+    bm = (gap < spec.band_width) | (lo[None, :] < spec.sink_size)
+    edges = np.diff(np.pad(bm.astype(np.int8), ((0, 0), (1, 1))), axis=1)
+    out = np.zeros((n, SLAB_META_LEN), np.int32)
+    for j in range(n):
+        a, b = np.flatnonzero(edges[j] == 1), np.flatnonzero(edges[j] == -1)
+        if len(a) > (SLAB_META_LEN - 1) // 2:
+            raise AssertionError(f"slab {j}: {len(a)} runs; a band and a sink make at most 2")
+        out[j, 0] = len(a)
+        out[j, 1:1 + 2 * len(a)] = np.stack([a, b], 1).reshape(-1)
+    return out
+
+
+def slab_visits_np(spec, meta=None) -> np.ndarray:
+    """(n_slabs,) int64: the K/V tokens each q slab's row of `meta`
+    (slab_meta_np(spec) by default) visits (its slabs' live rows, the weight
+    of its work item)."""
+    _, P, n = slab_geometry(spec.frame_size, spec.num_frames)
+    live = np.minimum(P, spec.frame_size * spec.num_frames - np.arange(n, dtype=np.int64) * P)
+    meta = slab_meta_np(spec) if meta is None else meta
+    return np.array([sum(int(live[a:b].sum()) for a, b in meta[j, 1:1 + 2 * meta[j, 0]].reshape(-1, 2))
+                     for j in range(n)], np.int64)

@@ -9,9 +9,9 @@ Builds both kernel libraries (each tree's own `_kernels.build()`, run in a
 subprocess from that tree's root), disassembles each with `cuobjdump -sass`,
 splits the listing into functions, strips the per-file anonymous-namespace
 tag (`_GLOBAL__N__<hash>`) from the names and compares every function whose
-name holds `bsa_kernel`, `runs_kernel` or `dense_kernel` instruction by
-instruction (the lines that carry an address; addresses and encodings
-dropped). Prints one
+name holds `bsa_kernel`, `bsa_stats_kernel`, `runs_kernel`,
+`runs_stats_kernel` or `dense_kernel` instruction by instruction (the lines
+that carry an address; addresses and encodings dropped). Prints one
 line a function (equal, differing, or present on one side only), and for a
 differing one the count of differing positions, whether the two sides hold
 the same instructions in another order (`same multiset`) and the first
@@ -29,7 +29,7 @@ import subprocess
 import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-TRACKED = ("bsa_kernel", "runs_kernel", "dense_kernel")
+TRACKED = ("bsa_kernel", "bsa_stats_kernel", "runs_kernel", "runs_stats_kernel", "dense_kernel")
 _FUNC = re.compile(r"^\s*Function : (\S+)")
 _ANON = re.compile(r"_GLOBAL__N__[0-9a-fA-F_]+")
 # an instruction line: its address, the instruction, its encoding

@@ -7,9 +7,10 @@ The JAX probe's data: 12 centers (x 2.5) with 0.35 noise from numpy seed 0,
 the same 75,600 tokens of width 128 in all 40 heads (Wan 2.1 14B at 720p),
 bf16, and random normal centroids, K = 300 then 125. Each variant
 (ops/kmeans.py: A argmin, B two-min, C two-min with product counts, D
-multi-hot without labels, E assign only) runs on K5's first kernel
-(csrc/kmeans_wide.cu), which the probe keeps; ms per pass by CUDA events over --iters runs after
---warmup; B and C must equal A (labels, sums and counts, bit for bit).
+multi-hot without labels, E assign only) runs on K5's kernels
+(csrc/kmeans_lloyd.cu, the variant a template parameter of the assign; A is
+K5's pass); ms per pass by CUDA events over --iters runs after --warmup; B
+and C must equal A (labels, sums and counts, bit for bit).
 Prints the card's name and power limit first.
 """
 

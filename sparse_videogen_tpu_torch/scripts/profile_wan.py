@@ -57,7 +57,7 @@ CATEGORIES = (
     ("K1 attention (bsa_kernel)", ("bsa_kernel", "bsa_stats_kernel", "bsa_dual_kernel")),
     ("K2 RoPE (rope_kernel)", ("rope_kernel",)),
     ("K3 run-list attention (runs_kernel)", ("runs_kernel", "runs_stats_kernel")),
-    ("K5 k-means (kmeans_*_kernel)", ("kmeans_",)),  # K5's five kernels (and K8's, csrc/kmeans_wide.cu)
+    ("K5 k-means (kmeans_*_kernel)", ("kmeans_",)),  # K5's kernels (K8's variants run on them)
     ("GEMM (cuBLAS)", ("nvjet", "gemm", "xmma", "cutlass")),
     ("softmax", ("softmax",)),
     ("reduce", ("reduce_kernel",)),

@@ -32,7 +32,7 @@ from sparse_videogen_tpu_torch.core import masks as core_masks
 from sparse_videogen_tpu_torch.core.placement import place_heads
 from sparse_videogen_tpu_torch.core.profiler import best_mask_idx, sample_mse
 from sparse_videogen_tpu_torch.ops import metadata as MD
-from sparse_videogen_tpu_torch.ops.attention import block_sparse_attention_kv
+from sparse_videogen_tpu_torch.ops.attention import block_sparse_attention_kv, dual_rows
 from sparse_videogen_tpu_torch.ops.mask_spec import MaskSpec
 
 
@@ -230,12 +230,9 @@ def svg1_sparse_impl(q, k, v, rows, meta, plan: SVG1Plan, aux=None):
     mses = sample_mse(q, k, v, plan.profile_preds(), rows)
     best = best_mask_idx(mses)  # (B, H): 0 spatial, 1 temporal
     if plan.inplace_temporal:
-        flags = best.reshape(-1).to(torch.int32)
-        meta_bh = torch.where(flags[:, None, None] == 1, meta[1][None], meta[0][None]).contiguous()
-        aux4 = torch.zeros(4, dtype=torch.int32, device=q.device) if aux is None else \
-            torch.as_tensor(aux, dtype=torch.int32, device=q.device)[:4]
-        return _run_kernel(q, k, v, meta_bh, plan, plan.mask_spec_dual, torch.cat([aux4, flags]),
-                           block_q=plan.block_q)
+        meta_bh, aux_bh = dual_rows(meta, best.reshape(-1).to(torch.int32), plan.mask_spec_dual[1],
+                                    plan.block_q, aux)
+        return _run_kernel(q, k, v, meta_bh, plan, plan.mask_spec_dual, aux_bh, block_q=plan.block_q)
     is_t = best == 1
     o = _run_kernel(place_heads(q, is_t, plan.layout), place_heads(k, is_t, plan.layout),
                     place_heads(v, is_t, plan.layout), meta, plan, plan.mask_spec, aux,

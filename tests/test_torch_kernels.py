@@ -372,11 +372,12 @@ def test_kmeans_kernel_one_large_cluster(cuda, D_):
 @pytest.mark.parametrize("variant", VARIANTS)
 @pytest.mark.parametrize("D_", [64, 128])
 def test_kmeans_variant_kernels_match_plain(cuda, variant, D_):
-    """The probe's variants on the k-means kernel at K = 300, with the last two
+    """The probe's variants on K5's kernels at K = 300, with the last two
     centroids copies of the first two (exact ties). Same bits twice. A, B, C:
-    as K5 against the plain version, and B, C equal to A bit for bit; E: A's
-    labels, sums and counts 0; D: labels 0, and the counts and sums of A's
-    labels spread over the identical centroids (counts exactly, sums to 1e-5)."""
+    as K5 against the plain version, and B, C equal to A, and A to K5's own
+    pass, bit for bit; E: A's labels, sums and counts 0; D: labels 0, and the
+    counts and sums of A's labels spread over the identical centroids (counts
+    exactly, sums to 1e-5)."""
     gen = torch.Generator(device=cuda).manual_seed(7 + D_)
     B, N, K = 3, 5000, 300
     x = torch.randn(B, N, D_, generator=gen, device=cuda).to(torch.bfloat16)
@@ -389,6 +390,7 @@ def test_kmeans_variant_kernels_match_plain(cuda, variant, D_):
     for a, b in zip(out, again):
         assert torch.equal(a, b)
     a_out = kmeans_variant_pass(x, c, "A")
+    assert all(torch.equal(a, b) for a, b in zip(a_out, kmeans_assign_update(x, c)))
     ref_labels = kmeans_variant_pass_plain(x, c, "A")[0]
     if variant in ("A", "B", "C"):
         _check_labels_and_sums(x, c, out, ref_labels)

@@ -19,7 +19,7 @@ from sparse_videogen_tpu_torch.ops import metadata as MD
 from sparse_videogen_tpu_torch.ops.attention import (NEG_INF, block_sparse_attention_kv,
                                                      block_sparse_attention_kv_plain, block_sparse_attention_runs,
                                                      block_sparse_attention_runs_plain)
-from sparse_videogen_tpu_torch.ops.mask_spec import MaskSpec
+from sparse_videogen_tpu_torch.ops.mask_spec import MaskSpec, apply_mask_spec
 
 
 @pytest.fixture
@@ -51,7 +51,10 @@ def test_chunked_stats_and_dual_match_plain(cuda, kind, D_):
     """K1 with the stats in every kind and with the dual spec (heads 1, 2
     temporal), a q block that sees nothing, a kv tail of padding, aux
     offsets: (o, m, l) against the plain version; o equals o without the
-    stats bit for bit; the dual spec counts as band_sink_perm."""
+    stats bit for bit; the dual spec counts as band_sink_perm. The dual
+    kernel's temporal heads attend every pair band_sink_perm allows (their
+    slab metadata), so their plain metadata rows are the exact block
+    skeleton of the mask; the spatial heads keep the rows above."""
     gen = torch.Generator(device=cuda).manual_seed(D_)
     BH, bq = 4, 128
     Sp = -(-S // 128) * 128
@@ -59,6 +62,13 @@ def test_chunked_stats_and_dual_match_plain(cuda, kind, D_):
     bm = np.ones((1, Sp // bq, Sp // 128), bool)
     bm[0, 1] = False
     meta = torch.as_tensor(MD.chunk_meta_np(bm, MD.kv_counts_for_seq(S - 50, Sp), block_kv=256), device=cuda)
+    if kind == "dual":
+        x = torch.arange(S)
+        allowed = apply_mask_spec(DUAL[1], x[:, None], x[None, :], None).reshape(S // bq, bq, S // 128, 128)
+        skel = MD.chunk_meta_np(allowed.any(3).any(1).numpy()[None], MD.kv_counts_for_seq(S, Sp), block_kv=256)
+        L = max(skel.shape[-1], meta.shape[-1])
+        rows = [np.pad(m, ((0, 0), (0, 0), (0, L - m.shape[-1]))) for m in (meta.cpu().numpy(), skel)]
+        meta = torch.as_tensor(np.concatenate([rows[0], rows[1], rows[1], rows[0]]), device=cuda)
     spec = {"none": MaskSpec(), "band_sink": DUAL[0], "hyvideo": MaskSpec("hyvideo", 512, video_len=1700),
             "cog": MaskSpec("cog", 512), "dual": DUAL}[kind]
     head = [1700 if kind == "hyvideo" else 100, 0, 3 if kind == "band_sink" else 0, 0]
@@ -72,6 +82,32 @@ def test_chunked_stats_and_dual_match_plain(cuda, kind, D_):
     assert _kernels.KIND_LAUNCHES["block_sparse_attn[stats]"] == 1 and not any(_kernels.PLAIN_CALLS.values())
     assert torch.equal(o, got[0])
     _check(got, block_sparse_attention_kv_plain(q, k, v, meta, aux, return_stats=True, **kw))
+
+
+@pytest.mark.gpu
+def test_dual_refuses_temporal_rows_with_a_hole(cuda):
+    """The dual kernel reads a temporal head's mask from its slab metadata,
+    so the wrapper refuses, before any launch, a temporal head whose rows
+    would make the plain version attend other pairs: a q block that sees
+    nothing and a kv tail left out (the rows above). The same rows on
+    spatial heads run, and non-zero aux[2:4] offsets raise."""
+    Sp = -(-S // 128) * 128
+    q, k, v = (torch.randn(4, Sp, 64, device=cuda).to(torch.bfloat16) for _ in range(3))
+    bm = np.ones((1, Sp // 128, Sp // 128), bool)
+    bm[0, 1] = False
+    meta = torch.as_tensor(MD.chunk_meta_np(bm, MD.kv_counts_for_seq(S - 50, Sp), block_kv=256), device=cuda)
+    kw = dict(block_q=128, block_kv=256, mask_spec=DUAL)
+    _kernels.reset_counts()
+    with pytest.raises(ValueError, match=r"temporal heads \[1, 2\]"):
+        block_sparse_attention_kv(q, k, v, meta, torch.tensor([100, 0, 0, 0, 0, 1, 1, 0], dtype=torch.int32,
+                                                              device=cuda), **kw)
+    assert not any(_kernels.KIND_LAUNCHES.values())
+    with pytest.raises(ValueError, match="offsets"):
+        block_sparse_attention_kv(q, k, v, meta, torch.tensor([100, 0, 0, 5, 0, 0, 0, 0], dtype=torch.int32,
+                                                              device=cuda), **kw)
+    block_sparse_attention_kv(q, k, v, meta, torch.tensor([100, 0, 0, 0, 0, 0, 0, 0], dtype=torch.int32,
+                                                          device=cuda), **kw)
+    assert _kernels.KIND_LAUNCHES["block_sparse_attn[band_sink_perm]"] == 1
 
 
 @pytest.mark.gpu

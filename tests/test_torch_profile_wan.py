@@ -11,8 +11,8 @@ from sparse_videogen_tpu_torch.scripts.profile_wan import breakdown, category
     ("void (anonymous namespace)::runs_kernel<128>(...)", "K3 run-list attention (runs_kernel)"),
     ("void at::native::reduce_kernel<512, 1, at::native::ReduceOp<float, ...>>(...)", "reduce"),
     ("void (anonymous namespace)::kmeans_reduce_kernel(...)", "K5 k-means (kmeans_*_kernel)"),
-    ("void (anonymous namespace)::kmeans_wide_assign_kernel<128, 0>(...)", "K5 k-means (kmeans_*_kernel)"),
-    ("void (anonymous namespace)::kmeans_wide_update_kernel<128, 1, false>(...)", "K5 k-means (kmeans_*_kernel)"),
+    ("void (anonymous namespace)::kmeans_assign_kernel<128, 1>(...)", "K5 k-means (kmeans_*_kernel)"),
+    ("(anonymous namespace)::kmeans_count_kernel(int const*, float*, int, int)", "K5 k-means (kmeans_*_kernel)"),
     ("void (anonymous namespace)::kmeans_csq_kernel(...)", "K5 k-means (kmeans_*_kernel)"),
     ("void (anonymous namespace)::kmeans_assign_kernel<128>(...)", "K5 k-means (kmeans_*_kernel)"),
     ("(anonymous namespace)::kmeans_scatter_kernel(int const*, int const*, int*, int, int, int, int)",
