@@ -99,6 +99,12 @@ is non-zero:
                  with cuDNN's TF32 on, and dense steps, for the projection
                  of a CLI_STEPS-step generation. A small UMT5 and Wan VAE on
                  the card against the CPU (UMT5_TOL, VAE_TOL).
+               quality (after p2v): scripts/quality.py's recipe without the
+                 decode: Wan 2.1 1.3B structured-synthetic (K := Q, gain
+                 4.0) at 720x1280x81, 8 steps, dense, SVG1 and SAP cluster
+                 (QC 300, KC 125) from one noise, launches held to the
+                 configuration; latent PSNR / SSIM against dense, SAP's
+                 density; SVG1 >= 35 dB and SAP >= 24 dB or the run fails.
   5. cli     - the port's CLIs in --smoke mode: Wan for SVG, dense and SAP,
                HunyuanVideo and CogVideoX for SVG and dense; the Wan smoke
                with a video name (its tiny VAE, a .y4m); the Wan CLI on a
@@ -864,18 +870,18 @@ def expected_launches(pattern, n_layers, warmup, timesteps, kinds, sap=None):
     return want, want_kinds
 
 
-def drive_pipeline(name, desc, run, pattern, timesteps, n_layers, generate, shape, kinds, sap=None):
+def drive_pipeline(name, desc, kw, pattern, timesteps, n_layers, generate, shape, kinds, sap=None):
     """One generation through a pipeline's entry point, generate(callback),
     timed by the profile scripts' time_generation (the kernel counters set
     to 0 just before it and read just after), and held to what the
     configuration implies: the launches and the chunked-CSR kernel's
     launches by mask kind (expected_launches), no plain-version call, and
-    finite latents of `shape`. Returns time_generation's record, the latents
-    under "latents"."""
+    finite latents of `shape`. `kw` holds the run's first_layers_fp and
+    first_times_fp. Returns time_generation's record, the latents under
+    "latents"."""
     from sparse_videogen_tpu_torch.config import WarmupSchedule
     from sparse_videogen_tpu_torch.scripts.profile_wan import time_generation
 
-    kw = run.generate_kwargs()
     warmup = WarmupSchedule.from_fractions(kw["first_layers_fp"], kw["first_times_fp"], n_layers, timesteps)
     want, want_kinds = expected_launches(pattern, n_layers, warmup, timesteps, kinds, sap)
     lat, r = time_generation(generate)
@@ -919,7 +925,7 @@ def drive(model, run, pattern, steps, inplace_temporal=False):
     desc = f"{run.height}x{run.width}x{run.num_frames} (S={lay.seq_len} = {lay.num_frames}x{lay.frame_size}), {how}"
     with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
         dlog = os.path.join(tmp, "density.jsonl")
-        r = drive_pipeline(name, desc, run, pattern, timesteps, cfg.num_layers,
+        r = drive_pipeline(name, desc, run.generate_kwargs(), pattern, timesteps, cfg.num_layers,
                            lambda on_step: WanPipeline(model).generate_latents(
                                ctx, ctx_null, num_inference_steps=steps, pattern=pattern, seed=0, callback=on_step,
                                logging_file=dlog if pattern == "SAP" else None, inplace_temporal=inplace_temporal,
@@ -1017,6 +1023,51 @@ def phase_slice_14b(dev):
     del model
     torch.cuda.empty_cache()
     return {name: n for name, n in launches.items() if n}
+
+
+def phase_quality(dev):
+    """The quality leg (scripts/quality.py's recipe, latents only): Wan 2.1
+    1.3B at full width and depth, structured-synthetic (K := Q, gain 4.0),
+    720x1280x81 (S = 75,600), 8 UniPC steps, dense, SVG1 and SAP in cluster
+    mode (QC 300, KC 125) from the same noise, each through drive_pipeline
+    (its K1, K2, K3 and K5 launches held to expected_launches); latent PSNR
+    and SSIM against dense, SAP's density, each pattern's seconds a step;
+    SVG1 >= 35 dB and SAP >= 24 dB, a miss fails the phase."""
+    from sparse_videogen_tpu_torch.pipelines.wan import wan_layout
+    from sparse_videogen_tpu_torch.schedulers import FlowUniPC
+    from sparse_videogen_tpu_torch.scripts import quality as Q
+
+    cfg, (h, w, f), patterns = Q.recipe()
+    model, ctx, ctx_null = Q.make_inputs(cfg, dev)
+    lay = wan_layout(cfg, h, w, f)
+    timesteps = FlowUniPC(Q.STEPS, shift=3.0).timesteps
+    shape = (1, 16, lay.num_frames, h // 8, w // 8)
+    desc = f"{h}x{w}x{f} (S={lay.seq_len}), structured-synthetic (K := Q, gain {Q.GAIN})"
+    lat, per_step, density = {}, {}, None
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        for name, kw in patterns.items():
+            dlog = os.path.join(tmp, f"{name}.jsonl") if kw["pattern"] == "SAP" else None
+            r = drive_pipeline("quality", desc, kw, kw["pattern"], timesteps, cfg.num_layers,
+                               lambda cb, kw=kw, dlog=dlog: Q.generate(model, ctx, ctx_null, (h, w, f), kw, callback=cb,
+                                                                       logging_file=dlog),
+                               shape, ("none", "band_sink"), sap=kw.get("sap"))
+            lat[name] = r["latents"].float().cpu().numpy()
+            per_step[name] = r["per_step_s"]
+            if dlog:
+                density = Q.density_mean(dlog)
+    del model
+    torch.cuda.empty_cache()
+    metrics = {name: Q.latent_metrics(lat["dense"], lat[name]) for name in patterns if name != "dense"}
+    for name, m in metrics.items():
+        log("quality", f"dense vs {name}: latent PSNR {m['latent_psnr_db']:.3f} dB, SSIM {m['latent_ssim']:.5f}, "
+                       f"s a step {[round(x, 4) for x in per_step[name]]}"
+                       + (f", SAP density {density:.4f}" if name.startswith("sap") else ""))
+    log("quality", f"dense s a step {[round(x, 4) for x in per_step['dense']]}; latent max |x| "
+                   f"{np.abs(lat['dense']).max():.4f}")
+    svg_db, sap_db = metrics["svg1"]["latent_psnr_db"], metrics["sap_cluster"]["latent_psnr_db"]
+    if not (svg_db >= Q.MIN_PSNR and sap_db >= Q.SAP_MIN_PSNR):
+        raise AssertionError(f"quality gate missed: SVG1 {svg_db:.3f} dB (gate {Q.MIN_PSNR}), SAP {sap_db:.3f} dB "
+                             f"(gate {Q.SAP_MIN_PSNR})")
 
 
 def phase_small_reference(dev):
@@ -1262,8 +1313,9 @@ def drive_hyvideo(model, run, steps):
     name = f"HunyuanVideo hidden {cfg.hidden_size} x {cfg.mm_double_blocks_depth}+{cfg.mm_single_blocks_depth} blocks"
     desc = (f"{run.height}x{run.width}x{run.num_frames} (S={lay.seq_len} = {lay.num_frames}x{lay.frame_size} + "
             f"{cfg.text_len} text, prompt {HY_PROMPT}), Euler, embedded guidance")
-    return drive_pipeline(name, desc, run, run.pattern, FlowMatchEuler(steps, shift=run.flow_shift).timesteps,
-                          cfg.num_layers, lambda on_step: HyVideoPipeline(model).generate_latents(
+    return drive_pipeline(name, desc, run.generate_kwargs(), run.pattern,
+                          FlowMatchEuler(steps, shift=run.flow_shift).timesteps, cfg.num_layers,
+                          lambda on_step: HyVideoPipeline(model).generate_latents(
                               text, mask, pooled, prompt_length=HY_PROMPT, num_inference_steps=steps, seed=0,
                               callback=on_step, **run.generate_kwargs()),
                           (1, 16, lay.num_frames, run.height // 8, run.width // 8), ("hyvideo", "hyvideo"))
@@ -1581,8 +1633,9 @@ def drive_cog(model, run, steps):
     lay = cog_run_layout()
     desc = (f"{run.height}x{run.width}x{run.num_frames} (S={lay.seq_len} = {cfg.text_len} text + "
             f"{lay.num_frames}x{lay.frame_size}), DDIM, CFG batch 2")
-    return drive_pipeline(f"CogVideoX hidden {cfg.hidden_size} x {cfg.num_layers} layers", desc, run, run.pattern,
-                          CogDDIM(steps).timesteps, cfg.num_layers, lambda on_step: CogPipeline(model).generate_latents(
+    return drive_pipeline(f"CogVideoX hidden {cfg.hidden_size} x {cfg.num_layers} layers", desc,
+                          run.generate_kwargs(), run.pattern, CogDDIM(steps).timesteps, cfg.num_layers,
+                          lambda on_step: CogPipeline(model).generate_latents(
                               ctx, ctx_null, img, num_inference_steps=steps, seed=0, callback=on_step,
                               **run.generate_kwargs()), shape, ("none", "cog"))
 
@@ -2541,6 +2594,7 @@ def main():
     launches["block_sparse_attn[hyvideo]"] = phase_hyvideo_slice(dev)
     launches["block_sparse_attn[cog]"] = phase_cog_slice(dev)
     phase_prompt_to_video(dev)
+    phase_quality(dev)
     phase_small_reference(dev)
     phase_small_hyvideo_reference(dev)
     phase_small_cog_reference(dev)

@@ -4,9 +4,9 @@ through transformers' protobuf schema; the card's host has neither).
 
 It reproduces what that builds from a `spiece.model` (the transformers
 T5Converter recipe) or reads from a `tokenizer.json`:
-  - normalizer: `" {2,}" -> " "`; a non-empty sentencepiece
-    `precompiled_charsmap` (real UMT5 tokenizers carry one) is not ported
-    and raises NotImplementedError;
+  - normalizers, in the file's order: sentencepiece's
+    `precompiled_charsmap` where one is given (real UMT5 tokenizers carry
+    one: `Precompiled`, tokenizers' reading of it), then `" {2,}" -> " "`;
   - pre-tokenizer: Metaspace, " " -> "▁", "▁" prepended unless the text
     starts with it, split before every "▁";
   - model: Unigram Viterbi over the pieces' scores (f64), the first of equal
@@ -19,6 +19,8 @@ T5Converter recipe) or reads from a `tokenizer.json`:
 
 from __future__ import annotations
 
+import base64
+import binascii
 import html
 import json
 import os
@@ -26,6 +28,8 @@ import re
 import struct
 
 import numpy as np
+
+from sparse_videogen_tpu_torch.io.grapheme import graphemes
 
 EOS = "</s>"
 PAD_ID = 0
@@ -165,16 +169,81 @@ class Unigram:
         return [self.ids.get(p, self.unk_id) for p in reversed(pieces)]
 
 
-def _check_charsmap(charsmap, source: str) -> None:
-    if charsmap:
-        raise NotImplementedError(
-            f"{source}: a non-empty precompiled_charsmap (sentencepiece's NFKC-style normalizer, as real UMT5 "
-            "tokenizers carry) is not ported; only the ' {2,}' -> ' ' normalizer is")
+class Precompiled:
+    """sentencepiece's precompiled charsmap as `tokenizers` applies it (its
+    Precompiled normalizer, the spm_precompiled crate).
+
+    The blob is a uint32 LE byte size of the trie, the trie's darts-clone
+    double-array units (uint32 LE), then the NUL-terminated replacement
+    strings; a key's value is its replacement's byte offset. The text is
+    walked by extended grapheme clusters (io/grapheme.py): a cluster under 6
+    bytes is looked up whole, and replaced whole when a key is a prefix of
+    it; otherwise, or when nothing matched, each character is looked up on
+    its own. A lookup takes the first result of the common-prefix search,
+    the shortest key that is a prefix of the bytes. A malformed blob raises
+    ValueError."""
+
+    def __init__(self, blob: bytes):
+        blob = bytes(blob)
+        if len(blob) < 4:
+            raise ValueError(f"precompiled_charsmap of {len(blob)} bytes: no trie size")
+        n_units = struct.unpack_from("<I", blob)[0] // 4
+        if n_units == 0 or 4 + 4 * n_units > len(blob):
+            raise ValueError(f"precompiled_charsmap: a trie of {n_units} units does not fit its {len(blob)} bytes")
+        self.units = struct.unpack_from(f"<{n_units}I", blob, 4)
+        self.normalized = blob[4 + 4 * n_units:]
+
+    def _at(self, pos: int) -> int:
+        if pos >= len(self.units):
+            raise ValueError(f"precompiled_charsmap: trie unit {pos} past its {len(self.units)} units")
+        return self.units[pos]
+
+    def lookup(self, key: bytes) -> str | None:
+        """The replacement of the shortest key that is a prefix of `key`."""
+        unit = self._at(0)
+        pos = (unit >> 10) << ((unit & 0x200) >> 6)
+        for c in key:
+            if c == 0:
+                break
+            pos ^= c
+            unit = self._at(pos)
+            if unit & 0x800000FF != c:  # the label (a leaf's bit 31 never matches)
+                break
+            pos ^= (unit >> 10) << ((unit & 0x200) >> 6)
+            if unit & 0x100:  # a key ends here: its value is the leaf below
+                start = self._at(pos) & 0x7FFFFFFF
+                if start > len(self.normalized):
+                    raise ValueError(f"precompiled_charsmap: replacement offset {start} past the strings")
+                end = self.normalized.find(b"\0", start)
+                try:
+                    return self.normalized[start:end if end >= 0 else None].decode("utf-8")
+                except UnicodeDecodeError as e:
+                    raise ValueError(f"precompiled_charsmap: replacement at {start} is not UTF-8") from e
+        return None
+
+    def __call__(self, text: str) -> str:
+        out = []
+        for g in graphemes(text):
+            gb = g.encode("utf-8")
+            if len(gb) < 6:
+                norm = self.lookup(gb)
+                if norm is not None:
+                    out.append(norm)
+                    continue
+            for ch in g:
+                norm = self.lookup(ch.encode("utf-8"))
+                out.append(ch if norm is None else norm)
+        return "".join(out)
 
 
-def _from_tokenizer_json(path: str) -> tuple[list[tuple[str, float]], int, int]:
-    """tokenizer.json -> (vocab, unk_id, eos_id) for the T5 recipe; a model
-    or normalizer outside it raises NotImplementedError."""
+def collapse_spaces(text: str) -> str:
+    return re.sub(" {2,}", " ", text)
+
+
+def _from_tokenizer_json(path: str) -> tuple[list[tuple[str, float]], int, int, list]:
+    """tokenizer.json -> (vocab, unk_id, eos_id, normalizers) for the T5
+    recipe; a model or normalizer outside it raises NotImplementedError, a
+    malformed charsmap ValueError."""
     with open(path, encoding="utf-8") as f:
         tj = json.load(f)
     model = tj.get("model") or {}
@@ -187,17 +256,23 @@ def _from_tokenizer_json(path: str) -> tuple[list[tuple[str, float]], int, int]:
     if model.get("unk_id") is None:
         raise NotImplementedError(f"{path}: a Unigram model without an unk id is not ported")
     norm = tj.get("normalizer") or {}
+    norms = []
     for nm in norm.get("normalizers", [norm] if norm else []):
         if nm.get("type") == "Precompiled":
-            _check_charsmap(nm.get("precompiled_charsmap"), path)
-        elif not (nm.get("type") == "Replace" and nm.get("pattern", {}).get("Regex") == " {2,}"
-                  and nm.get("content") == " "):
+            try:
+                blob = base64.b64decode(nm.get("precompiled_charsmap") or "", validate=True)
+            except binascii.Error as e:
+                raise ValueError(f"{path}: precompiled_charsmap is not base64") from e
+            norms.append(Precompiled(blob))
+        elif nm.get("type") == "Replace" and nm.get("pattern", {}).get("Regex") == " {2,}" and nm.get("content") == " ":
+            norms.append(collapse_spaces)
+        else:
             raise NotImplementedError(f"{path}: normalizer {nm} is not ported")
     vocab = [(p, float(s)) for p, s in model["vocab"]]
     special = (tj.get("post_processor") or {}).get("special_tokens", {})
     eos_id = special[EOS]["ids"][0] if EOS in special else next(
         (i for i, (p, _) in enumerate(vocab) if p == EOS), EOS_ID)
-    return vocab, model["unk_id"], eos_id
+    return vocab, model["unk_id"], eos_id, norms
 
 
 class T5TokenizerLite:
@@ -205,17 +280,19 @@ class T5TokenizerLite:
     T5TokenizerLite: the reference's tokenizer(texts, return_mask=True,
     add_special_tokens=True) with padding="max_length", truncation=True)."""
 
-    def __init__(self, model: Unigram, eos_id: int, pad_id: int = PAD_ID):
+    def __init__(self, model: Unigram, eos_id: int, normalizers, pad_id: int = PAD_ID):
         self.model = model
         self.eos_id = eos_id
         self.pad_id = pad_id
+        self.normalizers = list(normalizers)
 
     @classmethod
     def from_spiece(cls, path: str) -> "T5TokenizerLite":
         pieces, unk_id, charsmap = read_spiece(path)
-        _check_charsmap(charsmap, path)
         eos_id = next((i for i, (p, _) in enumerate(pieces) if p == EOS), EOS_ID)
-        return cls(Unigram(pieces, unk_id), eos_id)
+        # the JAX package's order: Precompiled (a non-empty charsmap), then the collapse
+        norms = ([Precompiled(charsmap)] if charsmap else []) + [collapse_spaces]
+        return cls(Unigram(pieces, unk_id), eos_id, norms)
 
     @classmethod
     def from_dir(cls, path: str) -> "T5TokenizerLite":
@@ -226,8 +303,8 @@ class T5TokenizerLite:
         for d in candidates:
             tj = os.path.join(d, "tokenizer.json")
             if os.path.isfile(tj):
-                vocab, unk_id, eos_id = _from_tokenizer_json(tj)
-                return cls(Unigram(vocab, unk_id), eos_id)
+                vocab, unk_id, eos_id, norms = _from_tokenizer_json(tj)
+                return cls(Unigram(vocab, unk_id), eos_id, norms)
         for d in candidates:
             sp = os.path.join(d, "spiece.model")
             if os.path.isfile(sp):
@@ -235,8 +312,10 @@ class T5TokenizerLite:
         raise FileNotFoundError(f"no tokenizer.json or spiece.model under {path}")
 
     def encode(self, text: str) -> list[int]:
-        """Ids of one text without </s>: normalizer, Metaspace, Unigram."""
-        text = re.sub(" {2,}", " ", text).replace(" ", SPACE)
+        """Ids of one text without </s>: normalizers, Metaspace, Unigram."""
+        for norm in self.normalizers:
+            text = norm(text)
+        text = text.replace(" ", SPACE)
         if text and not text.startswith(SPACE):
             text = SPACE + text
         ids = []

@@ -2,8 +2,9 @@
 of what it needs: importing every module of sparse_videogen_tpu_torch, and
 chip_smoke.py, pulls in no jax and no module of the JAX package
 (sparse_videogen_tpu or sparse_videogen_tpu.*). The card's host also lacks
-tokenizers, transformers, safetensors and PIL, so no import pulls those in
-either (the .mp4 writer imports PIL only when it encodes a frame)."""
+tokenizers, transformers, safetensors, PIL and regex, so no import pulls
+those in either (the .mp4 writer imports PIL only when it encodes a frame;
+io/grapheme.py keeps its own Unicode tables)."""
 
 import os
 import subprocess
@@ -18,14 +19,15 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 for name in names:
     importlib.import_module(name)
 import chip_smoke
-absent = ("jax", "jaxlib", "sparse_videogen_tpu", "tokenizers", "transformers", "safetensors", "PIL")
+absent = ("jax", "jaxlib", "sparse_videogen_tpu", "tokenizers", "transformers", "safetensors", "PIL", "regex")
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in absent)
 print(len(names), leaked)
 assert not leaked, leaked
 assert len(names) >= 20, names
 for mod in ("models.cog.model", "pipelines.cog", "schedulers.ddim_cog", "cli.cog_i2v", "scripts.profile_cog",
             "io.safetensors", "io.tokenizer", "io.encoders", "io.checkpoint", "io.native", "io.mp4",
-            "models.common.t5", "models.wan.vae", "models.common.vae_tiling", "utils.dataloader"):
+            "models.common.t5", "models.wan.vae", "models.common.vae_tiling", "utils.dataloader", "io.grapheme",
+            "utils.metric", "utils.perceptual", "utils.lpips_alex", "scripts.quality"):
     assert pkg.__name__ + "." + mod in names, mod
 """
 

@@ -72,8 +72,9 @@ def test_spiece_fields(tmp_path):
 
 
 def test_precompiled_charsmap_raises(tmp_path):
-    """Real UMT5 tokenizers carry a sentencepiece normalizer the port does not
-    have: it refuses instead of guessing one."""
+    """A malformed precompiled_charsmap (3 bytes: not even the trie's size)
+    is refused by both packages: tokenizers' Precompiled raises, the port's
+    ValueError. Valid charsmaps are tests/test_torch_charsmap.py's."""
     try:
         from transformers.utils import sentencepiece_model_pb2_new as pb2
     except ImportError:
@@ -84,5 +85,7 @@ def test_precompiled_charsmap_raises(tmp_path):
     m.ParseFromString((tmp_path / "spiece.model").read_bytes())
     m.normalizer_spec.precompiled_charsmap = b"\x01\x02\x03"
     (tmp_path / "spiece.model").write_bytes(m.SerializeToString())
-    with pytest.raises(NotImplementedError, match="precompiled_charsmap"):
+    with pytest.raises(Exception, match="precompiled_charsmap"):
+        JTok.from_dir(str(tmp_path))
+    with pytest.raises(ValueError, match="precompiled_charsmap"):
         TT.T5TokenizerLite.from_dir(str(tmp_path))
