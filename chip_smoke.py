@@ -1,6 +1,7 @@
 """Drive the torch port's main paths once on one NVIDIA GPU: Wan 2.1 T2V
-dense/SVG1/SAP and from a prompt to a video, HunyuanVideo T2V dense/SVG1,
-CogVideoX 1.5 I2V dense/SVG1, and the probe entries of K6 and K8.
+dense/SVG1/SAP and from a prompt to a video, Wan 2.1 I2V 14B from an image
+and a prompt to a video, HunyuanVideo T2V dense/SVG1, CogVideoX 1.5 I2V
+dense/SVG1, and the probe entries of K6 and K8.
 
     python3 chip_smoke.py
 
@@ -98,19 +99,36 @@ is non-zero:
                  latent frames; whole and streamed held to each other) and
                  with cuDNN's TF32 on, and dense steps, for the projection
                  of a CLI_STEPS-step generation. A small UMT5 and Wan VAE on
-                 the card against the CPU (UMT5_TOL, VAE_TOL).
-               quality (after p2v): scripts/quality.py's recipe without the
+                 the card against the CPU (UMT5_TOL, VAE_TOL); a small I2V
+                 Wan with clip_fea, a small CLIP (CLIP_TOL) and a small VAE
+                 encoder (whole and streamed, VAE_TOL) likewise.
+               i2v (after p2v): Wan 2.1 I2V from an image to a video at
+                 the 14B width (phase_i2v): examples/1/image.jpg decoded by
+                 io/image.py on the host, CLIP ViT-H/14 at its full depth
+                 (random f32), random text states of UMT5-XXL's shape, the
+                 Wan VAE encode (dim 96) whole and streamed, held to each
+                 other (VAE_TOL), build_i2v_condition, LAYERS_I2V of the 40
+                 layers at 480x832x81 for I2V_STEPS SVG1 steps (one dense
+                 warm-up layer) with K1 by kind and K2 held to
+                 expected_launches and no plain-version call, the tiled
+                 decode and the .y4m read back; each stage timed with its
+                 peak memory; dense steps and the projection of a
+                 CLI_STEPS-step generation at 40 layers.
+               quality (after i2v): scripts/quality.py's recipe without the
                  decode: Wan 2.1 1.3B structured-synthetic (K := Q, gain
                  4.0) at 720x1280x81, 8 steps, dense, SVG1 and SAP cluster
                  (QC 300, KC 125) from one noise, launches held to the
                  configuration; latent PSNR / SSIM against dense, SAP's
                  density; SVG1 >= 35 dB and SAP >= 24 dB or the run fails.
-  5. cli     - the port's CLIs in --smoke mode: Wan for SVG, dense and SAP,
-               HunyuanVideo and CogVideoX for SVG and dense; the Wan smoke
-               with a video name (its tiny VAE, a .y4m); the Wan CLI on a
-               checkpoint dir written by write_tiny_checkpoint (the port's
-               safetensors writer, the reference's names) from a prompt to
-               a .y4m.
+  5. cli     - the port's CLIs, all started together: --smoke for Wan T2V
+               and I2V for SVG, dense and SAP, HunyuanVideo and CogVideoX for
+               SVG and dense; the Wan T2V smoke with a video name (its tiny
+               VAE, a .y4m); the Wan T2V CLI on a checkpoint dir written by
+               write_tiny_checkpoint (the port's safetensors writer, the
+               reference's names) from a prompt to a .y4m, and the Wan I2V
+               CLI on an I2V one (the VAE's encoder, a CLIP tower in HF's
+               names) from examples/1/image.jpg and a prompt to a .y4m.
+The whole run's seconds are printed before the two JSON lines.
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
 """
@@ -186,6 +204,14 @@ RING_LAYERS = 2
 # Winograd convolutions, whose f32 rounding departs from a direct sum by ~1e-5
 P2V_STEPS, CLI_STEPS = 2, 50
 UMT5_TOL, VAE_TOL = 1e-5, 1e-4
+# image -> video (Wan 2.1 I2V 14B at 480x832x81): its full width and the first
+# LAYERS_I2V of its 40 layers, so that first_layers_fp 0.3 gives one dense
+# warm-up layer beside three SVG1 layers (both of K1's kinds run); the
+# smoke's time limit, not the card's memory, bounds the depth. I2V_STEPS
+# SVG1 steps (the last one warm), then 2 dense for the projection. A small
+# CLIP on the card against the CPU in f32 (TF32 off): summation order only
+LAYERS_I2V, I2V_STEPS = 4, 3
+CLIP_TOL = 1e-5
 
 
 def log(phase: str, msg: str) -> None:
@@ -291,15 +317,15 @@ def slice_layout(preset="1.3B-480p"):
     return wan_layout(run.model, run.height, run.width, run.num_frames)
 
 
-def phase_rope(dev):
-    from sparse_videogen_tpu_torch import _kernels
+def phase_rope(dev, preset="1.3B-480p"):
+    """K2 at a preset's layout and heads (a CFG pair), against its plain version."""
     from sparse_videogen_tpu_torch.models.common.rope import wan_rope_cos_sin
     from sparse_videogen_tpu_torch.ops.rope import rope_apply, rope_plain
+    from sparse_videogen_tpu_torch.presets import PRESETS
 
-    from sparse_videogen_tpu_torch.presets import T2V_480P as run
-
-    lay = slice_layout()
-    BH, S, D = 2 * 12, lay.seq_len, 128
+    run = PRESETS[preset]
+    lay = slice_layout(preset)
+    BH, S, D = 2 * run.model.num_heads, lay.seq_len, 128
     cos, sin = (torch.as_tensor(a, device=dev)
                 for a in wan_rope_cos_sin(lay.num_frames, run.height // 16, run.width // 16, D))
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -340,18 +366,19 @@ def _visited_pairs(meta_np, block_q, seq_q):
     return total
 
 
-def phase_attention(dev):
-    """Kernel A at the slice's width (B=2 CFG pair x 12 heads) on the
-    metadata and mask scalars of the pipeline's own runtime; the first and
-    last CHECK_HEADS heads are held against the plain version."""
+def phase_attention(dev, preset="1.3B-480p"):
+    """Kernel A at a preset's width (a CFG pair of its heads) on the metadata
+    and mask scalars of the pipeline's own runtime; the first and last
+    CHECK_HEADS heads are held against the plain version."""
     from sparse_videogen_tpu_torch.ops.attention import block_sparse_attention_kv, block_sparse_attention_kv_plain
     from sparse_videogen_tpu_torch.pipelines.wan import make_wan_runtime
-    from sparse_videogen_tpu_torch.presets import T2V_480P
+    from sparse_videogen_tpu_torch.presets import PRESETS
 
-    lay = slice_layout()
-    rt = make_wan_runtime(lay, device=dev, pattern="SVG", svg=T2V_480P.generate_kwargs()["svg"])
+    run = PRESETS[preset]
+    lay = slice_layout(preset)
+    rt = make_wan_runtime(lay, device=dev, pattern="SVG", svg=run.generate_kwargs()["svg"])
     plan = rt.plan
-    S, D, BH = lay.seq_len, 128, 2 * 12
+    S, D, BH = lay.seq_len, 128, 2 * run.model.num_heads
     heads = torch.tensor(list(range(CHECK_HEADS)) + list(range(BH - CHECK_HEADS, BH)), device=dev)
     gen = torch.Generator(device=dev).manual_seed(2)
     cases = {
@@ -2170,7 +2197,8 @@ def _randn(g, *shape, fan_in=None):
 
 
 def reference_wan_sd(cfg, g) -> dict:
-    """A Wan T2V DiT state dict in the reference's (wan_orig) names."""
+    """A Wan DiT state dict in the reference's (wan_orig) names; an I2V
+    config adds the image branch (drawn after the T2V weights)."""
     d, sd = cfg.dim, {}
 
     def lin(key, di, do):
@@ -2195,6 +2223,16 @@ def reference_wan_sd(cfg, g) -> dict:
         sd[f"{b}.norm3.weight"], sd[f"{b}.norm3.bias"] = torch.ones(d), torch.zeros(d)
         lin(f"{b}.ffn.0", d, cfg.ffn_dim)
         lin(f"{b}.ffn.2", cfg.ffn_dim, d)
+    if cfg.model_type == "i2v":
+        for i in range(cfg.num_layers):
+            b = f"blocks.{i}.cross_attn"
+            lin(f"{b}.k_img", d, d)
+            lin(f"{b}.v_img", d, d)
+            sd[f"{b}.norm_k_img.weight"] = torch.ones(d)
+        for key, n in (("img_emb.proj.0", cfg.image_dim), ("img_emb.proj.4", d)):
+            sd[f"{key}.weight"], sd[f"{key}.bias"] = torch.ones(n), torch.zeros(n)
+        lin("img_emb.proj.1", cfg.image_dim, d)
+        lin("img_emb.proj.3", d, d)
     return sd
 
 
@@ -2215,12 +2253,9 @@ def reference_umt5_sd(cfg, g) -> dict:
     return sd
 
 
-def reference_vae_decoder_sd(cfg, g) -> dict:
-    """The decoder side (and conv2) of a Wan VAE state dict in the
-    reference's (wan_orig vae.py) names: decoder.upsamples is one flat list
-    of residual blocks, each stage's ending in a resample."""
-    sd = {}
-
+def _vae_sd_writers(sd, g):
+    """conv(key, co, ci, *k) and res(prefix, ci, co) writing the reference's
+    Wan VAE names into sd."""
     def conv(key, co, ci, *k):
         sd[f"{key}.weight"], sd[f"{key}.bias"] = _randn(g, co, ci, *k, fan_in=ci * int(np.prod(k))), torch.zeros(co)
 
@@ -2232,14 +2267,71 @@ def reference_vae_decoder_sd(cfg, g) -> dict:
         if ci != co:
             conv(f"{prefix}.shortcut", co, ci, 1, 1, 1)
 
+    def middle(side, c):
+        res(f"{side}.middle.0", c, c)
+        sd[f"{side}.middle.1.norm.gamma"] = torch.ones(c, 1, 1)
+        conv(f"{side}.middle.1.to_qkv", 3 * c, c, 1, 1)
+        conv(f"{side}.middle.1.proj", c, c, 1, 1)
+        res(f"{side}.middle.2", c, c)
+
+    return conv, res, middle
+
+
+def reference_vae_encoder_sd(cfg, g) -> dict:
+    """The encoder side (and conv1) of a Wan VAE state dict in the
+    reference's names: encoder.downsamples is one flat list, each stage's
+    residual blocks ending in a resample (a stride-2 conv, and a time_conv
+    where the stage downsamples in time)."""
+    sd = {}
+    conv, res, middle = _vae_sd_writers(sd, g)
+    dims = [cfg.dim * u for u in (1,) + tuple(cfg.dim_mult)]
+    conv("encoder.conv1", dims[0], 3, 3, 3, 3)
+    idx = 0
+    for i, (ci, co) in enumerate(zip(dims[:-1], dims[1:])):
+        for j in range(cfg.num_res_blocks):
+            res(f"encoder.downsamples.{idx}", ci if j == 0 else co, co)
+            idx += 1
+        if i != len(cfg.dim_mult) - 1:
+            conv(f"encoder.downsamples.{idx}.resample.1", co, co, 3, 3)
+            if cfg.temporal_downsample[i]:
+                conv(f"encoder.downsamples.{idx}.time_conv", co, co, 3, 1, 1)
+            idx += 1
+    middle("encoder", dims[-1])
+    sd["encoder.head.0.gamma"] = torch.ones(dims[-1], 1, 1, 1)
+    conv("encoder.head.2", 2 * cfg.z_dim, dims[-1], 3, 3, 3)
+    conv("conv1", 2 * cfg.z_dim, 2 * cfg.z_dim, 1, 1, 1)
+    return sd
+
+
+def reference_clip_vision_sd(cfg, g) -> dict:
+    """A CLIP vision tower state dict in HF CLIPVisionModel's names."""
+    d, v = cfg.dim, "vision_model."
+    sd = {f"{v}embeddings.patch_embedding.weight": 0.02 * torch.randn(d, 3, cfg.patch_size, cfg.patch_size,
+                                                                      generator=g),
+          f"{v}embeddings.class_embedding": 0.02 * torch.randn(d, generator=g),
+          f"{v}embeddings.position_embedding.weight": 0.01 * torch.randn(1 + cfg.grid**2, d, generator=g)}
+    for ln in ("pre_layrnorm", "post_layernorm"):
+        sd[f"{v}{ln}.weight"], sd[f"{v}{ln}.bias"] = torch.ones(d), torch.zeros(d)
+    for i in range(cfg.num_layers):
+        b = f"{v}encoder.layers.{i}"
+        for nm, di, do in (("self_attn.q_proj", d, d), ("self_attn.k_proj", d, d), ("self_attn.v_proj", d, d),
+                           ("self_attn.out_proj", d, d), ("mlp.fc1", d, cfg.ffn_dim), ("mlp.fc2", cfg.ffn_dim, d)):
+            sd[f"{b}.{nm}.weight"], sd[f"{b}.{nm}.bias"] = _randn(g, do, di), torch.zeros(do)
+        for ln in ("layer_norm1", "layer_norm2"):
+            sd[f"{b}.{ln}.weight"], sd[f"{b}.{ln}.bias"] = torch.ones(d), torch.zeros(d)
+    return sd
+
+
+def reference_vae_decoder_sd(cfg, g) -> dict:
+    """The decoder side (and conv2) of a Wan VAE state dict in the
+    reference's (wan_orig vae.py) names: decoder.upsamples is one flat list
+    of residual blocks, each stage's ending in a resample."""
+    sd = {}
+    conv, res, middle = _vae_sd_writers(sd, g)
     dims = [cfg.dim * u for u in (cfg.dim_mult[-1],) + tuple(cfg.dim_mult[::-1])]
     conv("conv2", cfg.z_dim, cfg.z_dim, 1, 1, 1)
     conv("decoder.conv1", dims[0], cfg.z_dim, 3, 3, 3)
-    res("decoder.middle.0", dims[0], dims[0])
-    sd["decoder.middle.1.norm.gamma"] = torch.ones(dims[0], 1, 1)
-    conv("decoder.middle.1.to_qkv", 3 * dims[0], dims[0], 1, 1)
-    conv("decoder.middle.1.proj", dims[0], dims[0], 1, 1)
-    res("decoder.middle.2", dims[0], dims[0])
+    middle("decoder", dims[0])
     idx = 0
     for i, (ci, co) in enumerate(zip(dims[:-1], dims[1:])):
         for j in range(cfg.num_res_blocks + 1):
@@ -2255,27 +2347,41 @@ def reference_vae_decoder_sd(cfg, g) -> dict:
     return sd
 
 
-def write_tiny_checkpoint(path: str, prompt: str) -> None:
-    """A checkpoint dir as the CLI's --model_dir reads it, written with the
-    port's safetensors writer: transformer/ (a Wan T2V of the smoke model's
-    widths, head_dim 64 as the kernels take it, 2 layers), umt5/ (2 layers),
-    vae/ (the smoke VAE's config), their config.json files and a
+# the tiny checkpoint's CLIP vision tower (HF CLIPVisionConfig keys): the I2V
+# smoke model's image_dim, 16 tokens of 4 x 4 patches + the class token
+TINY_CLIP = dict(image_size=56, patch_size=14, hidden_size=48, intermediate_size=96, num_hidden_layers=2,
+                 num_attention_heads=4, hidden_act="gelu")
+
+
+def write_tiny_checkpoint(path: str, prompt: str, i2v: bool = False) -> None:
+    """A checkpoint dir as the CLIs' --model_dir reads it, written with the
+    port's safetensors writer: transformer/ (a Wan T2V, or with `i2v` a Wan
+    I2V, of the smoke model's widths, head_dim 64 as the kernels take it, 2
+    layers), umt5/ (2 layers), vae/ (the smoke VAE's config, decoder and
+    encoder), image_encoder/ (a small CLIP vision tower in HF's names, HF's
+    config.json with vision_config), their config.json files and a
     spiece.model covering `prompt`."""
-    from sparse_videogen_tpu_torch.cli.wan_t2v import DEFAULT_NEG_PROMPT, SMOKE_CFG, SMOKE_VAE_CFG
+    from sparse_videogen_tpu_torch.cli import wan_i2v, wan_t2v
+    from sparse_videogen_tpu_torch.io.encoders import clip_config_from_hf
     from sparse_videogen_tpu_torch.io.safetensors import save_file
     from sparse_videogen_tpu_torch.models.common.t5 import T5Config
     from sparse_videogen_tpu_torch.models.wan.model import WanConfig
     from sparse_videogen_tpu_torch.models.wan.vae import WanVAEConfig
 
     g = torch.Generator().manual_seed(5)
-    pieces = synthetic_vocab([prompt, DEFAULT_NEG_PROMPT])
-    dit = dict(SMOKE_CFG, num_layers=2)
+    pieces = synthetic_vocab([prompt, wan_t2v.DEFAULT_NEG_PROMPT])
+    dit = dict(wan_i2v.SMOKE_CFG if i2v else wan_t2v.SMOKE_CFG, num_layers=2)
     t5 = dict(vocab_size=len(pieces), dim=dit["text_dim"], dim_attn=dit["text_dim"], dim_ffn=128, num_heads=2,
               num_layers=2, num_buckets=8)
-    vae = dict(SMOKE_VAE_CFG, dim_mult=list(SMOKE_VAE_CFG["dim_mult"]))
-    for sub, sd, cfg in (("transformer", reference_wan_sd(WanConfig(**dit), g), dit),
-                         ("umt5", reference_umt5_sd(T5Config(**t5), g), t5),
-                         ("vae", reference_vae_decoder_sd(WanVAEConfig(**SMOKE_VAE_CFG), g), vae)):
+    vae = dict(wan_t2v.SMOKE_VAE_CFG, dim_mult=list(wan_t2v.SMOKE_VAE_CFG["dim_mult"]))
+    vae_cfg = WanVAEConfig(**wan_t2v.SMOKE_VAE_CFG)
+    subs = [("transformer", reference_wan_sd(WanConfig(**dit), g), dit),
+            ("umt5", reference_umt5_sd(T5Config(**t5), g), t5),
+            ("vae", reference_vae_decoder_sd(vae_cfg, g), vae)]
+    subs[2][1].update(reference_vae_encoder_sd(vae_cfg, g))
+    clip = {"vision_config": TINY_CLIP}
+    subs.append(("image_encoder", reference_clip_vision_sd(clip_config_from_hf(clip), g), clip))
+    for sub, sd, cfg in subs:
         os.makedirs(os.path.join(path, sub))
         save_file(sd, os.path.join(path, sub, "model.safetensors"))
         with open(os.path.join(path, sub, "config.json"), "w") as f:
@@ -2308,9 +2414,10 @@ def meta_flops(fn) -> float:
     return float(counter.get_total_flops())
 
 
-def _steps(model, run, ctx, ctx_null, pattern, steps, callback=None):
-    """WanPipeline.generate_latents of `run` (a preset) with per-step CUDA
-    events; returns (latents, [s a step]: the first includes the set-up)."""
+def _steps(model, run, ctx, ctx_null, pattern, steps, callback=None, **extra):
+    """WanPipeline.generate_latents of `run` (a preset; `extra`: I2V's
+    clip_fea and latent_cond) with per-step CUDA events; returns (latents,
+    [s a step]: the first includes the set-up)."""
     from sparse_videogen_tpu_torch.pipelines import WanPipeline
 
     events = [torch.cuda.Event(enable_timing=True)]
@@ -2321,7 +2428,7 @@ def _steps(model, run, ctx, ctx_null, pattern, steps, callback=None):
         events[-1].record()
 
     lat = WanPipeline(model).generate_latents(ctx, ctx_null, num_inference_steps=steps, pattern=pattern, seed=0,
-                                              callback=on_step, **run.generate_kwargs())
+                                              callback=on_step, **run.generate_kwargs(), **extra)
     torch.cuda.synchronize()
     return lat, [events[i].elapsed_time(events[i + 1]) / 1e3 for i in range(steps)]
 
@@ -2495,6 +2602,199 @@ def phase_prompt_to_video(dev):
                    f"{CLI_STEPS - n_dense} x {svg_steps[-1]:.4f} + decode {dec_s:.3f}), dense {dense_total:.2f} s")
     del model, vae, video, lat
     torch.cuda.empty_cache()
+    return encode_s
+
+
+def phase_i2v(dev, umt5_s: float):
+    """Wan 2.1 I2V from an image to a video at the 14B width
+    (presets.I2V_PRESETS["14B-i2v-480p-svg"]: dim 5120, 40 heads of 128, FFN
+    13,824, in_dim 36, image_dim 1280; LAYERS_I2V of its 40 layers, random
+    bf16 weights from a seed) at 480x832x81 (S = 21 x 1,560 = 32,760):
+    examples/1/image.jpg decoded by io/image.py on the host and fitted to
+    480p; CLIP ViT-H/14 at its full 32 layers (f32, random) through
+    io/encoders.CLIPImageEncoder (the cubic resize to 224, the penultimate
+    states); random text states of UMT5-XXL's shape; the Wan VAE (dim 96,
+    f32, random) encodes [image, zeros...] whole and streamed (held to each
+    other, VAE_TOL); build_i2v_condition; I2V_STEPS SVG1 steps (layer 0 the
+    dense warm-up, first_layers_fp 0.3) through WanPipeline.generate_latents,
+    K1 by mask kind and K2 held to expected_launches with no plain-version
+    call (the counters set to 0 before the image is read and read after the
+    writer); the CLI's default decode (tiled) and the .y4m read back. Each
+    stage timed with CUDA events beside its peak memory; then dense steps,
+    and the projection of a CLI_STEPS-step generation at 40 layers (UMT5's
+    seconds `umt5_s` from phase p2v)."""
+    import dataclasses
+    import logging
+
+    from sparse_videogen_tpu_torch import _kernels
+    from sparse_videogen_tpu_torch.cli._common import make_vae_decoder
+    from sparse_videogen_tpu_torch.cli.wan_i2v import _fit_resolution, build_parser, encode_mode
+    from sparse_videogen_tpu_torch.config import WarmupSchedule
+    from sparse_videogen_tpu_torch.io.encoders import CLIPImageEncoder
+    from sparse_videogen_tpu_torch.io.image import load_image
+    from sparse_videogen_tpu_torch.io.native import read_y4m
+    from sparse_videogen_tpu_torch.models.common.clip import CLIP_VIT_H_14, CLIPVisionModel
+    from sparse_videogen_tpu_torch.models.common.resize import resize_cubic
+    from sparse_videogen_tpu_torch.models.wan.vae import WanVAE, WanVAEConfig
+    from sparse_videogen_tpu_torch.pipelines.wan import build_i2v_condition, export_video, wan_layout
+    from sparse_videogen_tpu_torch.presets import I2V_PRESETS
+    from sparse_videogen_tpu_torch.schedulers import FlowUniPC
+    from sparse_videogen_tpu_torch.scripts.profile_wan import project_steps
+
+    run = I2V_PRESETS["14B-i2v-480p-svg"]
+    cfg = dataclasses.replace(run.model, num_layers=LAYERS_I2V)
+    args = build_parser().parse_args(["--resolution", "480p"])  # the CLI's defaults: VAE tiling auto, 32 / 8
+    lay = wan_layout(cfg, run.height, run.width, run.num_frames)
+    timesteps = FlowUniPC(I2V_STEPS, shift=run.flow_shift).timesteps
+    kw = run.generate_kwargs()
+    warmup = WarmupSchedule.from_fractions(kw["first_layers_fp"], kw["first_times_fp"], cfg.num_layers, timesteps)
+    want, want_kinds = expected_launches("SVG", cfg.num_layers, warmup, timesteps, ("none", "band_sink"))
+    stages = {}
+    _kernels.reset_counts()
+    t0 = time.perf_counter()
+    img = load_image(os.path.join(ROOT, "examples", "1", "image.jpg"))
+    read_s = time.perf_counter() - t0
+    H, W = _fit_resolution(img.shape[2], img.shape[3], "480p")
+    log("i2v", f"examples/1/image.jpg read by io/image.py: {tuple(img.shape)} in {read_s:.3f} s on the host, "
+               f"fitted to {H}x{W}; S = {lay.seq_len} ({lay.num_frames} x {lay.frame_size})")
+    if (H, W) != (run.height, run.width) or not torch.isfinite(img).all() or img.abs().max() > 1:
+        raise AssertionError(f"the image: fitted {H}x{W}, or its values are not in [-1, 1]")
+
+    clip = _timed(stages, "CLIP set-up", lambda: CLIPVisionModel(CLIP_VIT_H_14, device=dev).init_random(
+        torch.Generator(device=dev).manual_seed(0)))
+    encoder = CLIPImageEncoder(clip)
+    clip_stage = "CLIP ViT-H/14 encode (31 of 32 blocks: the penultimate states)"
+    clip_fea = _timed(stages, clip_stage, lambda: encoder(img)).to(torch.bfloat16)
+    again = _timed(stages, "CLIP ViT-H/14 encode, again (warm)", lambda: encoder(img)).to(torch.bfloat16)
+    if not torch.equal(again, clip_fea):
+        raise AssertionError("CLIP: a second encode of the same image differs")
+    log("i2v", f"CLIP: {sum(p.numel() for p in clip.parameters()) / 1e6:.1f} M params f32, clip_fea "
+               f"{tuple(clip_fea.shape)}, finite {bool(torch.isfinite(clip_fea).all())}")
+    if tuple(clip_fea.shape) != (1, 257, 1280) or not torch.isfinite(clip_fea).all():
+        raise AssertionError("CLIP: features of the wrong shape or not finite")
+    del encoder, clip
+    g = torch.Generator(device=dev).manual_seed(1)
+    ctx, ctx_null = (torch.randn(1, cfg.text_len, cfg.text_dim, generator=g, device=dev).to(torch.bfloat16)
+                     for _ in range(2))
+
+    vae = WanVAE(WanVAEConfig(), device=dev, encoder=True).init_random(torch.Generator(device=dev).manual_seed(0))
+    img_r = resize_cubic(img.to(dev), H, W)
+    video = torch.cat([img_r[:, :, None], img_r.new_zeros(1, 3, run.num_frames - 1, H, W)], dim=2)
+    torch.cuda.empty_cache()
+    which, need = encode_mode(vae.cfg, video.shape, dev)
+    encoded = {}
+    for name, fn in (("whole", lambda: vae.encode(video)), ("streamed", lambda: vae.encode_streamed(video))):
+        encoded[name] = _timed(stages, f"VAE encode {name}", fn)
+        ms, gib = stages[f"VAE encode {name}"]
+        log("i2v", f"VAE encode {name}: {ms / 1e3:.3f} s, peak {gib:.2f} GiB, latents {tuple(encoded[name].shape)}")
+    rel = ((encoded["streamed"] - encoded["whole"]).norm() / encoded["whole"].norm()).item()
+    log("i2v", f"VAE encode streamed against whole: rel L2 {rel:.3e} (tol {VAE_TOL}); the CLI's rule would run "
+               f"{which} here (whole estimated at {need / 2**30:.1f} GiB, measured "
+               f"{stages['VAE encode whole'][1]:.2f} GiB)")
+    if not rel <= VAE_TOL or not torch.isfinite(encoded["whole"]).all():
+        raise AssertionError(f"the streamed VAE encode disagrees with the whole one: {rel}")
+    cond = build_i2v_condition(encoded["streamed"])
+    vae.encoder = vae.conv1 = None
+    del video, encoded
+    torch.cuda.empty_cache()
+
+    model = _new_model(cfg, dev)
+    i2v = {"clip_fea": clip_fea, "latent_cond": cond}
+    lat, svg_steps = _timed(stages, f"DiT {I2V_STEPS} steps SVG1", lambda: _steps(model, run, ctx, ctx_null, "SVG",
+                                                                                 I2V_STEPS, **i2v))
+    decode = make_vae_decoder(args, vae, logging.getLogger("chip_smoke"))
+    out = _timed(stages, "VAE decode (CLI default: tiled)", lambda: decode(lat))
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        path = os.path.join(tmp, "i2v.y4m")
+        t0 = time.perf_counter()
+        export_video(out, path, fps=16)
+        frames, fps = read_y4m(path)
+        export_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches, kinds, plain = dict(_kernels.LAUNCHES), dict(_kernels.KIND_LAUNCHES), dict(_kernels.PLAIN_CALLS)
+    for name, (ms, gib) in stages.items():
+        log("i2v", f"{name}: {ms:.1f} ms, peak {gib:.2f} GiB")
+    log("i2v", f"SVG1 s a step {[round(x, 4) for x in svg_steps]} (the first includes the set-up; "
+               f"{warmup.first_layers} dense warm-up layer); export + read back {export_s:.2f} s on the host; frames "
+               f"{frames.shape} at {fps} fps, mean {frames.mean():.2f}")
+    log("i2v", f"launches {launches} (expected {want}), by mask kind {kinds} (expected {dict(want_kinds)}), "
+               f"plain-version calls {plain}")
+    if launches != want or collections.Counter(kinds) != want_kinds or any(plain.values()):
+        raise AssertionError("image -> video: the kernels did not launch as the configuration implies, or a plain "
+                             "version ran")
+    if frames.shape != (run.num_frames, H, W, 3) or not torch.isfinite(lat).all():
+        raise AssertionError(f"image -> video: frames {frames.shape}, or the latents are not finite")
+
+    _, dense_steps = _steps(model, run, ctx, ctx_null, "dense", 2, **i2v)
+    log("i2v", f"dense s a step {[round(x, 4) for x in dense_steps]}")
+    runs = [{"pattern": "SVG", "per_step_s": svg_steps}, {"pattern": "dense", "per_step_s": dense_steps}]
+    proj = project_steps(runs, run, LAYERS_I2V)
+    fixed = umt5_s + (stages[clip_stage][0] + stages[f"VAE encode {which}"][0]
+                      + stages["VAE decode (CLI default: tiled)"][0]) / 1e3
+    log("i2v", f"projected {CLI_STEPS}-step Wan 2.1 I2V 14B at 480x832x81, 40 layers: SVG1 "
+               f"{fixed + proj['SVG_s']:.2f} s, dense {fixed + proj['dense_s']:.2f} s (DiT {proj['SVG_s']:.2f} / "
+               f"{proj['dense_s']:.2f} s; UMT5 {umt5_s:.3f} s from p2v, CLIP, the {which} encode (the CLI's pick) and "
+               f"the tiled decode {fixed - umt5_s:.2f} s)")
+    del model, vae, out, lat, cond
+    torch.cuda.empty_cache()
+
+
+def phase_small_i2v_reference(dev):
+    """A small I2V Wan (the CLI's smoke model, bf16) with clip_fea, a small
+    CLIP vision tower and a small Wan VAE encoder (f32) on the card against
+    the same modules on the CPU, same weights and inputs: the forward
+    (dense, SVG1) within rel L2 3e-2, CLIP within CLIP_TOL, the whole and
+    streamed encodes within VAE_TOL of the CPU's whole encode."""
+    from sparse_videogen_tpu_torch.cli.wan_i2v import SMOKE_CFG
+    from sparse_videogen_tpu_torch.cli.wan_t2v import SMOKE_VAE_CFG
+    from sparse_videogen_tpu_torch.io.encoders import CLIPImageEncoder, clip_config_from_hf
+    from sparse_videogen_tpu_torch.models.common.clip import CLIPVisionModel
+    from sparse_videogen_tpu_torch.models.wan.model import WanConfig, WanModel
+    from sparse_videogen_tpu_torch.models.wan.vae import WanVAE, WanVAEConfig
+    from sparse_videogen_tpu_torch.pipelines.wan import make_wan_runtime, wan_layout
+
+    cfg = WanConfig(**SMOKE_CFG)
+    gen = torch.Generator().manual_seed(6)
+    cpu_model = WanModel(cfg, dtype=torch.bfloat16).init_random(gen)
+    gpu_model = WanModel(cfg, dtype=torch.bfloat16, device=dev)
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    lay = wan_layout(cfg, 96, 128, 9)
+    rows = torch.randint(0, lay.seq_len, (cfg.num_layers, 64), generator=gen)
+    for pattern in ("dense", "SVG"):
+        x = torch.randn(2, cfg.in_dim, lay.num_frames, 12, 16, generator=gen).to(torch.bfloat16)
+        ctx = torch.randn(2, cfg.text_len, cfg.text_dim, generator=gen).to(torch.bfloat16)
+        clip_fea = torch.randn(2, 257, cfg.image_dim, generator=gen).to(torch.bfloat16)
+        t = torch.full((2,), 900.0)
+        outs = [m(x.to(d), t.to(d), ctx.to(d), clip_fea=clip_fea.to(d), profile_rows=rows,
+                  attention=make_wan_runtime(lay, device=d, pattern=pattern)).cpu()
+                for m, d in ((gpu_model, dev), (cpu_model, torch.device("cpu")))]
+        rel = ((outs[0] - outs[1]).norm() / outs[1].norm()).item()
+        log("small", f"I2V Wan forward with clip_fea, {pattern}: kernels on the card vs plain on the CPU, rel L2 "
+                     f"{rel:.3e} (tol 3e-2)")
+        if not rel <= 3e-2:
+            raise AssertionError(f"the small I2V forward ({pattern}) disagrees with the CPU reference: {rel}")
+    ccfg = clip_config_from_hf(TINY_CLIP)
+    cpu_clip = CLIPVisionModel(ccfg).init_random(gen)
+    gpu_clip = CLIPVisionModel(ccfg, device=dev)
+    gpu_clip.load_state_dict(cpu_clip.state_dict())
+    px = torch.rand(1, 3, 480, 832, generator=gen) * 2 - 1
+    a, b = CLIPImageEncoder(gpu_clip)(px).cpu(), CLIPImageEncoder(cpu_clip)(px)
+    rel = ((a - b).norm() / b.norm()).item()
+    log("small", f"CLIP vision tower (dim {ccfg.dim}, {ccfg.num_layers} layers) with the cubic resize from 480x832, "
+                 f"card vs CPU, f32: rel L2 {rel:.3e} (tol {CLIP_TOL})")
+    if not rel <= CLIP_TOL:
+        raise AssertionError(f"CLIP on the card disagrees with the CPU: {rel}")
+    vcfg = WanVAEConfig(**SMOKE_VAE_CFG)
+    cpu_vae = WanVAE(vcfg, encoder=True).init_random(gen)
+    gpu_vae = WanVAE(vcfg, device=dev, encoder=True)
+    gpu_vae.load_state_dict(cpu_vae.state_dict())
+    video = torch.rand(1, 3, 9, 64, 96, generator=gen) * 2 - 1
+    ref = cpu_vae.encode(video)
+    for name, out in (("whole", gpu_vae.encode(video.to(dev))), ("streamed", gpu_vae.encode_streamed(video.to(dev)))):
+        rel = ((out.cpu() - ref).norm() / ref.norm()).item()
+        log("small", f"Wan VAE (dim 16) {name} encode card vs CPU whole encode, f32: rel L2 {rel:.3e} (tol {VAE_TOL})")
+        if not rel <= VAE_TOL:
+            raise AssertionError(f"the VAE encode ({name}) on the card disagrees with the CPU: {rel}")
 
 
 def phase_small_text_vae_reference(dev):
@@ -2532,47 +2832,88 @@ def phase_small_text_vae_reference(dev):
             raise AssertionError(f"the VAE decode ({name}) on the card disagrees with the CPU: {rel}")
 
 
+def _run_clis(runs, tmp):
+    """Start every CLI run of `runs` ([(label, argv)]) at once, each its own
+    process with its output in a file under tmp (they share the card; their
+    start-up, ~8 s each, overlaps), wait for all, and fail on any non-zero
+    exit with its output's tail. Returns {label: seconds}."""
+    procs = {}
+    for label, argv in runs:
+        out = open(os.path.join(tmp, f"{label}.log"), "w")
+        procs[label] = (subprocess.Popen([sys.executable, "-m", *argv], cwd=ROOT, stdout=out, stderr=subprocess.STDOUT),
+                        out, time.perf_counter())
+    secs, failed = {}, []
+    for label, (proc, out, t0) in procs.items():
+        try:
+            rc = proc.wait(timeout=600)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            rc = proc.wait()
+        out.close()
+        secs[label] = time.perf_counter() - t0
+        if rc != 0:
+            with open(out.name) as f:
+                failed.append(f"{label} exited {rc}:\n" + "".join(f.readlines()[-20:]))
+    if failed:
+        raise AssertionError("CLI runs failed:\n" + "\n".join(failed))
+    return secs
+
+
 def phase_cli():
-    """The CLIs as a user runs them: --smoke for each pattern (latents to an
-    .npz), the Wan smoke with a video name (its tiny random VAE, to a .y4m),
-    and the Wan CLI on a checkpoint dir (write_tiny_checkpoint) from the
-    prompt to a .y4m."""
-    runs = [("wan_t2v", p) for p in ("SVG", "dense", "SAP")] + [(cli, p) for cli in ("hyvideo_t2v", "cog_i2v")
-                                                                  for p in ("SVG", "dense")]
+    """The CLIs as a user runs them, all started together: --smoke for each
+    pattern (latents to an .npz) of Wan T2V and I2V (SVG, dense, SAP),
+    HunyuanVideo and CogVideoX (SVG, dense); the Wan T2V smoke with a video
+    name (its tiny random VAE, to a .y4m); the Wan T2V CLI on a checkpoint
+    dir (write_tiny_checkpoint) from the prompt to a .y4m; and the Wan I2V
+    CLI on an I2V checkpoint dir (write_tiny_checkpoint(i2v=True): the VAE's
+    encoder, a CLIP tower in HF's names) from examples/1/image.jpg and the
+    prompt to a .y4m (480p fits the image to 480x832; 5 frames, 2 steps)."""
+    from sparse_videogen_tpu_torch.io.native import read_y4m
+
+    prompt = "a cat on the grass."
+    smokes = [("wan_t2v", p) for p in ("SVG", "dense", "SAP")] + [("wan_i2v", p) for p in ("SVG", "dense", "SAP")] + [
+        (cli, p) for cli in ("hyvideo_t2v", "cog_i2v") for p in ("SVG", "dense")]
     with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
-        for cli, pattern in runs:
-            out = os.path.join(tmp, f"{cli}_{pattern}.npz")
-            cmd = [sys.executable, "-m", f"sparse_videogen_tpu_torch.cli.{cli}", "--smoke", "--pattern", pattern,
-                   "--device", "cuda", "--output_path" if cli == "cog_i2v" else "--output_file", out]
-            t0 = time.perf_counter()
-            subprocess.run(cmd, cwd=ROOT, check=True, timeout=600)
-            lat = np.load(out)["latents"]
+        write_tiny_checkpoint(os.path.join(tmp, "ckpt"), prompt)
+        write_tiny_checkpoint(os.path.join(tmp, "ckpt_i2v"), prompt, i2v=True)
+        out = lambda label, ext: os.path.join(tmp, f"{label}.{ext}")
+        runs = [(f"{cli}_{p}", [f"sparse_videogen_tpu_torch.cli.{cli}", "--smoke", "--pattern", p, "--device", "cuda",
+                                "--output_path" if cli == "cog_i2v" else "--output_file", out(f"{cli}_{p}", "npz")])
+                for cli, p in smokes]
+        videos = {"wan_t2v --smoke, a video name": ("t2v_smoke", ["wan_t2v", "--smoke"], (9, 96, 128, 3)),
+                  "wan_t2v --model_dir (tiny synthetic checkpoint)": (
+                      "t2v_ckpt", ["wan_t2v", "--model_dir", os.path.join(tmp, "ckpt"), "--prompt", prompt, "--height",
+                                   "96", "--width", "128", "--num_frames", "9", "--num_inference_steps", "2"],
+                      (9, 96, 128, 3)),
+                  "wan_i2v --model_dir (tiny synthetic I2V checkpoint) --image_path examples/1/image.jpg": (
+                      "i2v_ckpt", ["wan_i2v", "--model_dir", os.path.join(tmp, "ckpt_i2v"), "--image_path",
+                                   os.path.join(ROOT, "examples", "1", "image.jpg"), "--prompt", prompt,
+                                   "--resolution", "480p", "--num_frames", "5", "--num_inference_steps", "2"],
+                      (5, 480, 832, 3))}
+        for label, argv, _ in videos.values():
+            runs.append((label, [f"sparse_videogen_tpu_torch.cli.{argv[0]}", *argv[1:], "--device", "cuda",
+                                 "--output_file", out(label, "y4m")]))
+        t0 = time.perf_counter()
+        secs = _run_clis(runs, tmp)
+        log("cli", f"{len(runs)} CLI runs started together, all done in {time.perf_counter() - t0:.1f} s")
+        for cli, pattern in smokes:
+            label = f"{cli}_{pattern}"
+            lat = np.load(out(label, "npz"))["latents"]
             finite = bool(np.isfinite(lat).all())
-            log("cli", f"{cli} --smoke --pattern {pattern}: {os.path.basename(out)} exists, latents {lat.shape} "
-                       f"finite {finite} ({time.perf_counter() - t0:.1f} s)")
+            log("cli", f"{cli} --smoke --pattern {pattern}: {label}.npz exists, latents {lat.shape} finite {finite} "
+                       f"(done within {secs[label]:.1f} s of the start)")
             if not finite:
                 raise AssertionError(f"CLI smoke ({cli} {pattern}) wrote non-finite latents")
-        from sparse_videogen_tpu_torch.io.native import read_y4m
-
-        prompt = "a cat on the grass."
-        write_tiny_checkpoint(os.path.join(tmp, "ckpt"), prompt)
-        for what, argv in (("--smoke, a video name", ["--smoke"]),
-                           ("--model_dir (tiny synthetic checkpoint)",
-                            ["--model_dir", os.path.join(tmp, "ckpt"), "--prompt", prompt, "--height", "96",
-                             "--width", "128", "--num_frames", "9", "--num_inference_steps", "2"])):
-            out = os.path.join(tmp, "video.y4m")
-            t0 = time.perf_counter()
-            subprocess.run([sys.executable, "-m", "sparse_videogen_tpu_torch.cli.wan_t2v", *argv, "--device", "cuda",
-                            "--output_file", out], cwd=ROOT, check=True, timeout=600)
-            frames, fps = read_y4m(out)
-            os.remove(out)
-            log("cli", f"wan_t2v {what}: frames {frames.shape} at {fps} fps, mean {frames.mean():.2f}, std "
-                       f"{frames.std():.2f} ({time.perf_counter() - t0:.1f} s)")
-            if frames.shape != (9, 96, 128, 3) or frames.std() == 0:
-                raise AssertionError(f"wan_t2v {what}: frames {frames.shape}, std {frames.std()}")
+        for what, (label, _, shape) in videos.items():
+            frames, fps = read_y4m(out(label, "y4m"))
+            log("cli", f"{what}: frames {frames.shape} at {fps} fps, mean {frames.mean():.2f}, std {frames.std():.2f} "
+                       f"(done within {secs[label]:.1f} s of the start)")
+            if frames.shape != shape or frames.std() == 0:
+                raise AssertionError(f"{what}: frames {frames.shape}, std {frames.std()}")
 
 
 def main():
+    t_start = time.perf_counter()
     phase_device()
     dev = torch.device("cuda", 0)
     phase_build()
@@ -2582,6 +2923,9 @@ def main():
                "rmsnorm": phase_rmsnorm(dev), "dense_qsplit": phase_qsplit(dev),
                "block_sparse_attn[cog]": phase_cog_attention(dev)}
     kernels["rope"]["d64"] = phase_cog_rope(dev)
+    # Wan I2V 14B at 720p: 40 heads, frame size 3,555 (not a multiple of 128), S = 74,655
+    phase_rope(dev, "14B-i2v-720p-svg")
+    phase_attention(dev, "14B-i2v-720p-svg")
     kernels["block_sparse_attn[band_sink_perm]"] = phase_inplace_svg1(dev)
     kernels["block_sparse_attn_runs[stats]"] = phase_stats(dev)
     phase_sap_attention(dev, "14B-720p-sap", all_checks=False)
@@ -2593,13 +2937,16 @@ def main():
             launches.setdefault(name, n)
     launches["block_sparse_attn[hyvideo]"] = phase_hyvideo_slice(dev)
     launches["block_sparse_attn[cog]"] = phase_cog_slice(dev)
-    phase_prompt_to_video(dev)
+    umt5_s = phase_prompt_to_video(dev)
+    phase_i2v(dev, umt5_s)
     phase_quality(dev)
     phase_small_reference(dev)
     phase_small_hyvideo_reference(dev)
     phase_small_cog_reference(dev)
     phase_small_text_vae_reference(dev)
+    phase_small_i2v_reference(dev)
     phase_cli()
+    log("done", f"chip_smoke.py took {time.perf_counter() - t_start:.1f} s")
     for name, entry in kernels.items():
         entry["launches"] = launches[name]
     print(json.dumps({"kernels": list(kernels.values())}))

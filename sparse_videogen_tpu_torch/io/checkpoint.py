@@ -1,11 +1,13 @@
 """Reference checkpoints -> the port's state_dicts (counterpart of
-sparse_videogen_tpu/io/checkpoint.py, Wan and UMT5 parts).
+sparse_videogen_tpu/io/checkpoint.py, Wan, UMT5 and CLIP vision parts).
 
-  - Wan DiT: diffusers WanTransformer3DModel names or the wan_orig names ->
-    models/wan/model.WanModel;
-  - Wan VAE: wan_orig WanVAE_ names, decoder side and conv2 ->
-    models/wan/vae.WanVAE (the encoder waits for Wan I2V);
-  - UMT5: wan_orig T5Encoder names -> models/common/t5.T5Encoder.
+  - Wan DiT (T2V and I2V): diffusers WanTransformer3DModel names or the
+    wan_orig names -> models/wan/model.WanModel;
+  - Wan VAE: wan_orig WanVAE_ names, the decoder side and conv2, and on
+    request the encoder side and conv1 -> models/wan/vae.WanVAE;
+  - UMT5: wan_orig T5Encoder names -> models/common/t5.T5Encoder;
+  - CLIP ViT vision tower: HF CLIPVisionModel names (vision_model.*) or
+    wan_orig's (visual.*, fused to_qkv) -> models/common/clip.CLIPVisionModel.
 
 Torch keeps the checkpoints' layouts, (out, in) linears and (co, ci, k...)
 convolutions, so a conversion renames and reshapes; the JAX package
@@ -60,6 +62,7 @@ def wan_config_from_json(path: str):
             num_heads=heads,
             num_layers=c.get("num_layers", 30),
             eps=c.get("eps", 1e-6),
+            image_dim=c.get("image_dim") or 1280,
         )
     return dataclass_from_json(path, WanConfig)
 
@@ -83,30 +86,41 @@ _WAN_VECTORS = {
     "{b}.norm3.weight": ("{b}.norm3.weight", "{b}.norm2.weight"),
     "{b}.norm3.bias": ("{b}.norm3.bias", "{b}.norm2.bias"),
 }
+# I2V: the image branch of each block's cross-attention and the image embedding
+_WAN_I2V_NAMES = {
+    "{b}.cross_attn.k_img": ("{b}.cross_attn.k_img", "{b}.attn2.add_k_proj"),
+    "{b}.cross_attn.v_img": ("{b}.cross_attn.v_img", "{b}.attn2.add_v_proj"),
+    "img_emb.norm1": ("img_emb.proj.0", "condition_embedder.image_embedder.norm1"),
+    "img_emb.fc1": ("img_emb.proj.1", "condition_embedder.image_embedder.ff.net.0.proj"),
+    "img_emb.fc2": ("img_emb.proj.3", "condition_embedder.image_embedder.ff.net.2"),
+    "img_emb.norm2": ("img_emb.proj.4", "condition_embedder.image_embedder.norm2"),
+}
+_WAN_I2V_VECTORS = {"{b}.cross_attn.norm_k_img": ("{b}.cross_attn.norm_k_img.weight", "{b}.attn2.norm_added_k.weight")}
 
 
 def convert_wan_dit(sd: dict, cfg) -> dict:
-    """diffusers or wan_orig Wan T2V state dict -> WanModel(cfg).state_dict()
-    (an I2V checkpoint raises: WanModel is T2V only)."""
+    """diffusers or wan_orig Wan state dict (T2V, or I2V with the image
+    branch) -> WanModel(cfg).state_dict()."""
     diffusers = any(k.startswith("condition_embedder") for k in sd)
     src = 1 if diffusers else 0
-    if any(k.startswith(("img_emb.", "condition_embedder.image_embedder.")) or ".k_img." in k
-           or ".add_k_proj." in k for k in sd):
-        raise NotImplementedError("an I2V Wan checkpoint: the port runs Wan T2V only (ROADMAP.md)")
+    names, vectors = dict(_WAN_NAMES), dict(_WAN_VECTORS)
+    if any(k.startswith(("img_emb.", "condition_embedder.image_embedder.")) for k in sd):
+        names.update(_WAN_I2V_NAMES)
+        vectors.update(_WAN_I2V_VECTORS)
     out = {}
     pe = sd["patch_embedding.weight"]  # (dim, in, pt, ph, pw): a linear over (in, pt, ph, pw) patches
     out["patch_embedding.weight"] = pe.reshape(pe.shape[0], -1)
     out["patch_embedding.bias"] = sd["patch_embedding.bias"]
     out["head_modulation"] = sd["scale_shift_table" if diffusers else "head.modulation"].reshape(2, -1)
     blocks = [f"blocks.{i}" for i in range(cfg.num_layers)]
-    for ours, names in _WAN_NAMES.items():
+    for ours, pair in names.items():
         for b in blocks if "{b}" in ours else [None]:
-            theirs = names[src].format(b=b)
+            theirs = pair[src].format(b=b)
             for part in ("weight", "bias"):
                 out[f"{ours.format(b=b)}.{part}"] = sd[f"{theirs}.{part}"]
-    for ours, names in _WAN_VECTORS.items():
+    for ours, pair in vectors.items():
         for b in blocks:
-            out[ours.format(b=b)] = sd[names[src].format(b=b)]
+            out[ours.format(b=b)] = sd[pair[src].format(b=b)]
     for b in blocks:
         out[f"{b}.modulation"] = sd[f"{b}.scale_shift_table" if diffusers else f"{b}.modulation"].reshape(6, -1)
     return out
@@ -128,30 +142,83 @@ def _wan_vae_module_names(sd: dict, prefix: str, ours: str, out: dict) -> None:
             out[f"{ours}.{mine}.bias"] = sd[f"{prefix}.{theirs}.bias"]
 
 
-def convert_wan_vae(sd: dict, cfg) -> dict:
-    """wan_orig WanVAE_ state dict -> WanVAE(cfg).state_dict(): conv2 and the
-    decoder. decoder.upsamples.<i> is one flat list in the reference; a
+def _wan_vae_tower(sd: dict, side: str, out: dict) -> None:
+    """One side of the VAE: conv1, head, middle and the stages. The
+    reference's <side>.downsamples.<i> / upsamples.<i> is one flat list; a
     resample entry ends a stage, as in the JAX conversion."""
-    out = {}
-    for key in ("conv2", "decoder.conv1", "decoder.head.2"):
-        ours = "decoder.head_conv" if key == "decoder.head.2" else key
+    theirs_list, ours_list = ("downsamples", "down") if side == "encoder" else ("upsamples", "up")
+    for key in (f"{side}.conv1", f"{side}.head.2"):
+        ours = f"{side}.head_conv" if key.endswith("head.2") else key
         out[f"{ours}.weight"], out[f"{ours}.bias"] = sd[f"{key}.weight"], sd[f"{key}.bias"]
-    out["decoder.head_norm"] = sd["decoder.head.0.gamma"].reshape(-1)
+    out[f"{side}.head_norm"] = sd[f"{side}.head.0.gamma"].reshape(-1)
     for j in range(3):
-        _wan_vae_module_names(sd, f"decoder.middle.{j}", f"decoder.middle.{j}", out)
-    idxs = sorted({int(m.group(1)) for k in sd if (m := re.match(r"decoder\.upsamples\.(\d+)\.", k))})
+        _wan_vae_module_names(sd, f"{side}.middle.{j}", f"{side}.middle.{j}", out)
+    idxs = sorted({int(m.group(1)) for k in sd if (m := re.match(rf"{side}\.{theirs_list}\.(\d+)\.", k))})
     stage, block = 0, 0
     for i in idxs:
-        kr = f"decoder.upsamples.{i}"
+        kr = f"{side}.{theirs_list}.{i}"
         if f"{kr}.residual.0.gamma" in sd or f"{kr}.norm.gamma" in sd:
-            _wan_vae_module_names(sd, kr, f"decoder.up.{stage}.blocks.{block}", out)
+            _wan_vae_module_names(sd, kr, f"{side}.{ours_list}.{stage}.blocks.{block}", out)
             block += 1
             continue
         for mine, theirs in (("conv", "resample.1"), ("time_conv", "time_conv")):
             if f"{kr}.{theirs}.weight" in sd:
-                out[f"decoder.up.{stage}.resample.{mine}.weight"] = sd[f"{kr}.{theirs}.weight"]
-                out[f"decoder.up.{stage}.resample.{mine}.bias"] = sd[f"{kr}.{theirs}.bias"]
+                out[f"{side}.{ours_list}.{stage}.resample.{mine}.weight"] = sd[f"{kr}.{theirs}.weight"]
+                out[f"{side}.{ours_list}.{stage}.resample.{mine}.bias"] = sd[f"{kr}.{theirs}.bias"]
         stage, block = stage + 1, 0
+
+
+def convert_wan_vae(sd: dict, cfg, encoder: bool = False) -> dict:
+    """wan_orig WanVAE_ state dict -> WanVAE(cfg, encoder=encoder).state_dict():
+    conv2 and the decoder, and with `encoder` conv1 and the encoder too."""
+    out = {"conv2.weight": sd["conv2.weight"], "conv2.bias": sd["conv2.bias"]}
+    _wan_vae_tower(sd, "decoder", out)
+    if encoder:
+        out["conv1.weight"], out["conv1.bias"] = sd["conv1.weight"], sd["conv1.bias"]
+        _wan_vae_tower(sd, "encoder", out)
+    return out
+
+
+def convert_clip_vision(sd: dict, cfg) -> dict:
+    """A CLIP ViT vision tower -> CLIPVisionModel(cfg).state_dict(), from HF
+    CLIPVisionModel names (vision_model.*, the Wan I2V repo's
+    image_encoder/) or wan_orig's XLMRobertaCLIP names (visual.*, whose
+    fused to_qkv is split into q, k and v)."""
+    out = {}
+
+    def lin(ours, theirs):
+        out[f"{ours}.weight"], out[f"{ours}.bias"] = sd[f"{theirs}.weight"], sd[f"{theirs}.bias"]
+
+    if any(k.startswith("vision_model.") for k in sd):
+        pre = "vision_model."
+        pw = sd[f"{pre}embeddings.patch_embedding.weight"]
+        out["patch_proj.weight"] = pw.reshape(pw.shape[0], -1)
+        out["cls"] = sd[f"{pre}embeddings.class_embedding"].reshape(1, -1)
+        out["pos"] = sd[f"{pre}embeddings.position_embedding.weight"]
+        lin("pre_ln", f"{pre}pre_layrnorm")  # (sic) HF's attribute name
+        lin("post_ln", f"{pre}post_layernorm")
+        names = {"ln1": "layer_norm1", "q": "self_attn.q_proj", "k": "self_attn.k_proj", "v": "self_attn.v_proj",
+                 "o": "self_attn.out_proj", "ln2": "layer_norm2", "fc1": "mlp.fc1", "fc2": "mlp.fc2"}
+        for i in range(cfg.num_layers):
+            for ours, theirs in names.items():
+                lin(f"blocks.{i}.{ours}", f"{pre}encoder.layers.{i}.{theirs}")
+        return out
+    pw = sd["visual.patch_embedding.weight"]
+    out["patch_proj.weight"] = pw.reshape(pw.shape[0], -1)
+    out["cls"] = sd["visual.cls_embedding"].reshape(1, -1)
+    out["pos"] = sd["visual.pos_embedding"].reshape(-1, pw.shape[0])
+    lin("pre_ln", "visual.pre_norm")
+    lin("post_ln", "visual.post_norm")
+    names = {"ln1": "norm1", "ln2": "norm2", "o": "attn.proj", "fc1": "mlp.0", "fc2": "mlp.2"}
+    for i in range(cfg.num_layers):
+        b = f"visual.transformer.{i}"
+        for ours, theirs in names.items():
+            lin(f"blocks.{i}.{ours}", f"{b}.{theirs}")
+        qkv_w, qkv_b = sd[f"{b}.attn.to_qkv.weight"], sd[f"{b}.attn.to_qkv.bias"]
+        d = qkv_w.shape[1]
+        for j, nm in enumerate("qkv"):
+            out[f"blocks.{i}.{nm}.weight"] = qkv_w[j * d:(j + 1) * d]
+            out[f"blocks.{i}.{nm}.bias"] = qkv_b[j * d:(j + 1) * d]
     return out
 
 

@@ -1,7 +1,8 @@
-"""JAX package state (as numpy) -> the port's: the Wan parameter pytree ->
-WanModel state_dict, the UMT5 pytree -> T5Encoder's, the Wan VAE pytree ->
-WanVAE's, the HunyuanVideo pytree -> a HyVideoModel, the CogVideoX pytree ->
-a CogModel, and SAP's k-means carry -> SAPState.
+"""JAX package state (as numpy) -> the port's: the Wan parameter pytree (T2V
+or I2V) -> WanModel state_dict, the UMT5 pytree -> T5Encoder's, the Wan VAE
+pytree -> WanVAE's, the CLIP vision pytree -> CLIPVisionModel's, the
+HunyuanVideo pytree -> a HyVideoModel, the CogVideoX pytree -> a CogModel,
+and SAP's k-means carry -> SAPState.
 
 The JAX package stores linears as {"w": (d_in, d_out), "b": (d_out,)},
 convolutions channels-last ((kt, kh, kw, ci, co), (kh, kw, ci, co)), and
@@ -23,8 +24,9 @@ def _linear(sd, name, p):
 
 
 def wan_params_from_numpy(tree, cfg) -> dict:
-    """tree: init_wan_params(...) output (T2V) with numpy leaves. Returns a
-    state_dict of torch tensors (the leaves' dtypes) for WanModel(cfg)."""
+    """tree: init_wan_params(...) output (T2V or I2V) with numpy leaves.
+    Returns a state_dict of torch tensors (the leaves' dtypes) for
+    WanModel(cfg)."""
     sd = {}
     _linear(sd, "patch_embedding", tree["patch_embedding"])
     for grp in ("text_embedding", "time_embedding"):
@@ -47,7 +49,34 @@ def wan_params_from_numpy(tree, cfg) -> dict:
         sd[f"{b}.norm3.bias"] = layer(blocks["norm3"]["b"])
         for fc in ("fc1", "fc2"):
             _linear(sd, f"{b}.ffn.{fc}", {k: layer(a) for k, a in blocks["ffn"][fc].items()})
+        if "k_img" in blocks["cross_attn"]:
+            for nm in ("k_img", "v_img"):
+                _linear(sd, f"{b}.cross_attn.{nm}", {k: layer(a) for k, a in blocks["cross_attn"][nm].items()})
+            sd[f"{b}.cross_attn.norm_k_img"] = layer(blocks["cross_attn"]["norm_k_img"])
+    if "img_emb" in tree:
+        pe = tree["img_emb"]
+        for fc in ("fc1", "fc2"):
+            _linear(sd, f"img_emb.{fc}", pe[fc])
+        for nm in ("norm1", "norm2"):
+            sd[f"img_emb.{nm}.weight"], sd[f"img_emb.{nm}.bias"] = pe[nm]["w"], pe[nm]["b"]
     return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()}
+
+
+def clip_vision_params_from_numpy(tree, cfg) -> dict:
+    """tree: init_clip_vision_params(...) or convert_clip_vision(...) with
+    numpy leaves (blocks stacked on a leading layer axis). Returns a
+    state_dict for CLIPVisionModel(cfg)."""
+    sd = {"patch_proj.weight": np.asarray(tree["patch_proj"]["w"]).T, "cls": tree["cls"], "pos": tree["pos"]}
+    for nm in ("pre_ln", "post_ln"):
+        sd[f"{nm}.weight"], sd[f"{nm}.bias"] = tree[nm]["w"], tree[nm]["b"]
+    blocks = tree["blocks"]
+    for i in range(cfg.num_layers):
+        layer = lambda a: np.asarray(a)[i]
+        for nm in ("q", "k", "v", "o", "fc1", "fc2"):
+            _linear(sd, f"blocks.{i}.{nm}", {k: layer(a) for k, a in blocks[nm].items()})
+        for nm in ("ln1", "ln2"):
+            sd[f"blocks.{i}.{nm}.weight"], sd[f"blocks.{i}.{nm}.bias"] = layer(blocks[nm]["w"]), layer(blocks[nm]["b"])
+    return {k: _tensor(v, "cpu") for k, v in sd.items()}
 
 
 def umt5_params_from_numpy(tree, cfg) -> dict:
@@ -63,11 +92,12 @@ def umt5_params_from_numpy(tree, cfg) -> dict:
     return {k: _tensor(v, "cpu") for k, v in sd.items()}
 
 
-def wan_vae_params_from_numpy(tree, cfg) -> dict:
+def wan_vae_params_from_numpy(tree, cfg, encoder: bool = False) -> dict:
     """tree: init_wan_vae_params(...) or convert_wan_vae(...) with numpy
-    leaves. Returns a state_dict for WanVAE(cfg) (conv2 and the decoder):
-    conv3d (kt, kh, kw, ci, co) -> (co, ci, kt, kh, kw), conv2d (kh, kw, ci,
-    co) -> (co, ci, kh, kw)."""
+    leaves. Returns a state_dict for WanVAE(cfg, encoder=encoder): conv2
+    and the decoder, and with `encoder` conv1 and the encoder too. conv3d
+    (kt, kh, kw, ci, co) -> (co, ci, kt, kh, kw), conv2d (kh, kw, ci, co) ->
+    (co, ci, kh, kw)."""
     sd = {}
 
     def conv(name, p):
@@ -82,18 +112,24 @@ def wan_vae_params_from_numpy(tree, cfg) -> dict:
             else:
                 sd[f"{name}.{nm}"] = v
 
-    dec = tree["decoder"]
+    def tower(side, stages):
+        t = tree[side]
+        conv(f"{side}.conv1", t["conv1"])
+        conv(f"{side}.head_conv", t["head_conv"])
+        sd[f"{side}.head_norm"] = t["head_norm"]
+        for j, p in enumerate(t["middle"]):
+            block(f"{side}.middle.{j}", p)
+        for i, stage in enumerate(t[stages]):
+            for j, p in enumerate(stage["blocks"]):
+                block(f"{side}.{stages}.{i}.blocks.{j}", p)
+            for nm, p in stage.get("resample", {}).items():
+                conv(f"{side}.{stages}.{i}.resample.{nm}", p)
+
     conv("conv2", tree["conv2"])
-    conv("decoder.conv1", dec["conv1"])
-    conv("decoder.head_conv", dec["head_conv"])
-    sd["decoder.head_norm"] = dec["head_norm"]
-    for j, p in enumerate(dec["middle"]):
-        block(f"decoder.middle.{j}", p)
-    for i, stage in enumerate(dec["up"]):
-        for j, p in enumerate(stage["blocks"]):
-            block(f"decoder.up.{i}.blocks.{j}", p)
-        for nm, p in stage.get("resample", {}).items():
-            conv(f"decoder.up.{i}.resample.{nm}", p)
+    tower("decoder", "up")
+    if encoder:
+        conv("conv1", tree["conv1"])
+        tower("encoder", "down")
     return {k: _tensor(v, "cpu") for k, v in sd.items()}
 
 

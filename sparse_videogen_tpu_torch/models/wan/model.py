@@ -1,10 +1,15 @@
-"""Wan 2.1 DiT, T2V (counterpart of sparse_videogen_tpu/models/wan/model.py).
+"""Wan 2.1 DiT, T2V and I2V (counterpart of
+sparse_videogen_tpu/models/wan/model.py).
 
 Numerics follow the JAX package: patch embedding as a matmul over patches in
 conv-weight order (in, kt, kh, kw); f32 time embedding and modulation; f32
 LayerNorm + AdaLN; qk-RMSNorm; 3-D interleaved RoPE; an injected
 self-attention runtime (sparse/runtimes.py); plain f32-softmax cross-attention
-to the text; GELU-tanh FFN; f32 gating. The time embedding, projection,
+to the text; GELU-tanh FFN; f32 gating. I2V (model_type "i2v") adds the
+image embedding `img_emb` (LayerNorm(1e-5), fc1, GELU-tanh, fc2,
+LayerNorm(1e-5)) of the CLIP features and, in every block's
+cross-attention, k_img / v_img / norm_k_img: a second softmax over the
+image tokens whose output is added to the text branch's. The time embedding, projection,
 modulation tables and norm weights are f32 parameters inside a bf16 model,
 so never cast the whole module.
 
@@ -25,7 +30,7 @@ from sparse_videogen_tpu_torch.models.common.rope import apply_rope_interleaved,
 
 @dataclasses.dataclass(frozen=True)
 class WanConfig:
-    model_type: str = "t2v"  # only "t2v" is ported
+    model_type: str = "t2v"  # "t2v" | "i2v"
     patch_size: tuple = (1, 2, 2)
     text_len: int = 512
     in_dim: int = 16
@@ -37,6 +42,7 @@ class WanConfig:
     num_heads: int = 12
     num_layers: int = 30
     eps: float = 1e-6
+    image_dim: int = 1280  # CLIP features for I2V
 
     @property
     def head_dim(self) -> int:
@@ -54,11 +60,21 @@ def _lin(d_in, d_out, dtype, device):
 
 
 class _Attention(nn.Module):
-    def __init__(self, d, dtype, device):
+    def __init__(self, d, dtype, device, image=False):
         super().__init__()
         self.q, self.k, self.v, self.o = (_lin(d, d, dtype, device) for _ in range(4))
         self.norm_q = nn.Parameter(torch.ones(d, dtype=F32, device=device))
         self.norm_k = nn.Parameter(torch.ones(d, dtype=F32, device=device))
+        if image:  # I2V cross-attention: the image tokens' keys and values
+            self.k_img, self.v_img = _lin(d, d, dtype, device), _lin(d, d, dtype, device)
+            self.norm_k_img = nn.Parameter(torch.ones(d, dtype=F32, device=device))
+
+
+def _softmax_attention(q, k, v):
+    """Plain attention without a mask: f32 softmax of q k^T / sqrt(D), cast to
+    v's dtype before the product with v."""
+    s = (q @ k.transpose(-1, -2)).float() * (q.shape[-1] ** -0.5)
+    return torch.softmax(s, dim=-1).to(v.dtype) @ v
 
 
 class WanBlock(nn.Module):
@@ -68,7 +84,7 @@ class WanBlock(nn.Module):
         self.cfg = cfg
         self.modulation = nn.Parameter(torch.zeros(6, d, dtype=F32, device=device))
         self.self_attn = _Attention(d, dtype, device)
-        self.cross_attn = _Attention(d, dtype, device)
+        self.cross_attn = _Attention(d, dtype, device, image=cfg.model_type == "i2v")
         self.norm3 = nn.LayerNorm(d, eps=cfg.eps, dtype=F32, device=device)
         self.ffn = nn.ModuleDict({"fc1": _lin(d, cfg.ffn_dim, dtype, device),
                                   "fc2": _lin(cfg.ffn_dim, d, dtype, device)})
@@ -84,19 +100,21 @@ class WanBlock(nn.Module):
         o = attention(q, k, v, t, layer_idx, rows=rows, generator=generator)
         return L.linear(p.o, o.transpose(1, 2).reshape(B, S, d))
 
-    def _cross_attention(self, x, context):
+    def _cross_attention(self, x, context, context_img):
         cfg, p = self.cfg, self.cross_attn
         B, S, d = x.shape
         H, D = cfg.num_heads, cfg.head_dim
         heads = lambda y: y.view(B, -1, H, D).transpose(1, 2)
         q = heads(L.rms_norm(L.linear(p.q, x), p.norm_q, cfg.eps))
         k = heads(L.rms_norm(L.linear(p.k, context), p.norm_k, cfg.eps))
-        v = heads(L.linear(p.v, context))
-        s = (q @ k.transpose(-1, -2)).float() * (D**-0.5)
-        o = torch.softmax(s, dim=-1).to(v.dtype) @ v
+        o = _softmax_attention(q, k, heads(L.linear(p.v, context)))
+        if context_img is not None:
+            k_img = heads(L.rms_norm(L.linear(p.k_img, context_img), p.norm_k_img, cfg.eps))
+            o = o + _softmax_attention(q, k_img, heads(L.linear(p.v_img, context_img)))
         return L.linear(p.o, o.transpose(1, 2).reshape(B, S, d))
 
-    def forward(self, x, e6, cos, sin, t, layer_idx, context, attention, rows=None, generator=None):
+    def forward(self, x, e6, cos, sin, t, layer_idx, context, attention, rows=None, generator=None,
+                context_img=None):
         """WanAttentionBlock.forward; x in the model dtype, e6 (B, 6, dim) f32."""
         eps = self.cfg.eps
         e = self.modulation[None].float() + e6
@@ -105,7 +123,7 @@ class WanBlock(nn.Module):
         y = self._self_attention(y, cos, sin, t, layer_idx, attention, rows, generator)
         x = (x.float() + y.float() * e[:, 2:3]).to(x.dtype)
         y = L.layer_norm_f32(x, eps, self.norm3.weight, self.norm3.bias).to(x.dtype)
-        x = x + self._cross_attention(y, context)
+        x = x + self._cross_attention(y, context, context_img)
         y = L.layer_norm_f32(x, eps)
         y = (y * (1 + e[:, 4:5]) + e[:, 3:4]).to(x.dtype)
         y = L.mlp_gelu(self.ffn["fc1"], self.ffn["fc2"], y)
@@ -122,13 +140,13 @@ def sinusoidal_embedding_1d(dim: int, position):
 
 
 class WanModel(nn.Module):
-    """Wan 2.1 T2V DiT. Linear weights in `dtype`; time embedding, modulation
-    and norm weights f32."""
+    """Wan 2.1 DiT (T2V, or I2V with `img_emb`). Linear weights in `dtype`;
+    time embedding, modulation and norm weights f32."""
 
     def __init__(self, cfg: WanConfig, *, dtype=torch.bfloat16, device="cpu"):
         super().__init__()
-        if cfg.model_type != "t2v":
-            raise NotImplementedError("the port runs Wan T2V only; I2V waits (ROADMAP.md)")
+        if cfg.model_type not in ("t2v", "i2v"):
+            raise ValueError(f"model_type {cfg.model_type!r}: expected 't2v' or 'i2v'")
         self.cfg = cfg
         d = cfg.dim
         patch_in = cfg.in_dim * math.prod(cfg.patch_size)
@@ -141,13 +159,19 @@ class WanModel(nn.Module):
         self.head_modulation = nn.Parameter(torch.zeros(2, d, dtype=F32, device=device))
         self.head_out = _lin(d, math.prod(cfg.patch_size) * cfg.out_dim, dtype, device)
         self.blocks = nn.ModuleList(WanBlock(cfg, dtype, device) for _ in range(cfg.num_layers))
+        if cfg.model_type == "i2v":
+            self.img_emb = nn.ModuleDict({
+                "norm1": nn.LayerNorm(cfg.image_dim, eps=1e-5, dtype=F32, device=device),
+                "fc1": _lin(cfg.image_dim, d, dtype, device), "fc2": _lin(d, d, dtype, device),
+                "norm2": nn.LayerNorm(d, eps=1e-5, dtype=F32, device=device)})
         self._rope_cache = {}
         self.requires_grad_(False)
 
     @torch.no_grad()
     def init_random(self, generator: torch.Generator):
         """JAX init_wan_params' distributions: linear weights N(0, 1/d_in),
-        zero biases, modulation tables N(0, 1/dim), unit norm weights."""
+        zero biases, modulation tables N(0, 1/dim), unit norm weights (and
+        zero LayerNorm biases)."""
         d = self.cfg.dim
         for mod in self.modules():
             if isinstance(mod, nn.Linear):
@@ -181,13 +205,21 @@ class WanModel(nn.Module):
             self._rope_cache[key] = (torch.as_tensor(cos, device=device), torch.as_tensor(sin, device=device))
         return self._rope_cache[key]
 
+    def _image_context(self, clip_fea, dtype):
+        """CLIP features (B, 257, image_dim) -> the image tokens (B, 257, dim)."""
+        p = self.img_emb
+        y = L.layer_norm_f32(clip_fea, 1e-5, p["norm1"].weight, p["norm1"].bias).to(dtype)
+        y = L.linear(p["fc2"], L.gelu_tanh(L.linear(p["fc1"], y)))
+        return L.layer_norm_f32(y, 1e-5, p["norm2"].weight, p["norm2"].bias).to(dtype)
+
     @torch.no_grad()
-    def forward(self, x, t, context, *, attention, profile_rows=None, generator=None):
-        """x (B, C, F, H, W) latents; t (B,) timesteps in [0, 1000]; context
-        (B, text_len, text_dim). `profile_rows` (num_layers, n_rows) hands the
-        SVG1 profiler its sampled rows per layer; otherwise the runtime draws
-        them from `generator`. Returns the f32 noise prediction (B, out_dim,
-        F, H, W)."""
+    def forward(self, x, t, context, *, attention, profile_rows=None, generator=None, clip_fea=None):
+        """x (B, C, F, H, W) latents (I2V: the noise and the condition's
+        channels, in_dim in all); t (B,) timesteps in [0, 1000]; context
+        (B, text_len, text_dim); clip_fea (B, 257, image_dim) CLIP features
+        (I2V). `profile_rows` (num_layers, n_rows) hands the SVG1 profiler
+        its sampled rows per layer; otherwise the runtime draws them from
+        `generator`. Returns the f32 noise prediction (B, out_dim, F, H, W)."""
         cfg = self.cfg
         B, C, F_, H, W = x.shape
         pt, ph, pw = cfg.patch_size
@@ -198,12 +230,14 @@ class WanModel(nn.Module):
         e = L.linear(self.time_embedding["fc2"], L.silu(L.linear(self.time_embedding["fc1"], e)))
         e6 = L.linear(self.time_projection, L.silu(e)).reshape(B, 6, cfg.dim)
         ctx = L.mlp_gelu(self.text_embedding["fc1"], self.text_embedding["fc2"], context.to(tokens.dtype))
+        ctx_img = None if clip_fea is None else self._image_context(clip_fea, tokens.dtype)
         cos, sin = self._rope(grid, x.device)
 
         t0 = float(t[0])
         for li, blk in enumerate(self.blocks):
             rows = None if profile_rows is None else profile_rows[li]
-            tokens = blk(tokens, e6, cos, sin, t0, li, ctx, attention, rows=rows, generator=generator)
+            tokens = blk(tokens, e6, cos, sin, t0, li, ctx, attention, rows=rows, generator=generator,
+                         context_img=ctx_img)
 
         hm = self.head_modulation[None].float() + e[:, None, :]
         y = L.layer_norm_f32(tokens, cfg.eps)
@@ -211,6 +245,7 @@ class WanModel(nn.Module):
         return self._unpatchify(L.linear(self.head_out, y), grid).float()
 
 
-def wan_forward(model: WanModel, x, t, context, *, attention, profile_rows=None, generator=None):
+def wan_forward(model: WanModel, x, t, context, *, attention, profile_rows=None, generator=None, clip_fea=None):
     """Functional spelling of WanModel.forward, as the JAX package names it."""
-    return model(x, t, context, attention=attention, profile_rows=profile_rows, generator=generator)
+    return model(x, t, context, attention=attention, profile_rows=profile_rows, generator=generator,
+                 clip_fea=clip_fea)

@@ -1,5 +1,5 @@
-"""Wan 2.1 causal 3-D VAE, decoder side (counterpart of
-sparse_videogen_tpu/models/wan/vae.py; the encoder waits for Wan I2V).
+"""Wan 2.1 causal 3-D VAE, decoder and encoder (counterpart of
+sparse_videogen_tpu/models/wan/vae.py).
 
 Activations are channels-first (B, C, T, H, W) and weights keep the
 checkpoint's (co, ci, kt, kh, kw) layout; per-frame 2-D convolutions run as
@@ -11,14 +11,24 @@ reference's chunked decode:
     conv (frame 0 not in their context) whose 2C output channels interleave
     into 2 frames each, slot-major;
   - RMS norm over channels: F.normalize * sqrt(C) * gamma, in f32.
+The encoder (Wan I2V's image latents) likewise, whole:
+  - spatial downsample: zero pad right and bottom by 1, a stride-2 3x3 conv;
+  - temporal downsample: frame 0 passes through; then a stride-2, kernel-3,
+    unpadded conv over all frames (windows [0, 2], [2, 4], ...);
+  - the 1x1x1 conv1 to 2 z_dim channels; the mean half, (mu - mean) / std.
 `WanVAE.decode_streamed` is the reference's own per-chunk decode with a
-per-conv cache of the last kt - 1 input frames: the same values as
-`decode` up to summation order, with memory bounded by the chunk.
+per-conv cache of the last kt - 1 input frames, and `encode_streamed` its
+per-chunk encode (frame 0, then 4 frames a chunk; a temporal downsample
+caches its last input frame): the same values as `decode` / `encode` up to
+summation order, with memory bounded by the chunk.
 
 Parameter names: conv2, decoder.{conv1, middle.<j>, up.<i>.blocks.<j>,
-up.<i>.resample.{conv, time_conv}, head_norm, head_conv}; a residual block
-has norm1, conv1, norm2, conv2 (and shortcut), an attention block norm,
-to_qkv, proj (io/checkpoint.convert_wan_vae maps the reference's names).
+up.<i>.resample.{conv, time_conv}, head_norm, head_conv}; with the encoder
+(WanVAE(encoder=True)) also conv1, encoder.{conv1, down.<i>.blocks.<j>,
+down.<i>.resample.{conv, time_conv}, middle.<j>, head_norm, head_conv}; a
+residual block has norm1, conv1, norm2, conv2 (and shortcut), an attention
+block norm, to_qkv, proj (io/checkpoint.convert_wan_vae maps the
+reference's names).
 """
 
 from __future__ import annotations
@@ -123,6 +133,22 @@ def temporal_upsample(m, x):
     return torch.cat([x[:, :, :1], _interleave(conv3d(m.time_conv, x[:, :, 1:]), x.shape[1])], dim=2)
 
 
+def spatial_downsample(m, x):
+    """Zero pad right and bottom by 1, then the 3x3 conv with stride 2."""
+    w = m.conv.weight.unsqueeze(2)
+    return F.conv3d(F.pad(x, (0, 1, 0, 1)), w.to(x.dtype), m.conv.bias.to(x.dtype), stride=(1, 2, 2))
+
+
+def _time_conv_s2(m, x):
+    """The temporal downsample's conv: kernel 3, stride 2, no padding."""
+    return F.conv3d(x, m.time_conv.weight.to(x.dtype), m.time_conv.bias.to(x.dtype), stride=(2, 1, 1))
+
+
+def temporal_downsample(m, x):
+    """Frame 0 passes through; then the stride-2 conv over all frames."""
+    return torch.cat([x[:, :, :1], _time_conv_s2(m, x)], dim=2)
+
+
 # -- modules --
 
 def _conv3d(ci, co, k, dtype, device):
@@ -158,7 +184,14 @@ class Resample(nn.Module):
         self.time_conv = _conv3d(co, 2 * co, (3, 1, 1), dtype, device) if temporal else None
 
 
-class UpStage(nn.Module):
+class Downsample(nn.Module):
+    def __init__(self, co, temporal, dtype, device):
+        super().__init__()
+        self.conv = _conv2d(co, co, 3, dtype, device)
+        self.time_conv = _conv3d(co, co, (3, 1, 1), dtype, device) if temporal else None
+
+
+class Stage(nn.Module):
     def __init__(self, blocks, resample):
         super().__init__()
         self.blocks = nn.ModuleList(blocks)
@@ -178,9 +211,27 @@ class Decoder(nn.Module):
             cin = ci // 2 if i in (1, 2, 3) else ci  # the resample before halves the channels
             blocks = [ResidualBlock(cin if j == 0 else co, co, dtype, device) for j in range(cfg.num_res_blocks + 1)]
             last = i == len(cfg.dim_mult) - 1
-            self.up.append(UpStage(blocks, None if last else Resample(co, cfg.temporal_upsample[i], dtype, device)))
+            self.up.append(Stage(blocks, None if last else Resample(co, cfg.temporal_upsample[i], dtype, device)))
         self.head_norm = nn.Parameter(torch.ones(dims[-1], dtype=torch.float32, device=device))
         self.head_conv = _conv3d(dims[-1], 3, 3, dtype, device)
+
+
+class Encoder(nn.Module):
+    def __init__(self, cfg: WanVAEConfig, dtype, device):
+        super().__init__()
+        dims = [cfg.dim * u for u in (1,) + tuple(cfg.dim_mult)]
+        self.conv1 = _conv3d(3, dims[0], 3, dtype, device)
+        self.down = nn.ModuleList()
+        for i, (ci, co) in enumerate(zip(dims[:-1], dims[1:])):
+            blocks = [ResidualBlock(ci if j == 0 else co, co, dtype, device) for j in range(cfg.num_res_blocks)]
+            last = i == len(cfg.dim_mult) - 1
+            self.down.append(Stage(blocks, None if last else Downsample(co, cfg.temporal_downsample[i], dtype,
+                                                                           device)))
+        self.middle = nn.ModuleList([ResidualBlock(dims[-1], dims[-1], dtype, device),
+                                     AttentionBlock(dims[-1], dtype, device),
+                                     ResidualBlock(dims[-1], dims[-1], dtype, device)])
+        self.head_norm = nn.Parameter(torch.ones(dims[-1], dtype=torch.float32, device=device))
+        self.head_conv = _conv3d(dims[-1], 2 * cfg.z_dim, 3, dtype, device)
 
 
 def _block(m, x):
@@ -202,7 +253,22 @@ def decoder_forward(dec: Decoder, x):
     return conv3d(dec.head_conv, x)
 
 
-# -- the streamed decode --
+def encoder_forward(enc: Encoder, x):
+    x = conv3d(enc.conv1, x)
+    for stage in enc.down:
+        for blk in stage.blocks:
+            x = _block(blk, x)
+        if stage.resample is not None:
+            x = spatial_downsample(stage.resample, x)
+            if stage.resample.time_conv is not None:
+                x = temporal_downsample(stage.resample, x)
+    for blk in enc.middle:
+        x = _block(blk, x)
+    x = F.silu(vae_rms_norm(enc.head_norm, x), inplace=True)
+    return conv3d(enc.head_conv, x)
+
+
+# -- the streamed decode and encode --
 
 class _TCache:
     """Per-conv temporal state of a streamed decode, pulled and pushed in the
@@ -274,15 +340,49 @@ def decoder_forward_stream(dec: Decoder, x, tstate, first):
     return x, tc.new
 
 
+def _temporal_downsample_stream(m, x, tc, first):
+    """The first chunk's frame passes through; later chunks continue the
+    stride-2 conv from the cached last input frame of the chunk before."""
+    cache = tc.pull()
+    tc.push(x[:, :, -1:].clone())
+    if first:
+        return x
+    return _time_conv_s2(m, torch.cat([cache, x], dim=2))
+
+
+def encoder_forward_stream(enc: Encoder, x, tstate, first):
+    """One chunk through the encoder; returns (features, the new state)."""
+    tc = _TCache(tstate)
+    x = _conv3d_stream(enc.conv1, x, tc)
+    for stage in enc.down:
+        for blk in stage.blocks:
+            x = _res_stream(blk, x, tc) if isinstance(blk, ResidualBlock) else attention_block(blk, x)
+        if stage.resample is not None:
+            x = spatial_downsample(stage.resample, x)
+            if stage.resample.time_conv is not None:
+                x = _temporal_downsample_stream(stage.resample, x, tc, first)
+    for blk in enc.middle:
+        x = _res_stream(blk, x, tc) if isinstance(blk, ResidualBlock) else attention_block(blk, x)
+    x = _conv3d_stream(enc.head_conv, vae_rms_norm(enc.head_norm, x), tc, activation=True)
+    return x, tc.new
+
+
 class WanVAE(nn.Module):
     """Normalised latents (B, z_dim, T, h, w) -> video (B, 3, 1 + 4 (T - 1),
-    8 h, 8 w) in [-1, 1]. Weights f32 by default, as the JAX package's."""
+    8 h, 8 w) in [-1, 1], and with `encoder=True` video (B, 3, 1 + 4 k, H, W)
+    -> normalised latent means (B, z_dim, 1 + k, H / 8, W / 8). Weights f32
+    by default, as the JAX package's."""
 
-    def __init__(self, cfg: WanVAEConfig = WanVAEConfig(), *, dtype=torch.float32, device="cpu"):
+    def __init__(self, cfg: WanVAEConfig = WanVAEConfig(), *, dtype=torch.float32, device="cpu",
+                 encoder: bool = False):
         super().__init__()
         self.cfg = cfg
         self.conv2 = _conv3d(cfg.z_dim, cfg.z_dim, 1, dtype, device)
         self.decoder = Decoder(cfg, dtype, device)
+        # registered after the decoder, so init_random draws the decoder's
+        # weights as a decoder-only VAE does
+        self.encoder = Encoder(cfg, dtype, device) if encoder else None
+        self.conv1 = _conv3d(2 * cfg.z_dim, 2 * cfg.z_dim, 1, dtype, device) if encoder else None
         self.requires_grad_(False)
 
     @torch.no_grad()
@@ -299,16 +399,52 @@ class WanVAE(nn.Module):
                 mod.proj.weight.zero_()
         return self
 
-    def latent_input(self, z):
-        """The decoder's input: z * std + mean (zeros and ones for another
-        z_dim), then conv2. The tables are f32, so bf16 latents are promoted,
-        as in the JAX package."""
+    def _latent_scale(self):
+        """(mean, std) of the latents, (1, z_dim, 1, 1, 1) f32 (zeros and ones
+        for another z_dim than the published 16)."""
         dev, c = self.conv2.weight.device, self.cfg.z_dim
         if c == len(WAN_LATENT_MEAN):
-            mean, std = (torch.as_tensor(a, device=dev).view(1, c, 1, 1, 1) for a in (WAN_LATENT_MEAN, WAN_LATENT_STD))
-        else:
-            mean, std = (torch.full((1, c, 1, 1, 1), v, device=dev) for v in (0.0, 1.0))
-        return conv3d(self.conv2, z.to(dev) * std + mean, t_pad=0)
+            return tuple(torch.as_tensor(a, device=dev).view(1, c, 1, 1, 1) for a in (WAN_LATENT_MEAN, WAN_LATENT_STD))
+        return tuple(torch.full((1, c, 1, 1, 1), v, device=dev) for v in (0.0, 1.0))
+
+    def latent_input(self, z):
+        """The decoder's input: z * std + mean, then conv2. The tables are
+        f32, so bf16 latents are promoted, as in the JAX package."""
+        mean, std = self._latent_scale()
+        return conv3d(self.conv2, z.to(mean.device) * std + mean, t_pad=0)
+
+    def _latent_output(self, y):
+        """The encoder's features -> conv1 (1x1x1), the mean half, normalised."""
+        mean, std = self._latent_scale()
+        return (conv3d(self.conv1, y, t_pad=0)[:, : self.cfg.z_dim] - mean) / std
+
+    def _encoder(self) -> Encoder:
+        if self.encoder is None:
+            raise ValueError("this WanVAE was built without its encoder: WanVAE(cfg, encoder=True)")
+        return self.encoder
+
+    @torch.no_grad()
+    def encode(self, video):
+        """The whole sequence at once: video (B, 3, T, H, W) in [-1, 1] ->
+        the normalised latent mean (B, z_dim, T', H / 8, W / 8)."""
+        enc = self._encoder()
+        return self._latent_output(encoder_forward(enc, video.to(self.conv2.weight.device)))
+
+    @torch.no_grad()
+    def encode_streamed(self, video):
+        """The reference's chunks: frame 0, then 4 frames at a time, with the
+        per-conv cache; T must be 1 + 4 k. The same function as `encode`,
+        with memory bounded by a chunk of 4 frames."""
+        enc = self._encoder()
+        T = video.shape[2]
+        if (T - 1) % 4:
+            raise ValueError(f"encode_streamed takes 1 + 4 k frames, got {T}")
+        video = video.to(self.conv2.weight.device)
+        outs, tstate = [], None
+        for s, e in [(0, 1)] + [(1 + 4 * i, 5 + 4 * i) for i in range((T - 1) // 4)]:
+            y, tstate = encoder_forward_stream(enc, video[:, :, s:e], tstate, s == 0)
+            outs.append(y)
+        return self._latent_output(torch.cat(outs, dim=2))
 
     @torch.no_grad()
     def decode(self, z):

@@ -1,8 +1,10 @@
-"""Wan 2.1 T2V generation pipeline (counterpart of
+"""Wan 2.1 T2V and I2V generation pipeline (counterpart of
 sparse_videogen_tpu/pipelines/wan.py): FlowUniPC, CFG, and the dense / SVG1 /
 SAP self-attention runtime. Dense and SVG1 batch CFG as [cond, null]; SAP
 runs the two streams as separate batch-1 forwards, each with its own k-means
-states, as the JAX pipeline does. With a ring of more than one rank (`mesh`,
+states, as the JAX pipeline does. I2V hands every forward the CLIP features
+and the condition latents (`build_i2v_condition`: the first-frame mask and
+the image's VAE latents), concatenated after the noise on channels. With a ring of more than one rank (`mesh`,
 parallel/mesh.make_mesh; --ring_degree), dense and SAP attention run
 token-sharded (parallel/ring_runtime.py); SVG raises, as in the JAX package.
 `export_video` writes the VAE's output as a .y4m or .mp4.
@@ -99,11 +101,15 @@ class WanPipeline:
         latents: torch.Tensor | None = None,
         mesh=None,
         inplace_temporal: bool = False,
+        clip_fea: torch.Tensor | None = None,
+        latent_cond: torch.Tensor | None = None,
     ):
         """Run the denoise loop from noise drawn with torch.Generator(seed) on
         the model's device (or from `latents`, of the same shape; the generator
         still serves SAP's k-means); return the final f32 latents (1, C, F',
-        H', W').
+        H', W'). The noise has out_dim channels; I2V's clip_fea (1, 257,
+        image_dim) and latent_cond (1, in_dim - out_dim, F', H', W') go to
+        every forward of both CFG streams.
         With pattern SAP, `logging_file` receives the per-(step, layer) density
         of the cond stream as JSONL (utils/density.py). mesh and
         inplace_temporal go to make_wan_runtime."""
@@ -124,13 +130,13 @@ class WanPipeline:
             num_inference_steps=num_inference_steps, guidance_scale=guidance_scale, flow_shift=flow_shift,
             pattern=pattern, first_layers_fp=first_layers_fp, first_times_fp=first_times_fp, svg=svg, sap=sap,
             generator=gen, callback=callback, logging_file=logging_file, mesh=mesh,
-            inplace_temporal=inplace_temporal,
+            inplace_temporal=inplace_temporal, clip_fea=clip_fea, latent_cond=latent_cond,
         )
 
     def _denoise(self, context, context_null, lat, *, height, width, num_frames, num_inference_steps,
                  guidance_scale, flow_shift, pattern, first_layers_fp, first_times_fp, svg, sap=SAPConfig(),
                  generator=None, profile_rows=None, kmeans_init=None, callback=None, logging_file=None, mesh=None,
-                 inplace_temporal=False):
+                 inplace_temporal=False, clip_fea=None, latent_cond=None):
         """The loop behind generate_latents, from the given initial latents.
         `profile_rows[step][layer]` hands the SVG1 profiler fixed rows, and
         `kmeans_init[step][stream][layer]` = (q indices, k indices) hands SAP's
@@ -149,18 +155,25 @@ class WanPipeline:
         stream_states = [{}, {}]  # SAP: layer -> SAPState, per CFG stream
         ctx_pair = torch.cat([context, context_null], dim=0).to(device)
         lat = lat.to(device)
+        if latent_cond is not None:
+            latent_cond = latent_cond.to(device=device, dtype=dtype)
+        if clip_fea is not None:
+            clip_fea = clip_fea.to(device)
+        pair = lambda y: None if y is None else torch.cat([y, y], dim=0)
         sstate = sch.init_state(lat)
         for i in range(num_inference_steps):
             if sap_mode:
                 t = torch.full((1,), float(sch.timesteps[i]), dtype=torch.float32, device=device)
+                x = _with_condition(lat.to(dtype), latent_cond)
                 v_cond, v_uncond = (
-                    self._sap_forward(runtime, stream_states, s, lat.to(dtype), t, ctx_pair[s:s + 1], generator,
-                                      None if kmeans_init is None else kmeans_init[i][s])
+                    self._sap_forward(runtime, stream_states, s, x, t, ctx_pair[s:s + 1], generator,
+                                      None if kmeans_init is None else kmeans_init[i][s], clip_fea)
                     for s in range(2))
             else:
                 t = torch.full((2,), float(sch.timesteps[i]), dtype=torch.float32, device=device)
-                v = model(torch.cat([lat, lat], dim=0).to(dtype), t, ctx_pair, attention=runtime,
-                          generator=generator, profile_rows=None if profile_rows is None else profile_rows[i])
+                x = _with_condition(torch.cat([lat, lat], dim=0).to(dtype), pair(latent_cond))
+                v = model(x, t, ctx_pair, attention=runtime, generator=generator, clip_fea=pair(clip_fea),
+                          profile_rows=None if profile_rows is None else profile_rows[i])
                 v_cond, v_uncond = v[:1], v[1:2]
             lat, sstate = sch.step(i, lat, v_uncond + guidance_scale * (v_cond - v_uncond), sstate)
             if dlog.path:
@@ -171,12 +184,32 @@ class WanPipeline:
                 callback(i, lat)
         return lat
 
-    def _sap_forward(self, runtime: SAPRuntime, stream_states, s, x, t, ctx, generator, kmeans_init):
+    def _sap_forward(self, runtime: SAPRuntime, stream_states, s, x, t, ctx, generator, kmeans_init, clip_fea=None):
         """One batch-1 forward of CFG stream s with that stream's SAP states."""
         runtime.states, runtime.kmeans_init = stream_states[s], kmeans_init
-        v = self.model(x, t, ctx, attention=runtime, generator=generator)
+        v = self.model(x, t, ctx, attention=runtime, generator=generator, clip_fea=clip_fea)
         stream_states[s] = runtime.states
         return v
+
+
+def _with_condition(x, latent_cond):
+    """The DiT's input: the noise latents, then I2V's condition on channels."""
+    return x if latent_cond is None else torch.cat([x, latent_cond], dim=1)
+
+
+def build_i2v_condition(latent_condition: torch.Tensor, *, vae_temporal: int = VAE_TEMPORAL) -> torch.Tensor:
+    """I2V's condition (diffusers WanImageToVideoPipeline.prepare_latents):
+    a vae_temporal-channel first-frame mask, then the VAE latents of the
+    [image, zeros...] video -> (B, vae_temporal + 16, F_lat, h, w), which
+    goes after the noise latents on channels (in_dim 36 = 16 + 20).
+    latent_condition: (B, 16, F_lat, h, w), normalised (WanVAE.encode)."""
+    B, _, F_lat, h, w = latent_condition.shape
+    # pixel-frame mask: frame 0 repeated vae_temporal times is 1, the rest 0;
+    # grouped (F_lat, vae_temporal), then transposed to (vae_temporal, F_lat)
+    flat = torch.zeros(B, vae_temporal * F_lat, h, w, dtype=latent_condition.dtype, device=latent_condition.device)
+    flat[:, :vae_temporal] = 1.0
+    mask = flat.view(B, F_lat, vae_temporal, h, w).transpose(1, 2)
+    return torch.cat([mask, latent_condition], dim=1)
 
 
 def export_video(video, path: str, fps: int = 16) -> None:

@@ -11,6 +11,17 @@ T2V_720P_SAP ("14B-720p-sap"): Wan 2.1 14B with the reference's canonical
   / 2 warm k-means iterations, first_times_fp 0.2, first_layers_fp 0.03.
 Both keep the CLI's SVG1 sparsity (0.25) and guidance scale (5.0).
 
+Wan 2.1 I2V 14B (WAN_14B_I2V: dim 5120, 40 layers, 40 heads, FFN 13,824,
+in_dim 36, image_dim 1280) with the reference's six runs
+(scripts/wan/wan_i2v_{480p,720p}_{svg,dense,sap}.sh), "14B-i2v-<res>-<run>"
+in I2V_PRESETS: 81 frames, guidance 5.0; at 480p the example image
+(examples/1/image.jpg, 480x832) fits to 480x832, flow shift 3.0; at 720p to
+720x1264 (S = 21 x 3,555 = 74,655), flow shift 5.0. SVG1: sparsity 0.25, 64
+sampled rows, first_times_fp 0.03, first_layers_fp 0.3; dense: the CLI's
+defaults (the same fractions, unused); SAP: QC 300, KC 1000, top_p 0.9,
+min_kc_ratio 0.10, 50 / 2 k-means iterations, first_times_fp 0.2,
+first_layers_fp 0.03.
+
 HunyuanVideo T2V at 720x1280x129 (HY_PRESETS), HYVIDEO_T2 with the
 reference's canonical runs: "hyvideo-720p-svg"
 (scripts/hyvideo/hyvideo_t2v_720p_svg.sh: 50 steps, flow shift 7.0, SVG1 at
@@ -62,7 +73,16 @@ T2V_720P_SAP = WanRunSettings(
     WAN_14B, 720, 1280, 81, flow_shift=5.0, first_layers_fp=0.03, first_times_fp=0.2,
     sap=SAPConfig(num_q_centroids=300, num_k_centroids=1000, top_p_kmeans=0.9, min_kc_ratio=0.10,
                   kmeans_iter_init=50, kmeans_iter_step=2))
-PRESETS = {"1.3B-480p": T2V_480P, "14B-720p-sap": T2V_720P_SAP}
+WAN_14B_I2V = dataclasses.replace(WAN_14B, model_type="i2v", in_dim=36, image_dim=1280)
+I2V_SAP = SAPConfig(num_q_centroids=300, num_k_centroids=1000, top_p_kmeans=0.9, min_kc_ratio=0.10,
+                    kmeans_iter_init=50, kmeans_iter_step=2)
+I2V_PRESETS = {
+    f"14B-i2v-{res}-{run}": WanRunSettings(WAN_14B_I2V, h, w, 81, flow_shift=shift, sap=I2V_SAP if run == "sap"
+                                           else SAPConfig(), **({"first_layers_fp": 0.03, "first_times_fp": 0.2}
+                                                               if run == "sap" else
+                                                               {"first_layers_fp": 0.3, "first_times_fp": 0.03}))
+    for res, h, w, shift in (("480p", 480, 832, 3.0), ("720p", 720, 1264, 5.0)) for run in ("svg", "dense", "sap")}
+PRESETS = {"1.3B-480p": T2V_480P, "14B-720p-sap": T2V_720P_SAP, **I2V_PRESETS}
 
 
 @dataclasses.dataclass(frozen=True)

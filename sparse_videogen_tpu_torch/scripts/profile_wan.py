@@ -1,16 +1,21 @@
-"""Per-step time and per-kernel breakdown of Wan 2.1 T2V (1.3B or 14B) on one GPU.
+"""Per-step time and per-kernel breakdown of Wan 2.1 T2V (1.3B or 14B) or I2V (14B) on one GPU.
 
     python -m sparse_videogen_tpu_torch.scripts.profile_wan [--runs SVG,dense,SAP,SAP,dense,SVG]
     python -m sparse_videogen_tpu_torch.scripts.profile_wan --preset 14B-720p-sap --layers 4 \
         --steps 5 --runs SAP,dense,dense,SAP
     python -m sparse_videogen_tpu_torch.scripts.profile_wan --organic 4.0 --runs SAP
     python -m sparse_videogen_tpu_torch.scripts.profile_wan --inplace_temporal --runs SVG,SVG
+    python -m sparse_videogen_tpu_torch.scripts.profile_wan --preset 14B-i2v-720p-svg --layers 2 \
+        --steps 3 --runs SVG,dense,dense,SVG
 
 --preset picks the model and its generation settings (presets.PRESETS):
 1.3B-480p, Wan 2.1 1.3B with the CLI's sparsity, SAP (QC 50 / KC 200) and
 warm-up; 14B-720p-sap, Wan 2.1 14B with the reference's Wan 720p SAP run
 (QC 300 / KC 1000, min_kc_ratio 0.10, first_times_fp 0.2, first_layers_fp
-0.03, flow shift 5.0). Random bf16 weights from --seed at the model's full
+0.03, flow shift 5.0); 14B-i2v-{480p,720p}-{svg,dense,sap}, Wan 2.1 I2V
+14B with the reference's I2V runs (presets.I2V_PRESETS), given random CLIP
+features (1, 257, 1280) and the condition of random image latents
+(build_i2v_condition). Random bf16 weights from --seed at the model's full
 width, --layers of its blocks (default: all), and a random (1, 512, 4096)
 context (UMT5-XXL's shape). Dense and SVG1 batch CFG; SAP runs cond and
 uncond as separate batch-1 forwards. --organic GAIN (default off) gives SAP
@@ -191,6 +196,54 @@ def sap_run_list_stats(forward):
     return out
 
 
+PROJECTED_STEPS = 50  # the CLIs' default step count
+
+
+def project_steps(runs, run_cfg, layers) -> dict:
+    """The DiT's seconds for a PROJECTED_STEPS-step generation at the model's full
+    depth, from the timed runs at `layers` blocks: a layer-step's seconds are
+    a run's last step (steady state; it includes the few per-step
+    operations outside the blocks) over `layers`, the median over the runs
+    of a pattern; the preset's warm-up (first_layers_fp, first_times_fp at
+    PROJECTED_STEPS steps) makes that many layer-steps dense. Printed and
+    returned per sparse pattern, with dense; {} without a dense run."""
+    from sparse_videogen_tpu_torch.config import WarmupSchedule
+    from sparse_videogen_tpu_torch.schedulers import FlowUniPC
+
+    per_layer = {}
+    for r in runs:
+        per_layer.setdefault(r["pattern"], []).append(r["per_step_s"][-1] / layers)
+    per_layer = {p: sorted(v)[len(v) // 2] for p, v in per_layer.items()}
+    if "dense" not in per_layer:
+        return {}
+    steps, full = PROJECTED_STEPS, run_cfg.model.num_layers
+    ts = FlowUniPC(steps, shift=run_cfg.flow_shift).timesteps
+    warm = WarmupSchedule.from_fractions(run_cfg.first_layers_fp, run_cfg.first_times_fp, full, ts)
+    n_dense_steps = sum(float(t) > warm.first_times for t in ts)
+    out = {"steps": steps, "layers": full, "from_layers": layers, "dense_s": steps * full * per_layer["dense"]}
+    for p, s in per_layer.items():
+        if p != "dense":
+            dense_ls = n_dense_steps * full + (steps - n_dense_steps) * warm.first_layers
+            out[f"{p}_s"] = dense_ls * per_layer["dense"] + (steps * full - dense_ls) * s
+    print(f"[projection] the DiT for {steps} steps at {full} layers, from the last step of each run at {layers} "
+          f"layers (s a layer-step {per_layer}; {n_dense_steps} dense warm-up steps, {warm.first_layers} dense "
+          f"layers a step): " + ", ".join(f"{k} {v}" for k, v in out.items() if k.endswith("_s")), flush=True)
+    return out
+
+
+def i2v_inputs(cfg, lat_shape, gen, dev) -> dict:
+    """generate_latents' I2V arguments for an I2V model (none for T2V):
+    random CLIP features (1, 257, image_dim) and the condition
+    (build_i2v_condition) of random image latents of `lat_shape`."""
+    from sparse_videogen_tpu_torch.pipelines.wan import build_i2v_condition
+
+    if cfg.model_type != "i2v":
+        return {}
+    clip_fea = torch.randn(1, 257, cfg.image_dim, generator=gen, device=dev).to(torch.bfloat16)
+    img_lat = torch.randn(1, *lat_shape, generator=gen, device=dev)
+    return {"clip_fea": clip_fea, "latent_cond": build_i2v_condition(img_lat)}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--preset", choices=tuple(PRESETS), default="1.3B-480p")
@@ -233,7 +286,10 @@ def main(argv=None):
     lat_shape = (cfg.out_dim, lay.num_frames, run_cfg.height // 8, run_cfg.width // 8)
     if args.organic is not None:
         gen_kw["latents"] = smooth_latents(gen, (1, *lat_shape), dtype=torch.float32)
-    print(f"[config] {args.preset}: Wan 2.1 dim {cfg.dim}, {cfg.num_layers} layers, {cfg.num_heads} heads; "
+    cond = i2v_inputs(cfg, lat_shape, gen, dev)
+    gen_kw.update(cond)
+    print(f"[config] {args.preset}: Wan 2.1 {cfg.model_type} dim {cfg.dim}, {cfg.num_layers} layers, "
+          f"{cfg.num_heads} heads, S = {lay.seq_len} ({lay.num_frames}x{lay.frame_size}); "
           f"{run_cfg.height}x{run_cfg.width}x{run_cfg.num_frames}, {args.steps} steps; SAP QC {sap.num_q_centroids} "
           f"KC {sap.num_k_centroids} min_kc_ratio {sap.min_kc_ratio}; "
           + ("random weights" if args.organic is None else f"organic, gain {args.organic}")
@@ -259,6 +315,7 @@ def main(argv=None):
               f"set-up)" + (f"; SAP density mean {run['density_mean']} (cond stream)" if pattern == "SAP" else ""),
               flush=True)
         result["time"].append(run)
+    result["projection"] = project_steps(result["time"], run_cfg, cfg.num_layers)
 
     sch = FlowUniPC(args.steps, shift=run_cfg.flow_shift)
     warmup = WarmupSchedule.from_fractions(run_cfg.first_layers_fp, run_cfg.first_times_fp, cfg.num_layers,
@@ -269,6 +326,9 @@ def main(argv=None):
     else:
         x = smooth_latents(gen, (2, *lat_shape))
     t = torch.full((2,), float(sch.timesteps[1]), device=dev)
+    clip2 = None if not cond else torch.cat([cond["clip_fea"]] * 2)
+    if cond:
+        x = torch.cat([x, torch.cat([cond["latent_cond"]] * 2).to(x.dtype)], dim=1)
     for pattern in dict.fromkeys(runs):
         rt = make_wan_runtime(lay, device=dev, pattern=pattern, warmup=warmup, svg=svg, sap=sap,
                               inplace_temporal=args.inplace_temporal)
@@ -278,10 +338,11 @@ def main(argv=None):
 
         def step_forwards():
             if pattern != "SAP":
-                return model(x, t, ctx_pair, attention=rt, generator=gen)
+                return model(x, t, ctx_pair, attention=rt, generator=gen, clip_fea=clip2)
             for s in range(2):  # SAP: one batch-1 forward per CFG stream, each with its own states
                 rt.states = states[s]
-                model(x[s:s + 1], t[:1], ctx_pair[s:s + 1], attention=rt, generator=gen)
+                model(x[s:s + 1], t[:1], ctx_pair[s:s + 1], attention=rt, generator=gen,
+                      clip_fea=None if clip2 is None else clip2[s:s + 1])
 
         result["profile"][pattern] = profile_forward(f"{pattern} step forwards", step_forwards)
         if pattern == "SAP":

@@ -27,7 +27,8 @@ assert len(names) >= 20, names
 for mod in ("models.cog.model", "pipelines.cog", "schedulers.ddim_cog", "cli.cog_i2v", "scripts.profile_cog",
             "io.safetensors", "io.tokenizer", "io.encoders", "io.checkpoint", "io.native", "io.mp4",
             "models.common.t5", "models.wan.vae", "models.common.vae_tiling", "utils.dataloader", "io.grapheme",
-            "utils.metric", "utils.perceptual", "utils.lpips_alex", "scripts.quality"):
+            "utils.metric", "utils.perceptual", "utils.lpips_alex", "scripts.quality", "cli.wan_i2v", "io.image",
+            "models.common.clip", "models.common.resize"):
     assert pkg.__name__ + "." + mod in names, mod
 """
 
