@@ -1,7 +1,8 @@
 """Drive the torch port's main paths once on one NVIDIA GPU: Wan 2.1 T2V
-dense/SVG1/SAP and from a prompt to a video, Wan 2.1 I2V 14B from an image
-and a prompt to a video, HunyuanVideo T2V dense/SVG1, CogVideoX 1.5 I2V
-dense/SVG1, and the probe entries of K6 and K8.
+dense/SVG1/SAP (cluster and tile mode) and from a prompt to a video, Wan
+2.1 I2V 14B from an image and a prompt to a video, HunyuanVideo T2V
+dense/SVG1/SAP (both modes), CogVideoX 1.5 I2V dense/SVG1, and the probe
+entries of K6 and K8.
 
     python3 chip_smoke.py
 
@@ -45,7 +46,16 @@ is non-zero:
                predicate allows (K4's bound). Each entry of the kernels line
                carries its bound (bytes or operations over the H100's peaks)
                and, where one PyTorch call computes the same function, that
-               call's time.
+               call's time. SAP's tile mode and text-last layouts (phase
+               "sap kernels"): K1 with kind none on the chunked-CSR metadata
+               tile mode builds on the device, at Wan 1.3B 480p and 14B 720p
+               (QC 300, KC 1000), against its plain version (720p: on
+               CHECK_BLOCKS q blocks of each checked head) and beside SDPA
+               with the tile mask as an attn_mask on one head; HunyuanVideo
+               720p's SAP front half (hyvideo-720p-sap) in cluster mode (K3
+               on run lists with the prompt and padding clusters) and tile
+               mode (K1 on the grain-aligned text-last metadata), each
+               against its plain version on sampled and every text q block.
   4. slice   - WanPipeline.generate_latents with random weights from a seed:
                Wan 2.1 1.3B at full width and depth, 480x832x81, 4 UniPC
                steps, SVG1 with batched CFG, then SAP (cluster mode, the CLI's
@@ -57,13 +67,18 @@ is non-zero:
                blocks) through HyVideoPipeline.generate_latents at
                720x1280x129, SVG1 for HY_STEPS_SVG steps (one dense warm-up
                step) and dense for HY_STEPS_DENSE, prompt HY_PROMPT of 256
-               text tokens; the K6 and K7 probe entries on their own data;
+               text tokens, then the hyvideo-720p-sap run (QC 400, KC 1000)
+               in cluster and in tile mode for HY_STEPS_SAP steps (one
+               dense warm-up step, K1's hyvideo kind, that also clusters),
+               with SAP's density; the K6 and K7 probe entries on their own
+               data;
                CogVideoX 1.5 5B I2V (COG_1_5_5B_I2V at full width, COG_LAYERS
                layers) through CogPipeline.generate_latents at 768x1360x81,
                SVG1 then dense for COG_STEPS DDIM steps (CFG batch 2).
                The Wan 1.3B slice also runs SVG1 in place (placement-free,
                K1's dual per-head spec) from the same seed and weights and
-               holds its latents to the placement run's.
+               holds its latents to the placement run's, and SAP in tile
+               mode (--sap_block_mode tile: K1 with kind none).
                Each path's kernel launch counts, and K1's launches by mask
                kind, are read around its run and held to what the
                configuration implies. Then one forward of a
@@ -96,7 +111,8 @@ is non-zero:
                  each stage timed with its peak memory, K1 and K2 held to
                  the configuration's launches with no plain-version call;
                  then the decode in each mode (whole, streamed by 1 and 2
-                 latent frames; whole and streamed held to each other) and
+                 latent frames, on the first DECODE_MODE_FRAMES latent
+                 frames; whole and streamed held to each other) and
                  with cuDNN's TF32 on, and dense steps, for the projection
                  of a CLI_STEPS-step generation. A small UMT5 and Wan VAE on
                  the card against the CPU (UMT5_TOL, VAE_TOL); a small I2V
@@ -116,19 +132,23 @@ is non-zero:
                  CLI_STEPS-step generation at 40 layers.
                quality (after i2v): scripts/quality.py's recipe without the
                  decode: Wan 2.1 1.3B structured-synthetic (K := Q, gain
-                 4.0) at 720x1280x81, 8 steps, dense, SVG1 and SAP cluster
-                 (QC 300, KC 125) from one noise, launches held to the
-                 configuration; latent PSNR / SSIM against dense, SAP's
-                 density; SVG1 >= 35 dB and SAP >= 24 dB or the run fails.
-  5. cli     - the port's CLIs, all started together: --smoke for Wan T2V
-               and I2V for SVG, dense and SAP, HunyuanVideo and CogVideoX for
-               SVG and dense; the Wan T2V smoke with a video name (its tiny
+                 4.0) at 720x1280x81, 8 steps, dense, SVG1, SAP cluster and
+                 SAP tile (QC 300, KC 125) from one noise, launches held to
+                 the configuration; latent PSNR / SSIM against dense, SAP's
+                 densities; SVG1 >= 35 dB and each SAP mode >= 24 dB or the
+                 run fails.
+  5. cli     - (started before the quality phase, checked after the small
+               references) the port's CLIs, all started together: --smoke for Wan T2V
+               and I2V and HunyuanVideo for SVG, dense, SAP and SAP with
+               --sap_block_mode tile, CogVideoX for SVG and dense; the Wan
+               T2V smoke with a video name (its tiny
                VAE, a .y4m); the Wan T2V CLI on a checkpoint dir written by
                write_tiny_checkpoint (the port's safetensors writer, the
                reference's names) from a prompt to a .y4m, and the Wan I2V
                CLI on an I2V one (the VAE's encoder, a CLIP tower in HF's
                names) from examples/1/image.jpg and a prompt to a .y4m.
-The whole run's seconds are printed before the two JSON lines.
+Each group of phases prints its seconds on a [time] line, and the whole
+run's seconds are printed before the two JSON lines.
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
 """
@@ -156,6 +176,9 @@ STEPS, STEPS_14B = 4, 5  # 5 steps: first_times_fp 0.2 gives the 720p run one de
 # memory, bounds the depth (PERF.md section 4)
 LAYERS_14B = 2
 CHECK_HEADS = 2  # first and last heads held against the plain attention (the plain version is slow)
+# at 720p and more the plain attention holds the checked heads on this many
+# q blocks spread over each (and every text block): q blocks are independent
+CHECK_BLOCKS = 24
 KMEANS_CHUNK = 8  # heads per plain k-means call: (8, 75,600, 1000) f32 distances are 2.4 GB
 TIMED_ITERS = 5
 # the run-list and chunked attention kernels against their plain versions:
@@ -180,6 +203,12 @@ PEAK_TF32_FLOPS = 495e12  # tensor cores on f32 inputs, where TF32 is allowed
 # warm-up step; a live prompt of HY_PROMPT of the 256 text tokens
 HY_DOUBLE, HY_SINGLE = 2, 2
 HY_STEPS_SVG, HY_STEPS_DENSE = 10, 2
+# the hyvideo-720p-sap runs (cluster and tile): first_times_fp 0.1 makes
+# step 0 of HY_STEPS_SAP a dense warm-up step (it clusters too), the rest
+# sparse and warm; at the organic gain of the JAX package's
+# scripts/bench_hyvideo.py (random weights keep ~0.87 of the scores)
+HY_STEPS_SAP = 10
+HY_SAP_GAIN = 3.5
 HY_PROMPT = 32
 # CogVideoX: COG_1_5_5B_I2V's full width, the first COG_LAYERS of its 42
 # layers (PERF.md section 4); COG_STEPS DDIM steps make first_times_fp 0.2
@@ -203,6 +232,9 @@ RING_LAYERS = 2
 # in f32 with TF32 off: UMT5 differs by summation order; cuDNN may pick FFT or
 # Winograd convolutions, whose f32 rounding departs from a direct sum by ~1e-5
 P2V_STEPS, CLI_STEPS = 2, 50
+# the decode modes (whole, streamed by 1 and 2) are held to each other on the
+# first DECODE_MODE_FRAMES of the 21 latent frames (the smoke's time limit)
+DECODE_MODE_FRAMES = 9
 UMT5_TOL, VAE_TOL = 1e-5, 1e-4
 # image -> video (Wan 2.1 I2V 14B at 480x832x81): its full width and the first
 # LAYERS_I2V of its 40 layers, so that first_layers_fp 0.3 gives one dense
@@ -756,8 +788,9 @@ def phase_sap_attention(dev, preset="1.3B-480p", all_checks=True):
     q blocks that hold no token must have empty run lists. all_checks: the
     first and last CHECK_HEADS heads against the plain version (one run: it
     is slow) with mask none and the band_sink MaskSpec path, then one layer of
-    SAP at full density against the dense kernel; else mask none on the first
-    and last head (the plain version takes ~15 s a head at 720p)."""
+    SAP at full density against the dense kernel; else mask none on
+    CHECK_BLOCKS q blocks of the first and last head (the plain version
+    takes ~15 s a whole head at 720p)."""
     from sparse_videogen_tpu_torch.config import SAPConfig
     from sparse_videogen_tpu_torch.ops.attention import block_sparse_attention_runs, block_sparse_attention_runs_plain
     from sparse_videogen_tpu_torch.ops.mask_spec import MaskSpec
@@ -799,15 +832,24 @@ def phase_sap_attention(dev, preset="1.3B-480p", all_checks=True):
     for name, spec in specs:
         kw = dict(block_q=sap.block_q, block_kv=sap.block_kv, mask_spec=spec)
         out = block_sparse_attention_runs(a.q, a.k, a.v, a.meta, **kw)
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        start.record()
-        ref = block_sparse_attention_runs_plain(qs, ks, vs, metas, **kw)
-        end.record()
-        torch.cuda.synchronize()
-        plain_ms = start.elapsed_time(end)  # one run: the plain version is slow
-        max_abs, mean_rel = err_stats(out.index_select(0, heads), ref)
-        log("kernels", f"runs attention, mask {spec.kind} ({preset}, H={H}, heads {heads.tolist()} checked, q rows "
+        if all_checks:
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            start.record()
+            ref = block_sparse_attention_runs_plain(qs, ks, vs, metas, **kw)
+            end.record()
+            torch.cuda.synchronize()
+            plain_ms = start.elapsed_time(end)  # one run: the plain version is slow
+            max_abs, mean_rel = err_stats(out.index_select(0, heads), ref)
+            blocks = n_q
+        else:  # CHECK_BLOCKS q blocks of each checked head (~15 s a whole head at 720p)
+            blocks = sample_blocks(a.meta, CHECK_BLOCKS, 0, dev)
+            ref, rows, plain_ms = plain_on_blocks(block_sparse_attention_runs_plain, a, heads, blocks, sap.block_q,
+                                                  sap.block_kv)
+            max_abs, mean_rel = err_stats(out.index_select(0, heads)[:, rows], ref)
+            blocks = len(blocks)
+        log("kernels", f"runs attention, mask {spec.kind} ({preset}, H={H}, heads {heads.tolist()} on {blocks} of "
+                       f"{n_q} q blocks checked, q rows "
                        f"{a.q.shape[1]}, kv {a.k.shape[1]}, D={D}, block_q {sap.block_q}, block_kv {sap.block_kv}): "
                        f"max_abs_err {max_abs:.3e} (tol {ATTN_TOL_ABS}), mean_rel_err {mean_rel:.3e} "
                        f"(tol {ATTN_TOL_REL})")
@@ -863,22 +905,208 @@ def phase_sap_attention(dev, preset="1.3B-480p", all_checks=True):
     return entry
 
 
-def expected_launches(pattern, n_layers, warmup, timesteps, kinds, sap=None):
+def csr_as_runs(meta):
+    """Chunked-CSR rows (R, nQ, 1 + 2 cap) as run-list rows of token windows:
+    chunk c becomes [idx_c * 128 + lo_c, idx_c * 128 + hi_c), the chunks past
+    the row's count (0, 0); the first entry keeps the count."""
+    from sparse_videogen_tpu_torch.ops.metadata import ENTRY_SCALE, N_CHEAP_SCALE, SUB
+
+    m = meta.long()
+    cap = (m.shape[2] - 1) // 2
+    live = torch.arange(cap, device=m.device) < (m[..., :1] % N_CHEAP_SCALE)
+    start, win = m[..., 1::2] * SUB, m[..., 2::2]
+    a, b = (torch.where(live, start + w, 0) for w in (win // ENTRY_SCALE, win % ENTRY_SCALE))
+    return torch.cat([m[..., :1] % N_CHEAP_SCALE, torch.stack([a, b], -1).flatten(-2)], -1).to(torch.int32)
+
+
+def real_rows(pos, n_q, block_q):
+    """(R, nQ) f32: the real q tokens of each q block (pos (R, n) their rows)."""
+    return torch.zeros(pos.shape[0], n_q, device=pos.device).scatter_add_(
+        1, (pos // block_q).long(), torch.ones_like(pos, dtype=torch.float32))
+
+
+def plain_on_blocks(plain, a, heads, blocks, block_q, block_kv):
+    """The plain version (`plain`, of the run-list or chunked-CSR format) on
+    the q blocks `blocks` of the heads `heads` of a SAPKernelArgs only (q
+    blocks are independent), timed by CUDA events: (its output (h,
+    len(blocks) * block_q, D), the q rows it covers, ms). Mask kind none
+    only: a predicate would see the gathered rows' positions."""
+    rows = (blocks[:, None] * block_q + torch.arange(block_q, device=blocks.device)).reshape(-1)
+    qs = a.q.index_select(0, heads)[:, rows].contiguous()
+    ks, vs = (x.index_select(0, heads) for x in (a.k, a.v))
+    ms_ = a.meta.index_select(0, heads)[:, blocks].contiguous()
+    out = []
+    ms = event_ms(lambda: out.append(plain(qs, ks, vs, ms_, block_q=block_q, block_kv=block_kv)))
+    return out[0], rows, ms
+
+
+def sample_blocks(meta, n_video, extra, dev):
+    """Up to n_video q blocks spread over the video blocks (those before
+    `extra` blocks at the end, the text ones) and the extra ones."""
+    n = meta.shape[1]
+    video = torch.linspace(0, n - extra - 1, min(n_video, n - extra), device=dev).round().long()
+    return torch.cat([video, torch.arange(n - extra, n, device=dev)]).unique()
+
+
+def phase_sap_tile_attention(dev, preset="1.3B-480p", check_blocks=None):
+    """K1 (mask kind none) on the chunked-CSR metadata SAP's tile mode builds
+    on the device (k-means, PC1 seriation, one key sort a side, tile
+    centroids, the tile map, tile_meta) from random full-width q, k, v of one
+    CFG stream at a preset's model with its SAP run in tile mode
+    (presets.tile_variant: block_q = block_kv = 512): the first and last
+    head against the plain version (on check_blocks q blocks spread over
+    each, or all of them: the plain version takes ~6 s a head at 720p). The
+    entry's numbers are on the first head alone, the same inputs for each:
+    the kernel, the plain version (on the checked blocks), the bound (the
+    real q rows of each block times its live columns) and
+    F.scaled_dot_product_attention with the tile mask as an attn_mask (the
+    K3 rows' yardstick); every head is timed beside its bound as well."""
+    from sparse_videogen_tpu_torch.ops.attention import (block_sparse_attention_kv, block_sparse_attention_kv_plain,
+                                                         csr_tile_stats)
+    from sparse_videogen_tpu_torch.ops.mask_spec import MaskSpec
+    from sparse_videogen_tpu_torch.presets import PRESETS, tile_variant
+    from sparse_videogen_tpu_torch.sparse import svg2
+
+    lay = slice_layout(preset)
+    run = PRESETS[preset]
+    H, S, D = run.model.num_heads, lay.seq_len, run.model.head_dim
+    sap = tile_variant(run.sap)
+    bq, bkv = sap.block_q, sap.block_kv
+    gen = torch.Generator(device=dev).manual_seed(6)
+    q, k, v = ((torch.randn(1, H, S, D, generator=gen, device=dev) * sc).to(torch.bfloat16) for sc in (2.0, 1.0, 1.0))
+    t0 = time.perf_counter()
+    a = svg2.sap_prepare(q, k, v, svg2.init_sap_state(H, D, sap, device=dev), layout=lay, cfg=sap, generator=gen)
+    torch.cuda.synchronize()
+    prep_s = time.perf_counter() - t0
+    kw = dict(block_q=bq, block_kv=bkv)
+    out = block_sparse_attention_kv(a.q, a.k, a.v, a.meta, **kw)
+    blocks = torch.arange(a.meta.shape[1], device=dev) if check_blocks is None else sample_blocks(
+        a.meta, check_blocks, 0, dev)
+    checks = []
+    for h in (0, H - 1):  # the first head's plain run is the entry's plain time
+        ref, rows, plain_h = plain_on_blocks(block_sparse_attention_kv_plain, a, torch.tensor([h], device=dev),
+                                             blocks, bq, bkv)
+        checks.append((err_stats(out[h:h + 1, rows], ref), plain_h))
+    max_abs, mean_rel = (max(c[0][i] for c in checks) for i in (0, 1))
+    plain_ms = checks[0][1]
+    live, tiles = csr_tile_stats(a.meta)
+    per_block = live * real_rows(a.pos, a.meta.shape[1], bq)
+    b_all, b = attention_bound(int(per_block.sum()), q), attention_bound(int(per_block[0].sum()), q[:, :1])
+    log("kernels", f"SAP tile front half, {preset} {run.height}x{run.width}x{run.num_frames} (QC {sap.num_q_centroids}, "
+                   f"KC {sap.num_k_centroids} seriated, tiles of {bq} q / {bkv} kv, {prep_s:.2f} s cold): density "
+                   f"{a.density.mean().item():.4f}; q {tuple(a.q.shape)}, kv {tuple(a.k.shape)}, meta "
+                   f"{tuple(a.meta.shape)}; live share of the loaded 128-token tile columns "
+                   f"{int(live.sum()) / max(128 * int(tiles.sum()), 1):.4f}")
+    log("kernels", f"attention none on SAP tile metadata ({preset}, heads [0, {H - 1}], {len(blocks)} of "
+                   f"{a.meta.shape[1]} q blocks checked): max_abs_err {max_abs:.3e} (tol {ATTN_TOL_ABS}), "
+                   f"mean_rel_err {mean_rel:.3e} (tol {ATTN_TOL_REL})")
+    if not (max_abs <= ATTN_TOL_ABS and mean_rel <= ATTN_TOL_REL):
+        raise AssertionError(f"K1 on SAP tile metadata ({preset}) disagrees with its plain version")
+    ms_all = cuda_ms(lambda: block_sparse_attention_kv(a.q, a.k, a.v, a.meta, **kw))
+    one = [x[:1].contiguous() for x in (a.q, a.k, a.v, a.meta, a.pos)]
+    ms = cuda_ms(lambda: block_sparse_attention_kv(*one[:4], **kw))
+    lib_ms = runs_masked_sdpa(f"none on SAP tile metadata ({preset})", MaskSpec(), csr_as_runs(one[3]), one[4], bq,
+                              one[:3], out[:1])
+    pairs = int(per_block.sum())
+    log("kernels", f"attention none on SAP tile metadata ({preset}): all {H} heads, kernel {ms_all:.3f} ms "
+                   f"({4 * D * pairs / (ms_all * 1e-3) / 1e12:.1f} TFLOP/s on the {pairs / H / S / S:.4f} of S x S a "
+                   f"head the real rows visit; bound {b_all['bound_ms']:.3f} ms, {b_all['bound_by']}); head 0, "
+                   f"kernel {ms:.3f} ms, bound {b['bound_ms']:.3f} ms, masked SDPA {lib_ms:.3f} ms, plain "
+                   f"{plain_ms:.3f} ms (its {len(blocks)} checked blocks, one run)")
+    del q, k, v, a, out, ref, one
+    torch.cuda.empty_cache()
+    return {"name": "block_sparse_attn[none, SAP tile]", "route": "cuda",
+            "source": "sparse_videogen_tpu_torch/csrc/block_sparse_attn.cu",
+            "replaces": "sparse_videogen_tpu/ops/attention.py:62", "preset": preset, "heads": 1,
+            "plain_blocks": len(blocks), "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms, **b,
+            "library_ms": lib_ms, "all_heads_ms": ms_all, "all_heads_bound_ms": b_all["bound_ms"]}
+
+
+def phase_hyvideo_sap_attention(dev):
+    """HunyuanVideo 720p x 129 (S = 119,056: 118,800 video + 256 text
+    tokens last, prompt HY_PROMPT; 24 heads, D = 128), the hyvideo-720p-sap
+    run's front half on random q, k, v in both modes: cluster mode's run
+    lists (QC 400 + 2, KC 1000 + 2 text clusters) on K3, tile mode's
+    text-last chunked-CSR metadata (block_q = block_kv = 512) on K1 with mask
+    kind none. Each against its plain version on the first and last head, on
+    a sample of video q blocks and every text q block (the plain version
+    takes minutes over a whole head at this length); every head timed beside
+    its bound. Returns {mode: (ms, plain_ms, bound, max_abs)}."""
+    from sparse_videogen_tpu_torch.ops.attention import (block_sparse_attention_kv, block_sparse_attention_kv_plain,
+                                                         block_sparse_attention_runs,
+                                                         block_sparse_attention_runs_plain, csr_tile_stats,
+                                                         runs_tile_stats)
+    from sparse_videogen_tpu_torch.presets import HY_PRESETS
+    from sparse_videogen_tpu_torch.sparse import svg2
+
+    lay = hy_layout()
+    H, D, S = HY_PRESETS["hyvideo-720p-sap"].model.heads_num, 128, lay.seq_len
+    gen = torch.Generator(device=dev).manual_seed(8)
+    q, k, v = ((torch.randn(1, H, S, D, generator=gen, device=dev) * sc).to(torch.bfloat16) for sc in (2.0, 1.0, 1.0))
+    heads = torch.tensor([0, H - 1], device=dev)
+    out_modes = {}
+    for mode, name in (("cluster", "hyvideo-720p-sap"), ("tile", "hyvideo-720p-sap-tile")):
+        sap = HY_PRESETS[name].sap
+        bq, bkv = sap.block_q, sap.block_kv
+        t0 = time.perf_counter()
+        a = svg2.sap_prepare(q, k, v, svg2.init_sap_state(H, D, sap, device=dev), layout=lay, cfg=sap,
+                             generator=gen)
+        torch.cuda.synchronize()
+        prep_s = time.perf_counter() - t0
+        kw = dict(block_q=bq, block_kv=bkv)
+        kernel, plain, stats = ((block_sparse_attention_kv, block_sparse_attention_kv_plain, csr_tile_stats)
+                                if a.kernel == "csr" else
+                                (block_sparse_attention_runs, block_sparse_attention_runs_plain, runs_tile_stats))
+        out = kernel(a.q, a.k, a.v, a.meta, **kw)
+        # the text q blocks: tile mode's are the last ones; cluster mode's
+        # are the blocks of the prompt and padding tokens' rows
+        text_blocks = torch.unique(a.pos[:, lay.video_length:] // bq)
+        blocks = torch.cat([sample_blocks(a.meta, CHECK_BLOCKS, 0, dev), text_blocks]).unique()
+        ref, rows, plain_ms = plain_on_blocks(plain, a, heads, blocks, bq, bkv)
+        max_abs, mean_rel = err_stats(out.index_select(0, heads)[:, rows], ref)
+        live, tiles = stats(a.meta)
+        pairs = int((live * real_rows(a.pos, a.meta.shape[1], bq)).sum())
+        b = attention_bound(pairs, q)
+        ms = cuda_ms(lambda: kernel(a.q, a.k, a.v, a.meta, **kw), iters=2)
+        what = "K3 on the text-last run lists" if a.kernel == "runs" else "K1 (none) on the text-last tile metadata"
+        log("kernels", f"HunyuanVideo SAP {mode} front half (QC {sap.num_q_centroids}, KC {sap.num_k_centroids}, "
+                       f"block_q {bq}, block_kv {bkv}, prompt {HY_PROMPT} of 256; {prep_s:.2f} s cold): density "
+                       f"{a.density.mean().item():.4f}; q {tuple(a.q.shape)}, kv {tuple(a.k.shape)}, meta "
+                       f"{tuple(a.meta.shape)}; live share {int(live.sum()) / max(128 * int(tiles.sum()), 1):.4f}")
+        log("kernels", f"{what}: heads {heads.tolist()}, {len(blocks)} q blocks ({len(text_blocks)} holding text) "
+                       f"checked: max_abs_err {max_abs:.3e} (tol {ATTN_TOL_ABS}), mean_rel_err {mean_rel:.3e} (tol "
+                       f"{ATTN_TOL_REL}); plain {plain_ms:.1f} ms on them (one run); all {H} heads: kernel {ms:.3f} "
+                       f"ms ({4 * D * pairs / (ms * 1e-3) / 1e12:.1f} TFLOP/s on the real rows' visited pairs, "
+                       f"{pairs / H / S / S:.4f} of S x S a head; bound {b['bound_ms']:.3f} ms, {b['bound_by']})")
+        if not (max_abs <= ATTN_TOL_ABS and mean_rel <= ATTN_TOL_REL):
+            raise AssertionError(f"{what} disagrees with its plain version")
+        out_modes[mode] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=max_abs, **b)
+        del a, out, ref
+        torch.cuda.empty_cache()
+    del q, k, v
+    torch.cuda.empty_cache()
+    return out_modes
+
+
+def expected_launches(pattern, n_layers, warmup, timesteps, kinds, sap=None, sap_streams=2):
     """Kernel launches one generation implies, and the chunked-CSR kernel's
     launches by mask kind. Per forward and layer: RoPE on q and on k; a
     dense layer (the dense pattern, or a warm-up layer) runs the chunked-CSR
     kernel with the dense mask kind kinds[0], an SVG1 layer the same kernel
-    with the sparse kind kinds[1], a sparse SAP layer the run-list kernel.
-    SAP runs the two CFG streams as separate forwards, and its k-means
-    kernel launches once per Lloyd iteration for q and for k:
-    kmeans_iter_init at a layer's first clustering in a stream,
-    kmeans_iter_step after (warm-up layers cluster only with
-    zero_step_kmeans_init)."""
+    with the sparse kind kinds[1], a sparse SAP layer the run-list kernel
+    (cluster mode) or the chunked-CSR kernel with kind none (tile mode).
+    SAP runs sap_streams forwards a step (Wan: the two CFG streams;
+    HunyuanVideo: 1), and its k-means kernel launches once per Lloyd
+    iteration for q and for k: kmeans_iter_init at a layer's first
+    clustering in a stream, kmeans_iter_step after (warm-up layers cluster
+    only with zero_step_kmeans_init; tile_order pc1 never clusters a sparse
+    layer)."""
     from sparse_videogen_tpu_torch import _kernels
 
     want = {name: 0 for name in _kernels.KERNELS}
     want_kinds = collections.Counter()
-    streams = 2 if pattern == "SAP" else 1
+    streams = sap_streams if pattern == "SAP" else 1
+    tile = sap is not None and sap.block_mode == "tile"
     for _ in range(streams):
         initialized = [False] * n_layers
         for t in timesteps:
@@ -888,16 +1116,20 @@ def expected_launches(pattern, n_layers, warmup, timesteps, kinds, sap=None):
                 if dense or pattern == "SVG":
                     want["block_sparse_attn"] += 1
                     want_kinds[f"block_sparse_attn[{kinds[0] if dense else kinds[1]}]"] += 1
+                elif tile:
+                    want["block_sparse_attn"] += 1
+                    want_kinds["block_sparse_attn[none]"] += 1
                 else:
                     want["block_sparse_attn_runs"] += 1
-                if pattern == "SAP" and (not dense or sap.zero_step_kmeans_init):
+                pc1 = tile and sap.tile_order == "pc1" and not dense
+                if pattern == "SAP" and (not dense or sap.zero_step_kmeans_init) and not pc1:
                     iters = sap.kmeans_iter_step if initialized[li] else sap.kmeans_iter_init
                     want["kmeans_wide"] += 2 * iters
                     initialized[li] = True
     return want, want_kinds
 
 
-def drive_pipeline(name, desc, kw, pattern, timesteps, n_layers, generate, shape, kinds, sap=None):
+def drive_pipeline(name, desc, kw, pattern, timesteps, n_layers, generate, shape, kinds, sap=None, sap_streams=2):
     """One generation through a pipeline's entry point, generate(callback),
     timed by the profile scripts' time_generation (the kernel counters set
     to 0 just before it and read just after), and held to what the
@@ -910,7 +1142,7 @@ def drive_pipeline(name, desc, kw, pattern, timesteps, n_layers, generate, shape
     from sparse_videogen_tpu_torch.scripts.profile_wan import time_generation
 
     warmup = WarmupSchedule.from_fractions(kw["first_layers_fp"], kw["first_times_fp"], n_layers, timesteps)
-    want, want_kinds = expected_launches(pattern, n_layers, warmup, timesteps, kinds, sap)
+    want, want_kinds = expected_launches(pattern, n_layers, warmup, timesteps, kinds, sap, sap_streams)
     lat, r = time_generation(generate)
     finite = bool(torch.isfinite(lat).all())
     log("slice", f"{name}, {desc}, {pattern}, {len(timesteps)} steps ({warmup.first_layers} warm-up layers, steps "
@@ -947,7 +1179,8 @@ def drive(model, run, pattern, steps, inplace_temporal=False):
     ctx_null = torch.randn(1, cfg.text_len, cfg.text_dim, generator=gen, device=dev).to(torch.bfloat16)
     lay = wan_layout(cfg, run.height, run.width, run.num_frames)
     timesteps = FlowUniPC(steps, shift=run.flow_shift).timesteps
-    name = f"Wan dim {cfg.dim} x {cfg.num_layers} layers" + (", SVG1 in place" if inplace_temporal else "")
+    name = f"Wan dim {cfg.dim} x {cfg.num_layers} layers" + (", SVG1 in place" if inplace_temporal else "") + (
+        f", SAP {run.sap.block_mode} mode" if pattern == "SAP" else "")
     how = "cond and uncond as separate batch-1 forwards" if pattern == "SAP" else "CFG batch 2"
     desc = f"{run.height}x{run.width}x{run.num_frames} (S={lay.seq_len} = {lay.num_frames}x{lay.frame_size}), {how}"
     with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
@@ -980,16 +1213,20 @@ def _new_model(cfg, dev):
 
 def phase_slice(dev):
     """Full-size Wan 2.1 1.3B, SVG1, SVG1 in place (placement-free: K1's dual
-    per-head spec) from the same seed and weights, then SAP; returns each
-    kernel's launches from the path that runs it first (RoPE and the chunked
-    kernel: SVG1; the dual spec: SVG1 in place). The in-place latents are
-    held to the placement run's (INPLACE_LATENT_TOL)."""
-    from sparse_videogen_tpu_torch.presets import T2V_480P
+    per-head spec) from the same seed and weights, then SAP in cluster mode
+    and in tile mode (the CLI's --sap_block_mode tile: block_q = block_kv =
+    512, K1 with kind none in its sparse layers); returns each kernel's
+    launches from the path that runs it first (RoPE and the chunked kernel:
+    SVG1; the dual spec: SVG1 in place; K1's kind none: SAP tile). The
+    in-place latents are held to the placement run's (INPLACE_LATENT_TOL)."""
+    from sparse_videogen_tpu_torch.presets import T2V_480P, tile_variant
 
     model = _new_model(T2V_480P.model, dev)
+    tile = dataclasses.replace(T2V_480P, sap=tile_variant(T2V_480P.sap))
     counts, lat = {}, {}
-    for pattern, inplace in (("SVG", False), ("SVG", True), ("SAP", False)):
-        r = drive(model, T2V_480P, pattern, STEPS, inplace_temporal=inplace)
+    for pattern, inplace, run in (("SVG", False, T2V_480P), ("SVG", True, T2V_480P), ("SAP", False, T2V_480P),
+                                  ("SAP", False, tile)):
+        r = drive(model, run, pattern, STEPS, inplace_temporal=inplace)
         lat[(pattern, inplace)] = r["latents"]
         for name, n in r["launches"].items():
             if n and name not in counts:
@@ -1056,10 +1293,13 @@ def phase_quality(dev):
     """The quality leg (scripts/quality.py's recipe, latents only): Wan 2.1
     1.3B at full width and depth, structured-synthetic (K := Q, gain 4.0),
     720x1280x81 (S = 75,600), 8 UniPC steps, dense, SVG1 and SAP in cluster
-    mode (QC 300, KC 125) from the same noise, each through drive_pipeline
-    (its K1, K2, K3 and K5 launches held to expected_launches); latent PSNR
-    and SSIM against dense, SAP's density, each pattern's seconds a step;
-    SVG1 >= 35 dB and SAP >= 24 dB, a miss fails the phase."""
+    and in tile mode (QC 300, KC 125, block_q = block_kv = 512) from the same
+    noise, each through drive_pipeline (its K1, K2, K3 and K5 launches held
+    to expected_launches); latent PSNR and SSIM against dense, SAP's
+    density, each pattern's seconds a step; SVG1 >= 35 dB and each SAP mode
+    >= 24 dB, a miss fails the phase. main runs the CLI runs beside it on the
+    same card, so its seconds a step are taken beside them and are labelled
+    so (scripts/quality.py times the recipe alone)."""
     from sparse_videogen_tpu_torch.pipelines.wan import wan_layout
     from sparse_videogen_tpu_torch.schedulers import FlowUniPC
     from sparse_videogen_tpu_torch.scripts import quality as Q
@@ -1069,8 +1309,8 @@ def phase_quality(dev):
     lay = wan_layout(cfg, h, w, f)
     timesteps = FlowUniPC(Q.STEPS, shift=3.0).timesteps
     shape = (1, 16, lay.num_frames, h // 8, w // 8)
-    desc = f"{h}x{w}x{f} (S={lay.seq_len}), structured-synthetic (K := Q, gain {Q.GAIN})"
-    lat, per_step, density = {}, {}, None
+    desc = f"{h}x{w}x{f} (S={lay.seq_len}), structured-synthetic (K := Q, gain {Q.GAIN}), beside the CLI runs"
+    lat, per_step, density = {}, {}, {}
     with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
         for name, kw in patterns.items():
             dlog = os.path.join(tmp, f"{name}.jsonl") if kw["pattern"] == "SAP" else None
@@ -1081,19 +1321,21 @@ def phase_quality(dev):
             lat[name] = r["latents"].float().cpu().numpy()
             per_step[name] = r["per_step_s"]
             if dlog:
-                density = Q.density_mean(dlog)
+                density[name] = Q.density_mean(dlog)
     del model
     torch.cuda.empty_cache()
     metrics = {name: Q.latent_metrics(lat["dense"], lat[name]) for name in patterns if name != "dense"}
     for name, m in metrics.items():
         log("quality", f"dense vs {name}: latent PSNR {m['latent_psnr_db']:.3f} dB, SSIM {m['latent_ssim']:.5f}, "
-                       f"s a step {[round(x, 4) for x in per_step[name]]}"
-                       + (f", SAP density {density:.4f}" if name.startswith("sap") else ""))
-    log("quality", f"dense s a step {[round(x, 4) for x in per_step['dense']]}; latent max |x| "
+                       f"s a step beside the CLI runs {[round(x, 4) for x in per_step[name]]}"
+                       + (f", SAP density {density[name]:.4f}" if name in density else ""))
+    log("quality", f"dense s a step beside the CLI runs {[round(x, 4) for x in per_step['dense']]}; latent max |x| "
                    f"{np.abs(lat['dense']).max():.4f}")
-    svg_db, sap_db = metrics["svg1"]["latent_psnr_db"], metrics["sap_cluster"]["latent_psnr_db"]
-    if not (svg_db >= Q.MIN_PSNR and sap_db >= Q.SAP_MIN_PSNR):
-        raise AssertionError(f"quality gate missed: SVG1 {svg_db:.3f} dB (gate {Q.MIN_PSNR}), SAP {sap_db:.3f} dB "
+    svg_db = metrics["svg1"]["latent_psnr_db"]
+    sap_db = {name: metrics[name]["latent_psnr_db"] for name in density}
+    if not (svg_db >= Q.MIN_PSNR and set(sap_db) == {"sap_cluster", "sap_tile"}
+            and min(sap_db.values()) >= Q.SAP_MIN_PSNR):
+        raise AssertionError(f"quality gate missed: SVG1 {svg_db:.3f} dB (gate {Q.MIN_PSNR}), SAP {sap_db} dB "
                              f"(gate {Q.SAP_MIN_PSNR})")
 
 
@@ -1322,10 +1564,12 @@ def phase_qsplit(dev):
     return entry
 
 
-def drive_hyvideo(model, run, steps):
+def drive_hyvideo(model, run, steps, latents=None):
     """HunyuanVideo: one HyVideoPipeline.generate_latents run through
     drive_pipeline (K1 dense and SVG1 both run the hyvideo kind: the dense
-    spec keeps the real/fake text split)."""
+    spec keeps the real/fake text split; SAP: one forward a step, the
+    hyvideo kind in its warm-up, K3 or K1's none in its sparse steps), from
+    `latents` when given, then SAP's density log."""
     from sparse_videogen_tpu_torch.pipelines import HyVideoPipeline
     from sparse_videogen_tpu_torch.schedulers import FlowMatchEuler
 
@@ -1338,23 +1582,41 @@ def drive_hyvideo(model, run, steps):
     pooled = torch.randn(1, cfg.text_states_dim_2, generator=gen, device=dev).to(torch.bfloat16)
     lay = hy_layout()
     name = f"HunyuanVideo hidden {cfg.hidden_size} x {cfg.mm_double_blocks_depth}+{cfg.mm_single_blocks_depth} blocks"
+    if run.pattern == "SAP":
+        name += f", SAP {run.sap.block_mode} mode"
     desc = (f"{run.height}x{run.width}x{run.num_frames} (S={lay.seq_len} = {lay.num_frames}x{lay.frame_size} + "
             f"{cfg.text_len} text, prompt {HY_PROMPT}), Euler, embedded guidance")
-    return drive_pipeline(name, desc, run.generate_kwargs(), run.pattern,
-                          FlowMatchEuler(steps, shift=run.flow_shift).timesteps, cfg.num_layers,
-                          lambda on_step: HyVideoPipeline(model).generate_latents(
-                              text, mask, pooled, prompt_length=HY_PROMPT, num_inference_steps=steps, seed=0,
-                              callback=on_step, **run.generate_kwargs()),
-                          (1, 16, lay.num_frames, run.height // 8, run.width // 8), ("hyvideo", "hyvideo"))
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        dlog = os.path.join(tmp, "density.jsonl") if run.pattern == "SAP" else None
+        r = drive_pipeline(name, desc, run.generate_kwargs(), run.pattern,
+                           FlowMatchEuler(steps, shift=run.flow_shift).timesteps, cfg.num_layers,
+                           lambda on_step: HyVideoPipeline(model).generate_latents(
+                               text, mask, pooled, prompt_length=HY_PROMPT, num_inference_steps=steps, seed=0,
+                               callback=on_step, logging_file=dlog, latents=latents, **run.generate_kwargs()),
+                           (1, 16, lay.num_frames, run.height // 8, run.width // 8), ("hyvideo", "hyvideo"),
+                           sap=run.sap, sap_streams=1)
+        dens = [json.loads(line)["avg_density"] for line in open(dlog)] if dlog else []
+    if dens:
+        log("slice", f"{name} density ({len(dens)} logged layer-steps): mean {np.mean(dens):.4f}, min "
+                     f"{min(dens):.4f}, max {max(dens):.4f}" + ("" if latents is None else
+                                                               f" (organic, gain {HY_SAP_GAIN})"))
+        r["density_mean"] = float(np.mean(dens))
+    return r
 
 
 def phase_hyvideo_slice(dev):
     """HunyuanVideo at HYVIDEO_T2's full width (hidden 3072, 24 heads, D =
     128, MLP 12288, text (1, 256, 4096), pooled (1, 768)) with HY_DOUBLE +
-    HY_SINGLE blocks, 720x1280x129: SVG1 for HY_STEPS_SVG steps, then dense
-    for HY_STEPS_DENSE; returns the SVG1 run's launches."""
+    HY_SINGLE blocks, 720x1280x129: SVG1 for HY_STEPS_SVG steps, dense for
+    HY_STEPS_DENSE, then the hyvideo-720p-sap run in cluster and in tile mode
+    for HY_STEPS_SAP steps (first_times_fp 0.1: one dense warm-up step that
+    also clusters, zero_step_kmeans_init; the rest sparse and warm) on the
+    same model made organic (utils/organic.align_fused_qkv at HY_SAP_GAIN,
+    smooth latents), as profile_hyvideo runs it. Returns the SVG1 run's
+    hyvideo-kind launches and each SAP run's record."""
     from sparse_videogen_tpu_torch.models.hyvideo.model import HYVIDEO_T2, HyVideoModel
-    from sparse_videogen_tpu_torch.presets import HY_720P_DENSE, HY_720P_SVG
+    from sparse_videogen_tpu_torch.presets import HY_720P_DENSE, HY_720P_SVG, HY_PRESETS
+    from sparse_videogen_tpu_torch.utils.organic import align_fused_qkv, smooth_latents
 
     cfg = dataclasses.replace(HYVIDEO_T2, mm_double_blocks_depth=HY_DOUBLE, mm_single_blocks_depth=HY_SINGLE)
     t0 = time.perf_counter()
@@ -1365,9 +1627,16 @@ def phase_hyvideo_slice(dev):
                  f"B params, init {time.perf_counter() - t0:.1f} s")
     r = drive_hyvideo(model, HY_720P_SVG, HY_STEPS_SVG)
     drive_hyvideo(model, HY_720P_DENSE, HY_STEPS_DENSE)
+    align_fused_qkv(model, cfg.hidden_size, gain=HY_SAP_GAIN)
+    run = HY_PRESETS["hyvideo-720p-sap"]
+    lat = smooth_latents(torch.Generator(device=dev).manual_seed(2),
+                         (1, cfg.out_channels, hy_layout().num_frames, run.height // 8, run.width // 8),
+                         dtype=torch.float32)
+    sap = {mode: drive_hyvideo(model, HY_PRESETS[name], HY_STEPS_SAP, latents=lat)
+           for mode, name in (("cluster", "hyvideo-720p-sap"), ("tile", "hyvideo-720p-sap-tile"))}
     del model
     torch.cuda.empty_cache()
-    return r["kind_launches"]["block_sparse_attn[hyvideo]"]
+    return r["kind_launches"]["block_sparse_attn[hyvideo]"], sap
 
 
 def phase_kernel_probes(dev):
@@ -2528,11 +2797,15 @@ def phase_prompt_to_video(dev):
             1, 3, run.num_frames, run.height, run.width):
         raise AssertionError(f"prompt -> video: video {tuple(video.shape)}, frames {frames.shape}")
 
-    # the decode alone, in each mode (the pre-clip output checked in the whole
-    # decode); whole and streamed are the same function up to summation order
-    modes = {"whole": lambda: decoder_forward(vae.decoder, vae.latent_input(lat)),
-             "streamed, chunk 1": lambda: vae.decode_streamed(lat, chunk=1),
-             "streamed, chunk 2": lambda: vae.decode_streamed(lat, chunk=2)}
+    # the decode alone, in each mode, on the first DECODE_MODE_FRAMES latent
+    # frames (the pre-clip output checked in the whole decode); whole and
+    # streamed are the same function up to summation order, and the decoder
+    # is causal in time, so the tiled video's first frames are comparable
+    part = lat[:, :, :DECODE_MODE_FRAMES]
+    n_pix = 1 + (part.shape[2] - 1) * 4
+    modes = {"whole": lambda: decoder_forward(vae.decoder, vae.latent_input(part)),
+             "streamed, chunk 1": lambda: vae.decode_streamed(part, chunk=1),
+             "streamed, chunk 2": lambda: vae.decode_streamed(part, chunk=2)}
     decoded = {}
     for name, fn in modes.items():
         try:
@@ -2549,7 +2822,8 @@ def phase_prompt_to_video(dev):
             out = out.clamp_(-1.0, 1.0)
         decoded[name] = out
         ms, gib = stages[f"VAE decode {name}"]
-        log("p2v", f"VAE decode {name}: {ms / 1e3:.3f} s, peak {gib:.2f} GiB")
+        log("p2v", f"VAE decode {name} ({part.shape[2]} of {lat.shape[2]} latent frames): {ms / 1e3:.3f} s, peak "
+                   f"{gib:.2f} GiB")
     ref_name = next(iter(decoded))
     for name, out in decoded.items():
         if name == ref_name:
@@ -2558,9 +2832,9 @@ def phase_prompt_to_video(dev):
         log("p2v", f"VAE decode {name} against {ref_name}: rel L2 {rel:.3e} (tol {VAE_TOL})")
         if not rel <= VAE_TOL:
             raise AssertionError(f"the VAE decode {name} disagrees with {ref_name}: {rel}")
-    rel = ((video - decoded[ref_name]).norm() / decoded[ref_name].norm()).item()
-    log("p2v", f"VAE decode tiled (the main path) against {ref_name}: rel L2 {rel:.3e} (tiles see zeros past "
-               "their borders; the blend hides the seams, it does not remove the difference)")
+    rel = ((video[:, :, :n_pix] - decoded[ref_name]).norm() / decoded[ref_name].norm()).item()
+    log("p2v", f"VAE decode tiled (the main path), its first {n_pix} frames, against {ref_name}: rel L2 {rel:.3e} "
+               "(tiles see zeros past their borders; the blend hides the seams, it does not remove the difference)")
     del decoded, out
     torch.backends.cudnn.allow_tf32 = True
     _timed(stages, "VAE decode tiled, cuDNN TF32 on", lambda: decode(lat))
@@ -2572,7 +2846,8 @@ def phase_prompt_to_video(dev):
     # and the card's peak for the type they run in
     meta_vae = WanVAE(WanVAEConfig(), device="meta")
     meta_lat = torch.empty(tuple(lat.shape), device="meta")
-    flops = {"whole": meta_flops(lambda: decoder_forward(meta_vae.decoder, meta_vae.latent_input(meta_lat))),
+    meta_part = torch.empty(tuple(part.shape), device="meta")
+    flops = {"whole": meta_flops(lambda: decoder_forward(meta_vae.decoder, meta_vae.latent_input(meta_part))),
              "tiled": meta_flops(lambda: make_vae_decoder(args, meta_vae, logging.getLogger("chip_smoke"))(meta_lat)),
              "umt5": meta_flops(lambda: T5Encoder(UMT5_XXL, device="meta")(ids[:1], mask[:1]))}
     for stage, key, peak, peak_name in (
@@ -2832,18 +3107,25 @@ def phase_small_text_vae_reference(dev):
             raise AssertionError(f"the VAE decode ({name}) on the card disagrees with the CPU: {rel}")
 
 
-def _run_clis(runs, tmp):
+def _start_clis(runs, tmp):
     """Start every CLI run of `runs` ([(label, argv)]) at once, each its own
     process with its output in a file under tmp (they share the card; their
-    start-up, ~8 s each, overlaps), wait for all, and fail on any non-zero
-    exit with its output's tail. Returns {label: seconds}."""
+    start-up, ~8 s each, overlaps). Returns {label: (process, log, start)}."""
     procs = {}
     for label, argv in runs:
         out = open(os.path.join(tmp, f"{label}.log"), "w")
         procs[label] = (subprocess.Popen([sys.executable, "-m", *argv], cwd=ROOT, stdout=out, stderr=subprocess.STDOUT),
                         out, time.perf_counter())
+    return procs
+
+
+def _wait_clis(procs, kill=False):
+    """Wait for (or, with kill, stop) the runs of _start_clis and fail on any
+    non-zero exit with its output's tail. Returns {label: seconds}."""
     secs, failed = {}, []
     for label, (proc, out, t0) in procs.items():
+        if kill:
+            proc.kill()
         try:
             rc = proc.wait(timeout=600)
         except subprocess.TimeoutExpired:
@@ -2851,7 +3133,7 @@ def _run_clis(runs, tmp):
             rc = proc.wait()
         out.close()
         secs[label] = time.perf_counter() - t0
-        if rc != 0:
+        if rc != 0 and not kill:
             with open(out.name) as f:
                 failed.append(f"{label} exited {rc}:\n" + "".join(f.readlines()[-20:]))
     if failed:
@@ -2859,57 +3141,72 @@ def _run_clis(runs, tmp):
     return secs
 
 
-def phase_cli():
+def phase_cli_start():
     """The CLIs as a user runs them, all started together: --smoke for each
-    pattern (latents to an .npz) of Wan T2V and I2V (SVG, dense, SAP),
-    HunyuanVideo and CogVideoX (SVG, dense); the Wan T2V smoke with a video
+    pattern (latents to an .npz) of Wan T2V and I2V (SVG, dense, SAP, and SAP
+    with --sap_block_mode tile), HunyuanVideo (SVG, dense, SAP in both
+    modes) and CogVideoX (SVG, dense); the Wan T2V smoke with a video
     name (its tiny random VAE, to a .y4m); the Wan T2V CLI on a checkpoint
     dir (write_tiny_checkpoint) from the prompt to a .y4m; and the Wan I2V
     CLI on an I2V checkpoint dir (write_tiny_checkpoint(i2v=True): the VAE's
     encoder, a CLIP tower in HF's names) from examples/1/image.jpg and the
-    prompt to a .y4m (480p fits the image to 480x832; 5 frames, 2 steps)."""
+    prompt to a .y4m (480p fits the image to 480x832; 5 frames, 2 steps).
+    Returns finish(kill=False): it waits for the runs (or stops them) and
+    checks their outputs; the caller runs other work meanwhile."""
     from sparse_videogen_tpu_torch.io.native import read_y4m
 
     prompt = "a cat on the grass."
-    smokes = [("wan_t2v", p) for p in ("SVG", "dense", "SAP")] + [("wan_i2v", p) for p in ("SVG", "dense", "SAP")] + [
-        (cli, p) for cli in ("hyvideo_t2v", "cog_i2v") for p in ("SVG", "dense")]
-    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
-        write_tiny_checkpoint(os.path.join(tmp, "ckpt"), prompt)
-        write_tiny_checkpoint(os.path.join(tmp, "ckpt_i2v"), prompt, i2v=True)
-        out = lambda label, ext: os.path.join(tmp, f"{label}.{ext}")
-        runs = [(f"{cli}_{p}", [f"sparse_videogen_tpu_torch.cli.{cli}", "--smoke", "--pattern", p, "--device", "cuda",
-                                "--output_path" if cli == "cog_i2v" else "--output_file", out(f"{cli}_{p}", "npz")])
-                for cli, p in smokes]
-        videos = {"wan_t2v --smoke, a video name": ("t2v_smoke", ["wan_t2v", "--smoke"], (9, 96, 128, 3)),
-                  "wan_t2v --model_dir (tiny synthetic checkpoint)": (
-                      "t2v_ckpt", ["wan_t2v", "--model_dir", os.path.join(tmp, "ckpt"), "--prompt", prompt, "--height",
-                                   "96", "--width", "128", "--num_frames", "9", "--num_inference_steps", "2"],
-                      (9, 96, 128, 3)),
-                  "wan_i2v --model_dir (tiny synthetic I2V checkpoint) --image_path examples/1/image.jpg": (
-                      "i2v_ckpt", ["wan_i2v", "--model_dir", os.path.join(tmp, "ckpt_i2v"), "--image_path",
-                                   os.path.join(ROOT, "examples", "1", "image.jpg"), "--prompt", prompt,
-                                   "--resolution", "480p", "--num_frames", "5", "--num_inference_steps", "2"],
-                      (5, 480, 832, 3))}
-        for label, argv, _ in videos.values():
-            runs.append((label, [f"sparse_videogen_tpu_torch.cli.{argv[0]}", *argv[1:], "--device", "cuda",
-                                 "--output_file", out(label, "y4m")]))
-        t0 = time.perf_counter()
-        secs = _run_clis(runs, tmp)
-        log("cli", f"{len(runs)} CLI runs started together, all done in {time.perf_counter() - t0:.1f} s")
-        for cli, pattern in smokes:
-            label = f"{cli}_{pattern}"
-            lat = np.load(out(label, "npz"))["latents"]
-            finite = bool(np.isfinite(lat).all())
-            log("cli", f"{cli} --smoke --pattern {pattern}: {label}.npz exists, latents {lat.shape} finite {finite} "
-                       f"(done within {secs[label]:.1f} s of the start)")
-            if not finite:
-                raise AssertionError(f"CLI smoke ({cli} {pattern}) wrote non-finite latents")
-        for what, (label, _, shape) in videos.items():
-            frames, fps = read_y4m(out(label, "y4m"))
-            log("cli", f"{what}: frames {frames.shape} at {fps} fps, mean {frames.mean():.2f}, std {frames.std():.2f} "
-                       f"(done within {secs[label]:.1f} s of the start)")
-            if frames.shape != shape or frames.std() == 0:
-                raise AssertionError(f"{what}: frames {frames.shape}, std {frames.std()}")
+    smokes = [(cli, p) for cli in ("wan_t2v", "wan_i2v", "hyvideo_t2v") for p in ("SVG", "dense", "SAP", "SAP-tile")]
+    smokes += [("cog_i2v", p) for p in ("SVG", "dense")]
+    pattern_args = lambda p: ["--pattern", "SAP", "--sap_block_mode", "tile"] if p == "SAP-tile" else ["--pattern", p]
+    tmpdir = tempfile.TemporaryDirectory(dir=ROOT)
+    tmp = tmpdir.name
+    write_tiny_checkpoint(os.path.join(tmp, "ckpt"), prompt)
+    write_tiny_checkpoint(os.path.join(tmp, "ckpt_i2v"), prompt, i2v=True)
+    out = lambda label, ext: os.path.join(tmp, f"{label}.{ext}")
+    runs = [(f"{cli}_{p}", [f"sparse_videogen_tpu_torch.cli.{cli}", "--smoke", *pattern_args(p), "--device", "cuda",
+                            "--output_path" if cli == "cog_i2v" else "--output_file", out(f"{cli}_{p}", "npz")])
+            for cli, p in smokes]
+    videos = {"wan_t2v --smoke, a video name": ("t2v_smoke", ["wan_t2v", "--smoke"], (9, 96, 128, 3)),
+              "wan_t2v --model_dir (tiny synthetic checkpoint)": (
+                  "t2v_ckpt", ["wan_t2v", "--model_dir", os.path.join(tmp, "ckpt"), "--prompt", prompt, "--height",
+                               "96", "--width", "128", "--num_frames", "9", "--num_inference_steps", "2"],
+                  (9, 96, 128, 3)),
+              "wan_i2v --model_dir (tiny synthetic I2V checkpoint) --image_path examples/1/image.jpg": (
+                  "i2v_ckpt", ["wan_i2v", "--model_dir", os.path.join(tmp, "ckpt_i2v"), "--image_path",
+                               os.path.join(ROOT, "examples", "1", "image.jpg"), "--prompt", prompt,
+                               "--resolution", "480p", "--num_frames", "5", "--num_inference_steps", "2"],
+                  (5, 480, 832, 3))}
+    for label, argv, _ in videos.values():
+        runs.append((label, [f"sparse_videogen_tpu_torch.cli.{argv[0]}", *argv[1:], "--device", "cuda",
+                             "--output_file", out(label, "y4m")]))
+    t0 = time.perf_counter()
+    procs = _start_clis(runs, tmp)
+
+    def finish(kill=False):
+        try:
+            secs = _wait_clis(procs, kill=kill)
+            if kill:
+                return
+            log("cli", f"{len(runs)} CLI runs started together, all done in {time.perf_counter() - t0:.1f} s")
+            for cli, pattern in smokes:
+                label = f"{cli}_{pattern}"
+                lat = np.load(out(label, "npz"))["latents"]
+                finite = bool(np.isfinite(lat).all())
+                log("cli", f"{cli} --smoke {' '.join(pattern_args(pattern))}: {label}.npz exists, latents {lat.shape} "
+                           f"finite {finite} (done within {secs[label]:.1f} s of the start)")
+                if not finite:
+                    raise AssertionError(f"CLI smoke ({cli} {pattern}) wrote non-finite latents")
+            for what, (label, _, shape) in videos.items():
+                frames, fps = read_y4m(out(label, "y4m"))
+                log("cli", f"{what}: frames {frames.shape} at {fps} fps, mean {frames.mean():.2f}, std "
+                           f"{frames.std():.2f} (done within {secs[label]:.1f} s of the start)")
+                if frames.shape != shape or frames.std() == 0:
+                    raise AssertionError(f"{what}: frames {frames.shape}, std {frames.std()}")
+        finally:
+            tmpdir.cleanup()
+
+    return finish
 
 
 def main():
@@ -2917,6 +3214,12 @@ def main():
     phase_device()
     dev = torch.device("cuda", 0)
     phase_build()
+    marks = [("build", time.perf_counter())]
+
+    def done(name):
+        marks.append((name, time.perf_counter()))
+        log("time", f"{name}: {marks[-1][1] - marks[-2][1]:.1f} s")
+
     kernels = {"rope": phase_rope(dev), "block_sparse_attn": phase_attention(dev),
                "block_sparse_attn_runs": phase_sap_attention(dev), "kmeans_wide": phase_kmeans(dev),
                "kmeans_variants": phase_variants(dev), "block_sparse_attn[hyvideo]": phase_hyvideo_attention(dev),
@@ -2929,23 +3232,51 @@ def main():
     kernels["block_sparse_attn[band_sink_perm]"] = phase_inplace_svg1(dev)
     kernels["block_sparse_attn_runs[stats]"] = phase_stats(dev)
     phase_sap_attention(dev, "14B-720p-sap", all_checks=False)
+    done("kernels")
+    # SAP's tile mode on K1 (Wan 1.3B 480p, 14B 720p at QC 300 / KC 1000) and
+    # HunyuanVideo's text-last SAP on K3 and K1
+    tile = kernels["block_sparse_attn[none, SAP tile]"] = phase_sap_tile_attention(dev)
+    tile["14B-720p"] = phase_sap_tile_attention(dev, "14B-720p-sap", check_blocks=CHECK_BLOCKS)
+    hy = phase_hyvideo_sap_attention(dev)
+    kernels["block_sparse_attn_runs"]["hyvideo_text_last"], tile["hyvideo_text_last"] = hy["cluster"], hy["tile"]
+    done("sap kernels")
     launches = phase_slice(dev)
+    launches["block_sparse_attn[none, SAP tile]"] = launches["block_sparse_attn[none]"]  # the Wan 1.3B tile run's
+    done("slice")
     kernels["block_sparse_attn[stats]"], ring_launches = phase_ring(dev)
     launches.update(ring_launches)
+    done("ring")
     for counts in (phase_probe(dev), phase_slice_14b(dev), phase_kernel_probes(dev)):
         for name, n in counts.items():
             launches.setdefault(name, n)
-    launches["block_sparse_attn[hyvideo]"] = phase_hyvideo_slice(dev)
+    done("14B slice and probes")
+    launches["block_sparse_attn[hyvideo]"], hy_sap = phase_hyvideo_slice(dev)
+    tile["hyvideo_launches"] = hy_sap["tile"]["kind_launches"]["block_sparse_attn[none]"]
+    kernels["block_sparse_attn_runs"]["hyvideo_launches"] = hy_sap["cluster"]["launches"]["block_sparse_attn_runs"]
+    done("hyvideo slice")
     launches["block_sparse_attn[cog]"] = phase_cog_slice(dev)
+    done("cog slice")
     umt5_s = phase_prompt_to_video(dev)
+    done("p2v")
     phase_i2v(dev, umt5_s)
-    phase_quality(dev)
-    phase_small_reference(dev)
-    phase_small_hyvideo_reference(dev)
-    phase_small_cog_reference(dev)
-    phase_small_text_vae_reference(dev)
-    phase_small_i2v_reference(dev)
-    phase_cli()
+    done("i2v")
+    # the CLI runs (their own processes, mostly start-up on the host) run
+    # beside the quality and small-reference phases
+    finish_cli = phase_cli_start()
+    try:
+        phase_quality(dev)
+        done("quality, the CLI runs beside it")
+        phase_small_reference(dev)
+        phase_small_hyvideo_reference(dev)
+        phase_small_cog_reference(dev)
+        phase_small_text_vae_reference(dev)
+        phase_small_i2v_reference(dev)
+        done("small references")
+    except BaseException:
+        finish_cli(kill=True)
+        raise
+    finish_cli()
+    done("cli")
     log("done", f"chip_smoke.py took {time.perf_counter() - t_start:.1f} s")
     for name, entry in kernels.items():
         entry["launches"] = launches[name]

@@ -65,6 +65,22 @@ def make_vae_decoder(args, vae, logger):
     return decode
 
 
+def sap_config(args):
+    """SAPConfig from the SAP flags, as the JAX CLIs build it: tile mode
+    (--sap_block_mode tile) takes presets.tile_variant's block sizes, which
+    are also its tile grain; cluster mode keeps SAPConfig's block sizes. The
+    JAX HunyuanVideo CLI drops --zero_step_kmeans_init; here every CLI
+    passes it (ROADMAP.md section 3)."""
+    from sparse_videogen_tpu_torch.config import SAPConfig
+    from sparse_videogen_tpu_torch.presets import tile_variant
+
+    sap = SAPConfig(num_q_centroids=args.num_q_centroids, num_k_centroids=args.num_k_centroids,
+                    top_p_kmeans=args.top_p_kmeans, min_kc_ratio=args.min_kc_ratio,
+                    kmeans_iter_init=args.kmeans_iter_init, kmeans_iter_step=args.kmeans_iter_step,
+                    zero_step_kmeans_init=args.zero_step_kmeans_init)
+    return tile_variant(sap) if args.sap_block_mode == "tile" else sap
+
+
 def add_device(p):
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device to run on (cuda, cuda:N or cpu); never falls back")

@@ -7,14 +7,15 @@ cuda; never falls back to the CPU).
 What runs today is the random-weight path that the JAX CLI takes without
 `--model_dir` (`--smoke`, or no checkpoint): a tiny HunyuanVideo at a
 reduced size with random text states (prompt length 10 of 16), denoised
-with dense or SVG1 attention, latents written to an `.npz`. Checkpoints
+with dense, SVG1 or SAP attention (`--sap_block_mode cluster` or `tile`; the
+smoke caps the centroids at 8 / 12 and the cold k-means at 8 iterations, as
+the JAX CLI does), latents written to an `.npz`. Checkpoints
 (`--model_dir`), the LLaMA/CLIP text encoders, the VAE decode to a video,
-quantization, parallelism and `--pattern SAP` raise NotImplementedError
-(ROADMAP.md).
+quantization and parallelism raise NotImplementedError (ROADMAP.md).
 
 Usage:
-  python -m sparse_videogen_tpu_torch.cli.hyvideo_t2v --smoke --pattern SVG \\
-      --device cuda --output_file out.npz
+  python -m sparse_videogen_tpu_torch.cli.hyvideo_t2v --smoke --pattern SAP \\
+      --sap_block_mode tile --device cuda --output_file out.npz
 """
 
 from __future__ import annotations
@@ -84,8 +85,6 @@ def build_parser():
 def _unported(args) -> str | None:
     if args.model_dir or (args.model_id and os.path.isdir(args.model_id)):
         return "--model_dir (checkpoint conversion, LLaMA/CLIP text encoders, HunyuanVideo VAE)"
-    if args.pattern == "SAP":
-        return "--pattern SAP on HunyuanVideo (the text-last SAP layouts)"
     if not args.output_file.endswith(".npz"):
         return "video output (the HunyuanVideo VAE decode); write latents to a .npz"
     if args.quant not in (None, "none") or args.use_fp8:
@@ -109,6 +108,7 @@ def main(argv=None):
 
     import torch
 
+    from sparse_videogen_tpu_torch.cli._common import sap_config
     from sparse_videogen_tpu_torch.config import SVGConfig
     from sparse_videogen_tpu_torch.models.hyvideo.model import HyVideoConfig, HyVideoModel
     from sparse_videogen_tpu_torch.pipelines import HyVideoPipeline
@@ -131,6 +131,9 @@ def main(argv=None):
     args.height, args.width = min(args.height, 96), min(args.width, 128)
     args.num_frames = min(args.num_frames, 9)
     args.num_inference_steps = min(args.num_inference_steps, 3)
+    args.num_q_centroids = min(args.num_q_centroids, 8)
+    args.num_k_centroids = min(args.num_k_centroids, 12)
+    args.kmeans_iter_init = min(args.kmeans_iter_init, 8)
 
     lat = HyVideoPipeline(model).generate_latents(
         text, mask, pooled, prompt_length=int(mask[0].sum()),
@@ -140,7 +143,7 @@ def main(argv=None):
         first_layers_fp=args.first_layers_fp, first_times_fp=args.first_times_fp,
         svg=SVGConfig(num_sampled_rows=args.num_sampled_rows, sample_mse_max_row=args.sample_mse_max_row,
                       sparsity=args.sparsity, profile_multiplier=1.5),
-        seed=args.seed,
+        sap=sap_config(args), seed=args.seed, logging_file=args.logging_file,
     )
     np.savez(args.output_file, latents=lat.cpu().numpy())
     logger.info(f"saved latents {tuple(lat.shape)} -> {args.output_file}")

@@ -13,7 +13,7 @@ tower from `image_encoder/` (its penultimate states); the VAE encode of
 [image, zeros...] from `vae/` (whole, or streamed in the reference's
 chunks where the whole encode would not fit on the card) and the condition
 (build_i2v_condition); the Wan I2V DiT from `transformer/`; the denoise
-loop with dense, SVG1 or SAP (cluster mode) attention; the VAE decode
+loop with dense, SVG1 or SAP (`--sap_block_mode cluster` or `tile`) attention; the VAE decode
 (`--vae_tiling`, `--vae_stream_chunk`) to a `.y4m`. Each encoder is freed
 before the DiT runs. Both resizes (to CLIP's 224x224 and to the fitted
 size) follow jax.image.resize's cubic rule (models/common/resize.py).
@@ -21,8 +21,8 @@ size) follow jax.image.resize's cubic rule (models/common/resize.py).
 reduced size (random CLIP features and image latents) and writes the
 latents to the .npz. `--ring_degree N` runs dense or SAP attention
 token-sharded over N ranks under torchrun, as cli/wan_t2v.py does; rank 0
-writes. --dp, --ulysses_degree, --dit_fsdp and SAP's tile mode are not
-ported and raise.
+writes (SAP's ring in cluster mode only). --dp, --ulysses_degree and
+--dit_fsdp are not ported and raise.
 
 Usage:
   python -m sparse_videogen_tpu_torch.cli.wan_i2v --model_dir DIR \
@@ -39,7 +39,7 @@ import os
 import numpy as np
 
 from sparse_videogen_tpu_torch.cli._common import (add_device, add_model_id, add_vae_tiling_flags, make_vae_decoder,
-                                                   resolve_device, resolve_model_dir)
+                                                   resolve_device, resolve_model_dir, sap_config)
 
 logger = logging.getLogger("sparse_videogen_tpu_torch")
 
@@ -100,8 +100,6 @@ def build_parser():
 def _unported(args) -> str | None:
     if args.dp * args.ulysses_degree > 1 or args.dit_fsdp:
         return "--dp / --ulysses_degree / --dit_fsdp (data, Ulysses and FSDP parallelism)"
-    if args.sap_block_mode != "cluster":
-        return f"--sap_block_mode {args.sap_block_mode} (SAP tile mode)"
     return None
 
 
@@ -206,7 +204,7 @@ def main(argv=None):
 
     import torch
 
-    from sparse_videogen_tpu_torch.config import SAPConfig, SVGConfig
+    from sparse_videogen_tpu_torch.config import SVGConfig
     from sparse_videogen_tpu_torch.models.wan.model import WanConfig, WanModel
     from sparse_videogen_tpu_torch.pipelines import WanPipeline
     from sparse_videogen_tpu_torch.pipelines.wan import VAE_TEMPORAL, build_i2v_condition
@@ -260,10 +258,7 @@ def main(argv=None):
         first_layers_fp=args.first_layers_fp, first_times_fp=args.first_times_fp,
         svg=SVGConfig(num_sampled_rows=args.num_sampled_rows, sample_mse_max_row=args.sample_mse_max_row,
                       sparsity=args.sparsity),
-        sap=SAPConfig(num_q_centroids=args.num_q_centroids, num_k_centroids=args.num_k_centroids,
-                      top_p_kmeans=args.top_p_kmeans, min_kc_ratio=args.min_kc_ratio,
-                      kmeans_iter_init=args.kmeans_iter_init, kmeans_iter_step=args.kmeans_iter_step,
-                      zero_step_kmeans_init=args.zero_step_kmeans_init),
+        sap=sap_config(args),
         seed=args.seed,
         logging_file=args.logging_file if rank == 0 else None,
         mesh=mesh,

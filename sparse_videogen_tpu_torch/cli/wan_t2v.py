@@ -9,15 +9,16 @@ path: the prompt (or a line of `--prompt_source`) and the negative prompt
 through the UMT5 tokenizer and encoder (freed before the DiT runs), the Wan
 DiT from `transformer/` (diffusers or wan_orig names; `--converted_cache`
 keeps the converted weights), the denoise loop with dense, SVG1 or SAP
-(cluster mode) attention, the Wan VAE decode from `vae/` (`--vae_tiling`,
+(`--sap_block_mode cluster` or `tile`) attention, the Wan VAE decode from `vae/` (`--vae_tiling`,
 `--vae_stream_chunk`) and the video writer: `.y4m`, or `.mp4` where PIL is
 installed; an `.npz` name becomes `.y4m`. Without `vae/` the latents go to
 the `.npz`. `--smoke` (or no checkpoint) takes the JAX CLI's random-weight
 path at a reduced size, and a video name decodes through a tiny random VAE.
 `--ring_degree N` runs dense or SAP attention token-sharded over N ranks,
 one process a rank under torchrun (gloo with `--device cpu`, NCCL on
-cards); rank 0 writes. --quant/--use_fp8, --dp, --ulysses_degree,
---dit_fsdp and SAP's tile mode are not ported and raise.
+cards); rank 0 writes (SAP's ring runs cluster mode only, as the JAX
+package's). --quant/--use_fp8, --dp, --ulysses_degree and --dit_fsdp are
+not ported and raise.
 
 Usage:
   python -m sparse_videogen_tpu_torch.cli.wan_t2v --model_dir DIR \
@@ -37,7 +38,7 @@ import os
 import numpy as np
 
 from sparse_videogen_tpu_torch.cli._common import (add_device, add_model_id, add_vae_tiling_flags, make_vae_decoder,
-                                                   resolve_device, resolve_model_dir)
+                                                   resolve_device, resolve_model_dir, sap_config)
 
 logger = logging.getLogger("sparse_videogen_tpu_torch")
 
@@ -107,8 +108,6 @@ def _unported(args) -> str | None:
         return "--quant / --use_fp8"
     if args.dp * args.ulysses_degree > 1 or args.dit_fsdp:
         return "--dp / --ulysses_degree / --dit_fsdp (data, Ulysses and FSDP parallelism)"
-    if args.sap_block_mode != "cluster":
-        return f"--sap_block_mode {args.sap_block_mode} (SAP tile mode)"
     return None
 
 
@@ -175,7 +174,7 @@ def main(argv=None):
 
     import torch
 
-    from sparse_videogen_tpu_torch.config import SAPConfig, SVGConfig
+    from sparse_videogen_tpu_torch.config import SVGConfig
     from sparse_videogen_tpu_torch.models.wan.model import WanConfig, WanModel
     from sparse_videogen_tpu_torch.pipelines import WanPipeline
 
@@ -236,10 +235,7 @@ def main(argv=None):
         svg=SVGConfig(num_sampled_rows=args.num_sampled_rows,
                       sample_mse_max_row=args.sample_mse_max_row,
                       sparsity=args.sparsity),
-        sap=SAPConfig(num_q_centroids=args.num_q_centroids, num_k_centroids=args.num_k_centroids,
-                      top_p_kmeans=args.top_p_kmeans, min_kc_ratio=args.min_kc_ratio,
-                      kmeans_iter_init=args.kmeans_iter_init, kmeans_iter_step=args.kmeans_iter_step,
-                      zero_step_kmeans_init=args.zero_step_kmeans_init),
+        sap=sap_config(args),
         seed=args.seed,
         logging_file=args.logging_file if rank == 0 else None,
         mesh=mesh,

@@ -389,14 +389,18 @@ class WanVAE(nn.Module):
     def init_random(self, generator: torch.Generator):
         """The JAX package's init_wan_vae_params distributions: conv weights
         N(0, 1 / fan_in), zero biases, unit norms, and a zero output
-        projection in each attention block."""
+        projection in each attention block. The projections are zeroed after
+        the draws (modules() visits a block before its proj), so every other
+        conv takes the same draws as when proj was drawn too."""
         for mod in self.modules():
             if isinstance(mod, (nn.Conv2d, nn.Conv3d)):
                 w = torch.randn(mod.weight.shape, generator=generator, device=mod.weight.device)
                 mod.weight.copy_(w / math.sqrt(mod.weight[0].numel()))
                 mod.bias.zero_()
-            elif isinstance(mod, AttentionBlock):
+        for mod in self.modules():
+            if isinstance(mod, AttentionBlock):
                 mod.proj.weight.zero_()
+                mod.proj.bias.zero_()
         return self
 
     def _latent_scale(self):

@@ -224,6 +224,20 @@ def _csr_visits(meta):
     return ((win % ENTRY_SCALE - win // ENTRY_SCALE) * live).sum(-1)
 
 
+def csr_tile_stats(meta):
+    """(live tokens, loaded 128-token tiles) per chunked-CSR row, (R, nQ)
+    int64 each: a chunk with live columns [lo, hi) loads the tiles from
+    floor128(lo) to ceil128(hi) of its span (csrc/hopper_attn.cuh's walk).
+    Plain tensor ops on meta's device."""
+    m = meta.long()
+    cap = (m.shape[2] - 1) // 2
+    win = m[..., 2:2 + 2 * cap:2]
+    lo, hi = win // ENTRY_SCALE, win % ENTRY_SCALE
+    live = torch.arange(cap, device=m.device) < (m[..., :1] % N_CHEAP_SCALE)
+    tiles = torch.where(live & (hi > lo), -(-hi // SUB) - lo // SUB, 0)
+    return ((hi - lo) * live).sum(-1), tiles.sum(-1)
+
+
 def work_order(meta, n_heads: int, seq_q: int, block_q: int):
     """The chunked-CSR kernel's work items (head h, 128-row q tile t), item
     h * (seq_q // BQ) + t, heaviest first: returns (order, weight), order

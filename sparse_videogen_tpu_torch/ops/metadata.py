@@ -9,7 +9,9 @@ live columns are [lo, hi) with win = lo * ENTRY_SCALE + hi. Rows R are 1
 (mask shared across heads: dense, SVG1) or B*H.
 
 The dense/SVG1 metadata depends only on static shapes, so it is built once
-on the host in numpy and copied to the device by the runtime.
+on the host in numpy and copied to the device by the runtime; SAP's tile
+mode builds its rows at every call on the device (`chunk_meta`,
+`tile_meta`).
 
 Slab metadata (the Hopper kernel's temporal heads of placement-free SVG1,
 `slab_meta_np`): per q slab j, the K/V slab runs
@@ -31,6 +33,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from sparse_videogen_tpu_torch.ops.mask_spec import full_block_allowed
 
@@ -141,6 +144,74 @@ def chunk_meta_np(mask: np.ndarray, counts: np.ndarray, *, block_kv: int, cap: i
                 meta[r, i, 1 + 2 * e] = idx
                 meta[r, i, 2 + 2 * e] = win
     return meta
+
+
+def _compact(flags, vals, cap: int):
+    """The entries of `vals` (..., n, E) where `flags` (..., n) holds, in
+    order, into (..., cap, E) (zeros past them), and their count capped at
+    cap: a cumsum and one scatter on flags' device (JAX's stable argsort of
+    the flags, the same entries)."""
+    *lead, n = flags.shape
+    slot = flags.long().cumsum(-1) - 1
+    slot = torch.where(flags & (slot < cap), slot, cap)  # cap: a dump slot, dropped
+    out = vals.new_zeros(*lead, cap + 1, vals.shape[-1])
+    out.scatter_(-2, slot[..., None].expand(*lead, n, vals.shape[-1]), vals)
+    return out[..., :cap, :], flags.sum(-1).clamp_max(cap)
+
+
+def _pack_rows(n, entries):
+    """(n (..,), entries (.., cap, 2)) -> (.., 1 + 2 cap) int32 metadata rows."""
+    return torch.cat([n[..., None], entries.flatten(-2)], dim=-1).to(torch.int32).contiguous()
+
+
+def chunk_meta(mask, counts, *, block_kv: int, cap: int):
+    """chunk_meta_np on mask's device (counterpart of chunk_meta_jnp, the
+    same integers): mask (R, nQ, nsub) bool, counts (R, nsub) valid tokens
+    per sub-block. Runs of visited sub-blocks break after a partial one and
+    are cut into block_kv-token chunks from their origin; each row keeps its
+    first `cap` chunks. Tensor ops only (no copy to the host), for metadata
+    that changes at every call (SAP's tile mode). Returns (R, nQ, 1 + 2*cap)
+    int32."""
+    R, nQ, nsub = mask.shape
+    C = block_kv // SUB
+    if block_kv % SUB or block_kv >= ENTRY_SCALE or nsub < C:
+        raise ValueError(f"block_kv={block_kv}, nsub={nsub}")
+    counts = counts.long()
+    full = counts >= SUB
+    v = mask & (counts > 0)[:, None, :]
+    prev_v = F.pad(v[..., :-1], (1, 0))
+    prev_full = F.pad(full[..., :-1], (1, 0))[:, None, :]
+    run_start = v & (~prev_v | ~prev_full)
+    j = torch.arange(nsub, device=mask.device)
+    origin = torch.where(run_start, j, -1).cummax(dim=-1).values
+    chunk_start = v & ((j - origin) % C == 0)
+    # the chunk at j holds counts[j + k] while sub-block j + k is in its run
+    # (runs break after a partial sub-block, so the window is a prefix)
+    valid = torch.where(v, counts[:, None, :], 0)
+    for k in range(1, C):
+        same = F.pad(v[..., k:], (0, k)) & (F.pad(origin[..., k:], (0, k), value=-2) == origin)
+        valid = valid + torch.where(same, F.pad(counts[:, k:], (0, k))[:, None, :], 0)
+    idx = j.clamp_max(nsub - C)
+    lo = (j - idx) * SUB
+    vals = torch.stack([idx.expand_as(valid), pack_window(lo, lo + valid)], dim=-1)
+    entries, n = _compact(chunk_start, vals, cap)
+    return _pack_rows(n, entries)
+
+
+def tile_meta(sel, *, block_kv: int, n_tokens: int, nsub: int, cap: int):
+    """Chunked-CSR rows for uniform tiles on sel's device (counterpart of
+    tile_meta_jnp; equal to chunk_meta on the mask repeated to sub-blocks):
+    tile t holds tokens [t * block_kv, min((t + 1) * block_kv, n_tokens)) of
+    a K/V array of nsub sub-blocks, so each selected tile is one chunk.
+    sel (R, NR, T) bool. Returns (R, NR, 1 + 2*cap) int32."""
+    C = block_kv // SUB
+    t = torch.arange(sel.shape[-1], device=sel.device)
+    idx = (t * C).clamp_max(nsub - C)
+    lo = (t * C - idx) * SUB
+    hi = lo + (n_tokens - t * block_kv).clamp(0, block_kv)
+    vals = torch.stack([idx, pack_window(lo, hi)], dim=-1).expand(*sel.shape, 2)
+    entries, n = _compact(sel, vals, cap)
+    return _pack_rows(n, entries)
 
 
 def dense_meta(seq_q: int, seq_kv: int, *, block_q: int, block_kv: int) -> np.ndarray:

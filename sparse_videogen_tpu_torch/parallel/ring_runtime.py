@@ -26,7 +26,7 @@ import torch.nn.functional as F
 from sparse_videogen_tpu_torch.config import SAPConfig, WarmupSchedule
 from sparse_videogen_tpu_torch.ops import metadata as MD
 from sparse_videogen_tpu_torch.parallel.ring import ring_attention, ring_aux, ring_meta
-from sparse_videogen_tpu_torch.parallel.ring_sap import sap_ring_attention
+from sparse_videogen_tpu_torch.parallel.ring_sap import check_ring_sap_config, sap_ring_attention
 from sparse_videogen_tpu_torch.sparse.runtimes import SAPRuntime
 from sparse_videogen_tpu_torch.sparse.svg1 import SVG1Plan
 from sparse_videogen_tpu_torch.sparse.svg2 import init_sap_state
@@ -94,6 +94,7 @@ class RingSAPRuntime(SAPRuntime):
     states."""
 
     def __init__(self, plan: SVG1Plan, cfg: SAPConfig, warmup: WarmupSchedule, mesh, *, device):
+        check_ring_sap_config(cfg, plan.layout)
         super().__init__(plan, cfg, warmup, device=device)
         if plan.layout.seq_len % mesh.size:
             raise ValueError(f"ring SAP needs S % ranks == 0: S={plan.layout.seq_len}, ranks={mesh.size}")

@@ -38,13 +38,24 @@ from sparse_videogen_tpu_torch.parallel.ring import merge_init, merge_partial
 from sparse_videogen_tpu_torch.sparse.svg2 import SAPState, check_sap_config, popularity_relabel
 
 
+def check_ring_sap_config(cfg: SAPConfig, layout: VideoLayout) -> None:
+    """check_sap_config, and what the ring (as the JAX package's) does not
+    run: tile mode (its tile offsets would differ between shards) and text in
+    the sequence (the reference never shards SAP with text). The ring always
+    relabels by popularity, as the JAX package's does."""
+    check_sap_config(cfg, layout)
+    if cfg.block_mode != "cluster" or layout.context_length:
+        raise NotImplementedError("ring SAP runs cluster mode on video-only layouts, as the JAX package's ring does")
+
+
 def _dist_kmeans(x, n_clusters, state_centroids, initialized, cfg: SAPConfig, comm, init_idx):
     """Warm: kmeans_iter_step iterations from the carried centroids. Cold:
     the global tokens init_idx (B, n_clusters), kmeans_iter_init iterations."""
     if initialized:
-        return batch_kmeans(x, n_clusters, cfg.kmeans_iter_step, state_centroids.to(x.dtype), comm=comm)
+        return batch_kmeans(x, n_clusters, cfg.kmeans_iter_step, state_centroids.to(x.dtype),
+                            metric=cfg.kmeans_metric, comm=comm)
     init = init_centroids_sharded(x, n_clusters, comm, init_idx)
-    return batch_kmeans(x, n_clusters, cfg.kmeans_iter_init, init, comm=comm)
+    return batch_kmeans(x, n_clusters, cfg.kmeans_iter_init, init, metric=cfg.kmeans_metric, comm=comm)
 
 
 def sap_ring_attention(q, k, v, state: SAPState, comm, *, layout: VideoLayout, cfg: SAPConfig, init_idx=None):
@@ -53,7 +64,7 @@ def sap_ring_attention(q, k, v, state: SAPState, comm, *, layout: VideoLayout, c
     (B*H, KC)): the global tokens of a cold start, the same on every rank
     (needed when state.initialized is False). Returns (this rank's output
     (B, H, Sl, D), the new SAPState, the same on every rank)."""
-    check_sap_config(cfg, layout)
+    check_ring_sap_config(cfg, layout)
     B, H, Sl, D = q.shape
     BH = B * H
     QC, KC = cfg.num_q_centroids, cfg.num_k_centroids

@@ -1,9 +1,11 @@
 """HunyuanVideo T2V generation pipeline (counterpart of
 sparse_videogen_tpu/pipelines/hyvideo.py): flow-match Euler (shift 7.0),
 embedded guidance (the cfg-distilled checkpoint runs ONE forward per step
-with guidance x 1000, no CFG batch), and the dense or SVG1 self-attention
-runtime over the text-last layout, with the live prompt length in the mask
-scalars. SAP, sequence parallelism and I2V raise NotImplementedError.
+with guidance x 1000, no CFG batch), and the dense, SVG1 or SAP
+self-attention runtime over the text-last layout, with the live prompt
+length in the mask scalars and SAP's prompt and padding clusters. SAP keeps
+one k-means state a layer (one stream). Sequence parallelism and I2V raise
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -12,11 +14,12 @@ import dataclasses
 
 import torch
 
-from sparse_videogen_tpu_torch.config import SparseMode, SVGConfig, TextPosition, VideoLayout, WarmupSchedule
+from sparse_videogen_tpu_torch.config import SAPConfig, SparseMode, SVGConfig, TextPosition, VideoLayout, WarmupSchedule
 from sparse_videogen_tpu_torch.models.hyvideo.model import HyVideoConfig, HyVideoModel
 from sparse_videogen_tpu_torch.schedulers import FlowMatchEuler
-from sparse_videogen_tpu_torch.sparse.runtimes import DenseRuntime, SVG1Runtime
+from sparse_videogen_tpu_torch.sparse.runtimes import DenseRuntime, SAPRuntime, SVG1Runtime
 from sparse_videogen_tpu_torch.sparse.svg1 import make_svg1_plan
+from sparse_videogen_tpu_torch.utils.density import DensityLogger, log_sap_states
 
 VAE_SPATIAL = 8
 VAE_TEMPORAL = 4
@@ -31,14 +34,17 @@ def hyvideo_layout(cfg: HyVideoConfig, height: int, width: int, num_frames: int)
 
 
 def make_hyvideo_runtime(layout: VideoLayout, *, device, prompt_length: int, pattern: str = "SVG",
-                         warmup: WarmupSchedule = WarmupSchedule(), svg: SVGConfig = SVGConfig()):
-    """The dense or SVG1 runtime of a text-last layout (the JAX pipeline's
-    plan: default block sizes)."""
+                         warmup: WarmupSchedule = WarmupSchedule(), svg: SVGConfig = SVGConfig(),
+                         sap: SAPConfig = SAPConfig()):
+    """The dense, SVG1 or SAP runtime of a text-last layout (the JAX
+    pipeline's plan: default block sizes). SAP's dense warm-up takes the
+    layout's context_length as its live text, as the JAX pipeline's
+    SAPRuntime does (runtimes.SAPRuntime); its sparse steps take the
+    layout's prompt_length."""
     mode = SparseMode(pattern)
-    if mode == SparseMode.SAP:
-        raise NotImplementedError("SAP on HunyuanVideo (the text-last SAP layouts) is not ported to the torch "
-                                  "package yet (ROADMAP.md)")
     plan = make_svg1_plan(layout, svg, warmup)
+    if mode == SparseMode.SAP:
+        return SAPRuntime(plan, sap, warmup, device=device)
     cls = DenseRuntime if mode == SparseMode.DENSE else SVG1Runtime
     return cls(plan, device=device, prompt_length=prompt_length)
 
@@ -64,14 +70,20 @@ class HyVideoPipeline:
         first_layers_fp: float = 0.025,
         first_times_fp: float = 0.15,
         svg: SVGConfig = SVGConfig(sparsity=0.25, profile_multiplier=1.5),
+        sap: SAPConfig = SAPConfig(),
         seed: int = 0,
         image_latents=None,
         mesh=None,
         callback=None,
+        logging_file: str | None = None,
+        latents: torch.Tensor | None = None,
     ):
         """Run the denoise loop from noise drawn with torch.Generator(seed) on
-        the model's device; return the final f32 latents (1, C, F', H', W').
-        pattern "SAP" raises NotImplementedError (make_hyvideo_runtime)."""
+        the model's device (or from `latents`, of the same shape; the
+        generator also serves SVG1's profiler and SAP's k-means draws);
+        return the final f32 latents (1, C, F', H', W'). With pattern SAP,
+        `logging_file` receives the per-(step, layer) density as JSONL
+        (utils/density.py)."""
         if mesh is not None:
             raise NotImplementedError("sequence/ring parallelism is not ported to the torch package yet (ROADMAP.md)")
         if image_latents is not None:
@@ -82,20 +94,27 @@ class HyVideoPipeline:
         gen = torch.Generator(device=device).manual_seed(seed)
         shape = (1, cfg.out_channels, 1 + (num_frames - 1) // VAE_TEMPORAL, height // VAE_SPATIAL,
                  width // VAE_SPATIAL)
-        lat = torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
+        if latents is None:
+            lat = torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
+        elif tuple(latents.shape) == shape:
+            lat = latents.float()
+        else:
+            raise ValueError(f"latents {tuple(latents.shape)}, expected {shape}")
         return self._denoise(text_states, text_mask, text_pooled, lat, prompt_length=prompt_length, height=height,
                              width=width, num_frames=num_frames, num_inference_steps=num_inference_steps,
                              embedded_guidance_scale=embedded_guidance_scale, flow_shift=flow_shift,
                              pattern=pattern, first_layers_fp=first_layers_fp, first_times_fp=first_times_fp,
-                             svg=svg, generator=gen, callback=callback)
+                             svg=svg, sap=sap, generator=gen, callback=callback, logging_file=logging_file)
 
     def _denoise(self, text_states, text_mask, text_pooled, lat, *, prompt_length, height, width, num_frames,
                  num_inference_steps, embedded_guidance_scale, flow_shift, pattern, first_layers_fp,
-                 first_times_fp, svg, generator=None, profile_rows=None, callback=None):
+                 first_times_fp, svg, sap=SAPConfig(), generator=None, profile_rows=None, kmeans_init=None,
+                 callback=None, logging_file=None):
         """The loop behind generate_latents, from the given initial latents.
-        `profile_rows[step][layer]` hands the SVG1 profiler fixed rows
-        instead of drawing them from `generator` (tests hand in the JAX
-        package's)."""
+        `profile_rows[step][layer]` hands the SVG1 profiler fixed rows, and
+        `kmeans_init[step][layer]` = (q indices, k indices) hands SAP's
+        cold-start k-means its token draws, instead of drawing them from
+        `generator` (tests hand in the JAX package's)."""
         model = self.model
         cfg = model.cfg
         device, dtype = model.img_in.weight.device, model.img_in.weight.dtype
@@ -103,7 +122,9 @@ class HyVideoPipeline:
         sch = FlowMatchEuler(num_inference_steps, shift=flow_shift)
         warmup = WarmupSchedule.from_fractions(first_layers_fp, first_times_fp, cfg.num_layers, sch.timesteps)
         runtime = make_hyvideo_runtime(layout, device=device, prompt_length=prompt_length, pattern=pattern,
-                                       warmup=warmup, svg=svg)
+                                       warmup=warmup, svg=svg, sap=sap)
+        sap_mode = isinstance(runtime, SAPRuntime)
+        dlog = DensityLogger(logging_file if sap_mode else None)
         states = text_states.to(device, dtype)
         mask = text_mask.to(device)
         pooled = text_pooled.to(device, dtype)
@@ -112,9 +133,13 @@ class HyVideoPipeline:
         sstate = sch.init_state()
         for i in range(num_inference_steps):
             t = torch.full((1,), float(sch.timesteps[i]), dtype=torch.float32, device=device)
+            if sap_mode:
+                runtime.kmeans_init = None if kmeans_init is None else kmeans_init[i]
             v = model(lat.to(dtype), t, states, mask, pooled, guidance=guidance, attention=runtime,
                       generator=generator, profile_rows=None if profile_rows is None else profile_rows[i])
             lat, sstate = sch.step(i, lat, v, sstate)
+            if dlog.path:
+                log_sap_states(dlog, float(sch.timesteps[i]), runtime.states)
             if callback is not None:
                 callback(i, lat)
         return lat

@@ -13,7 +13,6 @@ token-sharded (parallel/ring_runtime.py); SVG raises, as in the JAX package.
 from __future__ import annotations
 
 import dataclasses
-import types
 
 import numpy as np
 import torch
@@ -177,9 +176,7 @@ class WanPipeline:
                 v_cond, v_uncond = v[:1], v[1:2]
             lat, sstate = sch.step(i, lat, v_uncond + guidance_scale * (v_cond - v_uncond), sstate)
             if dlog.path:
-                cond = stream_states[0]
-                dens = np.stack([cond[li].last_density.cpu().numpy() for li in sorted(cond)])
-                log_sap_states(dlog, float(sch.timesteps[i]), types.SimpleNamespace(last_density=dens))
+                log_sap_states(dlog, float(sch.timesteps[i]), stream_states[0])
             if callback is not None:
                 callback(i, lat)
         return lat

@@ -9,6 +9,8 @@ T2V_720P_SAP ("14B-720p-sap"): Wan 2.1 14B with the reference's canonical
   Wan 2.1 720p SAP run (scripts/wan/wan_t2v_720p_sap.sh): 720x1280x81, flow
   shift 5.0, SAP at QC 300 / KC 1000, top_p 0.9, min_kc_ratio 0.10, 50 cold
   / 2 warm k-means iterations, first_times_fp 0.2, first_layers_fp 0.03.
+  "14B-720p-sap-tile": the same run with --sap_block_mode tile (the CLIs'
+  tile settings: block_q = block_kv = 512, the tile grain).
 Both keep the CLI's SVG1 sparsity (0.25) and guidance scale (5.0).
 
 Wan 2.1 I2V 14B (WAN_14B_I2V: dim 5120, 40 layers, 40 heads, FFN 13,824,
@@ -27,8 +29,13 @@ reference's canonical runs: "hyvideo-720p-svg"
 (scripts/hyvideo/hyvideo_t2v_720p_svg.sh: 50 steps, flow shift 7.0, SVG1 at
 sparsity 0.25 with 64 sampled rows, first_times_fp 0.1, first_layers_fp
 0.025) and "hyvideo-720p-dense" (scripts/hyvideo/hyvideo_t2v_720p_dense.sh:
-the same run, dense). Both take the CLI's embedded guidance 6.0 and its
-SVG1 profiling band (profile_multiplier 1.5).
+the same run, dense), and "hyvideo-720p-sap"
+(scripts/hyvideo/hyvideo_t2v_720p_sap.sh: SAP at QC 400 / KC 1000, top_p
+0.9, min_kc_ratio 0.10, 50 cold / 2 warm k-means iterations,
+zero_step_kmeans_init, first_times_fp 0.1, first_layers_fp 0.025, flow
+shift 7.0) with its tile variant "hyvideo-720p-sap-tile" (--sap_block_mode
+tile). All take the CLI's embedded guidance 6.0 and its SVG1 profiling band
+(profile_multiplier 1.5).
 
 CogVideoX 1.5 5B I2V at 768x1360x81 (COG_PRESETS), COG_1_5_5B_I2V with the
 reference's canonical run (scripts/cog/cog_inference.sh, the CLI's defaults:
@@ -82,7 +89,17 @@ I2V_PRESETS = {
                                                                if run == "sap" else
                                                                {"first_layers_fp": 0.3, "first_times_fp": 0.03}))
     for res, h, w, shift in (("480p", 480, 832, 3.0), ("720p", 720, 1264, 5.0)) for run in ("svg", "dense", "sap")}
-PRESETS = {"1.3B-480p": T2V_480P, "14B-720p-sap": T2V_720P_SAP, **I2V_PRESETS}
+
+
+def tile_variant(sap: SAPConfig) -> SAPConfig:
+    """The same SAP run with --sap_block_mode tile: block_q = block_kv = 512,
+    the tile grain (the JAX CLIs' tile settings; cli/_common.sap_config
+    builds tile mode with this function)."""
+    return dataclasses.replace(sap, block_mode="tile", block_q=512, block_kv=512)
+
+
+PRESETS = {"1.3B-480p": T2V_480P, "14B-720p-sap": T2V_720P_SAP,
+           "14B-720p-sap-tile": dataclasses.replace(T2V_720P_SAP, sap=tile_variant(T2V_720P_SAP.sap)), **I2V_PRESETS}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -95,6 +112,7 @@ class HyVideoRunSettings:
     pattern: str
     first_layers_fp: float
     first_times_fp: float
+    sap: SAPConfig = SAPConfig()
 
     def generate_kwargs(self) -> dict:
         """Keyword arguments of HyVideoPipeline.generate_latents but the step
@@ -104,13 +122,18 @@ class HyVideoRunSettings:
         return dict(height=self.height, width=self.width, num_frames=self.num_frames, embedded_guidance_scale=6.0,
                     flow_shift=self.flow_shift, pattern=self.pattern, first_layers_fp=self.first_layers_fp,
                     first_times_fp=self.first_times_fp,
-                    svg=SVGConfig(sparsity=0.25, num_sampled_rows=64, profile_multiplier=1.5))
+                    svg=SVGConfig(sparsity=0.25, num_sampled_rows=64, profile_multiplier=1.5), sap=self.sap)
 
 
 HY_720P_SVG = HyVideoRunSettings(HYVIDEO_T2, 720, 1280, 129, flow_shift=7.0, pattern="SVG", first_layers_fp=0.025,
                                  first_times_fp=0.1)
 HY_720P_DENSE = dataclasses.replace(HY_720P_SVG, pattern="dense", first_times_fp=0.15)
-HY_PRESETS = {"hyvideo-720p-svg": HY_720P_SVG, "hyvideo-720p-dense": HY_720P_DENSE}
+HY_720P_SAP = dataclasses.replace(
+    HY_720P_SVG, pattern="SAP",
+    sap=SAPConfig(num_q_centroids=400, num_k_centroids=1000, top_p_kmeans=0.9, min_kc_ratio=0.10,
+                  kmeans_iter_init=50, kmeans_iter_step=2, zero_step_kmeans_init=True))
+HY_PRESETS = {"hyvideo-720p-svg": HY_720P_SVG, "hyvideo-720p-dense": HY_720P_DENSE, "hyvideo-720p-sap": HY_720P_SAP,
+              "hyvideo-720p-sap-tile": dataclasses.replace(HY_720P_SAP, sap=tile_variant(HY_720P_SAP.sap))}
 
 
 @dataclasses.dataclass(frozen=True)

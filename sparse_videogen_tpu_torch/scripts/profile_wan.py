@@ -4,6 +4,8 @@
     python -m sparse_videogen_tpu_torch.scripts.profile_wan --preset 14B-720p-sap --layers 4 \
         --steps 5 --runs SAP,dense,dense,SAP
     python -m sparse_videogen_tpu_torch.scripts.profile_wan --organic 4.0 --runs SAP
+    python -m sparse_videogen_tpu_torch.scripts.profile_wan --preset 14B-720p-sap --layers 4 \
+        --sap_block_mode tile --organic 3.5 --runs SAP,dense,dense,SAP
     python -m sparse_videogen_tpu_torch.scripts.profile_wan --inplace_temporal --runs SVG,SVG
     python -m sparse_videogen_tpu_torch.scripts.profile_wan --preset 14B-i2v-720p-svg --layers 2 \
         --steps 3 --runs SVG,dense,dense,SVG
@@ -18,7 +20,9 @@ features (1, 257, 1280) and the condition of random image latents
 (build_i2v_condition). Random bf16 weights from --seed at the model's full
 width, --layers of its blocks (default: all), and a random (1, 512, 4096)
 context (UMT5-XXL's shape). Dense and SVG1 batch CFG; SAP runs cond and
-uncond as separate batch-1 forwards. --organic GAIN (default off) gives SAP
+uncond as separate batch-1 forwards. --sap_block_mode (default: the
+preset's, cluster) picks SAP's mode; tile takes the CLIs' tile settings
+(presets.tile_variant: block_q = block_kv = 512). --organic GAIN (default off) gives SAP
 an organic density instead of random weights' ~0.87 (utils/organic.py):
 every self-attention's K projection := its Q projection, norm_q x GAIN, and
 low-pass latents (smooth_latents) in both parts. --inplace_temporal runs
@@ -38,7 +42,8 @@ has no such flag. Two parts:
             1 - (union of device-activity intervals) / (their span). For SAP,
             one more step's forwards outside the profiler record its density
             and the share of the loaded 128-token K/V tile columns that its
-            run lists keep live (ops/attention.py runs_tile_stats).
+            metadata keeps live (ops/attention.py runs_tile_stats, or
+            csr_tile_stats in tile mode).
 
 --out writes the same numbers as JSON.
 """
@@ -165,16 +170,17 @@ def profile_forward(label, forward):
 
 def sap_run_list_stats(forward):
     """forward() once (outside the profiler), recording every sparse SAP
-    layer's run lists: their live tokens and loaded 128-token tile columns
-    (runs_tile_stats) and SAP's density."""
-    from sparse_videogen_tpu_torch.ops.attention import runs_tile_stats
+    layer's metadata: the live tokens and loaded 128-token tile columns of
+    its run lists (runs_tile_stats; cluster mode) or chunked-CSR rows
+    (csr_tile_stats; tile mode), and SAP's density."""
+    from sparse_videogen_tpu_torch.ops.attention import csr_tile_stats, runs_tile_stats
     from sparse_videogen_tpu_torch.sparse import svg2
 
     prepare, live, loaded, dens = svg2.sap_prepare, [], [], []
 
     def recording(*args, **kw):
         a = prepare(*args, **kw)
-        n_live, n_tiles = runs_tile_stats(a.meta)
+        n_live, n_tiles = (csr_tile_stats if a.kernel == "csr" else runs_tile_stats)(a.meta)
         live.append(n_live.sum())
         loaded.append(128 * n_tiles.sum())
         dens.append(a.density.mean())
@@ -190,7 +196,7 @@ def sap_run_list_stats(forward):
     out = {"layers": len(dens), "density_mean": torch.stack(dens).mean().item(),
            "live_columns": int(sum(live)), "loaded_columns": int(sum(loaded))}
     out["live_column_share"] = out["live_columns"] / out["loaded_columns"]
-    print(f"[profile] SAP run lists over {out['layers']} sparse layer calls: density {out['density_mean']}, "
+    print(f"[profile] SAP metadata over {out['layers']} sparse layer calls: density {out['density_mean']}, "
           f"{out['live_columns']} live of {out['loaded_columns']} loaded 128-token tile columns, live share "
           f"{out['live_column_share']}", flush=True)
     return out
@@ -255,10 +261,13 @@ def main(argv=None):
     ap.add_argument("--organic", type=float, default=None, metavar="GAIN",
                     help="K := Q with norm_q x GAIN and smooth latents (utils/organic.py); default off")
     ap.add_argument("--inplace_temporal", action="store_true", help="run SVG1 placement-free (K1's dual spec)")
+    ap.add_argument("--sap_block_mode", choices=("cluster", "tile"), default=None,
+                    help="SAP's mode (default: the preset's); tile takes block_q = block_kv = 512")
     args = ap.parse_args(argv)
 
     from sparse_videogen_tpu_torch.config import WarmupSchedule
     from sparse_videogen_tpu_torch.models.wan.model import WanModel
+    from sparse_videogen_tpu_torch.presets import tile_variant
     from sparse_videogen_tpu_torch.pipelines import WanPipeline
     from sparse_videogen_tpu_torch.pipelines.wan import make_wan_runtime, wan_layout
     from sparse_videogen_tpu_torch.schedulers import FlowUniPC
@@ -272,6 +281,9 @@ def main(argv=None):
     print(f"[device] {smi}; torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     run_cfg = PRESETS[args.preset]
+    if args.sap_block_mode is not None and args.sap_block_mode != run_cfg.sap.block_mode:
+        run_cfg = dataclasses.replace(run_cfg, sap=tile_variant(run_cfg.sap) if args.sap_block_mode == "tile" else
+                                      dataclasses.replace(run_cfg.sap, block_mode="cluster"))
     svg, sap = run_cfg.generate_kwargs()["svg"], run_cfg.sap
     cfg = dataclasses.replace(run_cfg.model, num_layers=args.layers or run_cfg.model.num_layers)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
@@ -291,13 +303,14 @@ def main(argv=None):
     print(f"[config] {args.preset}: Wan 2.1 {cfg.model_type} dim {cfg.dim}, {cfg.num_layers} layers, "
           f"{cfg.num_heads} heads, S = {lay.seq_len} ({lay.num_frames}x{lay.frame_size}); "
           f"{run_cfg.height}x{run_cfg.width}x{run_cfg.num_frames}, {args.steps} steps; SAP QC {sap.num_q_centroids} "
-          f"KC {sap.num_k_centroids} min_kc_ratio {sap.min_kc_ratio}; "
+          f"KC {sap.num_k_centroids} min_kc_ratio {sap.min_kc_ratio} {sap.block_mode} mode; "
           + ("random weights" if args.organic is None else f"organic, gain {args.organic}")
           + ("; SVG1 in place (dual spec)" if args.inplace_temporal else ""), flush=True)
     runs = args.runs.split(",")
     for pattern in dict.fromkeys(runs):
         pipe.generate_latents(ctx, ctx_null, num_inference_steps=1, pattern=pattern, **gen_kw)
-    result = {"device": smi, "preset": args.preset, "layers": cfg.num_layers, "organic_gain": args.organic,
+    result = {"device": smi, "preset": args.preset, "sap_block_mode": sap.block_mode, "layers": cfg.num_layers,
+              "organic_gain": args.organic,
               "inplace_temporal": args.inplace_temporal, "time": [], "profile": {}}
     tmp = tempfile.TemporaryDirectory()
     dlog = os.path.join(tmp.name, "density.jsonl")  # SAP's density log of the cond stream

@@ -82,13 +82,16 @@ class SVG1Runtime(DenseRuntime):
 
 
 class SAPRuntime(DenseRuntime):
-    """SAP (SVG2) cluster mode with the dense warm-up of the plan's dense
-    metadata. `states` maps a layer to its SAPState (a missing layer starts
-    cold); `kmeans_init`, when set, maps a layer to the (q, k) cold-start
-    token indices for the next forward (tests hand in the JAX package's
-    draws); otherwise they are drawn from the forward's generator. A
-    layout with text in the sequence, last (HunyuanVideo) or first
-    (CogVideoX), raises NotImplementedError (svg2.check_sap_config)."""
+    """SAP (SVG2, cluster or tile mode) with the dense warm-up of the plan's
+    dense metadata. `states` maps a layer to its SAPState (a missing layer
+    starts cold); `kmeans_init`, when set, maps a layer to the (q, k)
+    cold-start token indices for the next forward (tests hand in the JAX
+    package's draws); otherwise they are drawn from the forward's generator.
+    On a text-last layout (HunyuanVideo) the warm-up runs the plan's
+    `hyvideo` kind with aux[0] = video_length + context_length, as the JAX
+    package's SAPRuntime does (its prompt_length is None), so the warm-up
+    also attends the text padding. A text-first layout (CogVideoX) raises
+    NotImplementedError (svg2.check_sap_config)."""
 
     def __init__(self, plan: SVG1Plan, cfg: SAPConfig, warmup: WarmupSchedule, *, device):
         check_sap_config(cfg, plan.layout)

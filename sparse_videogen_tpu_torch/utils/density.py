@@ -32,12 +32,12 @@ class DensityLogger:
 
 
 def log_sap_states(dlog: DensityLogger, timestep, states) -> None:
-    """Log per-layer SAP densities: states.last_density is (n_layers, B*H);
-    dense/warm-up layers leave zeros and are skipped (the reference logs
-    sparse steps only)."""
+    """Log per-layer SAP densities: `states` maps a layer to its SAPState,
+    whose last_density is (B*H,); dense/warm-up layers leave zeros and are
+    skipped (the reference logs sparse steps only)."""
     if dlog.path is None:
         return
-    dens = np.asarray(states.last_density)
-    for li in range(dens.shape[0]):
-        if dens[li].any():
-            dlog.log(timestep, li, dens[li])
+    for li in sorted(states):
+        dens = states[li].last_density.cpu().numpy()
+        if dens.any():
+            dlog.log(timestep, li, dens)

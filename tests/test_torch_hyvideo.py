@@ -309,7 +309,7 @@ def test_cli_smoke_cpu(tmp_path):
     (["--device", "cuda:99"], RuntimeError),
     (["--device", "cpu", "--model_dir", "/nonexistent"], NotImplementedError),
     (["--device", "cpu", "--output_file", "video.mp4"], NotImplementedError),
-    (["--device", "cpu", "--pattern", "SAP"], NotImplementedError),
+    (["--device", "cpu", "--quant", "int8"], NotImplementedError),
     (["--device", "cpu", "--ulysses_degree", "2"], NotImplementedError),
 ], ids=["no_card_no_fallback", "model_dir", "video", "sap", "parallel"])
 def test_cli_refuses_what_is_not_ported(tmp_path, argv, exc):
@@ -336,11 +336,11 @@ def test_cli_flags_are_the_jax_clis(cli):
 
 
 def test_sap_on_text_last_raises():
-    _, tl = _layouts(3, 128, 8)
-    with pytest.raises(NotImplementedError, match="text-last SAP"):
-        check_sap_config(TC.SAPConfig(), tl)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TPH.make_hyvideo_runtime(tl, device="cpu", prompt_length=3, pattern="SAP")
+    """SAP refuses a text-first layout (CogVideoX runs SVG1 or dense only);
+    text-last SAP runs (tests/test_torch_sap_text_last.py), so the name
+    keeps only the CogVideoX case."""
     text_first = TC.VideoLayout(num_frames=2, frame_size=64, context_length=8, text_position=TC.TextPosition.FIRST)
+    with pytest.raises(NotImplementedError, match="CogVideoX"):
+        check_sap_config(TC.SAPConfig(), text_first)
     with pytest.raises(NotImplementedError, match="CogVideoX"):
         TRT.SAPRuntime(TS1.make_svg1_plan(text_first), TC.SAPConfig(), TC.WarmupSchedule(), device="cpu")

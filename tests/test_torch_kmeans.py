@@ -169,9 +169,12 @@ def test_init_centroids_draws_from_the_generator():
     assert all(any(torch.equal(a[i, j], x[i, n]) for n in range(50)) for i in range(3) for j in range(4))
 
 
-@pytest.mark.parametrize("kw", [dict(metric="cosine"), dict(metric="dot"), dict(axis_name="sp")],
-                         ids=["cosine", "dot", "axis_name"])
+@pytest.mark.parametrize("kw", [dict(metric="cosine", axis_name="sp"), dict(metric="dot", axis_name="sp"),
+                                dict(axis_name="sp")], ids=["cosine", "dot", "axis_name"])
 def test_unported_kmeans_options_raise(kw):
+    """A JAX mesh axis name is refused with every metric (the port shards
+    tokens through comm=); the cosine and dot metrics themselves run
+    (tests/test_torch_kmeans_metrics.py)."""
     x = torch.randn(1, 16, 8)
     with pytest.raises(NotImplementedError):
         TKM.batch_kmeans(x, 2, 1, x[:, :2], **kw)

@@ -129,3 +129,19 @@ def test_spatial_upsample_is_nearest():
     ref = torch.nn.functional.interpolate(x, scale_factor=(1, 2, 2), mode="nearest")
     assert torch.equal(TV.nearest2x(x), ref)
     np.testing.assert_array_equal(TV.nearest2x(x).numpy(), np.repeat(np.repeat(x.numpy(), 2, 3), 2, 4))
+
+
+def test_init_random_zeroes_attention_projections():
+    """init_random as the JAX package's _attn_init: every attention block's
+    proj weight and bias exactly 0; every other conv N(0, 1/fan_in) with a
+    zero bias, drawn as if proj were drawn too (the same stream of draws)."""
+    vae = TV.WanVAE(TCFG, encoder=True).init_random(torch.Generator().manual_seed(0))
+    projs = [m.proj for m in vae.modules() if isinstance(m, TV.AttentionBlock)]
+    assert projs and all(not p.weight.any() and not p.bias.any() for p in projs)
+    g = torch.Generator().manual_seed(0)
+    for mod in vae.modules():
+        if isinstance(mod, (torch.nn.Conv2d, torch.nn.Conv3d)):
+            w = torch.randn(mod.weight.shape, generator=g) / np.sqrt(mod.weight[0].numel())
+            assert not mod.bias.any()
+            if not any(mod is p for p in projs):
+                torch.testing.assert_close(mod.weight, w, rtol=0, atol=0)
