@@ -1,8 +1,9 @@
 """Drive the torch port's main paths once on one NVIDIA GPU: Wan 2.1 T2V
 dense/SVG1/SAP (cluster and tile mode) and from a prompt to a video, Wan
 2.1 I2V 14B from an image and a prompt to a video, HunyuanVideo T2V
-dense/SVG1/SAP (both modes), CogVideoX 1.5 I2V dense/SVG1, and the probe
-entries of K6 and K8.
+dense/SVG1/SAP (both modes) and from a prompt, and from an image and a
+prompt, to a video, CogVideoX 1.5 I2V dense/SVG1, and the probe entries of
+K6 and K8.
 
     python3 chip_smoke.py
 
@@ -130,7 +131,28 @@ is non-zero:
                  decode and the .y4m read back; each stage timed with its
                  peak memory; dense steps and the projection of a
                  CLI_STEPS-step generation at 40 layers.
-               quality (after i2v): scripts/quality.py's recipe without the
+               hy_p2v (after i2v): HunyuanVideo T2V from a prompt to a
+                 video at full width (phase_hy_p2v): the port's
+                 tokenizer.json reader on LLaMA-3-style and CLIP-style files
+                 this script writes (the template's special tokens held to
+                 their ids), LLaMA-3-8B (30 of 32 layers) and CLIP-L (random
+                 bf16) through HyVideoTextEncoders at 95 + 256 = 351 tokens,
+                 HYVIDEO_T2 (HY_DOUBLE + HY_SINGLE blocks) at 720x1280x129
+                 for HY_P2V_STEPS SVG1 steps, the full-width VAE through the
+                 CLI's default tiled decoder on the first HY_DECODE_FRAMES
+                 latent frames, a .y4m read back; K1 and K2 held to
+                 expected_launches with no plain-version call; each stage
+                 timed with its peak memory.
+               hy_i2v (after hy_p2v): HunyuanVideo I2V (phase_hy_i2v):
+                 examples/1/image.jpg resized to 720x1280 (cubic), the
+                 full-width VAE encode of it, Llava at full width (CLIP
+                 ViT-L/14-336, the projector, hy_p2v's LLaMA-3-8B) with
+                 LLAVA_INTERLEAVE, the in_channels 33 DiT for HY_I2V_STEPS
+                 dense steps, launches held likewise. A small LLaMA, CLIP
+                 text tower, Llava and HunyuanVideo VAE (decode whole and
+                 tiled, encode) on the card against the CPU (TEXT_TOL,
+                 VAE_TOL) join the small references.
+               quality (after hy_i2v): scripts/quality.py's recipe without the
                  decode: Wan 2.1 1.3B structured-synthetic (K := Q, gain
                  4.0) at 720x1280x81, 8 steps, dense, SVG1, SAP cluster and
                  SAP tile (QC 300, KC 125) from one noise, launches held to
@@ -140,13 +162,17 @@ is non-zero:
   5. cli     - (started before the quality phase, checked after the small
                references) the port's CLIs, all started together: --smoke for Wan T2V
                and I2V and HunyuanVideo for SVG, dense, SAP and SAP with
-               --sap_block_mode tile, CogVideoX for SVG and dense; the Wan
-               T2V smoke with a video name (its tiny
-               VAE, a .y4m); the Wan T2V CLI on a checkpoint dir written by
-               write_tiny_checkpoint (the port's safetensors writer, the
-               reference's names) from a prompt to a .y4m, and the Wan I2V
-               CLI on an I2V one (the VAE's encoder, a CLIP tower in HF's
-               names) from examples/1/image.jpg and a prompt to a .y4m.
+               --sap_block_mode tile, HunyuanVideo I2V for sparse and dense,
+               CogVideoX for SVG and dense; the Wan and HunyuanVideo T2V
+               smokes with a video name (their tiny VAEs, a .y4m); the Wan
+               T2V CLI on a checkpoint dir written by write_tiny_checkpoint
+               (the port's safetensors writer, the reference's names) from a
+               prompt to a .y4m, and the Wan I2V CLI on an I2V one (the
+               VAE's encoder, a CLIP tower in HF's names) from
+               examples/1/image.jpg and a prompt to a .y4m; the HunyuanVideo
+               T2V and I2V CLIs likewise on write_tiny_hyvideo_checkpoint's
+               dirs (tokenizer.json files written by hand; a Llava text
+               encoder for I2V).
 Each group of phases prints its seconds on a [time] line, and the whole
 run's seconds are printed before the two JSON lines.
 The line before the last is a JSON object with one entry per kernel; the
@@ -204,8 +230,9 @@ PEAK_TF32_FLOPS = 495e12  # tensor cores on f32 inputs, where TF32 is allowed
 HY_DOUBLE, HY_SINGLE = 2, 2
 HY_STEPS_SVG, HY_STEPS_DENSE = 10, 2
 # the hyvideo-720p-sap runs (cluster and tile): first_times_fp 0.1 makes
-# step 0 of HY_STEPS_SAP a dense warm-up step (it clusters too), the rest
-# sparse and warm; at the organic gain of the JAX package's
+# step 0 of HY_STEPS_SAP a dense warm-up step (which does not cluster: the
+# JAX CLI drops zero_step_kmeans_init), step 1 clusters cold, the rest warm;
+# at the organic gain of the JAX package's
 # scripts/bench_hyvideo.py (random weights keep ~0.87 of the scores)
 HY_STEPS_SAP = 10
 HY_SAP_GAIN = 3.5
@@ -244,6 +271,17 @@ UMT5_TOL, VAE_TOL = 1e-5, 1e-4
 # CLIP on the card against the CPU in f32 (TF32 off): summation order only
 LAYERS_I2V, I2V_STEPS = 4, 3
 CLIP_TOL = 1e-5
+# HunyuanVideo from a prompt (hy_p2v) and from an image (hy_i2v): HY_DOUBLE +
+# HY_SINGLE blocks at 720x1280x129, HY_P2V_STEPS SVG1 and HY_I2V_STEPS dense
+# steps; the full-width VAE decodes the first HY_DECODE_FRAMES of the 33
+# latent frames (17 frames) with the CLI's numerics (cuDNN TF32 on); Llava
+# keeps every LLAVA_INTERLEAVE-th image patch: at the CLI's default
+# interleave 1 its 576 patches do not fit the 256 text positions (ROADMAP.md
+# section 3). The small LLaMA, CLIP text tower and Llava on the card against
+# the CPU in f32 (TF32 off): summation order only
+HY_P2V_STEPS, HY_I2V_STEPS, HY_DECODE_FRAMES = 2, 2, 5
+LLAVA_INTERLEAVE = 4
+TEXT_TOL = 1e-5
 
 
 def log(phase: str, msg: str) -> None:
@@ -1609,8 +1647,9 @@ def phase_hyvideo_slice(dev):
     128, MLP 12288, text (1, 256, 4096), pooled (1, 768)) with HY_DOUBLE +
     HY_SINGLE blocks, 720x1280x129: SVG1 for HY_STEPS_SVG steps, dense for
     HY_STEPS_DENSE, then the hyvideo-720p-sap run in cluster and in tile mode
-    for HY_STEPS_SAP steps (first_times_fp 0.1: one dense warm-up step that
-    also clusters, zero_step_kmeans_init; the rest sparse and warm) on the
+    for HY_STEPS_SAP steps (first_times_fp 0.1: one dense warm-up step,
+    which does not cluster: the JAX CLI drops zero_step_kmeans_init; the
+    first sparse step clusters cold, the rest warm) on the
     same model made organic (utils/organic.align_fused_qkv at HY_SAP_GAIN,
     smooth latents), as profile_hyvideo runs it. Returns the SVG1 run's
     hyvideo-kind launches and each SAP run's record."""
@@ -2658,6 +2697,293 @@ def write_tiny_checkpoint(path: str, prompt: str, i2v: bool = False) -> None:
     write_spiece(path, pieces, unk_id=2)
 
 
+# ---------------------------------------------------------------------------
+# HunyuanVideo checkpoints: tokenizer.json files and state dicts in the
+# reference's names, written by hand
+# ---------------------------------------------------------------------------
+
+LLAMA3_PATTERN = (r"(?i:'s|'t|'re|'ve|'m|'ll|'d)|[^\r\n\p{L}\p{N}]?\p{L}+|\p{N}{1,3}| ?[^\s\p{L}\p{N}]+[\r\n]*"
+                  r"|\s*[\r\n]+|\s+(?!\S)|\s+")
+CLIP_PATTERN = r"<\|startoftext\|>|<\|endoftext\|>|'s|'t|'re|'ve|'m|'ll|'d|[\p{L}]+|[\p{N}]|[^\s\p{L}\p{N}]+"
+LLAMA3_SPECIALS = ("<|begin_of_text|>", "<|end_of_text|>", "<|start_header_id|>", "<|end_header_id|>", "<|eot_id|>")
+CLIP_SPECIALS = ("<|startoftext|>", "<|endoftext|>")
+
+
+def bpe_tokenizer_files(path: str, texts, style: str) -> dict:
+    """Write tokenizer.json and tokenizer_config.json in LLaMA-3's structure
+    (style "llama": a Split by LLaMA-3's pattern then ByteLevel, a BPE with
+    ignore_merges, the template's special tokens as added tokens, a
+    TemplateProcessing that prepends <|begin_of_text|>; the pad id falls
+    back to <|end_of_text|>) or CLIP's ("clip": NFC, whitespace runs to " "
+    and lowercase, a Split keeping CLIP's pattern, ByteLevel, a BPE with
+    the </w> suffix and <|endoftext|> as unk, RobertaProcessing; pad
+    <|endoftext|>, the highest id, as in CLIP). The vocabulary is GPT-2's
+    256 byte characters (and their </w> forms) plus every pre-token of
+    `texts`, each built by merges from the left. Returns {special: id}."""
+    from sparse_videogen_tpu_torch.io.tokenizer import byte_to_unicode, make_normalizer, make_pre_tokenizer
+
+    clip = style == "clip"
+    specials = CLIP_SPECIALS if clip else LLAMA3_SPECIALS
+    byte_level = {"type": "ByteLevel", "add_prefix_space": False, "trim_offsets": True, "use_regex": False}
+    if clip:
+        normalizer = {"type": "Sequence", "normalizers": [
+            {"type": "NFC"}, {"type": "Replace", "pattern": {"Regex": r"\s+"}, "content": " "}, {"type": "Lowercase"}]}
+        split = {"type": "Split", "pattern": {"Regex": CLIP_PATTERN}, "behavior": "Removed", "invert": True}
+    else:
+        normalizer = None
+        split = {"type": "Split", "pattern": {"Regex": LLAMA3_PATTERN}, "behavior": "Isolated", "invert": False}
+    pre = {"type": "Sequence", "pretokenizers": [split, byte_level]}
+    norm, pre_tok = make_normalizer(normalizer), make_pre_tokenizer(pre)
+    suffix = "</w>" if clip else ""
+    alphabet = [byte_to_unicode()[b] for b in range(256)]
+    vocab = {c: i for i, c in enumerate(alphabet + ([c + suffix for c in alphabet] if clip else []))}
+    merges, seen = [], set()
+    pieces = list(texts)
+    for sp in specials:  # the special tokens are cut out before the rest is pre-tokenized
+        pieces = [q for p in pieces for q in p.split(sp)]
+    for text in pieces:
+        for word in pre_tok([norm(text)]) if text else []:
+            syms = list(word)
+            syms[-1] += suffix
+            cur = syms[0]
+            for sym in syms[1:]:
+                if (cur, sym) not in seen:
+                    seen.add((cur, sym))
+                    merges.append([cur, sym])
+                cur += sym
+                vocab.setdefault(cur, len(vocab))
+    ids = {sp: len(vocab) + i for i, sp in enumerate(specials)}
+    added = [{"id": ids[sp], "content": sp, "single_word": False, "lstrip": False, "rstrip": False,
+              "normalized": clip, "special": True} for sp in specials]
+    if clip:
+        vocab.update(ids)
+        post = {"type": "RobertaProcessing", "sep": ["<|endoftext|>", ids["<|endoftext|>"]],
+                "cls": ["<|startoftext|>", ids["<|startoftext|>"]], "trim_offsets": False, "add_prefix_space": False}
+        config = {"bos_token": "<|startoftext|>", "eos_token": "<|endoftext|>", "pad_token": "<|endoftext|>"}
+    else:
+        bos = {"SpecialToken": {"id": "<|begin_of_text|>", "type_id": 0}}
+        post = {"type": "Sequence", "processors": [
+            {"type": "ByteLevel", "add_prefix_space": True, "trim_offsets": False, "use_regex": True},
+            {"type": "TemplateProcessing", "single": [bos, {"Sequence": {"id": "A", "type_id": 0}}],
+             "pair": [bos, {"Sequence": {"id": "A", "type_id": 0}}, bos, {"Sequence": {"id": "B", "type_id": 1}}],
+             "special_tokens": {"<|begin_of_text|>": {"id": "<|begin_of_text|>", "ids": [ids["<|begin_of_text|>"]],
+                                                      "tokens": ["<|begin_of_text|>"]}}}]}
+        config = {"bos_token": "<|begin_of_text|>", "eos_token": "<|end_of_text|>"}
+    model = {"type": "BPE", "dropout": None, "unk_token": "<|endoftext|>" if clip else None,
+             "continuing_subword_prefix": "" if clip else None, "end_of_word_suffix": suffix or None,
+             "fuse_unk": False, "byte_fallback": False, "ignore_merges": not clip, "vocab": vocab, "merges": merges}
+    tj = {"version": "1.0", "truncation": None, "padding": None, "added_tokens": added, "normalizer": normalizer,
+          "pre_tokenizer": pre, "post_processor": post,
+          "decoder": {"type": "ByteLevel", "add_prefix_space": True, "trim_offsets": True, "use_regex": True},
+          "model": model}
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "tokenizer.json"), "w", encoding="utf-8") as f:
+        json.dump(tj, f, ensure_ascii=False)
+    with open(os.path.join(path, "tokenizer_config.json"), "w") as f:
+        json.dump(config, f)
+    return ids
+
+
+def reference_llama_sd(cfg, g, prefix="model.") -> dict:
+    """An HF LlamaModel state dict (all cfg.num_layers layers, the final norm)."""
+    d, kv = cfg.dim, cfg.num_kv_heads * cfg.head_dim
+    sd = {f"{prefix}embed_tokens.weight": 0.02 * torch.randn(cfg.vocab_size, d, generator=g),
+          f"{prefix}norm.weight": torch.ones(d)}
+    for i in range(cfg.num_layers):
+        b = f"{prefix}layers.{i}"
+        for nm, do, di in (("self_attn.q_proj", d, d), ("self_attn.k_proj", kv, d), ("self_attn.v_proj", kv, d),
+                           ("self_attn.o_proj", d, d), ("mlp.gate_proj", cfg.ffn_dim, d),
+                           ("mlp.up_proj", cfg.ffn_dim, d), ("mlp.down_proj", d, cfg.ffn_dim)):
+            sd[f"{b}.{nm}.weight"] = _randn(g, do, di)
+        sd[f"{b}.input_layernorm.weight"] = 1 + 0.1 * torch.randn(d, generator=g)
+        sd[f"{b}.post_attention_layernorm.weight"] = 1 + 0.1 * torch.randn(d, generator=g)
+    return sd
+
+
+def reference_clip_text_sd(cfg, g) -> dict:
+    """An HF CLIPTextModel state dict (text_model.*)."""
+    d, t = cfg.dim, "text_model."
+    sd = {f"{t}embeddings.token_embedding.weight": 0.02 * torch.randn(cfg.vocab_size, d, generator=g),
+          f"{t}embeddings.position_embedding.weight": 0.01 * torch.randn(cfg.max_positions, d, generator=g),
+          f"{t}final_layer_norm.weight": torch.ones(d), f"{t}final_layer_norm.bias": torch.zeros(d)}
+    for i in range(cfg.num_layers):
+        b = f"{t}encoder.layers.{i}"
+        for nm, di, do in (("self_attn.q_proj", d, d), ("self_attn.k_proj", d, d), ("self_attn.v_proj", d, d),
+                           ("self_attn.out_proj", d, d), ("mlp.fc1", d, cfg.ffn_dim), ("mlp.fc2", cfg.ffn_dim, d)):
+            sd[f"{b}.{nm}.weight"], sd[f"{b}.{nm}.bias"] = _randn(g, do, di), 0.1 * torch.randn(do, generator=g)
+        for ln in ("layer_norm1", "layer_norm2"):
+            sd[f"{b}.{ln}.weight"], sd[f"{b}.{ln}.bias"] = torch.ones(d), torch.zeros(d)
+    return sd
+
+
+def reference_hyvideo_dit_sd(cfg, g) -> dict:
+    """A HunyuanVideo DiT state dict in hyvideo_orig's names (fused q|k|v)."""
+    h, sd = cfg.hidden_size, {}
+    mlp = cfg.mlp_hidden
+
+    def lin(key, di, do):
+        sd[f"{key}.weight"], sd[f"{key}.bias"] = _randn(g, do, di), 0.1 * torch.randn(do, generator=g)
+
+    def ln(key, n):
+        sd[f"{key}.weight"], sd[f"{key}.bias"] = torch.ones(n), torch.zeros(n)
+
+    sd["img_in.proj.weight"] = _randn(g, h, cfg.in_channels, *cfg.patch_size, fan_in=cfg.in_channels * 4)
+    sd["img_in.proj.bias"] = torch.zeros(h)
+    for key in ("time_in", "guidance_in", "txt_in.t_embedder"):
+        lin(f"{key}.mlp.0", 256, h)
+        lin(f"{key}.mlp.2", h, h)
+    lin("vector_in.in_layer", cfg.text_states_dim_2, h)
+    lin("vector_in.out_layer", h, h)
+    lin("txt_in.input_embedder", cfg.text_states_dim, h)
+    lin("txt_in.c_embedder.linear_1", cfg.text_states_dim, h)
+    lin("txt_in.c_embedder.linear_2", h, h)
+    for i in range(cfg.refiner_depth):
+        b = f"txt_in.individual_token_refiner.blocks.{i}"
+        ln(f"{b}.norm1", h)
+        ln(f"{b}.norm2", h)
+        lin(f"{b}.self_attn_qkv", h, 3 * h)
+        lin(f"{b}.self_attn_proj", h, h)
+        lin(f"{b}.mlp.fc1", h, 4 * h)
+        lin(f"{b}.mlp.fc2", 4 * h, h)
+        lin(f"{b}.adaLN_modulation.1", h, 2 * h)
+    for i in range(cfg.mm_double_blocks_depth):
+        for s in ("img", "txt"):
+            b = f"double_blocks.{i}.{s}"
+            lin(f"{b}_mod.linear", h, 6 * h)
+            lin(f"{b}_attn_qkv", h, 3 * h)
+            lin(f"{b}_attn_proj", h, h)
+            lin(f"{b}_mlp.fc1", h, mlp)
+            lin(f"{b}_mlp.fc2", mlp, h)
+            sd[f"{b}_attn_q_norm.weight"], sd[f"{b}_attn_k_norm.weight"] = torch.ones(cfg.head_dim), torch.ones(
+                cfg.head_dim)
+    for i in range(cfg.mm_single_blocks_depth):
+        b = f"single_blocks.{i}"
+        lin(f"{b}.modulation.linear", h, 3 * h)
+        lin(f"{b}.linear1", h, 3 * h + mlp)
+        lin(f"{b}.linear2", h + mlp, h)
+        sd[f"{b}.q_norm.weight"], sd[f"{b}.k_norm.weight"] = torch.ones(cfg.head_dim), torch.ones(cfg.head_dim)
+    lin("final_layer.adaLN_modulation.1", h, 2 * h)
+    lin("final_layer.linear", h, cfg.out_channels * 4)
+    return sd
+
+
+def reference_hyvideo_vae_sd(cfg, g) -> dict:
+    """An AutoencoderKLCausal3D state dict in hyvideo_orig's names."""
+    sd = {}
+
+    def conv(key, co, ci, k):
+        sd[f"{key}.weight"] = _randn(g, co, ci, k, k, k, fan_in=ci * k**3)
+        sd[f"{key}.bias"] = 0.01 * torch.randn(co, generator=g)
+
+    def gn(key, c):
+        sd[f"{key}.weight"], sd[f"{key}.bias"] = 1 + 0.1 * torch.randn(c, generator=g), torch.zeros(c)
+
+    def res(prefix, ci, co):
+        gn(f"{prefix}.norm1", ci)
+        conv(f"{prefix}.conv1.conv", co, ci, 3)
+        gn(f"{prefix}.norm2", co)
+        conv(f"{prefix}.conv2.conv", co, co, 3)
+        if ci != co:
+            conv(f"{prefix}.conv_shortcut.conv", co, ci, 1)
+
+    def mid(prefix, c):
+        res(f"{prefix}.resnets.0", c, c)
+        gn(f"{prefix}.attentions.0.group_norm", c)
+        for nm in ("to_q", "to_k", "to_v", "to_out.0"):
+            sd[f"{prefix}.attentions.0.{nm}.weight"] = _randn(g, c, c)
+            sd[f"{prefix}.attentions.0.{nm}.bias"] = torch.zeros(c)
+        res(f"{prefix}.resnets.1", c, c)
+
+    bo, z = cfg.block_out_channels, cfg.latent_channels
+    conv("encoder.conv_in.conv", bo[0], cfg.in_channels, 3)
+    ch = bo[0]
+    for i in range(cfg.num_blocks):
+        for j in range(cfg.layers_per_block):
+            res(f"encoder.down_blocks.{i}.resnets.{j}", ch if j == 0 else bo[i], bo[i])
+        if cfg.spatial_ds(i) or cfg.temporal_ds(i):
+            conv(f"encoder.down_blocks.{i}.downsamplers.0.conv.conv", bo[i], bo[i], 3)
+        ch = bo[i]
+    mid("encoder.mid_block", bo[-1])
+    gn("encoder.conv_norm_out", bo[-1])
+    conv("encoder.conv_out.conv", 2 * z, bo[-1], 3)
+    rev = tuple(reversed(bo))
+    conv("decoder.conv_in.conv", rev[0], z, 3)
+    mid("decoder.mid_block", rev[0])
+    ch = rev[0]
+    for i in range(cfg.num_blocks):
+        for j in range(cfg.layers_per_block + 1):
+            res(f"decoder.up_blocks.{i}.resnets.{j}", ch if j == 0 else rev[i], rev[i])
+        if cfg.spatial_ds(i) or cfg.temporal_ds(i):
+            conv(f"decoder.up_blocks.{i}.upsamplers.0.conv.conv", rev[i], rev[i], 3)
+        ch = rev[i]
+    gn("decoder.conv_norm_out", rev[-1])
+    conv("decoder.conv_out.conv", cfg.out_channels, rev[-1], 3)
+    conv("quant_conv", 2 * z, 2 * z, 1)
+    conv("post_quant_conv", z, z, 1)
+    return sd
+
+
+# the tiny HunyuanVideo checkpoint: the JAX package's test widths (head_dim
+# 64, as the card's kernels take it), a LLaMA and a CLIP text tower of its
+# text widths, a Llava's vision tower for I2V (grid 2: 4 image tokens)
+TINY_HY_DIT = dict(hidden_size=64, heads_num=1, mm_double_blocks_depth=1, mm_single_blocks_depth=1,
+                   rope_dim_list=(16, 24, 24), text_states_dim=32, text_states_dim_2=24, text_len=12)
+TINY_LLAMA = dict(dim=32, ffn_dim=48, num_layers=3, num_heads=4, num_kv_heads=2)
+TINY_CLIP_TEXT = dict(dim=24, ffn_dim=48, num_layers=2, num_heads=4, max_positions=77)
+TINY_LLAVA_VISION = dict(image_size=28, patch_size=14, hidden_size=32, intermediate_size=64, num_hidden_layers=2,
+                         num_attention_heads=4, hidden_act="quick_gelu")
+TINY_HY_VAE = dict(block_out_channels=(8, 16, 16, 16), layers_per_block=1, latent_channels=16, norm_num_groups=4)
+
+
+def write_tiny_hyvideo_checkpoint(path: str, prompt: str, i2v: bool = False) -> None:
+    """A HunyuanVideo checkpoint dir as the CLIs' --model_dir reads it,
+    written with the port's safetensors writer: transformer/ (TINY_HY_DIT;
+    with `i2v` in_channels 33), text_encoder/ (a LLaMA in HF's names, or
+    with `i2v` a Llava in HF's new-style names, its vision tower
+    TINY_LLAVA_VISION), text_encoder_2/ (a CLIP text tower), vae/
+    (TINY_HY_VAE), each with its config.json; the two tokenizer.json files
+    (bpe_tokenizer_files) cover `prompt` and the video template."""
+    from sparse_videogen_tpu_torch.io.encoders import PROMPT_TEMPLATE_ENCODE_VIDEO, clip_config_from_hf
+    from sparse_videogen_tpu_torch.io.safetensors import save_file
+    from sparse_videogen_tpu_torch.models.common.clip import CLIPTextConfig
+    from sparse_videogen_tpu_torch.models.common.llama import LlamaConfig
+    from sparse_videogen_tpu_torch.models.hyvideo.model import HyVideoConfig
+    from sparse_videogen_tpu_torch.models.hyvideo.vae import HyVideoVAEConfig
+
+    g = torch.Generator().manual_seed(7)
+    texts = [PROMPT_TEMPLATE_ENCODE_VIDEO.format(prompt), "<image>\n" + prompt]
+    llama_ids = bpe_tokenizer_files(os.path.join(path, "text_encoder"), texts, "llama")
+    clip_ids = bpe_tokenizer_files(os.path.join(path, "text_encoder_2"), [prompt], "clip")
+    llama = dict(TINY_LLAMA, vocab_size=max(llama_ids.values()) + 1)
+    clip = dict(TINY_CLIP_TEXT, vocab_size=max(clip_ids.values()) + 1)
+    dit = dict(TINY_HY_DIT, in_channels=33 if i2v else 16)
+    lcfg = LlamaConfig(**llama)
+    if i2v:
+        vcfg = clip_config_from_hf({"vision_config": TINY_LLAVA_VISION})
+        text_sd = {f"model.vision_tower.{k}": v for k, v in reference_clip_vision_sd(vcfg, g).items()}
+        text_sd.update({f"model.language_model.{k}": v for k, v in reference_llama_sd(lcfg, g, prefix="").items()})
+        for j, (di, do) in enumerate(((vcfg.dim, lcfg.dim), (lcfg.dim, lcfg.dim)), 1):
+            text_sd[f"model.multi_modal_projector.linear_{j}.weight"] = _randn(g, do, di)
+            text_sd[f"model.multi_modal_projector.linear_{j}.bias"] = torch.zeros(do)
+        text_cfg = {"text_config": {"vocab_size": lcfg.vocab_size, "hidden_size": lcfg.dim,
+                                    "intermediate_size": lcfg.ffn_dim, "num_hidden_layers": lcfg.num_layers,
+                                    "num_attention_heads": lcfg.num_heads,
+                                    "num_key_value_heads": lcfg.num_kv_heads},
+                    "vision_config": TINY_LLAVA_VISION}
+    else:
+        text_sd, text_cfg = reference_llama_sd(lcfg, g), llama
+    vae = dict(TINY_HY_VAE, block_out_channels=list(TINY_HY_VAE["block_out_channels"]))
+    subs = [("transformer", reference_hyvideo_dit_sd(HyVideoConfig(**dit), g), dit),
+            ("text_encoder", text_sd, text_cfg),
+            ("text_encoder_2", reference_clip_text_sd(CLIPTextConfig(**clip), g), clip),
+            ("vae", reference_hyvideo_vae_sd(HyVideoVAEConfig(**TINY_HY_VAE), g), vae)]
+    for sub, sd, cfg in subs:
+        os.makedirs(os.path.join(path, sub), exist_ok=True)
+        save_file(sd, os.path.join(path, sub, "model.safetensors"))
+        with open(os.path.join(path, sub, "config.json"), "w") as f:
+            json.dump(cfg, f)
+
+
 def _timed(stages: dict, name: str, fn):
     """fn() between two CUDA events, the peak device memory reset before it;
     records (ms, peak GiB) under `name` and returns fn's result."""
@@ -3014,6 +3340,295 @@ def phase_i2v(dev, umt5_s: float):
     torch.cuda.empty_cache()
 
 
+def _hy_steps(model, run, text, mask, pooled, steps, **extra):
+    """HyVideoPipeline.generate_latents of `run` (a preset; `extra`: I2V's
+    image_latents) with per-step CUDA events; returns (latents, [s a step]:
+    the first includes the set-up)."""
+    from sparse_videogen_tpu_torch.pipelines import HyVideoPipeline
+
+    events = [torch.cuda.Event(enable_timing=True)]
+    events[0].record()
+
+    def on_step(i, lat):
+        events.append(torch.cuda.Event(enable_timing=True))
+        events[-1].record()
+
+    lat = HyVideoPipeline(model).generate_latents(text, mask, pooled, prompt_length=int(mask[0].sum()),
+                                                  num_inference_steps=steps, seed=0, callback=on_step,
+                                                  **run.generate_kwargs(), **extra)
+    torch.cuda.synchronize()
+    return lat, [events[i].elapsed_time(events[i + 1]) / 1e3 for i in range(steps)]
+
+
+def _hy_launches(phase, run, cfg, steps):
+    """expected_launches of `steps` Euler steps of `run` at cfg's depth (K1's
+    hyvideo kind in dense and SVG1 layers alike)."""
+    from sparse_videogen_tpu_torch.config import WarmupSchedule
+    from sparse_videogen_tpu_torch.schedulers import FlowMatchEuler
+
+    timesteps = FlowMatchEuler(steps, shift=run.flow_shift).timesteps
+    warmup = WarmupSchedule.from_fractions(run.first_layers_fp, run.first_times_fp, cfg.num_layers, timesteps)
+    return expected_launches(run.pattern, cfg.num_layers, warmup, timesteps, ("hyvideo", "hyvideo"))
+
+
+def _check_launches(phase, want, want_kinds):
+    from sparse_videogen_tpu_torch import _kernels
+
+    launches, kinds, plain = dict(_kernels.LAUNCHES), dict(_kernels.KIND_LAUNCHES), dict(_kernels.PLAIN_CALLS)
+    log(phase, f"launches {launches} (expected {want}), by mask kind {kinds} (expected {dict(want_kinds)}), "
+               f"plain-version calls {plain}")
+    if launches != want or collections.Counter(kinds) != want_kinds or any(plain.values()):
+        raise AssertionError(f"{phase}: the kernels did not launch as the configuration implies, or a plain version "
+                             "ran")
+    return launches
+
+
+def phase_hy_p2v(dev):
+    """HunyuanVideo T2V from a prompt to a video at full width: the port's
+    tokenizer.json reader on LLaMA-3-style and CLIP-style files this script
+    writes (bpe_tokenizer_files; the template's special tokens must come
+    out as their ids); LLAMA3_8B (30 of its 32 layers: hidden_state_skip_layer
+    2; random bf16 weights) and CLIP_L_TEXT (bf16) through
+    io/encoders.HyVideoTextEncoders on the CLI's default prompt in the video
+    template (crop_start 95 + text_len 256 = 351 tokens; CLIP at 77); the
+    DiT (HYVIDEO_T2's width, HY_DOUBLE + HY_SINGLE blocks, random bf16) for
+    HY_P2V_STEPS SVG1 steps of presets.HY_720P_SVG at 720x1280x129; the
+    full-width VAE (HyVideoVAEConfig(): 128/256/512/512, f32, random)
+    through the CLI's default decoder (--vae_tiling auto: 28 tiles of 32 x
+    32 latents, overlap 8) on the first HY_DECODE_FRAMES latent frames, with
+    cuDNN TF32 on as the CLI leaves it; export_video to a .y4m, read back.
+    The kernel counters are set to 0 before the tokenizer and read after the
+    writer: K1 and K2 launch as expected_launches says, no plain version
+    runs. Each stage timed with CUDA events beside its peak memory; the
+    encoders' warm times alone. Returns the encoders (LLaMA, CLIP and their
+    tokenizers) for phase hy_i2v's Llava, which shares the LLaMA."""
+    import logging
+
+    from sparse_videogen_tpu_torch import _kernels
+    from sparse_videogen_tpu_torch.cli._common import make_vae_decoder
+    from sparse_videogen_tpu_torch.cli.hyvideo_t2v import build_parser
+    from sparse_videogen_tpu_torch.io.encoders import (CLIP_TEXT_LEN, CROP_START_VIDEO, PROMPT_TEMPLATE_ENCODE_VIDEO,
+                                                       HyVideoTextEncoders)
+    from sparse_videogen_tpu_torch.io.native import read_y4m
+    from sparse_videogen_tpu_torch.io.tokenizer import HFTokenizerLite
+    from sparse_videogen_tpu_torch.models.common.clip import CLIP_L_TEXT, CLIPTextModel
+    from sparse_videogen_tpu_torch.models.common.llama import LLAMA3_8B, LlamaModel
+    from sparse_videogen_tpu_torch.models.hyvideo.model import HyVideoModel
+    from sparse_videogen_tpu_torch.models.hyvideo.vae import HyVideoVAE, HyVideoVAEConfig
+    from sparse_videogen_tpu_torch.pipelines.wan import export_video
+    from sparse_videogen_tpu_torch.presets import HY_720P_SVG
+
+    run, stages = HY_720P_SVG, {}
+    cfg = dataclasses.replace(run.model, mm_double_blocks_depth=HY_DOUBLE, mm_single_blocks_depth=HY_SINGLE)
+    args = build_parser().parse_args([])  # the CLI's defaults: prompt, VAE tiling auto, tile 32, overlap 8
+    want, want_kinds = _hy_launches("hy_p2v", run, cfg, HY_P2V_STEPS)
+    g = torch.Generator(device=dev).manual_seed(0)
+    _kernels.reset_counts()
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        t0 = time.perf_counter()
+        template = PROMPT_TEMPLATE_ENCODE_VIDEO.format(args.prompt)
+        lids = bpe_tokenizer_files(os.path.join(tmp, "text_encoder"), [template], "llama")
+        cids = bpe_tokenizer_files(os.path.join(tmp, "text_encoder_2"), [args.prompt], "clip")
+        ltok = HFTokenizerLite.from_dir(os.path.join(tmp, "text_encoder"))
+        ctok = HFTokenizerLite.from_dir(os.path.join(tmp, "text_encoder_2"))
+        ids, clip_ids = ltok.encode(template), ctok.encode(args.prompt)
+        log("hy_p2v", f"tokenizers: LLaMA-3-style {len(ltok.model.vocab)} + {len(lids)} special tokens, the template "
+                      f"{len(ids)} ids; CLIP-style {len(ctok.model.vocab)} tokens, the prompt {len(clip_ids)} ids; "
+                      f"{time.perf_counter() - t0:.3f} s on the host (files written and read)")
+        specials = [lids[t] for t in ("<|begin_of_text|>", "<|start_header_id|>")]
+        if ids[:2] != specials or ids.count(lids["<|eot_id|>"]) != 2 or ids.count(lids["<|end_header_id|>"]) != 2 \
+                or clip_ids[0] != cids["<|startoftext|>"] or clip_ids[-1] != cids["<|endoftext|>"]:
+            raise AssertionError("tokenizers: the template's or CLIP's special tokens did not come out as their ids")
+        llama = _timed(stages, "LLaMA-3-8B set-up (30 of 32 layers, bf16)", lambda: LlamaModel(
+            LLAMA3_8B, n_layers=LLAMA3_8B.num_layers - 2, device=dev).init_random(g))
+        clip = _timed(stages, "CLIP-L text set-up (bf16)", lambda: CLIPTextModel(
+            CLIP_L_TEXT, dtype=torch.bfloat16, device=dev).init_random(g))
+        enc = HyVideoTextEncoders(llama, ltok, clip, ctok, text_len=cfg.text_len)
+        text, mask, pooled = _timed(stages, "text encoders (tokenizers, LLaMA, CLIP; cold)", lambda: enc([args.prompt]))
+        n_tok = CROP_START_VIDEO + cfg.text_len
+        l_ids, l_mask = ltok([template], seq_len=n_tok)
+        c_ids, c_mask = ctok([args.prompt], seq_len=CLIP_TEXT_LEN)
+        _timed(stages, f"LLaMA-3-8B encode {n_tok} tokens (warm)", lambda: llama(l_ids, l_mask))
+        _timed(stages, f"CLIP-L text encode {CLIP_TEXT_LEN} tokens (warm)", lambda: clip(c_ids, c_mask))
+        live = int(mask[0].sum())
+        n_llama = sum(p.numel() for p in llama.parameters())
+        log("hy_p2v", f"LLaMA-3-8B {n_llama / 1e9:.3f} B params bf16 ({n_llama * 2 / 2**30:.2f} GiB): states "
+                      f"{tuple(text.shape)}, prompt {live} of {cfg.text_len} after the crop, finite "
+                      f"{bool(torch.isfinite(text).all())}, std {text[0, :live].float().std().item():.4f}; pooled "
+                      f"{tuple(pooled.shape)}")
+        if tuple(text.shape) != (1, cfg.text_len, cfg.text_states_dim) or not torch.isfinite(text).all() or \
+                not (text[0, live:] == 0).all() or not 0 < live < cfg.text_len or \
+                tuple(pooled.shape) != (1, cfg.text_states_dim_2) or not torch.isfinite(pooled).all():
+            raise AssertionError("text encoders: states or pooled of the wrong shape, not finite, or not zero past "
+                                 "the prompt")
+
+        model = _timed(stages, "DiT set-up", lambda: HyVideoModel(cfg, dtype=torch.bfloat16, device=dev).init_random(g))
+        lat, steps_s = _timed(stages, f"DiT {HY_P2V_STEPS} steps SVG1",
+                              lambda: _hy_steps(model, run, text, mask, pooled, HY_P2V_STEPS))
+        del model
+        vae = _timed(stages, "VAE set-up (full width, f32)", lambda: HyVideoVAE(HyVideoVAEConfig(), device=dev)
+                     .init_random(g))
+        decode = make_vae_decoder(args, vae, logging.getLogger("chip_smoke"))
+        torch.backends.cudnn.allow_tf32 = True  # the CLI leaves torch's default on
+        try:
+            video = _timed(stages, f"VAE decode {HY_DECODE_FRAMES} of {lat.shape[2]} latent frames (CLI default: "
+                                   "tiled, TF32)", lambda: decode(lat[:, :, :HY_DECODE_FRAMES]))
+        finally:
+            torch.backends.cudnn.allow_tf32 = False
+        path = os.path.join(tmp, "hy_p2v.y4m")
+        t0 = time.perf_counter()
+        export_video(video, path, fps=24)
+        frames, fps = read_y4m(path)
+        export_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches = _check_launches("hy_p2v", want, want_kinds)
+    for name, (ms, gib) in stages.items():
+        log("hy_p2v", f"{name}: {ms:.1f} ms, peak {gib:.2f} GiB")
+    n_frames = 1 + 4 * (HY_DECODE_FRAMES - 1)
+    log("hy_p2v", f"SVG1 s a step {[round(x, 4) for x in steps_s]} (the first includes the set-up); export + read back "
+                  f"{export_s:.2f} s on the host; frames {frames.shape} at {fps} fps, mean {frames.mean():.2f}, std "
+                  f"{frames.std():.2f}")
+    if frames.shape != (n_frames, run.height, run.width, 3) or frames.std() == 0 or not torch.isfinite(video).all():
+        raise AssertionError(f"prompt -> video: frames {frames.shape}, std {frames.std()}")
+    del vae, video, lat
+    torch.cuda.empty_cache()
+    return {"llama": llama, "clip": clip, "ltok": ltok, "ctok": ctok, "launches": launches}
+
+
+def phase_hy_i2v(dev, enc):
+    """HunyuanVideo I2V from an image to a video at full width:
+    examples/1/image.jpg read by io/image.py and resized to 720x1280 by
+    models/common/resize.py (cubic, the CLI's defaults); the full-width VAE
+    encoder on that one frame (f32, random); Llava at full width (CLIP
+    ViT-L/14-336, 24 layers, f32; the projector; phase hy_p2v's LLaMA-3-8B,
+    shared) through io/encoders.LlavaImageTextEncoder with
+    LLAVA_INTERLEAVE (144 image tokens spliced into the 256 text
+    positions); the I2V DiT (HYVIDEO_T2 with in_channels 33, HY_DOUBLE +
+    HY_SINGLE blocks) for HY_I2V_STEPS dense steps of
+    presets["hyvideo-i2v-720p-dense"] with the latent_concat condition. The
+    counters are set to 0 before the image is read and read after the
+    steps: K1 and K2 as expected_launches says, no plain version. Each stage
+    timed with CUDA events beside its peak memory."""
+    from sparse_videogen_tpu_torch import _kernels
+    from sparse_videogen_tpu_torch.cli.hyvideo_i2v import build_parser
+    from sparse_videogen_tpu_torch.io.encoders import CLIP_VIT_L_14_336, LlavaImageTextEncoder
+    from sparse_videogen_tpu_torch.io.image import load_image
+    from sparse_videogen_tpu_torch.models.common.llama import LLAMA3_8B
+    from sparse_videogen_tpu_torch.models.common.llava import LlavaModel
+    from sparse_videogen_tpu_torch.models.common.resize import resize_cubic
+    from sparse_videogen_tpu_torch.models.hyvideo.model import HyVideoModel
+    from sparse_videogen_tpu_torch.models.hyvideo.vae import HyVideoVAE, HyVideoVAEConfig
+    from sparse_videogen_tpu_torch.presets import HY_PRESETS
+
+    run, stages = HY_PRESETS["hyvideo-i2v-720p-dense"], {}
+    cfg = dataclasses.replace(run.model, mm_double_blocks_depth=HY_DOUBLE, mm_single_blocks_depth=HY_SINGLE)
+    args = build_parser().parse_args([])  # the CLI's defaults: prompt, 720x1280, dense
+    want, want_kinds = _hy_launches("hy_i2v", run, cfg, HY_I2V_STEPS)
+    g = torch.Generator(device=dev).manual_seed(3)
+    _kernels.reset_counts()
+    t0 = time.perf_counter()
+    img = load_image(os.path.join(ROOT, "examples", "1", "image.jpg"))
+    read_s = time.perf_counter() - t0
+    img_px = _timed(stages, "cubic resize to 720x1280", lambda: resize_cubic(img.to(dev), args.height, args.width))
+    log("hy_i2v", f"examples/1/image.jpg read by io/image.py: {tuple(img.shape)} in {read_s:.3f} s on the host, "
+                  f"resized to {tuple(img_px.shape)}")
+    vae = _timed(stages, "VAE set-up (full width, f32)", lambda: HyVideoVAE(HyVideoVAEConfig(), device=dev)
+                 .init_random(g))
+    img_lat = _timed(stages, "VAE encode 1 frame 720x1280 (f32)", lambda: vae.encode(img_px[:, :, None]))
+    del vae
+    if tuple(img_lat.shape) != (1, 16, 1, args.height // 8, args.width // 8) or not torch.isfinite(img_lat).all():
+        raise AssertionError(f"the VAE encode: latents {tuple(img_lat.shape)} or not finite")
+    vcfg = CLIP_VIT_L_14_336
+    llava = _timed(stages, "Llava set-up (vision tower f32, projector; LLaMA shared)", lambda: LlavaModel(
+        LLAMA3_8B, vcfg, llama=enc["llama"], device=dev).init_random(g))
+    lenc = LlavaImageTextEncoder(llava, enc["ltok"], enc["clip"], enc["ctok"], text_len=cfg.text_len,
+                                 interleave=LLAVA_INTERLEAVE)
+    text, mask, pooled = _timed(stages, f"Llava encode ({vcfg.grid ** 2} patches / {LLAVA_INTERLEAVE} = "
+                                        f"{lenc.n_image_tokens} image tokens) + CLIP-L",
+                                lambda: lenc([args.prompt], img_px))
+    live = int(mask[0].sum())
+    log("hy_i2v", f"Llava: vision {sum(p.numel() for p in llava.vision.parameters()) / 1e6:.1f} M params f32, states "
+                  f"{tuple(text.shape)}, {live} of {cfg.text_len} positions live ({lenc.n_image_tokens} of them the "
+                  f"image), finite {bool(torch.isfinite(text).all())}")
+    if tuple(text.shape) != (1, cfg.text_len, cfg.text_states_dim) or not torch.isfinite(text).all() or \
+            not (text[0, live:] == 0).all() or live <= lenc.n_image_tokens or not torch.isfinite(pooled).all():
+        raise AssertionError("Llava: states of the wrong shape, not finite, not zero past the prompt, or no text")
+    del llava, lenc
+    enc.clear()
+    torch.cuda.empty_cache()
+    model = _timed(stages, "I2V DiT set-up (in_channels 33)", lambda: HyVideoModel(cfg, dtype=torch.bfloat16,
+                                                                                  device=dev).init_random(g))
+    lat, steps_s = _timed(stages, f"DiT {HY_I2V_STEPS} steps dense",
+                          lambda: _hy_steps(model, run, text, mask, pooled, HY_I2V_STEPS, image_latents=img_lat))
+    torch.cuda.synchronize()
+    launches = _check_launches("hy_i2v", want, want_kinds)
+    for name, (ms, gib) in stages.items():
+        log("hy_i2v", f"{name}: {ms:.1f} ms, peak {gib:.2f} GiB")
+    log("hy_i2v", f"dense s a step {[round(x, 4) for x in steps_s]} (the first includes the set-up); latents "
+                  f"{tuple(lat.shape)} finite {bool(torch.isfinite(lat).all())}")
+    if tuple(lat.shape) != (1, 16, 33, args.height // 8, args.width // 8) or not torch.isfinite(lat).all():
+        raise AssertionError(f"image -> video: latents {tuple(lat.shape)} or not finite")
+    del model, lat
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_small_hy_reference(dev):
+    """A small LLaMA (GQA, right padding), CLIP text tower, Llava and
+    HunyuanVideo VAE (decode whole and tiled, encode) on the card against
+    the same modules on the CPU, f32, same weights and inputs (TF32 off):
+    the text modules within TEXT_TOL, the VAE within VAE_TOL."""
+    import argparse
+    import logging
+
+    from sparse_videogen_tpu_torch.cli._common import make_vae_decoder
+    from sparse_videogen_tpu_torch.models.common.clip import CLIPTextConfig, CLIPTextModel, CLIPVisionConfig
+    from sparse_videogen_tpu_torch.models.common.llama import LlamaConfig, LlamaModel
+    from sparse_videogen_tpu_torch.models.common.llava import LlavaModel, llava_encode
+    from sparse_videogen_tpu_torch.models.hyvideo.vae import HyVideoVAE, HyVideoVAEConfig
+
+    g = torch.Generator().manual_seed(8)
+    cpu = torch.device("cpu")
+
+    def both(name, build, run, tol):
+        cpu_m = build(cpu).init_random(g)
+        gpu_m = build(dev)
+        gpu_m.load_state_dict(cpu_m.state_dict())
+        a, b = run(gpu_m, dev), run(cpu_m, cpu)
+        rel = ((a.cpu().float() - b.float()).norm() / b.float().norm()).item()
+        log("small", f"{name} card vs CPU, f32: rel L2 {rel:.3e} (tol {tol})")
+        if not rel <= tol:
+            raise AssertionError(f"{name} on the card disagrees with the CPU: {rel}")
+
+    lcfg = LlamaConfig(vocab_size=300, dim=128, ffn_dim=256, num_layers=3, num_heads=4, num_kv_heads=2)
+    ids = torch.randint(0, 300, (2, 40), generator=g)
+    mask = (torch.arange(40)[None] < torch.tensor([[25], [40]])).int()
+    both("LLaMA (2 of 3 layers, GQA 4 on 2, right padding)",
+         lambda d: LlamaModel(lcfg, n_layers=2, dtype=torch.float32, device=d),
+         lambda m, d: m(ids.to(d), mask.to(d)), TEXT_TOL)
+    ccfg = CLIPTextConfig(vocab_size=300, dim=64, ffn_dim=128, num_layers=2, num_heads=4)
+    cids = torch.randint(0, 299, (2, 77), generator=g)
+    cids[:, 10:] = 299
+    both("CLIP text tower (2 layers; pooled)", lambda d: CLIPTextModel(ccfg, device=d),
+         lambda m, d: m(cids.to(d), None)[1], TEXT_TOL)
+    vcfg = CLIPVisionConfig(image_size=56, patch_size=14, dim=64, ffn_dim=128, num_layers=2, num_heads=4,
+                            hidden_act="quick_gelu")
+    px = torch.randn(1, 3, 56, 56, generator=g)
+    both("Llava (vision, projector, LLaMA; 16 patches / interleave 2 spliced at 3)",
+         lambda d: LlavaModel(lcfg, vcfg, n_layers=2, dtype=torch.float32, device=d),
+         lambda m, d: llava_encode(m, ids[:1].to(d), mask[:1].to(d), px.to(d), 3, interleave=2)[0], TEXT_TOL)
+    hcfg = HyVideoVAEConfig(block_out_channels=(16, 32, 32, 32), layers_per_block=1, norm_num_groups=8)
+    z = torch.randn(1, 16, 3, 8, 12, generator=g)
+    both("HunyuanVideo VAE (dims 16/32) decode, whole", lambda d: HyVideoVAE(hcfg, device=d),
+         lambda m, d: m.decode(z.to(d)), VAE_TOL)
+    ns = argparse.Namespace(vae_tiling="on", vae_tile=4, vae_tile_overlap=2, vae_stream_chunk=0)
+    both("HunyuanVideo VAE decode, tiled (4 x 4 latents, overlap 2)", lambda d: HyVideoVAE(hcfg, device=d),
+         lambda m, d: make_vae_decoder(ns, m, logging.getLogger("chip_smoke"))(z.to(d)), VAE_TOL)
+    video = torch.rand(1, 3, 9, 64, 96, generator=g) * 2 - 1
+    both("HunyuanVideo VAE encode (9 frames)", lambda d: HyVideoVAE(hcfg, device=d),
+         lambda m, d: m.encode(video.to(d)), VAE_TOL)
+
+
 def phase_small_i2v_reference(dev):
     """A small I2V Wan (the CLI's smoke model, bf16) with clip_fea, a small
     CLIP vision tower and a small Wan VAE encoder (f32) on the card against
@@ -3144,25 +3759,32 @@ def _wait_clis(procs, kill=False):
 def phase_cli_start():
     """The CLIs as a user runs them, all started together: --smoke for each
     pattern (latents to an .npz) of Wan T2V and I2V (SVG, dense, SAP, and SAP
-    with --sap_block_mode tile), HunyuanVideo (SVG, dense, SAP in both
-    modes) and CogVideoX (SVG, dense); the Wan T2V smoke with a video
-    name (its tiny random VAE, to a .y4m); the Wan T2V CLI on a checkpoint
-    dir (write_tiny_checkpoint) from the prompt to a .y4m; and the Wan I2V
-    CLI on an I2V checkpoint dir (write_tiny_checkpoint(i2v=True): the VAE's
-    encoder, a CLIP tower in HF's names) from examples/1/image.jpg and the
-    prompt to a .y4m (480p fits the image to 480x832; 5 frames, 2 steps).
+    with --sap_block_mode tile), HunyuanVideo T2V (SVG, dense, SAP in both
+    modes) and I2V (sparse, dense) and CogVideoX (SVG, dense); the Wan T2V
+    and HunyuanVideo T2V smokes with a video name (their tiny random VAEs,
+    to a .y4m); the Wan T2V CLI on a checkpoint dir (write_tiny_checkpoint)
+    from the prompt to a .y4m; the Wan I2V CLI on an I2V checkpoint dir
+    (write_tiny_checkpoint(i2v=True): the VAE's encoder, a CLIP tower in HF's
+    names) from examples/1/image.jpg and the prompt to a .y4m (480p fits the
+    image to 480x832; 5 frames, 2 steps); the HunyuanVideo T2V CLI on
+    write_tiny_hyvideo_checkpoint's dir (tokenizer.json files written by
+    hand) and the I2V CLI on its Llava I2V dir with examples/1/image.jpg,
+    each at 64x64x5, 2 steps, to a .y4m.
     Returns finish(kill=False): it waits for the runs (or stops them) and
     checks their outputs; the caller runs other work meanwhile."""
     from sparse_videogen_tpu_torch.io.native import read_y4m
 
     prompt = "a cat on the grass."
     smokes = [(cli, p) for cli in ("wan_t2v", "wan_i2v", "hyvideo_t2v") for p in ("SVG", "dense", "SAP", "SAP-tile")]
-    smokes += [("cog_i2v", p) for p in ("SVG", "dense")]
+    smokes += [("cog_i2v", p) for p in ("SVG", "dense")] + [("hyvideo_i2v", p) for p in ("sparse", "dense")]
     pattern_args = lambda p: ["--pattern", "SAP", "--sap_block_mode", "tile"] if p == "SAP-tile" else ["--pattern", p]
     tmpdir = tempfile.TemporaryDirectory(dir=ROOT)
     tmp = tmpdir.name
     write_tiny_checkpoint(os.path.join(tmp, "ckpt"), prompt)
     write_tiny_checkpoint(os.path.join(tmp, "ckpt_i2v"), prompt, i2v=True)
+    write_tiny_hyvideo_checkpoint(os.path.join(tmp, "hy_ckpt"), prompt)
+    write_tiny_hyvideo_checkpoint(os.path.join(tmp, "hy_ckpt_i2v"), prompt, i2v=True)
+    hy_size = ["--height", "64", "--width", "64", "--num_frames", "5", "--num_inference_steps", "2"]
     out = lambda label, ext: os.path.join(tmp, f"{label}.{ext}")
     runs = [(f"{cli}_{p}", [f"sparse_videogen_tpu_torch.cli.{cli}", "--smoke", *pattern_args(p), "--device", "cuda",
                             "--output_path" if cli == "cog_i2v" else "--output_file", out(f"{cli}_{p}", "npz")])
@@ -3176,7 +3798,15 @@ def phase_cli_start():
                   "i2v_ckpt", ["wan_i2v", "--model_dir", os.path.join(tmp, "ckpt_i2v"), "--image_path",
                                os.path.join(ROOT, "examples", "1", "image.jpg"), "--prompt", prompt,
                                "--resolution", "480p", "--num_frames", "5", "--num_inference_steps", "2"],
-                  (5, 480, 832, 3))}
+                  (5, 480, 832, 3)),
+              "hyvideo_t2v --smoke, a video name": ("hy_t2v_smoke", ["hyvideo_t2v", "--smoke"], (9, 96, 128, 3)),
+              "hyvideo_t2v --model_dir (tiny synthetic checkpoint, tokenizer.json files by hand)": (
+                  "hy_t2v_ckpt", ["hyvideo_t2v", "--model_dir", os.path.join(tmp, "hy_ckpt"), "--prompt", prompt,
+                                  *hy_size], (5, 64, 64, 3)),
+              "hyvideo_i2v --model_dir (tiny synthetic Llava I2V checkpoint) --image_path examples/1/image.jpg": (
+                  "hy_i2v_ckpt", ["hyvideo_i2v", "--model_dir", os.path.join(tmp, "hy_ckpt_i2v"), "--image_path",
+                                  os.path.join(ROOT, "examples", "1", "image.jpg"), "--prompt", prompt, *hy_size],
+                  (5, 64, 64, 3))}
     for label, argv, _ in videos.values():
         runs.append((label, [f"sparse_videogen_tpu_torch.cli.{argv[0]}", *argv[1:], "--device", "cuda",
                              "--output_file", out(label, "y4m")]))
@@ -3260,6 +3890,10 @@ def main():
     done("p2v")
     phase_i2v(dev, umt5_s)
     done("i2v")
+    encoders = phase_hy_p2v(dev)
+    done("hy_p2v")
+    phase_hy_i2v(dev, encoders)
+    done("hy_i2v")
     # the CLI runs (their own processes, mostly start-up on the host) run
     # beside the quality and small-reference phases
     finish_cli = phase_cli_start()
@@ -3271,6 +3905,7 @@ def main():
         phase_small_cog_reference(dev)
         phase_small_text_vae_reference(dev)
         phase_small_i2v_reference(dev)
+        phase_small_hy_reference(dev)
         done("small references")
     except BaseException:
         finish_cli(kill=True)

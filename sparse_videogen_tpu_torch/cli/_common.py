@@ -42,14 +42,19 @@ def add_vae_tiling_flags(p):
 
 
 def make_vae_decoder(args, vae, logger):
-    """latents -> video through `vae` (models/wan/vae.WanVAE), honouring
-    --vae_tiling (auto: tiles when a latent frame exceeds 64x64),
-    --vae_tile, --vae_tile_overlap and --vae_stream_chunk (streamed decode,
-    composes with tiling)."""
+    """latents -> video through `vae` (models/wan/vae.WanVAE or
+    models/hyvideo/vae.HyVideoVAE), honouring --vae_tiling (auto: tiles
+    when a latent frame exceeds 64x64), --vae_tile, --vae_tile_overlap and
+    --vae_stream_chunk (the Wan VAE's streamed decode, composes with tiling;
+    a VAE without one warns and decodes the whole sequence, as the JAX
+    CLIs do)."""
     from sparse_videogen_tpu_torch.models.common.vae_tiling import spatial_tiled_decode
-    from sparse_videogen_tpu_torch.models.wan.vae import SPATIAL
 
     mode, tile, overlap, stream = args.vae_tiling, args.vae_tile, args.vae_tile_overlap, args.vae_stream_chunk
+    if stream and not hasattr(vae, "decode_streamed"):
+        logger.warning(f"--vae_stream_chunk: {type(vae).__name__} has no streamed decode; decoding the whole sequence")
+        stream = 0
+    scale = getattr(vae.cfg, "spatial_compression", 8)
 
     def run(z):
         return vae.decode_streamed(z, chunk=stream) if stream else vae.decode(z)
@@ -59,25 +64,26 @@ def make_vae_decoder(args, vae, logger):
         if mode == "on" or (mode == "auto" and h * w > 64 * 64):
             logger.info(f"VAE decode: spatial tiling (latent {h}x{w}, tile={tile}, overlap={overlap}"
                         + (f", streamed chunk={stream}" if stream else "") + ")")
-            return spatial_tiled_decode(run, z, tile=tile, overlap=overlap, scale=SPATIAL)
+            return spatial_tiled_decode(run, z, tile=tile, overlap=overlap, scale=scale)
         return run(z)
 
     return decode
 
 
-def sap_config(args):
+def sap_config(args, *, pass_zero_step: bool = True):
     """SAPConfig from the SAP flags, as the JAX CLIs build it: tile mode
     (--sap_block_mode tile) takes presets.tile_variant's block sizes, which
-    are also its tile grain; cluster mode keeps SAPConfig's block sizes. The
-    JAX HunyuanVideo CLI drops --zero_step_kmeans_init; here every CLI
-    passes it (ROADMAP.md section 3)."""
+    are also its tile grain; cluster mode keeps SAPConfig's block sizes.
+    With pass_zero_step False, --zero_step_kmeans_init is dropped and stays
+    False, as the JAX HunyuanVideo CLI builds its SAPConfig (the Wan CLIs
+    pass it)."""
     from sparse_videogen_tpu_torch.config import SAPConfig
     from sparse_videogen_tpu_torch.presets import tile_variant
 
     sap = SAPConfig(num_q_centroids=args.num_q_centroids, num_k_centroids=args.num_k_centroids,
                     top_p_kmeans=args.top_p_kmeans, min_kc_ratio=args.min_kc_ratio,
                     kmeans_iter_init=args.kmeans_iter_init, kmeans_iter_step=args.kmeans_iter_step,
-                    zero_step_kmeans_init=args.zero_step_kmeans_init)
+                    zero_step_kmeans_init=pass_zero_step and args.zero_step_kmeans_init)
     return tile_variant(sap) if args.sap_block_mode == "tile" else sap
 
 

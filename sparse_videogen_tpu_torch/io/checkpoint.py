@@ -1,5 +1,6 @@
 """Reference checkpoints -> the port's state_dicts (counterpart of
-sparse_videogen_tpu/io/checkpoint.py, Wan, UMT5 and CLIP vision parts).
+sparse_videogen_tpu/io/checkpoint.py: its Wan, UMT5, CLIP and HunyuanVideo
+parts).
 
   - Wan DiT (T2V and I2V): diffusers WanTransformer3DModel names or the
     wan_orig names -> models/wan/model.WanModel;
@@ -7,7 +8,13 @@ sparse_videogen_tpu/io/checkpoint.py, Wan, UMT5 and CLIP vision parts).
     request the encoder side and conv1 -> models/wan/vae.WanVAE;
   - UMT5: wan_orig T5Encoder names -> models/common/t5.T5Encoder;
   - CLIP ViT vision tower: HF CLIPVisionModel names (vision_model.*) or
-    wan_orig's (visual.*, fused to_qkv) -> models/common/clip.CLIPVisionModel.
+    wan_orig's (visual.*, fused to_qkv) -> models/common/clip.CLIPVisionModel;
+  - HunyuanVideo: the DiT in hyvideo_orig names (fused q|k|v) ->
+    models/hyvideo/model.HyVideoModel; the causal-3D VAE (CausalConv3d's
+    `.conv`, diffusers' attention names) -> models/hyvideo/vae.HyVideoVAE;
+    HF LlamaModel (the last skip layers dropped) -> models/common/llama;
+    HF CLIPTextModel -> models/common/clip.CLIPTextModel; HF Llava in either
+    naming generation -> models/common/llava.LlavaModel.
 
 Torch keeps the checkpoints' layouts, (out, in) linears and (co, ci, k...)
 convolutions, so a conversion renames and reshapes; the JAX package
@@ -234,3 +241,141 @@ def convert_umt5(sd: dict, cfg) -> dict:
             out[f"blocks.{i}.{ours}"] = sd[f"blocks.{i}.{theirs}"]
     return out
 
+
+
+def convert_hyvideo_dit(sd: dict, cfg) -> dict:
+    """HYVideoDiffusionTransformer state dict (hyvideo_orig names: double and
+    single blocks with fused q|k|v, the token refiner txt_in, the embedders)
+    -> HyVideoModel(cfg).state_dict()."""
+    out = {}
+
+    def lin(ours, theirs):
+        for part in ("weight", "bias"):
+            out[f"{ours}.{part}"] = sd[f"{theirs}.{part}"]
+
+    pe = sd["img_in.proj.weight"]  # (hidden, C, pt, ph, pw): a linear over (C, pt, ph, pw) patches
+    out["img_in.weight"], out["img_in.bias"] = pe.reshape(pe.shape[0], -1), sd["img_in.proj.bias"]
+    mlps = {"time_in": ("time_in.mlp.0", "time_in.mlp.2"), "vector_in": ("vector_in.in_layer", "vector_in.out_layer"),
+            "txt_in.t_embedder": ("txt_in.t_embedder.mlp.0", "txt_in.t_embedder.mlp.2"),
+            "txt_in.c_embedder": ("txt_in.c_embedder.linear_1", "txt_in.c_embedder.linear_2")}
+    if "guidance_in.mlp.0.weight" in sd:
+        mlps["guidance_in"] = ("guidance_in.mlp.0", "guidance_in.mlp.2")
+    for ours, (fc1, fc2) in mlps.items():
+        lin(f"{ours}.fc1", fc1)
+        lin(f"{ours}.fc2", fc2)
+    lin("txt_in.input_embedder", "txt_in.input_embedder")
+    for i in range(cfg.refiner_depth):
+        b = f"txt_in.individual_token_refiner.blocks.{i}"
+        for ours, theirs in (("norm1", "norm1"), ("qkv", "self_attn_qkv"), ("proj", "self_attn_proj"),
+                             ("norm2", "norm2"), ("mlp.fc1", "mlp.fc1"), ("mlp.fc2", "mlp.fc2"),
+                             ("adaln", "adaLN_modulation.1")):
+            lin(f"txt_in.blocks.{i}.{ours}", f"{b}.{theirs}")
+    for i in range(cfg.mm_double_blocks_depth):
+        b = f"double_blocks.{i}"
+        for s in ("img", "txt"):
+            for ours, theirs in (("mod", "mod.linear"), ("qkv", "attn_qkv"), ("proj", "attn_proj"),
+                                 ("mlp.fc1", "mlp.fc1"), ("mlp.fc2", "mlp.fc2")):
+                lin(f"{b}.{s}_{ours}", f"{b}.{s}_{theirs}")
+            for nm in ("q", "k"):
+                out[f"{b}.{s}_{nm}_norm"] = sd[f"{b}.{s}_attn_{nm}_norm.weight"]
+    for i in range(cfg.mm_single_blocks_depth):
+        b = f"single_blocks.{i}"
+        for ours, theirs in (("modulation", "modulation.linear"), ("linear1", "linear1"), ("linear2", "linear2")):
+            lin(f"{b}.{ours}", f"{b}.{theirs}")
+        for nm in ("q_norm", "k_norm"):
+            out[f"{b}.{nm}"] = sd[f"{b}.{nm}.weight"]
+    lin("final_adaln", "final_layer.adaLN_modulation.1")
+    lin("final_linear", "final_layer.linear")
+    return out
+
+
+def convert_hyvideo_vae(sd: dict, cfg) -> dict:
+    """AutoencoderKLCausal3D state dict (hyvideo_orig's vae: a CausalConv3d
+    wraps its Conv3d as `.conv`; diffusers' Attention to_q / to_k / to_v /
+    to_out.0 / group_norm) -> HyVideoVAE(cfg).state_dict()."""
+    out = {}
+
+    def put(ours, theirs):
+        for part in ("weight", "bias"):
+            out[f"{ours}.{part}"] = sd[f"{theirs}.{part}"]
+
+    def res(ours, theirs):
+        for nm in ("norm1", "norm2"):
+            put(f"{ours}.{nm}", f"{theirs}.{nm}")
+        for nm in ("conv1", "conv2"):
+            put(f"{ours}.{nm}", f"{theirs}.{nm}.conv")
+        if f"{theirs}.conv_shortcut.conv.weight" in sd:
+            put(f"{ours}.shortcut", f"{theirs}.conv_shortcut.conv")
+
+    for side, blocks, sampler, n_res in (("encoder", "down", "downsamplers", cfg.layers_per_block),
+                                         ("decoder", "up", "upsamplers", cfg.layers_per_block + 1)):
+        put(f"{side}.conv_in", f"{side}.conv_in.conv")
+        put(f"{side}.norm_out", f"{side}.conv_norm_out")
+        put(f"{side}.conv_out", f"{side}.conv_out.conv")
+        mid = f"{side}.mid_block"
+        res(f"{side}.mid.res0", f"{mid}.resnets.0")
+        res(f"{side}.mid.res1", f"{mid}.resnets.1")
+        for ours, theirs in (("norm", "group_norm"), ("q", "to_q"), ("k", "to_k"), ("v", "to_v"), ("o", "to_out.0")):
+            put(f"{side}.mid.attn.{ours}", f"{mid}.attentions.0.{theirs}")
+        resample = "ds" if side == "encoder" else "us"
+        for i in range(cfg.num_blocks):
+            b = f"{side}.{blocks}_blocks.{i}"
+            for j in range(n_res):
+                res(f"{side}.{blocks}.{i}.res.{j}", f"{b}.resnets.{j}")
+            if f"{b}.{sampler}.0.conv.conv.weight" in sd:
+                put(f"{side}.{blocks}.{i}.{resample}", f"{b}.{sampler}.0.conv.conv")
+    put("quant_conv", "quant_conv")
+    put("post_quant_conv", "post_quant_conv")
+    return out
+
+
+def convert_llama(sd: dict, cfg, *, skip_layers: int = 2) -> dict:
+    """HF LlamaModel / LlamaForCausalLM state dict (with or without the
+    `model.` prefix) -> LlamaModel(cfg, n_layers=num_layers -
+    skip_layers).state_dict(): HunyuanVideo reads hidden_states[-(skip +
+    1)], so the last skip_layers layers and the final norm are dropped."""
+    pre = "model." if any(k.startswith("model.") for k in sd) else ""
+    out = {"embed": sd[f"{pre}embed_tokens.weight"]}
+    names = {"ln1": "input_layernorm.weight", "q.weight": "self_attn.q_proj.weight",
+             "k.weight": "self_attn.k_proj.weight", "v.weight": "self_attn.v_proj.weight",
+             "o.weight": "self_attn.o_proj.weight", "ln2": "post_attention_layernorm.weight",
+             "gate.weight": "mlp.gate_proj.weight", "up.weight": "mlp.up_proj.weight",
+             "down.weight": "mlp.down_proj.weight"}
+    for i in range(cfg.num_layers - skip_layers):
+        for ours, theirs in names.items():
+            out[f"blocks.{i}.{ours}"] = sd[f"{pre}layers.{i}.{theirs}"]
+    return out
+
+
+def convert_clip_text(sd: dict, cfg) -> dict:
+    """HF CLIPTextModel state dict (with or without `text_model.`) ->
+    CLIPTextModel(cfg).state_dict()."""
+    pre = "text_model." if any(k.startswith("text_model.") for k in sd) else ""
+    out = {"token_embedding": sd[f"{pre}embeddings.token_embedding.weight"],
+           "position_embedding": sd[f"{pre}embeddings.position_embedding.weight"],
+           "final_ln.weight": sd[f"{pre}final_layer_norm.weight"], "final_ln.bias": sd[f"{pre}final_layer_norm.bias"]}
+    names = {"ln1": "layer_norm1", "q": "self_attn.q_proj", "k": "self_attn.k_proj", "v": "self_attn.v_proj",
+             "o": "self_attn.out_proj", "ln2": "layer_norm2", "fc1": "mlp.fc1", "fc2": "mlp.fc2"}
+    for i in range(cfg.num_layers):
+        for ours, theirs in names.items():
+            for part in ("weight", "bias"):
+                out[f"blocks.{i}.{ours}.{part}"] = sd[f"{pre}encoder.layers.{i}.{theirs}.{part}"]
+    return out
+
+
+def convert_llava(sd: dict, llama_cfg, vision_cfg, *, skip_layers: int = 2) -> dict:
+    """HF LlavaForConditionalGeneration state dict -> LlavaModel(...).state_dict(),
+    in either naming generation: model.vision_tower / model.language_model /
+    model.multi_modal_projector (transformers >= 4.52), or vision_tower /
+    language_model.model / multi_modal_projector."""
+    new_style = any(k.startswith("model.vision_tower.") for k in sd)
+    vt = "model.vision_tower." if new_style else "vision_tower."
+    lm = "model.language_model." if new_style else "language_model.model."
+    proj = "model.multi_modal_projector." if new_style else "multi_modal_projector."
+    sub = lambda pre: {k[len(pre):]: v for k, v in sd.items() if k.startswith(pre)}
+    out = {f"vision.{k}": v for k, v in convert_clip_vision(sub(vt), vision_cfg).items()}
+    out.update({f"llama.{k}": v for k, v in convert_llama(sub(lm), llama_cfg, skip_layers=skip_layers).items()})
+    for ours, theirs in (("fc1", "linear_1"), ("fc2", "linear_2")):
+        for part in ("weight", "bias"):
+            out[f"projector.{ours}.{part}"] = sd[f"{proj}{theirs}.{part}"]
+    return out

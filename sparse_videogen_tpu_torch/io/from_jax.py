@@ -2,6 +2,8 @@
 or I2V) -> WanModel state_dict, the UMT5 pytree -> T5Encoder's, the Wan VAE
 pytree -> WanVAE's, the CLIP vision pytree -> CLIPVisionModel's, the
 HunyuanVideo pytree -> a HyVideoModel, the CogVideoX pytree -> a CogModel,
+HunyuanVideo's encoders (LLaMA, the CLIP text tower, Llava) and VAE ->
+LlamaModel's, CLIPTextModel's, LlavaModel's and HyVideoVAE's state_dicts,
 and SAP's k-means carry -> SAPState.
 
 The JAX package stores linears as {"w": (d_in, d_out), "b": (d_out,)},
@@ -245,3 +247,90 @@ def sap_state_from_numpy(state, device="cpu"):
     if q.ndim == 4:
         return {li: one(li) for li in range(q.shape[0])}
     return one()
+
+
+def _stacked(sd, prefix, blocks, n, linears=(), vectors=(), norms=()):
+    """Blocks stacked on a leading layer axis -> <prefix>.<i>.<name> entries:
+    linears {"w", "b"?} transposed, vectors as they are, LayerNorms {"w", "b"}."""
+    for i in range(n):
+        for nm in linears:
+            _linear(sd, f"{prefix}.{i}.{nm}", {k: np.asarray(a)[i] for k, a in blocks[nm].items()})
+        for nm in vectors:
+            sd[f"{prefix}.{i}.{nm}"] = np.asarray(blocks[nm])[i]
+        for nm in norms:
+            sd[f"{prefix}.{i}.{nm}.weight"] = np.asarray(blocks[nm]["w"])[i]
+            sd[f"{prefix}.{i}.{nm}.bias"] = np.asarray(blocks[nm]["b"])[i]
+
+
+def llama_params_from_numpy(tree, cfg) -> dict:
+    """tree: init_llama_params(...) or convert_llama(...) with numpy leaves
+    (the active blocks stacked). Returns a state_dict for LlamaModel(cfg,
+    n_layers=<the tree's block count>)."""
+    sd = {"embed": tree["embed"]}
+    blocks = tree["blocks"]
+    _stacked(sd, "blocks", blocks, len(np.asarray(blocks["ln1"])), ("q", "k", "v", "o", "gate", "up", "down"),
+             ("ln1", "ln2"))
+    return {k: _tensor(v, "cpu") for k, v in sd.items()}
+
+
+def clip_text_params_from_numpy(tree, cfg) -> dict:
+    """tree: init_clip_text_params(...) or convert_clip_text(...) with numpy
+    leaves. Returns a state_dict for CLIPTextModel(cfg)."""
+    sd = {"token_embedding": tree["token_embedding"], "position_embedding": tree["position_embedding"],
+          "final_ln.weight": tree["final_ln"]["w"], "final_ln.bias": tree["final_ln"]["b"]}
+    _stacked(sd, "blocks", tree["blocks"], cfg.num_layers, ("q", "k", "v", "o", "fc1", "fc2"), (), ("ln1", "ln2"))
+    return {k: _tensor(v, "cpu") for k, v in sd.items()}
+
+
+def llava_params_from_numpy(tree, llama_cfg, vision_cfg) -> dict:
+    """tree: convert_llava(...) with numpy leaves ({vision, projector,
+    llama}). Returns a state_dict for LlavaModel(llama_cfg, vision_cfg,
+    n_layers=<the tree's LLaMA block count>)."""
+    sd = {f"vision.{k}": v for k, v in clip_vision_params_from_numpy(tree["vision"], vision_cfg).items()}
+    sd.update({f"llama.{k}": v for k, v in llama_params_from_numpy(tree["llama"], llama_cfg).items()})
+    proj = {}
+    for fc in ("fc1", "fc2"):
+        _linear(proj, f"projector.{fc}", tree["projector"][fc])
+    sd.update({k: _tensor(v, "cpu") for k, v in proj.items()})
+    return sd
+
+
+def hyvideo_vae_params_from_numpy(tree, cfg) -> dict:
+    """tree: init_hyvideo_vae_params(...) or convert_hyvideo_vae(...) with
+    numpy leaves. Returns a state_dict for HyVideoVAE(cfg): conv3d (kt, kh,
+    kw, ci, co) -> (co, ci, kt, kh, kw), linears transposed, norms {"g", "b"}."""
+    sd = {}
+
+    def conv(name, p):
+        sd[f"{name}.weight"], sd[f"{name}.bias"] = np.asarray(p["w"]).transpose(4, 3, 0, 1, 2), p["b"]
+
+    def norm(name, p):
+        sd[f"{name}.weight"], sd[f"{name}.bias"] = p["g"], p["b"]
+
+    def res(name, p):
+        norm(f"{name}.norm1", p["norm1"])
+        norm(f"{name}.norm2", p["norm2"])
+        conv(f"{name}.conv1", p["conv1"])
+        conv(f"{name}.conv2", p["conv2"])
+        if "shortcut" in p:
+            conv(f"{name}.shortcut", p["shortcut"])
+
+    for side, blocks, resample in (("encoder", "down", "ds"), ("decoder", "up", "us")):
+        t = tree[side]
+        conv(f"{side}.conv_in", t["conv_in"])
+        conv(f"{side}.conv_out", t["conv_out"])
+        norm(f"{side}.norm_out", t["norm_out"])
+        res(f"{side}.mid.res0", t["mid"]["res0"])
+        res(f"{side}.mid.res1", t["mid"]["res1"])
+        attn = t["mid"]["attn"]
+        norm(f"{side}.mid.attn.norm", attn["norm"])
+        for nm in ("q", "k", "v", "o"):
+            _linear(sd, f"{side}.mid.attn.{nm}", attn[nm])
+        for i, blk in enumerate(t[blocks]):
+            for j, r in enumerate(blk["res"]):
+                res(f"{side}.{blocks}.{i}.res.{j}", r)
+            if resample in blk:
+                conv(f"{side}.{blocks}.{i}.{resample}", blk[resample])
+    conv("quant_conv", tree["quant_conv"])
+    conv("post_quant_conv", tree["post_quant_conv"])
+    return {k: _tensor(v, "cpu") for k, v in sd.items()}

@@ -1,1 +1,1 @@
-"""Layers and rotary embeddings shared by the DiTs."""
+"""Layers and rotary embeddings shared by the DiTs, and the text and image encoders."""

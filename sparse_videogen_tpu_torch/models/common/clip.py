@@ -1,6 +1,6 @@
-"""CLIP vision tower (ViT-H/14), the Wan I2V image encoder (counterpart of
-the vision part of sparse_videogen_tpu/models/common/clip.py; the text
-tower waits for HunyuanVideo).
+"""CLIP vision tower (ViT-H/14), the Wan I2V image encoder, and CLIP-L's
+text tower, HunyuanVideo's second text encoder (counterpart of
+sparse_videogen_tpu/models/common/clip.py).
 
 The reference's I2V path feeds the DiT the PENULTIMATE hidden states
 (B, 257, 1280) of HF CLIPVisionModel (hidden_states[-2]): the patch
@@ -14,6 +14,15 @@ GELU ("gelu", ViT-H) or quick_gelu in f32 ("quick_gelu").
 Parameter names: patch_proj, cls, pos, pre_ln, blocks.<i>.{ln1, q, k, v,
 o, ln2, fc1, fc2}, post_ln (io/checkpoint.convert_clip_vision maps HF's
 and wan_orig's names onto these).
+
+The text tower (HF CLIPTextModel, HunyuanVideo's "clipL" with
+output_key pooler_output): token and learned position embeddings, the same
+pre-LN blocks with quick_gelu and a causal plus padding bias of
+finfo(f32).min on the scores, a final LayerNorm; the pooled state is the
+final hidden state at each sequence's FIRST argmax id (the end-of-text id,
+49407, the highest of the vocabulary; its padding repeats it). Parameter
+names: token_embedding, position_embedding, blocks.<i>.{...}, final_ln
+(io/checkpoint.convert_clip_text maps HF's names onto these).
 """
 
 from __future__ import annotations
@@ -87,7 +96,8 @@ class CLIPBlock(nn.Module):
         self.fc1 = nn.Linear(d, cfg.ffn_dim, dtype=dtype, device=device)
         self.fc2 = nn.Linear(cfg.ffn_dim, d, dtype=dtype, device=device)
 
-    def forward(self, x):
+    def forward(self, x, bias=None):
+        """`bias` (f32, broadcast to the scores) is added after the scale."""
         cfg = self.cfg
         B, S, d = x.shape
         H = cfg.num_heads
@@ -95,6 +105,8 @@ class CLIPBlock(nn.Module):
         h = layer_norm(self.ln1, x)
         q, k, v = heads(L.linear(self.q, h)), heads(L.linear(self.k, h)), heads(L.linear(self.v, h))
         s = (q.float() @ k.float().transpose(-1, -2)) * ((d // H) ** -0.5)
+        if bias is not None:
+            s = s + bias
         o = torch.softmax(s, dim=-1).to(v.dtype) @ v
         x = x + L.linear(self.o, o.transpose(1, 2).reshape(B, S, d))
         h = layer_norm(self.ln2, x)
@@ -152,3 +164,71 @@ class CLIPVisionModel(nn.Module):
 def clip_vision_forward(model: CLIPVisionModel, pixels, *, penultimate: bool = True):
     """Functional spelling of CLIPVisionModel.forward, as the JAX package names it."""
     return model(pixels, penultimate=penultimate)
+
+
+@dataclasses.dataclass(frozen=True)
+class CLIPTextConfig:
+    vocab_size: int = 49408
+    dim: int = 768
+    ffn_dim: int = 3072
+    num_layers: int = 12
+    num_heads: int = 12
+    max_positions: int = 77
+    eps: float = 1e-5
+
+    @property
+    def hidden_act(self) -> str:
+        return "quick_gelu"
+
+
+CLIP_L_TEXT = CLIPTextConfig()
+
+
+class CLIPTextModel(nn.Module):
+    """ids (B, L) (and a 1/0 mask) -> (the final hidden states (B, L, dim),
+    pooled (B, dim)), in the embeddings' dtype. Linears and embeddings in
+    `dtype` (f32 by default, as JAX init_clip_text_params), LayerNorms f32."""
+
+    def __init__(self, cfg: CLIPTextConfig = CLIP_L_TEXT, *, dtype=torch.float32, device="cpu"):
+        super().__init__()
+        self.cfg = cfg
+        self.token_embedding = nn.Parameter(torch.zeros(cfg.vocab_size, cfg.dim, dtype=dtype, device=device))
+        self.position_embedding = nn.Parameter(torch.zeros(cfg.max_positions, cfg.dim, dtype=dtype, device=device))
+        self.blocks = nn.ModuleList(CLIPBlock(cfg, dtype, device) for _ in range(cfg.num_layers))
+        self.final_ln = nn.LayerNorm(cfg.dim, eps=cfg.eps, dtype=torch.float32, device=device)
+        self.requires_grad_(False)
+
+    @torch.no_grad()
+    def init_random(self, generator: torch.Generator):
+        """JAX init_clip_text_params' distributions: linear weights N(0,
+        1/d_in) with zero biases, the token embedding N(0, 0.02^2), the
+        positions N(0, 0.01^2), unit LayerNorms."""
+        dev = self.token_embedding.device
+        for mod in self.modules():
+            if isinstance(mod, nn.Linear):
+                w = torch.randn(mod.weight.shape, generator=generator, device=dev)
+                mod.weight.copy_(w / math.sqrt(mod.in_features))
+                mod.bias.zero_()
+        for p, scale in ((self.token_embedding, 0.02), (self.position_embedding, 0.01)):
+            p.copy_(torch.randn(p.shape, generator=generator, device=dev) * scale)
+        return self
+
+    @torch.no_grad()
+    def forward(self, ids, mask=None):
+        dev = self.token_embedding.device
+        ids = torch.as_tensor(ids, device=dev).long()
+        B, S = ids.shape
+        x = self.token_embedding[ids] + self.position_embedding[None, :S]
+        allowed = torch.ones(S, S, dtype=torch.bool, device=dev).tril()[None, None]
+        if mask is not None:
+            allowed = allowed & (torch.as_tensor(mask, device=dev)[:, None, None, :] != 0)
+        bias = torch.where(allowed, 0.0, torch.finfo(torch.float32).min).to(torch.float32)
+        for blk in self.blocks:
+            x = blk(x, bias)
+        x = layer_norm(self.final_ln, x)
+        return x, x[torch.arange(B, device=dev), ids.argmax(dim=-1)]
+
+
+def clip_text_encode(model: CLIPTextModel, ids, mask=None):
+    """Functional spelling of CLIPTextModel.forward, as the JAX package names it."""
+    return model(ids, mask)

@@ -1,1 +1,1 @@
-"""HunyuanVideo (HYVideo-T/2) DiT."""
+"""HunyuanVideo (HYVideo-T/2) DiT and its causal-3D VAE."""

@@ -4,13 +4,18 @@ embedded guidance (the cfg-distilled checkpoint runs ONE forward per step
 with guidance x 1000, no CFG batch), and the dense, SVG1 or SAP
 self-attention runtime over the text-last layout, with the live prompt
 length in the mask scalars and SAP's prompt and padding clusters. SAP keeps
-one k-means state a layer (one stream). Sequence parallelism and I2V raise
-NotImplementedError.
+one k-means state a layer (one stream). I2V conditions by latent_concat
+(the community HunyuanVideo-I2V checkpoint, in_channels 33 = 16 noise + 16
+image + 1 mask): the image latents in latent frame 0, zeros after, and a
+mask channel of ones on frame 0. `generate(prompt)` runs the attached text
+encoder (io/encoders.HyVideoTextEncoders) and VAE decoder. Sequence
+parallelism raises NotImplementedError.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Callable, Optional
 
 import torch
 
@@ -49,9 +54,24 @@ def make_hyvideo_runtime(layout: VideoLayout, *, device, prompt_length: int, pat
     return cls(plan, device=device, prompt_length=prompt_length)
 
 
+def i2v_condition(cfg: HyVideoConfig, image_latents, num_latent_frames: int):
+    """latent_concat: (1, 16, 1, h, w) image latents -> (1, 17, F, h, w) f32,
+    the image in frame 0 and zeros after, then a mask channel (1 on frame 0)."""
+    if cfg.in_channels != 2 * cfg.out_channels + 1:
+        raise ValueError(f"I2V conditioning needs a latent_concat transformer (in_channels "
+                         f"{2 * cfg.out_channels + 1}), this one takes {cfg.in_channels}")
+    _, c, _, h, w = image_latents.shape
+    cond = image_latents.new_zeros((1, c + 1, num_latent_frames, h, w), dtype=torch.float32)
+    cond[:, :c, :1] = image_latents.float()
+    cond[:, c, :1] = 1.0
+    return cond
+
+
 @dataclasses.dataclass
 class HyVideoPipeline:
     model: HyVideoModel
+    text_encoder: Optional[Callable] = None  # prompts -> (states, mask, pooled)
+    vae_decode: Optional[Callable] = None
 
     def generate_latents(
         self,
@@ -83,12 +103,10 @@ class HyVideoPipeline:
         generator also serves SVG1's profiler and SAP's k-means draws);
         return the final f32 latents (1, C, F', H', W'). With pattern SAP,
         `logging_file` receives the per-(step, layer) density as JSONL
-        (utils/density.py)."""
+        (utils/density.py). `image_latents` (1, 16, 1, h, w): I2V by
+        latent_concat (i2v_condition)."""
         if mesh is not None:
             raise NotImplementedError("sequence/ring parallelism is not ported to the torch package yet (ROADMAP.md)")
-        if image_latents is not None:
-            raise NotImplementedError("HunyuanVideo I2V (latent_concat conditioning) is not ported to the torch "
-                                      "package yet (ROADMAP.md)")
         cfg = self.model.cfg
         device = self.model.img_in.weight.device
         gen = torch.Generator(device=device).manual_seed(seed)
@@ -100,17 +118,29 @@ class HyVideoPipeline:
             lat = latents.float()
         else:
             raise ValueError(f"latents {tuple(latents.shape)}, expected {shape}")
+        cond = None if image_latents is None else i2v_condition(cfg, image_latents.to(device), shape[2])
         return self._denoise(text_states, text_mask, text_pooled, lat, prompt_length=prompt_length, height=height,
                              width=width, num_frames=num_frames, num_inference_steps=num_inference_steps,
                              embedded_guidance_scale=embedded_guidance_scale, flow_shift=flow_shift,
                              pattern=pattern, first_layers_fp=first_layers_fp, first_times_fp=first_times_fp,
-                             svg=svg, sap=sap, generator=gen, callback=callback, logging_file=logging_file)
+                             svg=svg, sap=sap, generator=gen, callback=callback, logging_file=logging_file, cond=cond)
+
+    def generate(self, prompt: str, **kw):
+        """prompt -> the video (B, 3, T, H, W) through the attached VAE
+        decoder, or the latents without one; the text encoder returns
+        (states, mask, pooled) and its mask's sum is the prompt length."""
+        if self.text_encoder is None:
+            raise ValueError("attach a text encoder (io/encoders.HyVideoTextEncoders) to generate from a prompt")
+        states, mask, pooled = self.text_encoder([prompt])
+        lat = self.generate_latents(states, mask, pooled, prompt_length=int(mask[0].sum()), **kw)
+        return lat if self.vae_decode is None else self.vae_decode(lat)
 
     def _denoise(self, text_states, text_mask, text_pooled, lat, *, prompt_length, height, width, num_frames,
                  num_inference_steps, embedded_guidance_scale, flow_shift, pattern, first_layers_fp,
                  first_times_fp, svg, sap=SAPConfig(), generator=None, profile_rows=None, kmeans_init=None,
-                 callback=None, logging_file=None):
-        """The loop behind generate_latents, from the given initial latents.
+                 callback=None, logging_file=None, cond=None):
+        """The loop behind generate_latents, from the given initial latents
+        (and the I2V condition `cond`, concatenated to them on the channels).
         `profile_rows[step][layer]` hands the SVG1 profiler fixed rows, and
         `kmeans_init[step][layer]` = (q indices, k indices) hands SAP's
         cold-start k-means its token draws, instead of drawing them from
@@ -130,12 +160,14 @@ class HyVideoPipeline:
         pooled = text_pooled.to(device, dtype)
         guidance = torch.full((1,), embedded_guidance_scale * 1000.0, dtype=torch.float32, device=device)
         lat = lat.to(device)
+        cond = None if cond is None else cond.to(device)
         sstate = sch.init_state()
         for i in range(num_inference_steps):
             t = torch.full((1,), float(sch.timesteps[i]), dtype=torch.float32, device=device)
             if sap_mode:
                 runtime.kmeans_init = None if kmeans_init is None else kmeans_init[i]
-            v = model(lat.to(dtype), t, states, mask, pooled, guidance=guidance, attention=runtime,
+            x = lat if cond is None else torch.cat([lat, cond], dim=1)
+            v = model(x.to(dtype), t, states, mask, pooled, guidance=guidance, attention=runtime,
                       generator=generator, profile_rows=None if profile_rows is None else profile_rows[i])
             lat, sstate = sch.step(i, lat, v, sstate)
             if dlog.path:

@@ -32,10 +32,17 @@ sparsity 0.25 with 64 sampled rows, first_times_fp 0.1, first_layers_fp
 the same run, dense), and "hyvideo-720p-sap"
 (scripts/hyvideo/hyvideo_t2v_720p_sap.sh: SAP at QC 400 / KC 1000, top_p
 0.9, min_kc_ratio 0.10, 50 cold / 2 warm k-means iterations,
-zero_step_kmeans_init, first_times_fp 0.1, first_layers_fp 0.025, flow
-shift 7.0) with its tile variant "hyvideo-720p-sap-tile" (--sap_block_mode
-tile). All take the CLI's embedded guidance 6.0 and its SVG1 profiling band
-(profile_multiplier 1.5).
+first_times_fp 0.1, first_layers_fp 0.025, flow shift 7.0; the script's
+--zero_step_kmeans_init is dropped by the JAX CLI, so it is off here too)
+with its tile variant "hyvideo-720p-sap-tile" (--sap_block_mode tile).
+HunyuanVideo I2V at the I2V CLI's defaults (cli/hyvideo_i2v.py of the JAX
+package): HYVIDEO_T2_I2V (HYVIDEO_T2 with in_channels 33, the community
+HunyuanVideo-I2V's latent_concat) at 720x1280x129, flow shift 7.0,
+embedded guidance 1.0, first_layers_fp 0.025, first_times_fp 0.15;
+"hyvideo-i2v-720p-svg" (--pattern sparse: SVG1 at sparsity 0.25, 64
+sampled rows) and "hyvideo-i2v-720p-dense" (the CLI's default pattern).
+The T2V runs take the CLI's embedded guidance 6.0; all take its SVG1
+profiling band (profile_multiplier 1.5).
 
 CogVideoX 1.5 5B I2V at 768x1360x81 (COG_PRESETS), COG_1_5_5B_I2V with the
 reference's canonical run (scripts/cog/cog_inference.sh, the CLI's defaults:
@@ -113,13 +120,15 @@ class HyVideoRunSettings:
     first_layers_fp: float
     first_times_fp: float
     sap: SAPConfig = SAPConfig()
+    embedded_guidance_scale: float = 6.0
 
     def generate_kwargs(self) -> dict:
         """Keyword arguments of HyVideoPipeline.generate_latents but the step
-        count (the scripts run 50; the callers here cut it) and the prompt
-        length (the CLI's SVG1 knobs: sparsity 0.25, 64 sampled rows,
-        profiling band 1.5 frames; embedded guidance 6.0)."""
-        return dict(height=self.height, width=self.width, num_frames=self.num_frames, embedded_guidance_scale=6.0,
+        count (the scripts run 50; the callers here cut it), the prompt
+        length and I2V's image latents (the CLI's SVG1 knobs: sparsity 0.25,
+        64 sampled rows, profiling band 1.5 frames)."""
+        return dict(height=self.height, width=self.width, num_frames=self.num_frames,
+                    embedded_guidance_scale=self.embedded_guidance_scale,
                     flow_shift=self.flow_shift, pattern=self.pattern, first_layers_fp=self.first_layers_fp,
                     first_times_fp=self.first_times_fp,
                     svg=SVGConfig(sparsity=0.25, num_sampled_rows=64, profile_multiplier=1.5), sap=self.sap)
@@ -131,9 +140,14 @@ HY_720P_DENSE = dataclasses.replace(HY_720P_SVG, pattern="dense", first_times_fp
 HY_720P_SAP = dataclasses.replace(
     HY_720P_SVG, pattern="SAP",
     sap=SAPConfig(num_q_centroids=400, num_k_centroids=1000, top_p_kmeans=0.9, min_kc_ratio=0.10,
-                  kmeans_iter_init=50, kmeans_iter_step=2, zero_step_kmeans_init=True))
+                  kmeans_iter_init=50, kmeans_iter_step=2))
+HYVIDEO_T2_I2V = dataclasses.replace(HYVIDEO_T2, in_channels=33)
+HY_I2V_720P_DENSE = HyVideoRunSettings(HYVIDEO_T2_I2V, 720, 1280, 129, flow_shift=7.0, pattern="dense",
+                                       first_layers_fp=0.025, first_times_fp=0.15, embedded_guidance_scale=1.0)
 HY_PRESETS = {"hyvideo-720p-svg": HY_720P_SVG, "hyvideo-720p-dense": HY_720P_DENSE, "hyvideo-720p-sap": HY_720P_SAP,
-              "hyvideo-720p-sap-tile": dataclasses.replace(HY_720P_SAP, sap=tile_variant(HY_720P_SAP.sap))}
+              "hyvideo-720p-sap-tile": dataclasses.replace(HY_720P_SAP, sap=tile_variant(HY_720P_SAP.sap)),
+              "hyvideo-i2v-720p-svg": dataclasses.replace(HY_I2V_720P_DENSE, pattern="SVG"),
+              "hyvideo-i2v-720p-dense": HY_I2V_720P_DENSE}
 
 
 @dataclasses.dataclass(frozen=True)

@@ -4,6 +4,7 @@
         --runs SVG,dense,dense,SVG --out hy.json]
     python -m sparse_videogen_tpu_torch.scripts.profile_hyvideo --runs SAP,dense,dense,SAP \\
         --sap_block_mode tile --organic 3.5
+    python -m sparse_videogen_tpu_torch.scripts.profile_hyvideo --i2v --runs SVG,dense,dense,SVG
 
 HYVIDEO_T2 at its full width (hidden 3072, 24 heads, D = 128, MLP 12288),
 --double of its 20 double-stream and --single of its 40 single-stream
@@ -11,8 +12,12 @@ blocks, random bf16 weights from --seed, random text states of the real
 shapes ((1, 256, 4096) LLaMA, (1, 768) CLIP pooled) with a live prompt of
 --prompt tokens, at 720x1280x129 (S = 119,056) with the reference's 720p
 runs (presets.HY_PRESETS: SVG1 sparsity 0.25, first_times_fp 0.1, flow shift
-7.0; dense; SAP at QC 400 / KC 1000 with zero_step_kmeans_init, in
---sap_block_mode cluster or tile). --organic GAIN (default 3.5, the JAX
+7.0; dense; SAP at QC 400 / KC 1000 (zero_step_kmeans_init off, as the
+JAX CLI runs the script), in
+--sap_block_mode cluster or tile). --i2v runs the I2V CLI's presets
+instead (hyvideo-i2v-720p-svg / -dense: in_channels 33, embedded guidance
+1.0, first_times_fp 0.15) with random image latents as the latent_concat
+condition; I2V has no SAP run. --organic GAIN (default 3.5, the JAX
 package's scripts/bench_hyvideo.py; 0 turns it off) makes the attention
 video-like for every run of the call, so that SAP's density is organic
 (utils/organic.py): in every block the fused projections' k rows := their q
@@ -48,6 +53,7 @@ from sparse_videogen_tpu_torch.scripts.timing import device_line
 
 RUNS = {"SVG": HY_PRESETS["hyvideo-720p-svg"], "dense": HY_PRESETS["hyvideo-720p-dense"],
         "SAP": HY_PRESETS["hyvideo-720p-sap"]}
+I2V_RUNS = {"SVG": HY_PRESETS["hyvideo-i2v-720p-svg"], "dense": HY_PRESETS["hyvideo-i2v-720p-dense"]}
 
 
 def main(argv=None):
@@ -61,23 +67,26 @@ def main(argv=None):
     ap.add_argument("--sap_block_mode", choices=("cluster", "tile"), default="cluster")
     ap.add_argument("--organic", type=float, default=3.5, metavar="GAIN",
                     help="k := q in the fused projections, q norms x GAIN, smooth latents; 0 = random weights")
+    ap.add_argument("--i2v", action="store_true", help="the I2V CLI's presets, random image latents")
     ap.add_argument("--out", default=None, help="write the results as JSON here")
     args = ap.parse_args(argv)
 
     from sparse_videogen_tpu_torch.config import WarmupSchedule
     from sparse_videogen_tpu_torch.models.hyvideo.model import HyVideoModel
     from sparse_videogen_tpu_torch.pipelines import HyVideoPipeline
-    from sparse_videogen_tpu_torch.pipelines.hyvideo import hyvideo_layout, make_hyvideo_runtime
+    from sparse_videogen_tpu_torch.pipelines.hyvideo import hyvideo_layout, i2v_condition, make_hyvideo_runtime
     from sparse_videogen_tpu_torch.schedulers import FlowMatchEuler
     from sparse_videogen_tpu_torch.utils.organic import align_fused_qkv, smooth_latents
 
     runs_cfg = dict(RUNS, SAP=RUNS["SAP"] if args.sap_block_mode == "cluster" else HY_PRESETS["hyvideo-720p-sap-tile"])
+    if args.i2v:
+        runs_cfg = I2V_RUNS
 
     smi = device_line("profile_hyvideo")
     print(smi, flush=True)
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
-    base = RUNS["SVG"]
+    base = runs_cfg["SVG"]
     cfg = dataclasses.replace(base.model, mm_double_blocks_depth=args.double, mm_single_blocks_depth=args.single)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     model = HyVideoModel(cfg, dtype=torch.bfloat16, device=dev).init_random(gen)
@@ -90,7 +99,8 @@ def main(argv=None):
     pipe = HyVideoPipeline(model)
     lay = hyvideo_layout(cfg, base.height, base.width, base.num_frames)
     lat_shape = (cfg.out_channels, lay.num_frames, base.height // 8, base.width // 8)
-    print(f"[config] HunyuanVideo hidden {cfg.hidden_size}, {args.double}+{args.single} blocks, {cfg.heads_num} heads; "
+    print(f"[config] HunyuanVideo{' I2V' if args.i2v else ''} hidden {cfg.hidden_size}, {args.double}+{args.single} "
+          f"blocks, {cfg.heads_num} heads; "
           f"{base.height}x{base.width}x{base.num_frames} (S = {lay.seq_len}), prompt {args.prompt}, {args.steps} steps; "
           f"SAP {args.sap_block_mode} mode; " + (f"organic, gain {args.organic}" if args.organic else "random weights"),
           flush=True)
@@ -98,15 +108,18 @@ def main(argv=None):
     dlog = "profile_hyvideo_density.jsonl" if args.out is None else args.out + ".density.jsonl"
 
     lat0 = smooth_latents(gen, (1, *lat_shape), dtype=torch.float32) if args.organic else None
+    img_lat = (0.1 * torch.randn(1, cfg.out_channels, 1, *lat_shape[2:], generator=gen, device=dev)
+               if args.i2v else None)
 
     def generate(pattern, steps, callback=None, logging_file=None):
         kw = runs_cfg[pattern].generate_kwargs()
         return pipe.generate_latents(text, mask, pooled, prompt_length=args.prompt, num_inference_steps=steps,
-                                     seed=args.seed, callback=callback, logging_file=logging_file, latents=lat0, **kw)
+                                     seed=args.seed, callback=callback, logging_file=logging_file, latents=lat0,
+                                     image_latents=img_lat, **kw)
 
     for pattern in dict.fromkeys(runs):
         generate(pattern, 1)
-    result = {"device": smi, "double": args.double, "single": args.single, "prompt": args.prompt,
+    result = {"device": smi, "i2v": args.i2v, "double": args.double, "single": args.single, "prompt": args.prompt,
               "sap_block_mode": args.sap_block_mode, "organic_gain": args.organic, "time": [], "profile": {}}
     for pattern in runs:
         _, run = time_generation(lambda on_step: generate(pattern, args.steps, on_step,
@@ -122,7 +135,9 @@ def main(argv=None):
 
     x = smooth_latents(gen, (1, *lat_shape)) if args.organic else torch.randn(
         1, *lat_shape, generator=gen, device=dev).to(torch.bfloat16)
-    guidance = torch.full((1,), 6000.0, device=dev)
+    if args.i2v:
+        x = torch.cat([x.float(), i2v_condition(cfg, img_lat, lay.num_frames)], dim=1).to(torch.bfloat16)
+    guidance = torch.full((1,), base.embedded_guidance_scale * 1000.0, device=dev)
     for pattern in dict.fromkeys(runs):
         run_cfg = runs_cfg[pattern]
         sch = FlowMatchEuler(args.steps, shift=run_cfg.flow_shift)

@@ -205,14 +205,15 @@ def sap_run_list_stats(forward):
 PROJECTED_STEPS = 50  # the CLIs' default step count
 
 
-def project_steps(runs, run_cfg, layers) -> dict:
+def project_steps(runs, run_cfg, layers, timesteps=None) -> dict:
     """The DiT's seconds for a PROJECTED_STEPS-step generation at the model's full
     depth, from the timed runs at `layers` blocks: a layer-step's seconds are
     a run's last step (steady state; it includes the few per-step
     operations outside the blocks) over `layers`, the median over the runs
     of a pattern; the preset's warm-up (first_layers_fp, first_times_fp at
-    PROJECTED_STEPS steps) makes that many layer-steps dense. Printed and
-    returned per sparse pattern, with dense; {} without a dense run."""
+    PROJECTED_STEPS steps of `timesteps`, by default FlowUniPC's) makes that
+    many layer-steps dense. Printed and returned per sparse pattern, with
+    dense; {} without a dense run."""
     from sparse_videogen_tpu_torch.config import WarmupSchedule
     from sparse_videogen_tpu_torch.schedulers import FlowUniPC
 
@@ -223,7 +224,7 @@ def project_steps(runs, run_cfg, layers) -> dict:
     if "dense" not in per_layer:
         return {}
     steps, full = PROJECTED_STEPS, run_cfg.model.num_layers
-    ts = FlowUniPC(steps, shift=run_cfg.flow_shift).timesteps
+    ts = FlowUniPC(steps, shift=run_cfg.flow_shift).timesteps if timesteps is None else timesteps
     warm = WarmupSchedule.from_fractions(run_cfg.first_layers_fp, run_cfg.first_times_fp, full, ts)
     n_dense_steps = sum(float(t) > warm.first_times for t in ts)
     out = {"steps": steps, "layers": full, "from_layers": layers, "dense_s": steps * full * per_layer["dense"]}

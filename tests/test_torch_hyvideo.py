@@ -307,12 +307,16 @@ def test_cli_smoke_cpu(tmp_path):
 
 @pytest.mark.parametrize("argv,exc", [
     (["--device", "cuda:99"], RuntimeError),
-    (["--device", "cpu", "--model_dir", "/nonexistent"], NotImplementedError),
-    (["--device", "cpu", "--output_file", "video.mp4"], NotImplementedError),
+    (["--device", "cpu", "--dit_fsdp"], NotImplementedError),
+    (["--device", "cpu", "--pattern", "SVG", "--ring_degree", "2"], NotImplementedError),
     (["--device", "cpu", "--quant", "int8"], NotImplementedError),
     (["--device", "cpu", "--ulysses_degree", "2"], NotImplementedError),
 ], ids=["no_card_no_fallback", "model_dir", "video", "sap", "parallel"])
 def test_cli_refuses_what_is_not_ported(tmp_path, argv, exc):
+    """No fallback to the CPU; quantization and parallelism raise. The ids
+    `model_dir` and `video` named --model_dir and a video name, which run
+    now (tests/test_torch_hyvideo_cli.py): they hold --dit_fsdp and
+    --ring_degree 2 with SVG."""
     if argv[1].startswith("cuda") and torch.cuda.is_available():
         pytest.skip("this host has a card: nothing to refuse")
     with pytest.raises(exc, match=None if exc is RuntimeError else "ROADMAP"):
