@@ -2,8 +2,9 @@
 dense/SVG1/SAP (cluster and tile mode) and from a prompt to a video, Wan
 2.1 I2V 14B from an image and a prompt to a video, HunyuanVideo T2V
 dense/SVG1/SAP (both modes) and from a prompt, and from an image and a
-prompt, to a video, CogVideoX 1.5 I2V dense/SVG1, and the probe entries of
-K6 and K8.
+prompt, to a video, CogVideoX 1.5 I2V dense/SVG1 and from an image and a
+prompt to a video, Cosmos T2V dense/SVG1/SAP (both modes) from a prompt to
+a video, and the probe entries of K6 and K8.
 
     python3 chip_smoke.py
 
@@ -57,6 +58,14 @@ is non-zero:
                on run lists with the prompt and padding clusters) and tile
                mode (K1 on the grain-aligned text-last metadata), each
                against its plain version on sampled and every text q block.
+               Cosmos 704x1280x121 (S = 16 x 3,520 = 56,320, a frame size
+               that is not a multiple of 128; phase_cosmos_attention): K1's
+               kinds none and band_sink on the pipeline runtime's metadata
+               (64 rows of the CFG batch), 2 rows held to the plain version
+               on CHECK_BLOCKS q blocks (keep_blocks: the predicate sees the
+               real positions), timed beside the bound and SDPA (with the
+               band_sink predicate as a 6.3 GB attn_mask); K3 on the run
+               lists of cosmos-704p-sap's own front half (QC 300, KC 1000).
   4. slice   - WanPipeline.generate_latents with random weights from a seed:
                Wan 2.1 1.3B at full width and depth, 480x832x81, 4 UniPC
                steps, SVG1 with batched CFG, then SAP (cluster mode, the CLI's
@@ -152,7 +161,33 @@ is non-zero:
                  text tower, Llava and HunyuanVideo VAE (decode whole and
                  tiled, encode) on the card against the CPU (TEXT_TOL,
                  VAE_TOL) join the small references.
-               quality (after hy_i2v): scripts/quality.py's recipe without the
+               cog_i2v (after hy_i2v): CogVideoX from an image and a prompt
+                 to a video (phase_cog_i2v): a spiece.model this script
+                 writes, T5 v1.1 XXL (random bf16) at 226 tokens,
+                 examples/1/image.jpg resized bilinearly to 768x1360, the
+                 full-width VAE encode (f32 and TF32), COG_1_5_5B_I2V at
+                 COG_LAYERS layers for COG_I2V_STEPS SVG1 steps, the CLI's
+                 tiled decode of COG_DECODE_FRAMES latent frames, a .y4m at
+                 8 fps read back; K1 by kind and K2 held to
+                 expected_launches, no plain version; stages timed with
+                 their peak memory.
+               cosmos (after cog_i2v): Cosmos from a prompt to a video
+                 (phase_cosmos): t5-11b's encoder (random bf16, 4.9 B
+                 parameters) at 512 tokens, masked; COSMOS_7B at full width,
+                 COSMOS_LAYERS of 28 layers, 704x1280x121: dense, SVG1, and
+                 SAP cluster and tile (cosmos-704p-sap, organic at
+                 COSMOS_SAP_GAIN) for a few EDM steps each, through
+                 drive_pipeline (K1 none / band_sink, K3, K5 held to the
+                 configuration; Cosmos's RoPE is plain torch); the dense
+                 steps a 35-step run takes (WarmupSchedule's c_noise
+                 offset), SAP's density, the s a step by pattern and the
+                 35-step, 28-layer projection; the CV8x8x8 VAE's tiled
+                 decode of COSMOS_DECODE_FRAMES latent frames, a .y4m at
+                 30 fps read back. Small T5 v1.0 / v1.1, CogVideoX and
+                 Cosmos VAEs (f32) and a small Cosmos (bf16: dense, SVG1,
+                 SAP at full density) on the card against the CPU join the
+                 small references.
+               quality (after cosmos): scripts/quality.py's recipe without the
                  decode: Wan 2.1 1.3B structured-synthetic (K := Q, gain
                  4.0) at 720x1280x81, 8 steps, dense, SVG1, SAP cluster and
                  SAP tile (QC 300, KC 125) from one noise, launches held to
@@ -172,7 +207,12 @@ is non-zero:
                examples/1/image.jpg and a prompt to a .y4m; the HunyuanVideo
                T2V and I2V CLIs likewise on write_tiny_hyvideo_checkpoint's
                dirs (tokenizer.json files written by hand; a Llava text
-               encoder for I2V).
+               encoder for I2V); Cosmos --smoke for SVG, dense, SAP and
+               SAP-tile, the CogVideoX and Cosmos smokes with a video name,
+               and cog_i2v / cosmos_t2v on write_tiny_cog_checkpoint /
+               write_tiny_cosmos_checkpoint's dirs (T5 and its config.json
+               in HF's names; CogVideoX from examples/1/image.jpg), to a
+               .y4m each.
 Each group of phases prints its seconds on a [time] line, and the whole
 run's seconds are printed before the two JSON lines.
 The line before the last is a JSON object with one entry per kernel; the
@@ -282,6 +322,18 @@ CLIP_TOL = 1e-5
 HY_P2V_STEPS, HY_I2V_STEPS, HY_DECODE_FRAMES = 2, 2, 5
 LLAVA_INTERLEAVE = 4
 TEXT_TOL = 1e-5
+# CogVideoX from an image to a video (cog_i2v): COG_LAYERS layers of the DiT
+# for COG_I2V_STEPS SVG1 steps; the full-width VAE decodes the first
+# COG_DECODE_FRAMES of the 21 latent frames (9 frames)
+COG_I2V_STEPS, COG_DECODE_FRAMES = 3, 3
+# Cosmos from a prompt to a video (cosmos): COSMOS_7B's full width and the
+# first COSMOS_LAYERS of its 28 layers at 704x1280x121; COSMOS_STEPS EDM
+# steps (first_times_fp 0.3 makes the first two dense, the last two sparse:
+# SAP clusters cold, then warm) and COSMOS_STEPS_DENSE dense steps; SAP at the
+# organic gain of the other SAP phases; the VAE decodes the first
+# COSMOS_DECODE_FRAMES of the 16 latent frames (9 frames)
+COSMOS_LAYERS, COSMOS_STEPS, COSMOS_STEPS_DENSE, COSMOS_DECODE_FRAMES = 2, 4, 2, 2
+COSMOS_SAP_GAIN = 3.5
 
 
 def log(phase: str, msg: str) -> None:
@@ -833,13 +885,11 @@ def phase_sap_attention(dev, preset="1.3B-480p", all_checks=True):
     from sparse_videogen_tpu_torch.ops.attention import block_sparse_attention_runs, block_sparse_attention_runs_plain
     from sparse_videogen_tpu_torch.ops.mask_spec import MaskSpec
     from sparse_videogen_tpu_torch.pipelines.wan import make_wan_runtime
-    from sparse_videogen_tpu_torch.presets import PRESETS
     from sparse_videogen_tpu_torch.sparse import svg2
     from sparse_videogen_tpu_torch.sparse.svg1 import make_svg1_plan
 
-    lay = slice_layout(preset)
-    run = PRESETS[preset]
-    H, S, D = run.model.num_heads, lay.seq_len, run.model.head_dim
+    run, lay, H, D = preset_geometry(preset)
+    S = lay.seq_len
     sap = run.sap
     n_check = CHECK_HEADS if all_checks else 1
     gen = torch.Generator(device=dev).manual_seed(5)
@@ -1126,7 +1176,7 @@ def phase_hyvideo_sap_attention(dev):
     return out_modes
 
 
-def expected_launches(pattern, n_layers, warmup, timesteps, kinds, sap=None, sap_streams=2):
+def expected_launches(pattern, n_layers, warmup, timesteps, kinds, sap=None, sap_streams=2, rope=True):
     """Kernel launches one generation implies, and the chunked-CSR kernel's
     launches by mask kind. Per forward and layer: RoPE on q and on k; a
     dense layer (the dense pattern, or a warm-up layer) runs the chunked-CSR
@@ -1138,7 +1188,8 @@ def expected_launches(pattern, n_layers, warmup, timesteps, kinds, sap=None, sap
     iteration for q and for k: kmeans_iter_init at a layer's first
     clustering in a stream, kmeans_iter_step after (warm-up layers cluster
     only with zero_step_kmeans_init; tile_order pc1 never clusters a sparse
-    layer)."""
+    layer). rope False: the model's RoPE is not K2 (Cosmos's half-split
+    RoPE runs in plain torch, as the JAX package runs it on XLA)."""
     from sparse_videogen_tpu_torch import _kernels
 
     want = {name: 0 for name in _kernels.KERNELS}
@@ -1149,7 +1200,7 @@ def expected_launches(pattern, n_layers, warmup, timesteps, kinds, sap=None, sap
         initialized = [False] * n_layers
         for t in timesteps:
             for li in range(n_layers):
-                want["rope"] += 2
+                want["rope"] += 2 if rope else 0
                 dense = pattern == "dense" or li < warmup.first_layers or float(t) > warmup.first_times
                 if dense or pattern == "SVG":
                     want["block_sparse_attn"] += 1
@@ -1167,7 +1218,8 @@ def expected_launches(pattern, n_layers, warmup, timesteps, kinds, sap=None, sap
     return want, want_kinds
 
 
-def drive_pipeline(name, desc, kw, pattern, timesteps, n_layers, generate, shape, kinds, sap=None, sap_streams=2):
+def drive_pipeline(name, desc, kw, pattern, timesteps, n_layers, generate, shape, kinds, sap=None, sap_streams=2,
+                   rope=True):
     """One generation through a pipeline's entry point, generate(callback),
     timed by the profile scripts' time_generation (the kernel counters set
     to 0 just before it and read just after), and held to what the
@@ -1180,7 +1232,7 @@ def drive_pipeline(name, desc, kw, pattern, timesteps, n_layers, generate, shape
     from sparse_videogen_tpu_torch.scripts.profile_wan import time_generation
 
     warmup = WarmupSchedule.from_fractions(kw["first_layers_fp"], kw["first_times_fp"], n_layers, timesteps)
-    want, want_kinds = expected_launches(pattern, n_layers, warmup, timesteps, kinds, sap, sap_streams)
+    want, want_kinds = expected_launches(pattern, n_layers, warmup, timesteps, kinds, sap, sap_streams, rope)
     lat, r = time_generation(generate)
     finite = bool(torch.isfinite(lat).all())
     log("slice", f"{name}, {desc}, {pattern}, {len(timesteps)} steps ({warmup.first_layers} warm-up layers, steps "
@@ -1949,6 +2001,128 @@ def phase_cog_rope(dev):
     del y
     return {"shape": [2 * cfg.heads_num, lay.video_length, cfg.head_dim], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b["bound_ms"], "route_ms": route_ms}
+
+
+def preset_geometry(preset):
+    """(run, layout, heads of one CFG stream, head dim) of a Wan or Cosmos preset."""
+    from sparse_videogen_tpu_torch.pipelines.cosmos import cosmos_layout
+    from sparse_videogen_tpu_torch.presets import COSMOS_PRESETS, PRESETS
+
+    if preset in COSMOS_PRESETS:
+        run = COSMOS_PRESETS[preset]
+        m = run.model
+        return run, cosmos_layout(m, run.height, run.width, run.num_frames), m.num_attention_heads, m.attention_head_dim
+    run = PRESETS[preset]
+    return run, slice_layout(preset), run.model.num_heads, run.model.head_dim
+
+
+def spec_pairs(spec, aux, S: int, dev, rows: int = 2048) -> int:
+    """(q, k) pairs of an S-token sequence that a mask kind's predicate
+    allows, per head (the work this data needs), counted a slab of rows at a
+    time."""
+    from sparse_videogen_tpu_torch.ops.mask_spec import apply_mask_spec
+
+    aux_h = [int(a) for a in aux.cpu()]
+    k = torch.arange(S, device=dev)[None, :]
+    return sum(int(apply_mask_spec(spec, torch.arange(r0, min(S, r0 + rows), device=dev)[:, None], k, aux_h).sum())
+               for r0 in range(0, S, rows))
+
+
+def keep_blocks(meta, blocks):
+    """meta with every q block's chunk count set to 0 but those of `blocks`:
+    the plain version walks the kept blocks alone (q blocks are independent)
+    and sees the real q positions, which a mask predicate needs."""
+    kept = torch.zeros(meta.shape[1], dtype=torch.bool, device=meta.device)
+    kept[blocks] = True
+    out = meta.clone()
+    out[:, ~kept, 0] = 0
+    return out
+
+
+def phase_cosmos_attention(dev):
+    """K1 on Cosmos 704x1280x121's layout (COSMOS_7B: S = 16 x 3,520 =
+    56,320, a frame size that is not a multiple of 128; 2 x 32 = 64 rows of
+    the CFG batch, D = 128) on the metadata and aux of the pipeline's own
+    runtime (cosmos-704p-svg): the dense path (kind none) and SVG1's
+    band_sink kind. The first and last rows against the plain version on
+    CHECK_BLOCKS q blocks spread over each (keep_blocks), then both timed on
+    those 2 rows and on all 64, beside their bounds and
+    F.scaled_dot_product_attention (unmasked for the dense path; with the
+    band_sink predicate as an (S, S) attn_mask, 6.3 GB, for SVG1)."""
+    from sparse_videogen_tpu_torch.ops.attention import block_sparse_attention_kv, block_sparse_attention_kv_plain
+    from sparse_videogen_tpu_torch.pipelines.cosmos import make_cosmos_runtime
+
+    run, lay, H, D = preset_geometry("cosmos-704p-svg")
+    rt = make_cosmos_runtime(lay, device=dev, pattern="SVG", svg=run.svg)
+    plan = rt.plan
+    S, BH = lay.seq_len, 2 * H
+    heads = torch.tensor([0, BH - 1], device=dev)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    cases = {"dense": (rt.dense_meta, plan.dense_mask_spec, plan.dense_block_q),
+             "svg1": (rt.sparse_meta, plan.mask_spec, plan.block_q)}
+    res = {}
+    for name, (meta, spec, bq) in cases.items():
+        def rand(s_pad, scale):
+            x = torch.zeros(BH, s_pad, D, device=dev, dtype=torch.bfloat16)
+            x[:, :S] = (torch.randn(BH, S, D, generator=gen, device=dev) * scale).to(torch.bfloat16)
+            return x
+
+        q, k, v = rand(-(-S // bq) * bq, 2.0), rand(plan.seq_pad_kv, 1.0), rand(plan.seq_pad_kv, 1.0)
+        kw = dict(block_q=bq, block_kv=plan.block_kv, mask_spec=spec)
+        out = block_sparse_attention_kv(q, k, v, meta, rt.aux, **kw)
+        qs, ks, vs = (x.index_select(0, heads) for x in (q, k, v))
+        n_q = meta.shape[1]
+        blocks = torch.linspace(0, n_q - 1, min(CHECK_BLOCKS, n_q), device=dev).round().long().unique()
+        rows = (blocks[:, None] * bq + torch.arange(bq, device=dev)).reshape(-1)
+        rows = rows[rows < S]
+        ref = []
+        plain_ms = event_ms(lambda: ref.append(block_sparse_attention_kv_plain(qs, ks, vs, keep_blocks(meta, blocks),
+                                                                               rt.aux, **kw)))
+        max_abs, mean_rel = err_stats(out.index_select(0, heads)[:, rows], ref[0][:, rows])
+        log("kernels", f"attention {name} on Cosmos 704x1280x121 (mask {spec.kind}, S={S} = {lay.num_frames} x "
+                       f"{lay.frame_size}, BH={BH}, rows {heads.tolist()} on {len(blocks)} of {n_q} q blocks "
+                       f"checked, D={D}, block_q {bq}, block_kv {plan.block_kv}, meta {tuple(meta.shape)}): "
+                       f"max_abs_err {max_abs:.3e} (tol {ATTN_TOL_ABS}), mean_rel_err {mean_rel:.3e} "
+                       f"(tol {ATTN_TOL_REL})")
+        if not (max_abs <= ATTN_TOL_ABS and mean_rel <= ATTN_TOL_REL):
+            raise AssertionError(f"attention kernel (Cosmos {name}) disagrees with its plain version")
+        pairs = S * S if spec.kind == "none" else spec_pairs(spec, rt.aux, S, dev)
+        b = attention_bound(len(heads) * pairs, qs[:, :S])
+        b_all = attention_bound(BH * pairs, q[:, :S])
+        ms = cuda_ms(lambda: block_sparse_attention_kv(qs, ks, vs, meta, rt.aux, **kw))
+        ms_all = cuda_ms(lambda: block_sparse_attention_kv(q, k, v, meta, rt.aux, **kw), iters=2)
+        log("kernels", f"attention {name} (Cosmos) on the {len(heads)} checked rows: kernel {ms:.3f} ms "
+                       f"({4 * D * pairs * len(heads) / (ms * 1e-3) / 1e12:.1f} TFLOP/s on the {pairs / S / S:.4f} of "
+                       f"the S x S pairs the mask allows; bound {b['bound_ms']:.3f} ms, {b['bound_by']}), plain "
+                       f"{plain_ms:.3f} ms on the checked blocks (one run); all BH={BH}: kernel {ms_all:.3f} ms "
+                       f"({4 * D * pairs * BH / (ms_all * 1e-3) / 1e12:.1f} TFLOP/s; bound {b_all['bound_ms']:.3f} "
+                       f"ms, {b_all['bound_by']})")
+        res[name] = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, ms_all=ms_all, bound_all_ms=b_all["bound_ms"],
+                         **b)
+        if name == "dense":
+            res[name]["sdpa_ms"] = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                qs[None, :, :S], ks[None, :, :S], vs[None, :, :S]))
+            res[name]["sdpa_all_ms"] = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                q[None, :, :S], k[None, :, :S], v[None, :, :S]), iters=2)
+            log("kernels", f"attention dense (Cosmos): F.scaled_dot_product_attention {res[name]['sdpa_ms']:.3f} ms "
+                           f"on the checked rows, {res[name]['sdpa_all_ms']:.3f} ms on all BH={BH}")
+        else:
+            sdpa_ms, sdpa_all_ms = masked_sdpa("Cosmos band_sink", spec, rt.aux, pairs, (q, k, v), (qs, ks, vs),
+                                               out.index_select(0, heads)[:, :S])
+            res[name].update(sdpa_ms=sdpa_ms, sdpa_all_ms=sdpa_all_ms)
+        del q, k, v, qs, ks, vs, out, ref
+        torch.cuda.empty_cache()
+    s, d = res["svg1"], res["dense"]
+    return {"name": "block_sparse_attn[cosmos]", "route": "cuda",
+            "source": "sparse_videogen_tpu_torch/csrc/block_sparse_attn.cu",
+            "replaces": "sparse_videogen_tpu/ops/attention.py:62",
+            "max_abs_err": max(s["max_abs_err"], d["max_abs_err"]), "ms": s["ms"], "plain_ms": s["plain_ms"],
+            "bound_ms": s["bound_ms"], "bound_by": s["bound_by"], "library_ms": s["sdpa_ms"], "S": S, "D": D,
+            "kind": "band_sink", "ms_all_rows": s["ms_all"], "bound_all_rows_ms": s["bound_all_ms"],
+            "library_all_rows_ms": s["sdpa_all_ms"],
+            "dense": {"ms": d["ms"], "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"], "library_ms": d["sdpa_ms"],
+                      "ms_all_rows": d["ms_all"], "bound_all_rows_ms": d["bound_all_ms"],
+                      "library_all_rows_ms": d["sdpa_all_ms"]}}
 
 
 def drive_cog(model, run, steps):
@@ -2984,6 +3158,294 @@ def write_tiny_hyvideo_checkpoint(path: str, prompt: str, i2v: bool = False) -> 
             json.dump(cfg, f)
 
 
+def reference_t5_hf_sd(cfg, g) -> dict:
+    """An HF T5EncoderModel state dict (T5 v1.0's wi, or v1.1's wi_0 / wi_1;
+    the relative bias in block 0 alone)."""
+    d, da, dff = cfg.dim, cfg.dim_attn, cfg.dim_ffn
+    sd = {"shared.weight": _randn(g, cfg.vocab_size, d, fan_in=1), "encoder.final_layer_norm.weight": 1 + 0.1 * _randn(
+        g, d, fan_in=1)}
+    for i in range(cfg.num_layers):
+        b = f"encoder.block.{i}.layer"
+        for nm in "qkv":
+            sd[f"{b}.0.SelfAttention.{nm}.weight"] = _randn(g, da, d)
+        sd[f"{b}.0.SelfAttention.o.weight"] = _randn(g, d, da)
+        for j in range(2):
+            sd[f"{b}.{j}.layer_norm.weight"] = 1 + 0.1 * _randn(g, d, fan_in=1)
+        ff = f"{b}.1.DenseReluDense"
+        for nm in (("wi_0", "wi_1") if cfg.gated_ffn else ("wi",)):
+            sd[f"{ff}.{nm}.weight"] = _randn(g, dff, d)
+        sd[f"{ff}.wo.weight"] = _randn(g, d, dff)
+    sd["encoder.block.0.layer.0.SelfAttention.relative_attention_bias.weight"] = _randn(
+        g, cfg.num_buckets, cfg.num_heads, fan_in=1)
+    return sd
+
+
+def t5_hf_config(cfg) -> dict:
+    """cfg in HF's T5Config names."""
+    return {"model_type": "t5", "d_model": cfg.dim, "d_kv": cfg.dim_attn // cfg.num_heads, "num_heads": cfg.num_heads,
+            "d_ff": cfg.dim_ffn, "num_layers": cfg.num_layers, "vocab_size": cfg.vocab_size,
+            "relative_attention_num_buckets": cfg.num_buckets, "relative_attention_max_distance": cfg.max_dist,
+            "layer_norm_epsilon": cfg.eps, "feed_forward_proj": "gated-gelu" if cfg.gated_ffn else "relu"}
+
+
+def reference_cog_dit_sd(cfg, g) -> dict:
+    """A diffusers CogVideoXTransformer3DModel state dict (v1.5: a Linear
+    patch_embed.proj)."""
+    sd, h, ted = {}, cfg.hidden_size, cfg.time_embed_dim
+
+    def lin(key, di, do):
+        sd[f"{key}.weight"], sd[f"{key}.bias"] = _randn(g, do, di), 0.02 * _randn(g, do, fan_in=1)
+
+    def ln(key, d):
+        sd[f"{key}.weight"], sd[f"{key}.bias"] = 1 + 0.1 * _randn(g, d, fan_in=1), 0.1 * _randn(g, d, fan_in=1)
+
+    lin("time_embedding.linear_1", h, ted)
+    lin("time_embedding.linear_2", ted, ted)
+    if cfg.ofs_embed:
+        lin("ofs_embedding.linear_1", ted, ted)
+        lin("ofs_embedding.linear_2", ted, ted)
+    lin("patch_embed.proj", cfg.in_channels * cfg.patch_size_t * cfg.patch_size ** 2, h)
+    lin("patch_embed.text_proj", cfg.text_dim, h)
+    for i in range(cfg.num_layers):
+        b = f"transformer_blocks.{i}"
+        for n in ("norm1", "norm2"):
+            lin(f"{b}.{n}.linear", ted, 6 * h)
+            ln(f"{b}.{n}.norm", h)
+        for nm in ("to_q", "to_k", "to_v", "to_out.0"):
+            lin(f"{b}.attn1.{nm}", h, h)
+        ln(f"{b}.attn1.norm_q", cfg.head_dim)
+        ln(f"{b}.attn1.norm_k", cfg.head_dim)
+        lin(f"{b}.ff.net.0.proj", h, cfg.ffn_mult * h)
+        lin(f"{b}.ff.net.2", cfg.ffn_mult * h, h)
+    ln("norm_final", h)
+    ln("norm_out.norm", h)
+    lin("norm_out.linear", ted, 2 * h)
+    lin("proj_out", h, cfg.patch_size_t * cfg.patch_size ** 2 * cfg.out_channels)
+    return sd
+
+
+def reference_cog_vae_sd(cfg, g) -> dict:
+    """A diffusers AutoencoderKLCogVideoX state dict."""
+    sd, z = {}, cfg.latent_channels
+
+    def c3(key, co, ci, k=3):
+        sd[f"{key}.weight"], sd[f"{key}.bias"] = _randn(g, co, ci, k, k, k, fan_in=ci * k ** 3), torch.zeros(co)
+
+    def c2(key, c):
+        sd[f"{key}.weight"], sd[f"{key}.bias"] = _randn(g, c, c, 3, 3, fan_in=9 * c), torch.zeros(c)
+
+    def gn(key, c):
+        sd[f"{key}.weight"], sd[f"{key}.bias"] = 1 + 0.1 * _randn(g, c, fan_in=1), 0.1 * _randn(g, c, fan_in=1)
+
+    def sn(key, c):
+        gn(f"{key}.norm_layer", c)
+        c3(f"{key}.conv_y.conv", c, z, 1)
+        c3(f"{key}.conv_b.conv", c, z, 1)
+
+    def res(prefix, ci, co, spatial):
+        norm = sn if spatial else gn
+        norm(f"{prefix}.norm1", ci)
+        c3(f"{prefix}.conv1.conv", co, ci)
+        norm(f"{prefix}.norm2", co)
+        c3(f"{prefix}.conv2.conv", co, co)
+        if ci != co:
+            c3(f"{prefix}.conv_shortcut", co, ci, 1)
+
+    bo, rev = cfg.block_out_channels, tuple(reversed(cfg.block_out_channels))
+    c3("encoder.conv_in.conv", bo[0], cfg.in_channels)
+    ch = bo[0]
+    for i in range(cfg.num_blocks):
+        for j in range(cfg.layers_per_block):
+            res(f"encoder.down_blocks.{i}.resnets.{j}", ch if j == 0 else bo[i], bo[i], False)
+        ch = bo[i]
+        if cfg.resample_spatial(i):
+            c2(f"encoder.down_blocks.{i}.downsamplers.0.conv", bo[i])
+    for j in range(2):
+        res(f"encoder.mid_block.resnets.{j}", bo[-1], bo[-1], False)
+    gn("encoder.norm_out", bo[-1])
+    c3("encoder.conv_out.conv", 2 * z, bo[-1])
+    c3("decoder.conv_in.conv", rev[0], z)
+    for j in range(2):
+        res(f"decoder.mid_block.resnets.{j}", rev[0], rev[0], True)
+    ch = rev[0]
+    for i in range(cfg.num_blocks):
+        for j in range(cfg.layers_per_block + 1):
+            res(f"decoder.up_blocks.{i}.resnets.{j}", ch if j == 0 else rev[i], rev[i], True)
+        ch = rev[i]
+        if cfg.resample_spatial(i):
+            c2(f"decoder.up_blocks.{i}.upsamplers.0.conv", rev[i])
+    sn("decoder.norm_out", rev[-1])
+    c3("decoder.conv_out.conv", cfg.out_channels, rev[-1])
+    return sd
+
+
+def reference_cosmos_dit_sd(cfg, g) -> dict:
+    """A diffusers CosmosTransformer3DModel state dict."""
+    sd, h, r = {}, cfg.hidden_size, cfg.adaln_lora_dim
+
+    def lin(key, di, do, bias=False):
+        sd[f"{key}.weight"] = _randn(g, do, di)
+        if bias:
+            sd[f"{key}.bias"] = 0.02 * _randn(g, do, fan_in=1)
+
+    mlp = int(h * cfg.mlp_ratio)
+    lin("patch_embed.proj", cfg.patch_in_channels * int(np.prod(cfg.patch_size)), h)
+    lin("time_embed.t_embedder.linear_1", h, h)
+    lin("time_embed.t_embedder.linear_2", h, 3 * h)
+    sd["time_embed.norm.weight"] = 1 + 0.1 * _randn(g, h, fan_in=1)
+    for i in range(cfg.num_layers):
+        b = f"transformer_blocks.{i}"
+        for n in ("norm1", "norm2", "norm3"):
+            lin(f"{b}.{n}.linear_1", h, r)
+            lin(f"{b}.{n}.linear_2", r, 3 * h)
+        for a, kv in (("attn1", h), ("attn2", cfg.text_embed_dim)):
+            lin(f"{b}.{a}.to_q", h, h)
+            lin(f"{b}.{a}.to_k", kv, h)
+            lin(f"{b}.{a}.to_v", kv, h)
+            lin(f"{b}.{a}.to_out.0", h, h)
+            for nm in ("norm_q", "norm_k"):
+                sd[f"{b}.{a}.{nm}.weight"] = 1 + 0.1 * _randn(g, cfg.attention_head_dim, fan_in=1)
+        lin(f"{b}.ff.net.0.proj", h, mlp)
+        lin(f"{b}.ff.net.2", mlp, h)
+    lin("norm_out.linear_1", h, r)
+    lin("norm_out.linear_2", r, 2 * h)
+    lin("proj_out", h, int(np.prod(cfg.patch_size)) * cfg.out_channels, bias=True)
+    for ax, n, p in zip("thw", cfg.max_size, cfg.patch_size):
+        sd[f"learnable_pos_embed.pos_emb_{ax}"] = 0.02 * _randn(g, n // p, h, fan_in=1)
+    return sd
+
+
+def reference_cosmos_vae_sd(cfg, g) -> dict:
+    """A Cosmos tokenizer (CV8x8x8) state dict in Cosmos-Tokenizer's names (a
+    CausalConv3d's conv as `.conv3d`; attention projections 1x1x1 convs)."""
+    sd = {}
+
+    def conv(key, ci, co, k=3):
+        sd[f"{key}.conv3d.weight"] = _randn(g, co, ci, k, k, k, fan_in=ci * k ** 3)
+        sd[f"{key}.conv3d.bias"] = torch.zeros(co)
+
+    def norm(key, c):
+        sd[f"{key}.weight"], sd[f"{key}.bias"] = 1 + 0.1 * _randn(g, c, fan_in=1), 0.1 * _randn(g, c, fan_in=1)
+
+    def res(key, ci, co):
+        norm(f"{key}.norm1", ci)
+        conv(f"{key}.conv1", ci, co)
+        norm(f"{key}.norm2", co)
+        conv(f"{key}.conv2", co, co)
+        if ci != co:
+            conv(f"{key}.nin_shortcut", ci, co, 1)
+
+    def attn(key, c):
+        norm(f"{key}.norm", c)
+        for nm in ("q", "k", "v", "proj_out"):
+            sd[f"{key}.{nm}.weight"], sd[f"{key}.{nm}.bias"] = _randn(g, c, c, 1, 1, 1, fan_in=c), torch.zeros(c)
+
+    chans = [cfg.base_channels] + [cfg.base_channels * m for m in cfg.channels_mult]
+    cz = chans[-1]
+    conv("encoder.conv_in", cfg.patch_channels, cfg.base_channels)
+    ci = cfg.base_channels
+    for i, co in enumerate(chans[1:]):
+        for j in range(cfg.num_res_blocks):
+            res(f"encoder.down.{i}.block.{j}", ci, co)
+            ci = co
+        if cfg.downsample(i):
+            conv(f"encoder.down.{i}.downsample", co, co)
+    for side in ("encoder", "decoder"):
+        res(f"{side}.mid.block_1", cz, cz)
+        attn(f"{side}.mid.attn_1", cz)
+        attn(f"{side}.mid.attn_2", cz)
+        res(f"{side}.mid.block_2", cz, cz)
+    norm("encoder.norm_out", cz)
+    conv("encoder.conv_out", cz, cfg.latent_channels)
+    conv("decoder.conv_in", cfg.latent_channels, cz)
+    ci = cz
+    for i in reversed(range(len(cfg.channels_mult))):
+        co = chans[i + 1]
+        for j in range(cfg.num_res_blocks + 1):
+            res(f"decoder.up.{i}.block.{j}", ci, co)
+            ci = co
+        if cfg.downsample(i):
+            conv(f"decoder.up.{i}.upsample", co, co)
+    norm("decoder.norm_out", chans[1])
+    conv("decoder.conv_out", chans[1], cfg.patch_channels)
+    return sd
+
+
+# the tiny CogVideoX and Cosmos checkpoints: the CLIs' smoke widths (head_dim
+# 64, as the kernels take it), T5 encoders of 2 layers
+TINY_COG_T5 = dict(dim=32, dim_attn=32, dim_ffn=48, num_heads=2, num_layers=2, num_buckets=8, max_dist=16,
+                   gated_ffn=True, shared_rel_bias=True, ffn_act="gelu_tanh")
+TINY_COSMOS_T5 = dict(dim=64, dim_attn=64, dim_ffn=96, num_heads=2, num_layers=2, num_buckets=8, max_dist=16,
+                      gated_ffn=False, shared_rel_bias=True, ffn_act="relu")
+
+
+def _write_subdirs(path, subs):
+    from sparse_videogen_tpu_torch.io.safetensors import save_file
+
+    for sub, sd, cfg in subs:
+        os.makedirs(os.path.join(path, sub), exist_ok=True)
+        save_file(sd, os.path.join(path, sub, "model.safetensors"))
+        with open(os.path.join(path, sub, "config.json"), "w") as f:
+            json.dump(cfg, f)
+
+
+def _t5_sub(cfg_kw, texts, g, t5_names):
+    """(pieces, the text_encoder/ entry): T5 in HF's names, its config.json in
+    HF's names (t5_names "hf") or the package's ("package")."""
+    from sparse_videogen_tpu_torch.models.common.t5 import T5Config
+
+    pieces = synthetic_vocab(texts)
+    cfg = T5Config(vocab_size=len(pieces), **cfg_kw)
+    js = t5_hf_config(cfg) if t5_names == "hf" else dataclasses.asdict(cfg)
+    return pieces, ("text_encoder", reference_t5_hf_sd(cfg, g), js)
+
+
+def write_tiny_cog_checkpoint(path: str, prompt: str, t5_names: str = "hf") -> None:
+    """A CogVideoX 1.5 I2V checkpoint dir as cli/cog_i2v.py --model_dir reads
+    it, in the reference's names: transformer/ (the CLI's smoke widths, the
+    ofs embedding, diffusers' config.json), text_encoder/ (a 2-layer T5 v1.1,
+    gated GELU, d_model 32), vae/ (the smoke VAE's widths, diffusers'
+    config.json, invert_scale_latents), spiece.model covering `prompt`."""
+    from sparse_videogen_tpu_torch.cli.cog_i2v import SMOKE_CFG, SMOKE_VAE_CFG
+    from sparse_videogen_tpu_torch.models.cog.model import CogConfig
+    from sparse_videogen_tpu_torch.models.cog.vae import CogVAEConfig
+
+    g = torch.Generator().manual_seed(9)
+    dit = CogConfig(**dict(SMOKE_CFG, time_embed_dim=64, text_dim=TINY_COG_T5["dim"]), ofs_embed=True)
+    dit_js = {"num_attention_heads": dit.heads_num, "attention_head_dim": dit.head_dim, "num_layers": dit.num_layers,
+              "max_text_seq_length": dit.text_len, "text_embed_dim": dit.text_dim, "in_channels": dit.in_channels,
+              "out_channels": dit.out_channels, "patch_size": dit.patch_size, "patch_size_t": dit.patch_size_t,
+              "time_embed_dim": dit.time_embed_dim, "ofs_embed_dim": dit.time_embed_dim}
+    vae = CogVAEConfig(**SMOKE_VAE_CFG)
+    vae_js = dict(SMOKE_VAE_CFG, block_out_channels=list(vae.block_out_channels), latent_channels=16,
+                  scaling_factor=0.7, invert_scale_latents=True)
+    pieces, t5 = _t5_sub(TINY_COG_T5, [prompt], g, t5_names)
+    _write_subdirs(path, [("transformer", reference_cog_dit_sd(dit, g), dit_js), t5,
+                          ("vae", reference_cog_vae_sd(vae, g), vae_js)])
+    write_spiece(path, pieces, unk_id=2)
+
+
+def write_tiny_cosmos_checkpoint(path: str, prompt: str, t5_names: str = "hf") -> None:
+    """A Cosmos Text2World checkpoint dir as cli/cosmos_t2v.py --model_dir
+    reads it: transformer/ (the CLI's smoke widths, the package's
+    config.json names as the JAX CLI reads them; diffusers' weight names),
+    text_encoder/ (a 2-layer T5 v1.0, ReLU, d_model 64), vae/ (the smoke
+    tokenizer's widths, Cosmos-Tokenizer's names), spiece.model covering
+    `prompt`."""
+    from sparse_videogen_tpu_torch.cli.cosmos_t2v import SMOKE_CFG, SMOKE_VAE_CFG
+    from sparse_videogen_tpu_torch.models.cosmos.model import CosmosConfig
+    from sparse_videogen_tpu_torch.models.cosmos.vae import CosmosVAEConfig
+
+    g = torch.Generator().manual_seed(10)
+    dit = CosmosConfig(**SMOKE_CFG)
+    vae = CosmosVAEConfig(**SMOKE_VAE_CFG)
+    pieces, t5 = _t5_sub(TINY_COSMOS_T5, [prompt], g, t5_names)
+    _write_subdirs(path, [("transformer", reference_cosmos_dit_sd(dit, g), dict(SMOKE_CFG, max_size=list(
+        dit.max_size))), t5, ("vae", reference_cosmos_vae_sd(vae, g), dict(SMOKE_VAE_CFG, channels_mult=list(
+        vae.channels_mult)))])
+    write_spiece(path, pieces, unk_id=2)
+
+
 def _timed(stages: dict, name: str, fn):
     """fn() between two CUDA events, the peak device memory reset before it;
     records (ms, peak GiB) under `name` and returns fn's result."""
@@ -3722,6 +4184,349 @@ def phase_small_text_vae_reference(dev):
             raise AssertionError(f"the VAE decode ({name}) on the card disagrees with the CPU: {rel}")
 
 
+def phase_cog_i2v(dev):
+    """CogVideoX 1.5 I2V from an image and a prompt to a video at full width:
+    a spiece.model this script writes, read by io/tokenizer.py; T5 v1.1 XXL
+    (T5_V1_1_XXL, random bf16) through io/encoders.T5TextEncoder on the
+    CLI's prompt and its empty negative prompt at 226 tokens (unmasked, cast
+    to bf16 as the CLI does); examples/1/image.jpg decoded by io/image.py
+    and resized bilinearly to 768x1360 (models/common/resize.py); the
+    full-width VAE (CogVAEConfig(), f32, random) encode of that frame, with
+    TF32 off and on, scaled (v1.5: / 0.7); COG_1_5_5B_I2V at COG_LAYERS
+    layers for COG_I2V_STEPS SVG1 steps of presets.COG_768P_SVG; the CLI's
+    default decoder (--vae_tiling auto: 28 tiles of 32 x 32 latents) on the
+    first COG_DECODE_FRAMES of the 21 latent frames with TF32 on, as the CLI
+    leaves it; a .y4m at 8 fps, read back. The kernel counters are set to 0
+    before the tokenizer and read after the writer: K1 (kinds none and cog)
+    and K2 launch as expected_launches says, no plain version runs. Each
+    stage timed with CUDA events beside its peak memory."""
+    import logging
+
+    from sparse_videogen_tpu_torch import _kernels
+    from sparse_videogen_tpu_torch.cli._common import make_vae_decoder
+    from sparse_videogen_tpu_torch.cli.cog_i2v import FPS, build_parser
+    from sparse_videogen_tpu_torch.config import WarmupSchedule
+    from sparse_videogen_tpu_torch.io.encoders import T5TextEncoder
+    from sparse_videogen_tpu_torch.io.image import load_image
+    from sparse_videogen_tpu_torch.io.native import read_y4m
+    from sparse_videogen_tpu_torch.io.tokenizer import T5TokenizerLite
+    from sparse_videogen_tpu_torch.models.cog.model import CogModel
+    from sparse_videogen_tpu_torch.models.cog.vae import CogVAE, CogVAEConfig, scale_latents
+    from sparse_videogen_tpu_torch.models.common.resize import resize_bilinear
+    from sparse_videogen_tpu_torch.models.common.t5 import T5_V1_1_XXL, T5Encoder
+    from sparse_videogen_tpu_torch.pipelines import CogPipeline
+    from sparse_videogen_tpu_torch.pipelines.wan import export_video
+    from sparse_videogen_tpu_torch.presets import COG_768P_SVG as run
+    from sparse_videogen_tpu_torch.schedulers import CogDDIM
+
+    stages = {}
+    cfg = dataclasses.replace(run.model, num_layers=COG_LAYERS)
+    args = build_parser().parse_args([])  # the CLI's defaults: prompt, VAE tiling auto, tile 32, overlap 8
+    timesteps = CogDDIM(COG_I2V_STEPS).timesteps
+    kw = run.generate_kwargs()
+    warmup = WarmupSchedule.from_fractions(kw["first_layers_fp"], kw["first_times_fp"], cfg.num_layers, timesteps)
+    want, want_kinds = expected_launches("SVG", cfg.num_layers, warmup, timesteps, ("none", "cog"))
+    g = torch.Generator(device=dev).manual_seed(0)
+    _kernels.reset_counts()
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        write_spiece(tmp, synthetic_vocab([args.prompt]), unk_id=2)
+        tok = T5TokenizerLite.from_dir(tmp)
+        t5 = _timed(stages, "T5 v1.1 XXL set-up (bf16)", lambda: T5Encoder(T5_V1_1_XXL, dtype=torch.bfloat16,
+                                                                            device=dev).init_random(g))
+        enc = T5TextEncoder(t5, tok, cfg.text_len, mask_output=False)
+        ctx, ctx_null = _timed(stages, f"T5 v1.1 XXL encode prompt + negative, {cfg.text_len} tokens each",
+                               lambda: [enc([p]).to(torch.bfloat16) for p in (args.prompt, args.negative_prompt)])
+        n_t5 = sum(p.numel() for p in t5.parameters())
+        log("cog_i2v", f"T5 v1.1 XXL {n_t5 / 1e9:.3f} B params bf16: states {tuple(ctx.shape)}, finite "
+                       f"{bool(torch.isfinite(ctx).all())}, std {ctx.float().std().item():.4f}")
+        if tuple(ctx.shape) != (1, cfg.text_len, cfg.text_dim) or not torch.isfinite(ctx).all() or \
+                not torch.isfinite(ctx_null).all():
+            raise AssertionError("T5: states of the wrong shape or not finite")
+        del t5, enc
+        torch.cuda.empty_cache()
+        img = load_image(os.path.join(ROOT, "examples", "1", "image.jpg"))
+        pix = _timed(stages, f"bilinear resize {tuple(img.shape[2:])} -> ({run.height}, {run.width})",
+                     lambda: resize_bilinear(img.to(dev), run.height, run.width))
+        vae = _timed(stages, "VAE set-up (full width, f32)", lambda: CogVAE(CogVAEConfig(), device=dev).init_random(g))
+        raw = _timed(stages, "VAE encode of the frame, f32 (TF32 off)", lambda: vae.encode(pix[:, :, None]))
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            raw_tf32 = _timed(stages, "VAE encode of the frame, TF32", lambda: vae.encode(pix[:, :, None]))
+        finally:
+            torch.backends.cudnn.allow_tf32 = False
+        rel = ((raw_tf32 - raw).norm() / raw.norm()).item()
+        img_lat = scale_latents(vae.cfg, raw)
+        log("cog_i2v", f"image {tuple(img.shape)} -> {tuple(pix.shape)} -> latents {tuple(img_lat.shape)}, finite "
+                       f"{bool(torch.isfinite(img_lat).all())}, std {img_lat.std().item():.4f}; the TF32 encode "
+                       f"{rel:.3e} rel L2 from the f32 one")
+        if tuple(img_lat.shape) != (1, 16, 1, run.height // 8, run.width // 8) or not torch.isfinite(img_lat).all():
+            raise AssertionError("image -> latents: wrong shape or not finite")
+        model = _timed(stages, "DiT set-up", lambda: CogModel(cfg, dtype=torch.bfloat16, device=dev).init_random(g))
+        events = [torch.cuda.Event(enable_timing=True)]
+        events[0].record()
+
+        def on_step(i, lat):
+            events.append(torch.cuda.Event(enable_timing=True))
+            events[-1].record()
+
+        lat = _timed(stages, f"DiT {COG_I2V_STEPS} steps SVG1", lambda: CogPipeline(model).generate_latents(
+            ctx, ctx_null, img_lat, num_inference_steps=COG_I2V_STEPS, seed=0, callback=on_step, **kw))
+        steps_s = [events[i].elapsed_time(events[i + 1]) / 1e3 for i in range(COG_I2V_STEPS)]
+        del model
+        torch.cuda.empty_cache()
+        decode = make_vae_decoder(args, vae, logging.getLogger("chip_smoke"))
+        torch.backends.cudnn.allow_tf32 = True  # the CLI leaves torch's default on
+        try:
+            video = _timed(stages, f"VAE decode {COG_DECODE_FRAMES} of {lat.shape[2]} latent frames (CLI default: "
+                                   "tiled, TF32)", lambda: decode(lat[:, :, :COG_DECODE_FRAMES]))
+        finally:
+            torch.backends.cudnn.allow_tf32 = False
+        path = os.path.join(tmp, "cog_i2v.y4m")
+        t0 = time.perf_counter()
+        export_video(video, path, fps=FPS)
+        frames, fps = read_y4m(path)
+        export_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches = _check_launches("cog_i2v", want, want_kinds)
+    for name, (ms, gib) in stages.items():
+        log("cog_i2v", f"{name}: {ms:.1f} ms, peak {gib:.2f} GiB")
+    n_frames = 1 + 4 * (COG_DECODE_FRAMES - 1)
+    log("cog_i2v", f"SVG1 s a step {[round(x, 4) for x in steps_s]} (the first includes the set-up); export + read "
+                   f"back {export_s:.2f} s on the host; frames {frames.shape} at {fps} fps, mean {frames.mean():.2f}, "
+                   f"std {frames.std():.2f}")
+    if frames.shape != (n_frames, run.height, run.width, 3) or fps != FPS or frames.std() == 0 or \
+            not torch.isfinite(video).all():
+        raise AssertionError(f"image -> video: frames {frames.shape} at {fps} fps, std {frames.std()}")
+    del vae, video, lat
+    torch.cuda.empty_cache()
+    return launches
+
+
+def cosmos_dense_steps(run, n_steps: int) -> int:
+    """The steps a run of n_steps EDM steps takes dense (the warm-up's
+    first_times from WarmupSchedule.from_fractions over c_noise)."""
+    from sparse_videogen_tpu_torch.config import WarmupSchedule
+    from sparse_videogen_tpu_torch.schedulers import EDMEuler
+
+    ts = EDMEuler(n_steps).timesteps
+    w = WarmupSchedule.from_fractions(run.first_layers_fp, run.first_times_fp, run.model.num_layers, ts)
+    return int((ts > w.first_times).sum())
+
+
+def phase_cosmos(dev):
+    """Cosmos Text2World from a prompt to a video at full width: a
+    spiece.model this script writes; t5-11b's encoder (T5_11B: 24 layers,
+    d_model 1024, 128 heads of 128, FFN 65,536; random bf16) through
+    io/encoders.T5TextEncoder on the CLI's prompt and empty negative prompt
+    at 512 tokens (masked, cast to bf16); COSMOS_7B at full width with
+    COSMOS_LAYERS of its 28 layers at 704x1280x121 (S = 56,320) through
+    CosmosPipeline.generate_latents, each run through drive_pipeline
+    (launches held to expected_launches, no plain version, finite latents):
+    dense (cosmos-704p-dense) for COSMOS_STEPS_DENSE steps, SVG1
+    (cosmos-704p-svg) for COSMOS_STEPS steps, then the model made organic
+    (utils/organic: k := q in every self-attention, norm_q x COSMOS_SAP_GAIN,
+    smooth initial latents) for SAP in cluster and tile mode (cosmos-704p-sap:
+    QC 300, KC 1000) for COSMOS_STEPS steps, with SAP's densities; the
+    full-width CV8x8x8 VAE (random f32) through the CLI's default decoder
+    (tiled) on the first COSMOS_DECODE_FRAMES latent frames with TF32 on; a
+    .y4m at 30 fps, read back. Prints the s a step by pattern, the dense
+    steps a 35-step run takes under each preset (WarmupSchedule's c_noise
+    offset), and the projection of a 35-step, 28-layer generation. Returns
+    {kernel: launches} of the runs."""
+    import logging
+
+    from sparse_videogen_tpu_torch import _kernels
+    from sparse_videogen_tpu_torch.cli._common import make_vae_decoder
+    from sparse_videogen_tpu_torch.cli.cosmos_t2v import TEXT_LEN, build_parser
+    from sparse_videogen_tpu_torch.io.encoders import T5TextEncoder
+    from sparse_videogen_tpu_torch.io.native import read_y4m
+    from sparse_videogen_tpu_torch.io.tokenizer import T5TokenizerLite
+    from sparse_videogen_tpu_torch.models.common.t5 import T5_11B, T5Encoder
+    from sparse_videogen_tpu_torch.models.cosmos.model import CosmosModel
+    from sparse_videogen_tpu_torch.models.cosmos.vae import COSMOS_VAE_CV8x8x8, CosmosVAE
+    from sparse_videogen_tpu_torch.pipelines import CosmosPipeline
+    from sparse_videogen_tpu_torch.pipelines.cosmos import cosmos_layout
+    from sparse_videogen_tpu_torch.pipelines.wan import export_video
+    from sparse_videogen_tpu_torch.presets import COSMOS_PRESETS
+    from sparse_videogen_tpu_torch.schedulers import EDMEuler
+    from sparse_videogen_tpu_torch.utils.organic import align_self_attn_qk, smooth_latents
+
+    stages, launches = {}, collections.Counter()
+    args = build_parser().parse_args([])
+    dense_run = COSMOS_PRESETS["cosmos-704p-dense"]
+    cfg = dataclasses.replace(dense_run.model, num_layers=COSMOS_LAYERS)
+    lay = cosmos_layout(cfg, dense_run.height, dense_run.width, dense_run.num_frames)
+    g = torch.Generator(device=dev).manual_seed(0)
+    for name, run in COSMOS_PRESETS.items():
+        log("cosmos", f"{name}: a 35-step run takes {cosmos_dense_steps(run, 35)} dense steps (first_times_fp "
+                      f"{run.first_times_fp} says {int(run.first_times_fp * 35)}: from_fractions' offset of 1.0 on "
+                      f"c_noise timesteps); this run's {COSMOS_STEPS} steps take "
+                      f"{cosmos_dense_steps(run, COSMOS_STEPS)} dense")
+    _kernels.reset_counts()
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        write_spiece(tmp, synthetic_vocab([args.prompt]), unk_id=2)
+        tok = T5TokenizerLite.from_dir(tmp)
+        t5 = _timed(stages, "t5-11b encoder set-up (bf16)", lambda: T5Encoder(T5_11B, dtype=torch.bfloat16,
+                                                                               device=dev).init_random(g))
+        enc = T5TextEncoder(t5, tok, TEXT_LEN, mask_output=True)
+        ctx, ctx_null = _timed(stages, f"t5-11b encode prompt + negative, {TEXT_LEN} tokens each",
+                               lambda: [enc([p]).to(torch.bfloat16) for p in (args.prompt, args.negative_prompt)])
+        live = int(tok([args.prompt], seq_len=TEXT_LEN)[1].sum())
+        n_t5 = sum(p.numel() for p in t5.parameters())
+        log("cosmos", f"t5-11b encoder {n_t5 / 1e9:.3f} B params bf16 ({n_t5 * 2 / 2**30:.2f} GiB): states "
+                      f"{tuple(ctx.shape)}, prompt {live} tokens, finite {bool(torch.isfinite(ctx).all())}, std "
+                      f"{ctx[0, :live].float().std().item():.4f}")
+        if tuple(ctx.shape) != (1, TEXT_LEN, cfg.text_embed_dim) or not torch.isfinite(ctx).all() or \
+                not (ctx[0, live:] == 0).all() or not (ctx_null[0, 1:] == 0).all():
+            raise AssertionError("t5-11b: states of the wrong shape, not finite, or not zero past the prompt")
+        del t5, enc
+        torch.cuda.empty_cache()
+        model = _timed(stages, "DiT set-up", lambda: CosmosModel(cfg, dtype=torch.bfloat16, device=dev).init_random(g))
+        log("cosmos", f"COSMOS_7B: {cfg.num_layers} of 28 layers, {cfg.num_attention_heads} heads of "
+                      f"{cfg.attention_head_dim}, {sum(p.numel() for p in model.parameters()) / 1e9:.3f} B params; "
+                      f"S = {lay.seq_len} = {lay.num_frames} x {lay.frame_size}")
+        shape = (1, cfg.out_channels, 1 + (dense_run.num_frames - 1) // 8, dense_run.height // 8,
+                 dense_run.width // 8)
+        per_step, lat = {}, None
+        for label, preset, steps in (("dense", "cosmos-704p-dense", COSMOS_STEPS_DENSE),
+                                     ("SVG", "cosmos-704p-svg", COSMOS_STEPS),
+                                     ("SAP", "cosmos-704p-sap", COSMOS_STEPS),
+                                     ("SAP tile", "cosmos-704p-sap-tile", COSMOS_STEPS)):
+            run = COSMOS_PRESETS[preset]
+            kw = dict(run.generate_kwargs(), num_inference_steps=steps)
+            pipe = CosmosPipeline(model)
+            sched = EDMEuler(steps)
+            if run.pattern == "SAP":
+                if label == "SAP":
+                    align_self_attn_qk(model, COSMOS_SAP_GAIN, key="attn1")
+                lat0 = smooth_latents(torch.Generator(device=dev).manual_seed(3), shape, dtype=torch.float32)
+                density = os.path.join(tmp, f"{preset}.jsonl")
+                generate = lambda on_step: pipe._denoise(
+                    ctx, ctx_null, lat0 * sched.init_noise_sigma, generator=torch.Generator(device=dev).manual_seed(0),
+                    callback=on_step, logging_file=density,
+                    **{k: v for k, v in kw.items() if k != "fps"})
+            else:
+                generate = lambda on_step: pipe.generate_latents(ctx, ctx_null, seed=0, callback=on_step, **kw)
+            kinds = ("none", "band_sink")
+            r = drive_pipeline(f"Cosmos 7B x {cfg.num_layers} layers ({label})",
+                               f"{run.height}x{run.width}x{run.num_frames} (S={lay.seq_len}), EDM Euler, CFG batch 2",
+                               kw, run.pattern, sched.timesteps, cfg.num_layers, generate, shape, kinds, sap=run.sap,
+                               sap_streams=1, rope=False)
+            launches.update({k: v for k, v in r["launches"].items() if v})
+            launches.update({k: v for k, v in r["kind_launches"].items() if v})
+            n_dense = cosmos_dense_steps(dataclasses.replace(run, model=cfg), steps)
+            per_step[label] = (r["per_step_s"], n_dense)
+            if run.pattern == "SAP":
+                rows = [json.loads(line) for line in open(density)]
+                log("cosmos", f"{label}: SAP density by (step, layer) "
+                              f"{[round(x['avg_density'], 4) for x in rows]} (organic, gain {COSMOS_SAP_GAIN})")
+                if not rows or not all(0 < x["avg_density"] <= 1 for x in rows):
+                    raise AssertionError(f"Cosmos {label}: no SAP density logged, or one out of (0, 1]")
+            lat = r["latents"]
+        del model
+        torch.cuda.empty_cache()
+        vae = _timed(stages, "VAE set-up (CV8x8x8, full width, f32)",
+                     lambda: CosmosVAE(COSMOS_VAE_CV8x8x8, device=dev).init_random(g))
+        decode = make_vae_decoder(args, vae, logging.getLogger("chip_smoke"))
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            video = _timed(stages, f"VAE decode {COSMOS_DECODE_FRAMES} of {lat.shape[2]} latent frames (CLI default: "
+                                   "tiled, TF32)", lambda: decode(lat[:, :, :COSMOS_DECODE_FRAMES]))
+        finally:
+            torch.backends.cudnn.allow_tf32 = False
+        path = os.path.join(tmp, "cosmos.y4m")
+        export_video(video, path, fps=args.fps)
+        frames, fps = read_y4m(path)
+    for name, (ms, gib) in stages.items():
+        log("cosmos", f"{name}: {ms:.1f} ms, peak {gib:.2f} GiB")
+    dense_s = float(np.median(per_step["dense"][0][1:]))
+    for label, (steps_s, n_dense) in per_step.items():
+        sparse = steps_s[n_dense:][1:] if label.startswith("SAP") else steps_s[n_dense:]
+        sparse_s = float(np.median(sparse)) if sparse else dense_s
+        run = COSMOS_PRESETS[{"dense": "cosmos-704p-dense", "SVG": "cosmos-704p-svg", "SAP": "cosmos-704p-sap",
+                              "SAP tile": "cosmos-704p-sap-tile"}[label]]
+        n35 = 35 if run.pattern == "dense" else cosmos_dense_steps(run, 35)
+        proj = (n35 * dense_s + (35 - n35) * sparse_s) * 28 / cfg.num_layers
+        log("cosmos", f"{label}: s a step {[round(x, 4) for x in steps_s]} ({n_dense} dense; the first includes the "
+                      f"set-up); a 35-step, 28-layer DiT projects to {proj:.1f} s ({n35} dense steps at {dense_s:.4f} "
+                      f"s, {35 - n35} at {sparse_s:.4f} s, x 28 / {cfg.num_layers} layers)")
+    n_frames = 1 + 8 * (COSMOS_DECODE_FRAMES - 1)
+    log("cosmos", f"frames {frames.shape} at {fps} fps, mean {frames.mean():.2f}, std {frames.std():.2f}")
+    if frames.shape != (n_frames, dense_run.height, dense_run.width, 3) or fps != args.fps or frames.std() == 0 or \
+            not torch.isfinite(video).all():
+        raise AssertionError(f"prompt -> video: frames {frames.shape} at {fps} fps, std {frames.std()}")
+    del vae, video, lat
+    torch.cuda.empty_cache()
+    return dict(launches)
+
+
+def phase_small_cosmos_cog_reference(dev):
+    """Small T5 v1.0 and v1.1, the CogVideoX VAE, the Cosmos DiT and the
+    Cosmos VAE on the card against the same modules on the CPU (same weights
+    and inputs): T5 in f32 within UMT5_TOL; the VAEs in f32 (decode, encode)
+    within VAE_TOL; the CLI's small Cosmos (bf16) over a CFG batch of 2 for
+    dense, SVG1 (the same profiler rows) and SAP at full density (the two
+    devices' k-means may split near-ties differently; at full density the
+    output does not depend on the clustering), rel L2 3e-2."""
+    from sparse_videogen_tpu_torch.cli.cog_i2v import SMOKE_VAE_CFG as COG_VAE
+    from sparse_videogen_tpu_torch.cli.cosmos_t2v import SMOKE_CFG, SMOKE_VAE_CFG
+    from sparse_videogen_tpu_torch.config import SAPConfig
+    from sparse_videogen_tpu_torch.models.cog.vae import CogVAE, CogVAEConfig
+    from sparse_videogen_tpu_torch.models.common.t5 import T5Config, T5Encoder
+    from sparse_videogen_tpu_torch.models.cosmos.model import CosmosConfig, CosmosModel
+    from sparse_videogen_tpu_torch.models.cosmos.vae import CosmosVAE, CosmosVAEConfig
+    from sparse_videogen_tpu_torch.pipelines.cosmos import cosmos_layout, make_cosmos_runtime
+
+    g = torch.Generator().manual_seed(6)
+    for name, kw in (("T5 v1.0 (ReLU)", TINY_COSMOS_T5), ("T5 v1.1 (gated GELU)", TINY_COG_T5)):
+        cfg = T5Config(vocab_size=300, **kw)
+        cpu = T5Encoder(cfg, dtype=torch.float32).init_random(g)
+        gpu = T5Encoder(cfg, dtype=torch.float32, device=dev)
+        gpu.load_state_dict(cpu.state_dict())
+        ids = torch.randint(0, cfg.vocab_size, (2, 64), generator=g)
+        mask = (torch.arange(64)[None] < torch.tensor([[40], [64]])).int()
+        a, b = gpu(ids, mask).cpu(), cpu(ids, mask)
+        rel = ((a - b).norm() / b.norm()).item()
+        log("small", f"{name} (2 layers, dim {cfg.dim}) card vs CPU, f32: rel L2 {rel:.3e} (tol {UMT5_TOL})")
+        if not rel <= UMT5_TOL:
+            raise AssertionError(f"{name} on the card disagrees with the CPU: {rel}")
+    for name, vae_cpu, z, video in (
+            ("CogVideoX VAE", CogVAE(CogVAEConfig(**COG_VAE)), torch.randn(1, 16, 3, 12, 16, generator=g),
+             torch.rand(1, 3, 9, 96, 128, generator=g) * 2 - 1),
+            ("Cosmos VAE", CosmosVAE(CosmosVAEConfig(**SMOKE_VAE_CFG)), torch.randn(1, 16, 3, 8, 12, generator=g),
+             torch.rand(1, 3, 17, 64, 96, generator=g) * 2 - 1)):
+        vae_cpu.init_random(g)
+        vae_gpu = type(vae_cpu)(vae_cpu.cfg, device=dev)
+        vae_gpu.load_state_dict(vae_cpu.state_dict())
+        for what, a, b in (("decode", vae_gpu.decode(z.to(dev)), vae_cpu.decode(z)),
+                           ("encode", vae_gpu.encode(video.to(dev)), vae_cpu.encode(video))):
+            rel = ((a.cpu() - b).norm() / b.norm()).item()
+            log("small", f"{name} {what} card vs CPU, f32: rel L2 {rel:.3e} (tol {VAE_TOL})")
+            if not rel <= VAE_TOL:
+                raise AssertionError(f"the {name} {what} on the card disagrees with the CPU: {rel}")
+    cfg = CosmosConfig(**SMOKE_CFG)
+    cpu_model = CosmosModel(cfg, dtype=torch.bfloat16).init_random(g)
+    gpu_model = CosmosModel(cfg, dtype=torch.bfloat16, device=dev)
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    lay = cosmos_layout(cfg, 128, 128, 17)
+    rows = torch.randint(0, lay.seq_len, (cfg.num_layers, 64), generator=g)
+    sap = SAPConfig(num_q_centroids=8, num_k_centroids=12, kmeans_iter_init=8, top_p_kmeans=1.0, min_kc_ratio=1.0)
+    x = torch.randn(2, 16, lay.num_frames, 16, 16, generator=g).to(torch.bfloat16)
+    ctx = torch.randn(2, 24, cfg.text_embed_dim, generator=g).to(torch.bfloat16)
+    t = torch.full((2,), -0.5)
+    for pattern in ("dense", "SVG", "SAP"):
+        outs = []
+        for model, d in ((gpu_model, dev), (cpu_model, torch.device("cpu"))):
+            rt = make_cosmos_runtime(lay, device=d, pattern=pattern, sap=sap)
+            outs.append(model(x.to(d), t.to(d), ctx.to(d), attention=rt, profile_rows=rows,
+                              generator=torch.Generator(device=d).manual_seed(0)).float().cpu())
+        rel = ((outs[0] - outs[1]).norm() / outs[1].norm()).item()
+        log("small", f"small Cosmos forward, {pattern}: kernels on the card vs plain on the CPU, rel L2 err "
+                     f"{rel:.3e} (tol 3e-2)")
+        if not rel <= 3e-2:
+            raise AssertionError(f"small Cosmos forward ({pattern}) disagrees with the CPU reference: {rel}")
+
+
 def _start_clis(runs, tmp):
     """Start every CLI run of `runs` ([(label, argv)]) at once, each its own
     process with its output in a file under tmp (they share the card; their
@@ -3758,11 +4563,13 @@ def _wait_clis(procs, kill=False):
 
 def phase_cli_start():
     """The CLIs as a user runs them, all started together: --smoke for each
-    pattern (latents to an .npz) of Wan T2V and I2V (SVG, dense, SAP, and SAP
-    with --sap_block_mode tile), HunyuanVideo T2V (SVG, dense, SAP in both
-    modes) and I2V (sparse, dense) and CogVideoX (SVG, dense); the Wan T2V
-    and HunyuanVideo T2V smokes with a video name (their tiny random VAEs,
-    to a .y4m); the Wan T2V CLI on a checkpoint dir (write_tiny_checkpoint)
+    pattern (latents to an .npz) of Wan T2V and I2V, HunyuanVideo T2V and
+    Cosmos (SVG, dense, SAP, and SAP with --sap_block_mode tile),
+    HunyuanVideo I2V (sparse, dense) and CogVideoX (SVG, dense); the Wan
+    T2V, HunyuanVideo T2V, CogVideoX and Cosmos smokes with a video name
+    (their tiny random VAEs, to a .y4m); CogVideoX from examples/1/image.jpg
+    and Cosmos from the prompt on tiny checkpoint dirs (write_tiny_cog_
+    checkpoint, write_tiny_cosmos_checkpoint: T5 in HF's names) to a .y4m; the Wan T2V CLI on a checkpoint dir (write_tiny_checkpoint)
     from the prompt to a .y4m; the Wan I2V CLI on an I2V checkpoint dir
     (write_tiny_checkpoint(i2v=True): the VAE's encoder, a CLIP tower in HF's
     names) from examples/1/image.jpg and the prompt to a .y4m (480p fits the
@@ -3775,7 +4582,8 @@ def phase_cli_start():
     from sparse_videogen_tpu_torch.io.native import read_y4m
 
     prompt = "a cat on the grass."
-    smokes = [(cli, p) for cli in ("wan_t2v", "wan_i2v", "hyvideo_t2v") for p in ("SVG", "dense", "SAP", "SAP-tile")]
+    smokes = [(cli, p) for cli in ("wan_t2v", "wan_i2v", "hyvideo_t2v", "cosmos_t2v")
+              for p in ("SVG", "dense", "SAP", "SAP-tile")]
     smokes += [("cog_i2v", p) for p in ("SVG", "dense")] + [("hyvideo_i2v", p) for p in ("sparse", "dense")]
     pattern_args = lambda p: ["--pattern", "SAP", "--sap_block_mode", "tile"] if p == "SAP-tile" else ["--pattern", p]
     tmpdir = tempfile.TemporaryDirectory(dir=ROOT)
@@ -3784,6 +4592,8 @@ def phase_cli_start():
     write_tiny_checkpoint(os.path.join(tmp, "ckpt_i2v"), prompt, i2v=True)
     write_tiny_hyvideo_checkpoint(os.path.join(tmp, "hy_ckpt"), prompt)
     write_tiny_hyvideo_checkpoint(os.path.join(tmp, "hy_ckpt_i2v"), prompt, i2v=True)
+    write_tiny_cog_checkpoint(os.path.join(tmp, "cog_ckpt"), prompt)
+    write_tiny_cosmos_checkpoint(os.path.join(tmp, "cosmos_ckpt"), prompt)
     hy_size = ["--height", "64", "--width", "64", "--num_frames", "5", "--num_inference_steps", "2"]
     out = lambda label, ext: os.path.join(tmp, f"{label}.{ext}")
     runs = [(f"{cli}_{p}", [f"sparse_videogen_tpu_torch.cli.{cli}", "--smoke", *pattern_args(p), "--device", "cuda",
@@ -3806,10 +4616,21 @@ def phase_cli_start():
               "hyvideo_i2v --model_dir (tiny synthetic Llava I2V checkpoint) --image_path examples/1/image.jpg": (
                   "hy_i2v_ckpt", ["hyvideo_i2v", "--model_dir", os.path.join(tmp, "hy_ckpt_i2v"), "--image_path",
                                   os.path.join(ROOT, "examples", "1", "image.jpg"), "--prompt", prompt, *hy_size],
-                  (5, 64, 64, 3))}
+                  (5, 64, 64, 3)),
+              "cog_i2v --smoke, a video name": ("cog_smoke", ["cog_i2v", "--smoke"], (17, 96, 128, 3)),
+              "cosmos_t2v --smoke, a video name": ("cosmos_smoke", ["cosmos_t2v", "--smoke"], (17, 128, 128, 3)),
+              "cog_i2v --model_dir (tiny synthetic checkpoint, T5 in HF's names) --image_path "
+              "examples/1/image.jpg": (
+                  "cog_ckpt", ["cog_i2v", "--model_dir", os.path.join(tmp, "cog_ckpt"), "--image_path",
+                               os.path.join(ROOT, "examples", "1", "image.jpg"), "--prompt", prompt, "--height", "96",
+                               "--width", "128", "--num_frames", "9", "--num_step", "2"], (9, 96, 128, 3)),
+              "cosmos_t2v --model_dir (tiny synthetic checkpoint, T5 in HF's names)": (
+                  "cosmos_ckpt", ["cosmos_t2v", "--model_dir", os.path.join(tmp, "cosmos_ckpt"), "--prompt", prompt,
+                                  "--height", "64", "--width", "64", "--num_frames", "9", "--num_inference_steps",
+                                  "2"], (9, 64, 64, 3))}
     for label, argv, _ in videos.values():
         runs.append((label, [f"sparse_videogen_tpu_torch.cli.{argv[0]}", *argv[1:], "--device", "cuda",
-                             "--output_file", out(label, "y4m")]))
+                             "--output_path" if argv[0] == "cog_i2v" else "--output_file", out(label, "y4m")]))
     t0 = time.perf_counter()
     procs = _start_clis(runs, tmp)
 
@@ -3862,6 +4683,9 @@ def main():
     kernels["block_sparse_attn[band_sink_perm]"] = phase_inplace_svg1(dev)
     kernels["block_sparse_attn_runs[stats]"] = phase_stats(dev)
     phase_sap_attention(dev, "14B-720p-sap", all_checks=False)
+    # Cosmos 704x1280x121: 64 rows, frame size 3,520 (not a multiple of 128), S = 56,320
+    kernels["block_sparse_attn[cosmos]"] = phase_cosmos_attention(dev)
+    kernels["block_sparse_attn_runs"]["cosmos"] = phase_sap_attention(dev, "cosmos-704p-sap", all_checks=False)
     done("kernels")
     # SAP's tile mode on K1 (Wan 1.3B 480p, 14B 720p at QC 300 / KC 1000) and
     # HunyuanVideo's text-last SAP on K3 and K1
@@ -3894,6 +4718,12 @@ def main():
     done("hy_p2v")
     phase_hy_i2v(dev, encoders)
     done("hy_i2v")
+    phase_cog_i2v(dev)
+    done("cog_i2v")
+    cosmos_launches = phase_cosmos(dev)
+    launches["block_sparse_attn[cosmos]"] = sum(n for k, n in cosmos_launches.items()
+                                               if k in ("block_sparse_attn[none]", "block_sparse_attn[band_sink]"))
+    done("cosmos")
     # the CLI runs (their own processes, mostly start-up on the host) run
     # beside the quality and small-reference phases
     finish_cli = phase_cli_start()
@@ -3906,6 +4736,7 @@ def main():
         phase_small_text_vae_reference(dev)
         phase_small_i2v_reference(dev)
         phase_small_hy_reference(dev)
+        phase_small_cosmos_cog_reference(dev)
         done("small references")
     except BaseException:
         finish_cli(kill=True)

@@ -15,11 +15,14 @@ Layering (bottom-up):
   core/       SVG1 mask math, online profiler, placement; SAP k-means,
               dynamic map, permutations
   sparse/     SVG1 plan and the dense / SVG1 / SAP self-attention runtimes
-  models/     Wan 2.1 and HunyuanVideo DiTs (nn.Module)
-  schedulers/ FlowUniPC, FlowMatchEuler
-  pipelines/  Wan and HunyuanVideo T2V generation pipelines
-  io/         JAX param pytrees -> the port's modules
-  cli/        wan_t2v and hyvideo_t2v entry points
+  models/     Wan 2.1, HunyuanVideo, CogVideoX and Cosmos DiTs, their VAEs,
+              the text and image encoders (nn.Module)
+  schedulers/ FlowUniPC, FlowMatchEuler, CogDDIM, EDMEuler
+  pipelines/  Wan, HunyuanVideo, CogVideoX and Cosmos generation pipelines
+  io/         checkpoints, tokenizers, images and videos; JAX param pytrees
+              -> the port's modules
+  cli/        wan_t2v, wan_i2v, hyvideo_t2v, hyvideo_i2v, cog_i2v and
+              cosmos_t2v entry points
   scripts/    profiles and kernel probes for the card
 
 On a CUDA tensor every kernel wrapper launches its kernel or raises; the

@@ -87,6 +87,37 @@ def sap_config(args, *, pass_zero_step: bool = True):
     return tile_variant(sap) if args.sap_block_mode == "tile" else sap
 
 
+def video_name(path: str) -> str:
+    """The file a video goes to: an .npz name becomes .y4m."""
+    return path[: -len(".npz")] + ".y4m" if path.endswith(".npz") else path
+
+
+def skip_existing(path: str) -> bool:
+    """--skip_existing: the output, or the .y4m an .npz name becomes, exists."""
+    for p in {path, video_name(path)}:
+        if os.path.exists(p):
+            print(f"output {p} exists; skipping generation")
+            return True
+    return False
+
+
+def encode_t5_prompts(model_dir: str, prompts, *, text_len: int, default_cfg, mask_output: bool, device):
+    """The prompts through a T5 encoder in HF's names (text_encoder/ of
+    model_dir: io/encoders.T5TextEncoder, freed after) -> bf16 states (1,
+    text_len, dim) each, as the JAX CLIs hand them to the DiT."""
+    import torch
+
+    from sparse_videogen_tpu_torch.io.encoders import T5TextEncoder
+
+    enc = T5TextEncoder.from_dir(model_dir, text_len=text_len, default_cfg=default_cfg, mask_output=mask_output,
+                                 device=device)
+    out = [enc([p]).to(torch.bfloat16) for p in prompts]
+    del enc
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
 def add_device(p):
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device to run on (cuda, cuda:N or cpu); never falls back")

@@ -379,3 +379,250 @@ def convert_llava(sd: dict, llama_cfg, vision_cfg, *, skip_layers: int = 2) -> d
         for part in ("weight", "bias"):
             out[f"projector.{ours}.{part}"] = sd[f"{proj}{theirs}.{part}"]
     return out
+
+
+# ---------------------------------------------------------------------------
+# T5 (HF names), CogVideoX, Cosmos
+# ---------------------------------------------------------------------------
+
+
+def _read_json(path: str):
+    cj = os.path.join(path, "config.json")
+    if not os.path.isfile(cj):
+        return None
+    with open(cj) as f:
+        return json.load(f)
+
+
+def t5_config_from_json(path: str):
+    """A T5Config from config.json in dir `path` (None if absent), in the
+    package's own names or in HF's T5Config / UMT5Config names
+    (models/common/t5.t5_config_from_dict)."""
+    from sparse_videogen_tpu_torch.models.common.t5 import t5_config_from_dict
+
+    c = _read_json(path)
+    return None if c is None else t5_config_from_dict(c)
+
+
+def convert_t5_hf(sd: dict, cfg) -> dict:
+    """HF T5EncoderModel (or T5ForConditionalGeneration) state dict ->
+    T5Encoder(cfg).state_dict(): T5 v1.0 (DenseReluDense.wi) or v1.1 / UMT5
+    (wi_0 the gate, wi_1 fc1); with cfg.shared_rel_bias block 0's relative
+    bias is the encoder's, otherwise each block's own."""
+    pre = "encoder." if any(k.startswith("encoder.") for k in sd) else ""
+    embed = "shared.weight" if "shared.weight" in sd else f"{pre}embed_tokens.weight"
+    out = {"token_embedding": sd[embed], "norm": sd[f"{pre}final_layer_norm.weight"]}
+    rel = "layer.0.SelfAttention.relative_attention_bias.weight"
+    if cfg.shared_rel_bias:
+        out["rel_embedding"] = sd[f"{pre}block.0.{rel}"]
+    for i in range(cfg.num_layers):
+        b, o = f"{pre}block.{i}", f"blocks.{i}"
+        out[f"{o}.norm1"] = sd[f"{b}.layer.0.layer_norm.weight"]
+        out[f"{o}.norm2"] = sd[f"{b}.layer.1.layer_norm.weight"]
+        for nm in "qkvo":
+            out[f"{o}.{nm}.weight"] = sd[f"{b}.layer.0.SelfAttention.{nm}.weight"]
+        ff = f"{b}.layer.1.DenseReluDense"
+        out[f"{o}.fc2.weight"] = sd[f"{ff}.wo.weight"]
+        if f"{ff}.wi.weight" in sd:
+            out[f"{o}.fc1.weight"] = sd[f"{ff}.wi.weight"]
+        else:
+            out[f"{o}.gate.weight"], out[f"{o}.fc1.weight"] = sd[f"{ff}.wi_0.weight"], sd[f"{ff}.wi_1.weight"]
+        if not cfg.shared_rel_bias:
+            out[f"{o}.rel_embedding"] = sd[f"{b}.{rel}"]
+    return out
+
+
+def _put(out, sd, ours, theirs, parts=("weight", "bias")):
+    for part in parts:
+        if f"{theirs}.{part}" in sd:
+            out[f"{ours}.{part}"] = sd[f"{theirs}.{part}"]
+
+
+def cog_config_from_json(path: str):
+    """A CogConfig from diffusers' CogVideoXTransformer3DModel config.json
+    (None if absent), as the JAX package reads it."""
+    from sparse_videogen_tpu_torch.models.cog.model import CogConfig
+
+    c = _read_json(path)
+    if c is None:
+        return None
+    heads, hd = c.get("num_attention_heads", 48), c.get("attention_head_dim", 64)
+    return CogConfig(num_layers=c.get("num_layers", 42), hidden_size=heads * hd, heads_num=heads, head_dim=hd,
+                     text_len=c.get("max_text_seq_length", 226), text_dim=c.get("text_embed_dim", 4096),
+                     in_channels=c.get("in_channels", 16), out_channels=c.get("out_channels", 16),
+                     patch_size=c.get("patch_size", 2), patch_size_t=c.get("patch_size_t") or 2,
+                     time_embed_dim=c.get("time_embed_dim", 512), ofs_embed=c.get("ofs_embed_dim") is not None,
+                     eps=c.get("norm_eps", 1e-5))
+
+
+def convert_cog_dit(sd: dict, cfg) -> dict:
+    """diffusers CogVideoXTransformer3DModel state dict -> CogModel(cfg).
+    state_dict(). v1.5's patch_embed.proj is a Linear; v1.0's Conv2d (kernel
+    = stride) flattens to the same matmul."""
+    out = {}
+    for ours, theirs in (("time_emb.fc1", "time_embedding.linear_1"), ("time_emb.fc2", "time_embedding.linear_2"),
+                         ("text_proj", "patch_embed.text_proj"), ("norm_final", "norm_final"),
+                         ("norm_out", "norm_out.norm"), ("norm_out_lin", "norm_out.linear"), ("proj_out", "proj_out")):
+        _put(out, sd, ours, theirs)
+    if "ofs_embedding.linear_1.weight" in sd:
+        _put(out, sd, "ofs_emb.fc1", "ofs_embedding.linear_1")
+        _put(out, sd, "ofs_emb.fc2", "ofs_embedding.linear_2")
+    pw = sd["patch_embed.proj.weight"]
+    out["patch_proj.weight"], out["patch_proj.bias"] = pw.reshape(pw.shape[0], -1), sd["patch_embed.proj.bias"]
+    names = {"norm1.lin": "norm1.linear", "norm1.norm": "norm1.norm", "norm2.lin": "norm2.linear",
+             "norm2.norm": "norm2.norm", "attn.q": "attn1.to_q", "attn.k": "attn1.to_k", "attn.v": "attn1.to_v",
+             "attn.o": "attn1.to_out.0", "attn.norm_q": "attn1.norm_q", "attn.norm_k": "attn1.norm_k",
+             "ffn.fc1": "ff.net.0.proj", "ffn.fc2": "ff.net.2"}
+    for i in range(cfg.num_layers):
+        for ours, theirs in names.items():
+            _put(out, sd, f"blocks.{i}.{ours}", f"transformer_blocks.{i}.{theirs}")
+    return out
+
+
+def cog_vae_config_from_json(path: str):
+    """A CogVAEConfig from diffusers' AutoencoderKLCogVideoX config.json
+    (None if absent), as the JAX package reads it (invert_scale_latents
+    False when the key is missing)."""
+    from sparse_videogen_tpu_torch.models.cog.vae import CogVAEConfig
+
+    c = _read_json(path)
+    if c is None:
+        return None
+    return CogVAEConfig(in_channels=c.get("in_channels", 3), out_channels=c.get("out_channels", 3),
+                        block_out_channels=tuple(c.get("block_out_channels", (128, 256, 256, 512))),
+                        layers_per_block=c.get("layers_per_block", 3), latent_channels=c.get("latent_channels", 16),
+                        norm_num_groups=c.get("norm_num_groups", 32), scaling_factor=c.get("scaling_factor", 0.7),
+                        invert_scale_latents=c.get("invert_scale_latents", False),
+                        temporal_compression=c.get("temporal_compression_ratio", 4))
+
+
+def convert_cog_vae(sd: dict, cfg) -> dict:
+    """diffusers AutoencoderKLCogVideoX state dict -> CogVAE(cfg).state_dict()
+    (a CogVideoXCausalConv3d wraps its Conv3d as `.conv`; shortcuts are plain
+    1x1x1 Conv3d; decoder norms are CogVideoXSpatialNorm3D: norm_layer and
+    the causal conv_y / conv_b; the resamplers per-frame Conv2d)."""
+    out = {}
+
+    def norm(ours, theirs, spatial):
+        if spatial:
+            _put(out, sd, f"{ours}.norm", f"{theirs}.norm_layer")
+            _put(out, sd, f"{ours}.conv_y", f"{theirs}.conv_y.conv")
+            _put(out, sd, f"{ours}.conv_b", f"{theirs}.conv_b.conv")
+        else:
+            _put(out, sd, ours, theirs)
+
+    def res(ours, theirs, spatial):
+        for nm in ("norm1", "norm2"):
+            norm(f"{ours}.{nm}", f"{theirs}.{nm}", spatial)
+        for nm in ("conv1", "conv2"):
+            _put(out, sd, f"{ours}.{nm}", f"{theirs}.{nm}.conv")
+        _put(out, sd, f"{ours}.shortcut", f"{theirs}.conv_shortcut")
+
+    for side, blocks, n_res, spatial in (("encoder", "down", cfg.layers_per_block, False),
+                                         ("decoder", "up", cfg.layers_per_block + 1, True)):
+        _put(out, sd, f"{side}.conv_in", f"{side}.conv_in.conv")
+        _put(out, sd, f"{side}.conv_out", f"{side}.conv_out.conv")
+        norm(f"{side}.norm_out", f"{side}.norm_out", spatial)
+        for j in range(2):
+            res(f"{side}.mid.res.{j}", f"{side}.mid_block.resnets.{j}", spatial)
+        sampler, name = ("downsamplers", "ds") if side == "encoder" else ("upsamplers", "us")
+        for i in range(cfg.num_blocks):
+            b = f"{side}.{blocks}_blocks.{i}"
+            for j in range(n_res):
+                res(f"{side}.{blocks}.{i}.res.{j}", f"{b}.resnets.{j}", spatial)
+            _put(out, sd, f"{side}.{blocks}.{i}.{name}.conv", f"{b}.{sampler}.0.conv")
+    return out
+
+
+def convert_cosmos_dit(sd: dict, cfg) -> dict:
+    """diffusers CosmosTransformer3DModel state dict -> CosmosModel(cfg).
+    state_dict()."""
+    out = {"time_embed.norm": sd["time_embed.norm.weight"]}
+    for ours, theirs in (("patch_embed", "patch_embed.proj"), ("time_embed.t_fc1", "time_embed.t_embedder.linear_1"),
+                         ("time_embed.t_fc2", "time_embed.t_embedder.linear_2"), ("norm_out.fc1", "norm_out.linear_1"),
+                         ("norm_out.fc2", "norm_out.linear_2"), ("proj_out", "proj_out")):
+        _put(out, sd, ours, theirs)
+    for i in range(cfg.num_layers):
+        b, o = f"transformer_blocks.{i}", f"blocks.{i}"
+        for nm in ("norm1", "norm2", "norm3"):
+            _put(out, sd, f"{o}.{nm}.fc1", f"{b}.{nm}.linear_1")
+            _put(out, sd, f"{o}.{nm}.fc2", f"{b}.{nm}.linear_2")
+        for a in ("attn1", "attn2"):
+            for ours, theirs in (("q", "to_q"), ("k", "to_k"), ("v", "to_v"), ("o", "to_out.0")):
+                _put(out, sd, f"{o}.{a}.{ours}", f"{b}.{a}.{theirs}")
+            for nm in ("norm_q", "norm_k"):
+                out[f"{o}.{a}.{nm}"] = sd[f"{b}.{a}.{nm}.weight"]
+        _put(out, sd, f"{o}.ff1", f"{b}.ff.net.0.proj")
+        _put(out, sd, f"{o}.ff2", f"{b}.ff.net.2")
+    if "learnable_pos_embed.pos_emb_t" in sd:
+        for ax in "thw":
+            out[f"pos_embed.{ax}"] = sd[f"learnable_pos_embed.pos_emb_{ax}"]
+    return out
+
+
+def convert_cosmos_vae(sd: dict, cfg) -> dict:
+    """The Cosmos tokenizer (CV8x8x8) state dict -> CosmosVAE(cfg).state_dict():
+    Cosmos-Tokenizer's names (encoder.down.<i>.block.<j>, mid.block_1 /
+    attn_1 / attn_2 / block_2, a CausalConv3d's conv as `.conv3d`) or
+    diffusers-style spellings, as the JAX package accepts them; a missing
+    module raises KeyError naming the candidates and some of the keys."""
+
+    def pick(*cands):
+        for c in cands:
+            if f"{c}.weight" in sd:
+                return c
+        raise KeyError(f"cosmos vae: none of {cands} in checkpoint; have e.g. {sorted(sd)[:12]}")
+
+    out = {}
+
+    def conv(ours, *cands):
+        _put(out, sd, ours, pick(*[f"{c}{s}" for c in cands for s in (".conv3d", ".conv", "")]))
+
+    def mat(ours, key):
+        """A 1x1x1 conv, 1x1 conv or linear -> a Linear (co, ci)."""
+        w = sd[f"{key}.weight"]
+        out[f"{ours}.weight"], out[f"{ours}.bias"] = w.reshape(w.shape[0], w.shape[1]), sd[f"{key}.bias"]
+
+    def res(ours, p, p_alt):
+        for nm in ("norm1", "norm2"):
+            _put(out, sd, f"{ours}.{nm}", pick(f"{p}.{nm}", f"{p_alt}.{nm}"))
+        for nm in ("conv1", "conv2"):
+            conv(f"{ours}.{nm}", f"{p}.{nm}", f"{p_alt}.{nm}")
+        for sc in (f"{p}.nin_shortcut", f"{p}.conv_shortcut", f"{p_alt}.conv_shortcut"):
+            for suf in (".conv3d", ""):
+                if f"{sc}{suf}.weight" in sd:
+                    mat(f"{ours}.shortcut", f"{sc}{suf}")
+                    return
+
+    def attn(ours, p):
+        _put(out, sd, f"{ours}.norm", pick(f"{p}.norm"))
+        for mine, cands in (("q", ("q", "to_q")), ("k", ("k", "to_k")), ("v", ("v", "to_v")),
+                            ("o", ("proj_out", "to_out.0"))):
+            mat(f"{ours}.{mine}", pick(*[f"{p}.{c}" for c in cands]))
+
+    def mid(ours, p):
+        tp = next((c for c in (f"{p}.attn_2", f"{p}.temporal_attn_1") if f"{c}.norm.weight" in sd), None)
+        if tp is None:
+            raise KeyError(f"cosmos vae: no temporal attention under {p} (tried attn_2/temporal_attn_1)")
+        res(f"{ours}.res1", f"{p}.block_1", f"{p}.resnets.0")
+        attn(f"{ours}.attn_s", f"{p}.attn_1")
+        attn(f"{ours}.attn_t", tp)
+        res(f"{ours}.res2", f"{p}.block_2", f"{p}.resnets.1")
+
+    n = len(cfg.channels_mult)
+    for i in range(n):
+        for j in range(cfg.num_res_blocks):
+            res(f"encoder.levels.{i}.res.{j}", f"encoder.down.{i}.block.{j}", f"encoder.down_blocks.{i}.resnets.{j}")
+        if cfg.downsample(i):
+            conv(f"encoder.levels.{i}.down", f"encoder.down.{i}.downsample", f"encoder.down_blocks.{i}.downsamplers.0")
+    for d, i in enumerate(reversed(range(n))):
+        for j in range(cfg.num_res_blocks + 1):
+            res(f"decoder.levels.{d}.res.{j}", f"decoder.up.{i}.block.{j}", f"decoder.up_blocks.{d}.resnets.{j}")
+        if cfg.downsample(i):
+            conv(f"decoder.levels.{d}.up", f"decoder.up.{i}.upsample", f"decoder.up_blocks.{d}.upsamplers.0")
+    for side in ("encoder", "decoder"):
+        conv(f"{side}.conv_in", f"{side}.conv_in")
+        conv(f"{side}.conv_out", f"{side}.conv_out")
+        _put(out, sd, f"{side}.norm_out", pick(f"{side}.norm_out"))
+        mid(f"{side}.mid", f"{side}.mid")
+    return out

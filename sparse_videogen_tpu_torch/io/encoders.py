@@ -41,6 +41,43 @@ from sparse_videogen_tpu_torch.models.common.llama import LLAMA3_8B, LlamaConfig
 from sparse_videogen_tpu_torch.models.common.llava import LlavaModel, llava_encode
 from sparse_videogen_tpu_torch.models.common.t5 import UMT5_XXL, T5Config, T5Encoder
 
+# HF config.json size keys -> the configs' fields
+_HF_LLAMA_KEYS = {"vocab_size": "vocab_size", "hidden_size": "dim", "intermediate_size": "ffn_dim",
+                  "num_hidden_layers": "num_layers", "num_attention_heads": "num_heads",
+                  "num_key_value_heads": "num_kv_heads", "rope_theta": "rope_theta", "rms_norm_eps": "eps"}
+_HF_CLIP_TEXT_KEYS = {"vocab_size": "vocab_size", "hidden_size": "dim", "intermediate_size": "ffn_dim",
+                      "num_hidden_layers": "num_layers", "num_attention_heads": "num_heads",
+                      "max_position_embeddings": "max_positions", "layer_norm_eps": "eps"}
+
+
+def _config_from_json(path: str, cls, hf_keys: dict):
+    """`cls` from config.json in dir `path` (None if absent): the package's
+    own names as the JAX package reads them (dataclass_from_json), then HF's
+    names (hf_keys) over them where present, so an HF config.json gives its
+    sizes instead of leaving the defaults in place."""
+    import dataclasses
+
+    from sparse_videogen_tpu_torch.io.checkpoint import dataclass_from_json
+
+    cfg = dataclass_from_json(path, cls)
+    if cfg is None:
+        return None
+    with open(os.path.join(path, "config.json")) as f:
+        c = json.load(f)
+    return dataclasses.replace(cfg, **{ours: c[theirs] for theirs, ours in hf_keys.items() if theirs in c})
+
+
+def llama_config_from_json(path: str) -> LlamaConfig | None:
+    """A LlamaConfig from config.json in the package's names or HF's
+    LlamaConfig names (None if absent)."""
+    return _config_from_json(path, LlamaConfig, _HF_LLAMA_KEYS)
+
+
+def clip_text_config_from_json(path: str) -> CLIPTextConfig | None:
+    """A CLIPTextConfig from config.json in the package's names or HF's
+    CLIPTextConfig names (None if absent)."""
+    return _config_from_json(path, CLIPTextConfig, _HF_CLIP_TEXT_KEYS)
+
 
 def _find_subdir(model_dir: str, names) -> str | None:
     for n in names:
@@ -62,12 +99,12 @@ class UMT5Encoder:
     @classmethod
     def from_dir(cls, model_dir: str, *, text_len: int = 512, dtype=torch.bfloat16, device="cpu",
                  cfg: T5Config | None = None) -> "UMT5Encoder":
-        from sparse_videogen_tpu_torch.io.checkpoint import convert_umt5, dataclass_from_json
+        from sparse_videogen_tpu_torch.io.checkpoint import convert_umt5, t5_config_from_json
         from sparse_videogen_tpu_torch.io.safetensors import load_dir
 
         enc_dir = _find_subdir(model_dir, ["umt5", "text_encoder", "umt5-xxl"]) or model_dir
         if cfg is None:
-            cfg = dataclass_from_json(enc_dir, T5Config) or UMT5_XXL
+            cfg = t5_config_from_json(enc_dir) or UMT5_XXL
         model = T5Encoder(cfg, dtype=dtype, device=device)
         model.load_state_dict(convert_umt5(load_dir(enc_dir), cfg))
         tok_dir = _find_subdir(model_dir, ["tokenizer", "google/umt5-xxl", "google"]) or model_dir
@@ -77,6 +114,40 @@ class UMT5Encoder:
         ids, mask = self.tokenizer(texts, seq_len=self.text_len)
         ctx = self.model(ids, mask)
         return ctx * torch.as_tensor(mask, device=ctx.device).to(ctx.dtype)[..., None]
+
+
+class T5TextEncoder:
+    """A T5 v1.0 or v1.1 encoder in HF's names: texts -> (B, text_len, dim)
+    f32 states. CogVideoX hands the DiT the states as they come (T5 v1.1
+    XXL, 226 tokens); Cosmos zeroes every position past each prompt's
+    tokens (T5 v1.0 t5-11b, 512 tokens): `mask_output`."""
+
+    def __init__(self, model: T5Encoder, tokenizer: T5TokenizerLite, text_len: int, mask_output: bool):
+        self.model, self.tokenizer = model, tokenizer
+        self.text_len, self.mask_output = text_len, mask_output
+
+    @classmethod
+    def from_dir(cls, model_dir: str, *, text_len: int, default_cfg: T5Config, mask_output: bool,
+                 dtype=torch.bfloat16, device="cpu") -> "T5TextEncoder":
+        """text_encoder/ under model_dir: HF's safetensors and config.json
+        (either naming: io/checkpoint.t5_config_from_json; without it
+        default_cfg); the tokenizer (spiece.model or tokenizer.json) in
+        model_dir or one subdir below it, as the JAX CLIs search."""
+        from sparse_videogen_tpu_torch.io.checkpoint import convert_t5_hf, t5_config_from_json
+        from sparse_videogen_tpu_torch.io.safetensors import load_dir
+
+        edir = os.path.join(model_dir, "text_encoder")
+        cfg = t5_config_from_json(edir) or default_cfg
+        model = T5Encoder(cfg, dtype=dtype, device=device)
+        model.load_state_dict(convert_t5_hf(load_dir(edir), cfg))
+        return cls(model, T5TokenizerLite.from_dir(model_dir), text_len, mask_output)
+
+    def __call__(self, texts) -> torch.Tensor:
+        ids, mask = self.tokenizer(texts, seq_len=self.text_len)
+        ctx = self.model(ids, mask)
+        if self.mask_output:
+            ctx = ctx * torch.as_tensor(mask, device=ctx.device).to(ctx.dtype)[..., None]
+        return ctx
 
 
 def clip_config_from_json(path: str) -> CLIPVisionConfig | None:
@@ -144,11 +215,11 @@ CLIP_TEXT_LEN = 77
 
 def _clip_text_from_dir(model_dir: str, dtype, device):
     """text_encoder_2/ (or clip/, clipL/): the CLIP text tower and its tokenizer."""
-    from sparse_videogen_tpu_torch.io.checkpoint import convert_clip_text, dataclass_from_json
+    from sparse_videogen_tpu_torch.io.checkpoint import convert_clip_text
     from sparse_videogen_tpu_torch.io.safetensors import load_dir
 
     d = _find_subdir(model_dir, ["text_encoder_2", "clip", "clipL"]) or model_dir
-    cfg = dataclass_from_json(d, CLIPTextConfig) or CLIP_L_TEXT
+    cfg = clip_text_config_from_json(d) or CLIP_L_TEXT
     clip = CLIPTextModel(cfg, dtype=dtype, device=device)
     clip.load_state_dict(convert_clip_text(load_dir(d), cfg))
     return clip, HFTokenizerLite.from_dir(d)
@@ -178,11 +249,11 @@ class HyVideoTextEncoders:
     @classmethod
     def from_dir(cls, model_dir: str, *, dtype=torch.bfloat16, skip_layers: int = 2, device="cpu",
                  **kw) -> "HyVideoTextEncoders":
-        from sparse_videogen_tpu_torch.io.checkpoint import convert_llama, dataclass_from_json
+        from sparse_videogen_tpu_torch.io.checkpoint import convert_llama
         from sparse_videogen_tpu_torch.io.safetensors import load_dir
 
         ldir = _find_subdir(model_dir, ["text_encoder", "llm", "llava-llama-3-8b"]) or model_dir
-        lcfg = dataclass_from_json(ldir, LlamaConfig) or LLAMA3_8B
+        lcfg = llama_config_from_json(ldir) or LLAMA3_8B
         llama = LlamaModel(lcfg, n_layers=lcfg.num_layers - skip_layers, dtype=dtype, device=device)
         llama.load_state_dict(convert_llama(load_dir(ldir), lcfg, skip_layers=skip_layers))
         clip, ctok = _clip_text_from_dir(model_dir, dtype, device)
@@ -206,9 +277,7 @@ def llava_config_from_json(path: str) -> tuple[LlamaConfig, CLIPVisionConfig]:
     config.json in the LlamaConfig's own names, else LLAMA3_8B; HF's
     text_config and vision_config override (the vision default is CLIP
     ViT-L/14-336 with quick_gelu, 24 layers)."""
-    from sparse_videogen_tpu_torch.io.checkpoint import dataclass_from_json
-
-    lcfg = dataclass_from_json(path, LlamaConfig) or LLAMA3_8B
+    lcfg = llama_config_from_json(path) or LLAMA3_8B
     vcfg = CLIP_VIT_L_14_336
     cj = os.path.join(path, "config.json")
     if os.path.isfile(cj):

@@ -1,5 +1,5 @@
 """JAX package state (as numpy) -> the port's: the Wan parameter pytree (T2V
-or I2V) -> WanModel state_dict, the UMT5 pytree -> T5Encoder's, the Wan VAE
+or I2V) -> WanModel state_dict, the T5 / UMT5 pytree -> T5Encoder's, the Wan VAE
 pytree -> WanVAE's, the CLIP vision pytree -> CLIPVisionModel's, the
 HunyuanVideo pytree -> a HyVideoModel, the CogVideoX pytree -> a CogModel,
 HunyuanVideo's encoders (LLaMA, the CLIP text tower, Llava) and VAE ->
@@ -81,15 +81,20 @@ def clip_vision_params_from_numpy(tree, cfg) -> dict:
     return {k: _tensor(v, "cpu") for k, v in sd.items()}
 
 
-def umt5_params_from_numpy(tree, cfg) -> dict:
-    """tree: init_t5_params(...) (UMT5) with numpy leaves. Returns a state_dict
-    of torch tensors (the leaves' dtypes) for T5Encoder(cfg)."""
+def t5_params_from_numpy(tree, cfg) -> dict:
+    """tree: init_t5_params(...) or convert_t5_hf(...) (UMT5, T5 v1.0 or
+    v1.1) with numpy leaves. Returns a state_dict of torch tensors (the
+    leaves' dtypes) for T5Encoder(cfg)."""
     sd = {"token_embedding": tree["token_embedding"], "norm": tree["norm"]}
+    if cfg.shared_rel_bias:
+        sd["rel_embedding"] = tree["rel_embedding"]
     blocks = tree["blocks"]
+    vectors = ("norm1", "norm2") + (() if cfg.shared_rel_bias else ("rel_embedding",))
+    linears = ("q", "k", "v", "o", "fc1", "fc2") + (("gate",) if cfg.gated_ffn else ())
     for i in range(cfg.num_layers):
-        for nm in ("norm1", "norm2", "rel_embedding"):
+        for nm in vectors:
             sd[f"blocks.{i}.{nm}"] = np.asarray(blocks[nm])[i]
-        for nm in ("q", "k", "v", "o", "gate", "fc1", "fc2"):
+        for nm in linears:
             sd[f"blocks.{i}.{nm}.weight"] = np.asarray(blocks[nm]["w"])[i].T
     return {k: _tensor(v, "cpu") for k, v in sd.items()}
 
@@ -334,3 +339,55 @@ def hyvideo_vae_params_from_numpy(tree, cfg) -> dict:
     conv("quant_conv", tree["quant_conv"])
     conv("post_quant_conv", tree["post_quant_conv"])
     return {k: _tensor(v, "cpu") for k, v in sd.items()}
+
+
+def tree_state_dict(tree, prefix: str = "") -> dict:
+    """A JAX pytree whose paths are the port's parameter names (the
+    CogVideoX VAE's and the Cosmos tokenizer's: init_*_vae_params or
+    convert_*_vae with numpy leaves) -> a state_dict of torch tensors (the
+    leaves' dtypes): {"w", "b"} is a
+    linear (w (in, out) transposed) or a convolution (channels-last w moved
+    to (co, ci, k...)), {"g", "b"} a norm's weight and bias, a list's items
+    are numbered, any other leaf keeps its path."""
+    sd = {}
+
+    def walk(node, path):
+        name = ".".join(path)
+        if isinstance(node, (list, tuple)):
+            for i, item in enumerate(node):
+                walk(item, path + [str(i)])
+        elif isinstance(node, dict) and "w" in node and set(node) <= {"w", "b"}:
+            w = np.asarray(node["w"])
+            sd[f"{name}.weight"] = w.T if w.ndim == 2 else w.transpose(w.ndim - 1, w.ndim - 2, *range(w.ndim - 2))
+            if "b" in node:
+                sd[f"{name}.bias"] = np.asarray(node["b"])
+        elif isinstance(node, dict) and set(node) == {"g", "b"}:
+            sd[f"{name}.weight"], sd[f"{name}.bias"] = np.asarray(node["g"]), np.asarray(node["b"])
+        elif isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, path + [k])
+        else:
+            sd[name] = np.asarray(node)
+
+    walk(tree, [prefix] if prefix else [])
+    return {k: _tensor(v, "cpu") for k, v in sd.items()}
+
+
+def _unstacked(tree, n: int):
+    """Blocks stacked on a leading layer axis -> a list of n block trees."""
+    return [_tree_map(lambda a, i=i: np.asarray(a)[i], tree) for i in range(n)]
+
+
+def _tree_map(fn, tree):
+    """fn on every leaf of nested dicts and lists."""
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_tree_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def cosmos_params_from_numpy(tree, cfg) -> dict:
+    """tree: init_cosmos_params(...) or convert_cosmos_dit(...) with numpy
+    leaves (blocks stacked) -> a state_dict for CosmosModel(cfg)."""
+    return tree_state_dict(dict(tree, blocks=_unstacked(tree["blocks"], cfg.num_layers)))

@@ -49,6 +49,17 @@ reference's canonical run (scripts/cog/cog_inference.sh, the CLI's defaults:
 50 DDIM steps, guidance 6.0, SVG1 at sparsity 0.25 with 32 sampled rows,
 first_layers_fp 0.025, first_times_fp 0.2): "cog-768p-svg" and
 "cog-768p-dense" (the same run, dense).
+
+Cosmos-1.0-Diffusion-7B Text2World at 704x1280x121 (COSMOS_PRESETS),
+COSMOS_7B with the reference's three runs (scripts/cosmos/cosmos_t2v_
+{dense,svg,sap}.sh: 35 EDM steps, guidance 7.0, fps 30): "cosmos-704p-dense"
+(the CLI's first_layers_fp 0.025, first_times_fp 0.075), "cosmos-704p-svg"
+(SVG1 at sparsity 0.25 with 64 sampled rows, first_times_fp 0.3,
+first_layers_fp 0.025), "cosmos-704p-sap" (SAP at QC 300 / KC 1000, top_p
+0.9, min_kc_ratio 0.10, 50 cold / 2 warm k-means iterations,
+first_times_fp 0.3, first_layers_fp 0.025) and its tile variant
+"cosmos-704p-sap-tile". The layout is 16 latent frames of 44 x 80 = 3,520
+tokens (S = 56,320).
 """
 
 from __future__ import annotations
@@ -57,6 +68,7 @@ import dataclasses
 
 from sparse_videogen_tpu_torch.config import SAPConfig, SVGConfig
 from sparse_videogen_tpu_torch.models.cog.model import COG_1_5_5B_I2V, CogConfig
+from sparse_videogen_tpu_torch.models.cosmos.model import COSMOS_7B, CosmosConfig
 from sparse_videogen_tpu_torch.models.hyvideo.model import HYVIDEO_T2, HyVideoConfig
 from sparse_videogen_tpu_torch.models.wan.model import WAN_1_3B, WAN_14B, WanConfig
 from sparse_videogen_tpu_torch.pipelines.cog import COG_SVG
@@ -171,3 +183,37 @@ class CogRunSettings:
 COG_768P_SVG = CogRunSettings(COG_1_5_5B_I2V, 768, 1360, 81, pattern="SVG")
 COG_768P_DENSE = dataclasses.replace(COG_768P_SVG, pattern="dense")
 COG_PRESETS = {"cog-768p-svg": COG_768P_SVG, "cog-768p-dense": COG_768P_DENSE}
+
+
+@dataclasses.dataclass(frozen=True)
+class CosmosRunSettings:
+    model: CosmosConfig
+    height: int
+    width: int
+    num_frames: int
+    pattern: str
+    first_layers_fp: float
+    first_times_fp: float
+    svg: SVGConfig = SVGConfig()
+    sap: SAPConfig = SAPConfig()
+
+    def generate_kwargs(self) -> dict:
+        """Keyword arguments of CosmosPipeline.generate_latents but the step
+        count (the scripts run 35; the callers here cut it): guidance 7.0,
+        fps 30."""
+        return dict(height=self.height, width=self.width, num_frames=self.num_frames, guidance_scale=7.0, fps=30,
+                    pattern=self.pattern, first_layers_fp=self.first_layers_fp, first_times_fp=self.first_times_fp,
+                    svg=self.svg, sap=self.sap)
+
+
+COSMOS_704P_DENSE = CosmosRunSettings(COSMOS_7B, 704, 1280, 121, pattern="dense", first_layers_fp=0.025,
+                                      first_times_fp=0.075)
+COSMOS_704P_SVG = dataclasses.replace(COSMOS_704P_DENSE, pattern="SVG", first_times_fp=0.3,
+                                      svg=SVGConfig(sparsity=0.25, num_sampled_rows=64))
+COSMOS_704P_SAP = dataclasses.replace(
+    COSMOS_704P_DENSE, pattern="SAP", first_times_fp=0.3,
+    sap=SAPConfig(num_q_centroids=300, num_k_centroids=1000, top_p_kmeans=0.9, min_kc_ratio=0.10,
+                  kmeans_iter_init=50, kmeans_iter_step=2))
+COSMOS_PRESETS = {"cosmos-704p-dense": COSMOS_704P_DENSE, "cosmos-704p-svg": COSMOS_704P_SVG,
+                  "cosmos-704p-sap": COSMOS_704P_SAP,
+                  "cosmos-704p-sap-tile": dataclasses.replace(COSMOS_704P_SAP, sap=tile_variant(COSMOS_704P_SAP.sap))}

@@ -10,6 +10,8 @@ io/from_jax.cog_params_from_numpy), JAX's initial noise and the SVG1
 profiler rows the JAX package draws. Tolerances are stated per test.
 """
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -367,29 +369,64 @@ def test_cli_smoke_cpu(tmp_path, extra):
 
 @pytest.mark.parametrize("argv,exc", [
     (["--device", "cuda:99"], RuntimeError),
-    (["--device", "cpu", "--model_dir", "/nonexistent"], NotImplementedError),
-    (["--device", "cpu", "--pattern", "SAP"], NotImplementedError),
-    (["--device", "cpu", "--image_path", "image.jpg"], NotImplementedError),
-    (["--device", "cpu", "--output_path", "video.mp4"], NotImplementedError),
-    (["--device", "cpu", "--vae_tiling", "on"], NotImplementedError),
+    (["--device", "cpu", "--pattern", "SAP"], SystemExit),
     (["--device", "cpu", "--ring_degree", "2"], NotImplementedError),
-], ids=["no_card_no_fallback", "model_dir", "sap", "pixel_image", "video", "vae_tiling", "parallel"])
+], ids=["no_card_no_fallback", "sap", "parallel"])
 def test_cli_refuses_what_is_not_ported(tmp_path, argv, exc):
+    """No fallback to the CPU; --pattern SAP is not one of the JAX CLI's
+    choices, so argparse exits (2), as the JAX CLI does; parallelism raises."""
     if argv[1].startswith("cuda") and torch.cuda.is_available():
         pytest.skip("this host has a card: nothing to refuse")
-    with pytest.raises(exc, match=None if exc is RuntimeError else "ROADMAP"):
+    with pytest.raises(exc, match="ROADMAP" if exc is NotImplementedError else None) as info:
         TCLI.main(["--smoke", "--output_path", str(tmp_path / "x.npz")] + argv)
+    if exc is SystemExit:
+        assert info.value.code == 2
+
+
+@pytest.fixture(scope="module")
+def tiny_dir(tmp_path_factory):
+    """A tiny CogVideoX checkpoint (chip_smoke.write_tiny_cog_checkpoint: T5
+    v1.1 and its config.json in HF's names, the DiT and VAE in diffusers')."""
+    import chip_smoke
+
+    d = tmp_path_factory.mktemp("cog_ckpt")
+    chip_smoke.write_tiny_cog_checkpoint(str(d), "a cat walks on the grass")
+    return str(d)
+
+
+@pytest.mark.parametrize("case", ["model_dir", "pixel_image", "video", "vae_tiling"])
+def test_cli_runs_what_it_refused_before(tmp_path, tiny_dir, case):
+    """The paths the CLI refused before the VAE and T5 were ported run:
+    --model_dir (T5, DiT, VAE; .npy image latents, latents to an .npz), a
+    pixel --image_path (JPEG -> bilinear resize -> VAE encode), a video
+    output (the VAE decode to a .y4m at 8 fps) and the VAE tiling flags (a
+    tiled decode)."""
+    from sparse_videogen_tpu_torch.io.native import read_y4m
+
+    image = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "examples", "1", "image.jpg")
+    base = ["--device", "cpu", "--prompt", "a cat walks on the grass", "--height", "96", "--width", "128",
+            "--num_frames", "9", "--num_step", "2"]
+    if case in ("model_dir", "pixel_image"):
+        if case == "model_dir":
+            np.save(tmp_path / "img.npy", np.ones((1, 16, 1, 12, 16), np.float32))
+        img = str(tmp_path / "img.npy") if case == "model_dir" else image
+        # the checkpoint has a VAE: an .npz name becomes the video's .y4m
+        argv = base + ["--model_dir", tiny_dir, "--image_path", img, "--output_path", str(tmp_path / "v.npz")]
+    else:
+        argv = ["--smoke", "--output_path", str(tmp_path / "v.y4m")] + base
+    if case == "vae_tiling":
+        argv += ["--vae_tiling", "on", "--vae_tile", "8", "--vae_tile_overlap", "2"]
+    TCLI.main(argv)
+    frames, fps = read_y4m(str(tmp_path / "v.y4m"))
+    assert frames.shape == (9, 96, 128, 3) and fps == 8 and frames.std() > 0
 
 
 def test_cli_flags_are_the_jax_cli():
-    """The port's parser declares the JAX CLI's flags by name and default,
-    plus --device (default cuda)."""
+    """The port's parser declares the JAX CLI's flags by name, default and
+    choices, plus --device (default cuda)."""
     from sparse_videogen_tpu.cli.cog_i2v import build_parser
 
-    j, t = build_parser(), TCLI.build_parser()
-    jd = {a.dest: a.default for a in j._actions if a.dest != "help"}
-    td = {a.dest: a.default for a in t._actions if a.dest != "help"}
-    assert td.pop("device") == "cuda"
-    assert td == jd
-    assert {s for a in t._actions for s in a.option_strings} - {"--device"} == {
-        s for a in j._actions for s in a.option_strings}
+    spec = lambda p: {a.dest: (sorted(a.option_strings), a.default, a.choices) for a in p._actions if a.dest != "help"}
+    ours, ref = spec(TCLI.build_parser()), spec(build_parser())
+    assert set(ours) - set(ref) == {"device"} and ours.pop("device")[1] == "cuda"
+    assert ours == ref

@@ -325,18 +325,15 @@ def test_cli_refuses_what_is_not_ported(tmp_path, argv, exc):
 
 @pytest.mark.parametrize("cli", ["hyvideo_t2v", "wan_t2v"])
 def test_cli_flags_are_the_jax_clis(cli):
-    """The port's parsers declare the JAX CLIs' flags by name and default,
-    plus --device (default cuda)."""
+    """The port's parsers declare the JAX CLIs' flags by name, default and
+    choices, plus --device (default cuda)."""
     import importlib
 
-    j = importlib.import_module(f"sparse_videogen_tpu.cli.{cli}").build_parser()
-    t = importlib.import_module(f"sparse_videogen_tpu_torch.cli.{cli}").build_parser()
-    jd = {a.dest: a.default for a in j._actions if a.dest != "help"}
-    td = {a.dest: a.default for a in t._actions if a.dest != "help"}
-    assert td.pop("device") == "cuda"
-    assert td == jd
-    assert {s for a in t._actions for s in a.option_strings} - {"--device"} == {
-        s for a in j._actions for s in a.option_strings}
+    spec = lambda p: {a.dest: (sorted(a.option_strings), a.default, a.choices) for a in p._actions if a.dest != "help"}
+    ours = spec(importlib.import_module(f"sparse_videogen_tpu_torch.cli.{cli}").build_parser())
+    ref = spec(importlib.import_module(f"sparse_videogen_tpu.cli.{cli}").build_parser())
+    assert set(ours) - set(ref) == {"device"} and ours.pop("device")[1] == "cuda"
+    assert ours == ref
 
 
 def test_sap_on_text_last_raises():

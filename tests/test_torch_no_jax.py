@@ -29,7 +29,9 @@ for mod in ("models.cog.model", "pipelines.cog", "schedulers.ddim_cog", "cli.cog
             "models.common.t5", "models.wan.vae", "models.common.vae_tiling", "utils.dataloader", "io.grapheme",
             "utils.metric", "utils.perceptual", "utils.lpips_alex", "scripts.quality", "cli.wan_i2v", "io.image",
             "models.common.clip", "models.common.resize", "models.common.llama", "models.common.llava",
-            "models.hyvideo.vae", "cli.hyvideo_i2v", "cli.hyvideo_t2v", "scripts.hyvideo_stages"):
+            "models.hyvideo.vae", "cli.hyvideo_i2v", "cli.hyvideo_t2v", "scripts.hyvideo_stages",
+            "models.cog.vae", "models.cosmos.model", "models.cosmos.vae", "pipelines.cosmos",
+            "schedulers.edm_euler", "cli.cosmos_t2v", "core.attention_ref"):
     assert pkg.__name__ + "." + mod in names, mod
 """
 

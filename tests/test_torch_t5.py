@@ -1,6 +1,6 @@
 """The port's UMT5 encoder (models/common/t5.py, io/encoders.py,
 io/checkpoint.convert_umt5) against the JAX package's on the same numpy
-weights (io/from_jax.umt5_params_from_numpy). Both run the residual stream
+weights (io/from_jax.t5_params_from_numpy). Both run the residual stream
 in f32 (the norm weights are f32) with each linear's weights cast to f32;
 the differences are f32 summation order."""
 
@@ -15,7 +15,7 @@ from sparse_videogen_tpu.io.encoders import UMT5Encoder as JEncoder
 from sparse_videogen_tpu.models.common import t5 as JT5
 from sparse_videogen_tpu_torch.io import checkpoint as TCK
 from sparse_videogen_tpu_torch.io.encoders import UMT5Encoder as TEncoder
-from sparse_videogen_tpu_torch.io.from_jax import umt5_params_from_numpy
+from sparse_videogen_tpu_torch.io.from_jax import t5_params_from_numpy
 from sparse_videogen_tpu_torch.io.safetensors import save_file
 from sparse_videogen_tpu_torch.models.common import t5 as TT5
 from tests.test_prompt_to_video import _make_umt5_sd, _write_spiece
@@ -59,7 +59,7 @@ def test_umt5_matches_jax(dtype):
     ids, mask = _inputs()
     ref = JT5.t5_encode(tree, JCFG, jnp.asarray(ids), jnp.asarray(mask))
     model = TT5.T5Encoder(TCFG, dtype=tdt)
-    model.load_state_dict(umt5_params_from_numpy(tree, TCFG))
+    model.load_state_dict(t5_params_from_numpy(tree, TCFG))
     assert model.blocks[0].q.weight.dtype == tdt and model.norm.dtype == torch.float32
     ours = model(ids, mask)
     assert ours.dtype == torch.float32 and tuple(ours.shape) == (2, 20, 32)
@@ -73,7 +73,7 @@ def test_convert_umt5_equals_jax_conversion():
     jcfg, tcfg = JT5.T5Config(**cfg_kw), TT5.T5Config(**cfg_kw)
     sd = _make_umt5_sd(jcfg)
     ref = TT5.T5Encoder(tcfg)
-    ref.load_state_dict(umt5_params_from_numpy(jax.tree.map(np.asarray, JCK.convert_umt5(sd, jcfg)), tcfg))
+    ref.load_state_dict(t5_params_from_numpy(jax.tree.map(np.asarray, JCK.convert_umt5(sd, jcfg)), tcfg))
     ours = TT5.T5Encoder(tcfg)
     ours.load_state_dict(TCK.convert_umt5({k: torch.from_numpy(v) for k, v in sd.items()}, tcfg))
     want = ref.state_dict()
