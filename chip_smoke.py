@@ -112,6 +112,26 @@ is non-zero:
                  single-device SAP on the same labels, and Wan 1.3B forwards
                  of RING_LAYERS layers through RingDenseRuntime and
                  RingSAPRuntime (their stats kernels' launches counted).
+               quant (after the slices): the CLIs' --quant, Wan 2.1 1.3B at
+                 full width and QUANT_LAYERS layers, 480x832x81, dense and
+                 SVG1 in bf16, int8 W8A8 and fp8 weight-only, each held to
+                 its launches and within QUANT_LATENT_TOL of bf16, with its
+                 s a warm step and peak GiB; the block linears' device ms by
+                 part (the per-token quantize, the int8 GEMM, the rescale;
+                 fp8's upcast) and one int8 forward's ops by device time;
+                 the int8 GEMM at fc1's shape beside bf16 F.linear with both
+                 bounds; HunyuanVideo 720p (2 + 2 blocks) one dense step in
+                 each.
+               dpm: --sampler dpm++, Wan 1.3B (QUANT_LAYERS layers, 480p) for
+                 DPM_STEPS SVG1 steps, and the small Wan on the card against
+                 the CPU.
+               ulysses: ThreadRanks on the card: Wan 1.3B (ULYSSES_LAYERS
+                 layers, 480p) dense, SVG1 and SAP over ULYSSES_SP head ranks
+                 against one device (dense bit for bit, the runtime on
+                 full-width q/k/v too), USP (ring 2 x heads 2) dense on
+                 HunyuanVideo 720p, the dense ring on CogVideoX 768p and
+                 Cosmos 704p (2 layers), launches held to the ranks' share,
+                 the s a step beside one device's.
                p2v (after the slices): Wan 2.1 T2V from a prompt to a
                  video at full width (phase_prompt_to_video): the port's
                  tokenizer on a spiece.model this script writes, UMT5-XXL
@@ -190,10 +210,11 @@ is non-zero:
                quality (after cosmos): scripts/quality.py's recipe without the
                  decode: Wan 2.1 1.3B structured-synthetic (K := Q, gain
                  4.0) at 720x1280x81, 8 steps, dense, SVG1, SAP cluster and
-                 SAP tile (QC 300, KC 125) from one noise, launches held to
-                 the configuration; latent PSNR / SSIM against dense, SAP's
-                 densities; SVG1 >= 35 dB and each SAP mode >= 24 dB or the
-                 run fails.
+                 SAP tile (QC 300, KC 125) from one noise, and dense with
+                 int8 W8A8 block linears, launches held to the
+                 configuration; latent PSNR / SSIM against dense, SAP's
+                 densities; SVG1 and dense_int8 >= 35 dB and each SAP mode
+                 >= 24 dB or the run fails.
   5. cli     - (started before the quality phase, checked after the small
                references) the port's CLIs, all started together: --smoke for Wan T2V
                and I2V and HunyuanVideo for SVG, dense, SAP and SAP with
@@ -236,7 +257,9 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
-STEPS, STEPS_14B = 4, 5  # 5 steps: first_times_fp 0.2 gives the 720p run one dense warm-up step
+# the Wan 1.3B slice's steps (3: a cold SAP step, then warm ones); 5 steps:
+# first_times_fp 0.2 gives the 720p run one dense warm-up step
+STEPS, STEPS_14B = 3, 5
 # Wan 2.1 14B keeps its full width (dim 5120, 40 heads, FFN 13824) and the
 # first LAYERS_14B of its 40 blocks: the smoke's time limit, not the card's
 # memory, bounds the depth (PERF.md section 4)
@@ -265,16 +288,17 @@ PEAK_BF16_FLOPS, PEAK_F32_FLOPS, PEAK_BYTES = 989e12, 67e12, 3.35e12
 PEAK_TF32_FLOPS = 495e12  # tensor cores on f32 inputs, where TF32 is allowed
 # HunyuanVideo: HYVIDEO_T2's full width, the first HY_DOUBLE of its 20 double
 # and HY_SINGLE of its 40 single blocks (the time limit bounds the depth,
-# PERF.md section 4); HY_STEPS_SVG steps make first_times_fp 0.1 one dense
-# warm-up step; a live prompt of HY_PROMPT of the 256 text tokens
+# PERF.md section 4); the SVG1 run takes HY_STEPS_SVG steps with
+# first_times_fp HY_WARMUP_FP, one dense warm-up step as the presets' 0.1
+# gives of 10; a live prompt of HY_PROMPT of the 256 text tokens
 HY_DOUBLE, HY_SINGLE = 2, 2
-HY_STEPS_SVG, HY_STEPS_DENSE = 10, 2
-# the hyvideo-720p-sap runs (cluster and tile): first_times_fp 0.1 makes
-# step 0 of HY_STEPS_SAP a dense warm-up step (which does not cluster: the
-# JAX CLI drops zero_step_kmeans_init), step 1 clusters cold, the rest warm;
-# at the organic gain of the JAX package's
+HY_STEPS_SVG, HY_STEPS_DENSE, HY_WARMUP_FP = 5, 2, 0.2
+# the hyvideo-720p-sap runs (cluster and tile): first_times_fp HY_WARMUP_FP
+# makes step 0 of HY_STEPS_SAP a dense warm-up step (which does not
+# cluster: the JAX CLI drops zero_step_kmeans_init), step 1 clusters cold,
+# the rest warm; at the organic gain of the JAX package's
 # scripts/bench_hyvideo.py (random weights keep ~0.87 of the scores)
-HY_STEPS_SAP = 10
+HY_STEPS_SAP = 5
 HY_SAP_GAIN = 3.5
 HY_PROMPT = 32
 # CogVideoX: COG_1_5_5B_I2V's full width, the first COG_LAYERS of its 42
@@ -294,6 +318,24 @@ STATS_TOL_M, STATS_TOL_L_REL = 1e-3, 1e-4
 # ring attention: how many ranks the thread communicator runs on the card
 RING_N = 2
 RING_LAYERS = 2
+# --quant on the card: Wan 1.3B at full width and QUANT_LAYERS of its 30
+# layers, QUANT_STEPS steps (the first includes the set-up, the rest are
+# warm); each quantized run's latents within QUANT_LATENT_TOL rel L2 of the
+# bf16 run's: e4m3 keeps 3 mantissa bits (a weight off by up to 2^-4 of
+# itself), W8A8 a step of 1/127 of a token's (a channel's) largest value;
+# a wrong scale, layout or slice moves them by O(1)
+QUANT_LAYERS, QUANT_STEPS, QUANT_LATENT_TOL = 2, 3, 0.1
+# the int8 GEMM at Wan 1.3B's fc1 on the CFG pair at 480p: 2 x 32,760 tokens, 1,536 -> 8,960
+INT8_FC1 = (65520, 1536, 8960)
+PEAK_INT8_OPS = 1979e12  # dense int8 tensor-core operations a second (H100 SXM data sheet)
+DPM_STEPS = 3
+# Ulysses over ULYSSES_SP head ranks (threads on the card) on Wan 1.3B,
+# ULYSSES_LAYERS layers: SVG1 and SAP within ULYSSES_TOL rel L2 of one
+# device on the same rows and draws (batched matmuls of another head count
+# may round otherwise); the ring on the other families within
+# RING_FAMILY_TOL, the ring forward's bound (each rotation's output rounds to
+# bf16 before the f32 merge)
+ULYSSES_SP, ULYSSES_LAYERS, ULYSSES_TOL, RING_FAMILY_TOL = 2, 2, 1e-2, 3e-2
 # prompt -> video (Wan 2.1 1.3B 480x832x81): P2V_STEPS UniPC steps, projected
 # to the CLI's CLI_STEPS; the small UMT5 and VAE on the card against the CPU
 # in f32 with TF32 off: UMT5 differs by summation order; cuDNN may pick FFT or
@@ -1253,14 +1295,13 @@ def drive_pipeline(name, desc, kw, pattern, timesteps, n_layers, generate, shape
     return r
 
 
-def drive(model, run, pattern, steps, inplace_temporal=False):
+def drive(model, run, pattern, steps, inplace_temporal=False, sampler="unipc"):
     """Wan: one WanPipeline.generate_latents run through drive_pipeline (K1
     dense: kind none; SVG1: band_sink, or with inplace_temporal the dual
     spec, kind band_sink_perm), then SAP's density log. Returns
     drive_pipeline's record."""
     from sparse_videogen_tpu_torch.pipelines import WanPipeline
-    from sparse_videogen_tpu_torch.pipelines.wan import wan_layout
-    from sparse_videogen_tpu_torch.schedulers import FlowUniPC
+    from sparse_videogen_tpu_torch.pipelines.wan import make_sampler, wan_layout
 
     cfg = model.cfg
     dev = model.patch_embedding.weight.device
@@ -1268,9 +1309,9 @@ def drive(model, run, pattern, steps, inplace_temporal=False):
     ctx = torch.randn(1, cfg.text_len, cfg.text_dim, generator=gen, device=dev).to(torch.bfloat16)
     ctx_null = torch.randn(1, cfg.text_len, cfg.text_dim, generator=gen, device=dev).to(torch.bfloat16)
     lay = wan_layout(cfg, run.height, run.width, run.num_frames)
-    timesteps = FlowUniPC(steps, shift=run.flow_shift).timesteps
+    timesteps = make_sampler(sampler, steps, run.flow_shift).timesteps
     name = f"Wan dim {cfg.dim} x {cfg.num_layers} layers" + (", SVG1 in place" if inplace_temporal else "") + (
-        f", SAP {run.sap.block_mode} mode" if pattern == "SAP" else "")
+        f", SAP {run.sap.block_mode} mode" if pattern == "SAP" else "") + (f", {sampler}" if sampler != "unipc" else "")
     how = "cond and uncond as separate batch-1 forwards" if pattern == "SAP" else "CFG batch 2"
     desc = f"{run.height}x{run.width}x{run.num_frames} (S={lay.seq_len} = {lay.num_frames}x{lay.frame_size}), {how}"
     with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
@@ -1279,7 +1320,7 @@ def drive(model, run, pattern, steps, inplace_temporal=False):
                            lambda on_step: WanPipeline(model).generate_latents(
                                ctx, ctx_null, num_inference_steps=steps, pattern=pattern, seed=0, callback=on_step,
                                logging_file=dlog if pattern == "SAP" else None, inplace_temporal=inplace_temporal,
-                               **run.generate_kwargs()),
+                               sampler=sampler, **run.generate_kwargs()),
                            (1, 16, lay.num_frames, run.height // 8, run.width // 8),
                            ("none", "band_sink_perm" if inplace_temporal else "band_sink"), sap=run.sap)
         dens = [json.loads(line)["avg_density"] for line in open(dlog)] if pattern == "SAP" else []
@@ -1384,10 +1425,11 @@ def phase_quality(dev):
     1.3B at full width and depth, structured-synthetic (K := Q, gain 4.0),
     720x1280x81 (S = 75,600), 8 UniPC steps, dense, SVG1 and SAP in cluster
     and in tile mode (QC 300, KC 125, block_q = block_kv = 512) from the same
-    noise, each through drive_pipeline (its K1, K2, K3 and K5 launches held
-    to expected_launches); latent PSNR and SSIM against dense, SAP's
-    density, each pattern's seconds a step; SVG1 >= 35 dB and each SAP mode
-    >= 24 dB, a miss fails the phase. main runs the CLI runs beside it on the
+    noise, and dense with int8 W8A8 block linears (dense_int8), each through
+    drive_pipeline (its K1, K2, K3 and K5 launches held to
+    expected_launches); latent PSNR and SSIM against dense, SAP's density,
+    each pattern's seconds a step; SVG1 and dense_int8 >= 35 dB and each SAP
+    mode >= 24 dB, a miss fails the phase. main runs the CLI runs beside it on the
     same card, so its seconds a step are taken beside them and are labelled
     so (scripts/quality.py times the recipe alone)."""
     from sparse_videogen_tpu_torch.pipelines.wan import wan_layout
@@ -1421,12 +1463,12 @@ def phase_quality(dev):
                        + (f", SAP density {density[name]:.4f}" if name in density else ""))
     log("quality", f"dense s a step beside the CLI runs {[round(x, 4) for x in per_step['dense']]}; latent max |x| "
                    f"{np.abs(lat['dense']).max():.4f}")
-    svg_db = metrics["svg1"]["latent_psnr_db"]
+    svg_db, int8_db = metrics["svg1"]["latent_psnr_db"], metrics["dense_int8"]["latent_psnr_db"]
     sap_db = {name: metrics[name]["latent_psnr_db"] for name in density}
-    if not (svg_db >= Q.MIN_PSNR and set(sap_db) == {"sap_cluster", "sap_tile"}
+    if not (svg_db >= Q.MIN_PSNR and int8_db >= Q.MIN_PSNR and set(sap_db) == {"sap_cluster", "sap_tile"}
             and min(sap_db.values()) >= Q.SAP_MIN_PSNR):
-        raise AssertionError(f"quality gate missed: SVG1 {svg_db:.3f} dB (gate {Q.MIN_PSNR}), SAP {sap_db} dB "
-                             f"(gate {Q.SAP_MIN_PSNR})")
+        raise AssertionError(f"quality gate missed: SVG1 {svg_db:.3f} dB, dense_int8 {int8_db:.3f} dB (gate "
+                             f"{Q.MIN_PSNR}), SAP {sap_db} dB (gate {Q.SAP_MIN_PSNR})")
 
 
 def phase_small_reference(dev):
@@ -1697,9 +1739,10 @@ def drive_hyvideo(model, run, steps, latents=None):
 def phase_hyvideo_slice(dev):
     """HunyuanVideo at HYVIDEO_T2's full width (hidden 3072, 24 heads, D =
     128, MLP 12288, text (1, 256, 4096), pooled (1, 768)) with HY_DOUBLE +
-    HY_SINGLE blocks, 720x1280x129: SVG1 for HY_STEPS_SVG steps, dense for
+    HY_SINGLE blocks, 720x1280x129: SVG1 for HY_STEPS_SVG steps (first_times_fp
+    HY_WARMUP_FP: one dense warm-up step), dense for
     HY_STEPS_DENSE, then the hyvideo-720p-sap run in cluster and in tile mode
-    for HY_STEPS_SAP steps (first_times_fp 0.1: one dense warm-up step,
+    for HY_STEPS_SAP steps (first_times_fp HY_WARMUP_FP: one dense warm-up step,
     which does not cluster: the JAX CLI drops zero_step_kmeans_init; the
     first sparse step clusters cold, the rest warm) on the
     same model made organic (utils/organic.align_fused_qkv at HY_SAP_GAIN,
@@ -1716,14 +1759,15 @@ def phase_hyvideo_slice(dev):
     log("slice", f"HunyuanVideo hidden {cfg.hidden_size}: {HY_DOUBLE} double + {HY_SINGLE} single blocks, "
                  f"{cfg.heads_num} heads, MLP {cfg.mlp_hidden}, {sum(p.numel() for p in model.parameters()) / 1e9:.3f} "
                  f"B params, init {time.perf_counter() - t0:.1f} s")
-    r = drive_hyvideo(model, HY_720P_SVG, HY_STEPS_SVG)
+    r = drive_hyvideo(model, dataclasses.replace(HY_720P_SVG, first_times_fp=HY_WARMUP_FP), HY_STEPS_SVG)
     drive_hyvideo(model, HY_720P_DENSE, HY_STEPS_DENSE)
     align_fused_qkv(model, cfg.hidden_size, gain=HY_SAP_GAIN)
     run = HY_PRESETS["hyvideo-720p-sap"]
     lat = smooth_latents(torch.Generator(device=dev).manual_seed(2),
                          (1, cfg.out_channels, hy_layout().num_frames, run.height // 8, run.width // 8),
                          dtype=torch.float32)
-    sap = {mode: drive_hyvideo(model, HY_PRESETS[name], HY_STEPS_SAP, latents=lat)
+    sap = {mode: drive_hyvideo(model, dataclasses.replace(HY_PRESETS[name], first_times_fp=HY_WARMUP_FP), HY_STEPS_SAP,
+                               latents=lat)
            for mode, name in (("cluster", "hyvideo-720p-sap"), ("tile", "hyvideo-720p-sap-tile"))}
     del model
     torch.cuda.empty_cache()
@@ -2636,6 +2680,368 @@ def phase_ring(dev):
     del model
     torch.cuda.empty_cache()
     return entry, launches
+
+
+# ---------------------------------------------------------------------------
+# quantized linears, the DPM++ sampler, Ulysses, USP and the ring on every family
+# ---------------------------------------------------------------------------
+
+
+def _quantized(model, quant):
+    """A copy of `model` whose block linears (Wan's blocks, HunyuanVideo's
+    double and single blocks: the CLIs' --quant subtree) are int8 W8A8 or
+    fp8 weight-only; "none" returns the model itself."""
+    import copy
+
+    from sparse_videogen_tpu_torch.utils.quant import quantize_linears_fp8, quantize_linears_int8
+
+    if quant == "none":
+        return model
+    qfn = quantize_linears_int8 if quant == "int8" else quantize_linears_fp8
+    model = copy.deepcopy(model)
+    for name in ("blocks", "double_blocks", "single_blocks"):
+        if hasattr(model, name):
+            qfn(getattr(model, name))
+    return model
+
+
+def rel_l2(a, b) -> float:
+    a, b = a.float(), b.float()
+    return ((a - b).norm() / b.norm()).item()
+
+
+def quant_linear_ms(block, tokens: int, text_tokens: int, dev) -> dict:
+    """Device ms of one Wan block's 10 linears on a forward's inputs (the CFG
+    pair: `tokens` rows, the cross-attention's k / v on `text_tokens`), by
+    CUDA events: bf16 F.linear; int8 W8A8 whole and in its parts (the
+    per-token quantize, the int8 GEMM, the rescale); fp8 whole and its
+    upcast of the weights."""
+    from sparse_videogen_tpu_torch.models.common import layers as L
+    from sparse_videogen_tpu_torch.utils.quant import fp8_quantize_linear, int8_matmul, int8_quantize_linear
+
+    lins = [(block.self_attn.q, tokens), (block.self_attn.k, tokens), (block.self_attn.v, tokens),
+            (block.self_attn.o, tokens), (block.cross_attn.q, tokens), (block.cross_attn.k, text_tokens),
+            (block.cross_attn.v, text_tokens), (block.cross_attn.o, tokens), (block.ffn["fc1"], tokens),
+            (block.ffn["fc2"], tokens)]
+    ms = collections.Counter()
+    gen = torch.Generator(device=dev).manual_seed(12)
+    for lin, m in lins:
+        x = torch.randn(m, lin.in_features, generator=gen, device=dev).to(torch.bfloat16)
+        q8, f8 = int8_quantize_linear(lin), fp8_quantize_linear(lin)
+        xi, s = L.quantize_per_token(x)
+        y = int8_matmul(xi, q8.wi8)
+        ms["bf16"] += cuda_ms(lambda: L.linear(lin, x))
+        ms["int8"] += cuda_ms(lambda: L.linear(q8, x))
+        ms["int8 quantize"] += cuda_ms(lambda: L.quantize_per_token(x))
+        ms["int8 GEMM"] += cuda_ms(lambda: int8_matmul(xi, q8.wi8))
+        ms["int8 rescale"] += cuda_ms(lambda: L.rescale(y, s, q8.wscale, q8.bias, x.dtype))
+        ms["fp8"] += cuda_ms(lambda: L.linear(f8, x))
+        ms["fp8 upcast"] += cuda_ms(lambda: L.fp8_weight(f8.w8, f8.scale, x.dtype))
+        del x, xi, s, y, q8, f8
+    return dict(ms)
+
+
+def profile_top_ops(forward, n: int = 12) -> list:
+    """forward() once under torch.profiler: the n ops with the most device
+    time (self), as (name, ms, calls)."""
+    forward()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        forward()
+        torch.cuda.synchronize()
+    dev_ms = lambda e: getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0)) / 1e3
+    rows = sorted(((e.key, dev_ms(e), e.count) for e in prof.key_averages()), key=lambda r: -r[1])
+    return [r for r in rows if r[1] > 0][:n]
+
+
+def int8_gemm_entry(dev) -> dict:
+    """The int8 GEMM (torch._int_mm, cuBLASLt) at Wan 1.3B's fc1 on the CFG
+    pair at 480p beside bf16 F.linear at the same shape, each with its bound:
+    the operations over the int8 (bf16) tensor-core peak and the bytes (x
+    and W read once, the int32 (bf16) output written once) over 3.35 TB/s."""
+    from sparse_videogen_tpu_torch.utils.quant import int8_matmul
+
+    M, K, N = INT8_FC1
+    gen = torch.Generator(device=dev).manual_seed(13)
+    xi = torch.randint(-127, 128, (M, K), generator=gen, device=dev, dtype=torch.int8)
+    wi = torch.randint(-127, 128, (N, K), generator=gen, device=dev, dtype=torch.int8)
+    x, w = (torch.randn(r, K, generator=gen, device=dev).to(torch.bfloat16) for r in (M, N))
+    y = int8_matmul(xi[:64], wi)
+    exact = torch.equal(y.cpu().long(), xi[:64].cpu().long() @ wi.cpu().long().T)
+    i8_ms = cuda_ms(lambda: int8_matmul(xi, wi))
+    bf_ms = cuda_ms(lambda: torch.nn.functional.linear(x, w))
+    ops = 2.0 * M * K * N
+    i8 = bound(ops, M * K + N * K + 4 * M * N, PEAK_INT8_OPS)
+    bf = bound(ops, 2 * (M * K + N * K) + 2 * M * N)
+    log("quant", f"int8 GEMM (torch._int_mm) ({M} x {K}) @ ({K} x {N}): {i8_ms:.4f} ms ({ops / i8_ms / 1e9:.1f} TOPS; "
+                 f"bound {i8['bound_ms']:.4f} ms, {i8['bound_by']}), bf16 F.linear {bf_ms:.4f} ms "
+                 f"({ops / bf_ms / 1e9:.1f} TFLOP/s; bound {bf['bound_ms']:.4f} ms, {bf['bound_by']}); int8 / bf16 "
+                 f"{i8_ms / bf_ms:.3f}; 64 rows exact against int64 on the host {exact}")
+    if not exact:
+        raise AssertionError("the int8 GEMM's int32 sums are not exact")
+    del xi, wi, x, w
+    return {"int8_ms": i8_ms, "bf16_ms": bf_ms, "int8_bound": i8, "bf16_bound": bf}
+
+
+def phase_quant(dev):
+    """The CLIs' --quant on the card: Wan 2.1 1.3B at full width and
+    QUANT_LAYERS of its 30 layers, 480x832x81, dense and SVG1, each with the
+    block linears in bf16, int8 W8A8 (torch._int_mm) and fp8 weight-only,
+    QUANT_STEPS UniPC steps each through drive_pipeline (launches held to
+    the configuration, no plain version, finite latents); per run its s a
+    warm step and peak GiB, its latents against the bf16 run's
+    (QUANT_LATENT_TOL); the block linears' device ms of one forward by part
+    (quant_linear_ms) and the ops with the most device time of one int8
+    forward (torch.profiler); the int8 GEMM at fc1's shape beside bf16
+    F.linear with their bounds. Then HunyuanVideo at HYVIDEO_T2's full
+    width, HY_DOUBLE + HY_SINGLE blocks, 720x1280x129: one dense step in
+    bf16, int8 and fp8 (the modulation linears run on one row), held
+    likewise."""
+    from sparse_videogen_tpu_torch.models.hyvideo.model import HYVIDEO_T2, HyVideoModel
+    from sparse_videogen_tpu_torch.pipelines.wan import make_wan_runtime
+    from sparse_videogen_tpu_torch.presets import HY_720P_DENSE, T2V_480P
+
+    gemm = int8_gemm_entry(dev)
+    cfg = dataclasses.replace(T2V_480P.model, num_layers=QUANT_LAYERS)
+    base = _new_model(cfg, dev)
+    lay = slice_layout()
+    ms = quant_linear_ms(base.blocks[0], 2 * lay.seq_len, 2 * cfg.text_len, dev)
+    per_forward = {k: v * cfg.num_layers for k, v in ms.items()}
+    log("quant", f"Wan 1.3B block linears, one forward ({cfg.num_layers} layers, CFG pair, {2 * lay.seq_len} rows): "
+                 + ", ".join(f"{k} {v:.3f} ms" for k, v in per_forward.items())
+                 + f"; int8 glue (quantize + rescale) {per_forward['int8 quantize'] + per_forward['int8 rescale']:.3f}"
+                 f" ms against the GEMM's saving over bf16 {per_forward['bf16'] - per_forward['int8 GEMM']:.3f} ms")
+    out = {"gemm": gemm, "linears_ms": per_forward, "wan": {}, "hyvideo": {}}
+    for pattern in ("dense", "SVG"):
+        lat = {}
+        for quant in ("none", "int8", "fp8"):
+            model = _quantized(base, quant)
+            r = drive(model, T2V_480P, pattern, QUANT_STEPS)
+            lat[quant] = r["latents"]
+            out["wan"][(pattern, quant)] = {"per_step_s": r["per_step_s"], "peak_gib": r["peak_gib"]}
+            if quant == "int8" and pattern == "dense":
+                x = torch.randn(2, 16, lay.num_frames, 60, 104, device=dev).to(torch.bfloat16)
+                ctx = torch.randn(2, cfg.text_len, cfg.text_dim, device=dev).to(torch.bfloat16)
+                t = torch.full((2,), 500.0, device=dev)
+                rt = make_wan_runtime(lay, device=dev, pattern="dense")
+                top = profile_top_ops(lambda: model(x, t, ctx, attention=rt))
+                log("quant", "one int8 dense forward, device ms by op (torch.profiler, self time): "
+                             + ", ".join(f"{name} {v:.3f} ({c})" for name, v, c in top))
+                out["top_ops_int8"] = top
+                del x, ctx
+            if model is not base:
+                del model
+        for quant in ("int8", "fp8"):
+            rel = rel_l2(lat[quant], lat["none"])
+            warm = lambda q: out["wan"][(pattern, q)]["per_step_s"][1:]
+            log("quant", f"Wan 1.3B {pattern}, {quant} against bf16: latents rel L2 {rel:.3e} (tol "
+                         f"{QUANT_LATENT_TOL}); warm s a step {[round(x, 4) for x in warm(quant)]} against "
+                         f"{[round(x, 4) for x in warm('none')]}; peak {out['wan'][(pattern, quant)]['peak_gib']:.2f} "
+                         f"against {out['wan'][(pattern, 'none')]['peak_gib']:.2f} GiB")
+            out["wan"][(pattern, quant)]["rel_l2"] = rel
+            if not rel <= QUANT_LATENT_TOL:
+                raise AssertionError(f"Wan {pattern} {quant}: latents off the bf16 run's by {rel}")
+    del base
+    torch.cuda.empty_cache()
+
+    hcfg = dataclasses.replace(HYVIDEO_T2, mm_double_blocks_depth=HY_DOUBLE, mm_single_blocks_depth=HY_SINGLE)
+    hbase = HyVideoModel(hcfg, dtype=torch.bfloat16, device=dev).init_random(torch.Generator(device=dev).manual_seed(0))
+    lat = {}
+    for quant in ("none", "int8", "fp8"):
+        model = _quantized(hbase, quant)
+        r = drive_hyvideo(model, HY_720P_DENSE, 1)
+        lat[quant] = r["latents"]
+        out["hyvideo"][quant] = {"s": r["per_step_s"][0], "peak_gib": r["peak_gib"]}
+        if model is not hbase:
+            del model
+    for quant in ("int8", "fp8"):
+        rel = rel_l2(lat[quant], lat["none"])
+        out["hyvideo"][quant]["rel_l2"] = rel
+        log("quant", f"HunyuanVideo {HY_DOUBLE}+{HY_SINGLE} blocks 720p, one dense step, {quant} against bf16: "
+                     f"latents rel L2 {rel:.3e} (tol {QUANT_LATENT_TOL}); s {out['hyvideo'][quant]['s']:.4f} against "
+                     f"{out['hyvideo']['none']['s']:.4f}; peak {out['hyvideo'][quant]['peak_gib']:.2f} against "
+                     f"{out['hyvideo']['none']['peak_gib']:.2f} GiB")
+        if not rel <= QUANT_LATENT_TOL:
+            raise AssertionError(f"HunyuanVideo {quant}: latents off the bf16 run's by {rel}")
+    del hbase
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_dpm(dev):
+    """--sampler dpm++ on the card: Wan 2.1 1.3B at full width, QUANT_LAYERS
+    layers, 480x832x81, DPM_STEPS FlowDPM steps of SVG1 through
+    drive_pipeline (launches held, finite latents); then the CLI's small Wan
+    (bf16) for DPM_STEPS dense steps from the same latents on the card and
+    on the CPU, held within the small references' 3e-2 rel L2."""
+    from sparse_videogen_tpu_torch.cli.wan_t2v import SMOKE_CFG
+    from sparse_videogen_tpu_torch.models.wan.model import WanConfig, WanModel
+    from sparse_videogen_tpu_torch.pipelines import WanPipeline
+    from sparse_videogen_tpu_torch.presets import T2V_480P
+
+    model = _new_model(dataclasses.replace(T2V_480P.model, num_layers=QUANT_LAYERS), dev)
+    r = drive(model, T2V_480P, "SVG", DPM_STEPS, sampler="dpm++")
+    del model
+    torch.cuda.empty_cache()
+    cfg = WanConfig(**SMOKE_CFG)
+    gen = torch.Generator().manual_seed(6)
+    cpu_model = WanModel(cfg, dtype=torch.bfloat16, device="cpu").init_random(gen)
+    gpu_model = WanModel(cfg, dtype=torch.bfloat16, device=dev)
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    ctx = torch.randn(1, cfg.text_len, cfg.text_dim, generator=gen).to(torch.bfloat16)
+    lat0 = torch.randn(1, 16, 3, 12, 16, generator=gen)
+    outs = [WanPipeline(m).generate_latents(ctx, torch.zeros_like(ctx), height=96, width=128, num_frames=9,
+                                            num_inference_steps=DPM_STEPS, sampler="dpm++", pattern="dense",
+                                            latents=lat0).cpu()
+            for m in (gpu_model, cpu_model)]
+    rel = rel_l2(outs[0], outs[1])
+    log("dpm", f"Wan 1.3B {QUANT_LAYERS} layers SVG1, {DPM_STEPS} dpm++ steps: s a step "
+               f"{[round(x, 4) for x in r['per_step_s']]}; the small Wan, {DPM_STEPS} dpm++ dense steps, card vs CPU: "
+               f"latents rel L2 {rel:.3e} (tol 3e-2)")
+    if not rel <= 3e-2:
+        raise AssertionError(f"dpm++ on the card disagrees with the CPU: {rel}")
+    return r
+
+
+def _timed_run(fn):
+    """(fn()'s output, its seconds by CUDA events, the kernel counters around it)."""
+    from sparse_videogen_tpu_torch import _kernels
+
+    torch.cuda.synchronize()
+    _kernels.reset_counts()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    counts = {**_kernels.LAUNCHES, **{k: v for k, v in _kernels.KIND_LAUNCHES.items() if "stats" in k}}
+    plain = dict(_kernels.PLAIN_CALLS)
+    if any(plain.values()):
+        raise AssertionError(f"a plain version ran on the card: {plain}")
+    return out, start.elapsed_time(end) / 1e3, counts
+
+
+def phase_ulysses(dev):
+    """Ulysses, USP and the ring on every family, the ranks as threads of
+    this process on the card (parallel/comm.ThreadRanks; NCCL takes one rank
+    a device): Wan 2.1 1.3B at full width, ULYSSES_LAYERS layers, 480x832x81,
+    one step each of dense, SVG1 and SAP (cluster) over ULYSSES_SP head
+    ranks against one device (the same profiler rows, the same k-means
+    draws: the head-local draw tiled over the heads), dense held bit for bit
+    (K1 runs each head alone) and its runtime output on full-width q, k, v
+    too; USP (ring 2 x heads 2) dense on HunyuanVideo 720p 2 + 2 blocks
+    (text last, the live prompt); the dense ring (2 ranks) on CogVideoX
+    768x1360x81 and Cosmos 704x1280x121, 2 layers each. Each run's attention
+    launches are held to the ranks' share of the work and the s a step is
+    printed beside one device's (the ranks share one card: a figure, not a
+    speed-up)."""
+    from sparse_videogen_tpu_torch.models.cog.model import CogModel
+    from sparse_videogen_tpu_torch.models.cosmos.model import CosmosModel
+    from sparse_videogen_tpu_torch.models.hyvideo.model import HYVIDEO_T2, HyVideoModel
+    from sparse_videogen_tpu_torch.parallel.comm import ThreadRanks
+    from sparse_videogen_tpu_torch.parallel.ulysses import UlyssesRuntime
+    from sparse_videogen_tpu_torch.pipelines import CogPipeline, CosmosPipeline, HyVideoPipeline, WanPipeline
+    from sparse_videogen_tpu_torch.pipelines.wan import make_wan_runtime
+    from sparse_videogen_tpu_torch.presets import COG_768P_DENSE, COSMOS_PRESETS, HY_720P_DENSE, T2V_480P
+
+    sp = ULYSSES_SP
+    lay = slice_layout()
+    cfg = dataclasses.replace(T2V_480P.model, num_layers=ULYSSES_LAYERS)
+    H, D = cfg.num_heads, cfg.head_dim
+    model = _new_model(cfg, dev)
+    gen = torch.Generator(device=dev).manual_seed(14)
+    # the runtime alone: dense over sp head ranks equals one device bit for bit
+    q, k, v = (torch.randn(2, H, lay.seq_len, D, generator=gen, device=dev).to(torch.bfloat16) for _ in range(3))
+    one = make_wan_runtime(lay, device=dev, pattern="dense")
+    uly = make_wan_runtime(lay, device=dev, pattern="dense", mesh=ThreadRanks(sp=sp))
+    same = torch.equal(uly(q, k, v, 500.0, 0), one(q, k, v, 500.0, 0))
+    log("ulysses", f"dense runtime over {sp} head ranks (threads), Wan 1.3B 480p q/k/v (2, {H}, {lay.seq_len}, {D}): "
+                   f"equal to one device bit for bit {same}")
+    if not same or not isinstance(uly, UlyssesRuntime):
+        raise AssertionError("Ulysses dense attention is not one device's, bit for bit")
+    del q, k, v
+    run = T2V_480P
+    ctx, ctx_null = (torch.randn(1, cfg.text_len, cfg.text_dim, generator=gen, device=dev).to(torch.bfloat16)
+                     for _ in range(2))
+    lat0 = torch.randn(1, 16, lay.num_frames, run.height // 8, run.width // 8, generator=gen, device=dev)
+    rows = [torch.randint(0, lay.seq_len, (cfg.num_layers, 64), generator=gen, device=dev)]
+    sap = run.sap
+    local = [[{li: tuple(torch.randint(0, lay.seq_len, (H // sp, c), generator=gen, device=dev)
+                         for c in (sap.num_q_centroids, sap.num_k_centroids)) for li in range(cfg.num_layers)}
+              for _ in range(2)]]
+    tiled = [[{li: tuple(x.repeat(sp, 1) for x in d) for li, d in s.items()} for s in local[0]]]
+    kw = dict(run.generate_kwargs(), first_layers_fp=0.0, first_times_fp=0.0)
+    for pattern in ("dense", "SVG", "SAP"):
+        res = []
+        for mesh, init in ((None, tiled), (ThreadRanks(sp=sp), local)):
+            res.append(_timed_run(lambda: WanPipeline(model)._denoise(
+                ctx, ctx_null, lat0, num_inference_steps=1, pattern=pattern, profile_rows=rows,
+                kmeans_init=init if pattern == "SAP" else None, mesh=mesh, generator=torch.Generator(device=dev),
+                **kw)))
+        (a, ta, la), (b, tb, lb) = res
+        rel = rel_l2(b, a)
+        attn = {n: c for n, c in la.items() if n != "rope" and c}
+        want = {n: sp * c for n, c in attn.items()}
+        got = {n: lb.get(n, 0) for n in attn}
+        ok = (torch.equal(a, b) if pattern == "dense" else rel <= ULYSSES_TOL) and got == want \
+            and lb.get("rope") == la.get("rope")
+        log("ulysses", f"Wan 1.3B {cfg.num_layers} layers, {pattern}, one step over {sp} head ranks against one "
+                       f"device: latents rel L2 {rel:.3e} ({'bit for bit' if pattern == 'dense' else f'tol {ULYSSES_TOL}'}"
+                       f"; equal {torch.equal(a, b)}); attention launches {got} (expected {want}), rope "
+                       f"{lb.get('rope')} (one device {la.get('rope')}); s {tb:.4f} against {ta:.4f} (x{tb / ta:.3f})")
+        if not ok:
+            raise AssertionError(f"Wan Ulysses {pattern}: latents or launches off")
+    del model
+    torch.cuda.empty_cache()
+
+    def against_one(label, make_pipe, steps_kw, mesh, n_layers, tol=RING_FAMILY_TOL):
+        make_pipe().generate_latents(**steps_kw)  # the layout's first run (metadata, launch set-up), untimed
+        (a, ta, la), (b, tb, lb) = (_timed_run(lambda m=m: make_pipe().generate_latents(mesh=m, **steps_kw))
+                                    for m in (None, mesh))
+        rel = rel_l2(b, a)
+        rotations = mesh.rp * mesh.sp * mesh.rp * n_layers
+        got = lb.get("block_sparse_attn[stats]", 0)
+        log("ulysses", f"{label}: latents rel L2 {rel:.3e} (tol {tol}); K1 stats launches {got} (expected "
+                       f"{rotations}); s {tb:.4f} against {ta:.4f} one device (x{tb / ta:.3f})")
+        if not (rel <= tol and got == rotations and torch.isfinite(b).all()):
+            raise AssertionError(f"{label}: latents or launches off")
+
+    hcfg = dataclasses.replace(HYVIDEO_T2, mm_double_blocks_depth=HY_DOUBLE, mm_single_blocks_depth=HY_SINGLE)
+    hmodel = HyVideoModel(hcfg, dtype=torch.bfloat16, device=dev).init_random(torch.Generator(device=dev).manual_seed(0))
+    text = torch.randn(1, hcfg.text_len, hcfg.text_states_dim, generator=gen, device=dev).to(torch.bfloat16)
+    mask = torch.zeros(1, hcfg.text_len, dtype=torch.int32, device=dev)
+    mask[0, :HY_PROMPT] = 1
+    pooled = torch.randn(1, hcfg.text_states_dim_2, generator=gen, device=dev).to(torch.bfloat16)
+    against_one(f"HunyuanVideo {HY_DOUBLE}+{HY_SINGLE} blocks 720p, dense, one step, USP ring 2 x heads 2",
+                lambda: HyVideoPipeline(hmodel),
+                dict(text_states=text, text_mask=mask, text_pooled=pooled, prompt_length=HY_PROMPT,
+                     num_inference_steps=1, seed=0, **HY_720P_DENSE.generate_kwargs()),
+                ThreadRanks(2, 2), hcfg.num_layers)
+    del hmodel
+    torch.cuda.empty_cache()
+
+    ccfg = dataclasses.replace(COG_768P_DENSE.model, num_layers=2)
+    cmodel = CogModel(ccfg, dtype=torch.bfloat16, device=dev).init_random(torch.Generator(device=dev).manual_seed(0))
+    cctx = torch.randn(1, ccfg.text_len, ccfg.text_dim, generator=gen, device=dev).to(torch.bfloat16)
+    img = torch.randn(1, ccfg.out_channels, 1, COG_768P_DENSE.height // 8, COG_768P_DENSE.width // 8, generator=gen,
+                      device=dev)
+    against_one("CogVideoX 2 layers 768x1360x81, dense, one step, ring 2", lambda: CogPipeline(cmodel),
+                dict(context=cctx, context_null=cctx, image_latents=img, num_inference_steps=1, seed=0,
+                     **COG_768P_DENSE.generate_kwargs()), ThreadRanks(2), ccfg.num_layers)
+    del cmodel
+    torch.cuda.empty_cache()
+
+    crun = COSMOS_PRESETS["cosmos-704p-dense"]
+    kcfg = dataclasses.replace(crun.model, num_layers=2)
+    kmodel = CosmosModel(kcfg, dtype=torch.bfloat16, device=dev).init_random(torch.Generator(device=dev).manual_seed(0))
+    kctx = torch.randn(1, 512, kcfg.text_embed_dim, generator=gen, device=dev).to(torch.bfloat16)
+    against_one("Cosmos 2 layers 704x1280x121, dense, one step, ring 2", lambda: CosmosPipeline(kmodel),
+                dict(context=kctx, context_null=kctx, num_inference_steps=1, seed=0,
+                     **dict(crun.generate_kwargs(), first_layers_fp=0.0, first_times_fp=0.0)),
+                ThreadRanks(2), kcfg.num_layers)
+    del kmodel
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -4710,6 +5116,11 @@ def main():
     done("hyvideo slice")
     launches["block_sparse_attn[cog]"] = phase_cog_slice(dev)
     done("cog slice")
+    phase_quant(dev)
+    phase_dpm(dev)
+    done("quant and dpm")
+    phase_ulysses(dev)
+    done("ulysses")
     umt5_s = phase_prompt_to_video(dev)
     done("p2v")
     phase_i2v(dev, umt5_s)

@@ -118,6 +118,22 @@ def encode_t5_prompts(model_dir: str, prompts, *, text_len: int, default_cfg, ma
     return out
 
 
+def quantize_blocks(args, *block_lists, logger) -> None:
+    """--quant fp8|int8 (or --use_fp8 without --quant): swap the linears of
+    the given block lists (utils/quant.py, JAX's min_size over the stacked
+    size) in place, and log the JAX CLIs' line."""
+    quant = args.quant or ("fp8" if args.use_fp8 else "none")
+    if quant == "none":
+        return
+    from sparse_videogen_tpu_torch.utils.quant import quantize_linears_fp8, quantize_linears_int8
+
+    qfn = quantize_linears_int8 if quant == "int8" else quantize_linears_fp8
+    for blocks in block_lists:
+        qfn(blocks)
+    logger.info(f"{quant}: block linears quantized "
+                f"({'W8A8 int8 matmuls' if quant == 'int8' else 'e4m3 + per-layer scales'})")
+
+
 def add_device(p):
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device to run on (cuda, cuda:N or cpu); never falls back")

@@ -32,7 +32,9 @@ embedding for --version v1.5, dynamic CFG for v1) at most 96x128x17 and 3
 steps, random text states and image latents from --seed (or the latents of
 an `.npy` --image_path; a pixel image is ignored, as the JAX smoke ignores
 it), latents to an `.npz` or, with another name, decoded by the JAX CLI's
-tiny random VAE to a video. Parallelism raises NotImplementedError
+tiny random VAE to a video. `--ulysses_degree M` (both patterns
+head-sharded) and `--ring_degree N` (dense only) run under torchrun, one
+process a rank; rank 0 writes. `--dit_fsdp` raises NotImplementedError
 (ROADMAP.md).
 
 Usage:
@@ -52,6 +54,7 @@ import numpy as np
 from sparse_videogen_tpu_torch.cli._common import (add_device, add_model_id, add_vae_tiling_flags, encode_t5_prompts,
                                                    make_vae_decoder, resolve_device, resolve_model_dir, skip_existing,
                                                    video_name)
+from sparse_videogen_tpu_torch.cli._parallel import add_parallel_flags, close_mesh, make_cli_mesh
 
 logger = logging.getLogger("sparse_videogen_tpu_torch")
 
@@ -86,16 +89,8 @@ def build_parser():
     p.add_argument("--skip_existing", action="store_true",
                    help="skip generation when the output file exists (batch resume)")
     p.add_argument("--smoke", action="store_true", help="tiny random-weight run (no checkpoints needed)")
-    p.add_argument("--ulysses_degree", type=int, default=1)
-    p.add_argument("--ring_degree", type=int, default=1)
-    p.add_argument("--dit_fsdp", action="store_true")
+    add_parallel_flags(p)
     return add_device(p)
-
-
-def _unported(args) -> str | None:
-    if args.ulysses_degree * args.ring_degree > 1 or args.dit_fsdp:
-        return "multi-device parallelism (--ulysses_degree, --ring_degree, --dit_fsdp)"
-    return None
 
 
 def load_vae(model_dir: str, device):
@@ -203,15 +198,11 @@ def main(argv=None):
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(levelname)s %(message)s")
     if args.skip_existing and skip_existing(args.output_path):
         return
-    missing = _unported(args)
-    if missing is not None:
-        raise NotImplementedError(f"{missing} is not ported to the torch package yet (ROADMAP.md)")
-
     from sparse_videogen_tpu_torch.config import SVGConfig
     from sparse_videogen_tpu_torch.pipelines import CogPipeline
     from sparse_videogen_tpu_torch.pipelines.wan import export_video
 
-    device = resolve_device(args.device)
+    mesh, device = make_cli_mesh(args, resolve_device(args.device))
     args.model_dir = resolve_model_dir(args, logger)
     if args.smoke or args.model_dir is None:
         model, ctx, ctx_null, img, vae = _smoke(args, device)
@@ -223,8 +214,10 @@ def main(argv=None):
         num_inference_steps=args.num_step, guidance_scale=args.guidance_scale,
         use_dynamic_cfg=args.version == "v1", pattern=args.pattern,
         first_layers_fp=args.first_layers_fp, first_times_fp=args.first_times_fp,
-        svg=SVGConfig(num_sampled_rows=args.num_sampled_rows, sparsity=args.sparsity), seed=args.seed,
+        svg=SVGConfig(num_sampled_rows=args.num_sampled_rows, sparsity=args.sparsity), seed=args.seed, mesh=mesh,
     )
+    if close_mesh(mesh) != 0:
+        return
     if vae is not None:
         video = make_vae_decoder(args, vae, logger)(lat)
         out = video_name(args.output_path)

@@ -27,7 +27,10 @@ Cosmos (2 layers, 2 heads of 64, text 64 wide) at most 128x128x17 and 3
 steps, random text states (24 tokens) from --seed, the centroids capped at
 8 / 12 and the cold k-means at 8 iterations, latents to an `.npz` or, with
 another name, decoded by the JAX CLI's tiny random VAE (seed 1) to a
-video. Parallelism raises NotImplementedError (ROADMAP.md).
+video. `--ulysses_degree M` (every pattern head-sharded) and
+`--ring_degree N` (dense and SAP cluster mode) run under torchrun, one
+process a rank; rank 0 writes. `--dit_fsdp` raises NotImplementedError
+(ROADMAP.md).
 
 Usage:
   python -m sparse_videogen_tpu_torch.cli.cosmos_t2v --model_dir DIR --prompt "..." --output_file out.y4m
@@ -46,6 +49,7 @@ import numpy as np
 from sparse_videogen_tpu_torch.cli._common import (add_device, add_model_id, add_vae_tiling_flags, encode_t5_prompts,
                                                    make_vae_decoder, resolve_device, resolve_model_dir, sap_config,
                                                    skip_existing, video_name)
+from sparse_videogen_tpu_torch.cli._parallel import add_parallel_flags, close_mesh, make_cli_mesh
 
 logger = logging.getLogger("sparse_videogen_tpu_torch")
 
@@ -95,16 +99,8 @@ def build_parser():
                    help="SAP granularity: 'cluster' (variable-size cluster blocks) or 'tile' (fixed 512-token tiles "
                         "of the k-means order)")
     p.add_argument("--smoke", action="store_true", help="tiny random-weight run (no checkpoints needed)")
-    p.add_argument("--ulysses_degree", type=int, default=1)
-    p.add_argument("--ring_degree", type=int, default=1)
-    p.add_argument("--dit_fsdp", action="store_true")
+    add_parallel_flags(p)
     return add_device(p)
-
-
-def _unported(args) -> str | None:
-    if args.ulysses_degree * args.ring_degree > 1 or args.dit_fsdp:
-        return "multi-device parallelism (--ulysses_degree, --ring_degree, --dit_fsdp)"
-    return None
 
 
 def load_vae(model_dir: str, device):
@@ -169,15 +165,11 @@ def main(argv=None):
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(levelname)s %(message)s")
     if args.skip_existing and skip_existing(args.output_file):
         return
-    missing = _unported(args)
-    if missing is not None:
-        raise NotImplementedError(f"{missing} is not ported to the torch package yet (ROADMAP.md)")
-
     from sparse_videogen_tpu_torch.config import SVGConfig
     from sparse_videogen_tpu_torch.pipelines import CosmosPipeline
     from sparse_videogen_tpu_torch.pipelines.wan import export_video
 
-    device = resolve_device(args.device)
+    mesh, device = make_cli_mesh(args, resolve_device(args.device))
     if args.prompt_source != "prompt":
         from sparse_videogen_tpu_torch.utils.dataloader import load_prompt_or_image
 
@@ -200,8 +192,11 @@ def main(argv=None):
         pattern=args.pattern, first_layers_fp=args.first_layers_fp, first_times_fp=args.first_times_fp,
         svg=SVGConfig(num_sampled_rows=args.num_sampled_rows, sample_mse_max_row=args.sample_mse_max_row,
                       sparsity=args.sparsity),
-        sap=sap_config(args, pass_zero_step=False), seed=args.seed, logging_file=args.logging_file,
+        sap=sap_config(args, pass_zero_step=False), seed=args.seed,
+        logging_file=args.logging_file if mesh is None or mesh.rank == 0 else None, mesh=mesh,
     )
+    if close_mesh(mesh) != 0:
+        return
     if vae is not None:
         video = make_vae_decoder(args, vae, logger)(lat)
         out = video_name(args.output_file)

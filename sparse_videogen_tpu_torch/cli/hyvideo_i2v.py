@@ -20,7 +20,9 @@ the denoise loop; the VAE decode (`--vae_tiling`) and the writer (`.y4m`,
 or `.mp4` where PIL is installed; an `.npz` name becomes `.y4m`). `--smoke`
 (or no checkpoint) takes the JAX CLI's random-weight path: a tiny I2V
 HunyuanVideo, random text states and image latents, latents to an `.npz`
-or, with another name, decoded by a tiny random VAE. Parallelism raises
+or, with another name, decoded by a tiny random VAE. `--ulysses_degree M`
+(both patterns head-sharded) and `--ring_degree N` (dense only) run under
+torchrun, as cli/hyvideo_t2v.py does; rank 0 writes. `--dit_fsdp` raises
 NotImplementedError (ROADMAP.md).
 
 Usage:
@@ -40,6 +42,7 @@ import numpy as np
 
 from sparse_videogen_tpu_torch.cli._common import (add_device, add_model_id, add_vae_tiling_flags, resolve_device,
                                                    resolve_model_dir)
+from sparse_videogen_tpu_torch.cli._parallel import add_parallel_flags, close_mesh, make_cli_mesh
 from sparse_videogen_tpu_torch.cli.hyvideo_t2v import (SMOKE_CFG, SMOKE_PROMPT_LENGTH, free_cuda, load_dit,
                                                        load_vae_decoder, skip_existing, smoke_vae_decoder,
                                                        write_output)
@@ -78,16 +81,8 @@ def build_parser():
     p.add_argument("--num_sampled_rows", type=int, default=64)
     p.add_argument("--sparsity", type=float, default=0.25)
     p.add_argument("--smoke", action="store_true", help="tiny random-weight run (no checkpoints needed)")
-    p.add_argument("--ulysses_degree", type=int, default=1)
-    p.add_argument("--ring_degree", type=int, default=1)
-    p.add_argument("--dit_fsdp", action="store_true")
+    add_parallel_flags(p)
     return add_device(p)
-
-
-def _unported(args) -> str | None:
-    if args.ulysses_degree * args.ring_degree > 1 or args.dit_fsdp:
-        return "multi-device parallelism (--ulysses_degree, --ring_degree, --dit_fsdp)"
-    return None
 
 
 def is_llava_dir(model_dir: str) -> bool:
@@ -148,17 +143,13 @@ def main(argv=None):
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(levelname)s %(message)s")
     if args.skip_existing and skip_existing(args):
         return
-    missing = _unported(args)
-    if missing is not None:
-        raise NotImplementedError(f"{missing} is not ported to the torch package yet (ROADMAP.md)")
-
     import torch
 
     from sparse_videogen_tpu_torch.config import SVGConfig
     from sparse_videogen_tpu_torch.models.hyvideo.model import HyVideoConfig, HyVideoModel
     from sparse_videogen_tpu_torch.pipelines import HyVideoPipeline
 
-    device = resolve_device(args.device)
+    mesh, device = make_cli_mesh(args, resolve_device(args.device))
     if args.prompt_source != "prompt":
         from sparse_videogen_tpu_torch.utils.dataloader import load_prompt_or_image
 
@@ -193,9 +184,10 @@ def main(argv=None):
         flow_shift=args.flow_shift, pattern="SVG" if args.pattern == "sparse" else "dense",
         first_layers_fp=args.first_layers_fp, first_times_fp=args.first_times_fp,
         svg=SVGConfig(num_sampled_rows=args.num_sampled_rows, sparsity=args.sparsity, profile_multiplier=1.5),
-        seed=args.seed, image_latents=img_lat,
+        seed=args.seed, image_latents=img_lat, mesh=mesh,
     )
-    write_output(args, lat, vae_decode)
+    if close_mesh(mesh) == 0:
+        write_output(args, lat, vae_decode)
 
 
 if __name__ == "__main__":

@@ -19,8 +19,11 @@ random-weight path: a tiny HunyuanVideo with random text states (prompt
 length 10 of 16), the centroids capped at 8 / 12 and the cold k-means at 8
 iterations, latents to an `.npz`, or, with another name, decoded by a tiny
 random VAE to a video. As in the JAX CLI, SAP's config drops
-`--zero_step_kmeans_init`. Quantization and parallelism raise
-NotImplementedError (ROADMAP.md).
+`--zero_step_kmeans_init`. `--quant int8|fp8` (or `--use_fp8`) quantizes the
+double and single blocks' linears (utils/quant.py). `--ulysses_degree M`
+(every pattern head-sharded) and `--ring_degree N` (dense only, on the
+text-last layout) run under torchrun, one process a rank; rank 0 writes.
+`--dit_fsdp` raises NotImplementedError (ROADMAP.md).
 
 Usage:
   python -m sparse_videogen_tpu_torch.cli.hyvideo_t2v --model_dir DIR --prompt "..." --output_file out.y4m
@@ -37,7 +40,8 @@ import os
 import numpy as np
 
 from sparse_videogen_tpu_torch.cli._common import (add_device, add_model_id, add_vae_tiling_flags, make_vae_decoder,
-                                                   resolve_device, resolve_model_dir)
+                                                   quantize_blocks, resolve_device, resolve_model_dir)
+from sparse_videogen_tpu_torch.cli._parallel import add_parallel_flags, close_mesh, make_cli_mesh
 
 logger = logging.getLogger("sparse_videogen_tpu_torch")
 
@@ -87,20 +91,11 @@ def build_parser():
     p.add_argument("--sap_block_mode", type=str, default="cluster", choices=["cluster", "tile"])
     p.add_argument("--zero_step_kmeans_init", action="store_true")
     p.add_argument("--smoke", action="store_true", help="tiny random-weight run (no checkpoints needed)")
-    p.add_argument("--use_fp8", action="store_true")
-    p.add_argument("--quant", choices=["none", "fp8", "int8"], default=None)
-    p.add_argument("--ulysses_degree", type=int, default=1)
-    p.add_argument("--ring_degree", type=int, default=1)
-    p.add_argument("--dit_fsdp", action="store_true")
+    p.add_argument("--use_fp8", action="store_true", help="fp8 (e4m3) block-linear weights; --quant fp8")
+    p.add_argument("--quant", choices=["none", "fp8", "int8"], default=None,
+                   help="block-linear quantization: fp8 = e4m3 weight-only storage, int8 = W8A8 int8 matmuls")
+    add_parallel_flags(p)
     return add_device(p)
-
-
-def _unported(args) -> str | None:
-    if args.quant not in (None, "none") or args.use_fp8:
-        return "--quant / --use_fp8"
-    if args.ulysses_degree * args.ring_degree > 1 or args.dit_fsdp:
-        return "multi-device parallelism (--ulysses_degree, --ring_degree, --dit_fsdp)"
-    return None
 
 
 def skip_existing(args) -> bool:
@@ -201,10 +196,6 @@ def main(argv=None):
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(levelname)s %(message)s")
     if args.skip_existing and skip_existing(args):
         return
-    missing = _unported(args)
-    if missing is not None:
-        raise NotImplementedError(f"{missing} is not ported to the torch package yet (ROADMAP.md)")
-
     import torch
 
     from sparse_videogen_tpu_torch.cli._common import sap_config
@@ -212,7 +203,7 @@ def main(argv=None):
     from sparse_videogen_tpu_torch.models.hyvideo.model import HyVideoConfig, HyVideoModel
     from sparse_videogen_tpu_torch.pipelines import HyVideoPipeline
 
-    device = resolve_device(args.device)
+    mesh, device = make_cli_mesh(args, resolve_device(args.device))
     if args.prompt_source != "prompt":
         from sparse_videogen_tpu_torch.utils.dataloader import load_prompt_or_image
 
@@ -244,6 +235,7 @@ def main(argv=None):
             vae_decode = smoke_vae_decoder(args, device)
     else:
         model, text, mask, pooled, vae_decode = _load_checkpoint(args, device)
+    quantize_blocks(args, model.double_blocks, model.single_blocks, logger=logger)
 
     lat = HyVideoPipeline(model).generate_latents(
         text, mask, pooled, prompt_length=int(mask[0].sum()),
@@ -253,9 +245,11 @@ def main(argv=None):
         first_layers_fp=args.first_layers_fp, first_times_fp=args.first_times_fp,
         svg=SVGConfig(num_sampled_rows=args.num_sampled_rows, sample_mse_max_row=args.sample_mse_max_row,
                       sparsity=args.sparsity, profile_multiplier=1.5),
-        sap=sap_config(args, pass_zero_step=False), seed=args.seed, logging_file=args.logging_file,
+        sap=sap_config(args, pass_zero_step=False), seed=args.seed,
+        logging_file=args.logging_file if mesh is None or mesh.rank == 0 else None, mesh=mesh,
     )
-    write_output(args, lat, vae_decode)
+    if close_mesh(mesh) == 0:
+        write_output(args, lat, vae_decode)
 
 
 if __name__ == "__main__":

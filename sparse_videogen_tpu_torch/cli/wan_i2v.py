@@ -19,10 +19,11 @@ before the DiT runs. Both resizes (to CLIP's 224x224 and to the fitted
 size) follow jax.image.resize's cubic rule (models/common/resize.py).
 `--smoke` (or no checkpoint) takes the JAX CLI's random-weight path at a
 reduced size (random CLIP features and image latents) and writes the
-latents to the .npz. `--ring_degree N` runs dense or SAP attention
-token-sharded over N ranks under torchrun, as cli/wan_t2v.py does; rank 0
-writes (SAP's ring in cluster mode only). --dp, --ulysses_degree and
---dit_fsdp are not ported and raise.
+latents to the .npz. `--ring_degree N` (dense or SAP attention
+token-sharded over N ranks) and `--ulysses_degree M` (every pattern
+head-sharded over M) run under torchrun, as cli/wan_t2v.py does; rank 0
+writes (SAP's ring in cluster mode only). --dp and --dit_fsdp are not
+ported and raise.
 
 Usage:
   python -m sparse_videogen_tpu_torch.cli.wan_i2v --model_dir DIR \
@@ -40,6 +41,7 @@ import numpy as np
 
 from sparse_videogen_tpu_torch.cli._common import (add_device, add_model_id, add_vae_tiling_flags, make_vae_decoder,
                                                    resolve_device, resolve_model_dir, sap_config)
+from sparse_videogen_tpu_torch.cli._parallel import add_parallel_flags, close_mesh, make_cli_mesh
 
 logger = logging.getLogger("sparse_videogen_tpu_torch")
 
@@ -90,17 +92,8 @@ def build_parser():
     p.add_argument("--sap_block_mode", type=str, default="cluster", choices=["cluster", "tile"])
     p.add_argument("--zero_step_kmeans_init", action="store_true")
     p.add_argument("--smoke", action="store_true", help="tiny random-weight run (no checkpoints needed)")
-    p.add_argument("--dp", type=int, default=1)
-    p.add_argument("--ulysses_degree", type=int, default=1)
-    p.add_argument("--ring_degree", type=int, default=1)
-    p.add_argument("--dit_fsdp", action="store_true")
+    add_parallel_flags(p, dp=True)
     return add_device(p)
-
-
-def _unported(args) -> str | None:
-    if args.dp * args.ulysses_degree > 1 or args.dit_fsdp:
-        return "--dp / --ulysses_degree / --dit_fsdp (data, Ulysses and FSDP parallelism)"
-    return None
 
 
 def _fit_resolution(h, w, resolution, mod=16):
@@ -198,10 +191,6 @@ def main(argv=None):
             if os.path.exists(path):
                 print(f"output {path} exists; skipping generation")
                 return
-    missing = _unported(args)
-    if missing is not None:
-        raise NotImplementedError(f"{missing} is not ported to the torch package yet (ROADMAP.md)")
-
     import torch
 
     from sparse_videogen_tpu_torch.config import SVGConfig
@@ -209,15 +198,8 @@ def main(argv=None):
     from sparse_videogen_tpu_torch.pipelines import WanPipeline
     from sparse_videogen_tpu_torch.pipelines.wan import VAE_TEMPORAL, build_i2v_condition
 
-    device = resolve_device(args.device)
-    mesh, rank = None, 0
-    if args.ring_degree > 1:
-        from sparse_videogen_tpu_torch.parallel.mesh import make_mesh
-
-        mesh = make_mesh(args.ring_degree, device_type=device.type)
-        rank = mesh.comm.rank
-        if device.type == "cuda":
-            device = torch.device("cuda", torch.cuda.current_device())
+    mesh, device = make_cli_mesh(args, resolve_device(args.device))
+    rank = 0 if mesh is None else mesh.rank
     if args.prompt_source != "prompt":
         from sparse_videogen_tpu_torch.utils.dataloader import load_prompt_or_image
 
@@ -265,11 +247,7 @@ def main(argv=None):
         clip_fea=clip_fea,
         latent_cond=build_i2v_condition(img_lat),
     )
-    if mesh is not None:
-        import torch.distributed as dist
-
-        dist.destroy_process_group()
-    if rank != 0:
+    if close_mesh(mesh) != 0:
         return
     if vae_decode is not None:
         from sparse_videogen_tpu_torch.pipelines.wan import export_video

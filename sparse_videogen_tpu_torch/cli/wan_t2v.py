@@ -14,11 +14,14 @@ keeps the converted weights), the denoise loop with dense, SVG1 or SAP
 installed; an `.npz` name becomes `.y4m`. Without `vae/` the latents go to
 the `.npz`. `--smoke` (or no checkpoint) takes the JAX CLI's random-weight
 path at a reduced size, and a video name decodes through a tiny random VAE.
-`--ring_degree N` runs dense or SAP attention token-sharded over N ranks,
+`--sampler dpm++` takes FlowDPM for FlowUniPC. `--quant int8` runs the
+blocks' linears W8A8 (int8 weights and per-token activations, an int8
+GEMM), `--quant fp8` (or `--use_fp8`) stores them as e4m3 upcast to bf16.
+`--ring_degree N` runs dense or SAP attention token-sharded over N ranks
+and `--ulysses_degree M` every pattern head-sharded over M (both: USP),
 one process a rank under torchrun (gloo with `--device cpu`, NCCL on
 cards); rank 0 writes (SAP's ring runs cluster mode only, as the JAX
-package's). --quant/--use_fp8, --dp, --ulysses_degree and --dit_fsdp are
-not ported and raise.
+package's). --dp and --dit_fsdp are not ported and raise.
 
 Usage:
   python -m sparse_videogen_tpu_torch.cli.wan_t2v --model_dir DIR \
@@ -27,6 +30,8 @@ Usage:
       --device cuda --output_file out.npz
   torchrun --nproc_per_node 2 -m sparse_videogen_tpu_torch.cli.wan_t2v --smoke \
       --pattern dense --ring_degree 2 --device cpu --output_file out.npz
+  torchrun --nproc_per_node 2 -m sparse_videogen_tpu_torch.cli.wan_t2v --smoke \
+      --pattern SVG --ulysses_degree 2 --quant int8 --output_file out.npz
 """
 
 from __future__ import annotations
@@ -38,7 +43,8 @@ import os
 import numpy as np
 
 from sparse_videogen_tpu_torch.cli._common import (add_device, add_model_id, add_vae_tiling_flags, make_vae_decoder,
-                                                   resolve_device, resolve_model_dir, sap_config)
+                                                   quantize_blocks, resolve_device, resolve_model_dir, sap_config)
+from sparse_videogen_tpu_torch.cli._parallel import add_parallel_flags, close_mesh, make_cli_mesh
 
 logger = logging.getLogger("sparse_videogen_tpu_torch")
 
@@ -93,22 +99,12 @@ def build_parser():
     p.add_argument("--sap_block_mode", type=str, default="cluster", choices=["cluster", "tile"])
     p.add_argument("--zero_step_kmeans_init", action="store_true")
     p.add_argument("--logging_file", type=str, default=None, help="JSONL density telemetry for SAP")
-    p.add_argument("--dp", type=int, default=1)
-    p.add_argument("--ulysses_degree", type=int, default=1)
-    p.add_argument("--ring_degree", type=int, default=1)
-    p.add_argument("--dit_fsdp", action="store_true")
+    add_parallel_flags(p, dp=True)
     p.add_argument("--smoke", action="store_true", help="tiny random-weight run (no checkpoints needed)")
-    p.add_argument("--use_fp8", action="store_true")
-    p.add_argument("--quant", choices=["none", "fp8", "int8"], default=None)
+    p.add_argument("--use_fp8", action="store_true", help="fp8 (e4m3) block-linear weights; --quant fp8")
+    p.add_argument("--quant", choices=["none", "fp8", "int8"], default=None,
+                   help="block-linear quantization: fp8 = e4m3 weight-only storage, int8 = W8A8 int8 matmuls")
     return add_device(p)
-
-
-def _unported(args) -> str | None:
-    if args.quant not in (None, "none") or args.use_fp8:
-        return "--quant / --use_fp8"
-    if args.dp * args.ulysses_degree > 1 or args.dit_fsdp:
-        return "--dp / --ulysses_degree / --dit_fsdp (data, Ulysses and FSDP parallelism)"
-    return None
 
 
 def _load_checkpoint(args, device):
@@ -168,25 +164,14 @@ def main(argv=None):
             if os.path.exists(path):
                 print(f"output {path} exists; skipping generation")
                 return
-    missing = _unported(args)
-    if missing is not None:
-        raise NotImplementedError(f"{missing} is not ported to the torch package yet (ROADMAP.md)")
-
     import torch
 
     from sparse_videogen_tpu_torch.config import SVGConfig
     from sparse_videogen_tpu_torch.models.wan.model import WanConfig, WanModel
     from sparse_videogen_tpu_torch.pipelines import WanPipeline
 
-    device = resolve_device(args.device)
-    mesh, rank = None, 0
-    if args.ring_degree > 1:
-        from sparse_videogen_tpu_torch.parallel.mesh import make_mesh
-
-        mesh = make_mesh(args.ring_degree, device_type=device.type)
-        rank = mesh.comm.rank
-        if device.type == "cuda":
-            device = torch.device("cuda", torch.cuda.current_device())
+    mesh, device = make_cli_mesh(args, resolve_device(args.device))
+    rank = 0 if mesh is None else mesh.rank
     if args.prompt_source != "prompt":
         # --prompt is the prompt list and --prompt_idx picks the entry
         from sparse_videogen_tpu_torch.utils.dataloader import load_prompt_or_image
@@ -224,6 +209,7 @@ def main(argv=None):
             vae_decode = make_vae_decoder(args, vae, logger)
     else:
         model, ctx, ctx_null, vae_decode = _load_checkpoint(args, device)
+    quantize_blocks(args, model.blocks, logger=logger)
 
     lat = WanPipeline(model).generate_latents(
         ctx, ctx_null,
@@ -240,11 +226,7 @@ def main(argv=None):
         logging_file=args.logging_file if rank == 0 else None,
         mesh=mesh,
     )
-    if mesh is not None:
-        import torch.distributed as dist
-
-        dist.destroy_process_group()
-    if rank != 0:
+    if close_mesh(mesh) != 0:
         return
     if vae_decode is not None:
         from sparse_videogen_tpu_torch.pipelines.wan import export_video

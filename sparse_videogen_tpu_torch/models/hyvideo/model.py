@@ -28,7 +28,6 @@ import dataclasses
 import math
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from sparse_videogen_tpu_torch.models.common import layers as L
@@ -211,7 +210,9 @@ class SingleBlock(nn.Module):
     into its qkv and MLP parts and linear2's input rows into its attention
     and MLP parts, so the (S, 3h + mlp) and (S, h + mlp) concatenations
     never exist; the two partial products of linear2 are added in the
-    activation dtype, as in the JAX package."""
+    activation dtype, as in the JAX package (layers.linear_slice: under
+    int8 each part quantizes its own input per token, and the bias goes
+    on the first)."""
 
     def __init__(self, cfg: HyVideoConfig, dtype, device):
         super().__init__()
@@ -229,17 +230,17 @@ class SingleBlock(nn.Module):
         dt = x.dtype
         ms, mc, mg = L.linear(self.modulation, L.silu(vec)).chunk(3, dim=-1)
         y = _modulate(L.layer_norm_f32(x, cfg.eps), ms, mc).to(dt)
-        w1, b1 = self.linear1.weight.to(dt), self.linear1.bias.to(dt)
-        q, k, v = (_heads(z, cfg.heads_num) for z in F.linear(y, w1[:3 * h], b1[:3 * h]).chunk(3, dim=-1))
+        qkv = L.linear_slice(self.linear1, y, cols=slice(0, 3 * h))
+        q, k, v = (_heads(z, cfg.heads_num) for z in qkv.chunk(3, dim=-1))
         q = L.rms_norm(q, self.q_norm, cfg.eps)
         k = L.rms_norm(k, self.k_norm, cfg.eps)
         vid = x.shape[1] - txt_len
         q = torch.cat([apply_rope_interleaved(q[:, :, :vid], cos, sin), q[:, :, vid:]], dim=2)
         k = torch.cat([apply_rope_interleaved(k[:, :, :vid], cos, sin), k[:, :, vid:]], dim=2)
         o = _unheads(attention(q, k, v, t, layer_idx, rows=rows, generator=generator))
-        mlp = L.gelu_tanh(F.linear(y, w1[3 * h:], b1[3 * h:]))
-        w2 = self.linear2.weight.to(dt)
-        out = F.linear(o, w2[:, :h], self.linear2.bias.to(dt)) + F.linear(mlp, w2[:, h:])
+        mlp = L.gelu_tanh(L.linear_slice(self.linear1, y, cols=slice(3 * h, None)))
+        out = (L.linear_slice(self.linear2, o, rows=slice(0, h))
+               + L.linear_slice(self.linear2, mlp, rows=slice(h, None), bias=False))
         return x + out * mg[:, None]
 
 

@@ -18,9 +18,14 @@ Two implementations run the same per-rank code:
   barrier runs before the work another rank enqueues after it.
 
 A runtime drives the ranks through a rank group: `ProcessRanks` (this
-process is one rank) or `ThreadRanks` (all n ranks here, in threads);
+process is one rank) or `ThreadRanks` (all ranks here, in threads);
 `group.run(fn)` calls fn(comm) on each rank it holds and returns the
-results in rank order.
+results in rank order. A group is the JAX mesh's rp x sp grid (its dp axis
+left at 1): rank g = i * sp + j is ring rank i and head rank j. `comm` is
+the rank's communicator over the ring axis (its rank i of rp) and
+`comm.heads` the one over the head axis (its rank j of sp), which the
+Ulysses and USP runtimes gather heads over. An axis of one rank has a
+`LocalComm`.
 """
 
 from __future__ import annotations
@@ -67,6 +72,21 @@ class DistComm:
         return out
 
 
+class LocalComm:
+    """The only rank of an axis of one: every collective returns its input."""
+
+    rank, size = 0, 1
+
+    def rotate(self, t):
+        return t
+
+    def all_reduce_sum(self, t):
+        return t.clone()
+
+    def all_gather(self, t):
+        return [t]
+
+
 class _Slots:
     """What the threads of one ThreadRanks share: a barrier and a slot a rank."""
 
@@ -106,42 +126,55 @@ class ThreadComm:
 
 
 class ProcessRanks:
-    """This process is rank comm.rank of comm.size (DistComm)."""
+    """This process is one rank of an rp x sp grid (DistComm): `comm` over
+    the ring axis, `comm.heads` over the head axis; `rank` is the global
+    rank."""
 
-    def __init__(self, comm: DistComm):
-        self.comm, self.size = comm, comm.size
+    def __init__(self, comm, *, rank: int = 0, rp: int | None = None, sp: int = 1):
+        if not hasattr(comm, "heads"):
+            comm.heads = LocalComm()
+        self.comm, self.rank = comm, rank
+        self.rp, self.sp = comm.size if rp is None else rp, sp
+        self.size = self.rp * self.sp
 
     def run(self, fn):
         return [fn(self.comm)]
 
 
 class ThreadRanks:
-    """n ranks in this process, one thread each; run(fn) returns every rank's
-    result. Grad mode is a thread's own: each rank runs under no_grad. A rank
-    that raises breaks the barrier, so the others stop instead of waiting,
-    and run re-raises the first error."""
+    """rp x sp ranks in this process, one thread each (ThreadRanks(n) is a
+    ring of n); run(fn) returns every rank's result in global rank order.
+    Grad mode is a thread's own: each rank runs under no_grad. A rank that
+    raises breaks every barrier, so the others stop instead of waiting, and
+    run re-raises the first error."""
 
-    def __init__(self, n: int):
-        if n < 1:
-            raise ValueError(f"need at least one rank, got {n}")
-        self.size = n
+    def __init__(self, rp: int = 1, sp: int = 1):
+        if rp < 1 or sp < 1:
+            raise ValueError(f"need at least one rank on each axis, got rp={rp}, sp={sp}")
+        self.rp, self.sp, self.size = rp, sp, rp * sp
 
     def run(self, fn):
-        shared = _Slots(self.size)
+        rp, sp = self.rp, self.sp
+        rings = [_Slots(rp) for _ in range(sp)]  # ring j: ranks (i, j) over i
+        heads = [_Slots(sp) for _ in range(rp)]  # head group i: ranks (i, j) over j
         results, errors = [None] * self.size, [None] * self.size
         device = torch.cuda.current_device() if torch.cuda.is_available() else None
 
-        def body(r):
+        def body(g):
+            i, j = divmod(g, sp)
             try:
                 if device is not None:
                     torch.cuda.set_device(device)
+                comm = ThreadComm(i, rings[j]) if rp > 1 else LocalComm()
+                comm.heads = ThreadComm(j, heads[i]) if sp > 1 else LocalComm()
                 with torch.no_grad():
-                    results[r] = fn(ThreadComm(r, shared))
+                    results[g] = fn(comm)
             except BaseException as e:  # noqa: BLE001 - handed to the caller below
-                errors[r] = e
-                shared.barrier.abort()
+                errors[g] = e
+                for slots in rings + heads:
+                    slots.barrier.abort()
 
-        threads = [threading.Thread(target=body, args=(r,), name=f"ring-rank-{r}") for r in range(self.size)]
+        threads = [threading.Thread(target=body, args=(g,), name=f"rank-{g}") for g in range(self.size)]
         for t in threads:
             t.start()
         for t in threads:

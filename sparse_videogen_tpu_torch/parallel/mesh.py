@@ -1,11 +1,14 @@
-"""The ring's ranks (counterpart of sparse_videogen_tpu/parallel/mesh.py,
-its `rp` axis only).
+"""The ranks of the ring and head axes (counterpart of
+sparse_videogen_tpu/parallel/mesh.py, its rp and sp axes; dp stays 1).
 
-`make_mesh(rp)` returns the rank group a ring runtime drives
-(parallel/comm.py) under `torchrun --nproc_per_node rp`: this process's
-rank of a torch.distributed group set up from torchrun's environment. All
-rp ranks as threads of one process (one card, or the CPU) are
-`comm.ThreadRanks(rp)`. The JAX mesh's dp and sp (Ulysses) axes are not
+`make_mesh(rp, sp)` returns the rank group the parallel runtimes drive
+(parallel/comm.py) under `torchrun --nproc_per_node rp*sp`: this process's
+rank of a torch.distributed group set up from torchrun's environment, with
+a subgroup (`dist.new_group`) for its ring (the ranks of its head index)
+and one for its head group (the ranks of its ring index). Global rank
+g = i * sp + j, the head axis fastest, as the JAX mesh lays out its
+devices. All ranks as threads of one process (one card, or the CPU) are
+`comm.ThreadRanks(rp, sp)`. The dp axis and FSDP (sharding.py) are not
 ported.
 """
 
@@ -15,7 +18,7 @@ import os
 
 import torch
 
-from sparse_videogen_tpu_torch.parallel.comm import DistComm, ProcessRanks
+from sparse_videogen_tpu_torch.parallel.comm import DistComm, LocalComm, ProcessRanks
 
 
 def init_process_group(device_type: str) -> DistComm:
@@ -38,9 +41,22 @@ def init_process_group(device_type: str) -> DistComm:
     return DistComm()
 
 
-def make_mesh(rp: int, *, device_type: str = "cuda") -> ProcessRanks:
-    """This process's rank of the torchrun group, which must have rp ranks."""
-    comm = init_process_group(device_type)
-    if comm.size != rp:
-        raise ValueError(f"ring degree {rp} needs {rp} processes (torchrun --nproc_per_node {rp}), got {comm.size}")
-    return ProcessRanks(comm)
+def make_mesh(rp: int = 1, sp: int = 1, *, device_type: str = "cuda") -> ProcessRanks:
+    """This process's rank of the torchrun group, which must have rp * sp
+    ranks: its communicator over the ring (rp) and over its head group (sp).
+    Every process creates every subgroup, in the same order, as
+    torch.distributed requires."""
+    import torch.distributed as dist
+
+    world = init_process_group(device_type)
+    if world.size != rp * sp:
+        raise ValueError(f"ring degree {rp} x Ulysses degree {sp} needs {rp * sp} processes (torchrun "
+                         f"--nproc_per_node {rp * sp}), got {world.size}")
+    i, j = divmod(world.rank, sp)
+    if sp == 1:
+        return ProcessRanks(world, rank=world.rank, rp=rp, sp=1)
+    rings = [dist.new_group([a * sp + b for a in range(rp)]) for b in range(sp)] if rp > 1 else None
+    heads = [dist.new_group([a * sp + b for b in range(sp)]) for a in range(rp)]
+    comm = DistComm(rings[j]) if rings else LocalComm()
+    comm.heads = DistComm(heads[i])
+    return ProcessRanks(comm, rank=world.rank, rp=rp, sp=sp)

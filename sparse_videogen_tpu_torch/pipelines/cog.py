@@ -6,8 +6,9 @@ image in latent frame 0 and zeros after), and the v1.5 temporal padding:
 latent frames padded at the front to a multiple of patch_size_t and dropped
 after denoising. The self-attention runtime is dense or SVG1 over the
 text-first layout (mask kind "cog", prompt_length = text_len); v1.0's
-dynamic CFG is `use_dynamic_cfg`. SAP and sequence parallelism raise
-NotImplementedError.
+dynamic CFG is `use_dynamic_cfg`. SAP raises NotImplementedError. A rank
+group (`mesh`) goes through parallel.parallelize_runtime: the ring for
+dense (SVG raises), Ulysses for both patterns.
 """
 
 from __future__ import annotations
@@ -45,17 +46,21 @@ def cog_layout(cfg: CogConfig, height: int, width: int, num_frames: int) -> Vide
 
 
 def make_cog_runtime(layout: VideoLayout, *, device, pattern: str = "SVG", warmup: WarmupSchedule = WarmupSchedule(),
-                     svg: SVGConfig = COG_SVG):
+                     svg: SVGConfig = COG_SVG, mesh=None):
     """The dense or SVG1 runtime of a text-first layout; the whole text is
     live (prompt_length = context_length, as the JAX pipeline passes
-    text_len)."""
+    text_len). mesh: a rank group (parallel/comm.py), through
+    parallelize_runtime."""
+    from sparse_videogen_tpu_torch.parallel import parallelize_runtime
+
     mode = SparseMode(pattern)
     if mode == SparseMode.SAP:
         raise NotImplementedError("SAP on CogVideoX (a text-first SAP layout; the reference runs CogVideoX with "
                                   "SVG1 or dense only) is not ported to the torch package (ROADMAP.md)")
     plan = make_svg1_plan(layout, svg, warmup)
     cls = DenseRuntime if mode == SparseMode.DENSE else SVG1Runtime
-    return cls(plan, device=device, prompt_length=layout.context_length)
+    rt = cls(plan, device=device, prompt_length=layout.context_length)
+    return parallelize_runtime(rt, mesh, plan, device=device, pattern=pattern, prompt_length=layout.context_length)
 
 
 @dataclasses.dataclass
@@ -85,8 +90,6 @@ class CogPipeline:
         """Run the denoise loop from noise drawn with torch.Generator(seed) on
         the model's device; return the final f32 latents (1, 16, F_lat, h, w),
         the front padding removed. pattern "SAP" raises NotImplementedError."""
-        if mesh is not None:
-            raise NotImplementedError("sequence/ring parallelism is not ported to the torch package yet (ROADMAP.md)")
         cfg = self.model.cfg
         device = self.model.patch_proj.weight.device
         gen = torch.Generator(device=device).manual_seed(seed)
@@ -97,11 +100,11 @@ class CogPipeline:
                              num_frames=num_frames, num_inference_steps=num_inference_steps,
                              guidance_scale=guidance_scale, use_dynamic_cfg=use_dynamic_cfg, pattern=pattern,
                              first_layers_fp=first_layers_fp, first_times_fp=first_times_fp, svg=svg,
-                             generator=gen, callback=callback)
+                             generator=gen, callback=callback, mesh=mesh)
 
     def _denoise(self, context, context_null, image_latents, lat, *, height, width, num_frames, num_inference_steps,
                  guidance_scale, use_dynamic_cfg, pattern, first_layers_fp, first_times_fp, svg, generator=None,
-                 profile_rows=None, callback=None):
+                 profile_rows=None, callback=None, mesh=None):
         """The loop behind generate_latents, from the given initial latents
         (1, 16, F_lat + padding, h, w). `profile_rows[step][layer]` hands the
         SVG1 profiler fixed rows instead of drawing them from `generator`
@@ -114,7 +117,7 @@ class CogPipeline:
         layout = cog_layout(cfg, height, width, num_frames)
         sch = CogDDIM(num_inference_steps)
         warmup = WarmupSchedule.from_fractions(first_layers_fp, first_times_fp, cfg.num_layers, sch.timesteps)
-        runtime = make_cog_runtime(layout, device=device, pattern=pattern, warmup=warmup, svg=svg)
+        runtime = make_cog_runtime(layout, device=device, pattern=pattern, warmup=warmup, svg=svg, mesh=mesh)
         extra = latent_frames(cfg, num_frames)[1]
         lat = lat.to(device)
         img = torch.zeros_like(lat)

@@ -13,7 +13,9 @@ suits a 0-1000 scale, so more steps run dense than first_times_fp says:
 ROADMAP.md section 3). SAP runs the CFG batch in one forward: its k-means
 states cover 2 x heads (cond's heads, then uncond's), unlike Wan's two
 batch-1 forwards. `fps` is accepted and, as in the JAX pipeline, not passed
-to the DiT (its RoPE uses frame indices).
+to the DiT (its RoPE uses frame indices). A rank group (`mesh`) goes
+through parallel.parallelize_runtime: the ring for dense and SAP (SVG
+raises), Ulysses for every pattern.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ import torch
 from sparse_videogen_tpu_torch.config import SAPConfig, SparseMode, SVGConfig, VideoLayout, WarmupSchedule
 from sparse_videogen_tpu_torch.models.cosmos.model import CosmosConfig, CosmosModel
 from sparse_videogen_tpu_torch.schedulers import EDMEuler
-from sparse_videogen_tpu_torch.sparse.runtimes import DenseRuntime, SAPRuntime, SVG1Runtime
+from sparse_videogen_tpu_torch.sparse.runtimes import DenseRuntime, SAPRuntime, SVG1Runtime, is_sap
 from sparse_videogen_tpu_torch.sparse.svg1 import make_svg1_plan
 from sparse_videogen_tpu_torch.utils.density import DensityLogger, log_sap_states
 
@@ -42,14 +44,19 @@ def cosmos_layout(cfg: CosmosConfig, height: int, width: int, num_frames: int) -
 
 def make_cosmos_runtime(layout: VideoLayout, *, device, pattern: str = "dense",
                         warmup: WarmupSchedule = WarmupSchedule(), svg: SVGConfig = SVGConfig(),
-                        sap: SAPConfig = SAPConfig()):
+                        sap: SAPConfig = SAPConfig(), mesh=None):
     """The runtime of a pattern, on the plan's default blocks (the JAX
-    pipeline's make_svg1_plan(layout, svg, warmup))."""
+    pipeline's make_svg1_plan(layout, svg, warmup)). mesh: a rank group
+    (parallel/comm.py), through parallelize_runtime."""
+    from sparse_videogen_tpu_torch.parallel import parallelize_runtime
+
     mode = SparseMode(pattern)
     plan = make_svg1_plan(layout, svg, warmup)
     if mode == SparseMode.SAP:
-        return SAPRuntime(plan, sap, warmup, device=device)
-    return (DenseRuntime if mode == SparseMode.DENSE else SVG1Runtime)(plan, device=device)
+        rt = SAPRuntime(plan, sap, warmup, device=device)
+    else:
+        rt = (DenseRuntime if mode == SparseMode.DENSE else SVG1Runtime)(plan, device=device)
+    return parallelize_runtime(rt, mesh, plan, device=device, pattern=pattern, sap=sap, warmup=warmup)
 
 
 @dataclasses.dataclass
@@ -81,8 +88,6 @@ class CosmosPipeline:
         the model's device, times the first sigma; return the f32 latents
         (1, C, F_lat, h, w). With pattern SAP, `logging_file` receives the
         per-(step, layer) densities of both CFG halves as JSONL."""
-        if mesh is not None:
-            raise NotImplementedError("sequence/ring parallelism is not ported to the torch package yet (ROADMAP.md)")
         cfg = self.model.cfg
         device = self.model.device
         gen = torch.Generator(device=device).manual_seed(seed)
@@ -93,11 +98,11 @@ class CosmosPipeline:
         return self._denoise(context, context_null, lat, height=height, width=width, num_frames=num_frames,
                              num_inference_steps=num_inference_steps, guidance_scale=guidance_scale, pattern=pattern,
                              first_layers_fp=first_layers_fp, first_times_fp=first_times_fp, svg=svg, sap=sap,
-                             generator=gen, logging_file=logging_file, callback=callback)
+                             generator=gen, logging_file=logging_file, callback=callback, mesh=mesh)
 
     def _denoise(self, context, context_null, lat, *, height, width, num_frames, num_inference_steps,
                  guidance_scale, pattern, first_layers_fp, first_times_fp, svg=SVGConfig(), sap=SAPConfig(),
-                 generator=None, profile_rows=None, kmeans_init=None, logging_file=None, callback=None):
+                 generator=None, profile_rows=None, kmeans_init=None, logging_file=None, callback=None, mesh=None):
         """The loop behind generate_latents, from the given initial latents
         (already times the first sigma). `profile_rows[step][layer]` hands
         the SVG1 profiler fixed rows, and `kmeans_init[step][layer]` = (q
@@ -110,8 +115,9 @@ class CosmosPipeline:
         layout = cosmos_layout(cfg, height, width, num_frames)
         sch = EDMEuler(num_inference_steps)
         warmup = WarmupSchedule.from_fractions(first_layers_fp, first_times_fp, cfg.num_layers, sch.timesteps)
-        runtime = make_cosmos_runtime(layout, device=device, pattern=pattern, warmup=warmup, svg=svg, sap=sap)
-        sap_mode = isinstance(runtime, SAPRuntime)
+        runtime = make_cosmos_runtime(layout, device=device, pattern=pattern, warmup=warmup, svg=svg, sap=sap,
+                                      mesh=mesh)
+        sap_mode = is_sap(runtime)
         dlog = DensityLogger(logging_file if sap_mode else None)
         ctx2 = torch.cat([context, context_null]).to(device, dtype)
         lat = lat.to(device)

@@ -8,8 +8,10 @@ one k-means state a layer (one stream). I2V conditions by latent_concat
 (the community HunyuanVideo-I2V checkpoint, in_channels 33 = 16 noise + 16
 image + 1 mask): the image latents in latent frame 0, zeros after, and a
 mask channel of ones on frame 0. `generate(prompt)` runs the attached text
-encoder (io/encoders.HyVideoTextEncoders) and VAE decoder. Sequence
-parallelism raises NotImplementedError.
+encoder (io/encoders.HyVideoTextEncoders) and VAE decoder. With a rank
+group (`mesh`): the ring (--ring_degree) runs dense only, on the text-last
+layout with the live prompt length (and the heads split over the head
+axis: USP); the head axis alone (--ulysses_degree) runs every pattern.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ import torch
 from sparse_videogen_tpu_torch.config import SAPConfig, SparseMode, SVGConfig, TextPosition, VideoLayout, WarmupSchedule
 from sparse_videogen_tpu_torch.models.hyvideo.model import HyVideoConfig, HyVideoModel
 from sparse_videogen_tpu_torch.schedulers import FlowMatchEuler
-from sparse_videogen_tpu_torch.sparse.runtimes import DenseRuntime, SAPRuntime, SVG1Runtime
+from sparse_videogen_tpu_torch.sparse.runtimes import DenseRuntime, SAPRuntime, SVG1Runtime, is_sap
 from sparse_videogen_tpu_torch.sparse.svg1 import make_svg1_plan
 from sparse_videogen_tpu_torch.utils.density import DensityLogger, log_sap_states
 
@@ -40,18 +42,32 @@ def hyvideo_layout(cfg: HyVideoConfig, height: int, width: int, num_frames: int)
 
 def make_hyvideo_runtime(layout: VideoLayout, *, device, prompt_length: int, pattern: str = "SVG",
                          warmup: WarmupSchedule = WarmupSchedule(), svg: SVGConfig = SVGConfig(),
-                         sap: SAPConfig = SAPConfig()):
+                         sap: SAPConfig = SAPConfig(), mesh=None):
     """The dense, SVG1 or SAP runtime of a text-last layout (the JAX
     pipeline's plan: default block sizes). SAP's dense warm-up takes the
     layout's context_length as its live text, as the JAX pipeline's
     SAPRuntime does (runtimes.SAPRuntime); its sparse steps take the
-    layout's prompt_length."""
+    layout's prompt_length. mesh: a rank group (parallel/comm.py); its
+    ring runs dense only, its head axis alone every pattern."""
     mode = SparseMode(pattern)
     plan = make_svg1_plan(layout, svg, warmup)
+    if mesh is not None and mesh.rp > 1:
+        from sparse_videogen_tpu_torch.parallel.ring_runtime import RingDenseRuntime
+
+        if mode != SparseMode.DENSE:
+            raise ValueError("hyvideo ring_degree>1 supports pattern=dense; use --ulysses_degree for SVG/SAP "
+                             "(head-local algorithms)")
+        return RingDenseRuntime(plan, mesh, device=device, prompt_length=prompt_length)
     if mode == SparseMode.SAP:
-        return SAPRuntime(plan, sap, warmup, device=device)
-    cls = DenseRuntime if mode == SparseMode.DENSE else SVG1Runtime
-    return cls(plan, device=device, prompt_length=prompt_length)
+        rt = SAPRuntime(plan, sap, warmup, device=device)
+    else:
+        rt = (DenseRuntime if mode == SparseMode.DENSE else SVG1Runtime)(plan, device=device,
+                                                                         prompt_length=prompt_length)
+    if mesh is not None and mesh.sp > 1:
+        from sparse_videogen_tpu_torch.parallel.ulysses import UlyssesRuntime
+
+        rt = UlyssesRuntime(rt, mesh)
+    return rt
 
 
 def i2v_condition(cfg: HyVideoConfig, image_latents, num_latent_frames: int):
@@ -105,8 +121,6 @@ class HyVideoPipeline:
         `logging_file` receives the per-(step, layer) density as JSONL
         (utils/density.py). `image_latents` (1, 16, 1, h, w): I2V by
         latent_concat (i2v_condition)."""
-        if mesh is not None:
-            raise NotImplementedError("sequence/ring parallelism is not ported to the torch package yet (ROADMAP.md)")
         cfg = self.model.cfg
         device = self.model.img_in.weight.device
         gen = torch.Generator(device=device).manual_seed(seed)
@@ -123,7 +137,8 @@ class HyVideoPipeline:
                              width=width, num_frames=num_frames, num_inference_steps=num_inference_steps,
                              embedded_guidance_scale=embedded_guidance_scale, flow_shift=flow_shift,
                              pattern=pattern, first_layers_fp=first_layers_fp, first_times_fp=first_times_fp,
-                             svg=svg, sap=sap, generator=gen, callback=callback, logging_file=logging_file, cond=cond)
+                             svg=svg, sap=sap, generator=gen, callback=callback, logging_file=logging_file, cond=cond,
+                             mesh=mesh)
 
     def generate(self, prompt: str, **kw):
         """prompt -> the video (B, 3, T, H, W) through the attached VAE
@@ -138,7 +153,7 @@ class HyVideoPipeline:
     def _denoise(self, text_states, text_mask, text_pooled, lat, *, prompt_length, height, width, num_frames,
                  num_inference_steps, embedded_guidance_scale, flow_shift, pattern, first_layers_fp,
                  first_times_fp, svg, sap=SAPConfig(), generator=None, profile_rows=None, kmeans_init=None,
-                 callback=None, logging_file=None, cond=None):
+                 callback=None, logging_file=None, cond=None, mesh=None):
         """The loop behind generate_latents, from the given initial latents
         (and the I2V condition `cond`, concatenated to them on the channels).
         `profile_rows[step][layer]` hands the SVG1 profiler fixed rows, and
@@ -152,8 +167,8 @@ class HyVideoPipeline:
         sch = FlowMatchEuler(num_inference_steps, shift=flow_shift)
         warmup = WarmupSchedule.from_fractions(first_layers_fp, first_times_fp, cfg.num_layers, sch.timesteps)
         runtime = make_hyvideo_runtime(layout, device=device, prompt_length=prompt_length, pattern=pattern,
-                                       warmup=warmup, svg=svg, sap=sap)
-        sap_mode = isinstance(runtime, SAPRuntime)
+                                       warmup=warmup, svg=svg, sap=sap, mesh=mesh)
+        sap_mode = is_sap(runtime)
         dlog = DensityLogger(logging_file if sap_mode else None)
         states = text_states.to(device, dtype)
         mask = text_mask.to(device)

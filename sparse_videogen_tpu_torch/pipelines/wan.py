@@ -4,9 +4,13 @@ SAP self-attention runtime. Dense and SVG1 batch CFG as [cond, null]; SAP
 runs the two streams as separate batch-1 forwards, each with its own k-means
 states, as the JAX pipeline does. I2V hands every forward the CLIP features
 and the condition latents (`build_i2v_condition`: the first-frame mask and
-the image's VAE latents), concatenated after the noise on channels. With a ring of more than one rank (`mesh`,
-parallel/mesh.make_mesh; --ring_degree), dense and SAP attention run
-token-sharded (parallel/ring_runtime.py); SVG raises, as in the JAX package.
+the image's VAE latents), concatenated after the noise on channels. The
+sampler is FlowUniPC or, with sampler="dpm++", FlowDPM. With a rank group
+(`mesh`, parallel/mesh.make_mesh or parallel/comm.ThreadRanks): a ring of
+more than one rank (--ring_degree) runs dense and SAP attention
+token-sharded (parallel/ring_runtime.py; with the heads also split over
+the head axis: USP), SVG raises, as in the JAX package; the head axis alone
+(--ulysses_degree) runs every pattern head-sharded (parallel/ulysses.py).
 `export_video` writes the VAE's output as a .y4m or .mp4.
 """
 
@@ -19,8 +23,8 @@ import torch
 
 from sparse_videogen_tpu_torch.config import SAPConfig, SparseMode, SVGConfig, VideoLayout, WarmupSchedule
 from sparse_videogen_tpu_torch.models.wan.model import WanConfig, WanModel
-from sparse_videogen_tpu_torch.schedulers import FlowUniPC
-from sparse_videogen_tpu_torch.sparse.runtimes import DenseRuntime, SAPRuntime, SVG1Runtime
+from sparse_videogen_tpu_torch.schedulers import FlowDPM, FlowUniPC
+from sparse_videogen_tpu_torch.sparse.runtimes import DenseRuntime, SAPRuntime, SVG1Runtime, is_sap
 from sparse_videogen_tpu_torch.sparse.svg1 import make_svg1_plan
 from sparse_videogen_tpu_torch.utils.density import DensityLogger, log_sap_states
 
@@ -51,7 +55,7 @@ def make_wan_runtime(
     mesh=None,
     inplace_temporal: bool = False,
 ):
-    """The attention runtime of a pattern. mesh: the ring's rank group
+    """The attention runtime of a pattern. mesh: the rank group
     (parallel/mesh.make_mesh under torchrun, or parallel/comm.ThreadRanks),
     None or one rank for a single device;
     inplace_temporal: SVG1 without placement (a measurement switch,
@@ -59,7 +63,7 @@ def make_wan_runtime(
     mode = SparseMode(pattern)
     plan = make_svg1_plan(layout, svg, warmup, block_q=BLOCK_Q, block_kv=BLOCK_KV,
                           inplace_temporal=inplace_temporal and mode == SparseMode.SVG)
-    if mesh is not None and mesh.size > 1:
+    if mesh is not None and mesh.rp > 1:
         from sparse_videogen_tpu_torch.parallel.ring_runtime import RingDenseRuntime, RingSAPRuntime
 
         if mode == SparseMode.DENSE:
@@ -69,8 +73,21 @@ def make_wan_runtime(
         raise ValueError("pattern=SVG does not compose with ring_degree>1 (global per-head placement); use "
                          "--ulysses_degree for SVG multi-chip")
     if mode == SparseMode.SAP:
-        return SAPRuntime(plan, sap, warmup, device=device)
-    return (DenseRuntime if mode == SparseMode.DENSE else SVG1Runtime)(plan, device=device)
+        rt = SAPRuntime(plan, sap, warmup, device=device)
+    else:
+        rt = (DenseRuntime if mode == SparseMode.DENSE else SVG1Runtime)(plan, device=device)
+    if mesh is not None and mesh.sp > 1:
+        from sparse_videogen_tpu_torch.parallel.ulysses import UlyssesRuntime
+
+        rt = UlyssesRuntime(rt, mesh)
+    return rt
+
+
+def make_sampler(sampler: str, num_steps: int, shift: float):
+    """FlowUniPC ("unipc") or FlowDPM ("dpm++", wan_orig's alternative solver)."""
+    if sampler not in ("unipc", "dpm++"):
+        raise ValueError(f"sampler {sampler!r}: one of unipc, dpm++")
+    return (FlowDPM if sampler == "dpm++" else FlowUniPC)(num_steps, shift=shift)
 
 
 @dataclasses.dataclass
@@ -112,8 +129,6 @@ class WanPipeline:
         With pattern SAP, `logging_file` receives the per-(step, layer) density
         of the cond stream as JSONL (utils/density.py). mesh and
         inplace_temporal go to make_wan_runtime."""
-        if sampler != "unipc":
-            raise NotImplementedError(f"sampler {sampler!r} is not ported to the torch package yet (ROADMAP.md)")
         device = self.model.patch_embedding.weight.device
         gen = torch.Generator(device=device).manual_seed(seed)
         shape = (1, self.model.cfg.out_dim, 1 + (num_frames - 1) // VAE_TEMPORAL,
@@ -127,13 +142,14 @@ class WanPipeline:
         return self._denoise(
             context, context_null, lat, height=height, width=width, num_frames=num_frames,
             num_inference_steps=num_inference_steps, guidance_scale=guidance_scale, flow_shift=flow_shift,
-            pattern=pattern, first_layers_fp=first_layers_fp, first_times_fp=first_times_fp, svg=svg, sap=sap,
+            sampler=sampler, pattern=pattern, first_layers_fp=first_layers_fp, first_times_fp=first_times_fp, svg=svg, sap=sap,
             generator=gen, callback=callback, logging_file=logging_file, mesh=mesh,
             inplace_temporal=inplace_temporal, clip_fea=clip_fea, latent_cond=latent_cond,
         )
 
     def _denoise(self, context, context_null, lat, *, height, width, num_frames, num_inference_steps,
                  guidance_scale, flow_shift, pattern, first_layers_fp, first_times_fp, svg, sap=SAPConfig(),
+                 sampler="unipc",
                  generator=None, profile_rows=None, kmeans_init=None, callback=None, logging_file=None, mesh=None,
                  inplace_temporal=False, clip_fea=None, latent_cond=None):
         """The loop behind generate_latents, from the given initial latents.
@@ -145,11 +161,11 @@ class WanPipeline:
         cfgm = model.cfg
         device, dtype = model.patch_embedding.weight.device, model.patch_embedding.weight.dtype
         layout = wan_layout(cfgm, height, width, num_frames)
-        sch = FlowUniPC(num_inference_steps, shift=flow_shift)
+        sch = make_sampler(sampler, num_inference_steps, flow_shift)
         warmup = WarmupSchedule.from_fractions(first_layers_fp, first_times_fp, cfgm.num_layers, sch.timesteps)
         runtime = make_wan_runtime(layout, device=device, pattern=pattern, warmup=warmup, svg=svg, sap=sap, mesh=mesh,
                                    inplace_temporal=inplace_temporal)
-        sap_mode = isinstance(runtime, SAPRuntime)
+        sap_mode = is_sap(runtime)
         dlog = DensityLogger(logging_file if sap_mode else None)
         stream_states = [{}, {}]  # SAP: layer -> SAPState, per CFG stream
         ctx_pair = torch.cat([context, context_null], dim=0).to(device)
@@ -181,7 +197,7 @@ class WanPipeline:
                 callback(i, lat)
         return lat
 
-    def _sap_forward(self, runtime: SAPRuntime, stream_states, s, x, t, ctx, generator, kmeans_init, clip_fea=None):
+    def _sap_forward(self, runtime, stream_states, s, x, t, ctx, generator, kmeans_init, clip_fea=None):
         """One batch-1 forward of CFG stream s with that stream's SAP states."""
         runtime.states, runtime.kmeans_init = stream_states[s], kmeans_init
         v = self.model(x, t, ctx, attention=runtime, generator=generator, clip_fea=clip_fea)

@@ -14,7 +14,9 @@ sparsity 0.25 with 64 sampled rows, first_layers_fp 0.025, first_times_fp
 300, KC 125, top_p 0.9, min_kc_ratio 0.10, block_q = block_kv = 512 (tile
 mode's tile grain), 50 cold / 1 warm k-means iterations, first_layers_fp
 0.03, first_times_fp 0.2 (the JAX script's values, its --sap_block_mode
-both).
+both); dense_int8: dense on a copy of the model whose block linears are
+int8 W8A8 (utils/quant.quantize_linears_int8, as the JAX script quantizes
+params["blocks"]).
 
 Latent metrics as the JAX script computes them: PSNR with max_val the
 dense latents' max |x|, SSIM per latent frame with the channels folded
@@ -23,8 +25,8 @@ density log (cond stream, every sparse layer-step). Pixel metrics: each
 latent decoded by a random Wan VAE (seed 1) through the CLI's default
 decoder (--vae_tiling auto: tiled at 720p; cuDNN TF32 as torch leaves it,
 on), then video_metrics (PSNR, SSIM) and lpips_rf on [0, 1] frames. Only
-the latent PSNRs are gated: SVG1 >= 35 dB and each SAP mode >= 24 dB; a
-miss exits 1.
+the latent PSNRs are gated: SVG1 and dense_int8 >= 35 dB and each SAP
+mode >= 24 dB; a miss exits 1.
 
     python -m sparse_videogen_tpu_torch.scripts.quality --out QUALITY_torch.json
     python -m sparse_videogen_tpu_torch.scripts.quality --smoke --device cpu --out q.json
@@ -57,8 +59,6 @@ GAIN = 4.0
 # seeds, fixed once: the model, the cond and uncond text states, the VAE, the noise
 MODEL_SEED, CTX_SEED, CTX_NULL_SEED, VAE_SEED, NOISE_SEED = 0, 2, 3, 1, 0
 MIN_PSNR, SAP_MIN_PSNR = 35.0, 24.0
-# JAX's legs that the port does not run yet (ROADMAP.md section 1)
-NOT_PORTED = {"dense_int8": "int8 W8A8 linears are not ported (ROADMAP.md section 1)"}
 
 
 def recipe(smoke: bool = False):
@@ -81,6 +81,7 @@ def recipe(smoke: bool = False):
         "sap_cluster": dict(pattern="SAP", sap=sap, first_layers_fp=0.03, first_times_fp=0.2),
         "sap_tile": dict(pattern="SAP", sap=dataclasses.replace(sap, block_mode="tile"), first_layers_fp=0.03,
                          first_times_fp=0.2),
+        "dense_int8": dict(pattern="dense", first_layers_fp=0.0, first_times_fp=0.0, quant="int8"),
     }
     return cfg, size, patterns
 
@@ -101,9 +102,18 @@ def make_inputs(cfg, device):
 
 
 def generate(model, ctx, ctx_null, size, kw, *, callback=None, logging_file=None):
-    """One pattern's STEPS-step generation through WanPipeline.generate_latents."""
-    from sparse_videogen_tpu_torch.pipelines import WanPipeline
+    """One pattern's STEPS-step generation through WanPipeline.generate_latents;
+    kw's "quant": "int8" runs it on a copy of the model with int8 block
+    linears."""
+    import copy
 
+    from sparse_videogen_tpu_torch.pipelines import WanPipeline
+    from sparse_videogen_tpu_torch.utils.quant import quantize_linears_int8
+
+    kw = dict(kw)
+    if kw.pop("quant", None) == "int8":
+        model = copy.deepcopy(model)
+        quantize_linears_int8(model.blocks)
     h, w, f = size
     return WanPipeline(model).generate_latents(ctx, ctx_null, height=h, width=w, num_frames=f,
                                                num_inference_steps=STEPS, seed=NOISE_SEED, callback=callback,
@@ -221,7 +231,6 @@ def main(argv=None):
                    "nvidia_smi": card() if cuda else None},
         "source": {"commit": args.commit or git_commit(), "source_sha256_16": source_hash()},
         "metrics": {},
-        "not_measured": NOT_PORTED,
     }
     lat, seconds = {}, {}
     with tempfile.TemporaryDirectory() as tmp:
@@ -284,14 +293,17 @@ def main(argv=None):
     report["config"]["pixel_frames"] = list(px["dense"].shape)
 
     svg_db = report["metrics"]["svg1"]["latent_psnr_db"]
+    int8_db = report["metrics"]["dense_int8"]["latent_psnr_db"]
     sap_dbs = [m["latent_psnr_db"] for name, m in report["metrics"].items() if name.startswith("sap")]
     report["gate"] = {"min_psnr_db": MIN_PSNR, "sap_min_psnr_db": SAP_MIN_PSNR,
                       "svg1_pass": bool(svg_db >= MIN_PSNR), "sap_pass": bool(min(sap_dbs) >= SAP_MIN_PSNR),
+                      "int8_pass": bool(int8_db >= MIN_PSNR),
                       "sap_block_mode": "both", "pixel": "not gated (the VAE's weights are random)"}
     with open(args.out, "w") as f:
         json.dump(report, f, indent=1)
     print(json.dumps(report))
-    if not args.smoke and not (report["gate"]["svg1_pass"] and report["gate"]["sap_pass"]):
+    gate = report["gate"]
+    if not args.smoke and not (gate["svg1_pass"] and gate["sap_pass"] and gate["int8_pass"]):
         sys.exit(1)
 
 

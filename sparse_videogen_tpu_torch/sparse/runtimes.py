@@ -70,14 +70,17 @@ class SVG1Runtime(DenseRuntime):
         w = self.plan.warmup
         return layer_idx < w.first_layers or t > w.first_times
 
+    def draw_rows(self, seq_len: int, generator, device):
+        """The profiler's sampled query rows of one sparse layer."""
+        c = self.plan.cfg
+        return sample_rows(seq_len, num_sampled_rows=c.num_sampled_rows, sample_mse_max_row=c.sample_mse_max_row,
+                           generator=generator, device=device)
+
     def __call__(self, q, k, v, t, layer_idx, rows=None, generator=None):
         if self.is_dense(layer_idx, t):
             return dense_impl(q, k, v, self.dense_meta, self.plan, self.aux)
         if rows is None:
-            c = self.plan.cfg
-            rows = sample_rows(q.shape[2], num_sampled_rows=c.num_sampled_rows,
-                               sample_mse_max_row=c.sample_mse_max_row, generator=generator,
-                               device=q.device)
+            rows = self.draw_rows(q.shape[2], generator, q.device)
         return svg1_sparse_impl(q, k, v, rows, self.sparse_meta, self.plan, self.aux)
 
 
@@ -104,13 +107,31 @@ class SAPRuntime(DenseRuntime):
     def is_dense(self, layer_idx: int, t: float) -> bool:
         return layer_idx < self.warmup.first_layers or t > self.warmup.first_times
 
-    def __call__(self, q, k, v, t, layer_idx, rows=None, generator=None):
-        B, H, S, D = q.shape
-        state = self.states.get(layer_idx)
+    def attend(self, q, k, v, t, layer_idx, state: SAPState | None, generator=None, init_idx=None):
+        """One layer from `state` (None: cold), without touching `states`:
+        returns (out, new_state)."""
         if state is None:
+            B, H, S, D = q.shape
             state = init_sap_state(B * H, D, self.cfg, device=q.device)
-        out, self.states[layer_idx] = sap_attention(
+        return sap_attention(
             q, k, v, t, state, layout=self.plan.layout, cfg=self.cfg, warmup=self.warmup, layer_idx=layer_idx,
             dense_fn=lambda q_, k_, v_: dense_impl(q_, k_, v_, self.dense_meta, self.plan, self.aux),
-            generator=generator, init_idx=None if self.kmeans_init is None else self.kmeans_init[layer_idx])
+            generator=generator, init_idx=init_idx)
+
+    def clusters(self, layer_idx: int, t: float) -> bool:
+        """Whether this call runs k-means (and so draws a cold start)."""
+        if self.is_dense(layer_idx, t):
+            return self.cfg.zero_step_kmeans_init
+        return not (self.cfg.block_mode == "tile" and self.cfg.tile_order == "pc1")
+
+    def __call__(self, q, k, v, t, layer_idx, rows=None, generator=None):
+        out, self.states[layer_idx] = self.attend(
+            q, k, v, t, layer_idx, self.states.get(layer_idx), generator,
+            None if self.kmeans_init is None else self.kmeans_init[layer_idx])
         return out
+
+
+def is_sap(runtime) -> bool:
+    """A SAP runtime, or a wrapper of one (parallel/ulysses.UlyssesRuntime):
+    the pipeline swaps its `states` per CFG stream."""
+    return isinstance(getattr(runtime, "inner", runtime), SAPRuntime)

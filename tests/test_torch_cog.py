@@ -370,11 +370,13 @@ def test_cli_smoke_cpu(tmp_path, extra):
 @pytest.mark.parametrize("argv,exc", [
     (["--device", "cuda:99"], RuntimeError),
     (["--device", "cpu", "--pattern", "SAP"], SystemExit),
-    (["--device", "cpu", "--ring_degree", "2"], NotImplementedError),
+    (["--device", "cpu", "--dit_fsdp"], NotImplementedError),
 ], ids=["no_card_no_fallback", "sap", "parallel"])
 def test_cli_refuses_what_is_not_ported(tmp_path, argv, exc):
     """No fallback to the CPU; --pattern SAP is not one of the JAX CLI's
-    choices, so argparse exits (2), as the JAX CLI does; parallelism raises."""
+    choices, so argparse exits (2), as the JAX CLI does; FSDP weight sharding
+    raises (--ring_degree and --ulysses_degree run under torchrun,
+    tests/test_torch_parallel_families.py)."""
     if argv[1].startswith("cuda") and torch.cuda.is_available():
         pytest.skip("this host has a card: nothing to refuse")
     with pytest.raises(exc, match="ROADMAP" if exc is NotImplementedError else None) as info:

@@ -157,7 +157,7 @@ def test_presets_are_the_reference_scripts():
 
 
 @pytest.mark.parametrize("argv,exc", [(["--device", "cuda:99"], RuntimeError),
-                                      (["--device", "cpu", "--ulysses_degree", "2"], NotImplementedError)],
+                                      (["--device", "cpu", "--dit_fsdp"], NotImplementedError)],
                          ids=["no_card_no_fallback", "parallel"])
 def test_cli_refuses(tmp_path, argv, exc):
     if "cuda:99" in argv and torch.cuda.is_available():

@@ -305,21 +305,23 @@ def test_cli_smoke_cpu(tmp_path):
     assert lat.shape == (1, 16, 3, 12, 16) and np.isfinite(lat).all()
 
 
-@pytest.mark.parametrize("argv,exc", [
-    (["--device", "cuda:99"], RuntimeError),
-    (["--device", "cpu", "--dit_fsdp"], NotImplementedError),
-    (["--device", "cpu", "--pattern", "SVG", "--ring_degree", "2"], NotImplementedError),
-    (["--device", "cpu", "--quant", "int8"], NotImplementedError),
-    (["--device", "cpu", "--ulysses_degree", "2"], NotImplementedError),
+@pytest.mark.parametrize("argv,exc,match", [
+    (["--device", "cuda:99"], RuntimeError, None),
+    (["--device", "cpu", "--dit_fsdp"], NotImplementedError, "ROADMAP"),
+    (["--device", "cpu", "--pattern", "SVG", "--ring_degree", "2"], RuntimeError, "torchrun"),
+    (["--device", "cpu", "--quant", "int8", "--dit_fsdp"], NotImplementedError, "ROADMAP"),
+    (["--device", "cpu", "--ulysses_degree", "2"], RuntimeError, "torchrun"),
 ], ids=["no_card_no_fallback", "model_dir", "video", "sap", "parallel"])
-def test_cli_refuses_what_is_not_ported(tmp_path, argv, exc):
-    """No fallback to the CPU; quantization and parallelism raise. The ids
+def test_cli_refuses_what_is_not_ported(tmp_path, argv, exc, match):
+    """No fallback to the CPU; FSDP raises; the parallel flags need torchrun's
+    process group and do not fall back to one device without it. The ids
     `model_dir` and `video` named --model_dir and a video name, which run
     now (tests/test_torch_hyvideo_cli.py): they hold --dit_fsdp and
-    --ring_degree 2 with SVG."""
+    --ring_degree 2 with SVG; `sap` held --quant int8, which runs now
+    (tests/test_torch_hyvideo_quant.py), and holds it beside --dit_fsdp."""
     if argv[1].startswith("cuda") and torch.cuda.is_available():
         pytest.skip("this host has a card: nothing to refuse")
-    with pytest.raises(exc, match=None if exc is RuntimeError else "ROADMAP"):
+    with pytest.raises(exc, match=match):
         TCLI.main(["--smoke", "--output_file", str(tmp_path / "x.npz")] + argv)
 
 

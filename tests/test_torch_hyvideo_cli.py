@@ -227,13 +227,14 @@ def test_i2v_parser_matches_jax():
 
 @pytest.mark.parametrize("argv,exc,match", [
     (["--smoke", "--device", "cuda:99"], RuntimeError, None),
-    (["--smoke", "--device", "cpu", "--ring_degree", "2"], NotImplementedError, "parallelism"),
+    (["--smoke", "--device", "cpu", "--dit_fsdp"], NotImplementedError, "parallelism"),
     (["--device", "cpu", "--model_dir", "I2V"], ValueError, "--image_path"),
     (["--device", "cpu", "--model_dir", "T2V", "--image_path", "IMG"], ValueError, "in_channels 33"),
 ], ids=["no_card_no_fallback", "parallel", "no_image", "t2v_transformer"])
 def test_i2v_refuses(dirs, tmp_path, argv, exc, match):
-    """No fallback to the CPU; parallelism raises; an I2V run needs an image
-    and a latent_concat transformer."""
+    """No fallback to the CPU; FSDP weight sharding raises (the ring and
+    Ulysses run under torchrun); an I2V run needs an image and a
+    latent_concat transformer."""
     if "cuda:99" in argv and torch.cuda.is_available():
         pytest.skip("this host has a card: nothing to refuse")
     sub = {"T2V": dirs[0], "I2V": dirs[1], "IMG": dirs[2]}

@@ -214,13 +214,13 @@ def test_quality_script_smoke(tmp_path):
     out = tmp_path / "q.json"
     Q.main(["--smoke", "--device", "cpu", "--workers", "1", "--out", str(out)])
     rep = json.loads(out.read_text())
-    assert set(rep["metrics"]) == {"svg1", "sap_cluster", "sap_tile"}
+    assert set(rep["metrics"]) == {"svg1", "sap_cluster", "sap_tile", "dense_int8"}
     for name, m in rep["metrics"].items():
         for key in ("latent_psnr_db", "latent_ssim", "pixel_psnr_db", "pixel_ssim", "lpips_rf"):
             assert np.isfinite(m[key]), (name, key)
     assert all(0 < rep["metrics"][name]["density"] <= 1 for name in ("sap_cluster", "sap_tile"))
-    assert set(rep["gate"]) >= {"svg1_pass", "sap_pass", "min_psnr_db", "sap_min_psnr_db"}
-    assert set(rep["not_measured"]) == {"dense_int8"}
+    assert set(rep["gate"]) >= {"svg1_pass", "sap_pass", "int8_pass", "min_psnr_db", "sap_min_psnr_db"}
+    assert "not_measured" not in rep  # every leg of the JAX script runs
     assert rep["config"]["pixel_frames"] == [9, 96, 160, 3] and len(rep["seconds"]["dense"]["per_step_s"]) == 8
     assert len(rep["source"]["source_sha256_16"]) == 16
 

@@ -187,13 +187,13 @@ def test_cli_smoke_cpu(tmp_path):
     (["--smoke", "--device", "cuda:99"], RuntimeError),
     (["--device", "cpu", "--model_dir", "/nonexistent"], FileNotFoundError),
     (["--smoke", "--device", "cpu", "--output_file", "video.mp4"], ImportError),
-    (["--smoke", "--device", "cpu", "--quant", "int8"], NotImplementedError),
+    (["--smoke", "--device", "cpu", "--dp", "2"], NotImplementedError),
 ], ids=["no_card_no_fallback", "model_dir", "video", "sap"])
 def test_cli_refuses_what_is_not_ported(tmp_path, monkeypatch, argv, exc):
     """No fallback to the CPU; a checkpoint dir that does not exist is refused,
     not replaced by random weights; .mp4 on a host without PIL (the card's)
-    raises ImportError naming .y4m; int8 linears are not ported (the id
-    `sap` named SAP's tile mode, which runs now)."""
+    raises ImportError naming .y4m; data parallelism (--dp) is not ported
+    (the id `sap` named SAP's tile mode, then int8 linears, which run now)."""
     if "cuda:99" in argv and torch.cuda.is_available():
         pytest.skip("this host has a card: nothing to refuse")
     monkeypatch.setitem(sys.modules, "PIL", None)

@@ -122,14 +122,15 @@ def test_cli_smoke_cpu(tmp_path):
 @pytest.mark.parametrize("argv,exc,match", [
     (["--smoke", "--device", "cuda:99"], RuntimeError, None),
     (["--smoke", "--device", "cpu", "--dp", "2"], NotImplementedError, "--dp"),
-    (["--smoke", "--device", "cpu", "--ulysses_degree", "2"], NotImplementedError, "--ulysses_degree"),
+    (["--smoke", "--device", "cpu", "--dit_fsdp"], NotImplementedError, "--dit_fsdp"),
     (["--device", "cpu", "--model_dir", "MODEL_DIR"], ValueError, "--image_path"),
     (["--device", "cpu", "--model_dir", "MODEL_DIR", "--image_path", "NOT_AN_IMAGE"], ValueError, r"\.npy"),
 ], ids=["no_card_no_fallback", "dp", "sap_tile", "no_image", "unreadable_image"])
 def test_cli_refuses(model_dir, tmp_path, monkeypatch, argv, exc, match):
     """No fallback to the CPU; unported flags raise (the id `sap_tile` named
-    SAP's tile mode, which runs now: it holds --ulysses_degree); an I2V run
-    needs an image, and an image it cannot read raises naming .npy."""
+    SAP's tile mode, then --ulysses_degree, which run now: it holds
+    --dit_fsdp); an I2V run needs an image, and an image it cannot read
+    raises naming .npy."""
     if "cuda:99" in argv and torch.cuda.is_available():
         pytest.skip("this host has a card: nothing to refuse")
     monkeypatch.setitem(sys.modules, "PIL", None)
