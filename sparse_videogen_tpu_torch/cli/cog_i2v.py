@@ -34,8 +34,9 @@ an `.npy` --image_path; a pixel image is ignored, as the JAX smoke ignores
 it), latents to an `.npz` or, with another name, decoded by the JAX CLI's
 tiny random VAE to a video. `--ulysses_degree M` (both patterns
 head-sharded) and `--ring_degree N` (dense only) run under torchrun, one
-process a rank; rank 0 writes. `--dit_fsdp` raises NotImplementedError
-(ROADMAP.md).
+process a rank; rank 0 writes. `--dit_fsdp` shards the DiT's weights
+over every torchrun rank (FSDP, parallel/sharding.py), as any grid of more
+than one rank does.
 
 Usage:
   python -m sparse_videogen_tpu_torch.cli.cog_i2v --model_dir DIR --image_path examples/1/image.jpg \\
@@ -46,7 +47,6 @@ Usage:
 from __future__ import annotations
 
 import argparse
-import logging
 import os
 
 import numpy as np
@@ -54,9 +54,11 @@ import numpy as np
 from sparse_videogen_tpu_torch.cli._common import (add_device, add_model_id, add_vae_tiling_flags, encode_t5_prompts,
                                                    make_vae_decoder, resolve_device, resolve_model_dir, skip_existing,
                                                    video_name)
-from sparse_videogen_tpu_torch.cli._parallel import add_parallel_flags, close_mesh, make_cli_mesh
+from sparse_videogen_tpu_torch.cli._parallel import (add_parallel_flags, close_mesh, make_cli_mesh,
+                                                     shard_cli_model)
+from sparse_videogen_tpu_torch.utils.logging import logger
+from sparse_videogen_tpu_torch.utils.seed import seed_everything
 
-logger = logging.getLogger("sparse_videogen_tpu_torch")
 
 # the JAX CLI's --smoke model (ofs_embed follows --version) and its tiny VAE (seed 1)
 SMOKE_CFG = dict(num_layers=2, hidden_size=128, heads_num=2, head_dim=64, text_len=16, text_dim=32, in_channels=32)
@@ -195,7 +197,7 @@ def _smoke(args, device):
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(levelname)s %(message)s")
+    seed_everything(args.seed)
     if args.skip_existing and skip_existing(args.output_path):
         return
     from sparse_videogen_tpu_torch.config import SVGConfig
@@ -209,6 +211,7 @@ def main(argv=None):
     else:
         model, ctx, ctx_null, img, vae = _from_checkpoint(args, device)
 
+    model = shard_cli_model(mesh, model)
     lat = CogPipeline(model).generate_latents(
         ctx, ctx_null, img, height=args.height, width=args.width, num_frames=args.num_frames,
         num_inference_steps=args.num_step, guidance_scale=args.guidance_scale,

@@ -29,8 +29,9 @@ steps, random text states (24 tokens) from --seed, the centroids capped at
 another name, decoded by the JAX CLI's tiny random VAE (seed 1) to a
 video. `--ulysses_degree M` (every pattern head-sharded) and
 `--ring_degree N` (dense and SAP cluster mode) run under torchrun, one
-process a rank; rank 0 writes. `--dit_fsdp` raises NotImplementedError
-(ROADMAP.md).
+process a rank; rank 0 writes. `--dit_fsdp` shards the DiT's weights
+over every torchrun rank (FSDP, parallel/sharding.py), as any grid of more
+than one rank does.
 
 Usage:
   python -m sparse_videogen_tpu_torch.cli.cosmos_t2v --model_dir DIR --prompt "..." --output_file out.y4m
@@ -41,7 +42,6 @@ Usage:
 from __future__ import annotations
 
 import argparse
-import logging
 import os
 
 import numpy as np
@@ -49,9 +49,11 @@ import numpy as np
 from sparse_videogen_tpu_torch.cli._common import (add_device, add_model_id, add_vae_tiling_flags, encode_t5_prompts,
                                                    make_vae_decoder, resolve_device, resolve_model_dir, sap_config,
                                                    skip_existing, video_name)
-from sparse_videogen_tpu_torch.cli._parallel import add_parallel_flags, close_mesh, make_cli_mesh
+from sparse_videogen_tpu_torch.cli._parallel import (add_parallel_flags, close_mesh, make_cli_mesh,
+                                                     shard_cli_model)
+from sparse_videogen_tpu_torch.utils.logging import logger
+from sparse_videogen_tpu_torch.utils.seed import seed_everything
 
-logger = logging.getLogger("sparse_videogen_tpu_torch")
 
 # the JAX CLI's --smoke model, its text length and its tiny VAE (seed 1)
 SMOKE_CFG = dict(num_attention_heads=2, attention_head_dim=64, num_layers=2, text_embed_dim=64, adaln_lora_dim=16,
@@ -162,7 +164,7 @@ def _smoke(args, device):
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(levelname)s %(message)s")
+    seed_everything(args.seed)
     if args.skip_existing and skip_existing(args.output_file):
         return
     from sparse_videogen_tpu_torch.config import SVGConfig
@@ -186,6 +188,7 @@ def main(argv=None):
         vae = load_vae(args.model_dir, device)
         model = load_dit(args.model_dir, args.model_size, device)
 
+    model = shard_cli_model(mesh, model)
     lat = CosmosPipeline(model).generate_latents(
         ctx, ctx_null, height=args.height, width=args.width, num_frames=args.num_frames,
         num_inference_steps=args.num_inference_steps, guidance_scale=args.guidance_scale, fps=args.fps,

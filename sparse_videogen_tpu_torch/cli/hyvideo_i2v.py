@@ -22,8 +22,9 @@ or `.mp4` where PIL is installed; an `.npz` name becomes `.y4m`). `--smoke`
 HunyuanVideo, random text states and image latents, latents to an `.npz`
 or, with another name, decoded by a tiny random VAE. `--ulysses_degree M`
 (both patterns head-sharded) and `--ring_degree N` (dense only) run under
-torchrun, as cli/hyvideo_t2v.py does; rank 0 writes. `--dit_fsdp` raises
-NotImplementedError (ROADMAP.md).
+torchrun, as cli/hyvideo_t2v.py does; rank 0 writes. `--dit_fsdp` shards
+the DiT's weights over every torchrun rank (FSDP, parallel/sharding.py), as
+any grid of more than one rank does.
 
 Usage:
   python -m sparse_videogen_tpu_torch.cli.hyvideo_i2v --model_dir DIR --image_path examples/1/image.jpg \\
@@ -35,19 +36,20 @@ from __future__ import annotations
 
 import argparse
 import json
-import logging
 import os
 
 import numpy as np
 
 from sparse_videogen_tpu_torch.cli._common import (add_device, add_model_id, add_vae_tiling_flags, resolve_device,
                                                    resolve_model_dir)
-from sparse_videogen_tpu_torch.cli._parallel import add_parallel_flags, close_mesh, make_cli_mesh
+from sparse_videogen_tpu_torch.cli._parallel import (add_parallel_flags, close_mesh, make_cli_mesh,
+                                                     shard_cli_model)
+from sparse_videogen_tpu_torch.utils.logging import logger
+from sparse_videogen_tpu_torch.utils.seed import seed_everything
 from sparse_videogen_tpu_torch.cli.hyvideo_t2v import (SMOKE_CFG, SMOKE_PROMPT_LENGTH, free_cuda, load_dit,
                                                        load_vae_decoder, skip_existing, smoke_vae_decoder,
                                                        write_output)
 
-logger = logging.getLogger("sparse_videogen_tpu_torch")
 
 
 def build_parser():
@@ -140,7 +142,7 @@ def _load_checkpoint(args, device):
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(levelname)s %(message)s")
+    seed_everything(args.seed)
     if args.skip_existing and skip_existing(args):
         return
     import torch
@@ -177,6 +179,7 @@ def main(argv=None):
     else:
         model, text, mask, pooled, img_lat, vae_decode = _load_checkpoint(args, device)
 
+    model = shard_cli_model(mesh, model)
     lat = HyVideoPipeline(model).generate_latents(
         text, mask, pooled, prompt_length=int(mask[0].sum()),
         height=args.height, width=args.width, num_frames=args.num_frames,

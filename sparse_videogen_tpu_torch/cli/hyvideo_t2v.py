@@ -23,7 +23,8 @@ random VAE to a video. As in the JAX CLI, SAP's config drops
 double and single blocks' linears (utils/quant.py). `--ulysses_degree M`
 (every pattern head-sharded) and `--ring_degree N` (dense only, on the
 text-last layout) run under torchrun, one process a rank; rank 0 writes.
-`--dit_fsdp` raises NotImplementedError (ROADMAP.md).
+`--dit_fsdp` shards the DiT's weights over every torchrun rank (FSDP,
+parallel/sharding.py), as any grid of more than one rank does.
 
 Usage:
   python -m sparse_videogen_tpu_torch.cli.hyvideo_t2v --model_dir DIR --prompt "..." --output_file out.y4m
@@ -34,16 +35,17 @@ Usage:
 from __future__ import annotations
 
 import argparse
-import logging
 import os
 
 import numpy as np
 
 from sparse_videogen_tpu_torch.cli._common import (add_device, add_model_id, add_vae_tiling_flags, make_vae_decoder,
                                                    quantize_blocks, resolve_device, resolve_model_dir)
-from sparse_videogen_tpu_torch.cli._parallel import add_parallel_flags, close_mesh, make_cli_mesh
+from sparse_videogen_tpu_torch.cli._parallel import (add_parallel_flags, close_mesh, make_cli_mesh,
+                                                     shard_cli_model)
+from sparse_videogen_tpu_torch.utils.logging import logger
+from sparse_videogen_tpu_torch.utils.seed import seed_everything
 
-logger = logging.getLogger("sparse_videogen_tpu_torch")
 
 # the JAX CLI's --smoke model, and its prompt length (mask[:10])
 SMOKE_CFG = dict(hidden_size=256, heads_num=4, mm_double_blocks_depth=2, mm_single_blocks_depth=2,
@@ -193,7 +195,7 @@ def write_output(args, lat, vae_decode):
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(levelname)s %(message)s")
+    seed_everything(args.seed)
     if args.skip_existing and skip_existing(args):
         return
     import torch
@@ -237,6 +239,7 @@ def main(argv=None):
         model, text, mask, pooled, vae_decode = _load_checkpoint(args, device)
     quantize_blocks(args, model.double_blocks, model.single_blocks, logger=logger)
 
+    model = shard_cli_model(mesh, model)
     lat = HyVideoPipeline(model).generate_latents(
         text, mask, pooled, prompt_length=int(mask[0].sum()),
         height=args.height, width=args.width, num_frames=args.num_frames,

@@ -22,8 +22,9 @@ reduced size (random CLIP features and image latents) and writes the
 latents to the .npz. `--ring_degree N` (dense or SAP attention
 token-sharded over N ranks) and `--ulysses_degree M` (every pattern
 head-sharded over M) run under torchrun, as cli/wan_t2v.py does; rank 0
-writes (SAP's ring in cluster mode only). --dp and --dit_fsdp are not
-ported and raise.
+writes (SAP's ring in cluster mode only). `--dp D` adds data ranks; the
+grid shards the DiT's weights (FSDP, parallel/sharding.py), and
+`--dit_fsdp` alone spreads them over every torchrun rank.
 
 Usage:
   python -m sparse_videogen_tpu_torch.cli.wan_i2v --model_dir DIR \
@@ -34,16 +35,17 @@ Usage:
 from __future__ import annotations
 
 import argparse
-import logging
 import os
 
 import numpy as np
 
 from sparse_videogen_tpu_torch.cli._common import (add_device, add_model_id, add_vae_tiling_flags, make_vae_decoder,
                                                    resolve_device, resolve_model_dir, sap_config)
-from sparse_videogen_tpu_torch.cli._parallel import add_parallel_flags, close_mesh, make_cli_mesh
+from sparse_videogen_tpu_torch.cli._parallel import (add_parallel_flags, close_mesh, make_cli_mesh,
+                                                     shard_cli_model)
+from sparse_videogen_tpu_torch.utils.logging import logger
+from sparse_videogen_tpu_torch.utils.seed import seed_everything
 
-logger = logging.getLogger("sparse_videogen_tpu_torch")
 
 # the JAX CLI's --smoke model (cli/wan_i2v.py there)
 SMOKE_CFG = dict(model_type="i2v", in_dim=36, dim=256, ffn_dim=512, num_heads=4, num_layers=4, freq_dim=64,
@@ -184,7 +186,7 @@ def _load_checkpoint(args, device):
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(levelname)s %(message)s")
+    seed_everything(args.seed)
     if args.skip_existing:
         out = args.output_file
         for path in (out, out[: -len(".npz")] + ".y4m" if out.endswith(".npz") else out):
@@ -231,6 +233,7 @@ def main(argv=None):
     else:
         model, ctx, ctx_null, clip_fea, img_lat, (H, W), vae_decode = _load_checkpoint(args, device)
 
+    model = shard_cli_model(mesh, model)
     lat = WanPipeline(model).generate_latents(
         ctx, ctx_null,
         height=H, width=W, num_frames=args.num_frames,

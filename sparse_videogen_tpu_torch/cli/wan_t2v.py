@@ -21,7 +21,9 @@ GEMM), `--quant fp8` (or `--use_fp8`) stores them as e4m3 upcast to bf16.
 and `--ulysses_degree M` every pattern head-sharded over M (both: USP),
 one process a rank under torchrun (gloo with `--device cpu`, NCCL on
 cards); rank 0 writes (SAP's ring runs cluster mode only, as the JAX
-package's). --dp and --dit_fsdp are not ported and raise.
+package's). `--dp D` adds data ranks (each computes the whole CFG batch);
+the grid shards the DiT's weights (FSDP, parallel/sharding.py), and
+`--dit_fsdp` alone spreads them over every torchrun rank.
 
 Usage:
   python -m sparse_videogen_tpu_torch.cli.wan_t2v --model_dir DIR \
@@ -37,16 +39,17 @@ Usage:
 from __future__ import annotations
 
 import argparse
-import logging
 import os
 
 import numpy as np
 
 from sparse_videogen_tpu_torch.cli._common import (add_device, add_model_id, add_vae_tiling_flags, make_vae_decoder,
                                                    quantize_blocks, resolve_device, resolve_model_dir, sap_config)
-from sparse_videogen_tpu_torch.cli._parallel import add_parallel_flags, close_mesh, make_cli_mesh
+from sparse_videogen_tpu_torch.cli._parallel import (add_parallel_flags, close_mesh, make_cli_mesh,
+                                                     shard_cli_model)
+from sparse_videogen_tpu_torch.utils.logging import logger
+from sparse_videogen_tpu_torch.utils.seed import seed_everything
 
-logger = logging.getLogger("sparse_videogen_tpu_torch")
 
 # the JAX CLI's --smoke model and video decoder (cli/wan_t2v.py there)
 SMOKE_CFG = dict(dim=256, ffn_dim=512, num_heads=4, num_layers=4, freq_dim=64, text_dim=64, text_len=16)
@@ -157,7 +160,7 @@ def _load_checkpoint(args, device):
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(levelname)s %(message)s")
+    seed_everything(args.seed)
     if args.skip_existing:
         out = args.output_file
         for path in (out, out[: -len(".npz")] + ".y4m" if out.endswith(".npz") else out):
@@ -211,6 +214,7 @@ def main(argv=None):
         model, ctx, ctx_null, vae_decode = _load_checkpoint(args, device)
     quantize_blocks(args, model.blocks, logger=logger)
 
+    model = shard_cli_model(mesh, model)
     lat = WanPipeline(model).generate_latents(
         ctx, ctx_null,
         height=args.height, width=args.width, num_frames=args.num_frames,

@@ -14,7 +14,11 @@ parts).
     `.conv`, diffusers' attention names) -> models/hyvideo/vae.HyVideoVAE;
     HF LlamaModel (the last skip layers dropped) -> models/common/llama;
     HF CLIPTextModel -> models/common/clip.CLIPTextModel; HF Llava in either
-    naming generation -> models/common/llava.LlavaModel.
+    naming generation -> models/common/llava.LlavaModel;
+  - the prompt extender's causal LM: HF Qwen2ForCausalLM / LlamaForCausalLM
+    -> models/common/llama.LlamaModel(lm=True) (convert_qwen_lm), and the
+    JAX package's converted pytrees on disk (its save_pytree layout,
+    params.safetensors and structure.json in one directory: load_pytree).
 
 Torch keeps the checkpoints' layouts, (out, in) linears and (co, ci, k...)
 convolutions, so a conversion renames and reshapes; the JAX package
@@ -345,6 +349,47 @@ def convert_llama(sd: dict, cfg, *, skip_layers: int = 2) -> dict:
         for ours, theirs in names.items():
             out[f"blocks.{i}.{ours}"] = sd[f"{pre}layers.{i}.{theirs}"]
     return out
+
+
+def convert_qwen_lm(sd: dict, cfg) -> dict:
+    """HF Qwen2ForCausalLM / LlamaForCausalLM state dict (with or without
+    the `model.` prefix) -> LlamaModel(cfg, lm=True, qkv_bias=..., tied=...)
+    .state_dict(): every layer (convert_llama with none skipped), the q / k
+    / v biases where the checkpoint has them (Qwen2's), the final norm, and
+    `lm_head` unless the checkpoint has none (tied to the embedding)."""
+    out = convert_llama(sd, cfg, skip_layers=0)
+    pre = "model." if any(k.startswith("model.") for k in sd) else ""
+    for i in range(cfg.num_layers):
+        for nm in ("q", "k", "v"):
+            key = f"{pre}layers.{i}.self_attn.{nm}_proj.bias"
+            if key in sd:
+                out[f"blocks.{i}.{nm}.bias"] = sd[key]
+    out["final_norm"] = sd[f"{pre}norm.weight"]
+    if "lm_head.weight" in sd:
+        out["lm_head"] = sd["lm_head.weight"]
+    return out
+
+
+def load_pytree(path: str, device="cpu"):
+    """Read the JAX package's save_pytree layout: directory `path` with
+    params.safetensors and structure.json -> the pytree (dicts and lists)
+    with torch leaves in their stored dtypes. The JAX prompt extender saves
+    into, and loads from, a directory named params.safetensors inside its
+    model_dir (utils/prompt_extend.py)."""
+    from sparse_videogen_tpu_torch.io.safetensors import load_file
+
+    with open(os.path.join(path, "structure.json")) as f:
+        structure = json.load(f)
+    leaves = load_file(os.path.join(path, "params.safetensors"), device=device)
+
+    def rebuild(node, prefix):
+        if node is None:
+            return leaves["/".join(prefix)]
+        if "d" in node:
+            return {k: rebuild(v, prefix + (k,)) for k, v in node["d"].items()}
+        return [rebuild(v, prefix + (str(i),)) for i, v in enumerate(node["l"])]
+
+    return rebuild(structure, ())
 
 
 def convert_clip_text(sd: dict, cfg) -> dict:

@@ -4,7 +4,10 @@ pytree -> WanVAE's, the CLIP vision pytree -> CLIPVisionModel's, the
 HunyuanVideo pytree -> a HyVideoModel, the CogVideoX pytree -> a CogModel,
 HunyuanVideo's encoders (LLaMA, the CLIP text tower, Llava) and VAE ->
 LlamaModel's, CLIPTextModel's, LlavaModel's and HyVideoVAE's state_dicts,
-and SAP's k-means carry -> SAPState.
+the causal LM (Qwen2 / LLaMA, the prompt extender's) -> LlamaModel(lm=True)'s,
+and SAP's k-means carry -> SAPState. `jax_layout` reads the correspondence
+backwards: the JAX leaf of each tensor of a module (FSDP decides on it,
+parallel/sharding.py).
 
 The JAX package stores linears as {"w": (d_in, d_out), "b": (d_out,)},
 convolutions channels-last ((kt, kh, kw, ci, co), (kh, kw, ci, co)), and
@@ -278,6 +281,29 @@ def llama_params_from_numpy(tree, cfg) -> dict:
     return {k: _tensor(v, "cpu") for k, v in sd.items()}
 
 
+def llama_lm_params_from_numpy(tree, cfg) -> dict:
+    """tree: convert_qwen_lm(...) with numpy leaves, or the same tree read
+    back by io/checkpoint.load_pytree (torch leaves): every block stacked,
+    linears {"w": (in, out), "b"?} (Qwen2's q / k / v biases), `final_norm`,
+    and `lm_head` (dim, vocab) unless the head is tied. Returns a state_dict
+    for LlamaModel(cfg, lm=True, qkv_bias="b" in tree["blocks"]["q"],
+    tied="lm_head" not in tree)."""
+    t = lambda a: a if isinstance(a, torch.Tensor) else _tensor(a, "cpu")  # noqa: E731
+    blocks = {nm: ({k: t(a) for k, a in p.items()} if isinstance(p, dict) else t(p))
+              for nm, p in tree["blocks"].items()}
+    sd = {"embed": t(tree["embed"]), "final_norm": t(tree["final_norm"])}
+    for i in range(blocks["ln1"].shape[0]):
+        for nm in ("ln1", "ln2"):
+            sd[f"blocks.{i}.{nm}"] = blocks[nm][i]
+        for nm in ("q", "k", "v", "o", "gate", "up", "down"):
+            sd[f"blocks.{i}.{nm}.weight"] = blocks[nm]["w"][i].T
+            if "b" in blocks[nm]:
+                sd[f"blocks.{i}.{nm}.bias"] = blocks[nm]["b"][i]
+    if "lm_head" in tree:
+        sd["lm_head"] = t(tree["lm_head"]).T
+    return {k: v.contiguous() for k, v in sd.items()}
+
+
 def clip_text_params_from_numpy(tree, cfg) -> dict:
     """tree: init_clip_text_params(...) or convert_clip_text(...) with numpy
     leaves. Returns a state_dict for CLIPTextModel(cfg)."""
@@ -391,3 +417,44 @@ def cosmos_params_from_numpy(tree, cfg) -> dict:
     """tree: init_cosmos_params(...) or convert_cosmos_dit(...) with numpy
     leaves (blocks stacked) -> a state_dict for CosmosModel(cfg)."""
     return tree_state_dict(dict(tree, blocks=_unstacked(tree["blocks"], cfg.num_layers)))
+
+
+def jax_layout(module) -> dict:
+    """The JAX package's leaf of every tensor of `module` (a DiT, bf16 or
+    with utils/quant.py's quantized linears), the converters above read
+    backwards: name -> (jax_shape, axes), axes[k] the torch axis of the
+    leaf's axis k (None for an axis the tensor lacks). A tensor inside an
+    nn.ModuleList of L blocks is one layer of a leaf stacked on a leading
+    axis of L; a linear's weight (out, in), int8 `wi8` and fp8 `w8` are w
+    (in, out); an int8 `wscale` (out,) is (1, out) a layer, an fp8 `scale`
+    () (1, 1); every other tensor keeps its shape."""
+    from torch import nn
+
+    from sparse_videogen_tpu_torch.utils.quant import FP8Linear, Int8Linear
+
+    out = {}
+
+    def leaf(mod, name, t):
+        if (isinstance(mod, nn.Linear) and name == "weight") or (isinstance(mod, Int8Linear) and name == "wi8") \
+                or (isinstance(mod, FP8Linear) and name == "w8"):
+            return (t.shape[1], t.shape[0]), (1, 0)
+        if isinstance(mod, Int8Linear) and name == "wscale":
+            return (1, t.shape[0]), (None, 0)
+        if isinstance(mod, FP8Linear) and name == "scale":
+            return (1, 1), (None, None)
+        return tuple(t.shape), tuple(range(t.ndim))
+
+    def walk(mod, prefix, stack):
+        own = list(mod.named_parameters(recurse=False)) + list(mod.named_buffers(recurse=False))
+        for name, t in own:
+            shape, axes = leaf(mod, name, t)
+            out[prefix + name] = (tuple(stack) + tuple(shape), (None,) * len(stack) + axes)
+        for name, child in mod.named_children():
+            if isinstance(child, nn.ModuleList):
+                for i, item in enumerate(child):
+                    walk(item, f"{prefix}{name}.{i}.", stack + [len(child)])
+            else:
+                walk(child, f"{prefix}{name}.", stack)
+
+    walk(module, "", [])
+    return out

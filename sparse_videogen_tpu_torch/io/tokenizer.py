@@ -718,7 +718,8 @@ class HFTokenizerLite:
         RobertaProcessing.
     Patterns go through onig_regex. Any other component, a BPE dropout or
     byte fallback, and an added token with lstrip, rstrip or single_word
-    raise ValueError naming it."""
+    raise ValueError naming it. `decode` reads the decoders ByteLevel and
+    none (tokens joined by spaces); it raises ValueError naming any other."""
 
     def __init__(self, tj: dict, pad_id: int = 0):
         kinds = {"BPE": BPE, "WordLevel": WordLevel}
@@ -730,11 +731,15 @@ class HFTokenizerLite:
         self.pre_tokenize = make_pre_tokenizer(tj.get("pre_tokenizer"))
         self.prefix_ids, self.suffix_ids = _post_processor(tj.get("post_processor"))
         self.added, self.added_normalized = {}, {}
+        self.special = set()
         for t in tj.get("added_tokens") or []:
             for key in ("lstrip", "rstrip", "single_word"):
                 if t.get(key):
                     raise ValueError(f"added token {t['content']!r} with {key} is not supported")
             (self.added_normalized if t.get("normalized", not t.get("special")) else self.added)[t["content"]] = t["id"]
+            if t.get("special"):
+                self.special.add(t["content"])
+        self.decoder = tj.get("decoder")
         self.pad_id = pad_id
 
     @classmethod
@@ -808,6 +813,35 @@ class HFTokenizerLite:
         """Unpadded, untruncated ids with the special tokens (the JAX
         package's encode: tokenizers' encode with add_special_tokens)."""
         return self.prefix_ids + self._ids(text) + self.suffix_ids
+
+    @functools.cached_property
+    def _id_tokens(self) -> dict:
+        """id -> token: the model's vocabulary, the added tokens over it."""
+        out = {i: t for t, i in self.model.vocab.items()}
+        for table in (self.added_normalized, self.added):
+            out.update((i, t) for t, i in table.items())
+        return out
+
+    def decode(self, ids, skip_special_tokens: bool = True) -> str:
+        """tokenizers' decode: each id's token (an added token's before the
+        model's; an unknown id dropped, a special token dropped with
+        skip_special_tokens), then the decoder: none joins the tokens with
+        spaces; ByteLevel maps each token's characters back through GPT-2's
+        byte map (a token with a character outside it gives its own UTF-8)
+        and decodes the bytes, an invalid sequence as U+FFFD."""
+        kind = None if self.decoder is None else self.decoder.get("type")
+        if kind not in (None, "ByteLevel"):
+            raise ValueError(f"decoder type {kind!r} is not supported (ByteLevel, or none)")
+        tokens = [t for t in map(self._id_tokens.get, map(int, ids))
+                  if t is not None and not (skip_special_tokens and t in self.special)]
+        if kind is None:
+            return " ".join(tokens)
+        to_byte = {c: b for b, c in byte_to_unicode().items()}
+        out = bytearray()
+        for tok in tokens:
+            bs = [to_byte.get(c) for c in tok]
+            out += tok.encode("utf-8") if None in bs else bytes(bs)
+        return out.decode("utf-8", errors="replace")
 
     def __call__(self, texts, seq_len: int):
         if isinstance(texts, str):

@@ -19,6 +19,14 @@ a Pallas kernel.
 
 Parameter names: embed, blocks.<i>.{ln1, q, k, v, o, ln2, gate, up, down}
 (io/checkpoint.convert_llama maps HF's names onto these).
+
+The same stack is the prompt extender's causal LM (utils/prompt_extend.py;
+Qwen2 / LLaMA, io/checkpoint.convert_qwen_lm): `LlamaModel(cfg, lm=True)`
+builds every block, q / k / v biases with `qkv_bias` (Qwen2's), the
+`final_norm` and an `lm_head` (vocab, dim) unless `tied` to the embedding.
+`llama_lm_logits` gives f32 logits over the vocabulary and
+`llama_greedy_generate` decodes greedily, re-encoding the prefix at every
+step (no KV cache), as the JAX package does.
 """
 
 from __future__ import annotations
@@ -81,13 +89,14 @@ def apply_rope(x, cos, sin):
 
 
 class LlamaBlock(nn.Module):
-    def __init__(self, cfg: LlamaConfig, dtype, device):
+    def __init__(self, cfg: LlamaConfig, dtype, device, qkv_bias: bool = False):
         super().__init__()
         self.cfg = cfg
         d, kv = cfg.dim, cfg.num_kv_heads * cfg.head_dim
-        lin = lambda a, b: nn.Linear(a, b, bias=False, dtype=dtype, device=device)
+        lin = lambda a, b, bias=False: nn.Linear(a, b, bias=bias, dtype=dtype, device=device)
         self.ln1 = nn.Parameter(torch.ones(d, dtype=F32, device=device))
-        self.q, self.k, self.v, self.o = lin(d, d), lin(d, kv), lin(d, kv), lin(d, d)
+        self.q, self.k, self.v = lin(d, d, qkv_bias), lin(d, kv, qkv_bias), lin(d, kv, qkv_bias)
+        self.o = lin(d, d)
         self.ln2 = nn.Parameter(torch.ones(d, dtype=F32, device=device))
         self.gate, self.up, self.down = lin(d, cfg.ffn_dim), lin(d, cfg.ffn_dim), lin(cfg.ffn_dim, d)
 
@@ -113,27 +122,40 @@ class LlamaModel(nn.Module):
     active block (B, L, dim), in the weights' dtype. `n_layers` blocks are
     built (default cfg.num_layers; HunyuanVideo's encoder builds
     num_layers - skip). Linears and the embedding in `dtype`, the norm
-    weights f32."""
+    weights f32. `lm` adds the causal LM's `final_norm` and, unless `tied`,
+    its `lm_head` (vocab, dim); `qkv_bias` gives q, k and v biases."""
 
     def __init__(self, cfg: LlamaConfig = LLAMA3_8B, *, n_layers: int | None = None, dtype=torch.bfloat16,
-                 device="cpu"):
+                 device="cpu", qkv_bias: bool = False, lm: bool = False, tied: bool = False):
         super().__init__()
         self.cfg = cfg
         n = cfg.num_layers if n_layers is None else n_layers
         self.embed = nn.Parameter(torch.zeros(cfg.vocab_size, cfg.dim, dtype=dtype, device=device))
-        self.blocks = nn.ModuleList(LlamaBlock(cfg, dtype, device) for _ in range(n))
+        self.blocks = nn.ModuleList(LlamaBlock(cfg, dtype, device, qkv_bias) for _ in range(n))
+        if lm:
+            self.final_norm = nn.Parameter(torch.ones(cfg.dim, dtype=F32, device=device))
+            if not tied:
+                self.lm_head = nn.Parameter(torch.zeros(cfg.vocab_size, cfg.dim, dtype=dtype, device=device))
         self.requires_grad_(False)
 
     @torch.no_grad()
     def init_random(self, generator: torch.Generator):
         """The JAX package's init_llama_params distributions: the embedding
-        N(0, 0.02^2), each linear N(0, 1/d_in), unit norms."""
+        N(0, 0.02^2), each linear N(0, 1/d_in), unit norms; then, where they
+        exist, the q / k / v biases N(0, 0.02^2) and the LM head N(0, 1/dim)
+        (the JAX package names an init_llama_lm_params but has none)."""
         dev = self.embed.device
         self.embed.copy_(torch.randn(self.embed.shape, generator=generator, device=dev) * 0.02)
-        for mod in self.modules():
-            if isinstance(mod, nn.Linear):
-                w = torch.randn(mod.weight.shape, generator=generator, device=dev)
-                mod.weight.copy_(w / math.sqrt(mod.in_features))
+        linears = [mod for mod in self.modules() if isinstance(mod, nn.Linear)]
+        for mod in linears:
+            w = torch.randn(mod.weight.shape, generator=generator, device=dev)
+            mod.weight.copy_(w / math.sqrt(mod.in_features))
+        for mod in linears:
+            if mod.bias is not None:
+                mod.bias.copy_(torch.randn(mod.bias.shape, generator=generator, device=dev) * 0.02)
+        if hasattr(self, "lm_head"):
+            w = torch.randn(self.lm_head.shape, generator=generator, device=dev)
+            self.lm_head.copy_(w / math.sqrt(self.cfg.dim))
         return self
 
     @torch.no_grad()
@@ -156,3 +178,36 @@ class LlamaModel(nn.Module):
 def llama_encode(model: LlamaModel, ids, mask, *, inputs_embeds=None):
     """Functional spelling of LlamaModel.forward, as the JAX package names it."""
     return model(ids, mask, inputs_embeds=inputs_embeds)
+
+
+@torch.no_grad()
+def llama_lm_logits(model: LlamaModel, ids, mask, *, last_only: bool = False):
+    """Next-token logits (B, L, vocab) f32 of the causal LM (lm=True): the
+    blocks, the final RMSNorm, then x @ head^T with both cast to f32, the
+    head `lm_head` or, tied, the embedding. `last_only` keeps the last
+    position's row (B, 1, vocab), the one greedy decoding reads."""
+    x = model(ids, mask)
+    if last_only:
+        x = x[:, -1:]
+    x = rms_norm(x, model.final_norm, model.cfg.eps)
+    head = model.lm_head if hasattr(model, "lm_head") else model.embed
+    return x.float() @ head.float().T
+
+
+@torch.no_grad()
+def llama_greedy_generate(model: LlamaModel, ids, *, max_new_tokens: int, eos_id: int) -> list:
+    """Greedy decoding: prompt ids (L,) -> the generated ids (a list), up to
+    max_new_tokens, stopping before eos_id. Each step re-encodes the whole
+    prefix (no KV cache), as the JAX package does; ties go to the first
+    index (torch.argmax, as jnp.argmax)."""
+    dev = model.embed.device
+    prefix = [int(i) for i in ids]
+    out = []
+    for _ in range(max_new_tokens):
+        arr = torch.tensor([prefix + out], dtype=torch.long, device=dev)
+        logits = llama_lm_logits(model, arr, torch.ones_like(arr), last_only=True)
+        nxt = int(torch.argmax(logits[0, -1]))
+        if nxt == eos_id:
+            break
+        out.append(nxt)
+    return out

@@ -1,9 +1,9 @@
-"""Sequence parallelism (counterpart of sparse_videogen_tpu/parallel/): the
-communicator (comm.py), torchrun's rp x sp rank grid (mesh.py), the dense
-and SAP rings (ring.py, ring_sap.py), their runtimes (ring_runtime.py),
-Ulysses head sharding (ulysses.py) and `parallelize_runtime`, which wraps a
-single-device runtime for a rank group. FSDP and the dp axis
-(sharding.py) are not ported."""
+"""Parallelism (counterpart of sparse_videogen_tpu/parallel/): the
+communicator (comm.py), torchrun's dp x rp x sp rank grid (mesh.py), the
+dense and SAP rings (ring.py, ring_sap.py), their runtimes
+(ring_runtime.py), Ulysses head sharding (ulysses.py), FSDP weight
+sharding (sharding.py) and `parallelize_runtime`, which wraps a
+single-device runtime for a rank group."""
 
 from sparse_videogen_tpu_torch.config import SparseMode, TextPosition
 

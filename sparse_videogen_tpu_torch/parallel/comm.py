@@ -20,12 +20,16 @@ Two implementations run the same per-rank code:
 A runtime drives the ranks through a rank group: `ProcessRanks` (this
 process is one rank) or `ThreadRanks` (all ranks here, in threads);
 `group.run(fn)` calls fn(comm) on each rank it holds and returns the
-results in rank order. A group is the JAX mesh's rp x sp grid (its dp axis
-left at 1): rank g = i * sp + j is ring rank i and head rank j. `comm` is
-the rank's communicator over the ring axis (its rank i of rp) and
-`comm.heads` the one over the head axis (its rank j of sp), which the
-Ulysses and USP runtimes gather heads over. An axis of one rank has a
-`LocalComm`.
+results in rank order. A group is the JAX mesh's dp x rp x sp grid: rank
+g = (d * rp + i) * sp + j is data rank d, ring rank i and head rank j.
+`comm` is the rank's communicator over the ring axis (its rank i of rp,
+within its dp slice), `comm.heads` the one over the head axis (its rank j
+of sp, within its dp slice), which the Ulysses and USP runtimes gather
+heads over, and `comm.world` the one over every rank (its rank g), which
+FSDP gathers weights over (parallel/sharding.py). An axis of one rank has
+a `LocalComm`. The ring and head runtimes return rank 0's result; the other
+dp slices compute the same (each dp rank runs the whole CFG batch, as in
+the JAX package).
 """
 
 from __future__ import annotations
@@ -126,52 +130,66 @@ class ThreadComm:
 
 
 class ProcessRanks:
-    """This process is one rank of an rp x sp grid (DistComm): `comm` over
-    the ring axis, `comm.heads` over the head axis; `rank` is the global
-    rank."""
+    """This process is one rank of a dp x rp x sp grid (DistComm): `comm`
+    over the ring axis, `comm.heads` over the head axis, `comm.world` over
+    every rank; `rank` is the global rank."""
 
-    def __init__(self, comm, *, rank: int = 0, rp: int | None = None, sp: int = 1):
-        if not hasattr(comm, "heads"):
-            comm.heads = LocalComm()
+    def __init__(self, comm, *, rank: int = 0, rp: int | None = None, sp: int = 1, dp: int = 1):
+        for axis in ("heads", "world"):
+            if not hasattr(comm, axis):
+                setattr(comm, axis, LocalComm())
         self.comm, self.rank = comm, rank
-        self.rp, self.sp = comm.size if rp is None else rp, sp
-        self.size = self.rp * self.sp
+        self.dp, self.rp, self.sp = dp, comm.size if rp is None else rp, sp
+        self.size = self.dp * self.rp * self.sp
+
+    @property
+    def local_ranks(self):
+        """The global ranks this process holds."""
+        return [self.rank]
 
     def run(self, fn):
         return [fn(self.comm)]
 
 
 class ThreadRanks:
-    """rp x sp ranks in this process, one thread each (ThreadRanks(n) is a
-    ring of n); run(fn) returns every rank's result in global rank order.
-    Grad mode is a thread's own: each rank runs under no_grad. A rank that
-    raises breaks every barrier, so the others stop instead of waiting, and
-    run re-raises the first error."""
+    """dp x rp x sp ranks in this process, one thread each (ThreadRanks(n)
+    is a ring of n); run(fn) returns every rank's result in global rank
+    order. Grad mode is a thread's own: each rank runs under no_grad. A rank
+    that raises breaks every barrier, so the others stop instead of waiting,
+    and run re-raises the first error."""
 
-    def __init__(self, rp: int = 1, sp: int = 1):
-        if rp < 1 or sp < 1:
-            raise ValueError(f"need at least one rank on each axis, got rp={rp}, sp={sp}")
-        self.rp, self.sp, self.size = rp, sp, rp * sp
+    def __init__(self, rp: int = 1, sp: int = 1, *, dp: int = 1):
+        if rp < 1 or sp < 1 or dp < 1:
+            raise ValueError(f"need at least one rank on each axis, got dp={dp}, rp={rp}, sp={sp}")
+        self.dp, self.rp, self.sp, self.size = dp, rp, sp, dp * rp * sp
+
+    @property
+    def local_ranks(self):
+        """The global ranks this process holds: all of them."""
+        return list(range(self.size))
 
     def run(self, fn):
-        rp, sp = self.rp, self.sp
-        rings = [_Slots(rp) for _ in range(sp)]  # ring j: ranks (i, j) over i
-        heads = [_Slots(sp) for _ in range(rp)]  # head group i: ranks (i, j) over j
+        dp, rp, sp = self.dp, self.rp, self.sp
+        rings = [[_Slots(rp) for _ in range(sp)] for _ in range(dp)]  # ring (d, j): ranks (d, i, j) over i
+        heads = [[_Slots(sp) for _ in range(rp)] for _ in range(dp)]  # head group (d, i): over j
+        world = _Slots(self.size)
         results, errors = [None] * self.size, [None] * self.size
         device = torch.cuda.current_device() if torch.cuda.is_available() else None
 
         def body(g):
-            i, j = divmod(g, sp)
+            d, rest = divmod(g, rp * sp)
+            i, j = divmod(rest, sp)
             try:
                 if device is not None:
                     torch.cuda.set_device(device)
-                comm = ThreadComm(i, rings[j]) if rp > 1 else LocalComm()
-                comm.heads = ThreadComm(j, heads[i]) if sp > 1 else LocalComm()
+                comm = ThreadComm(i, rings[d][j]) if rp > 1 else LocalComm()
+                comm.heads = ThreadComm(j, heads[d][i]) if sp > 1 else LocalComm()
+                comm.world = ThreadComm(g, world) if self.size > 1 else LocalComm()
                 with torch.no_grad():
                     results[g] = fn(comm)
             except BaseException as e:  # noqa: BLE001 - handed to the caller below
                 errors[g] = e
-                for slots in rings + heads:
+                for slots in [s for grid in rings + heads for s in grid] + [world]:
                     slots.barrier.abort()
 
         threads = [threading.Thread(target=body, args=(g,), name=f"rank-{g}") for g in range(self.size)]

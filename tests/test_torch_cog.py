@@ -370,16 +370,17 @@ def test_cli_smoke_cpu(tmp_path, extra):
 @pytest.mark.parametrize("argv,exc", [
     (["--device", "cuda:99"], RuntimeError),
     (["--device", "cpu", "--pattern", "SAP"], SystemExit),
-    (["--device", "cpu", "--dit_fsdp"], NotImplementedError),
+    (["--device", "cpu", "--dit_fsdp", "--ring_degree", "2"], RuntimeError),
 ], ids=["no_card_no_fallback", "sap", "parallel"])
 def test_cli_refuses_what_is_not_ported(tmp_path, argv, exc):
     """No fallback to the CPU; --pattern SAP is not one of the JAX CLI's
-    choices, so argparse exits (2), as the JAX CLI does; FSDP weight sharding
-    raises (--ring_degree and --ulysses_degree run under torchrun,
-    tests/test_torch_parallel_families.py)."""
+    choices, so argparse exits (2), as the JAX CLI does; FSDP over a ring of
+    ranks outside torchrun raises naming torchrun (--ring_degree,
+    --ulysses_degree and --dit_fsdp run under torchrun,
+    tests/test_torch_parallel_families.py, tests/test_torch_sharding.py)."""
     if argv[1].startswith("cuda") and torch.cuda.is_available():
         pytest.skip("this host has a card: nothing to refuse")
-    with pytest.raises(exc, match="ROADMAP" if exc is NotImplementedError else None) as info:
+    with pytest.raises(exc, match="torchrun" if "--dit_fsdp" in argv else None) as info:
         TCLI.main(["--smoke", "--output_path", str(tmp_path / "x.npz")] + argv)
     if exc is SystemExit:
         assert info.value.code == 2

@@ -157,9 +157,11 @@ def test_presets_are_the_reference_scripts():
 
 
 @pytest.mark.parametrize("argv,exc", [(["--device", "cuda:99"], RuntimeError),
-                                      (["--device", "cpu", "--dit_fsdp"], NotImplementedError)],
+                                      (["--device", "cpu", "--dit_fsdp", "--ulysses_degree", "2"], RuntimeError)],
                          ids=["no_card_no_fallback", "parallel"])
 def test_cli_refuses(tmp_path, argv, exc):
+    """No fallback to the CPU; FSDP over head ranks outside torchrun raises
+    (a grid of ranks runs under torchrun)."""
     if "cuda:99" in argv and torch.cuda.is_available():
         pytest.skip("this host has a card: nothing to refuse")
     with pytest.raises(exc):

@@ -307,18 +307,19 @@ def test_cli_smoke_cpu(tmp_path):
 
 @pytest.mark.parametrize("argv,exc,match", [
     (["--device", "cuda:99"], RuntimeError, None),
-    (["--device", "cpu", "--dit_fsdp"], NotImplementedError, "ROADMAP"),
+    (["--device", "cpu", "--dit_fsdp", "--ulysses_degree", "2"], RuntimeError, "torchrun"),
     (["--device", "cpu", "--pattern", "SVG", "--ring_degree", "2"], RuntimeError, "torchrun"),
-    (["--device", "cpu", "--quant", "int8", "--dit_fsdp"], NotImplementedError, "ROADMAP"),
+    (["--device", "cpu", "--quant", "int8", "--dit_fsdp", "--ring_degree", "2"], RuntimeError, "torchrun"),
     (["--device", "cpu", "--ulysses_degree", "2"], RuntimeError, "torchrun"),
 ], ids=["no_card_no_fallback", "model_dir", "video", "sap", "parallel"])
 def test_cli_refuses_what_is_not_ported(tmp_path, argv, exc, match):
-    """No fallback to the CPU; FSDP raises; the parallel flags need torchrun's
-    process group and do not fall back to one device without it. The ids
-    `model_dir` and `video` named --model_dir and a video name, which run
-    now (tests/test_torch_hyvideo_cli.py): they hold --dit_fsdp and
-    --ring_degree 2 with SVG; `sap` held --quant int8, which runs now
-    (tests/test_torch_hyvideo_quant.py), and holds it beside --dit_fsdp."""
+    """No fallback to the CPU; the parallel flags, FSDP over a grid of ranks
+    included, need torchrun's process group and do not fall back to one
+    device without it. The ids `model_dir` and `video` named --model_dir and
+    a video name, which run now (tests/test_torch_hyvideo_cli.py): they hold
+    --dit_fsdp over head ranks and --ring_degree 2 with SVG; `sap` held
+    --quant int8, which runs now (tests/test_torch_hyvideo_quant.py), and
+    holds it beside --dit_fsdp over a ring."""
     if argv[1].startswith("cuda") and torch.cuda.is_available():
         pytest.skip("this host has a card: nothing to refuse")
     with pytest.raises(exc, match=match):

@@ -32,7 +32,9 @@ for mod in ("models.cog.model", "pipelines.cog", "schedulers.ddim_cog", "cli.cog
             "models.hyvideo.vae", "cli.hyvideo_i2v", "cli.hyvideo_t2v", "scripts.hyvideo_stages",
             "models.cog.vae", "models.cosmos.model", "models.cosmos.vae", "pipelines.cosmos",
             "schedulers.edm_euler", "cli.cosmos_t2v", "core.attention_ref", "schedulers.fm_dpm", "utils.quant",
-            "parallel.ulysses", "parallel.mesh", "parallel.ring_runtime", "cli._parallel"):
+            "parallel.ulysses", "parallel.mesh", "parallel.ring_runtime", "cli._parallel", "parallel.sharding",
+            "utils.prompt_extend", "utils.timer", "utils.misc", "utils.visualize", "utils.seed", "utils.logging",
+            "utils.vbench", "utils.extract_time"):
     assert pkg.__name__ + "." + mod in names, mod
 """
 

@@ -187,18 +187,21 @@ def test_cli_smoke_cpu(tmp_path):
     (["--smoke", "--device", "cuda:99"], RuntimeError),
     (["--device", "cpu", "--model_dir", "/nonexistent"], FileNotFoundError),
     (["--smoke", "--device", "cpu", "--output_file", "video.mp4"], ImportError),
-    (["--smoke", "--device", "cpu", "--dp", "2"], NotImplementedError),
+    (["--smoke", "--device", "cpu", "--dp", "2"], RuntimeError),
 ], ids=["no_card_no_fallback", "model_dir", "video", "sap"])
 def test_cli_refuses_what_is_not_ported(tmp_path, monkeypatch, argv, exc):
     """No fallback to the CPU; a checkpoint dir that does not exist is refused,
     not replaced by random weights; .mp4 on a host without PIL (the card's)
-    raises ImportError naming .y4m; data parallelism (--dp) is not ported
-    (the id `sap` named SAP's tile mode, then int8 linears, which run now)."""
+    raises ImportError naming .y4m; --dp 2 outside torchrun raises
+    RuntimeError naming torchrun, never a silent single rank (the id `sap`
+    named SAP's tile mode, then int8 linears, then --dp while it was not
+    ported; all run now)."""
     if "cuda:99" in argv and torch.cuda.is_available():
         pytest.skip("this host has a card: nothing to refuse")
     monkeypatch.setitem(sys.modules, "PIL", None)
     argv = [str(tmp_path / a) if a.endswith(".mp4") else a for a in argv]
-    with pytest.raises(exc, match=r"\.y4m" if exc is ImportError else None):
+    match = r"\.y4m" if exc is ImportError else ("torchrun" if "--dp" in argv else None)
+    with pytest.raises(exc, match=match):
         TCLI.main(["--output_file", str(tmp_path / "x.npz")] + argv)
 
 

@@ -121,15 +121,16 @@ def test_cli_smoke_cpu(tmp_path):
 
 @pytest.mark.parametrize("argv,exc,match", [
     (["--smoke", "--device", "cuda:99"], RuntimeError, None),
-    (["--smoke", "--device", "cpu", "--dp", "2"], NotImplementedError, "--dp"),
-    (["--smoke", "--device", "cpu", "--dit_fsdp"], NotImplementedError, "--dit_fsdp"),
+    (["--smoke", "--device", "cpu", "--dp", "2"], RuntimeError, "torchrun"),
+    (["--smoke", "--device", "cpu", "--dit_fsdp", "--dp", "2"], RuntimeError, "torchrun"),
     (["--device", "cpu", "--model_dir", "MODEL_DIR"], ValueError, "--image_path"),
     (["--device", "cpu", "--model_dir", "MODEL_DIR", "--image_path", "NOT_AN_IMAGE"], ValueError, r"\.npy"),
 ], ids=["no_card_no_fallback", "dp", "sap_tile", "no_image", "unreadable_image"])
 def test_cli_refuses(model_dir, tmp_path, monkeypatch, argv, exc, match):
-    """No fallback to the CPU; unported flags raise (the id `sap_tile` named
-    SAP's tile mode, then --ulysses_degree, which run now: it holds
-    --dit_fsdp); an I2V run needs an image, and an image it cannot read
+    """No fallback to the CPU; a grid of ranks (--dp, with or without
+    --dit_fsdp) outside torchrun raises naming torchrun (the id `sap_tile`
+    named SAP's tile mode, then --ulysses_degree, then --dit_fsdp while it
+    was not ported); an I2V run needs an image, and an image it cannot read
     raises naming .npy."""
     if "cuda:99" in argv and torch.cuda.is_available():
         pytest.skip("this host has a card: nothing to refuse")
