@@ -156,7 +156,11 @@ is non-zero:
                  tokenizer on a spiece.model this script writes, UMT5-XXL
                  (random bf16 weights), Wan 2.1 1.3B 480x832x81 for
                  P2V_STEPS SVG1 steps, the Wan VAE (dim 96, random) through
-                 the CLI's default decoder (12 tiles), a .y4m read back;
+                 the CLI's default decoder (12 tiles), a .y4m read back,
+                 and an .mp4 encoded on the card (PIL blocked) whose
+                 sha256 must equal the CPU's encode of the same frames,
+                 read back by the port's decoder (check_mp4, in a thread
+                 from the end of i2v: frames, fps, PSNR);
                  each stage timed with its peak memory, K1 and K2 held to
                  the configuration's launches with no plain-version call;
                  then the decode in each mode (whole, streamed by 1 and 2
@@ -263,6 +267,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import functools
 import json
 import os
 import struct
@@ -380,8 +385,17 @@ TIMER_ITERS, TIMER_TOL = 5, 0.05
 P2V_STEPS, CLI_STEPS = 2, 50
 # the decode modes (whole, streamed by 1 and 2) are held to each other on the
 # first DECODE_MODE_FRAMES of the 21 latent frames (the smoke's time limit)
-DECODE_MODE_FRAMES = 9
+DECODE_MODE_FRAMES = 5
 UMT5_TOL, VAE_TOL = 1e-5, 1e-4
+# .mp4 on the card's host, with PIL blocked: the p2v video through
+# export_video (the JPEGs encoded on the card) and the same uint8 frames
+# encoded on the CPU must give the same file; read back by the port's own
+# decoder in MP4_READ_WORKERS processes (half the host's cores: the later
+# phases drive the card from the other half), its frames at least MP4_MIN_PSNR dB
+# from the uint8 frames they encode (a sanity bound for quality 95 at 4:4:4;
+# the .y4m's frames are printed beside them, but the .y4m is 4:2:0 and
+# truncates: on the random VAE's noise-like frames it lies far below 30 dB)
+MP4_MIN_PSNR, MP4_READ_WORKERS = 30.0, max(1, (os.cpu_count() or 2) // 2)
 # image -> video (Wan 2.1 I2V 14B at 480x832x81): its full width and the first
 # LAYERS_I2V of its 40 layers, so that first_layers_fp 0.3 gives one dense
 # warm-up layer beside three SVG1 layers (both of K1's kinds run); the
@@ -4163,6 +4177,74 @@ def _steps(model, run, ctx, ctx_null, pattern, steps, callback=None, **extra):
     return lat, [events[i].elapsed_time(events[i + 1]) / 1e3 for i in range(steps)]
 
 
+def psnr_u8(a: np.ndarray, b: np.ndarray) -> float:
+    mse = float(np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2))
+    return float("inf") if mse == 0 else 10 * np.log10(255.0**2 / mse)
+
+
+def export_mp4(video, path: str) -> dict:
+    """export_video(video, path) to an .mp4 on this host with PIL blocked
+    (the JPEGs encoded on the video's device); returns the file's bytes,
+    the encoder's seconds by stage and the whole export's seconds."""
+    from sparse_videogen_tpu_torch.pipelines.wan import export_video
+
+    stages = {}
+    saved = {k: sys.modules.pop(k) for k in list(sys.modules) if k == "PIL" or k.startswith("PIL.")}
+    sys.modules["PIL"] = None  # an import of PIL now raises ImportError
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        export_video(video, path, fps=16, stages=stages)
+        total = time.perf_counter() - t0
+    finally:
+        del sys.modules["PIL"]
+        sys.modules.update(saved)
+    with open(path, "rb") as f:
+        data = f.read()
+    stages["container and file"] = total - sum(stages.values())
+    return {"bytes": data, "stages": stages, "seconds": total}
+
+
+def check_mp4(card: dict, frames_u8: np.ndarray, y4m_frames: np.ndarray, shape: tuple, fps: int) -> None:
+    """The card's .mp4 (export_mp4's result) against the same uint8 frames
+    encoded on the CPU (sha256 equal), then read back by read_mp4_mjpeg
+    (io/image.decode_jpeg) in MP4_READ_WORKERS processes: the frames' shape
+    and fps, and their PSNR against the uint8 frames (MP4_MIN_PSNR) and
+    against the .y4m frames."""
+    import hashlib
+    import importlib.util
+
+    from sparse_videogen_tpu_torch.io.mp4 import read_mp4_mjpeg, write_mp4
+
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        path, cpu_path = os.path.join(tmp, "p2v.mp4"), os.path.join(tmp, "p2v_cpu.mp4")
+        with open(path, "wb") as f:
+            f.write(card["bytes"])
+        cpu_stages = {}
+        t0 = time.perf_counter()
+        write_mp4(cpu_path, torch.from_numpy(frames_u8), fps=fps, stages=cpu_stages)
+        cpu_s = time.perf_counter() - t0
+        with open(cpu_path, "rb") as f:
+            sha_card, sha_cpu = hashlib.sha256(card["bytes"]).hexdigest(), hashlib.sha256(f.read()).hexdigest()
+        t0 = time.perf_counter()
+        back, back_fps = read_mp4_mjpeg(path, workers=MP4_READ_WORKERS)
+        read_s = time.perf_counter() - t0
+    to_u8, to_y4m, y4m_u8 = psnr_u8(back, frames_u8), psnr_u8(back, y4m_frames), psnr_u8(y4m_frames, frames_u8)
+    fmt = lambda st: ", ".join(f"{k} {v:.3f} s" for k, v in st.items())  # noqa: E731
+    log("p2v", f".mp4 (PIL blocked; installed on this host: {importlib.util.find_spec('PIL') is not None}): "
+               f"{len(card['bytes'])} bytes; encoded on the card in {card['seconds']:.3f} s ({fmt(card['stages'])}); "
+               f"on the CPU in {cpu_s:.3f} s ({fmt(cpu_stages)}); sha256 card {sha_card} cpu {sha_cpu}; "
+               f"read back in {read_s:.3f} s ({MP4_READ_WORKERS} processes): frames {back.shape} at {back_fps} fps, "
+               f"PSNR {to_u8:.3f} dB against the uint8 frames (gate {MP4_MIN_PSNR}), {to_y4m:.3f} dB against the "
+               f".y4m frames (the .y4m's own against the uint8 frames: {y4m_u8:.3f} dB)")
+    if sha_card != sha_cpu:
+        raise AssertionError("the .mp4 encoded on the card differs from the CPU's encode of the same frames")
+    if back.shape != shape or back_fps != fps:
+        raise AssertionError(f"the .mp4 read back: frames {back.shape} at {back_fps} fps, expected {shape} at {fps}")
+    if not to_u8 >= MP4_MIN_PSNR:
+        raise AssertionError(f"the .mp4's frames are {to_u8:.3f} dB from the uint8 frames (gate {MP4_MIN_PSNR})")
+
+
 def phase_prompt_to_video(dev):
     """Wan 2.1 T2V from a prompt to a video at full width: the port's
     tokenizer on a synthetic spiece.model (this script's protobuf writer);
@@ -4172,7 +4254,10 @@ def phase_prompt_to_video(dev):
     (presets.T2V_480P, random weights) for P2V_STEPS UniPC steps of SVG1 at
     480x832x81; the Wan VAE (WanVAEConfig(): dim 96, f32, random) through
     the CLI's default decoder (--vae_tiling auto: 12 tiles of 32x32 latents,
-    overlap 8); export_video to a .y4m, read back. Each stage is timed with
+    overlap 8); export_video to a .y4m, read back, and to an .mp4 (the
+    JPEGs encoded on the card; the returned check_mp4 call holds it to the
+    CPU's encode and reads it back, main runs it in a thread). Each stage
+    is timed with
     CUDA events beside its peak memory. The kernel counters are set to 0
     before the tokenizer and read after the writer: K1 and K2 launch as the
     configuration implies, no plain version runs, and the frames are (81,
@@ -4192,7 +4277,7 @@ def phase_prompt_to_video(dev):
     from sparse_videogen_tpu_torch.io.tokenizer import T5TokenizerLite
     from sparse_videogen_tpu_torch.models.common.t5 import UMT5_XXL, T5Encoder
     from sparse_videogen_tpu_torch.models.wan.vae import WanVAE, WanVAEConfig, decoder_forward
-    from sparse_videogen_tpu_torch.pipelines.wan import export_video, wan_layout
+    from sparse_videogen_tpu_torch.pipelines.wan import export_video, video_uint8, wan_layout
     from sparse_videogen_tpu_torch.presets import T2V_480P
     from sparse_videogen_tpu_torch.schedulers import FlowUniPC
 
@@ -4243,6 +4328,7 @@ def phase_prompt_to_video(dev):
         export_video(video, path, fps=16)
         frames, fps = read_y4m(path)
         export_s = time.perf_counter() - t0
+        mp4 = export_mp4(video, os.path.join(tmp, "p2v.mp4"))
     torch.cuda.synchronize()
     launches, kinds, plain = dict(_kernels.LAUNCHES), dict(_kernels.KIND_LAUNCHES), dict(_kernels.PLAIN_CALLS)
     for name, (ms, gib) in stages.items():
@@ -4257,6 +4343,8 @@ def phase_prompt_to_video(dev):
     if frames.shape != (run.num_frames, run.height, run.width, 3) or tuple(video.shape) != (
             1, 3, run.num_frames, run.height, run.width):
         raise AssertionError(f"prompt -> video: video {tuple(video.shape)}, frames {frames.shape}")
+    # the .mp4's CPU encode and read-back wait for main to run them beside later phases
+    check = functools.partial(check_mp4, mp4, video_uint8(video).cpu().numpy(), frames, frames.shape, 16)
 
     # the decode alone, in each mode, on the first DECODE_MODE_FRAMES latent
     # frames (the pre-clip output checked in the whole decode); whole and
@@ -4338,7 +4426,7 @@ def phase_prompt_to_video(dev):
                    f"{CLI_STEPS - n_dense} x {svg_steps[-1]:.4f} + decode {dec_s:.3f}), dense {dense_total:.2f} s")
     del model, vae, video, lat
     torch.cuda.empty_cache()
-    return encode_s
+    return encode_s, check
 
 
 def phase_i2v(dev, umt5_s: float):
@@ -5418,10 +5506,13 @@ def main():
     phase_fsdp(dev)
     phase_timer(dev)
     done("fsdp and timer")
-    umt5_s = phase_prompt_to_video(dev)
+    umt5_s, mp4_check = phase_prompt_to_video(dev)
     done("p2v")
     phase_i2v(dev, umt5_s)
     done("i2v")
+    # the p2v .mp4's CPU encode and read-back (host cores) beside the phases
+    # that keep the card busiest; i2v's host-side read of its image runs alone
+    mp4_check = in_thread(mp4_check)
     encoders = phase_hy_p2v(dev)
     done("hy_p2v")
     phase_hy_i2v(dev, encoders)
@@ -5451,6 +5542,8 @@ def main():
         raise
     finish_cli()
     done("cli")
+    mp4_check()
+    done("the p2v .mp4's CPU encode and read-back (begun after i2v)")
     log("done", f"chip_smoke.py took {time.perf_counter() - t_start:.1f} s")
     for name, entry in kernels.items():
         entry["launches"] = launches[name]

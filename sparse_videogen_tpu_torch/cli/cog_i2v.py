@@ -24,7 +24,8 @@ and a prompt to a video:
   - the VAE decode (`--vae_tiling`: auto tiles a latent frame above 64x64;
     the CogVideoX VAE has no streamed decode, so `--vae_stream_chunk`
     warns and decodes the whole sequence) and the writer at 8 fps: `.y4m`,
-    or `.mp4` where PIL is installed; an `.npz` name becomes `.y4m`. Without
+    or `.mp4` (the port's own JPEG encoder, no PIL); an `.npz` name becomes
+    `.y4m`. Without
     vae/ the latents go to the `.npz` (and a pixel image raises).
 `--smoke` (or no checkpoint) takes the JAX CLI's random-weight path: its
 tiny CogVideoX (2 layers, hidden 128, 2 heads of 64, 16 text tokens; the ofs

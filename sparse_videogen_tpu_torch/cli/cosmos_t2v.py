@@ -21,7 +21,7 @@ With `--model_dir` (or a local dir as `--model_id`) it runs from a prompt
     CLI's tile settings); `--logging_file` gets SAP's densities;
   - the VAE decode (`--vae_tiling`; no streamed decode, so
     `--vae_stream_chunk` warns) and the writer at --fps: `.y4m`, or `.mp4`
-    where PIL is installed; an `.npz` name becomes `.y4m`.
+    (the port's own JPEG encoder, no PIL); an `.npz` name becomes `.y4m`.
 `--smoke` (or no checkpoint) takes the JAX CLI's random-weight path: a tiny
 Cosmos (2 layers, 2 heads of 64, text 64 wide) at most 128x128x17 and 3
 steps, random text states (24 tokens) from --seed, the centroids capped at

@@ -17,7 +17,8 @@ defaults), else through the LLaMA template and CLIP-L
 (io/encoders.HyVideoTextEncoders); the encoders freed; the VAE from vae/
 encodes the image (its mean latents); the I2V DiT from transformer/ last;
 the denoise loop; the VAE decode (`--vae_tiling`) and the writer (`.y4m`,
-or `.mp4` where PIL is installed; an `.npz` name becomes `.y4m`). `--smoke`
+or `.mp4` through the port's own JPEG encoder, no PIL; an `.npz` name
+becomes `.y4m`). `--smoke`
 (or no checkpoint) takes the JAX CLI's random-weight path: a tiny I2V
 HunyuanVideo, random text states and image latents, latents to an `.npz`
 or, with another name, decoded by a tiny random VAE. `--ulysses_degree M`

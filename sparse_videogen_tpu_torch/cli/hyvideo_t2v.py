@@ -13,8 +13,8 @@ latents go to an .npz); the DiT from transformer/ (loaded last, in bf16);
 the denoise loop with dense, SVG1 or SAP attention (`--sap_block_mode
 cluster` or `tile`); the VAE decode (`--vae_tiling`; the HunyuanVideo VAE
 has no streamed decode, so `--vae_stream_chunk` warns and decodes the whole
-sequence); the writer: `.y4m`, or `.mp4` where PIL is installed; an `.npz`
-name becomes `.y4m`. `--smoke` (or no checkpoint) takes the JAX CLI's
+sequence); the writer: `.y4m`, or `.mp4` (the port's own JPEG encoder, no
+PIL); an `.npz` name becomes `.y4m`. `--smoke` (or no checkpoint) takes the JAX CLI's
 random-weight path: a tiny HunyuanVideo with random text states (prompt
 length 10 of 16), the centroids capped at 8 / 12 and the cold k-means at 8
 iterations, latents to an `.npz`, or, with another name, decoded by a tiny

@@ -10,8 +10,8 @@ through the UMT5 tokenizer and encoder (freed before the DiT runs), the Wan
 DiT from `transformer/` (diffusers or wan_orig names; `--converted_cache`
 keeps the converted weights), the denoise loop with dense, SVG1 or SAP
 (`--sap_block_mode cluster` or `tile`) attention, the Wan VAE decode from `vae/` (`--vae_tiling`,
-`--vae_stream_chunk`) and the video writer: `.y4m`, or `.mp4` where PIL is
-installed; an `.npz` name becomes `.y4m`. Without `vae/` the latents go to
+`--vae_stream_chunk`) and the video writer: `.y4m`, or `.mp4` (the port's
+own JPEG encoder, no PIL); an `.npz` name becomes `.y4m`. Without `vae/` the latents go to
 the `.npz`. `--smoke` (or no checkpoint) takes the JAX CLI's random-weight
 path at a reduced size, and a video name decodes through a tiny random VAE.
 `--sampler dpm++` takes FlowDPM for FlowUniPC. `--quant int8` runs the

@@ -19,13 +19,25 @@ Decoded here:
     convert("RGB")); zlib and the five row filters.
 Progressive or arithmetic-coded JPEG, 12-bit samples, CMYK or Adobe RGB
 JPEG, other PNGs and any other format raise ValueError naming `.npy`.
-The quantisation tables, the zigzag order and the DCT constants here are
-the ones a baseline JPEG encoder needs as well.
+
+Encoded here (`encode_jpeg`, `encode_jpeg_frames`): baseline JPEG of RGB
+frames, the bytes libjpeg-turbo writes when PIL saves with
+`quality=q, subsampling=0` (JFIF 1.01, YCbCr 4:4:4, the Annex K tables
+scaled by jpeg_quality_scaling, the standard Huffman tables, no restart
+interval). The arithmetic is libjpeg's integer path: jccolor.c's
+fixed-point YCbCr, edge samples replicated to whole blocks, jfdctint.c's
+islow forward DCT (the decoder's constants), and jcdctmgr.c's quantiser,
+whose reciprocal multiply equals a division by 8 q rounded half away from
+zero. Those stages and the entropy coder (every token's code and length,
+their bit offsets, 32-bit words, 0xFF stuffing) are integer torch ops on
+the frames' own device; the host only copies the finished bytes and adds
+the headers.
 """
 
 from __future__ import annotations
 
 import struct
+import time
 import zlib
 
 import numpy as np
@@ -385,6 +397,274 @@ def _decode_scan(frame, sel, intervals, restart, dc_tabs, ac_tabs, coefs):
                 p, pred[ci] = _decode_block(win, p, dc, ac, pred[ci], *coefs[ci], b)
                 if (p >> 3) >= len(win):
                     raise ValueError("JPEG: the scan data ends early")
+
+
+# -- JPEG encoding --
+
+# Annex K.1 (jcparam.c's std_luminance_quant_tbl, std_chrominance_quant_tbl), natural order
+STD_QUANT = np.array([
+    [16, 11, 10, 16, 24, 40, 51, 61, 12, 12, 14, 19, 26, 58, 60, 55,
+     14, 13, 16, 24, 40, 57, 69, 56, 14, 17, 22, 29, 51, 87, 80, 62,
+     18, 22, 37, 56, 68, 109, 103, 77, 24, 35, 55, 64, 81, 104, 113, 92,
+     49, 64, 78, 87, 103, 121, 120, 101, 72, 92, 95, 98, 112, 100, 103, 99],
+    [17, 18, 24, 47, 99, 99, 99, 99, 18, 21, 26, 66, 99, 99, 99, 99,
+     24, 26, 56, 99, 99, 99, 99, 99, 47, 66, 99, 99, 99, 99, 99, 99] + [99] * 32], np.int64)
+
+# Annex K.3-K.6 (jstdhuff.c): (class << 4 | table) -> (the counts of codes of
+# 1..16 bits, the symbols), in the order of the DHT markers: DC 0, AC 0, DC 1, AC 1
+STD_HUFFMAN = {
+    0x00: (bytes.fromhex("00010501010101010100000000000000"), bytes.fromhex("000102030405060708090a0b")),
+    0x10: (bytes.fromhex("0002010303020403050504040000017d"), bytes.fromhex(
+        "01020300041105122131410613516107227114328191a1082342b1c11552d1f02433627282090a161718191a25262728292a"
+        "3435363738393a434445464748494a535455565758595a636465666768696a737475767778797a838485868788898a9293"
+        "9495969798999aa2a3a4a5a6a7a8a9aab2b3b4b5b6b7b8b9bac2c3c4c5c6c7c8c9cad2d3d4d5d6d7d8d9dae1e2e3e4e5e6"
+        "e7e8e9eaf1f2f3f4f5f6f7f8f9fa")),
+    0x01: (bytes.fromhex("00030101010101010101010000000000"), bytes.fromhex("000102030405060708090a0b")),
+    0x11: (bytes.fromhex("00020102040403040705040400010277"), bytes.fromhex(
+        "000102031104052131061241510761711322328108144291a1b1c109233352f0156272d10a162434e125f11718191a2627"
+        "28292a35363738393a434445464748494a535455565758595a636465666768696a737475767778797a8283848586878889"
+        "8a92939495969798999aa2a3a4a5a6a7a8a9aab2b3b4b5b6b7b8b9bac2c3c4c5c6c7c8c9cad2d3d4d5d6d7d8d9dae2e3e4"
+        "e5e6e7e8e9eaf2f3f4f5f6f7f8f9fa")),
+}
+
+# jccolor.c: 16 fraction bits, Y rounded by ONE_HALF, Cb and Cr by ONE_HALF - 1
+SCALEBITS, ONE_HALF = 16, 1 << 15
+CBCR_OFFSET = 128 << SCALEBITS
+
+# the token slots (65 a block) that one pass of the encoder holds: its int64
+# temporaries stay near a GiB whatever the video's length
+MAX_SLOTS = 1 << 24
+
+
+def quant_tables(quality: int) -> np.ndarray:
+    """jcparam.c's jpeg_set_quality(quality, force_baseline=TRUE): the
+    luminance and chrominance tables, (2, 64) in natural order."""
+    if not 1 <= quality <= 100:
+        raise ValueError(f"JPEG quality {quality}: must be 1..100")
+    scale = 5000 // quality if quality < 50 else 200 - 2 * quality
+    return np.clip((STD_QUANT * scale + 50) // 100, 1, 255)
+
+
+def _huffman_codes(counts: bytes, symbols: bytes) -> tuple[list, list]:
+    """jchuff.c's jpeg_make_c_derived_tbl: symbol -> code and its length
+    (256 entries each; length 0 where the symbol has no code)."""
+    code_of, size_of = [0] * 256, [0] * 256
+    code, k = 0, 0
+    for length in range(1, 17):
+        for _ in range(counts[length - 1]):
+            code_of[symbols[k]], size_of[symbols[k]] = code, length
+            code += 1
+            k += 1
+        code <<= 1
+    return code_of, size_of
+
+
+def jpeg_header(height: int, width: int, quality: int) -> bytes:
+    """SOI, APP0 (JFIF 1.01, no density unit, 1x1), DQT 0 and 1 (8-bit,
+    zigzag), SOF0 (components 1-3 sampled 1x1, tables 0/1/1), DHT DC 0, AC 0,
+    DC 1, AC 1, SOS (Ss 0, Se 63, Ah/Al 0): what libjpeg writes before the
+    scan data."""
+    if not (0 < height < 65536 and 0 < width < 65536):
+        raise ValueError(f"a JPEG of {height}x{width}")
+
+    def seg(marker: int, body: bytes) -> bytes:
+        return struct.pack(">BBH", 0xFF, marker, len(body) + 2) + body
+
+    out = b"\xff\xd8" + seg(0xE0, b"JFIF\0\x01\x01\x00\x00\x01\x00\x01\x00\x00")
+    for i, table in enumerate(quant_tables(quality)):
+        out += seg(0xDB, bytes([i]) + bytes(table[ZIGZAG].tolist()))
+    out += seg(0xC0, struct.pack(">BHHB", 8, height, width, 3) + bytes([1, 0x11, 0, 2, 0x11, 1, 3, 0x11, 1]))
+    for key, (counts, symbols) in STD_HUFFMAN.items():
+        out += seg(0xC4, bytes([key]) + counts + symbols)
+    return out + seg(0xDA, bytes([3, 1, 0x00, 2, 0x11, 3, 0x11, 0, 63, 0]))
+
+
+class _CoderTables:
+    """The entropy coder's lookup tables on one device (int64): the bit
+    length of |v| (jchuff.c's category), the DC and AC codes and lengths of
+    tables 0 and 1, a run of 0..3 ZRL codes as one token, the masks 0..32."""
+
+    def __init__(self, device):
+        def t(x):
+            return torch.tensor(x, dtype=torch.int64, device=device)
+
+        dc = [_huffman_codes(*STD_HUFFMAN[0x00 | i]) for i in (0, 1)]
+        ac = [_huffman_codes(*STD_HUFFMAN[0x10 | i]) for i in (0, 1)]
+        self.nbits = t([v.bit_length() for v in range(2048)])
+        self.dc_code, self.dc_size = t([c[0][:12] for c in dc]), t([c[1][:12] for c in dc])
+        self.ac_code, self.ac_size = t([c[0] for c in ac]), t([c[1] for c in ac])
+        zrl = [(c[0][0xF0], c[1][0xF0]) for c in ac]
+        self.zrl_code = t([[sum(code << (size * i) for i in range(n)) for n in range(4)] for code, size in zrl])
+        self.zrl_size = t([[size * n for n in range(4)] for _, size in zrl])
+        self.mask = t([(1 << n) - 1 for n in range(33)])
+        self.table = t([0, 1, 1])  # component -> table
+
+
+def _fdct_1d(d, first: bool):
+    """jpeg_fdct_islow's butterfly on 8 int32 tensors: pass 1 (rows) keeps
+    PASS1_BITS more bits, pass 2 (columns) removes them."""
+    tmp0, tmp7, tmp1, tmp6 = d[0] + d[7], d[0] - d[7], d[1] + d[6], d[1] - d[6]
+    tmp2, tmp5, tmp3, tmp4 = d[2] + d[5], d[2] - d[5], d[3] + d[4], d[3] - d[4]
+    tmp10, tmp13, tmp11, tmp12 = tmp0 + tmp3, tmp0 - tmp3, tmp1 + tmp2, tmp1 - tmp2
+    n = CONST_BITS - PASS1_BITS if first else CONST_BITS + PASS1_BITS
+    out = [None] * 8
+    if first:
+        out[0], out[4] = (tmp10 + tmp11) * (1 << PASS1_BITS), (tmp10 - tmp11) * (1 << PASS1_BITS)
+    else:
+        out[0], out[4] = _descale(tmp10 + tmp11, PASS1_BITS), _descale(tmp10 - tmp11, PASS1_BITS)
+    z1 = (tmp12 + tmp13) * FIX_0_541196100
+    out[2] = _descale(z1 + tmp13 * FIX_0_765366865, n)
+    out[6] = _descale(z1 - tmp12 * FIX_1_847759065, n)
+    z1, z2, z3, z4 = tmp4 + tmp7, tmp5 + tmp6, tmp4 + tmp6, tmp5 + tmp7
+    z5 = (z3 + z4) * FIX_1_175875602
+    tmp4, tmp5 = tmp4 * FIX_0_298631336, tmp5 * FIX_2_053119869
+    tmp6, tmp7 = tmp6 * FIX_3_072711026, tmp7 * FIX_1_501321110
+    z1, z2 = z1 * -FIX_0_899976223, z2 * -FIX_2_562915447
+    z3, z4 = z3 * -FIX_1_961570560 + z5, z4 * -FIX_0_390180644 + z5
+    out[7], out[5] = _descale(tmp4 + z1 + z3, n), _descale(tmp5 + z2 + z4, n)
+    out[3], out[1] = _descale(tmp6 + z2 + z3, n), _descale(tmp7 + z1 + z4, n)
+    return out
+
+
+def jpeg_coefficients(frames: torch.Tensor, quality: int) -> torch.Tensor:
+    """(T, H, W, 3) uint8 RGB -> (T, N, 3, 64) int32 quantised coefficients
+    in zigzag order: N blocks row-major, each with its Y, Cb and Cr block
+    (the interleaved 4:4:4 MCU order)."""
+    T, H, W, _ = frames.shape
+    dev = frames.device
+    x = frames.to(torch.int32)
+    r, g, b = x[..., 0], x[..., 1], x[..., 2]
+    y = (_fix16(0.29900) * r + _fix16(0.58700) * g + _fix16(0.11400) * b + ONE_HALF) >> SCALEBITS
+    cb = (-_fix16(0.16874) * r - _fix16(0.33126) * g + _fix16(0.5) * b + CBCR_OFFSET + ONE_HALF - 1) >> SCALEBITS
+    cr = (_fix16(0.5) * r - _fix16(0.41869) * g - _fix16(0.08131) * b + CBCR_OFFSET + ONE_HALF - 1) >> SCALEBITS
+    ycc = torch.stack([y, cb, cr], dim=1) - 128  # level shift
+    H8, W8 = -(-H // 8) * 8, -(-W // 8) * 8
+    rows = torch.arange(H8, device=dev).clamp_(max=H - 1)  # the last row and column repeated
+    cols = torch.arange(W8, device=dev).clamp_(max=W - 1)
+    ycc = ycc.index_select(2, rows).index_select(3, cols)
+    blocks = ycc.reshape(T, 3, H8 // 8, 8, W8 // 8, 8).permute(0, 2, 4, 1, 3, 5)  # (T, by, bx, c, row, col)
+    ws = torch.stack(_fdct_1d(blocks.unbind(-1), True), dim=-1)  # pass 1: along each row
+    coef = torch.stack(_fdct_1d(ws.unbind(-2), False), dim=-2)  # pass 2: down each column
+    coef = coef.reshape(T, -1, 3, 64)
+    div = torch.from_numpy(8 * quant_tables(quality)[[0, 1, 1]]).to(device=dev, dtype=torch.int32)
+    mag = torch.div(coef.abs() + div // 2, div, rounding_mode="floor")  # jcdctmgr.c's reciprocal quantize
+    zz = torch.from_numpy(ZIGZAG).to(dev)
+    return torch.where(coef < 0, -mag, mag).index_select(-1, zz)
+
+
+def _tokens(zz: torch.Tensor, tabs: _CoderTables):
+    """(T, N, 3, 64) zigzag coefficients -> each frame's tokens as (code
+    bits, bit length) int64 pairs, (T, N * 3 * 65 + 1): a block's DC token,
+    one slot per AC coefficient (its ZRLs, its run/size code and its bits;
+    length 0 where it is zero), its EOB (where coefficient 63 is zero), and
+    per frame the 1-bits that pad it to a whole byte."""
+    T, N = zz.shape[:2]
+    dev = zz.device
+    z = zz.to(torch.int64)
+
+    def bits(v, s):  # jchuff.c: a negative value sends the low bits of v - 1
+        return torch.where(v < 0, v - 1, v) & tabs.mask[s]
+
+    tab = tabs.table.view(1, 1, 3)
+    dc = z[..., 0]
+    diff = dc - torch.cat([torch.zeros_like(dc[:, :1]), dc[:, :-1]], dim=1)  # per component, within the frame
+    s = tabs.nbits[diff.abs()]
+    dc_val = (tabs.dc_code[tab, s] << s) | bits(diff, s)
+    dc_len = tabs.dc_size[tab, s] + s
+
+    ac = z[..., 1:]
+    nz = ac != 0
+    k = torch.arange(1, 64, device=dev)
+    last = torch.where(nz, k, 0).cummax(dim=-1).values  # the last nonzero index up to k (0: none)
+    run = k - torch.cat([torch.zeros_like(last[..., :1]), last[..., :-1]], dim=-1) - 1
+    s = tabs.nbits[ac.abs()]
+    tab4, zrl = tab[..., None], run >> 4
+    sym = ((run & 15) << 4) | s
+    size = tabs.ac_size[tab4, sym]
+    val = ((((tabs.zrl_code[tab4, zrl] << size) | tabs.ac_code[tab4, sym]) << s) | bits(ac, s))
+    ac_val = torch.where(nz, val, 0)
+    ac_len = torch.where(nz, tabs.zrl_size[tab4, zrl] + size + s, 0)
+
+    eob = ~nz[..., -1]
+    eob_val = torch.where(eob, tabs.ac_code[tab, 0], 0)
+    eob_len = torch.where(eob, tabs.ac_size[tab, 0], 0)
+
+    vals = torch.cat([dc_val[..., None], ac_val, eob_val[..., None]], dim=-1).reshape(T, -1)
+    lens = torch.cat([dc_len[..., None], ac_len, eob_len[..., None]], dim=-1).reshape(T, -1)
+    pad = (-lens.sum(dim=-1, keepdim=True)) % 8
+    return torch.cat([vals, tabs.mask[pad]], dim=-1), torch.cat([lens, pad], dim=-1)
+
+
+def _pack(vals: torch.Tensor, lens: torch.Tensor, tabs: _CoderTables):
+    """Tokens (T, S) -> the frames' stuffed scan data, one uint8 tensor, and
+    the T + 1 byte offsets that cut it into frames. Each token goes into
+    the (at most 3) 32-bit big-endian words its bits fall in; the tokens'
+    bits never overlap, so adding them is OR-ing them."""
+    frame_bytes = lens.sum(dim=-1) // 8
+    keep = lens.reshape(-1) > 0
+    v, n_bits = vals.reshape(-1)[keep], lens.reshape(-1)[keep]
+    end = n_bits.cumsum(0)
+    start = end - n_bits
+    n_bytes = int(frame_bytes.sum())
+    words = torch.zeros(-(-n_bytes // 4) + 3, dtype=torch.int64, device=vals.device)
+    for i in range(3):
+        w = (start >> 5) + i
+        lo, hi = torch.maximum(start, w * 32), torch.minimum(end, w * 32 + 32)
+        part = (v >> (end - hi)) & tabs.mask[(hi - lo).clamp_(min=0)]
+        words.index_add_(0, w, part << (w * 32 + 32 - hi).clamp_(0, 32))
+    data = torch.stack([(words >> 24) & 255, (words >> 16) & 255, (words >> 8) & 255, words & 255], dim=-1)
+    data = data.reshape(-1)[:n_bytes].to(torch.uint8)
+    ff = (data == 255).to(torch.int64)  # each 0xFF byte is followed by a stuffed 0x00
+    ff_before = torch.cat([torch.zeros_like(ff[:1]), ff.cumsum(0)])
+    out = torch.zeros(n_bytes + int(ff_before[-1]), dtype=torch.uint8, device=vals.device)
+    out[torch.arange(n_bytes, device=vals.device) + ff_before[:-1]] = data
+    cuts = torch.cat([torch.zeros_like(frame_bytes[:1]), frame_bytes.cumsum(0)])
+    return out, cuts + ff_before[cuts]
+
+
+def encode_jpeg_frames(frames, quality: int = 95, stages: dict | None = None) -> list[bytes]:
+    """(T, H, W, 3) uint8 RGB, a numpy array or a torch tensor on any device
+    -> T baseline JPEG files, the bytes of PIL's Image.save(f, "JPEG",
+    quality=quality, subsampling=0) with libjpeg-turbo. The coefficients
+    and the entropy coder run on the frames' device, MAX_SLOTS tokens at a
+    time; `stages` (a dict) gets the seconds of each stage, the device
+    waited for at each stage's end."""
+    x = torch.from_numpy(np.ascontiguousarray(frames)) if isinstance(frames, np.ndarray) else frames
+    if x.dim() != 4 or x.shape[-1] != 3 or x.dtype != torch.uint8:
+        raise ValueError(f"encode_jpeg_frames needs (T, H, W, 3) uint8 frames, got {tuple(x.shape)} {x.dtype}")
+    T, H, W, _ = x.shape
+    header = jpeg_header(H, W, quality)
+    tabs = _CoderTables(x.device)
+    per_frame = -(-H // 8) * -(-W // 8) * 3 * 65 + 1
+    step = max(1, MAX_SLOTS // per_frame)
+    times = dict.fromkeys(("coefficients", "entropy coder", "copy to the host", "headers"), 0.0)
+
+    def mark(name, t0):
+        if stages is not None and x.device.type == "cuda":
+            torch.cuda.synchronize(x.device)
+        now = time.perf_counter()
+        times[name] += now - t0
+        return now
+
+    out = []
+    for f0 in range(0, T, step):
+        t0 = time.perf_counter()
+        zz = jpeg_coefficients(x[f0:f0 + step], quality)
+        t0 = mark("coefficients", t0)
+        data, cuts = _pack(*_tokens(zz, tabs), tabs)
+        t0 = mark("entropy coder", t0)
+        data, cuts = data.cpu().numpy().tobytes(), cuts.tolist()
+        t0 = mark("copy to the host", t0)
+        out += [header + data[a:b] + b"\xff\xd9" for a, b in zip(cuts[:-1], cuts[1:])]
+        mark("headers", t0)
+    if stages is not None:
+        stages.update(times)
+    return out
+
+
+def encode_jpeg(rgb, quality: int = 95) -> bytes:
+    """(H, W, 3) uint8 RGB -> one baseline JPEG (encode_jpeg_frames)."""
+    return encode_jpeg_frames(rgb[None], quality)[0]
 
 
 # -- PNG --

@@ -18,7 +18,6 @@ from __future__ import annotations
 
 import dataclasses
 
-import numpy as np
 import torch
 
 from sparse_videogen_tpu_torch.config import SAPConfig, SparseMode, SVGConfig, VideoLayout, WarmupSchedule
@@ -225,18 +224,26 @@ def build_i2v_condition(latent_condition: torch.Tensor, *, vae_temporal: int = V
     return torch.cat([mask, latent_condition], dim=1)
 
 
-def export_video(video, path: str, fps: int = 16) -> None:
+def video_uint8(video) -> torch.Tensor:
+    """(B, 3, T, H, W) in [-1, 1] -> the first video as (T, H, W, 3) uint8 on
+    its device: (x + 1) * 127.5 in f32, clipped to [0, 255] and truncated,
+    as the JAX package's numpy does it."""
+    v = video[0].float()
+    return ((v + 1.0) * 127.5).clamp_(0, 255).to(torch.uint8).permute(1, 2, 3, 0)
+
+
+def export_video(video, path: str, fps: int = 16, stages: dict | None = None) -> None:
     """video (B, 3, T, H, W) in [-1, 1] (a tensor on any device) -> .mp4
-    (MJPEG, io/mp4.py; needs PIL) or, for any other name, .y4m (lossless,
-    io/native.py). The uint8 conversion truncates, as in the JAX package."""
-    v = video[0].float().cpu().numpy()
-    v = np.clip((v + 1.0) * 127.5, 0, 255).astype(np.uint8)
-    v = np.transpose(v, (1, 2, 3, 0))  # (T, H, W, 3)
+    (MJPEG, io/mp4.py: the JPEGs encoded on the video's device; `stages`
+    gets the encoder's seconds by stage) or, for any other name, .y4m
+    (4:2:0, io/native.py). The uint8 conversion truncates, as in the JAX
+    package."""
+    v = video_uint8(video)
     if path.endswith(".mp4"):
         from sparse_videogen_tpu_torch.io.mp4 import write_mp4
 
-        write_mp4(path, v, fps=fps)
+        write_mp4(path, v, fps=fps, stages=stages)
     else:
         from sparse_videogen_tpu_torch.io.native import write_y4m
 
-        write_y4m(path, v, fps=fps)
+        write_y4m(path, v.cpu().numpy(), fps=fps)

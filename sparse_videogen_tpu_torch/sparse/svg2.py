@@ -11,8 +11,9 @@ none) over metadata built on the device at every call. A text-last layout
 tokens become two more clusters (or, in tile mode, two more tiles).
 
 The k-means warm start is an explicit carry (SAPState), one per attention
-layer and stream, threaded through the denoising loop by the runtime. The
-force_density bench override and text-first layouts (CogVideoX) raise
+layer and stream, threaded through the denoising loop by the runtime.
+`force_density` pins the dynamic map to a prefix of the key clusters, as
+the JAX package's benchmarks do. Text-first layouts (CogVideoX) raise
 NotImplementedError.
 """
 
@@ -20,6 +21,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 
 import numpy as np
 import torch
@@ -60,11 +62,9 @@ def init_sap_state(batch_heads: int, head_dim: int, cfg: SAPConfig, device="cpu"
 
 
 def check_sap_config(cfg: SAPConfig, layout: VideoLayout) -> None:
-    """Raise NotImplementedError on what this package does not run: the
-    force_density bench override, and text first in the sequence (CogVideoX,
-    which the reference and the JAX CLIs run with SVG1 or dense only)."""
-    if cfg.force_density is not None:
-        raise NotImplementedError("SAP force_density (a TPU bench override) is not carried into the torch package")
+    """Raise NotImplementedError on what this package does not run: text
+    first in the sequence (CogVideoX, which the reference and the JAX CLIs
+    run with SVG1 or dense only)."""
     if layout.text_position == TextPosition.FIRST and layout.context_length:
         raise NotImplementedError("SAP with the text first in the sequence (CogVideoX): the reference runs it with "
                                   "SVG1 or dense only (the JAX package would treat the text as video tokens)")
@@ -296,10 +296,17 @@ def sap_prepare(q, k, v, state: SAPState, *, layout: VideoLayout, cfg: SAPConfig
 
 def _map_and_density(qcent, kcent, qsz, ksz, state, B, H, cfg):
     """The top-p dynamic map (BH, QC, KC), the density (B, H) and the state
-    that records it."""
+    that records it. cfg.force_density = f pins the map instead to the first
+    ceil(f KC) key clusters (or tiles) of every query cluster: a benchmark's
+    knob for a chosen density (random weights give flat maps); the k-means,
+    the relabel, the metadata and the kernel stay the real computation."""
     QC, KC, D = qsz.shape[-1], ksz.shape[-1], qcent.shape[-1]
-    dyn = identify_dynamic_map(qcent.reshape(B, H, QC, D), kcent.reshape(B, H, KC, D), qsz.reshape(B, H, QC),
-                               ksz.reshape(B, H, KC), cfg.top_p_kmeans, cfg.min_kc_ratio)
+    if cfg.force_density is not None:
+        keep = torch.arange(KC, device=qsz.device) < math.ceil(cfg.force_density * KC)
+        dyn = keep.expand(B, H, QC, KC)
+    else:
+        dyn = identify_dynamic_map(qcent.reshape(B, H, QC, D), kcent.reshape(B, H, KC, D), qsz.reshape(B, H, QC),
+                                   ksz.reshape(B, H, KC), cfg.top_p_kmeans, cfg.min_kc_ratio)
     density = density_calculation(dyn, qsz.reshape(B, H, QC), ksz.reshape(B, H, KC))
     return dyn.reshape(B * H, QC, KC), density, dataclasses.replace(state, last_density=density.reshape(-1).float())
 

@@ -339,10 +339,18 @@ def test_sap_state_from_numpy():
     dict(layout=dict(context_length=16, text_position=TextPosition.FIRST)),
 ], ids=["force_density", "text_first"])
 def test_unported_sap_options_raise(change):
-    """What SAP still refuses: the TPU bench's force_density, and a text-first
-    layout (CogVideoX runs SVG1 or dense only)."""
+    """What SAP still refuses: a text-first layout (CogVideoX runs SVG1 or
+    dense only). force_density, refused before, now runs: the map keeps the
+    first ceil(0.25 x 2) = 1 of 2 key clusters (its parity with JAX:
+    tests/test_torch_sap_force_density.py)."""
     cfg = SAPConfig(**{**dict(num_q_centroids=2, num_k_centroids=2), **change.get("cfg", {})})
     layout = VideoLayout(num_frames=2, frame_size=64, **change.get("layout", {}))
     q = torch.zeros(1, 1, layout.seq_len, 64)
+    if cfg.force_density is not None:
+        x = torch.randn(1, 1, layout.seq_len, 64, generator=torch.Generator().manual_seed(0))
+        out, state = T2.sap_sparse_attention(x, x, x, T2.init_sap_state(1, 64, cfg), layout=layout, cfg=cfg,
+                                             generator=torch.Generator().manual_seed(0))
+        assert out.shape == x.shape and 0.0 < float(state.last_density) < 1.0
+        return
     with pytest.raises(NotImplementedError):
         T2.sap_sparse_attention(q, q, q, T2.init_sap_state(1, 64, cfg), layout=layout, cfg=cfg)

@@ -22,6 +22,7 @@ from sparse_videogen_tpu.schedulers import FlowUniPC as JUniPC
 from sparse_videogen_tpu_torch import config as TC
 from sparse_videogen_tpu_torch.cli import wan_t2v as TCLI
 from sparse_videogen_tpu_torch.io.from_jax import wan_params_from_numpy
+from sparse_videogen_tpu_torch.io.mp4 import read_mp4_mjpeg
 from sparse_videogen_tpu_torch.models.wan import model as TWM
 from sparse_videogen_tpu_torch.pipelines import wan as TPW
 from sparse_videogen_tpu_torch.schedulers import FlowUniPC as TUniPC
@@ -186,21 +187,28 @@ def test_cli_smoke_cpu(tmp_path):
 @pytest.mark.parametrize("argv,exc", [
     (["--smoke", "--device", "cuda:99"], RuntimeError),
     (["--device", "cpu", "--model_dir", "/nonexistent"], FileNotFoundError),
-    (["--smoke", "--device", "cpu", "--output_file", "video.mp4"], ImportError),
+    (["--smoke", "--device", "cpu", "--output_file", "video.mp4"], None),
     (["--smoke", "--device", "cpu", "--dp", "2"], RuntimeError),
 ], ids=["no_card_no_fallback", "model_dir", "video", "sap"])
 def test_cli_refuses_what_is_not_ported(tmp_path, monkeypatch, argv, exc):
     """No fallback to the CPU; a checkpoint dir that does not exist is refused,
-    not replaced by random weights; .mp4 on a host without PIL (the card's)
-    raises ImportError naming .y4m; --dp 2 outside torchrun raises
+    not replaced by random weights; --dp 2 outside torchrun raises
     RuntimeError naming torchrun, never a silent single rank (the id `sap`
     named SAP's tile mode, then int8 linears, then --dp while it was not
-    ported; all run now)."""
+    ported; all run now). The id `video` named .mp4 on a host without PIL
+    (the card's), refused with an ImportError until the port encoded its
+    own JPEGs: now the CLI writes it with PIL blocked, and it reads back
+    without PIL as the smoke's 9 frames of 96x128."""
     if "cuda:99" in argv and torch.cuda.is_available():
         pytest.skip("this host has a card: nothing to refuse")
     monkeypatch.setitem(sys.modules, "PIL", None)
     argv = [str(tmp_path / a) if a.endswith(".mp4") else a for a in argv]
-    match = r"\.y4m" if exc is ImportError else ("torchrun" if "--dp" in argv else None)
+    if exc is None:
+        TCLI.main(["--output_file", str(tmp_path / "x.npz")] + argv)
+        frames, fps = read_mp4_mjpeg(str(tmp_path / "video.mp4"))
+        assert frames.shape == (9, 96, 128, 3) and fps == 16
+        return
+    match = "torchrun" if "--dp" in argv else None
     with pytest.raises(exc, match=match):
         TCLI.main(["--output_file", str(tmp_path / "x.npz")] + argv)
 
