@@ -5,6 +5,7 @@ NotImplementedError there."""
 
 from __future__ import annotations
 
+import functools
 import os
 
 
@@ -148,3 +149,19 @@ def resolve_device(name: str):
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"--device {name}: no CUDA device is available")
     return device
+
+
+def prints_time_log(main):
+    """A CLI's main that, with TIME_BENCH set, prints the labelled regions'
+    log (utils/timer.py) when it returns or raises."""
+    @functools.wraps(main)
+    def wrapped(argv=None):
+        try:
+            return main(argv)
+        finally:
+            from sparse_videogen_tpu_torch.utils import timer
+
+            if timer.enabled():
+                timer.print_operator_log_data()
+
+    return wrapped

@@ -47,8 +47,8 @@ import os
 import numpy as np
 
 from sparse_videogen_tpu_torch.cli._common import (add_device, add_model_id, add_vae_tiling_flags, encode_t5_prompts,
-                                                   make_vae_decoder, resolve_device, resolve_model_dir, sap_config,
-                                                   skip_existing, video_name)
+                                                   make_vae_decoder, prints_time_log, resolve_device, resolve_model_dir,
+                                                   sap_config, skip_existing, video_name)
 from sparse_videogen_tpu_torch.cli._parallel import (add_parallel_flags, close_mesh, make_cli_mesh,
                                                      shard_cli_model)
 from sparse_videogen_tpu_torch.utils.logging import logger
@@ -162,6 +162,7 @@ def _smoke(args, device):
     return model, ctx, ctx_null, vae
 
 
+@prints_time_log
 def main(argv=None):
     args = build_parser().parse_args(argv)
     seed_everything(args.seed)

@@ -41,8 +41,8 @@ import os
 
 import numpy as np
 
-from sparse_videogen_tpu_torch.cli._common import (add_device, add_model_id, add_vae_tiling_flags, resolve_device,
-                                                   resolve_model_dir)
+from sparse_videogen_tpu_torch.cli._common import (add_device, add_model_id, add_vae_tiling_flags, prints_time_log,
+                                                   resolve_device, resolve_model_dir)
 from sparse_videogen_tpu_torch.cli._parallel import (add_parallel_flags, close_mesh, make_cli_mesh,
                                                      shard_cli_model)
 from sparse_videogen_tpu_torch.utils.logging import logger
@@ -141,6 +141,7 @@ def _load_checkpoint(args, device):
     return load_dit(args.model_dir, device, cfg), text, mask, pooled, img_lat, vae_decode
 
 
+@prints_time_log
 def main(argv=None):
     args = build_parser().parse_args(argv)
     seed_everything(args.seed)

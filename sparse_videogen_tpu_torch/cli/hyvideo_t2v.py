@@ -40,7 +40,7 @@ import os
 import numpy as np
 
 from sparse_videogen_tpu_torch.cli._common import (add_device, add_model_id, add_vae_tiling_flags, make_vae_decoder,
-                                                   quantize_blocks, resolve_device, resolve_model_dir)
+                                                   prints_time_log, quantize_blocks, resolve_device, resolve_model_dir)
 from sparse_videogen_tpu_torch.cli._parallel import (add_parallel_flags, close_mesh, make_cli_mesh,
                                                      shard_cli_model)
 from sparse_videogen_tpu_torch.utils.logging import logger
@@ -193,6 +193,7 @@ def write_output(args, lat, vae_decode):
         logger.info(f"saved latents {tuple(lat.shape)} -> {args.output_file}")
 
 
+@prints_time_log
 def main(argv=None):
     args = build_parser().parse_args(argv)
     seed_everything(args.seed)

@@ -40,7 +40,7 @@ import os
 import numpy as np
 
 from sparse_videogen_tpu_torch.cli._common import (add_device, add_model_id, add_vae_tiling_flags, make_vae_decoder,
-                                                   resolve_device, resolve_model_dir, sap_config)
+                                                   prints_time_log, resolve_device, resolve_model_dir, sap_config)
 from sparse_videogen_tpu_torch.cli._parallel import (add_parallel_flags, close_mesh, make_cli_mesh,
                                                      shard_cli_model)
 from sparse_videogen_tpu_torch.utils.logging import logger
@@ -184,6 +184,7 @@ def _load_checkpoint(args, device):
     return model, ctx, ctx_null, clip_fea, img_lat, (H, W), make_vae_decoder(args, vae, logger)
 
 
+@prints_time_log
 def main(argv=None):
     args = build_parser().parse_args(argv)
     seed_everything(args.seed)

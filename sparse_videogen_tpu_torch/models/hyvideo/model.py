@@ -32,6 +32,7 @@ from torch import nn
 
 from sparse_videogen_tpu_torch.models.common import layers as L
 from sparse_videogen_tpu_torch.models.common.rope import apply_rope_interleaved, nd_rope_cos_sin
+from sparse_videogen_tpu_torch.utils.timer import time_logging
 
 F32 = torch.float32
 
@@ -80,6 +81,18 @@ def timestep_embedding(t, dim: int, max_period: float = 10000.0):
 
 def _modulate(x, shift, scale):
     return x * (1 + scale[:, None]) + shift[:, None]
+
+
+def _norm_mod(x, eps, shift, scale):
+    """The f32 LayerNorm, the AdaLN modulation, cast back to x's dtype."""
+    with time_logging("model.norm"):
+        return _modulate(L.layer_norm_f32(x, eps), shift, scale).to(x.dtype)
+
+
+def _gated(x, y, gate):
+    """The gated residual x + y gate, in x's dtype."""
+    with time_logging("model.residual"):
+        return x + y * gate[:, None]
 
 
 def _lin(d_in, d_out, dtype, device):
@@ -178,18 +191,19 @@ class DoubleBlock(nn.Module):
 
     def _qkv(self, s, x, shift, scale, cos=None, sin=None):
         cfg = self.cfg
-        y = _modulate(L.layer_norm_f32(x, cfg.eps), shift, scale).to(x.dtype)
+        y = _norm_mod(x, cfg.eps, shift, scale)
         q, k, v = (_heads(z, cfg.heads_num) for z in L.linear(getattr(self, f"{s}_qkv"), y).chunk(3, dim=-1))
-        q = L.rms_norm(q, getattr(self, f"{s}_q_norm"), cfg.eps)
-        k = L.rms_norm(k, getattr(self, f"{s}_k_norm"), cfg.eps)
-        if cos is not None:
-            q, k = apply_rope_interleaved(q, cos, sin), apply_rope_interleaved(k, cos, sin)
+        with time_logging("model.qk"):
+            q = L.rms_norm(q, getattr(self, f"{s}_q_norm"), cfg.eps)
+            k = L.rms_norm(k, getattr(self, f"{s}_k_norm"), cfg.eps)
+            if cos is not None:
+                q, k = apply_rope_interleaved(q, cos, sin), apply_rope_interleaved(k, cos, sin)
         return q, k, v
 
     def _post(self, s, x, attn, g1, shift2, scale2, g2):
-        x = x + L.linear(getattr(self, f"{s}_proj"), attn) * g1[:, None]
-        y = _modulate(L.layer_norm_f32(x, self.cfg.eps), shift2, scale2).to(x.dtype)
-        return x + _run_mlp2(getattr(self, f"{s}_mlp"), y, act=L.gelu_tanh) * g2[:, None]
+        x = _gated(x, L.linear(getattr(self, f"{s}_proj"), attn), g1)
+        y = _norm_mod(x, self.cfg.eps, shift2, scale2)
+        return _gated(x, _run_mlp2(getattr(self, f"{s}_mlp"), y, act=L.gelu_tanh), g2)
 
     def forward(self, img, txt, vec, cos, sin, t, layer_idx, attention, rows=None, generator=None):
         silu_vec = L.silu(vec)
@@ -197,7 +211,8 @@ class DoubleBlock(nn.Module):
         t1s, t1c, t1g, t2s, t2c, t2g = L.linear(self.txt_mod, silu_vec).chunk(6, dim=-1)
         iq, ik, iv = self._qkv("img", img, i1s, i1c, cos, sin)
         tq, tk, tv = self._qkv("txt", txt, t1s, t1c)
-        q, k, v = (torch.cat(p, dim=2) for p in ((iq, tq), (ik, tk), (iv, tv)))
+        with time_logging("model.qk"):
+            q, k, v = (torch.cat(p, dim=2) for p in ((iq, tq), (ik, tk), (iv, tv)))
         o = _unheads(attention(q, k, v, t, layer_idx, rows=rows, generator=generator))
         n_img = img.shape[1]
         img = self._post("img", img, o[:, :n_img], i1g, i2s, i2c, i2g)
@@ -229,19 +244,20 @@ class SingleBlock(nn.Module):
         h = cfg.hidden_size
         dt = x.dtype
         ms, mc, mg = L.linear(self.modulation, L.silu(vec)).chunk(3, dim=-1)
-        y = _modulate(L.layer_norm_f32(x, cfg.eps), ms, mc).to(dt)
+        y = _norm_mod(x, cfg.eps, ms, mc)
         qkv = L.linear_slice(self.linear1, y, cols=slice(0, 3 * h))
         q, k, v = (_heads(z, cfg.heads_num) for z in qkv.chunk(3, dim=-1))
-        q = L.rms_norm(q, self.q_norm, cfg.eps)
-        k = L.rms_norm(k, self.k_norm, cfg.eps)
-        vid = x.shape[1] - txt_len
-        q = torch.cat([apply_rope_interleaved(q[:, :, :vid], cos, sin), q[:, :, vid:]], dim=2)
-        k = torch.cat([apply_rope_interleaved(k[:, :, :vid], cos, sin), k[:, :, vid:]], dim=2)
+        with time_logging("model.qk"):
+            q = L.rms_norm(q, self.q_norm, cfg.eps)
+            k = L.rms_norm(k, self.k_norm, cfg.eps)
+            vid = x.shape[1] - txt_len
+            q = torch.cat([apply_rope_interleaved(q[:, :, :vid], cos, sin), q[:, :, vid:]], dim=2)
+            k = torch.cat([apply_rope_interleaved(k[:, :, :vid], cos, sin), k[:, :, vid:]], dim=2)
         o = _unheads(attention(q, k, v, t, layer_idx, rows=rows, generator=generator))
         mlp = L.gelu_tanh(L.linear_slice(self.linear1, y, cols=slice(3 * h, None)))
         out = (L.linear_slice(self.linear2, o, rows=slice(0, h))
                + L.linear_slice(self.linear2, mlp, rows=slice(h, None), bias=False))
-        return x + out * mg[:, None]
+        return _gated(x, out, mg)
 
 
 class HyVideoModel(nn.Module):
@@ -321,7 +337,7 @@ class HyVideoModel(nn.Module):
             xx = blk(xx, vec, cos, sin, txt_len, t0, li, attention, rows=rows(li), generator=generator)
 
         shift, scale = L.linear(self.final_adaln, L.silu(vec)).chunk(2, dim=-1)
-        img = _modulate(L.layer_norm_f32(xx[:, :n_img], cfg.eps), shift, scale).to(xx.dtype)
+        img = _norm_mod(xx[:, :n_img], cfg.eps, shift, scale)
         img = L.linear(self.final_linear, img)
         tt, th, tw = grid
         c = cfg.out_channels

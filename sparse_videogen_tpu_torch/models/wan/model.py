@@ -26,6 +26,7 @@ from torch import nn
 
 from sparse_videogen_tpu_torch.models.common import layers as L
 from sparse_videogen_tpu_torch.models.common.rope import apply_rope_interleaved, wan_rope_cos_sin
+from sparse_videogen_tpu_torch.utils.timer import time_logging
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,6 +71,25 @@ class _Attention(nn.Module):
             self.norm_k_img = nn.Parameter(torch.ones(d, dtype=F32, device=device))
 
 
+def _norm_mod(x, eps, scale, shift):
+    """The f32 LayerNorm, the AdaLN modulation y (1 + scale) + shift, cast back."""
+    with time_logging("model.norm"):
+        return (L.layer_norm_f32(x, eps) * (1 + scale) + shift).to(x.dtype)
+
+
+def _qk(y, weight, eps, heads, cos=None, sin=None):
+    """A q or k projection's RMSNorm, its heads and (self-attention) RoPE."""
+    with time_logging("model.qk"):
+        y = heads(L.rms_norm(y, weight, eps))
+        return y if cos is None else apply_rope_interleaved(y, cos, sin)
+
+
+def _gated_f32(x, y, gate):
+    """The gated residual x + y gate in f32, cast back to x's dtype."""
+    with time_logging("model.residual"):
+        return (x.float() + y.float() * gate).to(x.dtype)
+
+
 def _softmax_attention(q, k, v):
     """Plain attention without a mask: f32 softmax of q k^T / sqrt(D), cast to
     v's dtype before the product with v."""
@@ -94,8 +114,8 @@ class WanBlock(nn.Module):
         B, S, d = x.shape
         H, D = cfg.num_heads, cfg.head_dim
         heads = lambda y: y.view(B, S, H, D).transpose(1, 2)
-        q = apply_rope_interleaved(heads(L.rms_norm(L.linear(p.q, x), p.norm_q, cfg.eps)), cos, sin)
-        k = apply_rope_interleaved(heads(L.rms_norm(L.linear(p.k, x), p.norm_k, cfg.eps)), cos, sin)
+        q = _qk(L.linear(p.q, x), p.norm_q, cfg.eps, heads, cos, sin)
+        k = _qk(L.linear(p.k, x), p.norm_k, cfg.eps, heads, cos, sin)
         v = heads(L.linear(p.v, x))
         o = attention(q, k, v, t, layer_idx, rows=rows, generator=generator)
         return L.linear(p.o, o.transpose(1, 2).reshape(B, S, d))
@@ -105,11 +125,11 @@ class WanBlock(nn.Module):
         B, S, d = x.shape
         H, D = cfg.num_heads, cfg.head_dim
         heads = lambda y: y.view(B, -1, H, D).transpose(1, 2)
-        q = heads(L.rms_norm(L.linear(p.q, x), p.norm_q, cfg.eps))
-        k = heads(L.rms_norm(L.linear(p.k, context), p.norm_k, cfg.eps))
+        q = _qk(L.linear(p.q, x), p.norm_q, cfg.eps, heads)
+        k = _qk(L.linear(p.k, context), p.norm_k, cfg.eps, heads)
         o = _softmax_attention(q, k, heads(L.linear(p.v, context)))
         if context_img is not None:
-            k_img = heads(L.rms_norm(L.linear(p.k_img, context_img), p.norm_k_img, cfg.eps))
+            k_img = _qk(L.linear(p.k_img, context_img), p.norm_k_img, cfg.eps, heads)
             o = o + _softmax_attention(q, k_img, heads(L.linear(p.v_img, context_img)))
         return L.linear(p.o, o.transpose(1, 2).reshape(B, S, d))
 
@@ -118,16 +138,16 @@ class WanBlock(nn.Module):
         """WanAttentionBlock.forward; x in the model dtype, e6 (B, 6, dim) f32."""
         eps = self.cfg.eps
         e = self.modulation[None].float() + e6
-        y = L.layer_norm_f32(x, eps)
-        y = (y * (1 + e[:, 1:2]) + e[:, 0:1]).to(x.dtype)
+        y = _norm_mod(x, eps, e[:, 1:2], e[:, 0:1])
         y = self._self_attention(y, cos, sin, t, layer_idx, attention, rows, generator)
-        x = (x.float() + y.float() * e[:, 2:3]).to(x.dtype)
-        y = L.layer_norm_f32(x, eps, self.norm3.weight, self.norm3.bias).to(x.dtype)
-        x = x + self._cross_attention(y, context, context_img)
-        y = L.layer_norm_f32(x, eps)
-        y = (y * (1 + e[:, 4:5]) + e[:, 3:4]).to(x.dtype)
-        y = L.mlp_gelu(self.ffn["fc1"], self.ffn["fc2"], y)
-        return (x.float() + y.float() * e[:, 5:6]).to(x.dtype)
+        x = _gated_f32(x, y, e[:, 2:3])
+        with time_logging("model.norm"):
+            y = L.layer_norm_f32(x, eps, self.norm3.weight, self.norm3.bias).to(x.dtype)
+        y = self._cross_attention(y, context, context_img)
+        with time_logging("model.residual"):
+            x = x + y
+        y = L.mlp_gelu(self.ffn["fc1"], self.ffn["fc2"], _norm_mod(x, eps, e[:, 4:5], e[:, 3:4]))
+        return _gated_f32(x, y, e[:, 5:6])
 
 
 def sinusoidal_embedding_1d(dim: int, position):
@@ -240,8 +260,7 @@ class WanModel(nn.Module):
                          context_img=ctx_img)
 
         hm = self.head_modulation[None].float() + e[:, None, :]
-        y = L.layer_norm_f32(tokens, cfg.eps)
-        y = (y * (1 + hm[:, 1:2]) + hm[:, 0:1]).to(tokens.dtype)
+        y = _norm_mod(tokens, cfg.eps, hm[:, 1:2], hm[:, 0:1])
         return self._unpatchify(L.linear(self.head_out, y), grid).float()
 
 

@@ -27,6 +27,7 @@ from sparse_videogen_tpu_torch.schedulers import FlowMatchEuler
 from sparse_videogen_tpu_torch.sparse.runtimes import DenseRuntime, SAPRuntime, SVG1Runtime, is_sap
 from sparse_videogen_tpu_torch.sparse.svg1 import make_svg1_plan
 from sparse_videogen_tpu_torch.utils.density import DensityLogger, log_sap_states
+from sparse_videogen_tpu_torch.utils.timer import time_logging
 
 VAE_SPATIAL = 8
 VAE_TEMPORAL = 4
@@ -166,8 +167,9 @@ class HyVideoPipeline:
         layout = dataclasses.replace(hyvideo_layout(cfg, height, width, num_frames), prompt_length=prompt_length)
         sch = FlowMatchEuler(num_inference_steps, shift=flow_shift)
         warmup = WarmupSchedule.from_fractions(first_layers_fp, first_times_fp, cfg.num_layers, sch.timesteps)
-        runtime = make_hyvideo_runtime(layout, device=device, prompt_length=prompt_length, pattern=pattern,
-                                       warmup=warmup, svg=svg, sap=sap, mesh=mesh)
+        with time_logging("video.plan", host=True):
+            runtime = make_hyvideo_runtime(layout, device=device, prompt_length=prompt_length, pattern=pattern,
+                                           warmup=warmup, svg=svg, sap=sap, mesh=mesh)
         sap_mode = is_sap(runtime)
         dlog = DensityLogger(logging_file if sap_mode else None)
         states = text_states.to(device, dtype)

@@ -26,6 +26,7 @@ from sparse_videogen_tpu_torch.schedulers import FlowDPM, FlowUniPC
 from sparse_videogen_tpu_torch.sparse.runtimes import DenseRuntime, SAPRuntime, SVG1Runtime, is_sap
 from sparse_videogen_tpu_torch.sparse.svg1 import make_svg1_plan
 from sparse_videogen_tpu_torch.utils.density import DensityLogger, log_sap_states
+from sparse_videogen_tpu_torch.utils.timer import time_logging
 
 VAE_SPATIAL = 8
 VAE_TEMPORAL = 4
@@ -162,8 +163,9 @@ class WanPipeline:
         layout = wan_layout(cfgm, height, width, num_frames)
         sch = make_sampler(sampler, num_inference_steps, flow_shift)
         warmup = WarmupSchedule.from_fractions(first_layers_fp, first_times_fp, cfgm.num_layers, sch.timesteps)
-        runtime = make_wan_runtime(layout, device=device, pattern=pattern, warmup=warmup, svg=svg, sap=sap, mesh=mesh,
-                                   inplace_temporal=inplace_temporal)
+        with time_logging("video.plan", host=True):
+            runtime = make_wan_runtime(layout, device=device, pattern=pattern, warmup=warmup, svg=svg, sap=sap,
+                                       mesh=mesh, inplace_temporal=inplace_temporal)
         sap_mode = is_sap(runtime)
         dlog = DensityLogger(logging_file if sap_mode else None)
         stream_states = [{}, {}]  # SAP: layer -> SAPState, per CFG stream

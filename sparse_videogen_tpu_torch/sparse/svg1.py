@@ -34,6 +34,7 @@ from sparse_videogen_tpu_torch.core.profiler import best_mask_idx, sample_mse
 from sparse_videogen_tpu_torch.ops import metadata as MD
 from sparse_videogen_tpu_torch.ops.attention import block_sparse_attention_kv, dual_rows
 from sparse_videogen_tpu_torch.ops.mask_spec import MaskSpec
+from sparse_videogen_tpu_torch.utils.timer import time_logging
 
 
 @dataclasses.dataclass(frozen=True)
@@ -213,12 +214,19 @@ def _run_kernel(q, k, v, meta, plan: SVG1Plan, mask_spec, aux, *, block_q: int):
     run the block-sparse attention, slice the padding off."""
     B, H, S, D = q.shape
     sq_pad = -(-S // block_q) * block_q
-    qf = _pad_seq(q, sq_pad).reshape(B * H, sq_pad, D).contiguous()
-    kf = _pad_seq(k, plan.seq_pad_kv).reshape(B * H, plan.seq_pad_kv, D).contiguous()
-    vf = _pad_seq(v, plan.seq_pad_kv).reshape(B * H, plan.seq_pad_kv, D).contiguous()
+    with time_logging("attn.pad"):
+        qf = _pad_seq(q, sq_pad).reshape(B * H, sq_pad, D).contiguous()
+        kf = _pad_seq(k, plan.seq_pad_kv).reshape(B * H, plan.seq_pad_kv, D).contiguous()
+        vf = _pad_seq(v, plan.seq_pad_kv).reshape(B * H, plan.seq_pad_kv, D).contiguous()
     out = block_sparse_attention_kv(qf, kf, vf, meta, aux, block_q=block_q, block_kv=plan.block_kv,
                                     mask_spec=mask_spec)
-    return out[:, :S].reshape(B, H, S, D)
+    with time_logging("attn.pad"):
+        return out[:, :S].reshape(B, H, S, D)
+
+
+def _place(x, is_t, layout: VideoLayout, inverse: bool = False):
+    with time_logging("svg1.place"):
+        return place_heads(x, is_t, layout, inverse=inverse)
 
 
 def svg1_sparse_impl(q, k, v, rows, meta, plan: SVG1Plan, aux=None):
@@ -227,17 +235,18 @@ def svg1_sparse_impl(q, k, v, rows, meta, plan: SVG1Plan, aux=None):
     order. With plan.inplace_temporal, meta is the (2, nQ, L) dual stack
     (sparse_meta_dual): every head stays in place and takes its class's
     metadata row and mask (the dual spec, aux[4 + bh] its class)."""
-    mses = sample_mse(q, k, v, plan.profile_preds(), rows)
-    best = best_mask_idx(mses)  # (B, H): 0 spatial, 1 temporal
+    with time_logging("svg1.profile"):
+        mses = sample_mse(q, k, v, plan.profile_preds(), rows)
+        best = best_mask_idx(mses)  # (B, H): 0 spatial, 1 temporal
+        is_t = best == 1
     if plan.inplace_temporal:
-        meta_bh, aux_bh = dual_rows(meta, best.reshape(-1).to(torch.int32), plan.mask_spec_dual[1],
-                                    plan.block_q, aux)
+        with time_logging("svg1.place"):
+            meta_bh, aux_bh = dual_rows(meta, best.reshape(-1).to(torch.int32), plan.mask_spec_dual[1],
+                                        plan.block_q, aux)
         return _run_kernel(q, k, v, meta_bh, plan, plan.mask_spec_dual, aux_bh, block_q=plan.block_q)
-    is_t = best == 1
-    o = _run_kernel(place_heads(q, is_t, plan.layout), place_heads(k, is_t, plan.layout),
-                    place_heads(v, is_t, plan.layout), meta, plan, plan.mask_spec, aux,
-                    block_q=plan.block_q)
-    return place_heads(o, is_t, plan.layout, inverse=True)
+    o = _run_kernel(_place(q, is_t, plan.layout), _place(k, is_t, plan.layout), _place(v, is_t, plan.layout),
+                    meta, plan, plan.mask_spec, aux, block_q=plan.block_q)
+    return _place(o, is_t, plan.layout, inverse=True)
 
 
 def dense_impl(q, k, v, meta, plan: SVG1Plan, aux=None):

@@ -33,6 +33,7 @@ from sparse_videogen_tpu_torch.core.dynamic_map import density_calculation, iden
 from sparse_videogen_tpu_torch.core.kmeans import batch_kmeans, init_centroids
 from sparse_videogen_tpu_torch.ops import metadata as MD
 from sparse_videogen_tpu_torch.ops.attention import block_sparse_attention_kv, block_sparse_attention_runs
+from sparse_videogen_tpu_torch.utils.timer import time_logging
 
 
 @dataclasses.dataclass
@@ -92,10 +93,11 @@ def sap_cluster(q, k, state: SAPState, cfg: SAPConfig, generator=None, init_idx=
     (BH, QC), k indices (BH, KC)) hands in the cold-start draws. Returns
     (qlab, qcent, qsz), (klab, kcent, ksz), new_state."""
     qi, ki = (None, None) if init_idx is None else init_idx
-    qlab, qcent, qsz = _kmeans_with_warmstart(q, cfg.num_q_centroids, state.q_centroids, state.initialized, cfg,
-                                              generator, qi)
-    klab, kcent, ksz = _kmeans_with_warmstart(k, cfg.num_k_centroids, state.k_centroids, state.initialized, cfg,
-                                              generator, ki)
+    with time_logging("sap.kmeans"):
+        qlab, qcent, qsz = _kmeans_with_warmstart(q, cfg.num_q_centroids, state.q_centroids, state.initialized,
+                                                  cfg, generator, qi)
+        klab, kcent, ksz = _kmeans_with_warmstart(k, cfg.num_k_centroids, state.k_centroids, state.initialized,
+                                                  cfg, generator, ki)
     new_state = SAPState(qcent.to(state.q_centroids.dtype), kcent.to(state.k_centroids.dtype), True,
                          state.last_density)
     return (qlab, qcent, qsz), (klab, kcent, ksz), new_state
@@ -301,13 +303,15 @@ def _map_and_density(qcent, kcent, qsz, ksz, state, B, H, cfg):
     knob for a chosen density (random weights give flat maps); the k-means,
     the relabel, the metadata and the kernel stay the real computation."""
     QC, KC, D = qsz.shape[-1], ksz.shape[-1], qcent.shape[-1]
-    if cfg.force_density is not None:
-        keep = torch.arange(KC, device=qsz.device) < math.ceil(cfg.force_density * KC)
-        dyn = keep.expand(B, H, QC, KC)
-    else:
-        dyn = identify_dynamic_map(qcent.reshape(B, H, QC, D), kcent.reshape(B, H, KC, D), qsz.reshape(B, H, QC),
-                                   ksz.reshape(B, H, KC), cfg.top_p_kmeans, cfg.min_kc_ratio)
-    density = density_calculation(dyn, qsz.reshape(B, H, QC), ksz.reshape(B, H, KC))
+    with time_logging("sap.map"):
+        if cfg.force_density is not None:
+            keep = torch.arange(KC, device=qsz.device) < math.ceil(cfg.force_density * KC)
+            dyn = keep.expand(B, H, QC, KC)
+        else:
+            dyn = identify_dynamic_map(qcent.reshape(B, H, QC, D), kcent.reshape(B, H, KC, D),
+                                       qsz.reshape(B, H, QC), ksz.reshape(B, H, KC), cfg.top_p_kmeans,
+                                       cfg.min_kc_ratio)
+        density = density_calculation(dyn, qsz.reshape(B, H, QC), ksz.reshape(B, H, KC))
     return dyn.reshape(B * H, QC, KC), density, dataclasses.replace(state, last_density=density.reshape(-1).float())
 
 
@@ -327,11 +331,12 @@ def _cluster_prepare(qf, kf, vf, qside, kside, state, B, H, layout, cfg) -> SAPK
         dyn_f, qlab, qsz, klab, ksz = _extend_text_clusters(dyn_f, qlab, qsz, klab, ksz, layout)
     QC, KC = qsz.shape[-1], ksz.shape[-1]
     sq_pad = core_permute.padded_seq_len(S, QC, bq)
-    qmaps = core_permute.padded_permutation(qlab, qsz, n_clusters=QC, block=bq, s_pad=sq_pad)
-    qp = core_permute.gather_padded(qf, qmaps["src"])
-    kperm = torch.sort(klab, dim=-1, stable=True).indices
-    sk_pad = max(-(-S // MD.SUB) * MD.SUB, bkv)
-    kp, vp = (_pad_rows(core_permute.flat_row_gather(x, kperm), sk_pad) for x in (kf, vf))
+    with time_logging("sap.permute"):
+        qmaps = core_permute.padded_permutation(qlab, qsz, n_clusters=QC, block=bq, s_pad=sq_pad)
+        qp = core_permute.gather_padded(qf, qmaps["src"])
+        kperm = torch.sort(klab, dim=-1, stable=True).indices
+        sk_pad = max(-(-S // MD.SUB) * MD.SUB, bkv)
+        kp, vp = (_pad_rows(core_permute.flat_row_gather(x, kperm), sk_pad) for x in (kf, vf))
     cap = min((cfg.max_runs or KC) + (2 if text_last else 0), KC)
     meta_c = MD.run_meta(dyn_f, core_permute.exclusive_cumsum(ksz), ksz, block_kv=bkv, cap=cap)
     blk = qmaps["block_to_cluster"]
@@ -390,11 +395,12 @@ def _tile_prepare(qf, kf, vf, qkeys, kkeys, state, B, H, layout, cfg) -> SAPKern
     text_last = _text_last(layout)
     vl = layout.video_length if text_last else S
     QC, KC = -(-vl // bq), -(-vl // kv_grain)
-    qperm = torch.sort(qkeys, dim=-1, stable=True).indices
-    kperm = torch.sort(kkeys, dim=-1, stable=True).indices
-    qrank = torch.argsort(qperm, dim=-1)
-    qp = core_permute.flat_row_gather(qf[:, :vl], qperm)
-    kp, vp = (core_permute.flat_row_gather(x[:, :vl], kperm) for x in (kf, vf))
+    with time_logging("sap.permute"):
+        qperm = torch.sort(qkeys, dim=-1, stable=True).indices
+        kperm = torch.sort(kkeys, dim=-1, stable=True).indices
+        qrank = torch.argsort(qperm, dim=-1)
+        qp = core_permute.flat_row_gather(qf[:, :vl], qperm)
+        kp, vp = (core_permute.flat_row_gather(x[:, :vl], kperm) for x in (kf, vf))
     qsz, ksz = tile_sizes(vl, bq, QC, BH, qf.device), tile_sizes(vl, kv_grain, KC, BH, qf.device)
     dyn_f, density, new_state = _map_and_density(tile_centroids(qp, qsz, bq, QC),
                                                  tile_centroids(kp, ksz, kv_grain, KC), qsz, ksz, state, B, H, cfg)
@@ -439,7 +445,9 @@ def sap_sparse_attention(q, k, v, state: SAPState, *, layout: VideoLayout, cfg: 
     a = sap_prepare(q, k, v, state, layout=layout, cfg=cfg, generator=generator, init_idx=init_idx)
     attend = block_sparse_attention_kv if a.kernel == "csr" else block_sparse_attention_runs
     out_pad = attend(a.q, a.k, a.v, a.meta, block_q=cfg.block_q, block_kv=cfg.block_kv)
-    return core_permute.ungather_padded(out_pad, a.pos).reshape(q.shape), a.state
+    with time_logging("sap.permute"):
+        out = core_permute.ungather_padded(out_pad, a.pos).reshape(q.shape)
+    return out, a.state
 
 
 def sap_attention(q, k, v, timestep: float, state: SAPState, *, layout: VideoLayout, cfg: SAPConfig,

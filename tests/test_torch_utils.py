@@ -1,5 +1,5 @@
 """The torch port's utilities against the JAX package's: utils/timer.py
-(TIME_BENCH 1 and 2, the decorator, the profiler trace), visualize.py
+(TIME_BENCH 1 and 2, a host-clock region, the profiler trace), visualize.py
 (the same string on the same metadata), misc.save_qkv, seed.py, logging.py,
 and the copies vbench.py and extract_time.py on the JAX tests' inputs."""
 
@@ -37,8 +37,8 @@ def test_timer_accumulates_at_level_1(monkeypatch, capsys):
     for _ in range(3):
         with T.time_logging("unit - sum"):
             sum(range(1000))
-    work = T.time_logging_decorator("unit - fn")(lambda n: sum(range(n)))
-    assert work(10) == 45
+    with T.time_logging("unit - fn", host=True):
+        assert sum(range(10)) == 45
     T.print_operator_log_data()
     out = capsys.readouterr().out
     assert "unit - sum" in out and "(x3)" in out and "unit - fn" in out and "(x1)" in out
@@ -59,12 +59,14 @@ def test_timer_prints_and_clears_at_level_2(monkeypatch, capsys):
     assert not T.get_log()[1]
 
 
-def test_profiler_trace(tmp_path):
+def test_profiler_trace(tmp_path, monkeypatch):
+    monkeypatch.delenv("TIME_BENCH", raising=False)
     with T.profiler_trace(str(tmp_path)) as logdir:
-        with T.named_scope("probe"):
+        with T.time_logging("probe"):
             torch.ones(8, 8).sum()
     trace = json.load(open(os.path.join(logdir, "trace.json")))
-    assert any(ev.get("name") == "probe" for ev in trace["traceEvents"])
+    assert any(ev.get("name") == "svt.probe" for ev in trace["traceEvents"])
+    assert T.profiled_log(clear=True)[1] == {"probe": 1} and not T.get_log()[1]
 
 
 def test_visualize_meta_matches_jax():
