@@ -361,6 +361,9 @@ DPM_STEPS = 3
 # RING_FAMILY_TOL, the ring forward's bound (each rotation's output rounds to
 # bf16 before the f32 merge)
 ULYSSES_SP, ULYSSES_LAYERS, ULYSSES_TOL, RING_FAMILY_TOL = 2, 2, 1e-2, 3e-2
+# the model's own kernels (K2 RoPE, the fused LayerNorm + modulation): one launch a site a forward on any mesh, as
+# the activations are whole on every rank (the attention alone is split over head or data ranks)
+MODEL_KERNELS = ("rope", "layernorm_mod")
 # FSDP (parallel/sharding.py): Wan 2.1 14B T2V at its published widths and
 # FSDP_LAYERS of its 40 layers, 480x832x81, over the thread-rank grids
 # FSDP_GRIDS (dp, rp, sp); the latents held bit for bit to the unsharded
@@ -1269,7 +1272,22 @@ def phase_hyvideo_sap_attention(dev):
     return out_modes
 
 
-def expected_launches(pattern, n_layers, warmup, timesteps, kinds, sap=None, sap_streams=2, rope=True):
+def norm_sites(cfg) -> int:
+    """The fused LayerNorm + modulation's launches in one forward of the
+    model of `cfg`: a launch a `model.norm` site, Wan 3 a block + the head,
+    HunyuanVideo 4 a double block, 1 a single block + the final layer;
+    CogVideoX and Cosmos keep their norms eager (0)."""
+    from sparse_videogen_tpu_torch.models.hyvideo.model import HyVideoConfig
+    from sparse_videogen_tpu_torch.models.wan.model import WanConfig
+
+    if isinstance(cfg, WanConfig):
+        return 3 * cfg.num_layers + 1
+    if isinstance(cfg, HyVideoConfig):
+        return 4 * cfg.mm_double_blocks_depth + cfg.mm_single_blocks_depth + 1
+    return 0
+
+
+def expected_launches(pattern, n_layers, warmup, timesteps, kinds, sap=None, sap_streams=2, rope=True, norms=0):
     """Kernel launches one generation implies, and the chunked-CSR kernel's
     launches by mask kind. Per forward and layer: RoPE on q and on k; a
     dense layer (the dense pattern, or a warm-up layer) runs the chunked-CSR
@@ -1282,7 +1300,8 @@ def expected_launches(pattern, n_layers, warmup, timesteps, kinds, sap=None, sap
     clustering in a stream, kmeans_iter_step after (warm-up layers cluster
     only with zero_step_kmeans_init; tile_order pc1 never clusters a sparse
     layer). rope False: the model's RoPE is not K2 (Cosmos's half-split
-    RoPE runs in plain torch, as the JAX package runs it on XLA)."""
+    RoPE runs in plain torch, as the JAX package runs it on XLA). norms:
+    the fused LayerNorm + modulation's launches a forward (norm_sites)."""
     from sparse_videogen_tpu_torch import _kernels
 
     want = {name: 0 for name in _kernels.KERNELS}
@@ -1292,6 +1311,7 @@ def expected_launches(pattern, n_layers, warmup, timesteps, kinds, sap=None, sap
     for _ in range(streams):
         initialized = [False] * n_layers
         for t in timesteps:
+            want["layernorm_mod"] += norms
             for li in range(n_layers):
                 want["rope"] += 2 if rope else 0
                 dense = pattern == "dense" or li < warmup.first_layers or float(t) > warmup.first_times
@@ -1312,7 +1332,7 @@ def expected_launches(pattern, n_layers, warmup, timesteps, kinds, sap=None, sap
 
 
 def drive_pipeline(name, desc, kw, pattern, timesteps, n_layers, generate, shape, kinds, sap=None, sap_streams=2,
-                   rope=True):
+                   rope=True, norms=0):
     """One generation through a pipeline's entry point, generate(callback),
     timed by the profile scripts' time_generation (the kernel counters set
     to 0 just before it and read just after), and held to what the
@@ -1325,7 +1345,7 @@ def drive_pipeline(name, desc, kw, pattern, timesteps, n_layers, generate, shape
     from sparse_videogen_tpu_torch.scripts.profile_wan import time_generation
 
     warmup = WarmupSchedule.from_fractions(kw["first_layers_fp"], kw["first_times_fp"], n_layers, timesteps)
-    want, want_kinds = expected_launches(pattern, n_layers, warmup, timesteps, kinds, sap, sap_streams, rope)
+    want, want_kinds = expected_launches(pattern, n_layers, warmup, timesteps, kinds, sap, sap_streams, rope, norms)
     lat, r = time_generation(generate)
     finite = bool(torch.isfinite(lat).all())
     log("slice", f"{name}, {desc}, {pattern}, {len(timesteps)} steps ({warmup.first_layers} warm-up layers, steps "
@@ -1373,7 +1393,8 @@ def drive(model, run, pattern, steps, inplace_temporal=False, sampler="unipc"):
                                logging_file=dlog if pattern == "SAP" else None, inplace_temporal=inplace_temporal,
                                sampler=sampler, **run.generate_kwargs()),
                            (1, 16, lay.num_frames, run.height // 8, run.width // 8),
-                           ("none", "band_sink_perm" if inplace_temporal else "band_sink"), sap=run.sap)
+                           ("none", "band_sink_perm" if inplace_temporal else "band_sink"), sap=run.sap,
+                           norms=norm_sites(cfg))
         dens = [json.loads(line)["avg_density"] for line in open(dlog)] if pattern == "SAP" else []
     if dens:
         log("slice", f"{name} SAP density (cond stream, {len(dens)} logged layer-steps): mean {np.mean(dens):.4f}, "
@@ -1500,7 +1521,7 @@ def phase_quality(dev):
             r = drive_pipeline("quality", desc, kw, kw["pattern"], timesteps, cfg.num_layers,
                                lambda cb, kw=kw, dlog=dlog: Q.generate(model, ctx, ctx_null, (h, w, f), kw, callback=cb,
                                                                        logging_file=dlog),
-                               shape, ("none", "band_sink"), sap=kw.get("sap"))
+                               shape, ("none", "band_sink"), sap=kw.get("sap"), norms=norm_sites(cfg))
             lat[name] = r["latents"].float().cpu().numpy()
             per_step[name] = r["per_step_s"]
             if dlog:
@@ -1692,6 +1713,45 @@ def phase_rmsnorm(dev):
     return entry
 
 
+def phase_layernorm_mod(dev):
+    """The fused LayerNorm + modulation (csrc/layernorm_mod.cu) against its
+    plain version at every shape of scripts/bench_layernorm_mod.py (Wan's
+    CFG pair with the modulation table's rows and with norm3's (d,) vectors,
+    HunyuanVideo's video and text streams and its final layer's slice of
+    [video | text], Wan 14B's d = 5120): every element within
+    bench_layernorm_mod.mismatch's tolerance (one bf16 ulp, or where the
+    modulation cancels to near 0 the gap of row statistics 2^-18 apart),
+    under 0.1% of them different; then the probe's times, the bound one
+    bf16 read and one write at 3.35 TB/s. The entry is Wan 1.3B's block
+    shape."""
+    from sparse_videogen_tpu_torch.ops.layernorm_mod import layernorm_mod, layernorm_mod_plain
+    from sparse_videogen_tpu_torch.scripts import bench_layernorm_mod as probe
+
+    entry = None
+    for i, (name, shape) in enumerate(probe.SHAPES.items()):
+        x, mul, add = probe.make_inputs(shape, seed=i, device=dev)
+        out = layernorm_mod(x, mul, add, probe.EPS)
+        ref = layernorm_mod_plain(x, mul, add, probe.EPS)
+        bad, share = probe.mismatch(out, ref, x, mul, add)
+        del out, ref
+        r = probe.probe({name: (x, mul, add)}, iters=10, warmup=1)[0]
+        log("kernels", f"layernorm_mod {name} {r['shape']} bf16: {bad} elements beyond tolerance, {share:.2e} "
+                       f"differ; kernel {r['kernel_ms']:.4f} ms ({r['kernel_gbs']:.1f} GB/s, "
+                       f"{100 * r['bound_share']:.1f}% of the bound {r['bound_ms']:.4f} ms), plain "
+                       f"{r['plain_ms']:.4f} ms ({r['plain_gbs']:.1f} GB/s)")
+        if bad or share >= 1e-3:
+            raise AssertionError(f"layernorm_mod disagrees with its plain version at {name}: {bad}, {share}")
+        if name == "wan-480p-cfg":
+            entry = {"name": "layernorm_mod", "route": "cuda",
+                     "source": "sparse_videogen_tpu_torch/csrc/layernorm_mod.cu", "replaces": None,
+                     "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
+                     **bound(10.0 * x.numel(), r["bytes"], PEAK_F32_FLOPS), "library_ms": None,
+                     "shape": list(r["shape"])}
+        del x, mul, add
+        torch.cuda.empty_cache()
+    return entry
+
+
 def phase_qsplit(dev):
     """K7 at the probe's shape (12, 32768, 128) bf16, bkv 1024, and at head
     dim 64 (12, 32768, 64), against its plain version (one run a shape: it
@@ -1777,7 +1837,7 @@ def drive_hyvideo(model, run, steps, latents=None):
                                text, mask, pooled, prompt_length=HY_PROMPT, num_inference_steps=steps, seed=0,
                                callback=on_step, logging_file=dlog, latents=latents, **run.generate_kwargs()),
                            (1, 16, lay.num_frames, run.height // 8, run.width // 8), ("hyvideo", "hyvideo"),
-                           sap=run.sap, sap_streams=1)
+                           sap=run.sap, sap_streams=1, norms=norm_sites(cfg))
         dens = [json.loads(line)["avg_density"] for line in open(dlog)] if dlog else []
     if dens:
         log("slice", f"{name} density ({len(dens)} logged layer-steps): mean {np.mean(dens):.4f}, min "
@@ -3032,15 +3092,16 @@ def phase_ulysses(dev):
                 **kw)))
         (a, ta, la), (b, tb, lb) = res
         rel = rel_l2(b, a)
-        attn = {n: c for n, c in la.items() if n != "rope" and c}
+        attn = {n: c for n, c in la.items() if n not in MODEL_KERNELS and c}
         want = {n: sp * c for n, c in attn.items()}
         got = {n: lb.get(n, 0) for n in attn}
         ok = (torch.equal(a, b) if pattern == "dense" else rel <= ULYSSES_TOL) and got == want \
-            and lb.get("rope") == la.get("rope")
+            and all(lb.get(n) == la.get(n) for n in MODEL_KERNELS)
         log("ulysses", f"Wan 1.3B {cfg.num_layers} layers, {pattern}, one step over {sp} head ranks against one "
                        f"device: latents rel L2 {rel:.3e} ({'bit for bit' if pattern == 'dense' else f'tol {ULYSSES_TOL}'}"
-                       f"; equal {torch.equal(a, b)}); attention launches {got} (expected {want}), rope "
-                       f"{lb.get('rope')} (one device {la.get('rope')}); s {tb:.4f} against {ta:.4f} (x{tb / ta:.3f})")
+                       f"; equal {torch.equal(a, b)}); attention launches {got} (expected {want}), the model's "
+                       f"{ {n: lb.get(n) for n in MODEL_KERNELS} } (one device { {n: la.get(n) for n in MODEL_KERNELS} }); "
+                       f"s {tb:.4f} against {ta:.4f} (x{tb / ta:.3f})")
         if not ok:
             raise AssertionError(f"Wan Ulysses {pattern}: latents or launches off")
     del model
@@ -3175,8 +3236,9 @@ def phase_fsdp(dev):
             want_lat, want_s, want_counts = ref[pattern]
             same = torch.equal(lat, want_lat)
             # attention runs once where the grid has no head axis, else on every rank (each dp slice its heads)
-            attn = {n: c * (dp * sp if sp > 1 else 1) for n, c in want_counts.items() if n != "rope" and c}
-            ok_launch = {n: counts.get(n, 0) for n in attn} == attn and counts.get("rope") == want_counts.get("rope")
+            attn = {n: c * (dp * sp if sp > 1 else 1) for n, c in want_counts.items() if n not in MODEL_KERNELS and c}
+            ok_launch = {n: counts.get(n, 0) for n in attn} == attn and all(
+                counts.get(n) == want_counts.get(n) for n in MODEL_KERNELS)
             diff = (lat.float() - want_lat.float()).abs().max().item()
             log("fsdp", f"grid ({dp}, {rp}, {sp}), {pattern}: latents equal to the unsharded ones bit for bit "
                         f"{same} (max |diff| {diff:.3e}); s {s_:.4f} a step against {want_s:.4f} unsharded "
@@ -4287,7 +4349,8 @@ def phase_prompt_to_video(dev):
     timesteps = FlowUniPC(P2V_STEPS, shift=run.flow_shift).timesteps
     kw = run.generate_kwargs()
     warmup = WarmupSchedule.from_fractions(kw["first_layers_fp"], kw["first_times_fp"], cfg.num_layers, timesteps)
-    want, want_kinds = expected_launches("SVG", cfg.num_layers, warmup, timesteps, ("none", "band_sink"))
+    want, want_kinds = expected_launches("SVG", cfg.num_layers, warmup, timesteps, ("none", "band_sink"),
+                                         norms=norm_sites(cfg))
     log("p2v", f"cuDNN TF32 {torch.backends.cudnn.allow_tf32}, matmul TF32 {torch.backends.cuda.matmul.allow_tf32} "
                "(this script turns both off; the VAE and UMT5 run true f32)")
     _kernels.reset_counts()
@@ -4472,7 +4535,8 @@ def phase_i2v(dev, umt5_s: float):
     timesteps = FlowUniPC(I2V_STEPS, shift=run.flow_shift).timesteps
     kw = run.generate_kwargs()
     warmup = WarmupSchedule.from_fractions(kw["first_layers_fp"], kw["first_times_fp"], cfg.num_layers, timesteps)
-    want, want_kinds = expected_launches("SVG", cfg.num_layers, warmup, timesteps, ("none", "band_sink"))
+    want, want_kinds = expected_launches("SVG", cfg.num_layers, warmup, timesteps, ("none", "band_sink"),
+                                         norms=norm_sites(cfg))
     stages = {}
     _kernels.reset_counts()
     t0 = time.perf_counter()
@@ -4591,7 +4655,8 @@ def _hy_launches(phase, run, cfg, steps):
 
     timesteps = FlowMatchEuler(steps, shift=run.flow_shift).timesteps
     warmup = WarmupSchedule.from_fractions(run.first_layers_fp, run.first_times_fp, cfg.num_layers, timesteps)
-    return expected_launches(run.pattern, cfg.num_layers, warmup, timesteps, ("hyvideo", "hyvideo"))
+    return expected_launches(run.pattern, cfg.num_layers, warmup, timesteps, ("hyvideo", "hyvideo"),
+                             norms=norm_sites(cfg))
 
 
 def _check_launches(phase, want, want_kinds):
@@ -5463,6 +5528,7 @@ def main():
                "block_sparse_attn_runs": phase_sap_attention(dev), "kmeans_wide": phase_kmeans(dev),
                "kmeans_variants": phase_variants(dev), "block_sparse_attn[hyvideo]": phase_hyvideo_attention(dev),
                "rmsnorm": phase_rmsnorm(dev), "dense_qsplit": phase_qsplit(dev),
+               "layernorm_mod": phase_layernorm_mod(dev),
                "block_sparse_attn[cog]": phase_cog_attention(dev)}
     kernels["rope"]["d64"] = phase_cog_rope(dev)
     # Wan I2V 14B at 720p: 40 heads, frame size 3,555 (not a multiple of 128), S = 74,655

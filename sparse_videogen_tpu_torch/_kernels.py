@@ -41,7 +41,7 @@ NVCC_FLAGS = [
 ]
 
 KERNELS = ("block_sparse_attn", "rope", "block_sparse_attn_runs", "kmeans_wide", "kmeans_variants", "rmsnorm",
-           "dense_qsplit")
+           "dense_qsplit", "layernorm_mod")
 LAUNCHES = {name: 0 for name in KERNELS}
 PLAIN_CALLS = {name: 0 for name in KERNELS}
 KIND_LAUNCHES: collections.Counter = collections.Counter()
@@ -51,6 +51,7 @@ _LIB = None
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 _SIGNATURES = {
     # q, k, v, o, meta, slab_meta, aux, order, BH, Sq, Skv, D, R, nQ, L, block_q,
     # mask_kind, band_width, sink_size, video_len, frame_size, num_frames, n_items, q_scale, m_out, l_out, stream
@@ -72,6 +73,8 @@ _SIGNATURES = {
     "svt_kmeans_lloyd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # B, N, K, D, variant -> bytes of the pass's workspace (a long long)
     "svt_kmeans_lloyd_workspace": [_I, _I, _I, _I, _I],
+    # x, mul, add, out, B, S, x batch stride, mul batch stride, add batch stride, d, eps, stream
+    "svt_layernorm_mod": [_P, _P, _P, _P, _I, _I, _L, _L, _L, _I, _F, _P],
 }
 _RESTYPES = {"svt_kmeans_lloyd_workspace": ctypes.c_longlong}
 

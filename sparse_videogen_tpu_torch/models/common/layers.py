@@ -9,6 +9,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from sparse_videogen_tpu_torch.ops.layernorm_mod import layernorm_mod
 from sparse_videogen_tpu_torch.utils.quant import FP8Linear, Int8Linear, int8_matmul
 
 
@@ -88,6 +89,14 @@ def layer_norm_f32(x, eps=1e-6, weight=None, bias=None):
     if weight is not None:
         y = y * weight.float() + bias.float()
     return y
+
+
+def layer_norm_mod(x, eps, mul, add):
+    """The f32 LayerNorm of x (B, S, d), times mul, plus add (f32, (d,) or
+    (B, d)), cast back to x's dtype: the AdaLN modulation (mul = 1 + scale,
+    add = shift) or a LayerNorm's affine (weight, bias). One kernel on the
+    card (ops/layernorm_mod.py); on the CPU the eager expression."""
+    return layernorm_mod(x, mul, add, eps)
 
 
 def gelu_tanh(x):

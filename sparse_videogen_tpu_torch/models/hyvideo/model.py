@@ -79,14 +79,13 @@ def timestep_embedding(t, dim: int, max_period: float = 10000.0):
     return torch.cat([torch.cos(args), torch.sin(args)], dim=-1)
 
 
-def _modulate(x, shift, scale):
-    return x * (1 + scale[:, None]) + shift[:, None]
-
-
 def _norm_mod(x, eps, shift, scale):
-    """The f32 LayerNorm, the AdaLN modulation, cast back to x's dtype."""
+    """The f32 LayerNorm y, the AdaLN modulation y (1 + scale) + shift, cast
+    back to x's dtype; shift and scale (B, hidden) in the model's dtype.
+    1 + scale rounds in scale's dtype, and both factors widen to f32
+    exactly, as the f32 y promotes them."""
     with time_logging("model.norm"):
-        return _modulate(L.layer_norm_f32(x, eps), shift, scale).to(x.dtype)
+        return L.layer_norm_mod(x, eps, (1 + scale).float(), shift.float())
 
 
 def _gated(x, y, gate):

@@ -72,9 +72,10 @@ class _Attention(nn.Module):
 
 
 def _norm_mod(x, eps, scale, shift):
-    """The f32 LayerNorm, the AdaLN modulation y (1 + scale) + shift, cast back."""
+    """The f32 LayerNorm, the AdaLN modulation y (1 + scale) + shift, cast
+    back; scale and shift f32 (B, 1, dim)."""
     with time_logging("model.norm"):
-        return (L.layer_norm_f32(x, eps) * (1 + scale) + shift).to(x.dtype)
+        return L.layer_norm_mod(x, eps, (1 + scale)[:, 0], shift[:, 0])
 
 
 def _qk(y, weight, eps, heads, cos=None, sin=None):
@@ -142,7 +143,7 @@ class WanBlock(nn.Module):
         y = self._self_attention(y, cos, sin, t, layer_idx, attention, rows, generator)
         x = _gated_f32(x, y, e[:, 2:3])
         with time_logging("model.norm"):
-            y = L.layer_norm_f32(x, eps, self.norm3.weight, self.norm3.bias).to(x.dtype)
+            y = L.layer_norm_mod(x, eps, self.norm3.weight, self.norm3.bias)
         y = self._cross_attention(y, context, context_img)
         with time_logging("model.residual"):
             x = x + y

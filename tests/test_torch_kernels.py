@@ -33,9 +33,11 @@ from sparse_videogen_tpu_torch.ops.kmeans import (
     kmeans_variant_pass_plain,
 )
 from sparse_videogen_tpu_torch.ops.dense_qsplit import KERNEL_CONFIGS, dense_attn, dense_attn_plain
+from sparse_videogen_tpu_torch.ops.layernorm_mod import layernorm_mod, layernorm_mod_plain
 from sparse_videogen_tpu_torch.ops.mask_spec import MaskSpec
 from sparse_videogen_tpu_torch.ops.rmsnorm import rms_norm_kernel, rms_norm_plain
 from sparse_videogen_tpu_torch.ops.rope import rope_apply, rope_plain
+from sparse_videogen_tpu_torch.scripts.bench_layernorm_mod import mismatch
 
 
 @pytest.fixture
@@ -582,6 +584,54 @@ def test_rmsnorm_kernel_matches_plain(cuda, shape, dtype):
     assert bool(((out.float() - ref.float()).abs() <= rtol * ref.float().abs() + 1e-6).all())
 
 
+# (name, B, S, d, S of the sequence x is sliced from, vectors (d,) or (B, d))
+_LNM_CASES = [("wan-480p-cfg", 2, 32760, 1536, 32760, "Bd"), ("wan-norm3", 2, 32760, 1536, 32760, "d"),
+              ("hyvideo-720p-img", 1, 118800, 3072, 118800, "Bd"), ("hyvideo-txt", 1, 256, 3072, 256, "Bd"),
+              ("hyvideo-final-slice", 1, 118800, 3072, 119056, "Bd"), ("wan14b-d5120", 2, 3000, 5120, 3000, "Bd"),
+              ("ragged-rows-1536", 3, 1001, 1536, 1001, "Bd"), ("ragged-rows-3072", 1, 1003, 3072, 1003, "Bd")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,B,S,d,S_full,vec", _LNM_CASES, ids=[c[0] for c in _LNM_CASES])
+def test_layernorm_mod_kernel_matches_plain(cuda, name, B, S, d, S_full, vec):
+    """The fused LayerNorm + modulation on the card against its plain
+    version (bench_layernorm_mod.mismatch's tolerance: one bf16 ulp, or
+    where the modulation cancels to near 0 the gap of row statistics 2^-18
+    apart), under 0.1% of the elements different; Wan's modulation vectors
+    are rows of the (B, 6, d) table (a batch stride of 6 d), the final
+    layer's x a slice of [video | text]."""
+    g = torch.Generator(device=cuda).manual_seed(d + S)
+    xx = (torch.randn(B, S_full, d, generator=g, device=cuda) * 2 + 0.3).to(torch.bfloat16)
+    x = xx[:, :S]
+    if vec == "d":
+        mul, add = torch.rand(d, generator=g, device=cuda) + 0.5, torch.randn(d, generator=g, device=cuda)
+    else:
+        e = torch.randn(B, 6, d, generator=g, device=cuda) * 0.5
+        mul, add = 1 + e[:, 1], e[:, 0]
+    _kernels.reset_counts()
+    out = layernorm_mod(x, mul, add, 1e-6)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["layernorm_mod"] == 1 and _kernels.PLAIN_CALLS["layernorm_mod"] == 0
+    assert out.shape == (B, S, d) and out.is_contiguous()
+    ref = layernorm_mod_plain(x, mul, add, 1e-6)
+    bad, share = mismatch(out, ref, x, mul, add, 1e-6)
+    assert bad == 0 and share < 1e-3, (bad, share)
+
+
+@pytest.mark.gpu
+def test_layernorm_mod_kernel_rejects_what_it_cannot_read(cuda):
+    x = torch.zeros(2, 5, 64, device=cuda, dtype=torch.bfloat16)
+    m = torch.ones(64, device=cuda)
+    with pytest.raises(ValueError):  # d not a multiple of 8
+        layernorm_mod(x[:, :, :60].contiguous(), m[:60], m[:60], 1e-6)
+    with pytest.raises(ValueError):  # a non-unit last stride
+        layernorm_mod(torch.zeros(2, 64, 5, device=cuda, dtype=torch.bfloat16).transpose(1, 2), m, m, 1e-6)
+    with pytest.raises(ValueError):  # f32 x: the kernel takes bf16
+        layernorm_mod(x.float(), m, m, 1e-6)
+    with pytest.raises(ValueError):  # vectors on the CPU
+        layernorm_mod(x, m.cpu(), m, 1e-6)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("D", [64, 128])
 def test_rope_kernel_matches_plain(cuda, D):
@@ -627,3 +677,53 @@ def test_small_wan_forward_kernels_vs_plain(cuda, pattern):
                           generator=torch.Generator(device=dev).manual_seed(0)).cpu())
     assert ((outs[0] - outs[1]).norm() / outs[1].norm()).item() <= 3e-2
 
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family", ["wan", "hyvideo"])
+def test_small_forward_launches_layernorm_mod_at_every_norm_site(cuda, family):
+    """A tiny bf16 forward on the card launches the fused LayerNorm +
+    modulation once a `model.norm` site (Wan 3 L + 1, HunyuanVideo
+    4 double + single + 1) and runs no plain version; its output within
+    3e-2 rel L2 of the plain versions on the CPU (bf16 matmuls round at
+    other places)."""
+    from sparse_videogen_tpu_torch.models.hyvideo.model import HyVideoConfig, HyVideoModel
+    from sparse_videogen_tpu_torch.models.wan.model import WanConfig, WanModel
+    from sparse_videogen_tpu_torch.pipelines.hyvideo import hyvideo_layout, make_hyvideo_runtime
+    from sparse_videogen_tpu_torch.pipelines.wan import make_wan_runtime, wan_layout
+
+    gen = torch.Generator().manual_seed(0)
+    if family == "wan":
+        cfg = WanConfig(dim=256, ffn_dim=512, num_heads=2, num_layers=3, freq_dim=64, text_dim=64, text_len=16)
+        cpu = WanModel(cfg, dtype=torch.bfloat16).init_random(gen)
+        gpu = WanModel(cfg, dtype=torch.bfloat16, device=cuda)
+        lay = wan_layout(cfg, 96, 128, 9)
+        x = torch.randn(2, 16, lay.num_frames, 12, 16, generator=gen).to(torch.bfloat16)
+        ctx = torch.randn(2, cfg.text_len, cfg.text_dim, generator=gen).to(torch.bfloat16)
+        want = 3 * cfg.num_layers + 1
+
+        def run(model, dev):
+            rt = make_wan_runtime(lay, device=dev, pattern="dense")
+            return model(x.to(dev), torch.full((2,), 500.0, device=dev), ctx.to(dev), attention=rt)
+    else:
+        cfg = HyVideoConfig(hidden_size=256, heads_num=2, mm_double_blocks_depth=2, mm_single_blocks_depth=3,
+                            rope_dim_list=(32, 48, 48), text_states_dim=32, text_states_dim_2=24, text_len=16,
+                            mlp_width_ratio=2.0)
+        cpu = HyVideoModel(cfg, dtype=torch.bfloat16).init_random(gen)
+        gpu = HyVideoModel(cfg, dtype=torch.bfloat16, device=cuda)
+        lay = hyvideo_layout(cfg, 96, 128, 9)
+        x = torch.randn(1, 16, lay.num_frames, 12, 16, generator=gen).to(torch.bfloat16)
+        text = torch.randn(1, cfg.text_len, cfg.text_states_dim, generator=gen).to(torch.bfloat16)
+        mask = (torch.arange(cfg.text_len) < 10).to(torch.int32)[None]
+        pooled = torch.randn(1, cfg.text_states_dim_2, generator=gen).to(torch.bfloat16)
+        want = 4 * cfg.mm_double_blocks_depth + cfg.mm_single_blocks_depth + 1
+
+        def run(model, dev):
+            rt = make_hyvideo_runtime(lay, device=dev, prompt_length=10, pattern="dense")
+            return model(x.to(dev), torch.full((1,), 900.0, device=dev), text.to(dev), mask.to(dev), pooled.to(dev),
+                         guidance=torch.full((1,), 6000.0, device=dev), attention=rt)
+    gpu.load_state_dict(cpu.state_dict())
+    _kernels.reset_counts()
+    out = run(gpu, cuda).cpu()
+    assert _kernels.LAUNCHES["layernorm_mod"] == want and not any(_kernels.PLAIN_CALLS.values())
+    ref = run(cpu, torch.device("cpu"))
+    assert ((out - ref).norm() / ref.norm()).item() <= 3e-2
