@@ -119,6 +119,7 @@ class WanPipeline:
         inplace_temporal: bool = False,
         clip_fea: torch.Tensor | None = None,
         latent_cond: torch.Tensor | None = None,
+        sap_states: list | None = None,
     ):
         """Run the denoise loop from noise drawn with torch.Generator(seed) on
         the model's device (or from `latents`, of the same shape; the generator
@@ -128,7 +129,13 @@ class WanPipeline:
         every forward of both CFG streams.
         With pattern SAP, `logging_file` receives the per-(step, layer) density
         of the cond stream as JSONL (utils/density.py). mesh and
-        inplace_temporal go to make_wan_runtime."""
+        inplace_temporal go to make_wan_runtime.
+        `sap_states` (pattern SAP): a list of the two streams' k-means carries
+        [cond, uncond], each {layer: SAPState}, e.g. [{}, {}] or what an
+        earlier video left there. The video starts from them (a carried layer
+        runs kmeans_iter_step Lloyd passes from its centroids at its first
+        sparse step) and leaves its states in the same list, after every
+        forward. None: every video starts cold, as without the argument."""
         device = self.model.patch_embedding.weight.device
         gen = torch.Generator(device=device).manual_seed(seed)
         shape = (1, self.model.cfg.out_dim, 1 + (num_frames - 1) // VAE_TEMPORAL,
@@ -144,19 +151,20 @@ class WanPipeline:
             num_inference_steps=num_inference_steps, guidance_scale=guidance_scale, flow_shift=flow_shift,
             sampler=sampler, pattern=pattern, first_layers_fp=first_layers_fp, first_times_fp=first_times_fp, svg=svg, sap=sap,
             generator=gen, callback=callback, logging_file=logging_file, mesh=mesh,
-            inplace_temporal=inplace_temporal, clip_fea=clip_fea, latent_cond=latent_cond,
+            inplace_temporal=inplace_temporal, clip_fea=clip_fea, latent_cond=latent_cond, sap_states=sap_states,
         )
 
     def _denoise(self, context, context_null, lat, *, height, width, num_frames, num_inference_steps,
                  guidance_scale, flow_shift, pattern, first_layers_fp, first_times_fp, svg, sap=SAPConfig(),
                  sampler="unipc",
                  generator=None, profile_rows=None, kmeans_init=None, callback=None, logging_file=None, mesh=None,
-                 inplace_temporal=False, clip_fea=None, latent_cond=None):
+                 inplace_temporal=False, clip_fea=None, latent_cond=None, sap_states=None):
         """The loop behind generate_latents, from the given initial latents.
         `profile_rows[step][layer]` hands the SVG1 profiler fixed rows, and
         `kmeans_init[step][stream][layer]` = (q indices, k indices) hands SAP's
         cold-start k-means its token draws (stream 0 cond, 1 uncond), instead
-        of drawing them from `generator` (tests hand in the JAX package's)."""
+        of drawing them from `generator` (tests hand in the JAX package's).
+        `sap_states`: generate_latents' carry, read and written in place."""
         model = self.model
         cfgm = model.cfg
         device, dtype = model.patch_embedding.weight.device, model.patch_embedding.weight.dtype
@@ -168,7 +176,8 @@ class WanPipeline:
                                        mesh=mesh, inplace_temporal=inplace_temporal)
         sap_mode = is_sap(runtime)
         dlog = DensityLogger(logging_file if sap_mode else None)
-        stream_states = [{}, {}]  # SAP: layer -> SAPState, per CFG stream
+        # SAP: layer -> SAPState, per CFG stream
+        stream_states = [{}, {}] if sap_states is None else sap_states
         ctx_pair = torch.cat([context, context_null], dim=0).to(device)
         lat = lat.to(device)
         if latent_cond is not None:

@@ -12,7 +12,8 @@ SAP carries a k-means state per layer. JAX threads it through the forward
 as an argument; here the runtime holds the states of the stream it runs
 (`SAPRuntime.states`, layer -> SAPState), and the pipeline swaps in each
 CFG stream's own before that stream's forward, so the call signature above
-stays the same for every pattern.
+stays the same for every pattern. `SAPRuntime.record`, set to a dict, gets
+each sparse cluster-mode layer's decisions (svg2.SAPDecisions) by layer.
 """
 
 from __future__ import annotations
@@ -90,6 +91,9 @@ class SAPRuntime(DenseRuntime):
     starts cold); `kmeans_init`, when set, maps a layer to the (q, k)
     cold-start token indices for the next forward (tests hand in the JAX
     package's draws); otherwise they are drawn from the forward's generator.
+    `record`: None, or a dict that each sparse layer's call fills with its
+    decisions (layer -> svg2.SAPDecisions, on the device) until it is set
+    back to None; a benchmark's judge reads them.
     On a text-last layout (HunyuanVideo) the warm-up runs the plan's
     `hyvideo` kind with aux[0] = video_length + context_length, as the JAX
     package's SAPRuntime does (its prompt_length is None), so the warm-up
@@ -103,20 +107,21 @@ class SAPRuntime(DenseRuntime):
         self.warmup = warmup
         self.states: dict[int, SAPState] = {}
         self.kmeans_init = None
+        self.record: dict | None = None
 
     def is_dense(self, layer_idx: int, t: float) -> bool:
         return layer_idx < self.warmup.first_layers or t > self.warmup.first_times
 
-    def attend(self, q, k, v, t, layer_idx, state: SAPState | None, generator=None, init_idx=None):
+    def attend(self, q, k, v, t, layer_idx, state: SAPState | None, generator=None, init_idx=None, keep=None):
         """One layer from `state` (None: cold), without touching `states`:
-        returns (out, new_state)."""
+        returns (out, new_state). `keep` goes to svg2.sap_attention."""
         if state is None:
             B, H, S, D = q.shape
             state = init_sap_state(B * H, D, self.cfg, device=q.device)
         return sap_attention(
             q, k, v, t, state, layout=self.plan.layout, cfg=self.cfg, warmup=self.warmup, layer_idx=layer_idx,
             dense_fn=lambda q_, k_, v_: dense_impl(q_, k_, v_, self.dense_meta, self.plan, self.aux),
-            generator=generator, init_idx=init_idx)
+            generator=generator, init_idx=init_idx, keep=keep)
 
     def clusters(self, layer_idx: int, t: float) -> bool:
         """Whether this call runs k-means (and so draws a cold start)."""
@@ -125,9 +130,12 @@ class SAPRuntime(DenseRuntime):
         return not (self.cfg.block_mode == "tile" and self.cfg.tile_order == "pc1")
 
     def __call__(self, q, k, v, t, layer_idx, rows=None, generator=None):
+        keep = None if self.record is None else []
         out, self.states[layer_idx] = self.attend(
             q, k, v, t, layer_idx, self.states.get(layer_idx), generator,
-            None if self.kmeans_init is None else self.kmeans_init[layer_idx])
+            None if self.kmeans_init is None else self.kmeans_init[layer_idx], keep)
+        if keep:
+            self.record[layer_idx] = keep[0]
         return out
 
 

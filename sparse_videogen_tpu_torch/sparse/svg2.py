@@ -12,6 +12,8 @@ tokens become two more clusters (or, in tile mode, two more tiles).
 
 The k-means warm start is an explicit carry (SAPState), one per attention
 layer and stream, threaded through the denoising loop by the runtime.
+Asked to (`keep`), cluster mode hands out its decisions (SAPDecisions: the
+labels, sizes and map that the run lists encode), left on the device.
 `force_density` pins the dynamic map to a prefix of the key clusters, as
 the JAX package's benchmarks do. Text-first layouts (CogVideoX) raise
 NotImplementedError.
@@ -33,6 +35,7 @@ from sparse_videogen_tpu_torch.core.dynamic_map import density_calculation, iden
 from sparse_videogen_tpu_torch.core.kmeans import batch_kmeans, init_centroids
 from sparse_videogen_tpu_torch.ops import metadata as MD
 from sparse_videogen_tpu_torch.ops.attention import block_sparse_attention_kv, block_sparse_attention_runs
+from sparse_videogen_tpu_torch.utils import timer
 from sparse_videogen_tpu_torch.utils.timer import time_logging
 
 
@@ -49,6 +52,20 @@ class SAPState:
     k_centroids: torch.Tensor  # (B*H, KC, D)
     initialized: bool
     last_density: torch.Tensor  # (B*H,) f32
+
+
+@dataclasses.dataclass
+class SAPDecisions:
+    """What cluster mode decided for one layer, as the run-list attention
+    received it: after the KV relabel (and, text last, with the prompt and
+    padding clusters), token i of head h attends token j exactly where
+    dyn[h, qlab[h, i], klab[h, j]]."""
+
+    qlab: torch.Tensor  # (BH, S) integer: the query cluster of each token
+    klab: torch.Tensor  # (BH, S) integer: the key cluster of each token
+    qsz: torch.Tensor  # (BH, QC) tokens a query cluster
+    ksz: torch.Tensor  # (BH, KC) tokens a key cluster
+    dyn: torch.Tensor  # (BH, QC, KC) bool, the map
 
 
 def init_sap_state(batch_heads: int, head_dim: int, cfg: SAPConfig, device="cpu") -> SAPState:
@@ -81,11 +98,13 @@ def _kmeans_with_warmstart(x, n_clusters, state_centroids, initialized, cfg: SAP
     """Warm: kmeans_iter_step iterations from the carried centroids. Cold:
     random tokens (init_idx, else drawn from generator), kmeans_iter_init
     iterations."""
+    iters = cfg.kmeans_iter_step if initialized else cfg.kmeans_iter_init
+    if timer.counting():
+        timer.count(f"sap.lloyd.{n_clusters}", iters)
     if initialized:
-        return batch_kmeans(x, n_clusters, cfg.kmeans_iter_step, state_centroids.to(x.dtype),
-                            metric=cfg.kmeans_metric)
+        return batch_kmeans(x, n_clusters, iters, state_centroids.to(x.dtype), metric=cfg.kmeans_metric)
     init = init_centroids(x, n_clusters, generator, idx=init_idx)
-    return batch_kmeans(x, n_clusters, cfg.kmeans_iter_init, init, metric=cfg.kmeans_metric)
+    return batch_kmeans(x, n_clusters, iters, init, metric=cfg.kmeans_metric)
 
 
 def sap_cluster(q, k, state: SAPState, cfg: SAPConfig, generator=None, init_idx=None):
@@ -263,6 +282,7 @@ class SAPKernelArgs:
     state: SAPState
     density: torch.Tensor  # (B, H)
     kernel: str = "runs"
+    decisions: SAPDecisions | None = None  # cluster mode
 
 
 def _text_last(layout: VideoLayout) -> bool:
@@ -312,6 +332,9 @@ def _map_and_density(qcent, kcent, qsz, ksz, state, B, H, cfg):
                                        qsz.reshape(B, H, QC), ksz.reshape(B, H, KC), cfg.top_p_kmeans,
                                        cfg.min_kc_ratio)
         density = density_calculation(dyn, qsz.reshape(B, H, QC), ksz.reshape(B, H, KC))
+        if timer.counting():
+            # the real pairs the map allows (density's numerator), exact in int64
+            timer.count("sap.pairs", ((dyn * ksz.reshape(B, H, 1, KC)).sum(-1) * qsz.reshape(B, H, QC)).sum())
     return dyn.reshape(B * H, QC, KC), density, dataclasses.replace(state, last_density=density.reshape(-1).float())
 
 
@@ -342,7 +365,12 @@ def _cluster_prepare(qf, kf, vf, qside, kside, state, B, H, layout, cfg) -> SAPK
     blk = qmaps["block_to_cluster"]
     meta = meta_c.gather(1, blk[..., None].expand(-1, -1, meta_c.shape[-1])).contiguous()
     meta[..., 0] = torch.where(qmaps["kv_counts"] > 0, meta[..., 0], 0)  # blocks with no real token
-    return SAPKernelArgs(qp, kp, vp, meta, qmaps["pos"], new_state, density, "runs")
+    if timer.counting():
+        # the rows of the q blocks that hold a real token: each cluster padded to block_q
+        timer.count("sap.q_rows", (-(-qsz.long() // bq) * bq).sum())
+        timer.count("sap.q_real", BH * S)
+    return SAPKernelArgs(qp, kp, vp, meta, qmaps["pos"], new_state, density, "runs",
+                         SAPDecisions(qlab, klab, qsz, ksz, dyn_f))
 
 
 # the static index tensors of a tile layout, made once per (layout, blocks,
@@ -437,12 +465,15 @@ def _tile_prepare(qf, kf, vf, qkeys, kkeys, state, B, H, layout, cfg) -> SAPKern
 
 
 def sap_sparse_attention(q, k, v, state: SAPState, *, layout: VideoLayout, cfg: SAPConfig, generator=None,
-                         init_idx=None):
+                         init_idx=None, keep=None):
     """The sparse branch. q, k, v (B, H, S, D) -> (out, new_state).
 
     Any B works (the problems are batched over B*H); the pipeline runs B = 1
-    per CFG stream, as the reference requires."""
+    per CFG stream, as the reference requires. `keep`: a list that gets the
+    call's SAPDecisions appended (cluster mode)."""
     a = sap_prepare(q, k, v, state, layout=layout, cfg=cfg, generator=generator, init_idx=init_idx)
+    if keep is not None and a.decisions is not None:
+        keep.append(a.decisions)
     attend = block_sparse_attention_kv if a.kernel == "csr" else block_sparse_attention_runs
     out_pad = attend(a.q, a.k, a.v, a.meta, block_q=cfg.block_q, block_kv=cfg.block_kv)
     with time_logging("sap.permute"):
@@ -451,11 +482,11 @@ def sap_sparse_attention(q, k, v, state: SAPState, *, layout: VideoLayout, cfg: 
 
 
 def sap_attention(q, k, v, timestep: float, state: SAPState, *, layout: VideoLayout, cfg: SAPConfig,
-                  warmup: WarmupSchedule, layer_idx: int, dense_fn, generator=None, init_idx=None):
+                  warmup: WarmupSchedule, layer_idx: int, dense_fn, generator=None, init_idx=None, keep=None):
     """SAP with the dense warm-up: layers < warmup.first_layers and steps with
     timestep > warmup.first_times run dense_fn(q, k, v); with
     zero_step_kmeans_init they also cluster, so the first sparse step starts
-    warm. Returns (out, new_state)."""
+    warm. `keep` goes to sap_sparse_attention. Returns (out, new_state)."""
     if layer_idx < warmup.first_layers or timestep > warmup.first_times:
         if cfg.zero_step_kmeans_init:
             B, H, S, D = q.shape
@@ -463,4 +494,5 @@ def sap_attention(q, k, v, timestep: float, state: SAPState, *, layout: VideoLay
             qv, kv_ = (x[:, :, :vid].reshape(B * H, vid, D).contiguous() for x in (q, k))
             _, _, state = sap_cluster(qv, kv_, state, cfg, generator, init_idx)
         return dense_fn(q, k, v), state
-    return sap_sparse_attention(q, k, v, state, layout=layout, cfg=cfg, generator=generator, init_idx=init_idx)
+    return sap_sparse_attention(q, k, v, state, layout=layout, cfg=cfg, generator=generator, init_idx=init_idx,
+                                keep=keep)

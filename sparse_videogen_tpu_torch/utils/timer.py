@@ -30,9 +30,21 @@ The regions and the metrics that read them (svgbench/metrics/):
   model.qk        q/k RMSNorm, RoPE, [video | text]     qk_ms
   model.residual  gated residual adds and their casts   residual_ms
   video.plan      make_*_runtime (host clock)
-  sap.kmeans, sap.map, sap.permute: SAP's k-means, map and density, and
-  permutations
+  sap.kmeans      SAP's k-means, q and k sides          sap_kmeans_ms
+  sap.map         SAP's dynamic map and its density     sap_map_ms
+  sap.permute     SAP's permutations and their inverse  sap_permute_ms
 `profiler_trace` captures a torch.profiler trace in Chrome's format.
+
+Counters (`count(label, value)`) record under the same two conditions,
+beside the regions: an int adds on the host, a tensor (a count the device
+computed) adds on the device, and nothing is read until a log is read
+(`counted_log`, `get_counts`), so a step never waits for them. Compute a
+counter's tensor only where `counting()` is true: off, it costs nothing.
+  sap.pairs       real (query, key) pairs SAP's maps allow  svgbench's SAP counts
+  sap.q_rows      q rows in the q blocks the run-list kernel computes (each
+                  cluster's rows padded to block_q)         sap_q_pad
+  sap.q_real      real q rows (heads x tokens)              sap_q_pad
+  sap.lloyd.<K>   Lloyd passes of a K-centroid k-means call kmeans_roofline
 """
 
 from __future__ import annotations
@@ -57,6 +69,8 @@ _POOL = []  # read CUDA events, free to record again
 _SETTLE_AT = 256
 _LOCK = threading.Lock()
 _OFF = contextlib.nullcontext()
+_CTR = {}  # TIME_BENCH's counters: label -> int or device tensor
+_PROF_CTR = {}  # counted while a profiler ran
 
 
 def enabled() -> bool:
@@ -105,6 +119,38 @@ def time_logging(label: str, *, host: bool = False):
     if not (prof or bench):
         return _OFF
     return _region(label, host, bench, prof)
+
+
+def counting() -> bool:
+    """Whether a counter records now (TIME_BENCH, or a running profiler)."""
+    return _profiler_enabled() or enabled()
+
+
+def count(label: str, value) -> None:
+    """Add `value` (an int, or a tensor on any device) to the counter
+    `label` of each log that records now; a tensor adds on its device, with
+    no synchronize."""
+    for on, log in ((enabled(), _CTR), (_profiler_enabled(), _PROF_CTR)):
+        if on:
+            log[label] = log[label] + value if label in log else value
+
+
+def _read_counts(log: dict, clear: bool) -> dict:
+    out = {k: float(v) for k, v in log.items()}
+    if clear:
+        log.clear()
+    return out
+
+
+def get_counts(clear: bool = False) -> dict:
+    """TIME_BENCH's counters, {label: value}."""
+    return _read_counts(_CTR, clear)
+
+
+def counted_log(clear: bool = False) -> dict:
+    """The counters recorded while a profiler ran, {label: value}; `clear`
+    empties them after reading."""
+    return _read_counts(_PROF_CTR, clear)
 
 
 def _settle(wait: bool = True) -> None:
@@ -170,6 +216,7 @@ def profiler_trace(logdir: str | None = None):
     os.makedirs(logdir, exist_ok=True)
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if torch.cuda.is_available() else [])
     profiled_log(clear=True)
+    counted_log(clear=True)
     with profile(activities=acts) as prof:
         yield logdir
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
