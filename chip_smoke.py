@@ -525,6 +525,9 @@ def phase_build():
         got = [r for r in rows if r["kernel"] == kernel]
         if len(got) != want or any(r["spill_stores"] or r["spill_loads"] for r in got):
             raise AssertionError(f"{kernel} instances: expected {want} without spills, got {got}")
+        # K3/K4 (packed stages and the chunk walk in one instance) within the launch bound beside K1's
+        if kernel.startswith("runs") and any(r["registers"] > 168 for r in got):
+            raise AssertionError(f"{kernel} instances: more than 168 registers: {got}")
 
 
 def slice_layout(preset="1.3B-480p"):
@@ -944,12 +947,16 @@ def runs_masked_sdpa(name, spec, metas, pos, block_q, checked, kernel_out):
 
 
 def live_column_share(meta, block_kv, n_walk=8) -> dict:
-    """How much of each 128-token K/V tile the run-list kernel loads is live:
-    runs_tile_stats over every row, held to the kernel's walk model
-    (runs_tile_walk) on the n_walk rows that load most tiles."""
-    from sparse_videogen_tpu_torch.ops.attention import runs_tile_stats, runs_tile_walk
+    """How much of the K/V the run-list kernels stage is live: K4's 128-token
+    tiles (runs_tile_stats over every row, held to its walk model
+    runs_tile_walk) and K3's packed 128-row stages (runs_packed_stats, held
+    to runs_packed_walk), each model on the n_walk rows that load most
+    tiles."""
+    from sparse_videogen_tpu_torch.ops.attention import (runs_packed_stats, runs_packed_walk, runs_tile_stats,
+                                                         runs_tile_walk)
 
     live, loaded = runs_tile_stats(meta)
+    _, stages = runs_packed_stats(meta)
     m = meta.cpu().numpy()
     walked = live > 0
     runs = torch.as_tensor((m[..., 2::2] > m[..., 1::2]).sum(-1)).to(live.device)
@@ -959,9 +966,13 @@ def live_column_share(meta, block_kv, n_walk=8) -> dict:
         tiles = runs_tile_walk(m[r, b], block_kv)
         if (sum(hi - lo for _, lo, hi in tiles), len(tiles)) != (int(live[r, b]), int(loaded[r, b])):
             raise AssertionError(f"runs_tile_stats disagrees with runs_tile_walk on row ({r}, {b})")
+        packed = runs_packed_walk(m[r, b], block_kv)
+        if (sum(n for st in packed for _, n in st), len(packed)) != (int(live[r, b]), int(stages[r, b])):
+            raise AssertionError(f"runs_packed_stats disagrees with runs_packed_walk on row ({r}, {b})")
     n_rows = max(int(walked.sum()), 1)
     return {"live": int(live.sum()), "loaded": 128 * int(loaded.sum()),
             "share": int(live.sum()) / max(128 * int(loaded.sum()), 1), "tiles_per_row": int(loaded.sum()) / n_rows,
+            "packed": 128 * int(stages.sum()), "packed_share": int(live.sum()) / max(128 * int(stages.sum()), 1),
             "runs_per_row": int(runs[walked].sum()) / n_rows, "rows_walked": len(rows)}
 
 
@@ -1009,7 +1020,9 @@ def phase_sap_attention(dev, preset="1.3B-480p", all_checks=True):
     share = live_column_share(a.meta, sap.block_kv)
     log("kernels", f"SAP run lists ({preset}): {share['live']} live of {share['loaded']} loaded 128-token tile "
                    f"columns, live share {share['share']:.4f}; {share['tiles_per_row']:.1f} tiles a walked row, "
-                   f"{share['runs_per_row']:.1f} runs (runs_tile_walk on {share['rows_walked']} rows agrees)")
+                   f"{share['runs_per_row']:.1f} runs; K3 stages {share['packed']} packed rows, live share "
+                   f"{share['packed_share']:.4f} (runs_tile_walk and runs_packed_walk on {share['rows_walked']} rows "
+                   f"agree)")
     specs = (("none", MaskSpec()), ("band_sink", make_svg1_plan(lay).mask_spec)) if all_checks else (
         ("none", MaskSpec()),)
     entry = None

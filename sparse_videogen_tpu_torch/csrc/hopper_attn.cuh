@@ -30,6 +30,19 @@
 //                  once), and band_sink_perm is KIND_BAND_SINK's band and sink
 //                  on p. A chunk is one K/V slab (SlabChunks); rows are
 //                  stored to token (p % F) * frame_size + p / F.
+//   MODE_PACKED    K3's run lists without a predicate (csrc/runs_attn.cu
+//                  RunBoxes): each K/V stage is 8 slots of PACK_BOX rows,
+//                  filled with the row's runs back to back, each run cut
+//                  into slots from its first token, so a stage holds live
+//                  keys of as many runs as fit and a run's last slot at most
+//                  PACK_BOX - 1 keys past its end. The slots of one run in
+//                  one stage load as one TMA box of 1, 2, 4 or 8 slots each
+//                  (a binary split of their count), from 3-D tensor maps
+//                  (D, Skv, batch*head) at the run's own token (any row;
+//                  rows past Skv arrive as zeros): tm_k[l] and tm_v[l] box
+//                  2^l slots. A stage's slots past the row's last run are
+//                  zeros. The consumers mask each slot's rows past its run's
+//                  end, deriving the slots from the same walk.
 //
 // Numerics (the TPU kernels' of K1, K3, K4): q pre-scaled by
 // scale*log2(e) and rounded to bf16, the online softmax in f32 in the exp2 domain, P rounded to bf16 for
@@ -73,6 +86,12 @@
 // sequence, so it must depend on nothing but the metadata. A tile is
 // loaded from s0 + (lo & ~127) in 128-token steps up to hi; every tile
 // start is a multiple of 128, and a tile at or past hi is not loaded.
+// MODE_PACKED's source has instead a Cursor type, whose members p and b
+// are the current run's next token and its end, and
+//   void start(Cursor&) const              the cursor at the row's first run
+//   bool more(const Cursor&) const         whether a token is left
+//   void advance(Cursor&, int slots) const past that many slots of the run
+//                                          (to the next run once past b)
 
 #pragma once
 
@@ -95,7 +114,12 @@ constexpr int ROW_BYTES = 128;  // one 64-column box row, the 128B swizzle span
 constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
 constexpr float NEG_INF = -0.7f * 3.402823466e38f;
 constexpr float LOG2E = 1.4426950408889634f;
-constexpr int MODE_NAT = 1, MODE_PINGPONG = 2, MODE_STATS = 4, MODE_SLAB = 8;
+constexpr int MODE_NAT = 1, MODE_PINGPONG = 2, MODE_STATS = 4, MODE_SLAB = 8, MODE_PACKED = 16;
+// MODE_PACKED's slot: a multiple of 8 rows (1024 bytes), so every box lands on
+// a swizzle period and the wgmma descriptors read a stage as one tile; the
+// consumers' column mask takes 4 bits a slot (16 rows), 8 slots a stage
+constexpr int PACK_BOX = 16;
+static_assert(PACK_BOX == 16 && BK == 8 * PACK_BOX, "packed slots");
 
 // PP: the ping-pong ring (MODE_PINGPONG): 3 stages at D = 128 and a
 // separate empty barrier for the K and the V of each stage
@@ -150,6 +174,16 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, u
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(
           dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// a 64-column box at (column c0, row c1, batch*head c2) of a 3-D tensor map (MODE_PACKED)
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5}], "
+      "[%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
 }
 
@@ -294,15 +328,32 @@ struct RowState {
 // SLAB (MODE_SLAB): the tile is a slab whose columns [hi, BK) are padding
 // (lo == t0 == 0); hi > 64 unless cls == TILE_SOME, so a tile without the
 // predicate masks only its upper half.
-template <int D, int KIND, bool MASKED, bool NAT = false, bool SLAB = false>
+// PACKED (MODE_PACKED): cls is instead a bit a slot (the same in every
+// thread), set where the slot has a masked column; there the columns whose
+// bit in `live` is clear are masked. Bit 2 * (i / 4) + (i & 1) of `live`
+// is the column of s[i] (8 * (i / 4) + 2 * t4 + (i & 1)): 4 bits a slot,
+// its columns 2 t4, 2 t4 + 1, 2 t4 + 8, 2 t4 + 9; s[8 k .. 8 k + 7] are
+// slot k's.
+template <int D, int KIND, bool MASKED, bool NAT = false, bool SLAB = false, bool PACKED = false>
 __device__ __forceinline__ void attend_tile(float (&acc)[D / 2], float (&s)[64], RowState& st, uint32_t q_addr,
                                             uint32_t k_addr, uint32_t v_addr, uint32_t v_bar, uint32_t phase, int t0,
-                                            int lo, int hi, int cls, const MaskArgs& mk, int qp0, int kbase, int t4) {
+                                            int lo, int hi, int cls, const MaskArgs& mk, int qp0, int kbase, int t4,
+                                            uint32_t live = 0) {
   qk_gemm<D>(s, q_addr, k_addr);
   wg_wait0();
   reg_fence(s);
 
-  if constexpr (SLAB) {
+  if constexpr (PACKED) {
+#pragma unroll
+    for (int k = 0; k < BK / PACK_BOX; ++k) {
+      if (cls & (1 << k)) {
+#pragma unroll
+        for (int i = 8 * k; i < 8 * k + 8; ++i) {
+          if (!((live >> (2 * (i / 4) + (i & 1))) & 1u)) s[i] = NEG_INF;
+        }
+      }
+    }
+  } else if constexpr (SLAB) {
     if (cls == TILE_SOME) {
 #pragma unroll
       for (int i = 0; i < 64; ++i) {
@@ -554,8 +605,10 @@ __device__ __forceinline__ void attn_cta(const CUtensorMap* tm_q, const CUtensor
                                          float* __restrict__ m_out = nullptr, float* __restrict__ l_out = nullptr) {
   constexpr bool NAT = (MODE & MODE_NAT) != 0, PP = (MODE & MODE_PINGPONG) != 0;
   constexpr bool STATS = (MODE & MODE_STATS) != 0, SLAB = (MODE & MODE_SLAB) != 0;
+  constexpr bool PACKED = (MODE & MODE_PACKED) != 0;
   static_assert(!(STATS && (NAT || PP)), "stats come with K1/K3/K4's numerics and schedule");
   static_assert(!(SLAB && (NAT || PP)), "slabs come with K1's numerics and schedule");
+  static_assert(!(PACKED && (NAT || PP || SLAB)), "packed stages come with K3's numerics and schedule");
   using LY = Layout<D, PP>;
   constexpr int STAGES = LY::STAGES;
   extern __shared__ unsigned char smem_raw[];
@@ -627,6 +680,52 @@ __device__ __forceinline__ void attn_cta(const CUtensorMap* tm_q, const CUtensor
             phase ^= 1;
           }
         });
+      }
+    } else if constexpr (PACKED) {
+      if (threadIdx.x == 0) {
+        mbar_expect_tx(q_full, LY::Q_BYTES);
+#pragma unroll
+        for (int cb = 0; cb < D / 64; ++cb) tma_load(sq + cb * BQ * ROW_BYTES, tm_q, q_full, cb * 64, bh * Sq + q0);
+        int stage = 0;
+        uint32_t phase = 0;
+        typename Chunks::Cursor cur;
+        chunks.start(cur);
+        while (chunks.more(cur)) {
+          mbar_wait(empty(stage), phase ^ 1);
+          const uint32_t ks = base + LY::K_OFF + stage * LY::TILE_BYTES;
+          const uint32_t vs = base + LY::V_OFF + stage * LY::TILE_BYTES;
+          mbar_expect_tx(full_k(stage), LY::TILE_BYTES);
+          mbar_expect_tx(full_v(stage), LY::TILE_BYTES);
+          // the stage's slots j, run segment by run segment: m slots of a run
+          // (or, past the row's last run, the rest as zeros from row Skv) in
+          // boxes of 8, 4, 2, 1 slots
+          for (int j = 0; j < BK / PACK_BOX;) {
+            int tok = Skv, m = BK / PACK_BOX - j;
+            const bool run = chunks.more(cur);
+            if (run) {
+              tok = cur.p;
+              m = min(m, (cur.b - cur.p + PACK_BOX - 1) / PACK_BOX);
+              chunks.advance(cur, m);
+            }
+#pragma unroll
+            for (int l = 3; l >= 0; --l) {
+              if (m & (1 << l)) {
+                const uint32_t row = j * PACK_BOX * ROW_BYTES;
+#pragma unroll
+                for (int cb = 0; cb < D / 64; ++cb) {
+                  tma_load_3d(ks + cb * BK * ROW_BYTES + row, tm_k + l, full_k(stage), cb * 64, tok, bh);
+                  tma_load_3d(vs + cb * BK * ROW_BYTES + row, tm_v + l, full_v(stage), cb * 64, tok, bh);
+                }
+                if (run) tok += PACK_BOX << l;
+                j += 1 << l;
+              }
+            }
+          }
+          if (++stage == STAGES) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
       }
     } else if (threadIdx.x == 0) {
       mbar_expect_tx(q_full, LY::Q_BYTES);
@@ -719,6 +818,42 @@ __device__ __forceinline__ void attn_cta(const CUtensorMap* tm_q, const CUtensor
           phase ^= 1;
         }
       });
+    } else if constexpr (PACKED) {
+      // a stage's slots from the producer's walk, run segment by run segment:
+      // m slots of a run, all live but the last, whose live rows are `last`;
+      // `part` marks the slots with a masked column: a segment's last slot
+      // short of PACK_BOX and the slots past the row's last run (the same in
+      // every thread)
+      typename Chunks::Cursor cur;
+      chunks.start(cur);
+      const int c0 = 2 * t4;
+      while (chunks.more(cur)) {
+        uint32_t live = 0;
+        int part = 0;
+        int j = 0;
+        while (j < BK / PACK_BOX && chunks.more(cur)) {
+          const int left = cur.b - cur.p;
+          const int m = min(BK / PACK_BOX - j, (left + PACK_BOX - 1) / PACK_BOX);
+          const int last = min(left - PACK_BOX * (m - 1), PACK_BOX);
+          live |= ((1u << (4 * (m - 1))) - 1u) << (4 * j);
+          live |= ((uint32_t)(c0 < last) | (uint32_t)(c0 + 1 < last) << 1 | (uint32_t)(c0 + 8 < last) << 2 |
+                   (uint32_t)(c0 + 9 < last) << 3)
+                  << (4 * (j + m - 1));
+          part |= (last < PACK_BOX) << (j + m - 1);
+          chunks.advance(cur, m);
+          j += m;
+        }
+        part |= (0xff << j) & 0xff;
+        mbar_wait(full_k(stage), phase);
+        attend_tile<D, KIND, false, false, false, true>(
+            acc, s, st, q_addr, base + LY::K_OFF + stage * LY::TILE_BYTES, base + LY::V_OFF + stage * LY::TILE_BYTES,
+            full_v(stage), phase, 0, 0, BK, part, mk, qp0, 0, t4, live);
+        if (lane == 0) mbar_arrive(empty(stage));
+        if (++stage == STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
     } else {
 
     auto release = [&]() {

@@ -50,6 +50,7 @@ from sparse_videogen_tpu_torch.ops.metadata import (ENTRY_SCALE, N_CHEAP_SCALE, 
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 LOG2E = 1.4426950408889634
 BQ = 128  # q rows per CTA of both kernels; divides every block_q they accept
+RUN_BOX = 16  # tokens a K/V slot of K3's packed stages (csrc/hopper_attn.cuh PACK_BOX)
 # mask kinds each Hopper kernel evaluates, as the kernels number them
 # (csrc/mask_pred.cuh: KIND_BAND_SINK, KIND_HYVIDEO, KIND_COG,
 # KIND_BAND_SINK_PERM; 0 runs no predicate). band_sink_perm stands for the
@@ -552,8 +553,9 @@ def run_chunks(meta_row, block_kv: int):
 
 
 def runs_tile_walk(meta_row, block_kv: int):
-    """A model of the run-list kernel's walk over one metadata row
-    (csrc/runs_attn.cu RunChunks, then the tile loop of csrc/hopper_attn.cuh):
+    """A model of K4's walk (the run-list kernel with a MaskSpec) over one
+    metadata row (csrc/runs_attn.cu RunChunks, then the tile loop of
+    csrc/hopper_attn.cuh):
     two passes over the runs, full chunks then edge chunks, stopping after
     the row's n chunks; chunk k of run [a, b) starts at s0 = floor128(a) +
     k * block_kv with live columns [lo, hi) relative to s0, and is loaded in
@@ -595,6 +597,55 @@ def runs_tile_stats(meta):
     walked = m[..., 0] > 0
     tiles = torch.where(b > a, -(-b // SUB) - a // SUB, 0)
     return (b - a).sum(-1) * walked, tiles.sum(-1) * walked
+
+
+def _run_cut(meta_row, block_kv: int):
+    """The runs [a, b) whose tokens a row visits (run_chunks' tokens), in
+    run order: each listed run cut at the row's n chunks, empty runs left
+    out (csrc/runs_attn.cu RunBoxes.next_run)."""
+    n = int(meta_row[0])
+    c, runs = 0, []
+    for e in range((len(meta_row) - 1) // 2):
+        if c >= n:
+            break
+        a, b = int(meta_row[1 + 2 * e]), int(meta_row[2 + 2 * e])
+        base, n_run = a & ~(SUB - 1), _run_chunks(a, b, block_kv)
+        end = min(b, base + (n - c) * block_kv) if c + n_run > n else b
+        c += n_run
+        if end > a:
+            runs.append((a, end))
+    return runs
+
+
+def runs_packed_walk(meta_row, block_kv: int):
+    """A model of K3's packed walk over one metadata row (mask kind none;
+    csrc/runs_attn.cu RunBoxes, MODE_PACKED of csrc/hopper_attn.cuh): the
+    row's runs as run_chunks cuts them, in run order, each in slots of
+    RUN_BOX tokens from its first token; the slots fill the 128-row K/V
+    stages back to back (the kernel loads a run's slots in one stage as
+    boxes of 8, 4, 2 and 1 slots). Returns one list per stage of
+    BQ // RUN_BOX slots (first token, live rows): the slot's rows [first,
+    first + RUN_BOX) are loaded (rows past the K/V's end as zeros) and its
+    first `live` are the run's tokens, the rest masked columns; a slot past
+    the row's last run is (None, 0), loaded as zeros and masked."""
+    slots = [(p, min(RUN_BOX, b - p)) for a, b in _run_cut(meta_row, block_kv) for p in range(a, b, RUN_BOX)]
+    per = BQ // RUN_BOX
+    slots += [(None, 0)] * (-len(slots) % per)
+    return [slots[i:i + per] for i in range(0, len(slots), per)]
+
+
+def runs_packed_stats(meta):
+    """(live tokens, packed 128-row stages) per run-list metadata row, (R,
+    nQ) int64 each, as runs_packed_walk counts them when n is 0 or the
+    chunk count of every listed run (run_meta's, SAP's): ceil(sum of
+    ceil((b - a) / RUN_BOX) / (BQ / RUN_BOX)) stages. Plain tensor ops on
+    meta's device, in its int32 until the int64 sums."""
+    cap = (meta.shape[2] - 1) // 2
+    a, b = meta[..., 1:1 + 2 * cap:2], meta[..., 2:2 + 2 * cap:2]
+    walked = meta[..., 0] > 0
+    slots = torch.where(b > a, (b - a + RUN_BOX - 1) // RUN_BOX, 0).sum(-1, dtype=torch.int64)
+    per = BQ // RUN_BOX
+    return (b - a).sum(-1, dtype=torch.int64) * walked, (slots + per - 1) // per * walked
 
 
 def block_sparse_attention_runs_plain(q, k, v, meta, aux=None, *, block_q: int, block_kv: int,

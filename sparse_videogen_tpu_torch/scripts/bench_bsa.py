@@ -2,6 +2,7 @@
 attention) at the shapes chip_smoke.py checks them, timed on one GPU.
 
     python -m sparse_videogen_tpu_torch.scripts.bench_bsa [--iters 3] [--out bsa.json]
+    python -m sparse_videogen_tpu_torch.scripts.bench_bsa --cases k3_organic
 
 Cases, each on the metadata of the pipeline's own runtime and random bf16
 q, k, v from a seed:
@@ -27,6 +28,16 @@ the real q rows need, the share of the loaded 128-token K/V tile columns
 that are live, and the yardstick: one F.scaled_dot_product_attention call
 with the run lists (and K4's predicate) as a bf16 attn_mask on the same
 heads (at 720p on one head: its mask is ~23 GB).
+--cases k3_organic (or all) times K3 at the benchmark's SAP cell setting:
+the run lists SAP builds in one forward of Wan 2.1 14B at 720p (QC 300, KC
+1000, block_q 256, block_kv 1024) on organic inputs as the cell builds them
+(k := q and norm_q x 3.5 in every self-attention, low-pass latents with
+factors (3, 6, 6); 2 blocks, one CFG stream, cold k-means), all 40 heads of
+each layer. It prints K3's time, TFLOP/s on the allowed pairs (real q rows
+x live keys) and on the visited ones (every q row of a walked q block x
+live keys), and the K rows staged per live key: by the 128-token tiles of
+the chunk walk (K4's; K3's before its packed stages) and by packed stages
+of 8, 16 and 32-token boxes (ops/attention.py runs_packed_stats, inline).
 The script uses only the port's public wrappers and runtimes, so it times
 another checkout's kernels when run from that checkout. Prints the card's
 name and power limit first.
@@ -205,15 +216,111 @@ def bench_runs(preset, head_sets, kinds, *, iters, dev):
     return rows
 
 
+ORGANIC_GAIN, ORGANIC_SMOOTH = 3.5, (3, 6, 6)  # the benchmark's SAP traffic (svgbench/traffic/sap.json)
+
+
+def organic_run_lists(dev, layers: int = 2, seed: int = 7):
+    """SAP's kernel arguments (SAPKernelArgs) of each layer of one forward of
+    Wan 2.1 14B at 720p (the 14B-720p-sap preset) on organic inputs: random
+    bf16 weights with k := q and norm_q x ORGANIC_GAIN in every
+    self-attention, low-pass latents (ORGANIC_SMOOTH), a random (1, 512,
+    4096) context, `layers` blocks, one CFG stream, cold k-means."""
+    from sparse_videogen_tpu_torch.models.wan.model import WanModel
+    from sparse_videogen_tpu_torch.pipelines.wan import make_wan_runtime, wan_layout
+    from sparse_videogen_tpu_torch.presets import PRESETS
+    from sparse_videogen_tpu_torch.sparse import svg2
+    from sparse_videogen_tpu_torch.utils.organic import align_self_attn_qk, smooth_latents
+
+    run = PRESETS["14B-720p-sap"]
+    cfg = dataclasses.replace(run.model, num_layers=layers)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    model = WanModel(cfg, dtype=torch.bfloat16, device=dev).init_random(gen)
+    align_self_attn_qk(model, gain=ORGANIC_GAIN)
+    lay = wan_layout(cfg, run.height, run.width, run.num_frames)
+    x = smooth_latents(gen, (1, cfg.out_dim, lay.num_frames, run.height // 8, run.width // 8), ORGANIC_SMOOTH)
+    ctx = torch.randn(1, cfg.text_len, cfg.text_dim, generator=gen, device=dev).to(torch.bfloat16)
+    rt = make_wan_runtime(lay, device=dev, pattern="SAP", sap=run.sap)
+    rt.states = {}
+    prepare, args = svg2.sap_prepare, []
+
+    def recording(*a, **kw):
+        args.append(prepare(*a, **kw))
+        return args[-1]
+
+    svg2.sap_prepare = recording
+    try:
+        with torch.no_grad():
+            model(x, torch.full((1,), 900.0, device=dev), ctx, attention=rt, generator=gen)
+    finally:
+        svg2.sap_prepare = prepare
+    del model
+    torch.cuda.empty_cache()
+    return args, run.sap
+
+
+def staged_rows(meta, box: int | None):
+    """K rows staged over the walked q blocks of run-list metadata: the
+    chunk walk's 128-token tiles (box None) or packed 128-row stages of
+    `box`-token boxes (runs_tile_stats / runs_packed_stats, inline: the
+    script also times checkouts that predate them)."""
+    m = meta.long()
+    a, b = m[..., 1::2], m[..., 2::2]
+    walked = m[..., 0] > 0
+    if box is None:
+        tiles = torch.where(b > a, -(-b // 128) - a // 128, 0).sum(-1)
+    else:
+        tiles = -(-torch.where(b > a, -(-(b - a) // box), 0).sum(-1) // (128 // box))
+    return 128 * int((tiles * walked).sum())
+
+
+def bench_k3_organic(*, iters, dev):
+    """K3 on every layer's run lists of organic_run_lists, all heads a call."""
+    args, sap = organic_run_lists(dev)
+    rows = []
+    for layer, a in enumerate(args):
+        m = a.meta.long()
+        walked = m[..., :1] > 0
+        per_block = ((m[..., 2::2] - m[..., 1::2]) * walked).sum(-1)
+        real_rows = torch.zeros_like(per_block).scatter_add_(1, a.pos.long() // sap.block_q,
+                                                             torch.ones_like(a.pos.long()))
+        live = int(per_block.sum())
+        allowed, visited = int((per_block * real_rows).sum()), live * sap.block_q
+        kw = dict(block_q=sap.block_q, block_kv=sap.block_kv)
+        ms = cuda_ms(lambda: block_sparse_attention_runs(a.q, a.k, a.v, a.meta, **kw), iters, 1)
+        D = a.q.shape[-1]
+        shares = {"tiles128": staged_rows(a.meta, None) / live,
+                  **{f"packed{g}": staged_rows(a.meta, g) / live for g in (8, 16, 32)}}
+        rows.append({"case": f"k3_organic_14B-720p_layer{layer}", "BH": a.q.shape[0], "Sq": a.q.shape[1],
+                     "Skv": a.k.shape[1], "D": D, "block_q": sap.block_q, "block_kv": sap.block_kv, "ms": ms,
+                     "density": a.density.mean().item(), "allowed_pairs": allowed, "visited_pairs": visited,
+                     "tflops_allowed": 4.0 * D * allowed / (ms * 1e-3) / 1e12,
+                     "tflops_visited": 4.0 * D * visited / (ms * 1e-3) / 1e12,
+                     "bound_ms": 1e3 * 4.0 * D * allowed / PEAK_BF16_FLOPS, "staged_per_live": shares})
+        r = rows[-1]
+        print(f"K3 {r['case']} (BH {r['BH']}, Sq {r['Sq']}, Skv {r['Skv']}, density {r['density']:.4f}): "
+              f"{ms:.3f} ms, {r['tflops_allowed']:.1f} TFLOP/s on {allowed} allowed pairs, "
+              f"{r['tflops_visited']:.1f} on {visited} visited; bound {r['bound_ms']:.3f} ms; K rows staged a live "
+              f"key: " + ", ".join(f"{k} {v:.4f}" for k, v in shares.items()), flush=True)
+    del args
+    torch.cuda.empty_cache()
+    return rows
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--iters", type=int, default=3)
     ap.add_argument("--out", default=None, help="write the rows as JSON here")
+    ap.add_argument("--cases", choices=("all", "k3_organic"), default="all")
     args = ap.parse_args(argv)
     line = device_line("bench_bsa")
     print(line, flush=True)
     dev = torch.device("cuda", 0)
-    rows = []
+    rows = bench_k3_organic(iters=args.iters, dev=dev)
+    if args.cases == "k3_organic":
+        if args.out:
+            with open(args.out, "w") as f:
+                json.dump({"device": line, "rows": rows}, f, indent=1)
+        return
     for name, BH, rt, dense in k1_cases(dev):
         rows.append(bench_k1(name, BH, rt, dense, iters=args.iters, dev=dev))
         r = rows[-1]

@@ -34,7 +34,8 @@ from sparse_videogen_tpu_torch.core import permute as core_permute
 from sparse_videogen_tpu_torch.core.dynamic_map import density_calculation, identify_dynamic_map
 from sparse_videogen_tpu_torch.core.kmeans import batch_kmeans, init_centroids
 from sparse_videogen_tpu_torch.ops import metadata as MD
-from sparse_videogen_tpu_torch.ops.attention import block_sparse_attention_kv, block_sparse_attention_runs
+from sparse_videogen_tpu_torch.ops.attention import (BQ, block_sparse_attention_kv, block_sparse_attention_runs,
+                                                     runs_packed_stats)
 from sparse_videogen_tpu_torch.utils import timer
 from sparse_videogen_tpu_torch.utils.timer import time_logging
 
@@ -369,6 +370,11 @@ def _cluster_prepare(qf, kf, vf, qside, kside, state, B, H, layout, cfg) -> SAPK
         # the rows of the q blocks that hold a real token: each cluster padded to block_q
         timer.count("sap.q_rows", (-(-qsz.long() // bq) * bq).sum())
         timer.count("sap.q_real", BH * S)
+        # the K rows K3 stages (packed 128-row stages) and the live keys, over the walked q blocks
+        live, stages = runs_packed_stats(meta_c)
+        walked = qmaps["kv_counts"] > 0
+        timer.count("sap.kv_rows", (stages.gather(1, blk) * walked).sum() * BQ)
+        timer.count("sap.kv_live", (live.gather(1, blk) * walked).sum())
     return SAPKernelArgs(qp, kp, vp, meta, qmaps["pos"], new_state, density, "runs",
                          SAPDecisions(qlab, klab, qsz, ksz, dyn_f))
 

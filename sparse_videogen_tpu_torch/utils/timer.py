@@ -44,6 +44,9 @@ counter's tensor only where `counting()` is true: off, it costs nothing.
   sap.q_rows      q rows in the q blocks the run-list kernel computes (each
                   cluster's rows padded to block_q)         sap_q_pad
   sap.q_real      real q rows (heads x tokens)              sap_q_pad
+  sap.kv_rows     K rows K3 stages (its packed 128-row stages
+                  x 128), over the q blocks it walks        sap_kv_pad
+  sap.kv_live     live keys of the same q blocks' run lists sap_kv_pad
   sap.lloyd.<K>   Lloyd passes of a K-centroid k-means call kmeans_roofline
 """
 

@@ -19,7 +19,11 @@ from sparse_videogen_tpu_torch.ops.attention import (
     block_sparse_attention_kv_plain,
     block_sparse_attention_runs,
     block_sparse_attention_runs_plain,
+    BQ,
+    RUN_BOX,
     run_chunks,
+    runs_packed_stats,
+    runs_packed_walk,
     runs_tile_stats,
     runs_tile_walk,
     runs_work_order,
@@ -230,6 +234,89 @@ def test_runs_tile_walk_covers_run_chunks(bkv):
     assert live.shape == loaded.shape == meta.shape[:2] and not live[:, 1].any() and not loaded[:, 1].any()
 
 
+def _check_packed_walk(row, bkv):
+    """runs_packed_walk against run_chunks on one row: the live rows of its
+    slots are the chunks' tokens, each once; a run's boxes start at its
+    first token every RUN_BOX tokens, so a box's masked rows lie past its
+    run's end (or the slot is empty); the stage count is ceil(sum of
+    ceil(len / RUN_BOX) * RUN_BOX / 128) over the visited runs; each stage's
+    column mask hides exactly its boxes' rows past their live ones;
+    runs_packed_stats counts the same when n is the row's chunk count."""
+    stages = runs_packed_walk(row, bkv)
+    listed = sorted(tok for lo, hi in run_chunks(row, bkv) for tok in range(lo, hi))
+    walked = [tok for st in stages for t0, live in st if live for tok in range(t0, t0 + live)]
+    assert sorted(walked) == listed and len(set(walked)) == len(walked)
+    assert all(len(st) == BQ // RUN_BOX for st in stages)
+    # each listed run's visited span (its tokens among the chunks'): its first token -> its end
+    runs, listed_set = {}, set(listed)
+    for a, b in row[1:].reshape(-1, 2).tolist():
+        if b > a and a in listed_set:
+            runs[a] = max(t for t in range(a, b) if t in listed_set) + 1
+    padded = sum(-(-(b - a) // RUN_BOX) * RUN_BOX for a, b in runs.items())
+    assert len(stages) == -(-padded // BQ)
+    for st in stages:
+        cols = np.concatenate([np.arange(RUN_BOX) < live for _, live in st])  # the stage's unmasked columns
+        assert cols.shape == (BQ,) and cols.sum() == sum(live for _, live in st)
+        for j, (t0, live) in enumerate(st):
+            assert cols[j * RUN_BOX:(j + 1) * RUN_BOX].tolist() == [r < live for r in range(RUN_BOX)]
+            assert (t0 is None) == (live == 0) and 0 <= live <= RUN_BOX
+            if live:  # a box starts on its run's first token or a box after it, and ends inside it or at its end
+                a = max(a for a in runs if a <= t0)
+                assert (t0 - a) % RUN_BOX == 0 and t0 + live <= runs[a] and (live == RUN_BOX or t0 + live == runs[a])
+    if row[0] == sum(MD._run_chunks(row[1 + 2 * e], row[2 + 2 * e], bkv) for e in range((len(row) - 1) // 2)):
+        live, n_stages = runs_packed_stats(torch.as_tensor(row)[None, None])
+        assert (int(live), int(n_stages)) == (len(walked), len(stages))
+    return stages
+
+
+# runs of 1, G - 1, G, G + 1, 127, 128 and 129 tokens (G = RUN_BOX), at
+# offsets inside and on a box and a 128-token edge
+_BOX_RUNS = [(3, 4), (20, 20 + RUN_BOX - 1), (64, 64 + RUN_BOX), (100, 101 + RUN_BOX), (200, 327), (384, 512),
+             (600, 729)]
+
+
+@pytest.mark.parametrize("bkv", [128, 256, 1024])
+def test_runs_packed_walk_covers_run_chunks(bkv):
+    """The model of K3's packed walk on random run lists (per head, with an
+    empty q block), on short runs that share 128-token tiles, on runs of
+    1, G - 1, G, G + 1, 127, 128 and 129 tokens, on rows that fill whole
+    stages, and on rows whose count n stops the walk inside a run."""
+    rng = np.random.default_rng(bkv + 1)
+    meta = _run_list_case(rng, 2, 23, 3000, 1024, 256, bkv)
+    for row in meta.reshape(-1, meta.shape[-1]):
+        _check_packed_walk(row, bkv)
+    assert runs_packed_walk(meta[0, 1], bkv) == []
+    _check_packed_walk(_runs_row(_SHORT_RUNS, bkv, len(_SHORT_RUNS) + 2), bkv)
+    stages = _check_packed_walk(_runs_row(_BOX_RUNS, bkv, len(_BOX_RUNS)), bkv)
+    # 1 + 1 + 1 + 2 + 8 + 8 + 9 boxes: 30 slots, the last stage's 2 empty
+    assert len(stages) == 4 and stages[-1][-2:] == [(None, 0), (None, 0)]
+    assert [live for _, live in stages[0][:5]] == [1, RUN_BOX - 1, RUN_BOX, RUN_BOX, 1]
+    whole = _check_packed_walk(_runs_row([(0, 64), (100, 164), (300, 556)], bkv, 3), bkv)
+    assert len(whole) == 3 and all(live == RUN_BOX for st in whole for _, live in st)
+    cut = _runs_row([(5, 40), (130, 2500), (2600, 2700)], bkv, 3)
+    cut[0] = 2  # the walk stops after the row's first 2 chunks
+    stages = _check_packed_walk(cut, bkv)
+    assert max(t0 + live for st in stages for t0, live in st if live) == min(2500, 128 + bkv)
+    live, loaded = runs_packed_stats(torch.as_tensor(meta))
+    assert live.shape == loaded.shape == meta.shape[:2] and not live[:, 1].any() and not loaded[:, 1].any()
+    assert torch.equal(live, runs_tile_stats(torch.as_tensor(meta))[0])
+    if bkv == 1024:  # the GPU test's edge rows
+        edges = _packed_case(rng, 2)[0]
+        for row in edges.reshape(-1, edges.shape[-1]):
+            _check_packed_walk(row, bkv)
+        assert max(t0 + RUN_BOX for st in runs_packed_walk(edges[0, 2], bkv) for t0, live in st if live) > 1920
+        assert max(t0 + live for st in runs_packed_walk(edges[1, 0], bkv) for t0, live in st if live) == 1152
+
+
+def test_run_box_is_the_kernels_pack_box():
+    """RUN_BOX, the packed walk's box, is the kernel's PACK_BOX."""
+    import pathlib
+    import re
+
+    src = (pathlib.Path(_kernels.__file__).parent / "csrc" / "hopper_attn.cuh").read_text()
+    assert int(re.search(r"constexpr int PACK_BOX = (\d+);", src).group(1)) == RUN_BOX
+
+
 def test_runs_and_kmeans_cpu_tensors_run_plain():
     rng = np.random.default_rng(0)
     meta = torch.as_tensor(_run_list_case(rng, 2, 5, 300, 256, 128, 256))
@@ -305,6 +392,63 @@ def test_runs_kernel_matches_plain(cuda, spec, D_, case):
         meta64 = torch.as_tensor(_run_list_case(rng, BH, 11, S, Sq, 64, bkv), device=cuda)
         with pytest.raises(ValueError, match="block_q % 128"):
             block_sparse_attention_runs(q, k, v, meta64, aux, block_q=64, block_kv=bkv, mask_spec=spec)
+
+
+def _packed_case(rng, R):
+    """K3's packed-walk edges on 2 heads, Skv 1920 (S 1900), block_q 256:
+    q block 0 of row 0 runs of 1, G - 1, G, G + 1, 127, 128 and 129 tokens
+    (a partial last stage); block 2 a run whose last box reaches past Skv;
+    block 3 three whole stages; the other row's block 0 a count n that stops
+    the walk inside a run, its block 2 runs listed with n == 0; block 1 of
+    every row visits nothing; the rest random per-row lists."""
+    S, Sq, bq, bkv = 1900, 1024, 256, 1024
+    meta = _run_list_case(rng, 2, 11, S, Sq, bq, bkv)
+    meta[0, 0] = _runs_row(_BOX_RUNS, bkv, 11)
+    meta[0, 2] = _runs_row([(5, 40), (1890, 1920)], bkv, 11)
+    meta[0, 3] = _runs_row([(0, 64), (100, 164), (300, 556)], bkv, 11)
+    meta[1, 0] = _runs_row([(5, 40), (130, 1500), (1600, 1700)], bkv, 11)
+    meta[1, 0, 0] = 2  # (5, 40) and the second run's first chunk: the walk stops at 1152, inside it
+    meta[1, 2, 0] = 0
+    assert meta[1, 2, 1:].any()
+    return meta[:R], 2 if R == 2 else 3, Sq, S, bq, bkv
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("stats", [False, True], ids=["o", "stats"])
+@pytest.mark.parametrize("R", [1, 2], ids=["R1", "R_BH"])
+@pytest.mark.parametrize("D_", [64, 128])
+def test_runs_packed_kernel_edges_match_plain(cuda, D_, R, stats):
+    """K3's packed stages (mask kind none) on _packed_case's rows against
+    the plain version at the run-list kernel's tolerance (atol 2e-2), R == 1
+    (one list for 3 heads) and R == BH, without and with the (m, l) stats
+    (m to 1e-3, l to 1e-4 relative, o bit for bit the kernel's without
+    stats); rows with n == 0 come out exactly 0 (m NEG_INF, l 0)."""
+    rng = np.random.default_rng(30 + D_ + R)
+    meta_np, BH, Sq, S, bq, bkv = _packed_case(rng, R)
+    meta = torch.as_tensor(meta_np, device=cuda)
+    skv = -(-S // MD.SUB) * MD.SUB
+    q, k, v = (torch.randn(BH, n, D_, device=cuda).to(torch.bfloat16) for n in (Sq, skv, skv))
+    kw = dict(block_q=bq, block_kv=bkv)
+    _kernels.reset_counts()
+    got = block_sparse_attention_runs(q, k, v, meta, return_stats=stats, **kw)
+    assert _kernels.LAUNCHES["block_sparse_attn_runs"] == 1 and _kernels.PLAIN_CALLS["block_sparse_attn_runs"] == 0
+    ref = block_sparse_attention_runs_plain(q, k, v, meta, return_stats=stats, **kw)
+    torch.cuda.synchronize()
+    out, ref_o = (got[0], ref[0]) if stats else (got, ref)
+    torch.testing.assert_close(out.float(), ref_o.float(), atol=2e-2, rtol=0)
+    empty = [(h, i) for h in range(BH) for i in range(Sq // bq) if meta_np[0 if R == 1 else h, i, 0] == 0]
+    assert (0, 1) in empty and (R == 1 or (1, 2) in empty)
+    for h, i in empty:
+        assert torch.all(out[h, i * bq:(i + 1) * bq] == 0)
+    if stats:
+        from sparse_videogen_tpu_torch.ops.attention import NEG_INF
+
+        (m, l), (rm, rl) = got[1:], ref[1:]
+        assert torch.equal(out, block_sparse_attention_runs(q, k, v, meta, **kw))
+        dead = rm <= 0.5 * NEG_INF
+        assert torch.equal(m <= 0.5 * NEG_INF, dead) and bool((l[dead] == 0).all())
+        torch.testing.assert_close(m[~dead], rm[~dead], atol=1e-3, rtol=0)
+        assert ((l - rl).abs().max() / rl.abs().max()).item() <= 1e-4
 
 
 def _check_labels_and_sums(x, c, out, ref_labels):

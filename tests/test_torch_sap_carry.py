@@ -3,8 +3,9 @@
 sparse step with kmeans_iter_step Lloyd passes from their centroids, and
 without them the latents do not change; the recorded labels and map give
 exactly the key tokens of the run lists the attention received; the
-counters record only under TIME_BENCH or a profiler, and sap.pairs is the
-density times S^2 summed over heads and layers."""
+counters record only under TIME_BENCH or a profiler, sap.pairs is the
+density times S^2 summed over heads and layers, and sap.kv_rows / sap.kv_live
+are the packed K3 walk's staged rows and live keys of the run lists."""
 
 import numpy as np
 import pytest
@@ -179,3 +180,31 @@ def test_count_adds_ints_on_the_host_and_tensors_on_their_device(monkeypatch):
     assert T.get_counts(clear=True) == {"x": 7.0, "y": 3.0}
     assert T.get_counts() == {}
 
+
+
+def test_kv_counters_are_the_packed_walks_rows_and_live_keys(wan, monkeypatch):
+    """Under TIME_BENCH a SAP video's sap.kv_rows is 128 x the stages of
+    the K3 model's packed walk (ops/attention.py runs_packed_walk) and
+    sap.kv_live its live keys, summed over every q block it walks of every
+    layer and stream; with short clusters the rows exceed the live keys."""
+    metas = []
+    orig = svg2._cluster_prepare
+
+    def spy(*a, **kw):
+        out = orig(*a, **kw)
+        metas.append(out.meta.clone())
+        return out
+
+    monkeypatch.setattr(svg2, "_cluster_prepare", spy)
+    monkeypatch.setenv("TIME_BENCH", "1")
+    generate(wan, sap_states=[{}, {}])
+    got = T.get_counts(clear=True)
+    assert len(metas) == 4
+    rows = live = 0
+    for meta in metas:
+        for row in meta.reshape(-1, meta.shape[-1]).numpy():
+            stages = A.runs_packed_walk(row, SAP.block_kv)
+            rows += A.BQ * len(stages)
+            live += sum(n for st in stages for _, n in st)
+    assert live > 0 and (got["sap.kv_rows"], got["sap.kv_live"]) == (rows, live)
+    assert got["sap.kv_rows"] > got["sap.kv_live"]
