@@ -6,8 +6,8 @@ run from the pipeline.
 - SAP x ring: RingSAPRuntime (parallel/ring_sap.py: global Lloyd through
   all-reduces, shard-local permutations); its warm-up layers and steps run
   the dense ring;
-- SVG x ring raises (pipelines/wan.py): SVG1's per-head profiling and
-  placement read the whole token axis.
+- SVG x ring raises (pipelines/runtime.make_runtime): SVG1's per-head
+  profiling and placement read the whole token axis.
 
 Both take the sparse/runtimes.py call, q, k, v (B, H, S, D) whole on every
 rank: the activations stay whole on each rank, only attention is
@@ -30,11 +30,8 @@ from sparse_videogen_tpu_torch.config import SAPConfig, WarmupSchedule
 from sparse_videogen_tpu_torch.ops import metadata as MD
 from sparse_videogen_tpu_torch.parallel.ring import ring_attention, ring_aux, ring_meta
 from sparse_videogen_tpu_torch.parallel.ring_sap import check_ring_sap_config, sap_ring_attention
-from sparse_videogen_tpu_torch.parallel.ulysses import (check_heads, cold_draw, gather_heads, gather_state,
-                                                        head_part, state_part)
-from sparse_videogen_tpu_torch.sparse.runtimes import SAPRuntime
+from sparse_videogen_tpu_torch.parallel.ulysses import UlyssesSAPRuntime, check_heads, gather_heads, head_part
 from sparse_videogen_tpu_torch.sparse.svg1 import SVG1Plan
-from sparse_videogen_tpu_torch.sparse.svg2 import init_sap_state
 
 
 def _ring_geometry(plan: SVG1Plan, n: int):
@@ -91,47 +88,30 @@ class RingDenseRuntime:
         return self.dense(q, k, v)
 
 
-class RingSAPRuntime(SAPRuntime):
+class RingSAPRuntime(UlyssesSAPRuntime):
     """SAP (cluster mode) with the token axis sharded over the ring of
-    `mesh` (and the heads over its head axis when sp > 1); warm-up layers
-    and steps run the dense ring. The sequence must split evenly (S % n ==
-    0). Keeps SAPRuntime's `states` and `kmeans_init` (cold-start token
-    indices, here global ones at B*H/sp rows, the same for every head
-    group, as the JAX ring draws them inside its shard_map), so the
-    pipeline drives it as it drives SAPRuntime; every rank holds the same
-    states."""
+    `mesh`, and the heads over its head axis as UlyssesSAPRuntime splits
+    them (sp > 1: USP); warm-up layers and steps run the dense ring. The
+    sequence must split evenly (S % n == 0). `kmeans_init` holds global
+    token indices at B*H/sp rows, the same for every head group, as the JAX
+    ring draws them inside its shard_map; every rank holds the same states."""
 
     def __init__(self, plan: SVG1Plan, cfg: SAPConfig, warmup: WarmupSchedule, mesh, *, device):
         check_ring_sap_config(cfg, plan.layout)
-        super().__init__(plan, cfg, warmup, device=device)
+        super().__init__(plan, cfg, warmup, mesh, device=device)
         if plan.layout.seq_len % mesh.rp:
             raise ValueError(f"ring SAP needs S % ranks == 0: S={plan.layout.seq_len}, ranks={mesh.rp}")
-        self.mesh = mesh
         self.dense_ring = RingDenseRuntime(plan, mesh, device=device)
+
+    def rank_attend(self, comm, q, k, v, t, layer_idx, state, init_idx):
+        """Ring rank i's token shard i of its head group; the whole sequence out."""
+        Sl = q.shape[2] // self.mesh.rp
+        part = slice(comm.rank * Sl, (comm.rank + 1) * Sl)
+        out, new_state = sap_ring_attention(q[:, :, part], k[:, :, part], v[:, :, part], state, comm,
+                                            layout=self.plan.layout, cfg=self.cfg, init_idx=init_idx)
+        return _gather_seq(comm, out), new_state
 
     def __call__(self, q, k, v, t, layer_idx, rows=None, generator=None):
         if self.is_dense(layer_idx, t):
             return self.dense_ring.dense(q, k, v)
-        B, H, S, D = q.shape
-        sp = self.mesh.sp
-        check_heads(H, sp)
-        state = self.states.get(layer_idx)
-        if state is None:
-            state = init_sap_state(B * H, D, self.cfg, device=q.device)
-        init_idx = None
-        if not state.initialized:
-            # drawn here, once for all ranks (under torchrun each rank's generator is seeded alike)
-            init_idx = self.kmeans_init[layer_idx] if self.kmeans_init is not None else cold_draw(
-                S, B * H // sp, self.cfg, generator, q.device)
-        Sl = S // self.mesh.rp
-
-        def rank(comm):
-            part = slice(comm.rank * Sl, (comm.rank + 1) * Sl)
-            j = comm.heads.rank
-            qj, kj, vj = (head_part(x, j, sp)[:, :, part] for x in (q, k, v))
-            out, new_state = sap_ring_attention(qj, kj, vj, state_part(state, B, j, sp), comm,
-                                                layout=self.plan.layout, cfg=self.cfg, init_idx=init_idx)
-            return gather_heads(comm, _gather_seq(comm, out)), gather_state(comm, new_state, B)
-
-        out, self.states[layer_idx] = self.mesh.run(rank)[0]
-        return out
+        return super().__call__(q, k, v, t, layer_idx, generator=generator)

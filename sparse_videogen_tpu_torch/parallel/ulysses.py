@@ -14,10 +14,10 @@ changes nothing in either algorithm.
   B*H would hand one rank all of cond's heads.
 - SVG1's profiler rows are drawn once, here, from the forward's generator,
   and every rank gets them: the single-device draw (JAX replicates its rng).
-- SAP's cold k-means start is drawn once, here, at the local head count
-  B*H/sp, and every rank gets the same token indices: JAX's Ulysses draw
-  (its replicated key drawn per shard at the local shape), not the
-  single-device one.
+- SAP's cold k-means start is drawn once (SAPRuntime.carry), at the local
+  head count B*H/sp, and every rank gets the same token indices: JAX's
+  Ulysses draw (its replicated key drawn per shard at the local shape),
+  not the single-device one.
 """
 
 from __future__ import annotations
@@ -26,7 +26,9 @@ import dataclasses
 
 import torch
 
+from sparse_videogen_tpu_torch.config import SAPConfig, WarmupSchedule
 from sparse_videogen_tpu_torch.sparse.runtimes import SAPRuntime, SVG1Runtime
+from sparse_videogen_tpu_torch.sparse.svg1 import SVG1Plan
 from sparse_videogen_tpu_torch.sparse.svg2 import SAPState
 
 
@@ -46,9 +48,9 @@ def gather_heads(comm, x):
     return x if comm.heads.size == 1 else torch.cat(comm.heads.all_gather(x.contiguous()), dim=1)
 
 
-def state_part(state: SAPState | None, B: int, j: int, sp: int) -> SAPState | None:
+def state_part(state: SAPState, B: int, j: int, sp: int) -> SAPState:
     """Head rank j's share of a (B*H, ...) SAP state."""
-    if state is None or sp == 1:
+    if sp == 1:
         return state
     part = lambda x: head_part(x.reshape(B, -1, *x.shape[1:]), j, sp).reshape(-1, *x.shape[1:]).contiguous()
     return dataclasses.replace(state, q_centroids=part(state.q_centroids), k_centroids=part(state.k_centroids),
@@ -64,46 +66,18 @@ def gather_state(comm, state: SAPState, B: int) -> SAPState:
                                last_density=whole(state.last_density))
 
 
-def cold_draw(n_tokens: int, rows: int, cfg, generator, device):
-    """The cold k-means start's token indices: (q (rows, QC), k (rows, KC)),
-    drawn in the order sap_cluster draws them."""
-    return tuple(torch.randint(0, n_tokens, (rows, c), generator=generator, device=device)
-                 for c in (cfg.num_q_centroids, cfg.num_k_centroids))
-
-
 class UlyssesRuntime:
-    """Wraps a dense, SVG1 or SAP runtime (sparse/runtimes.py) for the head
-    axis of `mesh` (a rank group of parallel/comm.py whose sp is the
-    Ulysses degree). Takes the runtime call and returns the whole output on
-    every rank. A SAP inner runtime keeps the whole (B*H) states and
-    `kmeans_init` (here a layer's (q, k) indices at B*H/sp rows, handed to
-    every rank), which the pipeline swaps per CFG stream."""
+    """Wraps a dense or SVG1 runtime (sparse/runtimes.py) for the head axis
+    of `mesh` (a rank group of parallel/comm.py whose sp is the Ulysses
+    degree). Takes the runtime call and returns the whole output on every
+    rank."""
 
     def __init__(self, inner, mesh):
         self.inner, self.mesh = inner, mesh
 
-    @property
-    def states(self):
-        return self.inner.states
-
-    @states.setter
-    def states(self, value):
-        self.inner.states = value
-
-    @property
-    def kmeans_init(self):
-        return self.inner.kmeans_init
-
-    @kmeans_init.setter
-    def kmeans_init(self, value):
-        self.inner.kmeans_init = value
-
     def __call__(self, q, k, v, t, layer_idx, rows=None, generator=None):
-        B, H = q.shape[:2]
         sp, inner = self.mesh.sp, self.inner
-        check_heads(H, sp)
-        if isinstance(inner, SAPRuntime):
-            return self._sap(q, k, v, t, layer_idx, generator)
+        check_heads(q.shape[1], sp)
         if rows is None and isinstance(inner, SVG1Runtime) and not inner.is_dense(layer_idx, t):
             rows = inner.draw_rows(q.shape[2], generator, q.device)
 
@@ -114,20 +88,33 @@ class UlyssesRuntime:
 
         return self.mesh.run(rank)[0]
 
-    def _sap(self, q, k, v, t, layer_idx, generator):
+
+class UlyssesSAPRuntime(SAPRuntime):
+    """SAP over the head axis of `mesh`: the whole (B*H) `states`, and
+    `kmeans_init` a layer's (q, k) indices at B*H/sp rows, handed to every
+    rank; the pipeline swaps them per CFG stream as on one device."""
+
+    def __init__(self, plan: SVG1Plan, cfg: SAPConfig, warmup: WarmupSchedule, mesh, *, device):
+        super().__init__(plan, cfg, warmup, device=device)
+        self.mesh = mesh
+
+    def rank_attend(self, comm, q, k, v, t, layer_idx, state, init_idx):
+        """One rank's (out, new_state) of its head group's q, k, v and state."""
+        return self.attend(q, k, v, t, layer_idx, state, init_idx)
+
+    def __call__(self, q, k, v, t, layer_idx, rows=None, generator=None):
         B, H = q.shape[:2]
-        sp, inner = self.mesh.sp, self.inner
-        state = inner.states.get(layer_idx)
-        init_idx = None
-        if (state is None or not state.initialized) and inner.clusters(layer_idx, t):
-            init_idx = inner.kmeans_init[layer_idx] if inner.kmeans_init is not None else cold_draw(
-                inner.plan.layout.video_length, B * H // sp, inner.cfg, generator, q.device)
+        sp = self.mesh.sp
+        check_heads(H, sp)
 
-        def rank(comm):
-            j = comm.heads.rank
-            out, new = inner.attend(head_part(q, j, sp), head_part(k, j, sp), head_part(v, j, sp), t, layer_idx,
-                                    state_part(state, B, j, sp), init_idx=init_idx)
-            return gather_heads(comm, out), gather_state(comm, new, B)
+        def step(state, init_idx):
+            def rank(comm):
+                j = comm.heads.rank
+                out, new = self.rank_attend(comm, *(head_part(x, j, sp) for x in (q, k, v)), t, layer_idx,
+                                            state_part(state, B, j, sp), init_idx)
+                return gather_heads(comm, out), gather_state(comm, new, B)
 
-        out, inner.states[layer_idx] = self.mesh.run(rank)[0]
-        return out
+            return self.mesh.run(rank)[0]
+
+        # the cold start is drawn once for all ranks (under torchrun each rank's generator is seeded alike)
+        return self.carry(q, t, layer_idx, generator, B * H // sp, step)

@@ -7,7 +7,7 @@ latent frames padded at the front to a multiple of patch_size_t and dropped
 after denoising. The self-attention runtime is dense or SVG1 over the
 text-first layout (mask kind "cog", prompt_length = text_len); v1.0's
 dynamic CFG is `use_dynamic_cfg`. SAP raises NotImplementedError. A rank
-group (`mesh`) goes through parallel.parallelize_runtime: the ring for
+group (`mesh`) goes through pipelines/runtime.make_runtime: the ring for
 dense (SVG raises), Ulysses for both patterns.
 """
 
@@ -17,10 +17,10 @@ import dataclasses
 
 import torch
 
-from sparse_videogen_tpu_torch.config import SparseMode, SVGConfig, TextPosition, VideoLayout, WarmupSchedule
+from sparse_videogen_tpu_torch.config import SVGConfig, TextPosition, VideoLayout, WarmupSchedule
 from sparse_videogen_tpu_torch.models.cog.model import CogConfig, CogModel
+from sparse_videogen_tpu_torch.pipelines.runtime import make_runtime
 from sparse_videogen_tpu_torch.schedulers.ddim_cog import CogDDIM, dynamic_cfg_scale
-from sparse_videogen_tpu_torch.sparse.runtimes import DenseRuntime, SVG1Runtime
 from sparse_videogen_tpu_torch.sparse.svg1 import make_svg1_plan
 
 VAE_SPATIAL = 8
@@ -49,18 +49,9 @@ def make_cog_runtime(layout: VideoLayout, *, device, pattern: str = "SVG", warmu
                      svg: SVGConfig = COG_SVG, mesh=None):
     """The dense or SVG1 runtime of a text-first layout; the whole text is
     live (prompt_length = context_length, as the JAX pipeline passes
-    text_len). mesh: a rank group (parallel/comm.py), through
-    parallelize_runtime."""
-    from sparse_videogen_tpu_torch.parallel import parallelize_runtime
-
-    mode = SparseMode(pattern)
-    if mode == SparseMode.SAP:
-        raise NotImplementedError("SAP on CogVideoX (a text-first SAP layout; the reference runs CogVideoX with "
-                                  "SVG1 or dense only) is not ported to the torch package (ROADMAP.md)")
+    text_len). SAP raises NotImplementedError (pipelines/runtime.make_runtime)."""
     plan = make_svg1_plan(layout, svg, warmup)
-    cls = DenseRuntime if mode == SparseMode.DENSE else SVG1Runtime
-    rt = cls(plan, device=device, prompt_length=layout.context_length)
-    return parallelize_runtime(rt, mesh, plan, device=device, pattern=pattern, prompt_length=layout.context_length)
+    return make_runtime(plan, pattern, device=device, mesh=mesh, prompt_length=layout.context_length)
 
 
 @dataclasses.dataclass

@@ -14,7 +14,7 @@ ROADMAP.md section 3). SAP runs the CFG batch in one forward: its k-means
 states cover 2 x heads (cond's heads, then uncond's), unlike Wan's two
 batch-1 forwards. `fps` is accepted and, as in the JAX pipeline, not passed
 to the DiT (its RoPE uses frame indices). A rank group (`mesh`) goes
-through parallel.parallelize_runtime: the ring for dense and SAP (SVG
+through pipelines/runtime.make_runtime: the ring for dense and SAP (SVG
 raises), Ulysses for every pattern.
 """
 
@@ -24,10 +24,11 @@ import dataclasses
 
 import torch
 
-from sparse_videogen_tpu_torch.config import SAPConfig, SparseMode, SVGConfig, VideoLayout, WarmupSchedule
+from sparse_videogen_tpu_torch.config import SAPConfig, SVGConfig, VideoLayout, WarmupSchedule
 from sparse_videogen_tpu_torch.models.cosmos.model import CosmosConfig, CosmosModel
+from sparse_videogen_tpu_torch.pipelines.runtime import make_runtime
 from sparse_videogen_tpu_torch.schedulers import EDMEuler
-from sparse_videogen_tpu_torch.sparse.runtimes import DenseRuntime, SAPRuntime, SVG1Runtime, is_sap
+from sparse_videogen_tpu_torch.sparse.runtimes import SAPRuntime
 from sparse_videogen_tpu_torch.sparse.svg1 import make_svg1_plan
 from sparse_videogen_tpu_torch.utils.density import DensityLogger, log_sap_states
 
@@ -45,18 +46,11 @@ def cosmos_layout(cfg: CosmosConfig, height: int, width: int, num_frames: int) -
 def make_cosmos_runtime(layout: VideoLayout, *, device, pattern: str = "dense",
                         warmup: WarmupSchedule = WarmupSchedule(), svg: SVGConfig = SVGConfig(),
                         sap: SAPConfig = SAPConfig(), mesh=None):
-    """The runtime of a pattern, on the plan's default blocks (the JAX
-    pipeline's make_svg1_plan(layout, svg, warmup)). mesh: a rank group
-    (parallel/comm.py), through parallelize_runtime."""
-    from sparse_videogen_tpu_torch.parallel import parallelize_runtime
-
-    mode = SparseMode(pattern)
+    """The runtime of a pattern on the plan's default blocks (the JAX
+    pipeline's make_svg1_plan(layout, svg, warmup)); mesh: a rank group
+    (pipelines/runtime.make_runtime)."""
     plan = make_svg1_plan(layout, svg, warmup)
-    if mode == SparseMode.SAP:
-        rt = SAPRuntime(plan, sap, warmup, device=device)
-    else:
-        rt = (DenseRuntime if mode == SparseMode.DENSE else SVG1Runtime)(plan, device=device)
-    return parallelize_runtime(rt, mesh, plan, device=device, pattern=pattern, sap=sap, warmup=warmup)
+    return make_runtime(plan, pattern, device=device, sap=sap, warmup=warmup, mesh=mesh)
 
 
 @dataclasses.dataclass
@@ -117,7 +111,7 @@ class CosmosPipeline:
         warmup = WarmupSchedule.from_fractions(first_layers_fp, first_times_fp, cfg.num_layers, sch.timesteps)
         runtime = make_cosmos_runtime(layout, device=device, pattern=pattern, warmup=warmup, svg=svg, sap=sap,
                                       mesh=mesh)
-        sap_mode = is_sap(runtime)
+        sap_mode = isinstance(runtime, SAPRuntime)
         dlog = DensityLogger(logging_file if sap_mode else None)
         ctx2 = torch.cat([context, context_null]).to(device, dtype)
         lat = lat.to(device)

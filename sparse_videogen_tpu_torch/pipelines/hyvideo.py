@@ -21,10 +21,11 @@ from typing import Callable, Optional
 
 import torch
 
-from sparse_videogen_tpu_torch.config import SAPConfig, SparseMode, SVGConfig, TextPosition, VideoLayout, WarmupSchedule
+from sparse_videogen_tpu_torch.config import SAPConfig, SVGConfig, TextPosition, VideoLayout, WarmupSchedule
 from sparse_videogen_tpu_torch.models.hyvideo.model import HyVideoConfig, HyVideoModel
+from sparse_videogen_tpu_torch.pipelines.runtime import make_runtime
 from sparse_videogen_tpu_torch.schedulers import FlowMatchEuler
-from sparse_videogen_tpu_torch.sparse.runtimes import DenseRuntime, SAPRuntime, SVG1Runtime, is_sap
+from sparse_videogen_tpu_torch.sparse.runtimes import SAPRuntime
 from sparse_videogen_tpu_torch.sparse.svg1 import make_svg1_plan
 from sparse_videogen_tpu_torch.utils.density import DensityLogger, log_sap_states
 from sparse_videogen_tpu_torch.utils.timer import time_logging
@@ -44,31 +45,12 @@ def hyvideo_layout(cfg: HyVideoConfig, height: int, width: int, num_frames: int)
 def make_hyvideo_runtime(layout: VideoLayout, *, device, prompt_length: int, pattern: str = "SVG",
                          warmup: WarmupSchedule = WarmupSchedule(), svg: SVGConfig = SVGConfig(),
                          sap: SAPConfig = SAPConfig(), mesh=None):
-    """The dense, SVG1 or SAP runtime of a text-last layout (the JAX
-    pipeline's plan: default block sizes). SAP's dense warm-up takes the
-    layout's context_length as its live text, as the JAX pipeline's
-    SAPRuntime does (runtimes.SAPRuntime); its sparse steps take the
-    layout's prompt_length. mesh: a rank group (parallel/comm.py); its
-    ring runs dense only, its head axis alone every pattern."""
-    mode = SparseMode(pattern)
+    """The runtime of a text-last layout on the JAX pipeline's plan (default
+    block sizes), with the live prompt_length (pipelines/runtime.make_runtime:
+    SAP's dense warm-up takes the layout's context_length; a ring runs
+    dense only)."""
     plan = make_svg1_plan(layout, svg, warmup)
-    if mesh is not None and mesh.rp > 1:
-        from sparse_videogen_tpu_torch.parallel.ring_runtime import RingDenseRuntime
-
-        if mode != SparseMode.DENSE:
-            raise ValueError("hyvideo ring_degree>1 supports pattern=dense; use --ulysses_degree for SVG/SAP "
-                             "(head-local algorithms)")
-        return RingDenseRuntime(plan, mesh, device=device, prompt_length=prompt_length)
-    if mode == SparseMode.SAP:
-        rt = SAPRuntime(plan, sap, warmup, device=device)
-    else:
-        rt = (DenseRuntime if mode == SparseMode.DENSE else SVG1Runtime)(plan, device=device,
-                                                                         prompt_length=prompt_length)
-    if mesh is not None and mesh.sp > 1:
-        from sparse_videogen_tpu_torch.parallel.ulysses import UlyssesRuntime
-
-        rt = UlyssesRuntime(rt, mesh)
-    return rt
+    return make_runtime(plan, pattern, device=device, sap=sap, warmup=warmup, mesh=mesh, prompt_length=prompt_length)
 
 
 def i2v_condition(cfg: HyVideoConfig, image_latents, num_latent_frames: int):
@@ -170,7 +152,7 @@ class HyVideoPipeline:
         with time_logging("video.plan", host=True):
             runtime = make_hyvideo_runtime(layout, device=device, prompt_length=prompt_length, pattern=pattern,
                                            warmup=warmup, svg=svg, sap=sap, mesh=mesh)
-        sap_mode = is_sap(runtime)
+        sap_mode = isinstance(runtime, SAPRuntime)
         dlog = DensityLogger(logging_file if sap_mode else None)
         states = text_states.to(device, dtype)
         mask = text_mask.to(device)

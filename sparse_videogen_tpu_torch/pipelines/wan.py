@@ -6,11 +6,10 @@ states, as the JAX pipeline does. I2V hands every forward the CLIP features
 and the condition latents (`build_i2v_condition`: the first-frame mask and
 the image's VAE latents), concatenated after the noise on channels. The
 sampler is FlowUniPC or, with sampler="dpm++", FlowDPM. With a rank group
-(`mesh`, parallel/mesh.make_mesh or parallel/comm.ThreadRanks): a ring of
-more than one rank (--ring_degree) runs dense and SAP attention
-token-sharded (parallel/ring_runtime.py; with the heads also split over
-the head axis: USP), SVG raises, as in the JAX package; the head axis alone
-(--ulysses_degree) runs every pattern head-sharded (parallel/ulysses.py).
+(`mesh`, parallel/mesh.make_mesh or parallel/comm.ThreadRanks), the runtime
+follows pipelines/runtime.make_runtime's rules: a ring (--ring_degree) runs
+dense and SAP token-sharded, the head axis alone (--ulysses_degree) every
+pattern head-sharded.
 `export_video` writes the VAE's output as a .y4m or .mp4.
 """
 
@@ -22,8 +21,9 @@ import torch
 
 from sparse_videogen_tpu_torch.config import SAPConfig, SparseMode, SVGConfig, VideoLayout, WarmupSchedule
 from sparse_videogen_tpu_torch.models.wan.model import WanConfig, WanModel
+from sparse_videogen_tpu_torch.pipelines.runtime import make_runtime
 from sparse_videogen_tpu_torch.schedulers import FlowDPM, FlowUniPC
-from sparse_videogen_tpu_torch.sparse.runtimes import DenseRuntime, SAPRuntime, SVG1Runtime, is_sap
+from sparse_videogen_tpu_torch.sparse.runtimes import SAPRuntime
 from sparse_videogen_tpu_torch.sparse.svg1 import make_svg1_plan
 from sparse_videogen_tpu_torch.utils.density import DensityLogger, log_sap_states
 from sparse_videogen_tpu_torch.utils.timer import time_logging
@@ -44,43 +44,16 @@ def wan_layout(model_cfg: WanConfig, height: int, width: int, num_frames: int) -
     return VideoLayout(num_frames=nf, frame_size=fs)
 
 
-def make_wan_runtime(
-    layout: VideoLayout,
-    *,
-    device,
-    pattern: str = "SVG",
-    warmup: WarmupSchedule = WarmupSchedule(),
-    svg: SVGConfig = SVGConfig(),
-    sap: SAPConfig = SAPConfig(),
-    mesh=None,
-    inplace_temporal: bool = False,
-):
-    """The attention runtime of a pattern. mesh: the rank group
-    (parallel/mesh.make_mesh under torchrun, or parallel/comm.ThreadRanks),
-    None or one rank for a single device;
-    inplace_temporal: SVG1 without placement (a measurement switch,
-    scripts/profile_wan.py --inplace_temporal)."""
-    mode = SparseMode(pattern)
+def make_wan_runtime(layout: VideoLayout, *, device, pattern: str = "SVG", warmup: WarmupSchedule = WarmupSchedule(),
+                     svg: SVGConfig = SVGConfig(), sap: SAPConfig = SAPConfig(), mesh=None,
+                     inplace_temporal: bool = False):
+    """The attention runtime of a pattern (pipelines/runtime.make_runtime);
+    mesh: a rank group, None for a single device. inplace_temporal: SVG1
+    without placement (a measurement switch, scripts/profile_wan.py
+    --inplace_temporal)."""
     plan = make_svg1_plan(layout, svg, warmup, block_q=BLOCK_Q, block_kv=BLOCK_KV,
-                          inplace_temporal=inplace_temporal and mode == SparseMode.SVG)
-    if mesh is not None and mesh.rp > 1:
-        from sparse_videogen_tpu_torch.parallel.ring_runtime import RingDenseRuntime, RingSAPRuntime
-
-        if mode == SparseMode.DENSE:
-            return RingDenseRuntime(plan, mesh, device=device)
-        if mode == SparseMode.SAP:
-            return RingSAPRuntime(plan, sap, warmup, mesh, device=device)
-        raise ValueError("pattern=SVG does not compose with ring_degree>1 (global per-head placement); use "
-                         "--ulysses_degree for SVG multi-chip")
-    if mode == SparseMode.SAP:
-        rt = SAPRuntime(plan, sap, warmup, device=device)
-    else:
-        rt = (DenseRuntime if mode == SparseMode.DENSE else SVG1Runtime)(plan, device=device)
-    if mesh is not None and mesh.sp > 1:
-        from sparse_videogen_tpu_torch.parallel.ulysses import UlyssesRuntime
-
-        rt = UlyssesRuntime(rt, mesh)
-    return rt
+                          inplace_temporal=inplace_temporal and SparseMode(pattern) == SparseMode.SVG)
+    return make_runtime(plan, pattern, device=device, sap=sap, warmup=warmup, mesh=mesh)
 
 
 def make_sampler(sampler: str, num_steps: int, shift: float):
@@ -174,7 +147,7 @@ class WanPipeline:
         with time_logging("video.plan", host=True):
             runtime = make_wan_runtime(layout, device=device, pattern=pattern, warmup=warmup, svg=svg, sap=sap,
                                        mesh=mesh, inplace_temporal=inplace_temporal)
-        sap_mode = is_sap(runtime)
+        sap_mode = isinstance(runtime, SAPRuntime)
         dlog = DensityLogger(logging_file if sap_mode else None)
         # SAP: layer -> SAPState, per CFG stream
         stream_states = [{}, {}] if sap_states is None else sap_states

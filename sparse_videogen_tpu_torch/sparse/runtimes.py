@@ -12,8 +12,9 @@ SAP carries a k-means state per layer. JAX threads it through the forward
 as an argument; here the runtime holds the states of the stream it runs
 (`SAPRuntime.states`, layer -> SAPState), and the pipeline swaps in each
 CFG stream's own before that stream's forward, so the call signature above
-stays the same for every pattern. `SAPRuntime.record`, set to a dict, gets
-each sparse cluster-mode layer's decisions (svg2.SAPDecisions) by layer.
+stays the same for every pattern; `SAPRuntime.carry` keeps them, on one
+device and on a rank group (parallel/). `SAPRuntime.record`, set to a dict,
+gets each sparse cluster-mode layer's decisions (svg2.SAPDecisions) by layer.
 """
 
 from __future__ import annotations
@@ -112,16 +113,13 @@ class SAPRuntime(DenseRuntime):
     def is_dense(self, layer_idx: int, t: float) -> bool:
         return layer_idx < self.warmup.first_layers or t > self.warmup.first_times
 
-    def attend(self, q, k, v, t, layer_idx, state: SAPState | None, generator=None, init_idx=None, keep=None):
-        """One layer from `state` (None: cold), without touching `states`:
-        returns (out, new_state). `keep` goes to svg2.sap_attention."""
-        if state is None:
-            B, H, S, D = q.shape
-            state = init_sap_state(B * H, D, self.cfg, device=q.device)
+    def attend(self, q, k, v, t, layer_idx, state: SAPState, init_idx=None, keep=None):
+        """One layer from `state`, without touching `states`: returns (out,
+        new_state). `keep` goes to svg2.sap_attention."""
         return sap_attention(
             q, k, v, t, state, layout=self.plan.layout, cfg=self.cfg, warmup=self.warmup, layer_idx=layer_idx,
             dense_fn=lambda q_, k_, v_: dense_impl(q_, k_, v_, self.dense_meta, self.plan, self.aux),
-            generator=generator, init_idx=init_idx, keep=keep)
+            init_idx=init_idx, keep=keep)
 
     def clusters(self, layer_idx: int, t: float) -> bool:
         """Whether this call runs k-means (and so draws a cold start)."""
@@ -129,17 +127,27 @@ class SAPRuntime(DenseRuntime):
             return self.cfg.zero_step_kmeans_init
         return not (self.cfg.block_mode == "tile" and self.cfg.tile_order == "pc1")
 
+    def carry(self, q, t, layer_idx, generator, rows: int, step):
+        """A layer's carry: step(state, init_idx) -> (out, new_state) from its
+        state, the new state kept. A call that clusters an uninitialised layer
+        gets the cold start (q (rows, QC), k (rows, KC)) video-token indices
+        from kmeans_init[layer], else drawn q then k as svg2.sap_cluster draws."""
+        B, H, _, D = q.shape
+        state = self.states.get(layer_idx)
+        if state is None:
+            state = init_sap_state(B * H, D, self.cfg, device=q.device)
+        init_idx = None
+        if not state.initialized and self.clusters(layer_idx, t):
+            init_idx = self.kmeans_init[layer_idx] if self.kmeans_init is not None else tuple(
+                torch.randint(0, self.plan.layout.video_length, (rows, c), generator=generator, device=q.device)
+                for c in (self.cfg.num_q_centroids, self.cfg.num_k_centroids))
+        out, self.states[layer_idx] = step(state, init_idx)
+        return out
+
     def __call__(self, q, k, v, t, layer_idx, rows=None, generator=None):
         keep = None if self.record is None else []
-        out, self.states[layer_idx] = self.attend(
-            q, k, v, t, layer_idx, self.states.get(layer_idx), generator,
-            None if self.kmeans_init is None else self.kmeans_init[layer_idx], keep)
+        out = self.carry(q, t, layer_idx, generator, q.shape[0] * q.shape[1],
+                         lambda state, init_idx: self.attend(q, k, v, t, layer_idx, state, init_idx, keep))
         if keep:
             self.record[layer_idx] = keep[0]
         return out
-
-
-def is_sap(runtime) -> bool:
-    """A SAP runtime, or a wrapper of one (parallel/ulysses.UlyssesRuntime):
-    the pipeline swaps its `states` per CFG stream."""
-    return isinstance(getattr(runtime, "inner", runtime), SAPRuntime)

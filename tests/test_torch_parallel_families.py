@@ -38,7 +38,7 @@ from sparse_videogen_tpu_torch.io.from_jax import cog_params_from_numpy, cosmos_
 from sparse_videogen_tpu_torch.models.cosmos import model as TCOS
 from sparse_videogen_tpu_torch.parallel.comm import ThreadRanks
 from sparse_videogen_tpu_torch.parallel.ring_runtime import RingDenseRuntime, RingSAPRuntime
-from sparse_videogen_tpu_torch.parallel.ulysses import UlyssesRuntime
+from sparse_videogen_tpu_torch.parallel.ulysses import UlyssesRuntime, UlyssesSAPRuntime
 from sparse_videogen_tpu_torch.pipelines import cog as TPCOG
 from sparse_videogen_tpu_torch.pipelines import cosmos as TPCOS
 from sparse_videogen_tpu_torch.pipelines import hyvideo as TPH
@@ -106,14 +106,15 @@ def test_hyvideo_pipeline_on_a_mesh_matches_jax(mesh, pattern):
                                                **kw).numpy()
     lay = TPH.hyvideo_layout(HY.TCFG, kw["height"], kw["width"], kw["num_frames"])
     rt = TPH.make_hyvideo_runtime(lay, device="cpu", prompt_length=HY.PROMPT, pattern=pattern, sap=sap, mesh=ranks)
-    assert isinstance(rt, RingDenseRuntime if mesh == "ring" else UlyssesRuntime)
+    assert isinstance(rt, RingDenseRuntime if mesh == "ring" else UlyssesSAPRuntime if pattern == "SAP" else
+                      UlyssesRuntime)
     assert np.isfinite(ours).all() and rel_err(ours, ref) <= 1e-4
 
 
 @pytest.mark.parametrize("mesh,pattern", [("ring", "dense"), ("ulysses", "SVG")])
 def test_cog_pipeline_on_a_mesh_matches_jax(mesh, pattern):
     """CogVideoX I2V, 2 DDIM steps over the CFG pair (step 0 and layer 0
-    dense), the whole text live, through parallelize_runtime: the ring on
+    dense), the whole text live, through pipelines/runtime.make_runtime: the ring on
     the text-first layout (dense), Ulysses for SVG1."""
     params = _perturbed(JCOG.init_cog_params(jax.random.PRNGKey(0), COG.JCFG, dtype=jnp.float32))
     model = cog_params_from_numpy(params, COG.TCFG)
@@ -140,7 +141,7 @@ def test_cog_pipeline_on_a_mesh_matches_jax(mesh, pattern):
 @pytest.mark.parametrize("mesh", ["ring", "ulysses"])
 def test_cosmos_sap_on_a_mesh_matches_jax(mesh):
     """Cosmos, 4 EDM steps over the CFG batch (steps 0-1 and layer 0
-    dense), SAP through parallelize_runtime: the SAP ring (global token
+    dense), SAP through pipelines/runtime.make_runtime: the SAP ring (global token
     draws over 2 x heads) and Ulysses (per-shard draws at 2 x heads / 2
     rows), cold at step 2 and warm at step 3."""
     params = _perturbed(JCOS.init_cosmos_params(jax.random.PRNGKey(0), COS.JCFG, dtype=jnp.float32))
@@ -168,7 +169,7 @@ def test_cosmos_sap_on_a_mesh_matches_jax(mesh):
         kmeans_init=[{li: _draws(jax.random.fold_in(k, li), bh, lay.seq_len, sap) for li in range(COS.TCFG.num_layers)}
                      for k in step_keys], **kw).numpy()
     assert isinstance(TPCOS.make_cosmos_runtime(lay, device="cpu", pattern="SAP", sap=sap, mesh=ranks),
-                      RingSAPRuntime if mesh == "ring" else UlyssesRuntime)
+                      RingSAPRuntime if mesh == "ring" else UlyssesSAPRuntime)
     assert np.isfinite(ours).all() and rel_err(ours, ref) <= 1e-4
 
 

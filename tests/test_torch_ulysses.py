@@ -26,12 +26,16 @@ from sparse_videogen_tpu.sparse import svg1 as JS1
 from sparse_videogen_tpu.sparse import svg2 as J2
 from sparse_videogen_tpu_torch import config as TC
 from sparse_videogen_tpu_torch.core import kmeans as TKM
-from sparse_videogen_tpu_torch.parallel import parallelize_runtime
 from sparse_videogen_tpu_torch.parallel.comm import ThreadRanks
 from sparse_videogen_tpu_torch.parallel.ring_runtime import RingDenseRuntime, RingSAPRuntime
-from sparse_videogen_tpu_torch.parallel.ulysses import UlyssesRuntime
+from sparse_videogen_tpu_torch.parallel.ulysses import UlyssesRuntime, UlyssesSAPRuntime
+from sparse_videogen_tpu_torch.pipelines.cog import make_cog_runtime
+from sparse_videogen_tpu_torch.pipelines.hyvideo import make_hyvideo_runtime
+from sparse_videogen_tpu_torch.pipelines.runtime import make_runtime
+from sparse_videogen_tpu_torch.pipelines.wan import make_wan_runtime
 from sparse_videogen_tpu_torch.sparse import runtimes as TRT
 from sparse_videogen_tpu_torch.sparse import svg1 as TS1
+from sparse_videogen_tpu_torch.sparse import svg2 as T2
 
 ATOL = 1e-5
 B, H, D = 2, 4, 64
@@ -105,12 +109,10 @@ def _sap_cfgs(kind):
     return TC.SAPConfig(**SAP_KW, block_mode=mode), JC.SAPConfig(**SAP_KW, block_mode=mode)
 
 
-def _port_rt(kind, plan, sap=None):
-    if kind == "dense":
-        return TRT.DenseRuntime(plan, device="cpu")
-    if kind.startswith("svg"):
-        return TRT.SVG1Runtime(plan, device="cpu")
-    return TRT.SAPRuntime(plan, sap, TC.WarmupSchedule(**WARM_KW), device="cpu")
+def _port_rt(kind, plan, sap=None, mesh=None):
+    """The port's runtime of a test kind through pipelines/runtime.make_runtime."""
+    pattern = "dense" if kind == "dense" else "SVG" if kind.startswith("svg") else "SAP"
+    return make_runtime(plan, pattern, device="cpu", sap=sap, warmup=TC.WarmupSchedule(**WARM_KW), mesh=mesh)
 
 
 def _jax_rt(kind, plan, sap=None):
@@ -138,7 +140,7 @@ def _labels(x, cent):
 @pytest.mark.parametrize("sp", [2, 4])
 @pytest.mark.parametrize("kind", ["dense", "svg", "svg_inplace", "sap_cluster", "sap_tile"])
 def test_ulysses_matches_single_device_and_jax(kind, sp):
-    """UlyssesRuntime over ThreadRanks(sp=sp) equals the port's single-device
+    """The Ulysses runtime over ThreadRanks(sp=sp) equals the port's single-device
     runtime (SVG1 on the same profiler rows; SAP cold from the same token
     draws, then warm from the carried state) and JAX's UlyssesRuntime on
     sp virtual devices: outputs within atol 1e-5, SAP's centroids within
@@ -153,7 +155,7 @@ def test_ulysses_matches_single_device_and_jax(kind, sp):
     tq, tk, tv = t(q), t(k), t(v)
     jq, jk, jv = (jnp.asarray(a) for a in (q, k, v))
     key = jax.random.PRNGKey(7)
-    one, uly = _port_rt(kind, tplan, sap), UlyssesRuntime(_port_rt(kind, tplan, sap), ThreadRanks(sp=sp))
+    one, uly = _port_rt(kind, tplan, sap), _port_rt(kind, tplan, sap, ThreadRanks(sp=sp))
     with_jax = sp == 2 or kind == "sap_cluster"
     jrt = JUlysses(_jax_rt(kind, jplan, jsap), jax_make_mesh(sp, sp=sp))
     jstate = J2.init_sap_state(B * H, D, jsap) if sap else jrt.init_state(B * H, D, 2)[LAYER]
@@ -188,24 +190,32 @@ def test_ulysses_matches_single_device_and_jax(kind, sp):
         uly.kmeans_init = one.kmeans_init = None
 
 
-def test_ulysses_sap_draws_once_for_every_rank():
-    """Without handed-in draws the Ulysses SAP runtime draws the cold start
-    once, at B*H/sp rows, from the forward's generator: two runs from equal
-    generators agree, and every rank of a CFG batch element saw the same
-    token indices (JAX's replicated-key draw)."""
+@pytest.mark.parametrize("sp", [1, 2])
+def test_ulysses_sap_draws_once_for_every_rank(sp):
+    """Without handed-in draws the SAP runtime (sp 1: the single-device one)
+    draws the cold start once, at B*H/sp rows, from the forward's
+    generator, q then k: two runs from equal generators agree, and equal the
+    runtime handed those draws, every rank of a CFG batch element seeing the
+    same token indices (JAX's replicated-key draw). On one device the draw
+    is svg2.sap_cluster's own, bit for bit."""
     sap, _ = _sap_cfgs("sap_cluster")
     tplan, _ = _plans("sap_cluster")
     tq, tk, tv = (t(a) for a in _sap_qkv(1))
     outs = []
     for _ in range(2):
-        rt = UlyssesRuntime(_port_rt("sap_cluster", tplan, sap), ThreadRanks(sp=2))
+        rt = _port_rt("sap_cluster", tplan, sap, None if sp == 1 else ThreadRanks(sp=sp))
+        assert isinstance(rt, TRT.SAPRuntime)
         outs.append(rt(tq, tk, tv, T_SPARSE, LAYER, generator=torch.Generator().manual_seed(3)))
     assert torch.equal(outs[0], outs[1])
     gen = torch.Generator().manual_seed(3)
-    draws = tuple(torch.randint(0, S, (B * H // 2, c), generator=gen) for c in (QC, KC))
+    draws = tuple(torch.randint(0, S, (B * H // sp, c), generator=gen) for c in (QC, KC))
     one = _port_rt("sap_cluster", tplan, sap)
-    one.kmeans_init = {LAYER: tuple(_tile_heads(d, 2) for d in draws)}
+    one.kmeans_init = {LAYER: tuple(_tile_heads(d, sp) for d in draws)}
     np.testing.assert_allclose(outs[0].numpy(), one(tq, tk, tv, T_SPARSE, LAYER).numpy(), atol=ATOL, rtol=0)
+    if sp == 1:
+        own, _ = T2.sap_sparse_attention(tq, tk, tv, T2.init_sap_state(B * H, D, sap), layout=LAY, cfg=sap,
+                                         generator=torch.Generator().manual_seed(3))
+        assert torch.equal(outs[0], own)
 
 
 @pytest.mark.parametrize("kind", ["dense", "sap"])
@@ -221,17 +231,18 @@ def test_usp_matches_jax_ring_with_head_axis(kind):
     key = jax.random.PRNGKey(11)
     if kind == "dense":
         q, k, v = _svg_qkv(2)
-        ours = RingDenseRuntime(tplan, ranks, device="cpu")(t(q), t(k), t(v), T_SPARSE, LAYER)
+        ours = make_runtime(tplan, "dense", device="cpu", mesh=ranks)(t(q), t(k), t(v), T_SPARSE, LAYER)
         jrt = JRingDense(jplan, mesh, head_axis="sp")
         ref, _ = jrt(*(jnp.asarray(a) for a in (q, k, v)), jnp.float32(T_SPARSE), key, LAYER,
                      jrt.init_state(B * H, D, 2)[LAYER], jrt.consts())
         np.testing.assert_allclose(ours.numpy(), np.asarray(ref), atol=ATOL, rtol=0)
-        single = TRT.DenseRuntime(tplan, device="cpu")(t(q), t(k), t(v), T_SPARSE, LAYER)
+        single = make_runtime(tplan, "dense", device="cpu")(t(q), t(k), t(v), T_SPARSE, LAYER)
         np.testing.assert_allclose(ours.numpy(), single.numpy(), atol=ATOL, rtol=0)
         return
     sap, jsap = _sap_cfgs("sap_cluster")
     q, k, v = _sap_qkv(2)
-    rt = RingSAPRuntime(tplan, sap, TC.WarmupSchedule(**WARM_KW), ranks, device="cpu")
+    rt = _port_rt("sap_cluster", tplan, sap, ranks)
+    assert isinstance(rt, RingSAPRuntime)
     jrt = JRingSAP(jplan, jsap, JC.WarmupSchedule(**WARM_KW), mesh, head_axis="sp")
     jstate = J2.init_sap_state(B * H, D, jsap)
     rt.kmeans_init = {LAYER: _jax_cold_draws(key, B * H // 2, S)}
@@ -248,31 +259,75 @@ def test_usp_matches_jax_ring_with_head_axis(kind):
         rt.kmeans_init = None
 
 
-def test_parallelize_runtime_rules_and_refusals():
-    """The JAX package's composition rules: the ring takes dense and
-    video-only SAP (with the head axis, USP), raises for SVG and for SAP on
-    a text-last layout; the head axis alone wraps any runtime in Ulysses;
-    no mesh returns the runtime. Heads that do not split over sp raise,
-    naming both."""
+TEXT_LAST, TEXT_FIRST = (TC.VideoLayout(**LAY_KW, context_length=64, text_position=pos)
+                          for pos in (TC.TextPosition.LAST, TC.TextPosition.FIRST))
+# case -> the runtime built (and the one it wraps), or the error raised and its message
+RULES = {
+    "one_device": (TRT.DenseRuntime,),
+    "ring_dense_usp": (RingDenseRuntime,),
+    "ring_sap": (RingSAPRuntime,),
+    "ulysses_dense": (UlyssesRuntime, TRT.DenseRuntime),
+    "ulysses_svg": (UlyssesRuntime, TRT.SVG1Runtime),
+    "ulysses_sap": (UlyssesSAPRuntime,),
+    "ring_svg": (ValueError, "pattern=SVG on a layout with text_position=none does not compose with ring_degree>1; "
+                             "use --ulysses_degree"),
+    "ring_sap_text_last": (ValueError, "pattern=SAP on a layout with text_position=last does not compose"),
+    "wan_ring_svg": (ValueError, "pattern=SVG on a layout with text_position=none does not compose"),
+    "hyvideo_ring_svg": (ValueError, "pattern=SVG on a layout with text_position=last does not compose"),
+    "hyvideo_ring_sap": (ValueError, "pattern=SAP on a layout with text_position=last does not compose"),
+    "cog_sap": (NotImplementedError, "CogVideoX"),
+    "cog_ring_sap": (NotImplementedError, "CogVideoX"),
+    "heads_ulysses": (ValueError, "6 heads do not split over Ulysses degree sp=4"),
+    "heads_usp": (ValueError, "6 heads do not split over Ulysses degree sp=4"),
+}
+
+
+def _rule_case(case):
+    """Build the runtime of one case (the heads cases also call it)."""
     tplan, _ = _plans("dense")
-    sap = TC.SAPConfig(**SAP_KW)
-    warm = TC.WarmupSchedule(**WARM_KW)
-    dense = TRT.DenseRuntime(tplan, device="cpu")
-    assert parallelize_runtime(dense, None, tplan, device="cpu", pattern="dense") is dense
-    ring = parallelize_runtime(None, ThreadRanks(2, 2), tplan, device="cpu", pattern="dense")
-    assert isinstance(ring, RingDenseRuntime)
-    assert isinstance(parallelize_runtime(None, ThreadRanks(2), tplan, device="cpu", pattern="SAP", sap=sap,
-                                          warmup=warm), RingSAPRuntime)
-    uly = parallelize_runtime(dense, ThreadRanks(sp=2), tplan, device="cpu", pattern="dense")
-    assert isinstance(uly, UlyssesRuntime) and uly.inner is dense
-    with pytest.raises(ValueError, match="does not compose with ring_degree>1"):
-        parallelize_runtime(None, ThreadRanks(2), tplan, device="cpu", pattern="SVG")
-    text_last = TC.VideoLayout(num_frames=4, frame_size=128, context_length=64,
-                               text_position=TC.TextPosition.LAST)
-    tl_plan = TS1.make_svg1_plan(text_last, TC.SVGConfig(**SVG_KW), warm, block_q=128, block_kv=128)
-    with pytest.raises(ValueError, match="use --ulysses_degree"):
-        parallelize_runtime(None, ThreadRanks(2), tl_plan, device="cpu", pattern="SAP", sap=sap, warmup=warm)
+    sap, warm = TC.SAPConfig(**SAP_KW), TC.WarmupSchedule(**WARM_KW)
+    build = lambda plan, pattern, mesh: make_runtime(plan, pattern, device="cpu", sap=sap, warmup=warm, mesh=mesh)
     q = torch.zeros(1, 6, S, D)
-    for rt in (UlyssesRuntime(dense, ThreadRanks(sp=4)), RingDenseRuntime(tplan, ThreadRanks(2, 4), device="cpu")):
-        with pytest.raises(ValueError, match="6 heads do not split over Ulysses degree sp=4"):
-            rt(q, q, q, T_SPARSE, LAYER)
+    cases = {
+        "one_device": lambda: build(tplan, "dense", None),
+        "ring_dense_usp": lambda: build(tplan, "dense", ThreadRanks(2, 2)),
+        "ring_sap": lambda: build(tplan, "SAP", ThreadRanks(2)),
+        "ulysses_dense": lambda: build(tplan, "dense", ThreadRanks(sp=2)),
+        "ulysses_svg": lambda: build(tplan, "SVG", ThreadRanks(sp=2)),
+        "ulysses_sap": lambda: build(tplan, "SAP", ThreadRanks(sp=2)),
+        "ring_svg": lambda: build(tplan, "SVG", ThreadRanks(2)),
+        "ring_sap_text_last": lambda: build(TS1.make_svg1_plan(TEXT_LAST, TC.SVGConfig(**SVG_KW), warm, block_q=128,
+                                                               block_kv=128), "SAP", ThreadRanks(2)),
+        "wan_ring_svg": lambda: make_wan_runtime(LAY, device="cpu", pattern="SVG", mesh=ThreadRanks(2)),
+        "hyvideo_ring_svg": lambda: make_hyvideo_runtime(TEXT_LAST, device="cpu", prompt_length=40, pattern="SVG",
+                                                         mesh=ThreadRanks(2)),
+        "hyvideo_ring_sap": lambda: make_hyvideo_runtime(TEXT_LAST, device="cpu", prompt_length=40, pattern="SAP",
+                                                         mesh=ThreadRanks(2)),
+        "cog_sap": lambda: make_cog_runtime(TEXT_FIRST, device="cpu", pattern="SAP"),
+        "cog_ring_sap": lambda: make_cog_runtime(TEXT_FIRST, device="cpu", pattern="SAP", mesh=ThreadRanks(2)),
+        "heads_ulysses": lambda: build(tplan, "dense", ThreadRanks(sp=4))(q, q, q, T_SPARSE, LAYER),
+        "heads_usp": lambda: build(tplan, "dense", ThreadRanks(2, 4))(q, q, q, T_SPARSE, LAYER),
+    }
+    return cases[case]()
+
+
+@pytest.mark.parametrize("case", list(RULES))
+def test_parallelize_runtime_rules_and_refusals(case):
+    """The JAX package's composition rules, held once by
+    pipelines/runtime.make_runtime and reached through every family's
+    make_*_runtime: the ring takes dense and video-only SAP (with the head
+    axis, USP) and raises for SVG and for SAP with text in the sequence,
+    one message naming the pattern and the layout; the head axis alone runs
+    every pattern (dense and SVG1 wrapped, SAP its own SAPRuntime); no mesh
+    builds the single-device runtime; CogVideoX's text-first SAP raises
+    NotImplementedError. Heads that do not split over sp raise, naming
+    both."""
+    want = RULES[case]
+    if isinstance(want[0], type) and issubclass(want[0], Exception):
+        with pytest.raises(want[0], match=want[1]):
+            _rule_case(case)
+        return
+    rt = _rule_case(case)
+    assert type(rt) is want[0]
+    if len(want) > 1:
+        assert type(rt.inner) is want[1]
