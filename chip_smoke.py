@@ -140,7 +140,7 @@ is non-zero:
                  x sp 2), latents bit for bit the unsharded ones; each
                  rank's resident bytes against the whole model's, the full
                  40-layer tree's as the rule shards it, a block's
-                 all-gather ms, the s a step and the K1 / K2 launches.
+                 all-gather ms, the s a step and the K1 / qk_norm_rope launches.
                prompt_extend (beside the build: the LM launches no kernel
                  of the port): TorchQwenPromptExpander on the port's causal
                  LM at Qwen2.5-7B-Instruct's published widths (QWEN25_7B,
@@ -161,7 +161,7 @@ is non-zero:
                  sha256 must equal the CPU's encode of the same frames,
                  read back by the port's decoder (check_mp4, in a thread
                  from the end of i2v: frames, fps, PSNR);
-                 each stage timed with its peak memory, K1 and K2 held to
+                 each stage timed with its peak memory, K1 and the fused norms held to
                  the configuration's launches with no plain-version call;
                  then the decode in each mode (whole, streamed by 1 and 2
                  latent frames, on the first DECODE_MODE_FRAMES latent
@@ -178,7 +178,7 @@ is non-zero:
                  Wan VAE encode (dim 96) whole and streamed, held to each
                  other (VAE_TOL), build_i2v_condition, LAYERS_I2V of the 40
                  layers at 480x832x81 for I2V_STEPS SVG1 steps (one dense
-                 warm-up layer) with K1 by kind and K2 held to
+                 warm-up layer) with K1 by kind and the fused norms held to
                  expected_launches and no plain-version call, the tiled
                  decode and the .y4m read back; each stage timed with its
                  peak memory; dense steps and the projection of a
@@ -192,7 +192,7 @@ is non-zero:
                  HYVIDEO_T2 (HY_DOUBLE + HY_SINGLE blocks) at 720x1280x129
                  for HY_P2V_STEPS SVG1 steps, the full-width VAE through the
                  CLI's default tiled decoder on the first HY_DECODE_FRAMES
-                 latent frames, a .y4m read back; K1 and K2 held to
+                 latent frames, a .y4m read back; K1 and the fused norms held to
                  expected_launches with no plain-version call; each stage
                  timed with its peak memory.
                hy_i2v (after hy_p2v): HunyuanVideo I2V (phase_hy_i2v):
@@ -361,9 +361,10 @@ DPM_STEPS = 3
 # RING_FAMILY_TOL, the ring forward's bound (each rotation's output rounds to
 # bf16 before the f32 merge)
 ULYSSES_SP, ULYSSES_LAYERS, ULYSSES_TOL, RING_FAMILY_TOL = 2, 2, 1e-2, 3e-2
-# the model's own kernels (K2 RoPE, the fused LayerNorm + modulation): one launch a site a forward on any mesh, as
-# the activations are whole on every rank (the attention alone is split over head or data ranks)
-MODEL_KERNELS = ("rope", "layernorm_mod")
+# the model's own kernels (K2 RoPE, the fused LayerNorm + modulation, the fused q/k RMSNorm + RoPE): one launch a
+# site a forward on any mesh, as the activations are whole on every rank (the attention alone is split over head or
+# data ranks)
+MODEL_KERNELS = ("rope", "layernorm_mod", "qk_norm_rope")
 # FSDP (parallel/sharding.py): Wan 2.1 14B T2V at its published widths and
 # FSDP_LAYERS of its 40 layers, 480x832x81, over the thread-rank grids
 # FSDP_GRIDS (dp, rp, sp); the latents held bit for bit to the unsharded
@@ -1300,7 +1301,34 @@ def norm_sites(cfg) -> int:
     return 0
 
 
-def expected_launches(pattern, n_layers, warmup, timesteps, kinds, sap=None, sap_streams=2, rope=True, norms=0):
+def qk_sites(cfg) -> int:
+    """The fused q/k RMSNorm + RoPE's launches in one forward of the model of
+    `cfg`: a launch a `model.qk` site, Wan 4 a block (self-attention q and
+    k, cross-attention q and k; 5 in I2V, with k_img), HunyuanVideo 4 a
+    double block (each stream's q and k into the joined buffers) and 2 a
+    single block; CogVideoX and Cosmos keep their q/k norms eager (0)."""
+    from sparse_videogen_tpu_torch.models.hyvideo.model import HyVideoConfig
+    from sparse_videogen_tpu_torch.models.wan.model import WanConfig
+
+    if isinstance(cfg, WanConfig):
+        return (5 if cfg.model_type == "i2v" else 4) * cfg.num_layers
+    if isinstance(cfg, HyVideoConfig):
+        return 4 * cfg.mm_double_blocks_depth + 2 * cfg.mm_single_blocks_depth
+    return 0
+
+
+def model_sites(cfg) -> dict:
+    """expected_launches' (and drive_pipeline's) model arguments for the
+    model of `cfg`: Wan and HunyuanVideo launch the fused norms a forward
+    (norm_sites, qk_sites) and rotate inside the q/k kernel, so no K2;
+    CogVideoX keeps the defaults (K2 on q and k a layer)."""
+    if not qk_sites(cfg):
+        return {}
+    return {"rope": False, "norms": norm_sites(cfg), "qk": qk_sites(cfg)}
+
+
+def expected_launches(pattern, n_layers, warmup, timesteps, kinds, sap=None, sap_streams=2, rope=True, norms=0,
+                      qk=0):
     """Kernel launches one generation implies, and the chunked-CSR kernel's
     launches by mask kind. Per forward and layer: RoPE on q and on k; a
     dense layer (the dense pattern, or a warm-up layer) runs the chunked-CSR
@@ -1313,8 +1341,10 @@ def expected_launches(pattern, n_layers, warmup, timesteps, kinds, sap=None, sap
     clustering in a stream, kmeans_iter_step after (warm-up layers cluster
     only with zero_step_kmeans_init; tile_order pc1 never clusters a sparse
     layer). rope False: the model's RoPE is not K2 (Cosmos's half-split
-    RoPE runs in plain torch, as the JAX package runs it on XLA). norms:
-    the fused LayerNorm + modulation's launches a forward (norm_sites)."""
+    RoPE runs in plain torch, as the JAX package runs it on XLA; Wan and
+    HunyuanVideo rotate inside the fused q/k kernel). norms: the fused
+    LayerNorm + modulation's launches a forward (norm_sites); qk: the fused
+    q/k RMSNorm + RoPE's (qk_sites)."""
     from sparse_videogen_tpu_torch import _kernels
 
     want = {name: 0 for name in _kernels.KERNELS}
@@ -1325,6 +1355,7 @@ def expected_launches(pattern, n_layers, warmup, timesteps, kinds, sap=None, sap
         initialized = [False] * n_layers
         for t in timesteps:
             want["layernorm_mod"] += norms
+            want["qk_norm_rope"] += qk
             for li in range(n_layers):
                 want["rope"] += 2 if rope else 0
                 dense = pattern == "dense" or li < warmup.first_layers or float(t) > warmup.first_times
@@ -1345,7 +1376,7 @@ def expected_launches(pattern, n_layers, warmup, timesteps, kinds, sap=None, sap
 
 
 def drive_pipeline(name, desc, kw, pattern, timesteps, n_layers, generate, shape, kinds, sap=None, sap_streams=2,
-                   rope=True, norms=0):
+                   rope=True, norms=0, qk=0):
     """One generation through a pipeline's entry point, generate(callback),
     timed by the profile scripts' time_generation (the kernel counters set
     to 0 just before it and read just after), and held to what the
@@ -1358,7 +1389,7 @@ def drive_pipeline(name, desc, kw, pattern, timesteps, n_layers, generate, shape
     from sparse_videogen_tpu_torch.scripts.profile_wan import time_generation
 
     warmup = WarmupSchedule.from_fractions(kw["first_layers_fp"], kw["first_times_fp"], n_layers, timesteps)
-    want, want_kinds = expected_launches(pattern, n_layers, warmup, timesteps, kinds, sap, sap_streams, rope, norms)
+    want, want_kinds = expected_launches(pattern, n_layers, warmup, timesteps, kinds, sap, sap_streams, rope, norms, qk)
     lat, r = time_generation(generate)
     finite = bool(torch.isfinite(lat).all())
     log("slice", f"{name}, {desc}, {pattern}, {len(timesteps)} steps ({warmup.first_layers} warm-up layers, steps "
@@ -1407,7 +1438,7 @@ def drive(model, run, pattern, steps, inplace_temporal=False, sampler="unipc"):
                                sampler=sampler, **run.generate_kwargs()),
                            (1, 16, lay.num_frames, run.height // 8, run.width // 8),
                            ("none", "band_sink_perm" if inplace_temporal else "band_sink"), sap=run.sap,
-                           norms=norm_sites(cfg))
+                           **model_sites(cfg))
         dens = [json.loads(line)["avg_density"] for line in open(dlog)] if pattern == "SAP" else []
     if dens:
         log("slice", f"{name} SAP density (cond stream, {len(dens)} logged layer-steps): mean {np.mean(dens):.4f}, "
@@ -1432,8 +1463,9 @@ def phase_slice(dev):
     per-head spec) from the same seed and weights, then SAP in cluster mode
     and in tile mode (the CLI's --sap_block_mode tile: block_q = block_kv =
     512, K1 with kind none in its sparse layers); returns each kernel's
-    launches from the path that runs it first (RoPE and the chunked kernel:
-    SVG1; the dual spec: SVG1 in place; K1's kind none: SAP tile). The
+    launches from the path that runs it first (the chunked kernel and the
+    fused norms: SVG1; the dual spec: SVG1 in place; K1's kind none: SAP
+    tile; K2 runs on no Wan path: phase_cog_slice counts it). The
     in-place latents are held to the placement run's (INPLACE_LATENT_TOL)."""
     from sparse_videogen_tpu_torch.presets import T2V_480P, tile_variant
 
@@ -1511,7 +1543,7 @@ def phase_quality(dev):
     720x1280x81 (S = 75,600), 8 UniPC steps, dense, SVG1 and SAP in cluster
     and in tile mode (QC 300, KC 125, block_q = block_kv = 512) from the same
     noise, and dense with int8 W8A8 block linears (dense_int8), each through
-    drive_pipeline (its K1, K2, K3 and K5 launches held to
+    drive_pipeline (its K1, K3, K5 and fused-norm launches held to
     expected_launches); latent PSNR and SSIM against dense, SAP's density,
     each pattern's seconds a step; SVG1 and dense_int8 >= 35 dB and each SAP
     mode >= 24 dB, a miss fails the phase. main runs the CLI runs beside it on the
@@ -1534,7 +1566,7 @@ def phase_quality(dev):
             r = drive_pipeline("quality", desc, kw, kw["pattern"], timesteps, cfg.num_layers,
                                lambda cb, kw=kw, dlog=dlog: Q.generate(model, ctx, ctx_null, (h, w, f), kw, callback=cb,
                                                                        logging_file=dlog),
-                               shape, ("none", "band_sink"), sap=kw.get("sap"), norms=norm_sites(cfg))
+                               shape, ("none", "band_sink"), sap=kw.get("sap"), **model_sites(cfg))
             lat[name] = r["latents"].float().cpu().numpy()
             per_step[name] = r["per_step_s"]
             if dlog:
@@ -1765,6 +1797,51 @@ def phase_layernorm_mod(dev):
     return entry
 
 
+def phase_qk_norm_rope(dev):
+    """The fused q/k RMSNorm + RoPE (csrc/qk_norm_rope.cu) against its plain
+    version at every shape of scripts/bench_qk_norm_rope.py (Wan 1.3B's CFG
+    pair and Wan 14B's self-attention, each token's norm; HunyuanVideo's
+    single block and its double block's two streams written into one joined
+    buffer, each head's norm, x a column view of the fused qkv) and on a
+    sequence shard (the second half of Wan 1.3B's tokens with the tables'
+    row slice): every element within bench_qk_norm_rope.mismatch's
+    tolerance (one ulp of the normalised value carried through the weight
+    and the rotation: one bf16 ulp of the output where the rotation does not
+    cancel), under 0.1% of them different; then the probe's times beside
+    the eager chain the models ran before it (the f32 norm, the head copy,
+    K2) and the bytes bound. The entry is Wan 1.3B's self-attention shape."""
+    from sparse_videogen_tpu_torch.ops.qk_norm_rope import qk_norm_rope, qk_norm_rope_plain
+    from sparse_videogen_tpu_torch.scripts import bench_qk_norm_rope as probe
+
+    shapes = dict(probe.SHAPES, **{"wan-480p-shard": (2, 16380, 1536, 12, "token", 1536, 16380, 16380, 16380, 0)})
+    entry = None
+    for i, (name, shape) in enumerate(shapes.items()):
+        x, w, cos, sin, out, r0 = probe.make_inputs(shape, seed=i, device=dev)
+        H = shape[3]
+        got = qk_norm_rope(x, w, probe.EPS, H, cos, sin, out=out, r0=r0)
+        ref = qk_norm_rope_plain(x, w, probe.EPS, H, cos, sin, out=None if out is None else torch.zeros_like(out),
+                                 r0=r0)
+        bad, share, ulps = probe.mismatch(got, ref, x, w, H, cos, sin, r0)
+        del got, ref
+        r = probe.probe(name, H, (x, w, cos, sin, out, r0), iters=10, warmup=1)
+        log("kernels", f"qk_norm_rope {name} {r['shape']} bf16, {H} heads: {bad} elements beyond tolerance, "
+                       f"{share:.2e} differ (at most {ulps:.1f} ulps of the plain output); kernel "
+                       f"{r['kernel_ms']:.4f} ms ({r['kernel_gbs']:.1f} GB/s, {100 * r['bound_share']:.1f}% of the "
+                       f"bound {r['bound_ms']:.4f} ms), eager chain {r['eager_ms']:.4f} ms, plain "
+                       f"{r['plain_ms']:.4f} ms")
+        if bad or share >= 1e-3:
+            raise AssertionError(f"qk_norm_rope disagrees with its plain version at {name}: {bad}, {share}")
+        if name == "wan-480p-self":
+            entry = {"name": "qk_norm_rope", "route": "cuda",
+                     "source": "sparse_videogen_tpu_torch/csrc/qk_norm_rope.cu", "replaces": None,
+                     "ms": r["kernel_ms"], "plain_ms": r["plain_ms"], "eager_ms": r["eager_ms"],
+                     **bound(8.0 * x.numel(), r["bytes"], PEAK_F32_FLOPS), "library_ms": None,
+                     "shape": list(r["shape"])}
+        del x, w, cos, sin, out
+        torch.cuda.empty_cache()
+    return entry
+
+
 def phase_qsplit(dev):
     """K7 at the probe's shape (12, 32768, 128) bf16, bkv 1024, and at head
     dim 64 (12, 32768, 64), against its plain version (one run a shape: it
@@ -1850,7 +1927,7 @@ def drive_hyvideo(model, run, steps, latents=None):
                                text, mask, pooled, prompt_length=HY_PROMPT, num_inference_steps=steps, seed=0,
                                callback=on_step, logging_file=dlog, latents=latents, **run.generate_kwargs()),
                            (1, 16, lay.num_frames, run.height // 8, run.width // 8), ("hyvideo", "hyvideo"),
-                           sap=run.sap, sap_streams=1, norms=norm_sites(cfg))
+                           sap=run.sap, sap_streams=1, **model_sites(cfg))
         dens = [json.loads(line)["avg_density"] for line in open(dlog)] if dlog else []
     if dens:
         log("slice", f"{name} density ({len(dens)} logged layer-steps): mean {np.mean(dens):.4f}, min "
@@ -2322,7 +2399,8 @@ def phase_cog_slice(dev):
     heads of 64, FFN 12288, T5 states (1, 226, 4096), image latents (1, 16,
     1, 96, 170)) with COG_LAYERS of its 42 layers, 768x1360x81: SVG1 then
     dense for COG_STEPS DDIM steps each (first_times_fp 0.2: step 0 of the
-    SVG1 run is dense). Returns the SVG1 run's cog-kind K1 launches."""
+    SVG1 run is dense). Returns the SVG1 run's cog-kind K1 launches and its
+    K2 launches (the one model path that runs K2)."""
     from sparse_videogen_tpu_torch.models.cog.model import CogModel
     from sparse_videogen_tpu_torch.presets import COG_768P_DENSE, COG_768P_SVG
 
@@ -2337,7 +2415,7 @@ def phase_cog_slice(dev):
     drive_cog(model, COG_768P_DENSE, COG_STEPS)
     del model
     torch.cuda.empty_cache()
-    return r["kind_launches"]["block_sparse_attn[cog]"]
+    return r["kind_launches"]["block_sparse_attn[cog]"], r["launches"]["rope"]
 
 
 def phase_small_cog_reference(dev):
@@ -3179,7 +3257,7 @@ def phase_fsdp(dev):
     Prints each rank's resident parameter bytes against the unsharded
     bytes, the same for the full 40-layer tree as the rule shards it (meta
     device, bytes only), a block's all-gather ms (CUDA events) and each
-    step's s, and the K1 / K2 launches of every run. Returns the launches of
+    step's s, and the K1 / qk_norm_rope launches of every run. Returns the launches of
     the dp 2 x sp 2 run."""
     from sparse_videogen_tpu_torch.models.wan.model import WAN_14B, WanModel
     from sparse_videogen_tpu_torch.parallel.comm import ThreadRanks
@@ -3218,7 +3296,7 @@ def phase_fsdp(dev):
     whole = sum(t.numel() * t.element_size() for t in model.state_dict().values())
     for pattern, (_, s_, counts) in ref.items():
         log("fsdp", f"unsharded, {pattern}: s {s_:.4f} a step; launches K1 {counts.get('block_sparse_attn')}, "
-                    f"K2 {counts.get('rope')}")
+                    f"qk_norm_rope {counts.get('qk_norm_rope')}")
     del model
     torch.cuda.empty_cache()
     launches = {}
@@ -3256,7 +3334,7 @@ def phase_fsdp(dev):
             log("fsdp", f"grid ({dp}, {rp}, {sp}), {pattern}: latents equal to the unsharded ones bit for bit "
                         f"{same} (max |diff| {diff:.3e}); s {s_:.4f} a step against {want_s:.4f} unsharded "
                         f"(x{s_ / want_s:.3f}); launches K1 {counts.get('block_sparse_attn')} (expected "
-                        f"{attn.get('block_sparse_attn')}), K2 {counts.get('rope')}")
+                        f"{attn.get('block_sparse_attn')}), qk_norm_rope {counts.get('qk_norm_rope')}")
             if not (same and ok_launch and torch.isfinite(lat).all()):
                 raise AssertionError(f"FSDP grid {(dp, rp, sp)} {pattern}: latents or launches off")
             launches = counts
@@ -4334,7 +4412,7 @@ def phase_prompt_to_video(dev):
     CPU's encode and reads it back, main runs it in a thread). Each stage
     is timed with
     CUDA events beside its peak memory. The kernel counters are set to 0
-    before the tokenizer and read after the writer: K1 and K2 launch as the
+    before the tokenizer and read after the writer: K1 and the fused norms launch as the
     configuration implies, no plain version runs, and the frames are (81,
     480, 832, 3). Then the decode alone in each mode (whole, streamed by 1
     and 2 latent frames, tiled; a mode that does not fit in the card's
@@ -4363,7 +4441,7 @@ def phase_prompt_to_video(dev):
     kw = run.generate_kwargs()
     warmup = WarmupSchedule.from_fractions(kw["first_layers_fp"], kw["first_times_fp"], cfg.num_layers, timesteps)
     want, want_kinds = expected_launches("SVG", cfg.num_layers, warmup, timesteps, ("none", "band_sink"),
-                                         norms=norm_sites(cfg))
+                                         **model_sites(cfg))
     log("p2v", f"cuDNN TF32 {torch.backends.cudnn.allow_tf32}, matmul TF32 {torch.backends.cuda.matmul.allow_tf32} "
                "(this script turns both off; the VAE and UMT5 run true f32)")
     _kernels.reset_counts()
@@ -4517,7 +4595,7 @@ def phase_i2v(dev, umt5_s: float):
     f32, random) encodes [image, zeros...] whole and streamed (held to each
     other, VAE_TOL); build_i2v_condition; I2V_STEPS SVG1 steps (layer 0 the
     dense warm-up, first_layers_fp 0.3) through WanPipeline.generate_latents,
-    K1 by mask kind and K2 held to expected_launches with no plain-version
+    K1 by mask kind and the fused norms held to expected_launches with no plain-version
     call (the counters set to 0 before the image is read and read after the
     writer); the CLI's default decode (tiled) and the .y4m read back. Each
     stage timed with CUDA events beside its peak memory; then dense steps,
@@ -4549,7 +4627,7 @@ def phase_i2v(dev, umt5_s: float):
     kw = run.generate_kwargs()
     warmup = WarmupSchedule.from_fractions(kw["first_layers_fp"], kw["first_times_fp"], cfg.num_layers, timesteps)
     want, want_kinds = expected_launches("SVG", cfg.num_layers, warmup, timesteps, ("none", "band_sink"),
-                                         norms=norm_sites(cfg))
+                                         **model_sites(cfg))
     stages = {}
     _kernels.reset_counts()
     t0 = time.perf_counter()
@@ -4669,7 +4747,7 @@ def _hy_launches(phase, run, cfg, steps):
     timesteps = FlowMatchEuler(steps, shift=run.flow_shift).timesteps
     warmup = WarmupSchedule.from_fractions(run.first_layers_fp, run.first_times_fp, cfg.num_layers, timesteps)
     return expected_launches(run.pattern, cfg.num_layers, warmup, timesteps, ("hyvideo", "hyvideo"),
-                             norms=norm_sites(cfg))
+                             **model_sites(cfg))
 
 
 def _check_launches(phase, want, want_kinds):
@@ -4699,7 +4777,7 @@ def phase_hy_p2v(dev):
     32 latents, overlap 8) on the first HY_DECODE_FRAMES latent frames, with
     cuDNN TF32 on as the CLI leaves it; export_video to a .y4m, read back.
     The kernel counters are set to 0 before the tokenizer and read after the
-    writer: K1 and K2 launch as expected_launches says, no plain version
+    writer: K1 and the fused norms launch as expected_launches says, no plain version
     runs. Each stage timed with CUDA events beside its peak memory; the
     encoders' warm times alone. Returns the encoders (LLaMA, CLIP and their
     tokenizers) for phase hy_i2v's Llava, which shares the LLaMA."""
@@ -4808,7 +4886,7 @@ def phase_hy_i2v(dev, enc):
     HY_SINGLE blocks) for HY_I2V_STEPS dense steps of
     presets["hyvideo-i2v-720p-dense"] with the latent_concat condition. The
     counters are set to 0 before the image is read and read after the
-    steps: K1 and K2 as expected_launches says, no plain version. Each stage
+    steps: K1 and the fused norms as expected_launches says, no plain version. Each stage
     timed with CUDA events beside its peak memory."""
     from sparse_videogen_tpu_torch import _kernels
     from sparse_videogen_tpu_torch.cli.hyvideo_i2v import build_parser
@@ -5541,7 +5619,7 @@ def main():
                "block_sparse_attn_runs": phase_sap_attention(dev), "kmeans_wide": phase_kmeans(dev),
                "kmeans_variants": phase_variants(dev), "block_sparse_attn[hyvideo]": phase_hyvideo_attention(dev),
                "rmsnorm": phase_rmsnorm(dev), "dense_qsplit": phase_qsplit(dev),
-               "layernorm_mod": phase_layernorm_mod(dev),
+               "layernorm_mod": phase_layernorm_mod(dev), "qk_norm_rope": phase_qk_norm_rope(dev),
                "block_sparse_attn[cog]": phase_cog_attention(dev)}
     kernels["rope"]["d64"] = phase_cog_rope(dev)
     # Wan I2V 14B at 720p: 40 heads, frame size 3,555 (not a multiple of 128), S = 74,655
@@ -5575,7 +5653,7 @@ def main():
     tile["hyvideo_launches"] = hy_sap["tile"]["kind_launches"]["block_sparse_attn[none]"]
     kernels["block_sparse_attn_runs"]["hyvideo_launches"] = hy_sap["cluster"]["launches"]["block_sparse_attn_runs"]
     done("hyvideo slice")
-    launches["block_sparse_attn[cog]"] = phase_cog_slice(dev)
+    launches["block_sparse_attn[cog]"], launches["rope"] = phase_cog_slice(dev)
     done("cog slice")
     phase_quant(dev)
     phase_dpm(dev)

@@ -41,7 +41,7 @@ NVCC_FLAGS = [
 ]
 
 KERNELS = ("block_sparse_attn", "rope", "block_sparse_attn_runs", "kmeans_wide", "kmeans_variants", "rmsnorm",
-           "dense_qsplit", "layernorm_mod")
+           "dense_qsplit", "layernorm_mod", "qk_norm_rope")
 LAUNCHES = {name: 0 for name in KERNELS}
 PLAIN_CALLS = {name: 0 for name in KERNELS}
 KIND_LAUNCHES: collections.Counter = collections.Counter()
@@ -75,6 +75,8 @@ _SIGNATURES = {
     "svt_kmeans_lloyd_workspace": [_I, _I, _I, _I, _I],
     # x, mul, add, out, B, S, x batch stride, mul batch stride, add batch stride, d, eps, stream
     "svt_layernorm_mod": [_P, _P, _P, _P, _I, _I, _L, _L, _L, _I, _F, _P],
+    # x, w, cos, sin, out, B, S, x batch stride, x token stride, d, G, H, n_rope, S_out, r0, eps, stream
+    "svt_qk_norm_rope": [_P, _P, _P, _P, _P, _I, _I, _L, _L, _I, _I, _I, _I, _I, _I, _F, _P],
 }
 _RESTYPES = {"svt_kmeans_lloyd_workspace": ctypes.c_longlong}
 

@@ -1,7 +1,9 @@
 """Shared layers with the reference's mixed-precision contract (counterpart of
 sparse_videogen_tpu/models/common/layers.py): norms and modulation in f32,
 linears in the activation dtype; the quantized linears of utils/quant.py
-(int8 W8A8, fp8 weight-only) dispatch on the module type.
+(int8 W8A8, fp8 weight-only) dispatch on the module type. `rms_norm`
+(WanRMSNorm) and `qk_norm_rope` (the q/k norm, head layout and RoPE in one
+kernel on the card) live in ops/qk_norm_rope.py.
 """
 
 from __future__ import annotations
@@ -10,6 +12,7 @@ import torch
 import torch.nn.functional as F
 
 from sparse_videogen_tpu_torch.ops.layernorm_mod import layernorm_mod
+from sparse_videogen_tpu_torch.ops.qk_norm_rope import qk_norm_rope, rms_norm  # noqa: F401 (the models' q/k norm)
 from sparse_videogen_tpu_torch.utils.quant import FP8Linear, Int8Linear, int8_matmul
 
 
@@ -71,13 +74,6 @@ def linear_slice(mod, x, *, cols=None, rows=None, bias: bool = True):
     else:
         w = mod.weight[cols, rows].to(x.dtype)
     return F.linear(x, w, None if b is None else b.to(x.dtype))
-
-
-def rms_norm(x, weight, eps=1e-5):
-    """WanRMSNorm: normalise in f32, cast back, then scale in x.dtype."""
-    xf = x.float()
-    n = xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
-    return n.to(x.dtype) * weight.to(x.dtype)
 
 
 def layer_norm_f32(x, eps=1e-6, weight=None, bias=None):

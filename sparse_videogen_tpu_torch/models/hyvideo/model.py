@@ -31,7 +31,7 @@ import torch
 from torch import nn
 
 from sparse_videogen_tpu_torch.models.common import layers as L
-from sparse_videogen_tpu_torch.models.common.rope import apply_rope_interleaved, nd_rope_cos_sin
+from sparse_videogen_tpu_torch.models.common.rope import nd_rope_cos_sin
 from sparse_videogen_tpu_torch.utils.timer import time_logging
 
 F32 = torch.float32
@@ -188,16 +188,20 @@ class DoubleBlock(nn.Module):
             setattr(self, f"{s}_proj", _lin(h, h, dtype, device))
             setattr(self, f"{s}_mlp", _mlp2(h, mh, h, dtype, device))
 
-    def _qkv(self, s, x, shift, scale, cos=None, sin=None):
-        cfg = self.cfg
-        y = _norm_mod(x, cfg.eps, shift, scale)
-        q, k, v = (_heads(z, cfg.heads_num) for z in L.linear(getattr(self, f"{s}_qkv"), y).chunk(3, dim=-1))
-        with time_logging("model.qk"):
-            q = L.rms_norm(q, getattr(self, f"{s}_q_norm"), cfg.eps)
-            k = L.rms_norm(k, getattr(self, f"{s}_k_norm"), cfg.eps)
-            if cos is not None:
-                q, k = apply_rope_interleaved(q, cos, sin), apply_rope_interleaved(k, cos, sin)
-        return q, k, v
+    def _qkv(self, s, x, shift, scale):
+        """The stream's modulated norm and its fused projection, as (B, S,
+        h) column views q, k, v."""
+        y = _norm_mod(x, self.cfg.eps, shift, scale)
+        return L.linear(getattr(self, f"{s}_qkv"), y).chunk(3, dim=-1)
+
+    def _joined(self, which, img, txt, cos, sin):
+        """q or k of [image | text]: each stream's per-head RMSNorm (RoPE on
+        the image's) written into its rows of one (B, H, S, D) buffer."""
+        cfg, H = self.cfg, self.cfg.heads_num
+        B, n_img, h = img.shape
+        out = img.new_empty(B, H, n_img + txt.shape[1], h // H)
+        L.qk_norm_rope(img, getattr(self, f"img_{which}_norm"), cfg.eps, H, cos, sin, out=out)
+        return L.qk_norm_rope(txt, getattr(self, f"txt_{which}_norm"), cfg.eps, H, out=out, r0=n_img)
 
     def _post(self, s, x, attn, g1, shift2, scale2, g2):
         x = _gated(x, L.linear(getattr(self, f"{s}_proj"), attn), g1)
@@ -208,10 +212,11 @@ class DoubleBlock(nn.Module):
         silu_vec = L.silu(vec)
         i1s, i1c, i1g, i2s, i2c, i2g = L.linear(self.img_mod, silu_vec).chunk(6, dim=-1)
         t1s, t1c, t1g, t2s, t2c, t2g = L.linear(self.txt_mod, silu_vec).chunk(6, dim=-1)
-        iq, ik, iv = self._qkv("img", img, i1s, i1c, cos, sin)
+        iq, ik, iv = self._qkv("img", img, i1s, i1c)
         tq, tk, tv = self._qkv("txt", txt, t1s, t1c)
         with time_logging("model.qk"):
-            q, k, v = (torch.cat(p, dim=2) for p in ((iq, tq), (ik, tk), (iv, tv)))
+            q, k = self._joined("q", iq, tq, cos, sin), self._joined("k", ik, tk, cos, sin)
+            v = torch.cat((_heads(iv, self.cfg.heads_num), _heads(tv, self.cfg.heads_num)), dim=2)
         o = _unheads(attention(q, k, v, t, layer_idx, rows=rows, generator=generator))
         n_img = img.shape[1]
         img = self._post("img", img, o[:, :n_img], i1g, i2s, i2c, i2g)
@@ -245,14 +250,13 @@ class SingleBlock(nn.Module):
         ms, mc, mg = L.linear(self.modulation, L.silu(vec)).chunk(3, dim=-1)
         y = _norm_mod(x, cfg.eps, ms, mc)
         qkv = L.linear_slice(self.linear1, y, cols=slice(0, 3 * h))
-        q, k, v = (_heads(z, cfg.heads_num) for z in qkv.chunk(3, dim=-1))
-        with time_logging("model.qk"):
-            q = L.rms_norm(q, self.q_norm, cfg.eps)
-            k = L.rms_norm(k, self.k_norm, cfg.eps)
-            vid = x.shape[1] - txt_len
-            q = torch.cat([apply_rope_interleaved(q[:, :, :vid], cos, sin), q[:, :, vid:]], dim=2)
-            k = torch.cat([apply_rope_interleaved(k[:, :, :vid], cos, sin), k[:, :, vid:]], dim=2)
-        o = _unheads(attention(q, k, v, t, layer_idx, rows=rows, generator=generator))
+        q, k, v = qkv.chunk(3, dim=-1)
+        if cos.shape[0] != x.shape[1] - txt_len:
+            raise ValueError(f"RoPE tables of {cos.shape[0]} rows for {x.shape[1] - txt_len} video tokens")
+        with time_logging("model.qk"):  # the video rows first, roped; the text rows after them
+            q = L.qk_norm_rope(q, self.q_norm, cfg.eps, cfg.heads_num, cos, sin)
+            k = L.qk_norm_rope(k, self.k_norm, cfg.eps, cfg.heads_num, cos, sin)
+        o = _unheads(attention(q, k, _heads(v, cfg.heads_num), t, layer_idx, rows=rows, generator=generator))
         mlp = L.gelu_tanh(L.linear_slice(self.linear1, y, cols=slice(3 * h, None)))
         out = (L.linear_slice(self.linear2, o, rows=slice(0, h))
                + L.linear_slice(self.linear2, mlp, rows=slice(h, None), bias=False))

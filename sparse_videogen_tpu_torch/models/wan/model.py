@@ -25,7 +25,7 @@ import torch
 from torch import nn
 
 from sparse_videogen_tpu_torch.models.common import layers as L
-from sparse_videogen_tpu_torch.models.common.rope import apply_rope_interleaved, wan_rope_cos_sin
+from sparse_videogen_tpu_torch.models.common.rope import wan_rope_cos_sin
 from sparse_videogen_tpu_torch.utils.timer import time_logging
 
 
@@ -79,10 +79,10 @@ def _norm_mod(x, eps, scale, shift):
 
 
 def _qk(y, weight, eps, heads, cos=None, sin=None):
-    """A q or k projection's RMSNorm, its heads and (self-attention) RoPE."""
+    """A q or k projection's RMSNorm over the token, its (B, heads, S, D)
+    heads and (self-attention) RoPE: one kernel on the card."""
     with time_logging("model.qk"):
-        y = heads(L.rms_norm(y, weight, eps))
-        return y if cos is None else apply_rope_interleaved(y, cos, sin)
+        return L.qk_norm_rope(y, weight, eps, heads, cos, sin)
 
 
 def _gated_f32(x, y, gate):
@@ -115,8 +115,8 @@ class WanBlock(nn.Module):
         B, S, d = x.shape
         H, D = cfg.num_heads, cfg.head_dim
         heads = lambda y: y.view(B, S, H, D).transpose(1, 2)
-        q = _qk(L.linear(p.q, x), p.norm_q, cfg.eps, heads, cos, sin)
-        k = _qk(L.linear(p.k, x), p.norm_k, cfg.eps, heads, cos, sin)
+        q = _qk(L.linear(p.q, x), p.norm_q, cfg.eps, H, cos, sin)
+        k = _qk(L.linear(p.k, x), p.norm_k, cfg.eps, H, cos, sin)
         v = heads(L.linear(p.v, x))
         o = attention(q, k, v, t, layer_idx, rows=rows, generator=generator)
         return L.linear(p.o, o.transpose(1, 2).reshape(B, S, d))
@@ -126,11 +126,11 @@ class WanBlock(nn.Module):
         B, S, d = x.shape
         H, D = cfg.num_heads, cfg.head_dim
         heads = lambda y: y.view(B, -1, H, D).transpose(1, 2)
-        q = _qk(L.linear(p.q, x), p.norm_q, cfg.eps, heads)
-        k = _qk(L.linear(p.k, context), p.norm_k, cfg.eps, heads)
+        q = _qk(L.linear(p.q, x), p.norm_q, cfg.eps, H)
+        k = _qk(L.linear(p.k, context), p.norm_k, cfg.eps, H)
         o = _softmax_attention(q, k, heads(L.linear(p.v, context)))
         if context_img is not None:
-            k_img = _qk(L.linear(p.k_img, context_img), p.norm_k_img, cfg.eps, heads)
+            k_img = _qk(L.linear(p.k_img, context_img), p.norm_k_img, cfg.eps, H)
             o = o + _softmax_attention(q, k_img, heads(L.linear(p.v_img, context_img)))
         return L.linear(p.o, o.transpose(1, 2).reshape(B, S, d))
 

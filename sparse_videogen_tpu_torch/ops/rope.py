@@ -17,6 +17,12 @@ def rope_plain(x, cos, sin):
     """x (..., S, D); cos/sin (S, D/2). out[2i] = x0*c - x1*s,
     out[2i+1] = x0*s + x1*c, in f32, returned in x.dtype."""
     _kernels.plain_call("rope")
+    return rotate_interleaved(x, cos, sin)
+
+
+def rotate_interleaved(x, cos, sin):
+    """rope_plain's arithmetic, uncounted (the plain version of
+    ops/qk_norm_rope.py rotates with it too)."""
     xf = x.float()
     x0, x1 = xf[..., 0::2], xf[..., 1::2]
     o0 = x0 * cos - x1 * sin

@@ -39,8 +39,10 @@ from sparse_videogen_tpu_torch.ops.kmeans import (
 from sparse_videogen_tpu_torch.ops.dense_qsplit import KERNEL_CONFIGS, dense_attn, dense_attn_plain
 from sparse_videogen_tpu_torch.ops.layernorm_mod import layernorm_mod, layernorm_mod_plain
 from sparse_videogen_tpu_torch.ops.mask_spec import MaskSpec
+from sparse_videogen_tpu_torch.ops.qk_norm_rope import qk_norm_rope, qk_norm_rope_plain
 from sparse_videogen_tpu_torch.ops.rmsnorm import rms_norm_kernel, rms_norm_plain
 from sparse_videogen_tpu_torch.ops.rope import rope_apply, rope_plain
+from sparse_videogen_tpu_torch.scripts import bench_qk_norm_rope as qkn_probe
 from sparse_videogen_tpu_torch.scripts.bench_layernorm_mod import mismatch
 
 
@@ -776,6 +778,62 @@ def test_layernorm_mod_kernel_rejects_what_it_cannot_read(cuda):
         layernorm_mod(x, m.cpu(), m, 1e-6)
 
 
+# name -> bench_qk_norm_rope.SHAPES' fields: the probe's shapes (the four cells' q and k), the cross-attention's
+# table-free q and k, a sequence shard's table slice, ragged rows, head dims 64 (both groups) and a one-head model
+_QKN_CASES = dict(qkn_probe.SHAPES, **{
+    "wan-480p-cross-q": (2, 32760, 1536, 12, "token", 1536, 0, 0, 32760, 0),
+    "wan-480p-cross-k": (2, 512, 1536, 12, "token", 1536, 0, 0, 512, 0),
+    "wan-480p-shard": (2, 16380, 1536, 12, "token", 1536, 16380, 16380, 16380, 0),
+    "wan14b-720p-shard": (1, 18900, 5120, 40, "token", 5120, 18900, 37800, 18900, 0),
+    "ragged-d256": (3, 1001, 256, 2, "token", 256, 1001, 0, 1001, 0),
+    "token-D64": (2, 333, 1024, 16, "token", 1024, 333, 0, 333, 0),
+    "head-D64-joined": (1, 777, 512, 8, "head", 1536, 700, 0, 800, 11),
+    "one-head": (1, 300, 64, 1, "head", 192, 290, 0, 300, 0)})
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(_QKN_CASES))
+def test_qk_norm_rope_kernel_matches_plain(cuda, name):
+    """The fused q/k RMSNorm + RoPE on the card against its plain version
+    (bench_qk_norm_rope.mismatch's tolerance: one ulp of the normalised
+    value, whose group sum runs in another order, carried through the weight
+    and the rotation), under 0.1% of the elements different (the share is
+    printed); a joined buffer's rows outside [r0, r0 + S) are left as they
+    were."""
+    shape = _QKN_CASES[name]
+    H = shape[3]
+    x, w, cos, sin, out, r0 = qkn_probe.make_inputs(shape, seed=len(name), device=cuda)
+    _kernels.reset_counts()
+    got = qk_norm_rope(x, w, 1e-6, H, cos, sin, out=out, r0=r0)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["qk_norm_rope"] == 1 and _kernels.PLAIN_CALLS["qk_norm_rope"] == 0
+    B, S, d = x.shape
+    assert got.is_contiguous() and got.shape == (B, H, shape[8], d // H)
+    ref = qk_norm_rope_plain(x, w, 1e-6, H, cos, sin, out=None if out is None else torch.zeros_like(out), r0=r0)
+    bad, share, ulps = qkn_probe.mismatch(got, ref, x, w, H, cos, sin, r0)
+    print(f"qk_norm_rope {name}: {share:.2e} of the elements differ, at most {ulps:.1f} ulps")
+    assert bad == 0 and share < 1e-3, (bad, share, ulps)
+    assert not got[:, :, :r0].any() and not got[:, :, r0 + S:].any()
+
+
+@pytest.mark.gpu
+def test_qk_norm_rope_kernel_rejects_what_it_cannot_read(cuda):
+    x = torch.zeros(2, 5, 256, device=cuda, dtype=torch.bfloat16)
+    w = torch.ones(256, device=cuda)
+    with pytest.raises(ValueError, match="bf16"):  # f32 x: the kernel takes bf16
+        qk_norm_rope(x.float(), w, 1e-6, 2)
+    with pytest.raises(ValueError, match="unit last stride"):
+        qk_norm_rope(torch.zeros(2, 256, 5, device=cuda, dtype=torch.bfloat16).transpose(1, 2), w, 1e-6, 2)
+    with pytest.raises(ValueError, match="f32"):  # the weight on the CPU
+        qk_norm_rope(x, w.cpu(), 1e-6, 2)
+    with pytest.raises(ValueError, match="32 % \\(D / 8\\)"):  # a head of 48: 6 lanes do not tile a warp
+        qk_norm_rope(torch.zeros(2, 5, 96, device=cuda, dtype=torch.bfloat16), w[:48], 1e-6, 2)
+    with pytest.raises(ValueError, match="contiguous"):  # an out the kernel cannot write in place
+        qk_norm_rope(x, w, 1e-6, 2, out=torch.zeros(2, 2, 128, 5, device=cuda, dtype=torch.bfloat16).transpose(2, 3))
+    with pytest.raises(ValueError, match="cos"):  # more table rows than tokens
+        qk_norm_rope(x, w, 1e-6, 2, torch.ones(6, 64, device=cuda), torch.ones(6, 64, device=cuda))
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("D", [64, 128])
 def test_rope_kernel_matches_plain(cuda, D):
@@ -827,7 +885,9 @@ def test_small_wan_forward_kernels_vs_plain(cuda, pattern):
 def test_small_forward_launches_layernorm_mod_at_every_norm_site(cuda, family):
     """A tiny bf16 forward on the card launches the fused LayerNorm +
     modulation once a `model.norm` site (Wan 3 L + 1, HunyuanVideo
-    4 double + single + 1) and runs no plain version; its output within
+    4 double + single + 1) and the fused q/k RMSNorm + RoPE once a
+    `model.qk` site (Wan 4 L, HunyuanVideo 4 double + 2 single; no K2), and
+    runs no plain version; its output within
     3e-2 rel L2 of the plain versions on the CPU (bf16 matmuls round at
     other places)."""
     from sparse_videogen_tpu_torch.models.hyvideo.model import HyVideoConfig, HyVideoModel
@@ -843,7 +903,7 @@ def test_small_forward_launches_layernorm_mod_at_every_norm_site(cuda, family):
         lay = wan_layout(cfg, 96, 128, 9)
         x = torch.randn(2, 16, lay.num_frames, 12, 16, generator=gen).to(torch.bfloat16)
         ctx = torch.randn(2, cfg.text_len, cfg.text_dim, generator=gen).to(torch.bfloat16)
-        want = 3 * cfg.num_layers + 1
+        want, want_qk = 3 * cfg.num_layers + 1, 4 * cfg.num_layers
 
         def run(model, dev):
             rt = make_wan_runtime(lay, device=dev, pattern="dense")
@@ -860,6 +920,7 @@ def test_small_forward_launches_layernorm_mod_at_every_norm_site(cuda, family):
         mask = (torch.arange(cfg.text_len) < 10).to(torch.int32)[None]
         pooled = torch.randn(1, cfg.text_states_dim_2, generator=gen).to(torch.bfloat16)
         want = 4 * cfg.mm_double_blocks_depth + cfg.mm_single_blocks_depth + 1
+        want_qk = 4 * cfg.mm_double_blocks_depth + 2 * cfg.mm_single_blocks_depth
 
         def run(model, dev):
             rt = make_hyvideo_runtime(lay, device=dev, prompt_length=10, pattern="dense")
@@ -869,5 +930,6 @@ def test_small_forward_launches_layernorm_mod_at_every_norm_site(cuda, family):
     _kernels.reset_counts()
     out = run(gpu, cuda).cpu()
     assert _kernels.LAUNCHES["layernorm_mod"] == want and not any(_kernels.PLAIN_CALLS.values())
+    assert _kernels.LAUNCHES["qk_norm_rope"] == want_qk and _kernels.LAUNCHES["rope"] == 0
     ref = run(cpu, torch.device("cpu"))
     assert ((out - ref).norm() / ref.norm()).item() <= 3e-2

@@ -62,7 +62,9 @@ def expected_counts(family, pattern):
     else:
         D, S = HY_KW["mm_double_blocks_depth"], HY_KW["mm_single_blocks_depth"]
         L = D + S
-        counts = {"model.norm": 4 * D + S + 1, "model.qk": 3 * D + S, "model.residual": 4 * D + S}
+        # model.qk: one region a double block (both streams' q and k into the joined buffers, v's join) and one a
+        # single block
+        counts = {"model.norm": 4 * D + S + 1, "model.qk": D + S, "model.residual": 4 * D + S}
     counts.update({"attn.pad": 2 * L, "video.plan": 1})
     if pattern == "SVG":
         counts.update({"svg1.profile": L, "svg1.place": 4 * L})
